@@ -10,29 +10,57 @@ failure exits non-zero:
 
 1. device   CUDA must be available; prints the card and
             ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    nvcc builds K1-K3 (sm_90a, -fmad=false), timed, with ptxas'
-            register report.
+2. build    nvcc builds both libraries at once, one process per source:
+            K1-K3 (sm_90a, -fmad=false) and K4 (sm_90a), timed, with
+            ptxas' register and spill report.
 3. kernels  each kernel against its plain PyTorch version on the card at
-            the main path's shapes (torch.equal): K1 at (8192, 32, 5) with
-            NaN, ±inf, neutral envs and a binary mask; K2 and K3 at 8192
-            envs over every combination of their static flags.  Times:
+            the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
+            32, 5) with NaN, ±inf, neutral envs and a binary mask; K2 and
+            K3 at 8192 envs over every combination of their static flags.
+            K4 forward and backward at the update's shapes (4096, 256, 4,
+            32) bf16, the rollout's (256, 256, 4, 32) bf16, a causal f32
+            case, S = 1024 and D = 128; float32 within 1e-4 x max|plain|,
+            bfloat16 within 2^-6 x max|plain| (each side rounds an f32
+            value once, so they differ by at most one bf16 ulp of an
+            element, 2^-7 of the largest).  Matmuls in the plain versions
+            run in full f32 (TF32 off, printed).  Times, for every case:
             device time per call from CUDA-graph replays (CUDA events,
-            median of 21 replays of 20 calls), the wrapper's host time per
-            call, and the bound: the larger of the bytes moved over the
-            H100 SXM's 3.35 TB/s and the f32 operations over its 67
-            TFLOP/s.
-4. main     the PPO rollout phase at flagship width: 8,192 bar-venue envs,
-            window 32, OHLCV features (F=5, obs dim 164), the 3x256 tanh
-            MLP in bf16 with weights from torch.Generator(seed), horizon
-            64, three phases.  The K1/K2/K3 launch counts must each rise by
-            exactly 3 x 64, every output must be finite, and one phase
-            re-run with the plain versions on the card must give the same
-            env states, rewards and dones (torch.equal).
-5. episode  Environment.rollout with the buy_hold driver, 1 env, 400
+            median of 21 replays of 20 calls) for the kernels; the plain
+            versions and ``scaled_dot_product_attention`` (K4's library
+            yardstick, forward and autograd backward) between CUDA
+            events; the bound: the larger of the bytes moved over the
+            H100 SXM's 3.35 TB/s and the operations over its peak for
+            their type (f32 67 TFLOP/s for K1-K3 and f32 K4 cases, the
+            bf16 tensor cores' 989 TFLOP/s for bf16 K4 cases).
+4. main     PPO training at flagship width: 8,192 bar-venue envs, window
+            32, OHLCV features (F=5, obs dim 164), the 3x256 tanh MLP in
+            bf16 with weights from torch.Generator(seed), horizon 64, one
+            epoch of 4 env-permuted minibatches; three train steps
+            (rollout phase, then update phase, each timed).  K1/K2/K3
+            must each launch exactly 64 times a step, losses must be
+            finite, no update skipped, the params must move; one rollout
+            phase re-run with the plain versions on the card must give
+            the same env states, trajectory and bootstrap value
+            (torch.equal).
+5. long     PPO training in the long-context configuration
+            (config/flagship.long_context_config: transformer_ring,
+            d_model 128, 4 heads, 2 layers, window 256, 256 envs, bf16),
+            two train steps.  K4 must launch 130 forwards per rollout
+            phase (65 policy forwards x 2 layers) plus 8 forwards and 8
+            backwards per update (4 minibatches x 2 layers), K1-K3 once
+            per env step; losses finite, no update skipped.  Then one
+            update phase from the saved state with fixed permutations,
+            once through K4 and once with its plain versions on the card
+            (which must launch no K4): loss and value loss within rtol
+            1e-2, entropy within rtol 1e-3, policy loss within atol 1e-3
+            (it is a mean of terms near zero), gradient global norm
+            within rtol 5e-2 — the attention outputs differ by bf16
+            rounding flips, which the bf16 network carries on.
+6. episode  Environment.rollout with the buy_hold driver, 1 env, 400
             steps on the card: the launch counts must be 400 for K2 and
             K3 and 401 for K1 (the reset builds an obs too), and the
             episode must equal the same episode on the CPU.
-6. summary  one JSON line {"kernels": [...]}, then the last line
+7. summary  one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -51,11 +79,13 @@ SEED = 0
 N_ENVS = 8192
 WINDOW = 32
 HORIZON = 64
-PHASES = 3
+TRAIN_STEPS = 3
+LONG_STEPS = 2
 EPISODE_STEPS = 400
 
-# the H100 SXM data sheet: HBM3 bytes/s and f32 FLOP/s outside the tensor cores
-BANDWIDTH, F32_FLOPS = 3.35e12, 67e12
+# the H100 SXM data sheet: HBM3 bytes/s, f32 FLOP/s outside the tensor
+# cores, bf16 dense tensor-core FLOP/s
+BANDWIDTH, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 # f32 arithmetic per element (K1) or per env (K2, K3), counted from the
 # kernel source (compares and selects included): the operation side of
 # the bound, which bytes outweigh for all three
@@ -64,6 +94,20 @@ REPLACES = {
     "step_obs": "gymfx_tpu/ops/window_zscore.py:193",
     "fill_brackets": "gymfx_tpu/ops/env_dynamics.py:234",
     "mark_reward": "gymfx_tpu/ops/env_dynamics.py:280",
+    "attention_forward": "gymfx_tpu/ops/fused_attention.py:172",
+    "attention_backward": "gymfx_tpu/ops/fused_attention.py:150",
+}
+SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
+           "attention_backward": "gymfx_tpu_torch/csrc/attention_kernels.cu"}
+# K4 cases: label -> ((B, S, H, D), dtype, causal); "update" is the
+# update's shape (4 minibatches of 64 envs x 64 steps), "rollout" the
+# rollout's
+ATTENTION_CASES = {
+    "update": ((4096, 256, 4, 32), "bfloat16", False),
+    "rollout": ((256, 256, 4, 32), "bfloat16", False),
+    "causal_f32": ((64, 256, 4, 32), "float32", True),
+    "window_1024": ((16, 1024, 4, 32), "bfloat16", True),
+    "head_dim_128": ((4, 77, 3, 128), "float32", False),
 }
 
 
@@ -103,6 +147,24 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
     return statistics.median(times)
 
 
+def event_ms(torch, fn, reps: int = 3, trials: int = 5) -> float:
+    """Time of one ``fn()`` call between CUDA events without a graph
+    (for work that allocates gigabytes or runs autograd): the median of
+    ``trials`` runs of ``reps`` calls, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def host_us(torch, fn, calls: int = 200) -> float:
     """Wall time per call of ``fn()`` over ``calls`` back-to-back calls,
     ending in a synchronize: the wrapper's host cost when it exceeds the
@@ -128,65 +190,24 @@ def max_abs_err(torch, a, b) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def main() -> None:
-    if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
-        fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
-    try:
-        import torch
-    except ImportError:
-        fail("torch is not installed")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
-    sys.path.insert(0, str(ROOT))
-    results = {}
+def attention_tolerance(torch, ref) -> float:
+    scale = 2.0 ** -6 if ref.dtype == torch.bfloat16 else 1e-4
+    return scale * float(ref.float().abs().max())
 
-    # ---- 1. device -------------------------------------------------------
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
-    print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi_line)
-    if "H100" not in name:
-        print(f"note: the bounds use the H100 SXM's peaks, not those of {name}")
-    results["device"] = {"name": name, "nvidia_smi": smi_line,
-                         "bandwidth_bytes_per_s": BANDWIDTH, "f32_flops": F32_FLOPS}
 
-    # ---- 2. build ----------------------------------------------------------
-    from gymfx_tpu_torch.ops import _build
+def bound(moved: float, ops: float, peak: float):
+    byte_ms, op_ms = moved / BANDWIDTH * 1e3, ops / peak * 1e3
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
-    t0 = time.perf_counter()
-    path, compiler_out = _build.build_library(ptxas_verbose=True)
-    build_s = time.perf_counter() - t0
-    _build.load_library()
-    print(f"build: {path.name} in {build_s:.2f} s")
-    for line in compiler_out.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
-    results["build_s"] = build_s
 
-    from gymfx_tpu_torch.core import rollout as rollout_mod
-    from gymfx_tpu_torch.config.flagship import FEATURE_COLUMNS, flagship_config
-    from gymfx_tpu_torch.core.runtime import Environment
+def check_kernels_k1_k3(torch, dev, kernels) -> None:
+    from gymfx_tpu_torch.config.flagship import FEATURE_COLUMNS
     from gymfx_tpu_torch.core.types import EnvConfig
     from gymfx_tpu_torch.ops import cases, env_dynamics, window_zscore
-    from gymfx_tpu_torch.train.ppo import PPORollout, ppo_config_from
-
-    dev = torch.device("cuda")
-    kernels = {}
-
-    def bound(key, moved, items):
-        byte_ms = moved / BANDWIDTH * 1e3
-        op_ms = OPS_PER_ITEM[key] * items / F32_FLOPS * 1e3
-        return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
     def on_card(*arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
-    # ---- 3. kernels against their plain versions ----------------------------
     n, w, f = N_ENVS, WINDOW, len(FEATURE_COLUMNS)
     win, mean, std, neutral = on_card(*cases.obs_case(SEED, n, w, f))
     err = 0.0
@@ -196,12 +217,14 @@ def main() -> None:
         torch.cuda.synchronize()
         check(torch.equal(ours, ref), f"K1 step_obs != plain (mask={mask}, clip={clip})")
         err = max(err, max_abs_err(torch, ours, ref))
-    k1_ms = device_ms(torch, lambda: window_zscore.step_obs(win, mean, std, neutral))
-    k1_plain = device_ms(torch, lambda: window_zscore.scale_feature_window(win, mean, std, neutral))
-    k1_host = host_us(torch, lambda: window_zscore.step_obs(win, mean, std, neutral))
-    b_ms, b_by = bound("step_obs", 2 * nbytes(win) + nbytes(mean, std, neutral), win.numel())
-    kernels["step_obs"] = dict(max_abs_err=err, ms=k1_ms, plain_ms=k1_plain, bound_ms=b_ms,
-                               bound_by=b_by, host_us=k1_host)
+    b_ms, b_by = bound(2 * nbytes(win) + nbytes(mean, std, neutral),
+                       OPS_PER_ITEM["step_obs"] * win.numel(), F32_FLOPS)
+    kernels["step_obs"] = dict(
+        max_abs_err=err, ms=device_ms(torch, lambda: window_zscore.step_obs(win, mean, std, neutral)),
+        plain_ms=device_ms(torch, lambda: window_zscore.scale_feature_window(win, mean, std, neutral)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        host_us=host_us(torch, lambda: window_zscore.step_obs(win, mean, std, neutral)),
+    )
 
     def ledger(cfg, seed):
         """cases.ledger_case at N_ENVS envs, on the card: (state, bars,
@@ -252,10 +275,10 @@ def main() -> None:
     # each field read and written, the bar's O/H/L and the advance flag
     # read, and the one counter column read and written in place
     moved2 = 2 * nbytes(*fields2) + nbytes(o, h, l, adv) + 2 * n * st.exec_diag.element_size()
-    b_ms, b_by = bound("fill_brackets", moved2, n)
+    b_ms, b_by = bound(moved2, OPS_PER_ITEM["fill_brackets"] * n, F32_FLOPS)
     kernels["fill_brackets"] = dict(
         max_abs_err=errs["fill_brackets"], ms=device_ms(torch, fill),
-        plain_ms=device_ms(torch, fill_plain), bound_ms=b_ms, bound_by=b_by,
+        plain_ms=device_ms(torch, fill_plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
         host_us=host_us(torch, fill),
     )
     markf = lambda: env_dynamics.mark_reward(st, c, mark, live, cfg, p)  # noqa: E731
@@ -263,59 +286,182 @@ def main() -> None:
     # eight fields, the close and two flags read; six fields and the reward written
     moved3 = nbytes(*(getattr(st, k) for k in env_dynamics.MARK_FLOAT_FIELDS), c, mark, live) \
         + nbytes(*(getattr(st, k) for k in env_dynamics.MARK_OUT_FIELDS), st.pos)
-    b_ms, b_by = bound("mark_reward", moved3, n)
+    b_ms, b_by = bound(moved3, OPS_PER_ITEM["mark_reward"] * n, F32_FLOPS)
     kernels["mark_reward"] = dict(
         max_abs_err=errs["mark_reward"], ms=device_ms(torch, markf),
-        plain_ms=device_ms(torch, mark_plain), bound_ms=b_ms, bound_by=b_by,
+        plain_ms=device_ms(torch, mark_plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
         host_us=host_us(torch, markf),
     )
-    for key, k in kernels.items():
+    for key in ("step_obs", "fill_brackets", "mark_reward"):
+        k = kernels[key]
         print(f"  {key}: {k['ms'] * 1e3:.2f} us/call on the card (plain {k['plain_ms'] * 1e3:.2f} us, "
               f"bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']} at {BANDWIDTH / 1e12:.2f} TB/s), "
               f"wrapper host {k['host_us']:.1f} us/call")
 
-    # ---- 4. the main path: the PPO rollout phase at flagship width ---------
+
+def check_kernels_k4(torch, dev, kernels, results) -> None:
+    import torch.nn.functional as F
+
+    from gymfx_tpu_torch.ops import fused_attention as fa
+
+    print(f"kernels: K4 plain versions with torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = {"attention_forward": 0.0, "attention_backward": 0.0}
+    timed = {}
+    for label, (shape, dtype_name, causal) in ATTENTION_CASES.items():
+        dtype = getattr(torch, dtype_name)
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
+        out = fa.attention_forward(q, k, v, causal)
+        ref = fa.attention_forward_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err, tol = max_abs_err(torch, out, ref), attention_tolerance(torch, ref)
+        check(out.dtype == dtype and err <= tol,
+              f"K4 forward != plain at {shape} {dtype_name} causal={causal}: {err} > {tol}")
+        errs["attention_forward"] = max(errs["attention_forward"], err)
+        del ref
+        bwd_errs = []
+        for name, ours, plain in zip("qkv", fa.attention_backward(q, k, v, g, causal),
+                                     fa.attention_backward_plain(q, k, v, g, causal)):
+            e, t = max_abs_err(torch, ours, plain), attention_tolerance(torch, plain)
+            check(ours.dtype == dtype and e <= t,
+                  f"K4 backward d{name} != plain at {shape} {dtype_name} causal={causal}: {e} > {t}")
+            bwd_errs.append(e)
+        errs["attention_backward"] = max(errs["attention_backward"], *bwd_errs)
+        torch.cuda.synchronize()
+        print(f"  K4 {shape} {dtype_name} causal={causal}: forward max err {err:.3g} (tol {tol:.3g}), "
+              f"backward max err {max(bwd_errs):.3g}")
+        b, s, h, d = shape
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fwd_ms = device_ms(torch, lambda: fa.attention_forward(q, k, v, causal))
+        bwd_ms = device_ms(torch, lambda: fa.attention_backward(q, k, v, g, causal))
+        fwd_plain = event_ms(torch, lambda: fa.attention_forward_plain(q, k, v, causal))
+        bwd_plain = event_ms(torch, lambda: fa.attention_backward_plain(q, k, v, g, causal))
+        fwd_lib = event_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                           reps=10)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        gt = g.transpose(1, 2)
+        bwd_lib = event_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, gt, retain_graph=True),
+                           reps=10)
+        # forward: q, k, v read, o written; QK^T and PV, 2 x 2 D FLOP per
+        # (query, key) pair.  backward: q, k, v, dO read, dq, dk, dv
+        # written; S recomputed, dV, dP, dQ, dK: 5 x 2 D FLOP per pair
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        fb, fby = bound(4 * nbytes(q), 4 * d * pairs, peak)
+        bb, bby = bound(7 * nbytes(q), 10 * d * pairs, peak)
+        timed[label] = {
+            "shape": list(shape), "dtype": dtype_name, "causal": causal,
+            "forward": dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib, bound_ms=fb, bound_by=fby),
+            "backward": dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib, bound_ms=bb, bound_by=bby),
+        }
+        for key in ("forward", "backward"):
+            row = timed[label][key]
+            print(f"  K4 {key} at {shape} {dtype_name}: {row['ms']:.4f} ms on the card "
+                  f"(plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']})")
+        del q, k, v, g, qt, kt, vt, leaves, lib_out, gt
+        torch.cuda.empty_cache()
+    for key in ("forward", "backward"):
+        row = timed["update"][key]
+        kernels[f"attention_{key}"] = dict(max_abs_err=errs[f"attention_{key}"], ms=row["ms"],
+                                           plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                                           bound_by=row["bound_by"], library_ms=row["library_ms"])
+    results["attention"] = timed
+
+
+def count_launches(fns) -> dict:
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def train(torch, trainer, state, steps: int):
+    """``steps`` train steps, each a rollout phase then an update phase,
+    timed apart; returns (state, per-step rows, first step's rollout)."""
+    rows, first = [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        inter, rollout_out = trainer.rollout_phase(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = trainer.update_phase(inter, rollout_out)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i == 0:
+            first = (inter, rollout_out)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        rows.append(dict(rollout_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3, metrics=metrics))
+    return state, rows, first
+
+
+def check_training(rows, label: str) -> None:
+    for i, row in enumerate(rows):
+        m = row["metrics"]
+        for key in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm"):
+            check(m[key] == m[key] and abs(m[key]) != float("inf"), f"{label} step {i}: {key} {m[key]}")
+        check(m["nonfinite_skips"] == 0.0, f"{label} step {i}: {m['nonfinite_skips']} updates skipped")
+
+
+def report_training(rows, n_envs: int, horizon: int, label: str) -> dict:
+    steady = rows[1:] or rows
+    rollout = statistics.median(r["rollout_ms"] for r in steady)
+    update = statistics.median(r["update_ms"] for r in steady)
+    summary = dict(
+        rollout_ms=[r["rollout_ms"] for r in rows], update_ms=[r["update_ms"] for r in rows],
+        rollout_env_steps_per_s=n_envs * horizon / rollout * 1e3,
+        train_env_steps_per_s=n_envs * horizon / (rollout + update) * 1e3,
+        metrics=[r["metrics"] for r in rows],
+    )
+    losses = ", ".join(f"{r['metrics']['loss']:.5f}" for r in rows)
+    print(f"{label}: {len(rows)} train steps of {horizon} steps x {n_envs} envs: rollout "
+          f"{', '.join(f'{r:.1f}' for r in summary['rollout_ms'])} ms, update "
+          f"{', '.join(f'{u:.1f}' for u in summary['update_ms'])} ms; "
+          f"{summary['train_env_steps_per_s']:,.0f} env steps/s through rollout + update, "
+          f"{summary['rollout_env_steps_per_s']:,.0f} through the rollout alone "
+          f"(medians of steps 2-{len(rows)}); losses {losses}")
+    return summary
+
+
+def main_phase(torch, kernels, results) -> None:
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
     config = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
     check(config["num_envs"] == N_ENVS and config["ppo_horizon"] == HORIZON
           and config["window_size"] == WINDOW, "flagship config changed")
     env = Environment(config)
     check(env.device.type == "cuda", "Environment did not default to CUDA")
-    ro = PPORollout(env, ppo_config_from(config))
-    check(ro.obs_dim == 164, f"obs dim {ro.obs_dim} != 164")
-    state = ro.init_state(SEED)
+    trainer = PPOTrainer(env, ppo_config_from(config))
+    check(trainer.obs_dim == 164, f"obs dim {trainer.obs_dim} != 164")
+    state = trainer.init_state(SEED)
+    start = {k: v.clone() for k, v in state.params.items()}
     torch.cuda.synchronize()
     counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
-    for fn in counted:
+    for fn in (*counted, fused_attention.attention_forward, fused_attention.attention_backward):
         fn.launches = 0
-    phase_s, outputs = [], []
-    for _ in range(PHASES):
-        t0 = time.perf_counter()
-        state, traj, last_value = ro.rollout_phase(state)
-        torch.cuda.synchronize()
-        phase_s.append(time.perf_counter() - t0)
-        outputs.append((state, traj, last_value))
-    launches = {fn.__name__: fn.launches for fn in counted}
-    expected = PHASES * HORIZON
+    state, rows, (inter, (traj, last_value)) = train(torch, trainer, state, TRAIN_STEPS)
+    launches = count_launches(counted)
     for key, count in launches.items():
-        check(count == expected, f"main path launched {key} {count} times, expected {expected}")
+        check(count == TRAIN_STEPS * HORIZON,
+              f"main path launched {key} {count} times, expected {TRAIN_STEPS * HORIZON}")
         kernels[key]["launches"] = count
-    for s_, traj, lv in outputs:
-        check(tuple(traj["obs"].shape) == (HORIZON, N_ENVS, 164) and traj["obs"].dtype == torch.bfloat16,
-              "trajectory obs shape/dtype")
-        for key in ("obs", "logp", "value", "reward"):
-            check(bool(torch.isfinite(traj[key]).all()), f"non-finite trajectory {key}")
-        check(bool(torch.isfinite(lv).all()), "non-finite bootstrap value")
-        for field in ("pos", "cash_delta", "equity_delta", "entry_price", "max_drawdown_pct"):
-            check(bool(torch.isfinite(getattr(s_.env_states, field)).all()), f"non-finite state {field}")
-    trades = int(outputs[-1][0].env_states.trade_count.sum())
+    check(fused_attention.attention_forward.launches == 0, "the MLP path launched K4")
+    check_training(rows, "main")
+    check(any(not torch.equal(state.params[k], start[k]) for k in start), "the params did not move")
+    check(tuple(traj["obs"].shape) == (HORIZON, N_ENVS, 164) and traj["obs"].dtype == torch.bfloat16,
+          "trajectory obs shape/dtype")
+    for key in ("obs", "logp", "value", "reward"):
+        check(bool(torch.isfinite(traj[key]).all()), f"non-finite trajectory {key}")
+    for field in ("pos", "cash_delta", "equity_delta", "entry_price", "max_drawdown_pct"):
+        check(bool(torch.isfinite(getattr(state.env_states, field)).all()), f"non-finite state {field}")
+    trades = int(state.env_states.trade_count.sum())
     check(trades > 0, "the policy made no trade")
-    steady = statistics.median(phase_s[1:])
-    print(f"main path: {PHASES} rollout phases of {HORIZON} steps x {N_ENVS} envs: "
-          f"{', '.join(f'{s * 1e3:.1f}' for s in phase_s)} ms; "
-          f"{N_ENVS * HORIZON / steady:,.0f} env steps/s (median of phases 2-{PHASES}); "
-          f"launches {launches}; {trades} closed trades")
+    summary = report_training(rows, N_ENVS, HORIZON, "main path")
+    print(f"  launches {launches}; {trades} closed trades")
 
-    # the same first phase with the plain versions on the card
+    # the first rollout phase again, with the plain versions on the card
     kernel_fns = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
     env_dynamics.fill_brackets = env_dynamics.fill_brackets_plain
     env_dynamics.mark_reward = env_dynamics.mark_reward_plain
@@ -323,40 +469,125 @@ def main() -> None:
         window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
     try:
         t0 = time.perf_counter()
-        ref_state, ref_traj, ref_last = ro.rollout_phase(ro.init_state(SEED))
+        ref_state, (ref_traj, ref_last) = trainer.rollout_phase(trainer.init_state(SEED))
         torch.cuda.synchronize()
         plain_phase_s = time.perf_counter() - t0
     finally:
         env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs = kernel_fns
-    check({fn.__name__: fn.launches for fn in counted} == launches,
-          "the plain-version phase launched a kernel")
-    k_state, k_traj, k_last = outputs[0]
+    check(count_launches(counted) == launches, "the plain-version phase launched a kernel")
     for key in ("obs", "action", "reward", "done", "logp", "value"):
-        check(torch.equal(k_traj[key], ref_traj[key]), f"main path vs plain versions: traj {key}")
+        check(torch.equal(traj[key], ref_traj[key]), f"main path vs plain versions: traj {key}")
     for field in ref_state.env_states._fields:
-        check(torch.equal(getattr(k_state.env_states, field), getattr(ref_state.env_states, field)),
+        check(torch.equal(getattr(inter.env_states, field), getattr(ref_state.env_states, field)),
               f"main path vs plain versions: env state {field}")
-    check(torch.equal(k_last, ref_last), "main path vs plain versions: bootstrap value")
-    print(f"main path == plain versions on the card (phase 1, torch.equal); "
+    check(torch.equal(last_value, ref_last), "main path vs plain versions: bootstrap value")
+    print(f"main path == plain versions on the card (rollout phase of step 1, torch.equal); "
           f"plain phase {plain_phase_s * 1e3:.1f} ms")
     results["main_path"] = {
-        "n_envs": N_ENVS, "horizon": HORIZON, "window": WINDOW, "features": f, "obs_dim": 164,
-        "policy": "mlp 3x256 tanh bf16", "phase_ms": [s * 1e3 for s in phase_s],
-        "env_steps_per_s": N_ENVS * HORIZON / steady, "plain_phase_ms": plain_phase_s * 1e3,
-        "launches": launches, "closed_trades": trades,
+        "n_envs": N_ENVS, "horizon": HORIZON, "window": WINDOW, "obs_dim": 164,
+        "policy": "mlp 3x256 tanh bf16", "update": "1 epoch x 4 env-permuted minibatches",
+        **summary, "plain_rollout_ms": plain_phase_s * 1e3, "launches": launches,
+        "closed_trades": trades,
     }
 
-    # ---- 5. diagnostic episode ----------------------------------------------
+
+def long_phase(torch, kernels, results) -> None:
+    from gymfx_tpu_torch.config.flagship import long_context_config
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    config = long_context_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
+    trainer = PPOTrainer(Environment(config), ppo_config_from(config))
+    pcfg = trainer.pcfg
+    n, horizon, mbs = pcfg.n_envs, pcfg.horizon, pcfg.minibatches
+    layers = dict(pcfg.policy_kwargs)["n_layers"]
+    check((n, horizon, trainer.env.cfg.window_size, pcfg.epochs) == (256, 64, 256, 1),
+          "long-context config changed")
+    state = trainer.init_state(SEED)
+    torch.cuda.synchronize()
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               fused_attention.attention_forward, fused_attention.attention_backward)
+    for fn in counted:
+        fn.launches = 0
+    state, rows, _ = train(torch, trainer, state, LONG_STEPS)
+    launches = count_launches(counted)
+    expected = {
+        "step_obs": LONG_STEPS * horizon, "fill_brackets": LONG_STEPS * horizon,
+        "mark_reward": LONG_STEPS * horizon,
+        # per step: (horizon + 1) policy forwards in the rollout, one per
+        # minibatch in the update, each through every layer
+        "attention_forward": LONG_STEPS * layers * ((horizon + 1) + mbs * pcfg.epochs),
+        "attention_backward": LONG_STEPS * layers * mbs * pcfg.epochs,
+    }
+    check(launches == expected, f"long path launched {launches}, expected {expected}")
+    check(expected["attention_forward"] == LONG_STEPS * (130 + 8)
+          and expected["attention_backward"] == LONG_STEPS * 8, "K4 launch arithmetic")
+    for key in ("attention_forward", "attention_backward"):
+        kernels[key]["launches"] = launches[key]
+    check_training(rows, "long")
+    summary = report_training(rows, n, horizon, "long path")
+    print(f"  launches {launches}")
+
+    # one update phase from the saved state, through K4 and through its
+    # plain versions on the card
+    inter, rollout_out = trainer.rollout_phase(state)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    perms = torch.stack([torch.randperm(n, generator=gen, device=trainer.device)
+                         for _ in range(pcfg.epochs)])
+    t0 = time.perf_counter()
+    _, k4_metrics = trainer.update_phase(inter, rollout_out, permutations=perms)
+    torch.cuda.synchronize()
+    k4_s = time.perf_counter() - t0
+    before = count_launches(counted)
+    saved = (fused_attention.attention_forward, fused_attention.attention_backward)
+    fused_attention.attention_forward = fused_attention.attention_forward_plain
+    fused_attention.attention_backward = fused_attention.attention_backward_plain
+    try:
+        t0 = time.perf_counter()
+        _, plain_metrics = trainer.update_phase(inter, rollout_out, permutations=perms)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        fused_attention.attention_forward, fused_attention.attention_backward = saved
+    check(count_launches(counted) == before, "the plain-attention update launched a kernel")
+    k4m = {k: float(v) for k, v in k4_metrics.items()}
+    pm = {k: float(v) for k, v in plain_metrics.items()}
+    check(k4m["nonfinite_skips"] == 0.0 == pm["nonfinite_skips"], "an update was skipped")
+    for key, rtol, atol in (("loss", 1e-2, 0.0), ("value_loss", 1e-2, 0.0), ("entropy", 1e-3, 0.0),
+                            ("policy_loss", 0.0, 1e-3), ("grad_norm", 5e-2, 0.0)):
+        check(abs(k4m[key] - pm[key]) <= atol + rtol * abs(pm[key]),
+              f"long update through K4 vs plain attention: {key} {k4m[key]} vs {pm[key]}")
+    print(f"long update through K4 vs plain attention on the card: "
+          + ", ".join(f"{k} {k4m[k]:.6g} vs {pm[k]:.6g}"
+                      for k in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm"))
+          + f"; update {k4_s * 1e3:.1f} ms vs {plain_s * 1e3:.1f} ms")
+    results["long_context"] = {
+        "n_envs": n, "horizon": horizon, "window": 256,
+        "policy": "transformer_ring d_model 128, 4 heads, 2 layers, bf16",
+        **summary, "launches": launches, "k4_vs_plain_update": {"k4": k4m, "plain": pm},
+        "k4_update_ms": k4_s * 1e3, "plain_update_ms": plain_s * 1e3,
+    }
+
+
+def episode_phase(torch, results) -> None:
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core import rollout as rollout_mod
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, window_zscore
+
+    config = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
+    env = Environment(config)
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
     for fn in counted:
         fn.launches = 0
     _, out = env.rollout(rollout_mod.buy_hold_driver(), EPISODE_STEPS)
     torch.cuda.synchronize()
-    episode_launches = {fn.__name__: fn.launches for fn in counted}
+    episode_launches = count_launches(counted)
     # K2 and K3 once per step; K1 once per step and once for the reset's obs
     expected = {"step_obs": EPISODE_STEPS + 1, "fill_brackets": EPISODE_STEPS,
                 "mark_reward": EPISODE_STEPS}
-    check(episode_launches == expected,
-          f"episode launched {episode_launches}, expected {expected}")
+    check(episode_launches == expected, f"episode launched {episode_launches}, expected {expected}")
     cpu_env = Environment(config, device="cpu")
     _, cpu_out = cpu_env.rollout(rollout_mod.buy_hold_driver(), EPISODE_STEPS)
     for key in ("equity_delta", "reward", "done", "pos_units"):
@@ -367,13 +598,72 @@ def main() -> None:
           f"(card == CPU, torch.equal); launches {episode_launches}")
     results["episode_final_equity"] = final_equity
 
-    # ---- 6. summary ---------------------------------------------------------
+
+def main() -> None:
+    if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
+        fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    results = {}
+
+    # ---- 1. device -------------------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(smi_line)
+    if "H100" not in name:
+        print(f"note: the bounds use the H100 SXM's peaks, not those of {name}")
+    results["device"] = {"name": name, "nvidia_smi": smi_line, "bandwidth_bytes_per_s": BANDWIDTH,
+                         "f32_flops": F32_FLOPS, "bf16_tensor_flops": BF16_FLOPS}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 2. build ----------------------------------------------------------
+    from gymfx_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    built = _build.build_all(ptxas_verbose=True)
+    build_s = time.perf_counter() - t0
+    for lib_name, (path, compiler_out) in built.items():
+        _build.load_library(lib_name)
+        print(f"build: {path.name}")
+        for line in compiler_out.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
+    print(f"build: {len(built)} libraries in {build_s:.2f} s (one nvcc per source, in parallel)")
+    results["build_s"] = build_s
+
+    # ---- 3. kernels against their plain versions ----------------------------
+    dev = torch.device("cuda")
+    kernels = {}
+    check_kernels_k1_k3(torch, dev, kernels)
+    check_kernels_k4(torch, dev, kernels, results)
+
+    # ---- 4. main: PPO training at flagship width ---------------------------
+    main_phase(torch, kernels, results)
+    # ---- 5. long: PPO training in the long-context configuration ----------
+    long_phase(torch, kernels, results)
+    # ---- 6. diagnostic episode ----------------------------------------------
+    episode_phase(torch, results)
+
+    # ---- 7. summary ---------------------------------------------------------
     summary = {"kernels": [
         {
-            "name": key, "route": "cuda", "source": "gymfx_tpu_torch/csrc/env_kernels.cu",
+            "name": key, "route": "cuda",
+            "source": SOURCES.get(key, "gymfx_tpu_torch/csrc/env_kernels.cu"),
             "replaces": REPLACES[key], "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         }
         for key, k in kernels.items()
     ]}

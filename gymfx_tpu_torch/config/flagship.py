@@ -1,10 +1,17 @@
-"""The flagship configuration the port is measured at.
+"""The configurations the port is measured at.
 
-The JAX package's bench.py PPO configuration (bench.py:372-401: 8,192
+``flagship_config``: the JAX package's bench.py PPO configuration (bench.py:372-401: 8,192
 bar-venue envs, window 32, horizon 64, the 3x256 tanh MLP in bf16, bf16
 trajectory obs, both rollout kernel knobs on) plus the OHLCV feature
 columns, so the feature-window kernel K1 runs: with no feature columns
 ``n_features`` is 0 and bench.py's rollout never reaches it.
+
+``long_context_config``: the long-context row of the JAX package's
+tools/tpu_bench.py (:42-57 with the row at :244): the transformer_ring
+policy (d_model 128, 4 heads of 32, 2 layers) over a window of 256 bars,
+256 envs, horizon 64, one epoch of 4 env-permuted minibatches, bf16, plus
+the flagship's OHLCV feature columns, bf16 trajectory obs and both
+rollout kernel knobs, so K1-K3 run beside K4.
 """
 from __future__ import annotations
 
@@ -31,6 +38,18 @@ def flagship_config(input_data_file: str, **over) -> Dict[str, Any]:
         rollout_collect_dtype="bfloat16",
         rollout_env_kernel="on",
         feature_columns=list(FEATURE_COLUMNS),
+    )
+    config.update(over)
+    return config
+
+
+def long_context_config(input_data_file: str, **over) -> Dict[str, Any]:
+    config = flagship_config(
+        input_data_file,
+        num_envs=256,
+        policy="transformer_ring",
+        policy_kwargs={"d_model": 128, "n_heads": 4, "n_layers": 2},
+        window_size=256,
     )
     config.update(over)
     return config

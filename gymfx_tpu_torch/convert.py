@@ -45,6 +45,49 @@ def mlp_params_from_flax(tree: Mapping[str, Any], device=None) -> Dict[str, torc
     return out
 
 
+def ring_transformer_params_from_flax(tree: Mapping[str, Any],
+                                      device=None) -> Dict[str, torch.Tensor]:
+    """State dict for :class:`~gymfx_tpu_torch.train.policies.RingTransformerPolicy`
+    from a flax RingTransformerPolicy tree (the outer "params" level is
+    optional).  Flax names the encoder's modules in call order: Dense_0
+    the token embedding; per layer l, LayerNorm_{2l}, DenseGeneral_{4l..4l+2}
+    (q, k, v; kernels (d_model, H, Dh)), DenseGeneral_{4l+3} (the output,
+    kernel (H, Dh, d_model)), LayerNorm_{2l+1}, Dense_{2l+1} and
+    Dense_{2l+2} (the MLP); LayerNorm_{2L} last.  The policy's own
+    Dense_0 / Dense_1 are the logits and value heads."""
+    device = resolve_device(device)
+    params = tree.get("params", tree)
+    enc = params["RingTransformerEncoder_0"]
+    n_layers = sum(1 for k in enc if k.startswith("DenseGeneral_")) // 4
+    out: Dict[str, torch.Tensor] = {}
+
+    def linear(name: str, dense, in_axes: int = 1) -> None:
+        # a kernel's first ``in_axes`` axes are contracted: (in..., out...)
+        kernel = np.asarray(dense["kernel"])
+        fan_in = int(np.prod(kernel.shape[:in_axes]))
+        out[f"{name}.weight"] = _tensor(kernel.reshape(fan_in, -1).T, device)
+        out[f"{name}.bias"] = _tensor(np.asarray(dense["bias"]).reshape(-1), device)
+
+    def norm(name: str, key: str) -> None:
+        out[f"{name}.weight"] = _tensor(enc[key]["scale"], device)
+        out[f"{name}.bias"] = _tensor(enc[key]["bias"], device)
+
+    linear("encoder.embed", enc["Dense_0"])
+    out["encoder.pos_embed"] = _tensor(enc["pos_embed"], device)
+    for l in range(n_layers):
+        pre = f"encoder.layers.{l}"
+        norm(f"{pre}.ln1", f"LayerNorm_{2 * l}")
+        for j, proj in enumerate(("q", "k", "v", "out")):
+            linear(f"{pre}.{proj}", enc[f"DenseGeneral_{4 * l + j}"], 2 if proj == "out" else 1)
+        norm(f"{pre}.ln2", f"LayerNorm_{2 * l + 1}")
+        for j, fc in enumerate(("fc1", "fc2")):
+            linear(f"{pre}.{fc}", enc[f"Dense_{2 * l + 1 + j}"])
+    norm("encoder.norm", f"LayerNorm_{2 * n_layers}")
+    for key, head in (("Dense_0", "logits"), ("Dense_1", "value")):
+        linear(head, params[key])
+    return out
+
+
 def env_state_from_numpy(state: Any, device=None) -> EnvState:
     """EnvState tensors from a batched EnvState (or mapping) of arrays
     with the same field names."""

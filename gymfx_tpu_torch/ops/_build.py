@@ -1,18 +1,23 @@
-"""Build and bind the port's CUDA kernels (``csrc/env_kernels.cu``).
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-nvcc compiles the source into a shared library with a plain C interface
-at first use, and ``ctypes`` loads it:
+Each source is its own shared library with a plain C interface, compiled
+by nvcc at first use and loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o build/torch_kernels/libgymfx_env_<hash>.so
+    env        csrc/env_kernels.cu (K1-K3), bitwise to the plain versions:
+               nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+                    -fmad=false -shared -Xcompiler -fPIC
+    attention  csrc/attention_kernels.cu (K4 forward and backward), held to
+               its plain versions by a tolerance, so FMA contraction stays on
+               (the same flags without -fmad=false)
 
 ``-fmad=false`` keeps every multiply and add separate, as the plain
 PyTorch versions compute them; ``--use_fast_math`` is never used (IEEE
-division).  The library name carries a hash of the source and flags, so
-an edited source rebuilds, and the build writes to a temporary name and
-renames, so concurrent first uses never load a half-written file.
-Nothing is built or loaded at import: the CPU tests import every module
-on a machine without nvcc.
+division, accurate ``expf``).  A library's name carries a hash of its
+source and flags, so an edited source rebuilds, and a build writes to a
+temporary name and renames, so concurrent first uses never load a
+half-written file.  :func:`build_all` starts one nvcc per source at
+once.  Nothing is built or loaded at import: the CPU tests import every
+module on a machine without nvcc.
 """
 from __future__ import annotations
 
@@ -23,17 +28,22 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 _PACKAGE = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "env_kernels.cu"
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+_COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+_SHARED = ("-shared", "-Xcompiler", "-fPIC")
+SOURCES = {
+    "env": _PACKAGE / "csrc" / "env_kernels.cu",
+    "attention": _PACKAGE / "csrc" / "attention_kernels.cu",
+}
+FLAGS = {
+    "env": (*_COMMON, "-fmad=false", *_SHARED),
+    "attention": (*_COMMON, *_SHARED),
+}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -46,55 +56,93 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgymfx_env_{digest.hexdigest()[:16]}.so"
+def library_path(name: str = "env") -> pathlib.Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(FLAGS[name]).encode())
+    return BUILD_DIR / f"libgymfx_{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build_library(ptxas_verbose: bool = False) -> tuple[pathlib.Path, str]:
-    """Compile the kernels (if this source has not been built yet) and
-    return (library path, compiler output).  ``ptxas_verbose`` rebuilds
-    with ``-Xptxas -v`` so the output lists registers and spills."""
-    path = library_path()
-    if path.exists() and not ptxas_verbose:
-        return path, ""
+def _start(name: str, ptxas_verbose: bool) -> Optional[Tuple[subprocess.Popen, str]]:
+    """Start nvcc for library ``name`` unless it is built (and no
+    register report is asked for); returns (process, temporary path)."""
+    if library_path(name).exists() and not ptxas_verbose:
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    cmd = [_nvcc(), *FLAGS[name]]
     if ptxas_verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(SOURCE)]
+    cmd += ["-o", tmp, str(SOURCES[name])]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, started) -> Tuple[pathlib.Path, str]:
+    path = library_path(name)
+    if started is None:
+        return path, ""
+    proc, tmp = started
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+            raise RuntimeError(f"nvcc failed for {SOURCES[name].name} ({proc.returncode}):\n{out}")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+    return path, out
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
+def build_library(name: str = "env", ptxas_verbose: bool = False) -> Tuple[pathlib.Path, str]:
+    """Compile library ``name`` (if this source has not been built yet)
+    and return (library path, compiler output).  ``ptxas_verbose``
+    rebuilds with ``-Xptxas -v`` so the output lists registers and spills."""
+    return _finish(name, _start(name, ptxas_verbose))
+
+
+def build_all(ptxas_verbose: bool = False) -> Dict[str, Tuple[pathlib.Path, str]]:
+    """Every library at once: one nvcc per source, all started together."""
+    started = {name: _start(name, ptxas_verbose) for name in SOURCES}
+    try:
+        return {name: _finish(name, s) for name, s in started.items()}
+    finally:
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
+
+
+def _bind_env(lib: ctypes.CDLL) -> None:
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.gymfx_step_obs.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, f, vp]
+    lib.gymfx_step_obs.restype = i
+    lib.gymfx_fill_brackets.argtypes = [vp, ll, i, i, i, vp]
+    lib.gymfx_fill_brackets.restype = i
+    lib.gymfx_mark_reward.argtypes = [vp, ll, i, vp]
+    lib.gymfx_mark_reward.restype = i
+    lib.gymfx_fill_pointer_count.restype = i
+    lib.gymfx_mark_pointer_count.restype = i
+
+
+def _bind_attention(lib: ctypes.CDLL) -> None:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.gymfx_attn_fwd.argtypes = [vp, vp, vp, vp, strides, i, i, i, i, i, i, f, vp]
+    lib.gymfx_attn_fwd.restype = i
+    lib.gymfx_attn_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides, i, i, i, i, i, i, f, vp]
+    lib.gymfx_attn_bwd.restype = i
+
+
+_BINDERS = {"env": _bind_env, "attention": _bind_attention}
+
+
+def load_library(name: str = "env") -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first call."""
+    if name not in _libs:
+        path, _ = build_library(name)
         lib = ctypes.CDLL(str(path))
-        vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.gymfx_step_obs.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, f, vp]
-        lib.gymfx_step_obs.restype = i
-        lib.gymfx_fill_brackets.argtypes = [vp, ll, i, i, i, vp]
-        lib.gymfx_fill_brackets.restype = i
-        lib.gymfx_mark_reward.argtypes = [vp, ll, i, vp]
-        lib.gymfx_mark_reward.restype = i
-        lib.gymfx_fill_pointer_count.restype = i
-        lib.gymfx_mark_pointer_count.restype = i
-        _lib = lib
-    return _lib
+        _BINDERS[name](lib)
+        _libs[name] = lib
+    return _libs[name]
 
 
 def require(t, name: str, dtype, shape, device) -> None:

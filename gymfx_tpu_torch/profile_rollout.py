@@ -7,7 +7,7 @@ For each env count: the flagship configuration's PPO rollout phase
 (host clock around work that ends in ``torch.cuda.synchronize``), then
 run once more under ``torch.profiler`` with named ranges around the
 policy forward, the action draw, the env transition, the obs build and
-flatten, and the auto-reset.  It prints and writes to
+encoding, and the auto-reset.  It prints and writes to
 ``chiprun_out/profile_rollout.json``:
 
 * env steps/s and ms per phase;
@@ -40,7 +40,7 @@ from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.train import ppo
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-RANGES = ("policy", "sample", "transition", "build_obs", "flatten_obs", "masked_reset")
+RANGES = ("policy", "sample", "transition", "build_obs", "encode_obs", "masked_reset")
 OUR_KERNELS = ("step_obs_kernel", "fill_brackets_kernel", "mark_reward_kernel")
 
 
@@ -75,10 +75,10 @@ def graphed_step_ms(ro, state) -> float:
     env, cfg = ro.env, ro.env.cfg
 
     def step():
-        logits, _ = ro.policy(state.obs_vec)
+        logits, _ = ro.policy_forward(state.params, state.obs_vec)
         st2, _, done, _ = env_core.transition(cfg, env.params, env.data, state.env_states,
                                               torch.argmax(logits, dim=1))
-        obs2 = ppo.flatten_obs(env_core.build_obs(st2, env.data, cfg, env.params), ro.obs_spec)
+        obs2 = ro._encode(env_core.build_obs(st2, env.data, cfg, env.params))
         return (ppo.masked_reset(done, ro._reset_state, st2),
                 ppo.masked_reset(done, ro._reset_vec, obs2))
 
@@ -105,7 +105,7 @@ def graphed_step_ms(ro, state) -> float:
 def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
     config = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"),
                              num_envs=n_envs, ppo_horizon=horizon)
-    ro = ppo.PPORollout(Environment(config, device=device), ppo.ppo_config_from(config))
+    ro = ppo.PPOTrainer(Environment(config, device=device), ppo.ppo_config_from(config))
     state = ro.init_state(0)
     state = ro.rollout_phase(state)[0]
     torch.cuda.synchronize()
@@ -118,15 +118,15 @@ def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
     step_ms = graphed_step_ms(ro, state)
 
     saved = {name: getattr(mod, name) for mod, name in
-             ((env_core, "transition"), (env_core, "build_obs"), (ppo, "flatten_obs"),
+             ((env_core, "transition"), (env_core, "build_obs"),
               (ppo, "masked_reset"), (ppo, "sample_categorical"))}
     env_core.transition = _ranged("transition", saved["transition"])
     env_core.build_obs = _ranged("build_obs", saved["build_obs"])
-    ppo.flatten_obs = _ranged("flatten_obs", saved["flatten_obs"])
     ppo.masked_reset = _ranged("masked_reset", saved["masked_reset"])
     ppo.sample_categorical = _ranged("sample", saved["sample_categorical"])
-    forward = ro.policy.forward
+    forward, encode = ro.policy.forward, ro._encode
     ro.policy.forward = _ranged("policy", forward)
+    ro._encode = _ranged("encode_obs", encode)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     try:
         with torch.profiler.profile(activities=acts) as prof:
@@ -137,7 +137,7 @@ def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
     finally:
         for name, fn in saved.items():
             setattr(env_core if name in ("transition", "build_obs") else ppo, name, fn)
-        ro.policy.forward = forward
+        ro.policy.forward, ro._encode = forward, encode
 
     intervals, by_group, launches = [], defaultdict(float), defaultdict(int)
     host_us = defaultdict(float)

@@ -1,0 +1,77 @@
+"""Non-finite train-step guards: the port of ``gymfx_tpu/resilience/guards.py``
+lines 28-83 (``tree_all_finite``, ``select_tree``, ``quarantine_mask``).
+
+A tree here is a tensor, a dict, or a tuple / NamedTuple of trees.  The
+guard's decision stays a device tensor: ``tree_all_finite`` returns a
+0-d bool tensor and ``select_tree`` is ``torch.where`` on it, so a
+guarded update never syncs the host.  ``SkipMonitor`` and the resilient
+loop come with ROADMAP.md Queue 1 item 10.
+"""
+from __future__ import annotations
+
+from typing import Any, List
+
+import torch
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *items) for items in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *items) for items in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _float_leaves(tree: Any) -> List[torch.Tensor]:
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor) and x.is_floating_point()]
+
+
+def tree_all_finite(tree: Any) -> torch.Tensor:
+    """0-d bool tensor: every element of every floating leaf is finite
+    (integer and bool leaves cannot hold NaN and are skipped)."""
+    leaves = _float_leaves(tree)
+    if not leaves:
+        return torch.tensor(True)
+    return torch.stack([torch.isfinite(x).all() for x in leaves]).all()
+
+
+def select_tree(pred, new_tree: Any, old_tree: Any) -> Any:
+    """Per-leaf ``where(pred, new, old)`` with a 0-d ``pred``: the update
+    is taken when True, the last-good tree kept bit for bit when False."""
+    return tree_map(lambda n, o: torch.where(pred, n, o), new_tree, old_tree)
+
+
+def quarantine_mask(tree: Any, *, env_axis: int = 1, mode: str = "nonfinite") -> torch.Tensor:
+    """Per-env poison mask over the floating leaves of ``tree``: True
+    where any value of that env (index along ``env_axis``) is bad.
+    ``mode='nonfinite'`` flags NaN and ±inf (trajectory outputs);
+    ``mode='nan'`` flags NaN only (carried env state, whose peak/min/max
+    trackers hold ±inf sentinels by design)."""
+    if mode == "nonfinite":
+        is_bad = lambda x: ~torch.isfinite(x)  # noqa: E731
+    elif mode == "nan":
+        is_bad = torch.isnan
+    else:
+        raise ValueError(f"mode must be 'nonfinite' or 'nan', got {mode!r}")
+    masks = []
+    for x in _float_leaves(tree):
+        bad = is_bad(x).movedim(env_axis, 0)
+        masks.append(bad.reshape(bad.shape[0], -1).any(dim=1))
+    if not masks:
+        raise ValueError("quarantine_mask needs at least one floating leaf")
+    out = masks[0]
+    for m in masks[1:]:
+        out = out | m
+    return out

@@ -1,12 +1,33 @@
-"""Policy networks: the discrete MLP actor-critic and the obs flattening.
+"""Policy networks: the discrete MLP and ring-transformer actor-critics,
+and the obs encodings.
 
-The port of ``gymfx_tpu/train/policies.py`` lines 23-56 and 84-106.
-:class:`MLPPolicy` computes like the flax module: the hidden layers in
-``dtype`` (inputs, weights and biases cast to it, tanh in it), the
-logits and value heads in float32.  Parameters are float32 master
-weights.  The hidden GEMMs are ``torch.nn.functional.linear`` (cuBLAS on
-the card), as the JAX package left them to XLA.  Other policy families
-come with ROADMAP.md Queue 1 item 11.
+The port of ``gymfx_tpu/train/policies.py``: the obs spec and
+``flatten_obs`` (:23-56), ``dense_window_attention`` (:59-77),
+``MLPPolicy`` (:84-106), ``RingTransformerEncoder`` and
+``RingTransformerPolicy`` in single-device mode (:189-314),
+``tokens_from_obs`` and ``make_obs_encoder`` (:354-379), and
+``TOKEN_POLICIES`` / ``policy_kwargs_for`` / ``make_trainer_policy`` /
+``make_policy`` (:444-580).  Every function takes a batch: a leading
+env (or sample) axis that the JAX package adds with ``vmap``.
+
+Each module computes like its flax twin:
+
+* Dense layers in ``dtype`` cast inputs, weights and biases to it; the
+  logits and value heads are float32.  Parameters are float32 master
+  weights.  The GEMMs are ``torch.nn.functional.linear`` (cuBLAS on the
+  card), as the JAX package left them to XLA.
+* LayerNorm is flax's: epsilon 1e-6, statistics in float32 as
+  E[x²] - E[x]² (``use_fast_variance``), scale and bias in float32, the
+  output cast to ``dtype``.
+* GELU is the tanh approximation (``nn.gelu``).  The positional
+  embedding is a float32 parameter cast to ``dtype`` before the add; the
+  mean pool over tokens runs in ``dtype``.
+
+Attention goes through K4 (``ops/fused_attention.py``) for every window
+up to 1024, kernel on the card and plain version on the CPU.  The
+sequence-parallel modes (a ``seq_axis``) come with ROADMAP.md Queue 1
+item 17; the flax ``TransformerPolicy``, LSTM and the continuous
+policies with item 11.
 """
 from __future__ import annotations
 
@@ -18,6 +39,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from gymfx_tpu_torch.core.types import not_ported
+from gymfx_tpu_torch.ops.fused_attention import MAX_FUSED_WINDOW, fused_window_attention
 
 
 class ObsSpec(NamedTuple):
@@ -45,6 +67,73 @@ def flatten_obs(obs: Dict[str, Any], spec: Optional[ObsSpec] = None):
     return torch.cat(parts, dim=1)
 
 
+def tokens_from_obs(obs: Dict[str, Any], window: int, spec: Optional[ObsSpec] = None):
+    """Batched Dict obs -> (N, window, token_dim) float32 tokens, in sorted
+    key order: a block whose first per-env dim is the window gives per-bar
+    columns; every other block is flattened and broadcast along the window."""
+    keys = spec.keys if spec is not None else tuple(sorted(obs.keys()))
+    cols = []
+    for k in keys:
+        v = obs[k]
+        n = v.shape[0]
+        if v.dim() >= 2 and v.shape[1] == window:
+            cols.append(v.reshape(n, window, -1).to(torch.float32))
+        else:
+            flat = v.reshape(n, -1).to(torch.float32)
+            cols.append(flat[:, None, :].expand(n, window, flat.shape[1]))
+    return torch.cat(cols, dim=-1)
+
+
+# policies whose inputs are (window, token_dim) token sequences
+TOKEN_POLICIES = ("transformer", "transformer_ring", "transformer_ulysses")
+
+
+def is_token_policy(name: str) -> bool:
+    return name in TOKEN_POLICIES
+
+
+def make_obs_encoder(policy_name: str, window: int, spec: ObsSpec):
+    """The obs -> policy-input encoding: tokens for the token policies, the
+    flat vector otherwise, both through the static ``spec``."""
+    if is_token_policy(policy_name):
+        return lambda obs: tokens_from_obs(obs, window, spec)
+    return lambda obs: flatten_obs(obs, spec)
+
+
+def dense_window_attention(q, k, v):
+    """Single-device attention for the token policies on (..., W, H, D):
+    K4 for every window up to ``MAX_FUSED_WINDOW`` (the kernel on CUDA
+    tensors, its plain version on CPU tensors)."""
+    window = q.shape[-3]
+    if window > MAX_FUSED_WINDOW:
+        raise not_ported(
+            f"attention over a window of {window} (> {MAX_FUSED_WINDOW}: the "
+            "ring/Ulysses sequence-parallel backends)", 17,
+        )
+    return fused_window_attention(q, k, v)
+
+
+def _dense(x, layer: nn.Linear, dtype):
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax.linen.LayerNorm(dtype=...): float32 statistics, epsilon 1e-6."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.epsilon = epsilon
+
+    def forward(self, x, dtype):
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return ((x32 - mean) * mul + self.bias).to(dtype)
+
+
 class MLPPolicy(nn.Module):
     """3-layer MLP actor-critic: (N, obs_dim) -> (logits (N, A), value (N,))."""
 
@@ -62,16 +151,111 @@ class MLPPolicy(nn.Module):
     def forward(self, x):
         x = x.to(self.dtype)
         for layer in self.hidden:
-            x = torch.tanh(F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype)))
+            x = torch.tanh(_dense(x, layer, self.dtype))
         x = x.to(torch.float32)
         return self.logits(x), self.value(x).squeeze(-1)
 
 
-def make_policy(name: str, obs_dim: int, *, continuous: bool = False,
-                dtype=torch.float32, kwargs: Optional[Dict[str, Any]] = None) -> MLPPolicy:
-    """The trainer policy for ``name``: only the discrete ``mlp`` is ported."""
-    if name != "mlp" or continuous:
-        raise not_ported(f"policy {name!r}{' (continuous actions)' if continuous else ''}", 11)
+class TransformerBlock(nn.Module):
+    """One pre-norm layer of RingTransformerEncoder: attention through K4,
+    then the 4x GELU MLP, each with a residual add."""
+
+    def __init__(self, d_model: int, n_heads: int):
+        super().__init__()
+        self.n_heads = n_heads
+        self.ln1 = LayerNorm(d_model)
+        # flax DenseGeneral((H, Dh)) kernels (d_model, H, Dh) as (H*Dh, d_model) weights
+        self.q, self.k, self.v = (nn.Linear(d_model, d_model) for _ in range(3))
+        # flax DenseGeneral(d_model, axis=(-2, -1)) kernel (H, Dh, d_model)
+        self.out = nn.Linear(d_model, d_model)
+        self.ln2 = LayerNorm(d_model)
+        self.fc1 = nn.Linear(d_model, 4 * d_model)
+        self.fc2 = nn.Linear(4 * d_model, d_model)
+
+    def forward(self, x, dtype):
+        y = self.ln1(x, dtype)
+        heads = (self.n_heads, y.shape[-1] // self.n_heads)
+        q, k, v = (_dense(y, lin, dtype).unflatten(-1, heads) for lin in (self.q, self.k, self.v))
+        a = dense_window_attention(q, k, v)
+        x = x + _dense(a.flatten(-2), self.out, dtype)
+        y = F.gelu(_dense(self.ln2(x, dtype), self.fc1, dtype), approximate="tanh")
+        return x + _dense(y, self.fc2, dtype)
+
+
+class RingTransformerEncoder(nn.Module):
+    """The transformer trunk over (..., window, token_dim) tokens, returning
+    the mean-pooled (..., d_model) embedding (single-device mode)."""
+
+    def __init__(self, token_dim: int, window: int = 32, d_model: int = 128, n_heads: int = 4,
+                 n_layers: int = 2, dtype=torch.float32, seq_axis: Optional[str] = None,
+                 seq_shards: int = 1, sp_backend: str = "ring"):
+        super().__init__()
+        if sp_backend not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sp_backend {sp_backend!r} (expected 'ring' or 'ulysses')")
+        if seq_axis is not None or int(seq_shards) != 1:
+            raise not_ported(f"sequence-parallel attention (seq_axis={seq_axis!r}, "
+                             f"seq_shards={seq_shards})", 17)
+        if d_model % n_heads:
+            raise ValueError(f"d_model {d_model} is not a multiple of n_heads {n_heads}")
+        self.dtype = dtype
+        self.embed = nn.Linear(int(token_dim), d_model)
+        self.pos_embed = nn.Parameter(torch.zeros(int(window), d_model))
+        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads) for _ in range(n_layers))
+        self.norm = LayerNorm(d_model)
+
+    def forward(self, tokens):
+        dt = self.dtype
+        x = _dense(tokens.to(dt), self.embed, dt) + self.pos_embed.to(dt)
+        for layer in self.layers:
+            x = layer(x, dt)
+        return self.norm(x, dt).mean(dim=-2)
+
+
+class RingTransformerPolicy(nn.Module):
+    """Actor-critic over RingTransformerEncoder: float32 logits and value
+    heads on the pooled embedding."""
+
+    def __init__(self, token_dim: int, n_actions: int = 3, dtype=torch.float32, **kw):
+        super().__init__()
+        self.encoder = RingTransformerEncoder(token_dim, dtype=dtype, **kw)
+        d_model = self.encoder.pos_embed.shape[1]
+        self.logits = nn.Linear(d_model, n_actions)
+        self.value = nn.Linear(d_model, 1)
+
+    def forward(self, tokens):
+        pooled = self.encoder(tokens).to(torch.float32)
+        return self.logits(pooled), self.value(pooled).squeeze(-1)
+
+
+def policy_kwargs_for(name: str, kwargs: Dict[str, Any], window: int) -> Dict[str, Any]:
+    """Trainer-side kwarg resolution: the ring policies need the window
+    for their positional embeddings."""
+    kwargs = dict(kwargs)
+    if name in ("transformer_ring", "transformer_ulysses"):
+        kwargs.setdefault("window", window)
+    return kwargs
+
+
+def make_policy(name: str, in_dim: int, *, continuous: bool = False,
+                dtype=torch.float32, kwargs: Optional[Dict[str, Any]] = None) -> nn.Module:
+    """The policy ``name`` over inputs of width ``in_dim`` (the flat obs
+    size, or the token width of a token policy).  Without a seq axis
+    ``transformer_ring`` and ``transformer_ulysses`` are the same module."""
+    if continuous:
+        raise not_ported(f"policy {name!r} (continuous actions)", 11)
     kwargs = dict(kwargs or {})
-    return MLPPolicy(obs_dim, hidden=tuple(kwargs.pop("hidden", (256, 256, 256))),
-                     dtype=dtype, **kwargs)
+    if name == "mlp":
+        return MLPPolicy(in_dim, hidden=tuple(kwargs.pop("hidden", (256, 256, 256))),
+                         dtype=dtype, **kwargs)
+    if name == "transformer_ring":
+        return RingTransformerPolicy(in_dim, dtype=dtype, **kwargs)
+    if name == "transformer_ulysses":
+        return RingTransformerPolicy(in_dim, dtype=dtype, sp_backend="ulysses", **kwargs)
+    raise not_ported(f"policy {name!r}", 11)
+
+
+def make_trainer_policy(name: str, in_dim: int, *, continuous: bool, dtype,
+                        kwargs: Dict[str, Any], window: int) -> nn.Module:
+    """The one policy-construction path of the trainer."""
+    return make_policy(name, in_dim, continuous=continuous, dtype=dtype,
+                       kwargs=policy_kwargs_for(name, kwargs, window))

@@ -1,19 +1,34 @@
-"""PPO's rollout phase: the policy acting on the batched env.
+"""PPO: the rollout phase, the update phase and the train step.
 
-The port of ``gymfx_tpu/train/ppo.py`` lines 45-170, 272-386 and
-452-467: :class:`PPOConfig`, :func:`ppo_config_from`,
-:func:`resolve_collect_dtype`, and :class:`PPORollout` holding
-``init_state(seed)`` and ``rollout_phase(state)``.  One rollout phase
-runs ``horizon`` steps: the MLP policy acts (categorical draw from a
-``torch.Generator``), every env steps through the kernel chain
-(core/env.transition), done envs auto-reset (from random start offsets
-when ``random_episode_start`` is set), and the trajectory is stored with
-obs in ``collect_dtype``.  The update phase (GAE, the clipped loss,
-clip-by-global-norm Adam) comes with ROADMAP.md Queue 1 item 6.
+The port of ``gymfx_tpu/train/ppo.py``: :class:`PPOConfig`,
+:func:`resolve_collect_dtype`, :func:`resolve_optimizer_state_dtype`,
+:func:`ppo_config_from` (:45-163), :class:`TrainState` and
+:class:`PPOTrainer` with ``init_state``, ``rollout_phase`` (:307-386,
+:452-467), ``_gae`` (:388-406), ``_loss`` (:408-443), ``update_phase``
+(:469-615), ``train_step`` and ``train_many``.
 
-Test hook: ``rollout_phase(state, actions=..., start_offsets=...)``
-replaces the phase's own draws with given ones, so a test can feed it
-the JAX package's draws (its threefry stream and torch's never match).
+* Rollout: ``horizon`` steps of the policy acting (categorical draw from
+  a ``torch.Generator``), every env stepping through the kernel chain
+  (core/env.transition), done envs auto-resetting (from random start
+  offsets when ``random_episode_start`` is set), the trajectory stored
+  with obs in ``collect_dtype``.
+* Update: GAE, then ``epochs`` x ``minibatches`` clipped-PPO steps with
+  clip-by-global-norm Adam (train/optim.py) over ``minibatch_plan``'s
+  minibatches.  Under ``nonfinite_guard`` a minibatch whose loss or
+  gradients are not finite leaves params and optimizer state as they
+  were (``torch.where`` on a device flag: no host sync), and envs whose
+  trajectory went non-finite restart from a fresh episode.
+
+Params are a dict of float32 tensors applied with
+``torch.func.functional_call``; the policy module only gives the
+structure.  The metrics are the JAX package's dict of 0-d tensors, plus
+``grad_norm``, the mean pre-clip gradient global norm of the updates
+taken.
+
+Test hooks: ``rollout_phase(state, actions=..., start_offsets=...)`` and
+``update_phase(state, rollout_out, permutations=...)`` replace the
+phase's own draws with given ones, so a test can feed the JAX package's
+draws (its threefry stream and torch's never match).
 """
 from __future__ import annotations
 
@@ -24,9 +39,21 @@ from torch.nn import functional as F
 
 from gymfx_tpu_torch.core import env as env_core
 from gymfx_tpu_torch.core.runtime import Environment
-from gymfx_tpu_torch.core.types import EnvState
-from gymfx_tpu_torch.train.common import masked_reset
-from gymfx_tpu_torch.train.policies import flatten_obs, make_obs_spec, make_policy
+from gymfx_tpu_torch.core.types import EnvState, not_ported
+from gymfx_tpu_torch.resilience.guards import quarantine_mask, select_tree, tree_all_finite
+from gymfx_tpu_torch.train.common import (
+    make_train_many,
+    masked_reset,
+    minibatch_plan,
+    validate_minibatch_scheme,
+)
+from gymfx_tpu_torch.train.optim import AdamState, ClipAdam, apply_updates
+from gymfx_tpu_torch.train.policies import (
+    is_token_policy,
+    make_obs_encoder,
+    make_obs_spec,
+    make_trainer_policy,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,6 +75,10 @@ class PPOConfig(NamedTuple):
     policy_kwargs: Tuple[Tuple[str, Any], ...] = ()
     minibatch_scheme: str = "sample_permute"
     collect_dtype: Any = torch.float32
+    nonfinite_guard: bool = True
+    opt_state_dtype: Any = torch.float32
+    superstep_overlap: bool = False
+    update_remat: bool = False
 
 
 def resolve_collect_dtype(config: Dict[str, Any], policy_dtype) -> Any:
@@ -57,6 +88,17 @@ def resolve_collect_dtype(config: Dict[str, Any], policy_dtype) -> Any:
     if policy_dtype == torch.bfloat16 or cd == torch.bfloat16:
         return torch.bfloat16
     return cd
+
+
+def resolve_optimizer_state_dtype(config: Dict[str, Any]) -> Any:
+    """Adam first-moment storage dtype from ``optimizer_state_dtype``;
+    params and the second moment stay float32."""
+    dt = str(config.get("optimizer_state_dtype", "float32")).lower()
+    if dt not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"optimizer_state_dtype must be 'float32' or 'bfloat16', got {dt!r}"
+        )
+    return _DTYPES[dt]
 
 
 def ppo_config_from(config: Dict[str, Any]) -> PPOConfig:
@@ -81,13 +123,19 @@ def ppo_config_from(config: Dict[str, Any]) -> PPOConfig:
         ),
         minibatch_scheme=str(config.get("ppo_minibatch_scheme", "env_permute")),
         collect_dtype=resolve_collect_dtype(config, dt),
+        nonfinite_guard=bool(config.get("nonfinite_guard", True)),
+        opt_state_dtype=resolve_optimizer_state_dtype(config),
+        superstep_overlap=bool(config.get("superstep_overlap", False)),
+        update_remat=bool(config.get("ppo_update_remat", False)),
     )
 
 
-class RolloutState(NamedTuple):
-    env_states: EnvState       # (n_envs,) batch
-    obs_vec: Any               # (n_envs, obs_dim) float32 policy inputs
-    generator: torch.Generator  # the phase's draws (actions, start offsets)
+class TrainState(NamedTuple):
+    params: Dict[str, torch.Tensor]  # float32 policy params by state-dict name
+    opt_state: AdamState
+    env_states: EnvState             # (n_envs,) batch
+    obs_vec: Any                     # (n_envs, *obs_shape) float32 policy inputs
+    generator: torch.Generator       # the phases' draws (actions, offsets, permutations)
 
 
 def sample_categorical(logits, generator: torch.Generator):
@@ -100,7 +148,8 @@ def sample_categorical(logits, generator: torch.Generator):
 
 def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> None:
     """Fill every Linear from ``generator``: weights ~ N(0, 1/fan_in),
-    biases 0 (flax Dense's lecun-normal scale, untruncated)."""
+    biases 0 (flax Dense's lecun-normal scale, untruncated); positional
+    embeddings ~ N(0, 0.02²); LayerNorms stay at scale 1, bias 0."""
     with torch.no_grad():
         for module in policy.modules():
             if isinstance(module, torch.nn.Linear):
@@ -108,47 +157,67 @@ def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> 
                                 device=generator.device)
                 module.weight.copy_(w / module.in_features ** 0.5)
                 module.bias.zero_()
+        for name, p in policy.named_parameters():
+            if name.endswith("pos_embed"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=generator, device=generator.device))
 
 
-class PPORollout:
-    """The rollout phase of PPO for one Environment and PPOConfig."""
+class PPOTrainer:
+    """PPO for one Environment and PPOConfig."""
 
     def __init__(self, env: Environment, pcfg: PPOConfig):
+        if pcfg.superstep_overlap:
+            raise not_ported("superstep_overlap (the pipelined superstep driver)", 20)
+        if pcfg.update_remat:
+            raise not_ported("ppo_update_remat (recomputing the forward in the update)", 21)
+        validate_minibatch_scheme(pcfg.minibatch_scheme, pcfg.n_envs, pcfg.minibatches,
+                                  horizon=pcfg.horizon)
         self.env = env
         self.pcfg = pcfg
         self.device = env.device
         cfg = env.cfg
         reset_state, reset_obs = env_core.reset(cfg, env.params, env.data, 1)
         self.obs_spec = make_obs_spec(reset_obs)
+        self._encode = make_obs_encoder(pcfg.policy, cfg.window_size, self.obs_spec)
         self._reset_state = reset_state
-        self._reset_vec = flatten_obs(reset_obs, self.obs_spec)
+        self._reset_vec = self._encode(reset_obs)
         self.obs_dim = self.obs_spec.total_size
+        self.obs_shape = tuple(self._reset_vec.shape[1:])
         self._random_start = bool(env.config.get("random_episode_start", False))
-        self.policy = make_policy(
-            pcfg.policy, self.obs_dim,
-            continuous=cfg.action_space_mode == "continuous",
-            dtype=pcfg.policy_dtype, kwargs=dict(pcfg.policy_kwargs),
+        in_dim = self.obs_shape[-1] if is_token_policy(pcfg.policy) else self.obs_dim
+        self.policy = make_trainer_policy(
+            pcfg.policy, in_dim, continuous=cfg.action_space_mode == "continuous",
+            dtype=pcfg.policy_dtype, kwargs=dict(pcfg.policy_kwargs), window=cfg.window_size,
         ).to(self.device)
+        self.optimizer = ClipAdam(pcfg.lr, pcfg.max_grad_norm, pcfg.opt_state_dtype)
+        self.train_many = make_train_many(self.train_step)
 
-    def init_state(self, seed: int = 0) -> RolloutState:
-        """Policy weights and the phase's generator from ``seed``; every
-        env at the fresh reset state."""
+    # ------------------------------------------------------------------
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Policy weights and the phases' generator from ``seed``, a fresh
+        optimizer state, every env at the fresh reset state."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         init_policy_weights(self.policy, gen)
+        params = {k: v.detach().clone() for k, v in self.policy.named_parameters()}
         n = self.pcfg.n_envs
         env_states = EnvState(*(x.expand(n, *x.shape[1:]).clone() for x in self._reset_state))
-        obs_vec = self._reset_vec.expand(n, -1).clone()
-        return RolloutState(env_states, obs_vec, gen)
+        obs_vec = self._reset_vec.expand(n, *self.obs_shape).clone()
+        return TrainState(params, self.optimizer.init(params), env_states, obs_vec, gen)
 
+    def policy_forward(self, params: Dict[str, torch.Tensor], x):
+        """(logits, value) of the policy with ``params`` on inputs ``x``."""
+        return torch.func.functional_call(self.policy, params, (x,))
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
-    def rollout_phase(self, state: RolloutState, *, actions=None, start_offsets=None):
-        """Collect one horizon.  Returns (post-rollout state, trajectory
-        dict of (horizon, n_envs, ...) tensors, bootstrap value (n_envs,)).
+    def rollout_phase(self, state: TrainState, *, actions=None, start_offsets=None):
+        """Collect one horizon.  Returns (post-rollout state, (trajectory
+        dict of (horizon, n_envs, ...) tensors, bootstrap value (n_envs,))).
 
         ``actions`` ((horizon, n_envs) int) and ``start_offsets``
         ((n_envs,) int) replace the phase's own draws (test hook)."""
         env, cfg, pcfg = self.env, self.env.cfg, self.pcfg
-        gen = state.generator
+        gen, params = state.generator, state.params
         n, horizon = pcfg.n_envs, pcfg.horizon
         if self._random_start:
             if start_offsets is None:
@@ -158,13 +227,13 @@ class PPORollout:
             reset_state, fresh_obs = env_core.reset_at(
                 cfg, env.params, env.data, start_offsets.to(self.device)
             )
-            reset_vec = flatten_obs(fresh_obs, self.obs_spec)
+            reset_vec = self._encode(fresh_obs)
         else:
             reset_state, reset_vec = self._reset_state, self._reset_vec
 
         dev = self.device
         traj = {
-            "obs": torch.empty((horizon, n, self.obs_dim), dtype=pcfg.collect_dtype, device=dev),
+            "obs": torch.empty((horizon, n, *self.obs_shape), dtype=pcfg.collect_dtype, device=dev),
             "action": torch.empty((horizon, n), dtype=torch.int32, device=dev),
             "logp": torch.empty((horizon, n), dtype=torch.float32, device=dev),
             "value": torch.empty((horizon, n), dtype=torch.float32, device=dev),
@@ -173,7 +242,7 @@ class PPORollout:
         }
         env_states, obs_vec = state.env_states, state.obs_vec
         for t in range(horizon):
-            logits, value = self.policy(obs_vec)
+            logits, value = self.policy_forward(params, obs_vec)
             if actions is None:
                 action = sample_categorical(logits, gen)
             else:
@@ -182,8 +251,7 @@ class PPORollout:
             env_states2, reward, done, _ = env_core.transition(
                 cfg, env.params, env.data, env_states, action
             )
-            obs_vec2 = flatten_obs(env_core.build_obs(env_states2, env.data, cfg, env.params),
-                                   self.obs_spec)
+            obs_vec2 = self._encode(env_core.build_obs(env_states2, env.data, cfg, env.params))
             traj["obs"][t] = obs_vec
             traj["action"][t] = action
             traj["logp"][t] = logp
@@ -192,5 +260,142 @@ class PPORollout:
             traj["done"][t] = done
             env_states = masked_reset(done, reset_state, env_states2)
             obs_vec = masked_reset(done, reset_vec, obs_vec2)
-        _, last_value = self.policy(obs_vec)
-        return RolloutState(env_states, obs_vec, gen), traj, last_value
+        _, last_value = self.policy_forward(params, obs_vec)
+        return state._replace(env_states=env_states, obs_vec=obs_vec), (traj, last_value)
+
+    # ------------------------------------------------------------------
+    def _gae(self, traj, last_value):
+        """(advantages, returns), each (horizon, n_envs): a reverse loop
+        over time."""
+        g, lam = self.pcfg.gamma, self.pcfg.gae_lambda
+        reward, value, done = traj["reward"], traj["value"], traj["done"]
+        advs = torch.empty_like(reward)
+        adv_next, v_next = torch.zeros_like(last_value), last_value
+        for t in range(reward.shape[0] - 1, -1, -1):
+            nonterm = 1.0 - done[t].to(torch.float32)
+            delta = reward[t] + g * v_next * nonterm - value[t]
+            adv_next = delta + g * lam * nonterm * adv_next
+            advs[t] = adv_next
+            v_next = value[t]
+        return advs, advs + value
+
+    def _loss(self, params, batch):
+        """(total loss, dict of its terms) of one flat minibatch."""
+        logits, value = self.policy_forward(params, batch["obs"])
+        logp_all = F.log_softmax(logits, dim=-1)
+        logp = logp_all.gather(1, batch["action"].to(torch.int64)[:, None])[:, 0]
+        entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1))
+        ratio = torch.exp(logp - batch["logp"])
+        adv = batch["adv"]
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        clip_eps = self.pcfg.clip_eps
+        unclipped = ratio * adv
+        clipped = torch.clamp(ratio, 1 - clip_eps, 1 + clip_eps) * adv
+        policy_loss = -torch.mean(torch.minimum(unclipped, clipped))
+        value_loss = 0.5 * torch.mean((value - batch["ret"]) ** 2)
+        total = policy_loss + self.pcfg.vf_coef * value_loss - self.pcfg.ent_coef * entropy
+        return total, dict(policy_loss=policy_loss, value_loss=value_loss, entropy=entropy)
+
+    def loss_and_grads(self, params, batch):
+        """(loss, loss terms, gradients by param name) of one minibatch."""
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            loss, aux = self._loss(leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (loss.detach(), {k: a.detach() for k, a in aux.items()},
+                dict(zip(leaves.keys(), grads)))
+
+    def update_phase(self, state: TrainState, rollout_out, *, permutations=None):
+        """GAE, the minibatched epochs and the guard's bookkeeping on one
+        collected trajectory.  Returns (new state, metrics dict of 0-d
+        tensors).  ``permutations`` ((epochs, n_perm) int) replaces the
+        per-epoch draws (test hook)."""
+        pcfg = self.pcfg
+        traj, last_value = rollout_out
+        advs, returns = self._gae(traj, last_value)
+        fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
+                  "adv": advs, "ret": returns}
+        n_perm, mb, take = minibatch_plan(
+            fields, scheme=pcfg.minibatch_scheme, n_envs=pcfg.n_envs,
+            horizon=pcfg.horizon, minibatches=pcfg.minibatches,
+        )
+        params, opt_state = state.params, state.opt_state
+        guard = pcfg.nonfinite_guard
+        losses, terms, oks, norms = [], [], [], []
+        for epoch in range(pcfg.epochs):
+            if permutations is None:
+                perm = torch.randperm(n_perm, generator=state.generator, device=self.device)
+            else:
+                perm = permutations[epoch].to(self.device)
+            for i in range(pcfg.minibatches):
+                batch = take(perm[i * mb:(i + 1) * mb])
+                loss, aux, grads = self.loss_and_grads(params, batch)
+                updates, new_opt_state, g_norm = self.optimizer.update(grads, opt_state)
+                new_params = apply_updates(params, updates)
+                if guard:
+                    # a non-finite loss or gradient keeps the last-good
+                    # params and moments bit for bit
+                    ok = torch.isfinite(loss) & tree_all_finite(grads)
+                    params = select_tree(ok, new_params, params)
+                    opt_state = select_tree(ok, new_opt_state, opt_state)
+                else:
+                    ok = torch.ones((), dtype=torch.bool, device=self.device)
+                    params, opt_state = new_params, new_opt_state
+                losses.append(loss)
+                terms.append(aux)
+                oks.append(ok)
+                norms.append(g_norm)
+        losses, norms = torch.stack(losses), torch.stack(norms)
+        stacked = {k: torch.stack([t[k] for t in terms]) for k in terms[0]}
+        env_states, obs_vec = state.env_states, state.obs_vec
+        if guard:
+            okf = torch.stack(oks).to(torch.float32)
+            n_ok = okf.sum()
+
+            def mmean(x):
+                # mean over the updates taken; NaN when every one was skipped
+                safe = torch.where(torch.isfinite(x), x, 0.0)
+                return torch.where(n_ok > 0, (safe * okf).sum() / torch.clamp_min(n_ok, 1.0),
+                                   torch.nan)
+
+            metrics = dict(
+                loss=mmean(losses),
+                policy_loss=mmean(stacked["policy_loss"]),
+                value_loss=mmean(stacked["value_loss"]),
+                entropy=mmean(stacked["entropy"]),
+                mean_reward=traj["reward"].mean(),
+                mean_episode_done=traj["done"].to(torch.float32).mean(),
+                nonfinite_skips=(1.0 - okf).sum(),
+                guard_updates=torch.tensor(float(pcfg.epochs * pcfg.minibatches),
+                                           device=self.device),
+                grad_norm=mmean(norms),
+            )
+            # quarantine: envs whose rollout or carried state went
+            # non-finite restart from a fresh episode
+            poison = quarantine_mask(
+                {"reward": traj["reward"], "obs": traj["obs"], "value": traj["value"],
+                 "logp": traj["logp"]},
+                env_axis=1,
+            ) | quarantine_mask({"obs_vec": obs_vec, "env_states": env_states},
+                                env_axis=0, mode="nan")
+            env_states = masked_reset(poison, self._reset_state, env_states)
+            obs_vec = masked_reset(poison, self._reset_vec, obs_vec)
+            metrics["poisoned_env_resets"] = poison.to(torch.float32).sum()
+        else:
+            metrics = dict(
+                loss=losses.mean(),
+                policy_loss=stacked["policy_loss"].mean(),
+                value_loss=stacked["value_loss"].mean(),
+                entropy=stacked["entropy"].mean(),
+                mean_reward=traj["reward"].mean(),
+                mean_episode_done=traj["done"].to(torch.float32).mean(),
+                grad_norm=norms.mean(),
+            )
+        new_state = TrainState(params, opt_state, env_states, obs_vec, state.generator)
+        return new_state, metrics
+
+    # ------------------------------------------------------------------
+    def train_step(self, state: TrainState):
+        """One rollout phase then one update phase: (state, metrics)."""
+        inter, rollout_out = self.rollout_phase(state)
+        return self.update_phase(inter, rollout_out)

@@ -1,8 +1,13 @@
-"""The port's CUDA kernels K1-K3 against their plain versions, on the card.
+"""The port's CUDA kernels K1-K4 against their plain versions, on the card.
 
 Each case launches a kernel and its plain PyTorch version on the same
-CUDA tensors and requires ``torch.equal`` (the kernels are built with
--fmad=false and IEEE division, so the f32 results are the same bits).
+CUDA tensors.  K1-K3 must give ``torch.equal`` results (they are built
+with -fmad=false and IEEE division, so the f32 results are the same
+bits).  K4 (attention forward and backward) sums in another order than
+its plain version (an online softmax, f32 FMAs): float32 within
+1e-4 x max|plain|, bfloat16 within 2^-6 x max|plain| (the two round an
+f32 value to bf16 once each, so they differ by at most one bf16 ulp of
+an element, 2^-7 of the largest; twice that for margin).
 Every test needs an NVIDIA GPU and skips without one.  This file imports
 no JAX, so it also runs where only torch is installed:
 
@@ -12,7 +17,7 @@ import pytest
 import torch
 
 from gymfx_tpu_torch.core.types import EnvConfig, initial_state
-from gymfx_tpu_torch.ops import env_dynamics, window_zscore
+from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
 from gymfx_tpu_torch.ops.cases import (
     FLAG_GRID,
     MARK_PARAMS,
@@ -86,3 +91,48 @@ def test_cuda_wrappers_reject_what_the_kernels_cannot_take(cuda_device):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         env_dynamics.fill_brackets(st, z, z, z, z, None, z > 0, cfg64,
                                    env_params({}, cuda_device))
+
+
+def _attention_tol(ref):
+    scale = 2.0 ** -6 if ref.dtype == torch.bfloat16 else 1e-4
+    return scale * float(ref.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((64, 256, 4, 32), torch.bfloat16, False),
+    ((3, 200, 4, 32), torch.float32, True),
+    ((2, 1024, 2, 64), torch.bfloat16, True),
+    ((2, 77, 3, 128), torch.float32, False),
+    ((5, 50, 2, 16), torch.bfloat16, True),
+])
+def test_cuda_attention_forward_and_backward_within_tolerance_of_plain(cuda_device, shape, dtype, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype) for _ in range(4))
+    before = (fused_attention.attention_forward.launches, fused_attention.attention_backward.launches)
+    out = fused_attention.attention_forward(q, k, v, causal)
+    ref = fused_attention.attention_forward_plain(q, k, v, causal)
+    assert out.dtype == dtype and out.shape == shape
+    assert float((out.float() - ref.float()).abs().max()) <= _attention_tol(ref)
+    grads = fused_attention.attention_backward(q, k, v, g, causal)
+    for ours, plain in zip(grads, fused_attention.attention_backward_plain(q, k, v, g, causal)):
+        assert ours.dtype == dtype
+        assert float((ours.float() - plain.float()).abs().max()) <= _attention_tol(plain)
+    assert (fused_attention.attention_forward.launches,
+            fused_attention.attention_backward.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_reads_strided_inputs_and_rejects_what_it_cannot_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    base = torch.randn((4, 3, 64, 16), generator=gen, device=cuda_device)
+    q = base.transpose(1, 2)  # (B, S, H, D) view with the head axis outermost
+    assert not q.is_contiguous()
+    out = fused_attention.fused_window_attention(q, q, q)
+    ref = fused_attention.attention_forward_plain(q, q, q)
+    assert float((out - ref).abs().max()) <= _attention_tol(ref)
+    with pytest.raises(NotImplementedError):
+        fused_attention.attention_forward(q.double(), q.double(), q.double())
+    wide = torch.zeros((1, 8, 1, 129), device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        fused_attention.attention_forward(wide, wide, wide)

@@ -1,11 +1,12 @@
 """The port stands alone: no JAX, flax, optax, pandas or gymfx_tpu inside.
 
 * A subprocess imports gymfx_tpu_torch, runs a 50-step CPU rollout and
-  a short PPO rollout phase, then checks that none of those packages was
-  imported.
+  a short PPO train step (rollout and update) with the MLP and with the
+  ring transformer (K4's plain versions), then checks that none of those
+  packages was imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
-  raise; configurations the port does not take raise
+  raise; configurations and options the port does not take raise
   ``NotImplementedError`` naming a ROADMAP item.
 """
 import ast
@@ -28,7 +29,7 @@ import sys
 from gymfx_tpu_torch.config import DEFAULT_VALUES
 from gymfx_tpu_torch.core.rollout import buy_hold_driver
 from gymfx_tpu_torch.core.runtime import Environment
-from gymfx_tpu_torch.train.ppo import PPORollout, ppo_config_from
+from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
 config = dict(DEFAULT_VALUES)
 config.update(input_data_file="examples/data/eurusd_sample.csv", num_envs=4,
@@ -37,8 +38,12 @@ config.update(input_data_file="examples/data/eurusd_sample.csv", num_envs=4,
 env = Environment(config, device="cpu")
 state, out = env.rollout(buy_hold_driver(), 50)
 assert out["equity"].shape == (50, 1)
-ro = PPORollout(env, ppo_config_from(config))
-ro.rollout_phase(ro.init_state(0))
+tr = PPOTrainer(env, ppo_config_from(config))
+tr.train_step(tr.init_state(0))
+config.update(policy="transformer_ring", window_size=8,
+              policy_kwargs={"d_model": 8, "n_heads": 2, "n_layers": 1})
+tr = PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
+tr.train_step(tr.init_state(0))
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """
@@ -109,8 +114,22 @@ def test_float64_env_on_the_card_raises_before_any_kernel():
 
 
 def test_policies_other_than_mlp_raise():
-    from gymfx_tpu_torch.train.ppo import PPORollout, ppo_config_from
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     env = Environment(_config(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        PPORollout(env, ppo_config_from(_config(policy="lstm")))
+        PPOTrainer(env, ppo_config_from(_config(policy="lstm", num_envs=4)))
+
+
+@pytest.mark.parametrize("over,item", [
+    ({"superstep_overlap": True}, 20),
+    ({"ppo_update_remat": True}, 21),
+    ({"policy": "transformer_ring", "policy_kwargs": {"seq_axis": "seq", "seq_shards": 2}}, 17),
+    ({"policy": "transformer_ulysses", "policy_kwargs": {"seq_axis": "seq"}}, 17),
+])
+def test_unported_trainer_options_raise_naming_the_roadmap_item(over, item):
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    config = _config(num_envs=4, ppo_horizon=2, window_size=8, **over)
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
