@@ -10,9 +10,9 @@ failure exits non-zero:
 
 1. device   CUDA must be available; prints the card and
             ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    nvcc builds both libraries at once, one process per source:
-            K1-K3 (sm_90a, -fmad=false) and K4 (sm_90a), timed, with
-            ptxas' register and spill report.
+2. build    nvcc builds the three libraries at once, one process per
+            source: K1-K3 (sm_90a, -fmad=false), K4 and K5 (sm_90a),
+            timed, with ptxas' register and spill report.
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
             32, 5) with NaN, ±inf, neutral envs and a binary mask; K2 and
@@ -31,7 +31,15 @@ failure exits non-zero:
             events; the bound: the larger of the bytes moved over the
             H100 SXM's 3.35 TB/s and the operations over its peak for
             their type (f32 67 TFLOP/s for K1-K3 and f32 K4 cases, the
-            bf16 tensor cores' 989 TFLOP/s for bf16 K4 cases).
+            bf16 tensor cores' 989 TFLOP/s for bf16 K4 cases, int32 16.7
+            TOP/s for K5).  K5 (LOB stream matching, int32, torch.equal
+            on books and fill records): the venue's seed streams at
+            8,192 books (16 messages, 24 levels x 4 slots), the flow mix
+            of every scenario at bench.py --lob's shape (1,024 books x
+            256 messages) at depths 8, 16, 24 and 48, an adversarial
+            stream, a capacity overflow and agent maker fills; timed at
+            both shapes, with fills/s (bench.py --lob's metric) at 1,024
+            x 256 x depth 24.
 4. main     PPO training at flagship width: 8,192 bar-venue envs, window
             32, OHLCV features (F=5, obs dim 164), the 3x256 tanh MLP in
             bf16 with weights from torch.Generator(seed), horizon 64, one
@@ -56,11 +64,22 @@ failure exits non-zero:
             (it is a mean of terms near zero), gradient global norm
             within rtol 5e-2 — the attention outputs differ by bf16
             rounding flips, which the bf16 network carries on.
-6. episode  Environment.rollout with the buy_hold driver, 1 env, 400
-            steps on the card: the launch counts must be 400 for K2 and
-            K3 and 401 for K1 (the reset builds an obs too), and the
-            episode must equal the same episode on the CPU.
-7. summary  one JSON line {"kernels": [...]}, then the last line
+6. lob      PPO training on the LOB venue at flagship width
+            (config/flagship.lob_config, "flagship-lob-train": 8,192 envs,
+            lob_volatile flow, 64 messages per bar, direct_fixed_sltp,
+            40-lot entries), two train steps (one if a rollout phase
+            takes over 60 s).  Per rollout phase K5, K1 and K3 must launch
+            64 times each and K2 never; the update launches none of them;
+            losses finite, no update skipped.  One rollout phase re-run
+            with the plain versions of K1, K3 and K5 on the card must give
+            the same env states, trajectory and bootstrap value
+            (torch.equal).
+7. episode  Environment.rollout with the buy_hold driver, 1 env, on the
+            card: 400 bar-venue steps (K2 and K3 400 launches, K1 401: the
+            reset builds an obs too) and 100 LOB-venue steps (K5 and K3
+            100, K1 101, K2 none); each episode must equal the same
+            episode on the CPU.
+8. summary  one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -81,11 +100,21 @@ WINDOW = 32
 HORIZON = 64
 TRAIN_STEPS = 3
 LONG_STEPS = 2
+LOB_STEPS = 2
+LOB_SLOW_ROLLOUT_S = 60.0
 EPISODE_STEPS = 400
+LOB_EPISODE_STEPS = 100
 
 # the H100 SXM data sheet: HBM3 bytes/s, f32 FLOP/s outside the tensor
 # cores, bf16 dense tensor-core FLOP/s
 BANDWIDTH, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# int32 operations per second outside the tensor cores: 132 SMs x 64
+# INT32 lanes x 1.98 GHz (the clock behind the 67 TFLOP/s f32 figure;
+# Hopper has half as many INT32 lanes as FP32 lanes per SM)
+INT32_OPS = 132 * 64 * 1.98e9
+# K5: int32 operations per slot of the half a message touches (eligibility,
+# prior, fill clip, stats, compaction), counted from the kernel source
+K5_OPS_PER_SLOT = 8
 # f32 arithmetic per element (K1) or per env (K2, K3), counted from the
 # kernel source (compares and selects included): the operation side of
 # the bound, which bytes outweigh for all three
@@ -96,9 +125,13 @@ REPLACES = {
     "mark_reward": "gymfx_tpu/ops/env_dynamics.py:280",
     "attention_forward": "gymfx_tpu/ops/fused_attention.py:172",
     "attention_backward": "gymfx_tpu/ops/fused_attention.py:150",
+    "process_stream": "gymfx_tpu/ops/lob_match.py:289",
 }
 SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
-           "attention_backward": "gymfx_tpu_torch/csrc/attention_kernels.cu"}
+           "attention_backward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
+           "process_stream": "gymfx_tpu_torch/csrc/lob_kernels.cu"}
+# K5 cases: the bench.py --lob shape and its depth sweep
+LOB_BOOKS, LOB_MSGS, LOB_DEPTHS, LOB_SLOTS = 1024, 256, (8, 16, 24, 48), 4
 # K4 cases: label -> ((B, S, H, D), dtype, causal); "update" is the
 # update's shape (4 minibatches of 64 envs x 64 steps), "rollout" the
 # rollout's
@@ -371,6 +404,82 @@ def check_kernels_k4(torch, dev, kernels, results) -> None:
     results["attention"] = timed
 
 
+def check_kernels_k5(torch, dev, kernels, results) -> None:
+    from gymfx_tpu_torch.lob.book import MSG_NOOP, empty_book
+    from gymfx_tpu_torch.ops import cases, lob_match
+
+    err = 0.0
+
+    def equal(msgs, depth, slots, label):
+        nonlocal err
+        book = empty_book(msgs.kind.shape[0], depth, slots, dev)
+        ours = lob_match.process_stream(book, msgs)
+        ref = lob_match.process_stream_plain(book, msgs)
+        torch.cuda.synchronize()
+        for name, a, b in zip((*ours[0]._fields, *ours[1]._fields), (*ours[0], *ours[1]),
+                              (*ref[0], *ref[1])):
+            err = max(err, max_abs_err(torch, a, b))
+            check(torch.equal(a, b), f"K5 process_stream != plain: {label} {name}")
+        return ours
+
+    def timed(msgs, depth, slots, plain=True):
+        """Device ms (graph replays), plain ms (CUDA events; only where
+        ``plain``), bound and the fill events of one call on fresh books."""
+        b, m = msgs.kind.shape
+        book = empty_book(b, depth, slots, dev)
+        out = lob_match.process_stream(book, msgs)
+        events = int(out[1].fill_events.sum())
+        # each book and stream read once, the books and fill records
+        # written once; K5_OPS_PER_SLOT per slot of the touched half for
+        # every message that is not a NOOP (the kinds clip to 0-3)
+        moved = 2 * nbytes(*book) + nbytes(*msgs) + nbytes(*out[1])
+        active = int((torch.clamp(msgs.kind, 0, 3) != MSG_NOOP).sum())
+        b_ms, b_by = bound(moved, K5_OPS_PER_SLOT * depth * slots * active, INT32_OPS)
+        return dict(
+            ms=device_ms(torch, lambda: lob_match.process_stream(book, msgs)),
+            plain_ms=event_ms(torch, lambda: lob_match.process_stream_plain(book, msgs),
+                              reps=1, trials=3) if plain else None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, fill_events=events,
+            books=b, messages=m, depth=depth, slots=slots,
+        )
+
+    seed = cases.lob_seed_streams(N_ENVS, seed=SEED, device=dev)
+    equal(seed, 24, LOB_SLOTS, "seed streams")
+    n_cases = 1
+    for scenario in cases.LOB_SCENARIOS:
+        msgs = cases.lob_flow_streams(scenario, LOB_BOOKS, LOB_MSGS, device=dev)
+        for depth in LOB_DEPTHS:
+            equal(msgs, depth, LOB_SLOTS, f"{scenario} depth {depth}")
+            n_cases += 1
+    for name in sorted(cases.LOB_STREAMS):
+        msgs, depth, slots = cases.lob_stream(name, device=dev)
+        ours = equal(msgs, depth, slots, name)
+        n_cases += 1
+        if name == "agent_maker":
+            check(int(ours[1].agent_qty.sum()) == 4, "K5 agent maker fills")
+    print(f"kernels: K5 equal to plain (torch.equal, books and fill records) on {n_cases} cases, "
+          f"max abs err {err:g}")
+
+    venue = timed(seed, 24, LOB_SLOTS)
+    sweep = {}
+    calm = cases.lob_flow_streams("lob_calm", LOB_BOOKS, LOB_MSGS, device=dev)
+    for depth in LOB_DEPTHS:
+        row = timed(calm, depth, LOB_SLOTS, plain=depth == 24)
+        row["fills_per_s"] = row["fill_events"] / (row["ms"] / 1e3)
+        row["msgs_per_s"] = LOB_BOOKS * LOB_MSGS / (row["ms"] / 1e3)
+        sweep[depth] = row
+        plain = "" if row["plain_ms"] is None else f"plain {row['plain_ms'] * 1e3:.0f} us, "
+        print(f"  K5 {LOB_BOOKS} books x {LOB_MSGS} msgs, depth {depth}: {row['ms'] * 1e3:.1f} us/call "
+              f"on the card ({plain}bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}), "
+              f"{row['fills_per_s']:,.0f} fills/s, {row['msgs_per_s']:,.0f} msgs/s")
+    print(f"  K5 venue seed streams ({N_ENVS} books x 16 msgs, depth 24): {venue['ms'] * 1e3:.2f} us/call "
+          f"(plain {venue['plain_ms'] * 1e3:.0f} us, bound {venue['bound_ms'] * 1e3:.2f} us by "
+          f"{venue['bound_by']}), wrapper host {host_us(torch, lambda: lob_match.process_stream(empty_book(N_ENVS, 24, LOB_SLOTS, dev), seed)):.1f} us/call")
+    kernels["process_stream"] = dict(max_abs_err=err, **{k: venue[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    results["k5"] = {"venue_seed": venue, "bench_lob_sweep": sweep}
+
+
 def count_launches(fns) -> dict:
     return {fn.__name__: fn.launches for fn in fns}
 
@@ -425,7 +534,7 @@ def report_training(rows, n_envs: int, horizon: int, label: str) -> dict:
 def main_phase(torch, kernels, results) -> None:
     from gymfx_tpu_torch.config.flagship import flagship_config
     from gymfx_tpu_torch.core.runtime import Environment
-    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, lob_match, window_zscore
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     config = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
@@ -439,7 +548,8 @@ def main_phase(torch, kernels, results) -> None:
     start = {k: v.clone() for k, v in state.params.items()}
     torch.cuda.synchronize()
     counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
-    for fn in (*counted, fused_attention.attention_forward, fused_attention.attention_backward):
+    for fn in (*counted, fused_attention.attention_forward, fused_attention.attention_backward,
+               lob_match.process_stream):
         fn.launches = 0
     state, rows, (inter, (traj, last_value)) = train(torch, trainer, state, TRAIN_STEPS)
     launches = count_launches(counted)
@@ -448,6 +558,7 @@ def main_phase(torch, kernels, results) -> None:
               f"main path launched {key} {count} times, expected {TRAIN_STEPS * HORIZON}")
         kernels[key]["launches"] = count
     check(fused_attention.attention_forward.launches == 0, "the MLP path launched K4")
+    check(lob_match.process_stream.launches == 0, "the bar venue launched K5")
     check_training(rows, "main")
     check(any(not torch.equal(state.params[k], start[k]) for k in start), "the params did not move")
     check(tuple(traj["obs"].shape) == (HORIZON, N_ENVS, 164) and traj["obs"].dtype == torch.bfloat16,
@@ -570,6 +681,96 @@ def long_phase(torch, kernels, results) -> None:
     }
 
 
+def lob_phase(torch, kernels, results) -> None:
+    from gymfx_tpu_torch.config.flagship import lob_config
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, lob_match, window_zscore
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    config = lob_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
+    trainer = PPOTrainer(Environment(config), ppo_config_from(config))
+    cfg, pcfg = trainer.env.cfg, trainer.pcfg
+    check((pcfg.n_envs, pcfg.horizon, cfg.window_size, cfg.venue, cfg.lob_messages_per_bar,
+           cfg.lob_depth_levels, cfg.lob_queue_slots) == (N_ENVS, HORIZON, WINDOW, "lob", 64, 24, 4),
+          "flagship-lob-train config changed")
+    state = trainer.init_state(SEED)
+    torch.cuda.synchronize()
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               lob_match.process_stream)
+    per_phase = {"step_obs": HORIZON, "fill_brackets": 0, "mark_reward": HORIZON,
+                 "process_stream": HORIZON}
+    rows, first, steps, k5_launches = [], None, LOB_STEPS, 0
+    i = 0
+    while i < steps:
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        inter, rollout_out = trainer.rollout_phase(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = count_launches(counted)
+        check(launches == per_phase, f"LOB rollout phase {i} launched {launches}, expected {per_phase}")
+        k5_launches += launches["process_stream"]
+        state, metrics = trainer.update_phase(inter, rollout_out)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(count_launches(counted) == launches, "the LOB update phase launched an env kernel")
+        if i == 0:
+            first = (inter, rollout_out)
+            if t1 - t0 > LOB_SLOW_ROLLOUT_S:
+                steps = 1
+        rows.append(dict(rollout_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3,
+                         metrics={k: float(v) for k, v in metrics.items()}))
+        i += 1
+    kernels["process_stream"]["launches"] = k5_launches
+    check_training(rows, "lob")
+    traj, last_value = first[1]
+    for key in ("obs", "logp", "value", "reward"):
+        check(bool(torch.isfinite(traj[key]).all()), f"LOB non-finite trajectory {key}")
+    env_states = state.env_states
+    for field in ("pos", "cash_delta", "equity_delta", "entry_price"):
+        check(bool(torch.isfinite(getattr(env_states, field)).all()), f"LOB non-finite state {field}")
+    trades = int(env_states.trade_count.sum())
+    check(trades > 0, "the LOB policy closed no trade")
+    partial = int(((env_states.pos.abs() % config["position_size"]) != 0).sum())
+    summary = report_training(rows, N_ENVS, HORIZON, "lob path")
+    print(f"  launches per rollout phase {per_phase}; {trades} closed trades, {partial} envs "
+          f"holding a partly exited position")
+
+    # the first rollout phase again, with the plain versions on the card
+    kernel_fns = (lob_match.process_stream, env_dynamics.mark_reward, window_zscore.step_obs)
+    lob_match.process_stream = lob_match.process_stream_plain
+    env_dynamics.mark_reward = env_dynamics.mark_reward_plain
+    window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
+        window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
+    for fn in counted:
+        fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        ref_state, (ref_traj, ref_last) = trainer.rollout_phase(trainer.init_state(SEED))
+        torch.cuda.synchronize()
+        plain_phase_s = time.perf_counter() - t0
+    finally:
+        lob_match.process_stream, env_dynamics.mark_reward, window_zscore.step_obs = kernel_fns
+    check(sum(count_launches(counted).values()) == 0, "the plain-version LOB phase launched a kernel")
+    inter = first[0]
+    for key in ("obs", "action", "reward", "done", "logp", "value"):
+        check(torch.equal(traj[key], ref_traj[key]), f"LOB path vs plain versions: traj {key}")
+    for field in ref_state.env_states._fields:
+        check(torch.equal(getattr(inter.env_states, field), getattr(ref_state.env_states, field)),
+              f"LOB path vs plain versions: env state {field}")
+    check(torch.equal(last_value, ref_last), "LOB path vs plain versions: bootstrap value")
+    print(f"lob path == plain versions on the card (rollout phase of step 1, torch.equal); "
+          f"plain phase {plain_phase_s * 1e3:.1f} ms")
+    results["lob_path"] = {
+        "config": "flagship-lob-train", "n_envs": N_ENVS, "horizon": HORIZON, "window": WINDOW,
+        "lob": {"scenario": cfg.lob_scenario, "messages_per_bar": cfg.lob_messages_per_bar,
+                "depth": cfg.lob_depth_levels, "slots": cfg.lob_queue_slots},
+        "train_steps": len(rows), **summary, "plain_rollout_ms": plain_phase_s * 1e3,
+        "launches_per_rollout_phase": per_phase, "closed_trades": trades,
+    }
+
+
 def episode_phase(torch, results) -> None:
     from gymfx_tpu_torch.config.flagship import flagship_config
     from gymfx_tpu_torch.core import rollout as rollout_mod
@@ -597,6 +798,39 @@ def episode_phase(torch, results) -> None:
     print(f"episode: buy_hold, 1 env, {EPISODE_STEPS} steps: final equity {final_equity:.5f} "
           f"(card == CPU, torch.equal); launches {episode_launches}")
     results["episode_final_equity"] = final_equity
+
+    # the same on the LOB venue (flagship-lob-train: direct_fixed_sltp,
+    # 40-lot entries), K5 seeding every step's books
+    from gymfx_tpu_torch.config.flagship import lob_config
+    from gymfx_tpu_torch.ops import lob_match
+
+    config = lob_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
+    counted = (*counted, lob_match.process_stream)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, out = Environment(config).rollout(rollout_mod.buy_hold_driver(), LOB_EPISODE_STEPS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    episode_launches = count_launches(counted)
+    expected = {"step_obs": LOB_EPISODE_STEPS + 1, "fill_brackets": 0,
+                "mark_reward": LOB_EPISODE_STEPS, "process_stream": LOB_EPISODE_STEPS}
+    check(episode_launches == expected, f"LOB episode launched {episode_launches}, expected {expected}")
+    t0 = time.perf_counter()
+    _, cpu_out = Environment(config, device="cpu").rollout(rollout_mod.buy_hold_driver(),
+                                                           LOB_EPISODE_STEPS)
+    cpu_s = time.perf_counter() - t0
+    check(sorted(out) == sorted(cpu_out), "LOB episode outputs differ in keys")
+    for key in out:
+        check(torch.equal(out[key].cpu(), cpu_out[key]), f"LOB buy_hold episode card vs CPU: {key}")
+    trades = int(out["trade_count"][-1, 0])
+    check(trades > 0, "the LOB episode closed no trade")
+    final_equity = float(out["equity"][-1, 0])
+    print(f"episode: LOB venue, buy_hold, 1 env, {LOB_EPISODE_STEPS} steps: final equity "
+          f"{final_equity:.5f}, {trades} closed trades (card == CPU, torch.equal, every output); "
+          f"launches {episode_launches}; {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU")
+    results["lob_episode"] = {"final_equity": final_equity, "closed_trades": trades,
+                              "card_s": card_s, "cpu_s": cpu_s}
 
 
 def main() -> None:
@@ -648,15 +882,18 @@ def main() -> None:
     kernels = {}
     check_kernels_k1_k3(torch, dev, kernels)
     check_kernels_k4(torch, dev, kernels, results)
+    check_kernels_k5(torch, dev, kernels, results)
 
     # ---- 4. main: PPO training at flagship width ---------------------------
     main_phase(torch, kernels, results)
     # ---- 5. long: PPO training in the long-context configuration ----------
     long_phase(torch, kernels, results)
-    # ---- 6. diagnostic episode ----------------------------------------------
+    # ---- 6. lob: PPO training on the LOB venue -----------------------------
+    lob_phase(torch, kernels, results)
+    # ---- 7. diagnostic episodes ---------------------------------------------
     episode_phase(torch, results)
 
-    # ---- 7. summary ---------------------------------------------------------
+    # ---- 8. summary ---------------------------------------------------------
     summary = {"kernels": [
         {
             "name": key, "route": "cuda",

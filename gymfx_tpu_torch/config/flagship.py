@@ -12,6 +12,18 @@ policy (d_model 128, 4 heads of 32, 2 layers) over a window of 256 bars,
 256 envs, horizon 64, one epoch of 4 env-permuted minibatches, bf16, plus
 the flagship's OHLCV feature columns, bf16 trajectory obs and both
 rollout kernel knobs, so K1-K3 run beside K4.
+
+``lob_config`` ("flagship-lob-train"): the flagship on the LOB venue, as
+the JAX package documents its run (docs/lob.md:16-20: ``--venue lob
+--lob_scenario lob_volatile``), with ``lob_match_kernel="on"`` and
+``rollout_env_kernel="off"`` (the JAX package refuses the bar venue's
+kernels on the LOB venue; the LOB step runs K1, K3 and K5, never K2).
+``direct_fixed_sltp`` at the default 20/40 pips rests a take-profit in
+the book and arms a stop on every entry; ``position_size=40`` with
+``lob_lot_units=1`` makes one entry walk three seeded 16-lot levels, the
+setting of the JAX package's tests/test_lob.py:283/296-310.  Every other
+LOB knob keeps its default: 24 levels x 4 queue slots, 8 seeded levels,
+64 flow messages per bar, flow seed 0, tick 1e-5.
 """
 from __future__ import annotations
 
@@ -50,6 +62,21 @@ def long_context_config(input_data_file: str, **over) -> Dict[str, Any]:
         policy="transformer_ring",
         policy_kwargs={"d_model": 128, "n_heads": 4, "n_layers": 2},
         window_size=256,
+    )
+    config.update(over)
+    return config
+
+
+def lob_config(input_data_file: str, **over) -> Dict[str, Any]:
+    config = flagship_config(
+        input_data_file,
+        venue="lob",
+        lob_scenario="lob_volatile",
+        lob_match_kernel="on",
+        rollout_env_kernel="off",
+        strategy_plugin="direct_fixed_sltp",
+        position_size=40.0,
+        lob_lot_units=1.0,
     )
     config.update(over)
     return config

@@ -6,9 +6,11 @@ env, every function here takes EnvState fields with a leading env axis.
 The step runs the kernel chain of the JAX package's ``rollout_env_kernel``
 path: K2 (ops/env_dynamics.fill_brackets) at the open, the strategy at
 the close, K3 (ops/env_dynamics.mark_reward) for the mark and the base
-reward; K1 scales the feature window in build_obs.  On CUDA tensors the
-three kernels run, on CPU tensors their plain versions — in JAX that
-path is bitwise the plain-XLA step, so this is the same step either way.
+reward; K1 scales the feature window in build_obs.  On the LOB venue
+(``cfg.venue == "lob"``) ``lob/venue.execute_bar`` takes K2's place, with
+K5 seeding its books.  On CUDA tensors the kernels run, on CPU tensors
+their plain versions — in JAX that path is bitwise the plain-XLA step,
+so this is the same step either way.
 
 Step/bar timing, termination and every documented divergence are the
 JAX package's (see its module docstring).
@@ -32,6 +34,7 @@ from gymfx_tpu_torch.core.types import (
     initial_state,
 )
 from gymfx_tpu_torch.data.feed import MarketData
+from gymfx_tpu_torch.lob import venue as lob_venue
 from gymfx_tpu_torch.ops import env_dynamics
 
 
@@ -125,12 +128,19 @@ def transition(cfg: EnvConfig, params: EnvParams, data: MarketData,
     mow = data.minute_of_week[ti]
 
     st = state._replace(t=t_new, last_trade_cost=torch.zeros_like(state.last_trade_cost))
-    # 1 + 2 + 2b: fill at the open, brackets, financing (kernel K2)
-    st = env_dynamics.fill_brackets(
-        st, o, h, l, c,
-        data.rollover_accrual[ti] if cfg.financing_enabled else None,
-        advance, cfg, params,
-    )
+    if cfg.venue == "lob":
+        # 1 + 2 (LOB venue): the pending order walks each env's seeded
+        # book at the open, brackets resolve against the prints of the
+        # bar's flow (lob/venue.py; K5 seeds the books).  Financing is
+        # refused at construction (core/runtime.py)
+        st = env_dynamics.select(advance, lob_venue.execute_bar(st, o, h, l, c, t_new, cfg, params), st)
+    else:
+        # 1 + 2 + 2b: fill at the open, brackets, financing (kernel K2)
+        st = env_dynamics.fill_brackets(
+            st, o, h, l, c,
+            data.rollover_accrual[ti] if cfg.financing_enabled else None,
+            advance, cfg, params,
+        )
     # 3. the strategy applies the (post-overlay) action at the close
     st = strategy.apply_action(st, a, o, h, l, c, mow, cfg, params, act_strategy)
     # 3b. margin preflight

@@ -30,6 +30,7 @@ from gymfx_tpu_torch.core.types import (
     not_ported,
 )
 from gymfx_tpu_torch.data.feed import MarketData, MarketDataset, load_market_dataset
+from gymfx_tpu_torch.lob.venue import validate_lob_venue
 
 
 def _parse_column_list(value: Any, key: str) -> list:
@@ -88,6 +89,7 @@ class Environment:
             )
         if self.cfg.financing_enabled:
             raise not_ported("FX financing rates (data/financing.py)", 8)
+        validate_lob_venue(self.cfg, self.config)
         self.params: EnvParams = make_env_params(self.config, self.cfg, self.device)
         self.data: MarketData = self.dataset.build_market_data(
             window_size=self.cfg.window_size,

@@ -97,16 +97,26 @@ class EnvConfig:
 
     reward: str = "pnl_reward"
     # Accepted and validated as the JAX package does, for config
-    # compatibility.  In the port they select nothing: the device
+    # compatibility.  In the port these three select nothing: the device
     # decides — on a CUDA tensor the kernels run, on a CPU tensor their
     # plain PyTorch versions.  (In JAX all three modes are bitwise
     # identical by construction.)
     rollout_obs_kernel: str = "off"
     rollout_env_kernel: str = "off"
+    lob_match_kernel: str = "off"
     sharpe_window: int = 64
     stage_b_force_close_reward_penalty: bool = False
 
-    venue: str = "bar"
+    venue: str = "bar"                       # bar | lob
+    lob_depth_levels: int = 24               # price levels per side
+    lob_queue_slots: int = 4                 # FIFO orders per level
+    lob_messages_per_bar: int = 64           # flow messages per bar (static)
+    lob_seed_levels: int = 8                 # seeded levels per side at open
+    lob_flow_seed: int = 0                   # order-flow PRNG seed
+    lob_scenario: str = "lob_calm"           # lob/scenarios.py preset
+    lob_tick_size: float = 1e-5              # quote-currency size of one tick
+    lob_lot_units: float = 0.0               # units per lot (0 = position_size)
+    lob_flow_from_scengen: bool = False
     intrabar_collision_policy: str = "worst_case"
     limit_fill_policy: str = "cross"
     enforce_margin_preflight: bool = False
@@ -128,21 +138,26 @@ class EnvConfig:
             raise not_ported("sharpe_reward (its per-env ring buffer)", 7)
         if self.reward not in PORTED_REWARDS:
             raise not_ported(f"registered reward kernel {self.reward!r}", 9)
-        for knob in ("rollout_obs_kernel", "rollout_env_kernel"):
+        for knob in ("rollout_obs_kernel", "rollout_env_kernel", "lob_match_kernel"):
             if getattr(self, knob) not in _KERNEL_MODES:
                 raise ValueError(
                     f"{knob} must be off|on|interpret, got {getattr(self, knob)!r}"
                 )
+        if self.rollout_env_kernel != "off" and self.venue != "bar":
+            raise ValueError(
+                "rollout_env_kernel requires venue='bar' (the LOB venue's "
+                "matching has its own kernel knob, lob_match_kernel)"
+            )
         if self.rollout_env_kernel != "off" and self.dtype != torch.float32:
             raise ValueError(
                 "rollout_env_kernel requires compute_dtype float32 "
                 f"(got {self.dtype!r}); the f64 oracle mode stays on the "
                 "plain path"
             )
-        if self.venue == "lob":
-            raise not_ported("the LOB venue (venue='lob')", 13)
-        if self.venue != "bar":
+        if self.venue not in ("bar", "lob"):
             raise ValueError(f"venue must be bar|lob, got {self.venue!r}")
+        if self.venue == "lob":
+            self._validate_lob()
         if self.margin_model not in ("standard", "leveraged"):
             raise ValueError(f"unknown margin_model {self.margin_model!r}")
         if self.intrabar_collision_policy not in ("worst_case", "adaptive", "ohlc"):
@@ -153,6 +168,25 @@ class EnvConfig:
             raise ValueError(f"unknown limit_fill_policy {self.limit_fill_policy!r}")
         if self.dtype not in (torch.float32, torch.float64):
             raise not_ported(f"compute dtype {self.dtype}", 7)
+
+    def _validate_lob(self):
+        if self.lob_depth_levels < 2:
+            raise ValueError("lob_depth_levels must be >= 2")
+        if self.lob_queue_slots < 1:
+            raise ValueError("lob_queue_slots must be >= 1")
+        if self.lob_messages_per_bar < 1:
+            raise ValueError("lob_messages_per_bar must be >= 1")
+        if not 0 <= self.lob_seed_levels <= self.lob_depth_levels:
+            raise ValueError("lob_seed_levels must be in [0, lob_depth_levels]")
+        if self.lob_tick_size <= 0:
+            raise ValueError("lob_tick_size must be > 0")
+        if self.lob_lot_units < 0:
+            raise ValueError("lob_lot_units must be >= 0")
+        from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
+
+        scenario_flow_params(self.lob_scenario)  # honor-or-reject
+        if self.lob_flow_from_scengen:
+            raise not_ported("the scenario generator's LOB flow (lob_flow_from_scengen)", 14)
 
 
 class EnvParams(NamedTuple):
@@ -299,6 +333,19 @@ def make_env_config(config: Dict[str, Any], *, n_bars: int, n_features: int = 0,
             config.get("stage_b_force_close_reward_penalty", False)
         ),
         venue=str(config.get("venue", "bar")).lower(),
+        lob_depth_levels=int(config.get("lob_depth_levels", 24)),
+        lob_queue_slots=int(config.get("lob_queue_slots", 4)),
+        lob_messages_per_bar=int(config.get("lob_messages_per_bar", 64)),
+        lob_seed_levels=int(config.get("lob_seed_levels", 8)),
+        lob_flow_seed=int(config.get("lob_flow_seed", 0)),
+        lob_scenario=str(config.get("lob_scenario", "lob_calm")),
+        lob_tick_size=float(config.get("lob_tick_size", 1e-5)),
+        lob_lot_units=float(config.get("lob_lot_units", 0.0)),
+        lob_match_kernel=str(config.get("lob_match_kernel", "off")).lower(),
+        lob_flow_from_scengen=(
+            str(config.get("feed") or "replay").lower() == "scengen"
+            and str(config.get("venue", "bar")).lower() == "lob"
+        ),
         intrabar_collision_policy=collision,
         limit_fill_policy=str(config.get("limit_fill_policy", "cross")),
         slip_open=bool(config.get("slip_open", True)),

@@ -9,6 +9,8 @@ by nvcc at first use and loaded with ``ctypes``:
     attention  csrc/attention_kernels.cu (K4 forward and backward), held to
                its plain versions by a tolerance, so FMA contraction stays on
                (the same flags without -fmad=false)
+    lob        csrc/lob_kernels.cu (K5), integer only (the same flags as
+               attention)
 
 ``-fmad=false`` keeps every multiply and add separate, as the plain
 PyTorch versions compute them; ``--use_fast_math`` is never used (IEEE
@@ -37,10 +39,12 @@ _SHARED = ("-shared", "-Xcompiler", "-fPIC")
 SOURCES = {
     "env": _PACKAGE / "csrc" / "env_kernels.cu",
     "attention": _PACKAGE / "csrc" / "attention_kernels.cu",
+    "lob": _PACKAGE / "csrc" / "lob_kernels.cu",
 }
 FLAGS = {
     "env": (*_COMMON, "-fmad=false", *_SHARED),
     "attention": (*_COMMON, *_SHARED),
+    "lob": (*_COMMON, *_SHARED),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -132,7 +136,14 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
     lib.gymfx_attn_bwd.restype = i
 
 
-_BINDERS = {"env": _bind_env, "attention": _bind_attention}
+def _bind_lob(lib: ctypes.CDLL) -> None:
+    lib.gymfx_lob_stream.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gymfx_lob_stream.restype = ctypes.c_int
+    lib.gymfx_lob_pointer_count.restype = ctypes.c_int
+
+
+_BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob}
 
 
 def load_library(name: str = "env") -> ctypes.CDLL:

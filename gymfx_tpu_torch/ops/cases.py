@@ -1,4 +1,4 @@
-"""Seeded inputs for the env kernels K1-K3, drawn with numpy.
+"""Seeded inputs for the kernels K1-K3 and K5, drawn with numpy.
 
 One source of cases for everything that holds a kernel to its plain
 version or to the JAX package: chip_smoke.py on the card, and the tests
@@ -6,7 +6,8 @@ version or to the JAX package: chip_smoke.py on the card, and the tests
 card).  K1 gets windows with NaN, ±inf, 1e30, 0/0 and neutral envs; K2
 and K3 get open, flat, flipping and (with ``big``) huge ledgers, pending
 and forced orders, brackets at, inside and across the bar, and -inf
-reward peaks, over the grid of K2's static flags.
+reward peaks, over the grid of K2's static flags.  K5 gets the venue's
+seed streams, every scenario's flow mix and three hand-built streams.
 """
 from __future__ import annotations
 
@@ -138,3 +139,68 @@ def ledger_state(cfg: EnvConfig, fields, device) -> EnvState:
         exec_diag=torch.from_numpy(exec_diag_case(n, st.exec_diag.shape[1])).to(device),
         **{k: torch.from_numpy(v).to(device) for k, v in fields.items()},
     )
+
+
+# ---------------------------------------------------------------------------
+# K5: LOB message streams (the cases of the JAX package's
+# tests/test_lob_match_kernel.py), as (B, M) int32 Messages
+# ---------------------------------------------------------------------------
+LOB_SCENARIOS = ("lob_calm", "lob_trend", "lob_volatile", "lob_thin", "lob_flash_crash")
+# kind, side, price, qty, oid rows; (depth, slots) of the book they run through
+LOB_STREAMS = {
+    # crossing adds (price improvement), partial fills, cancels of live,
+    # dead and zero oids, a market order past the book, noops and
+    # out-of-range kinds (clipped to MARKET and NOOP), a zero-qty add
+    "adversarial": ([
+        (1, -1, 105, 5, 1), (1, -1, 103, 3, 2), (1, -1, 103, 2, 3),
+        (1, +1, 100, 4, 4), (1, +1, 98, 6, 5), (0, +1, 0, 0, 0),
+        (1, +1, 104, 4, 6), (3, -1, 0, 3, 0), (2, -1, 0, 5, 1),
+        (2, -1, 0, 5, 1), (2, +1, 0, 0, 0), (3, +1, 0, 50, 0),
+        (7, +1, 0, 2, 0), (-2, -1, 99, 9, 9), (1, +1, 101, 0, 7),
+    ], (6, 2)),
+    # more price levels than the book holds, deeper queues than its slots
+    "overflow": ([(1, +1, 90 + i, 1, 10 + i) for i in range(8)]
+                 + [(1, +1, 90, 1, 30 + i) for i in range(5)], (3, 2)),
+    # an agent take-profit resting ahead of flow, filled by flow takers
+    "agent_maker": ([
+        (1, -1, 110, 4, 1 << 29), (1, -1, 110, 2, 41), (3, +1, 0, 3, 0), (3, +1, 0, 5, 0),
+    ], (4, 3)),
+}
+
+
+def _messages(columns, device):
+    from gymfx_tpu_torch.lob.book import Messages
+
+    return Messages(*(torch.as_tensor(c, dtype=torch.int32, device=device).contiguous()
+                      for c in columns))
+
+
+def lob_stream(name: str, device=None):
+    """One of LOB_STREAMS as a one-book (1, M) stream: (msgs, depth, slots)."""
+    rows, (depth, slots) = LOB_STREAMS[name]
+    cols = np.array(rows, np.int32).T[:, None, :]
+    return _messages(cols, device), depth, slots
+
+
+def lob_flow_streams(scenario: str, n_books: int, n_msgs: int, device=None):
+    """``random_message_streams(PRNGKey(17), ...)`` of a scenario: the flow
+    mix of the JAX package's parity test and ``bench.py --lob``."""
+    from gymfx_tpu_torch.lob import prng
+    from gymfx_tpu_torch.lob.flow import random_message_streams
+    from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
+
+    msgs = random_message_streams(prng.PRNGKey(17, device), n_books, n_msgs,
+                                  scenario_flow_params(scenario))
+    return _messages(msgs, device)
+
+
+def lob_seed_streams(n_books: int, seed: int = 0, device=None):
+    """The venue's per-bar seed streams (8 levels a side, lob_volatile's
+    16 lots) at ``n_books`` EUR/USD-like open ticks (~1.1 at a 1e-5
+    tick): (B, 16)."""
+    from gymfx_tpu_torch.lob.flow import seed_messages
+    from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
+
+    o = np.random.default_rng(seed).integers(105_000, 115_000, n_books).astype(np.int32)
+    return _messages(seed_messages(torch.from_numpy(o), 8, scenario_flow_params("lob_volatile")),
+                     device)

@@ -1,20 +1,26 @@
 """Where the rollout phase's time goes, on the card.
 
-    python -m gymfx_tpu_torch.profile_rollout [--n_envs 8192 32768] [--horizon 64]
+    python -m gymfx_tpu_torch.profile_rollout [--config flagship|lob]
+        [--n_envs 8192 32768] [--horizon 64]
 
-For each env count: the flagship configuration's PPO rollout phase
-(config/flagship.py) is run once to warm up, timed over three phases
-(host clock around work that ends in ``torch.cuda.synchronize``), then
-run once more under ``torch.profiler`` with named ranges around the
-policy forward, the action draw, the env transition, the obs build and
-encoding, and the auto-reset.  It prints and writes to
-``chiprun_out/profile_rollout.json``:
+For each env count: the configuration's PPO rollout phase
+(config/flagship.py: ``flagship_config``, or ``lob_config`` on the LOB
+venue) is run once to warm up, timed over three phases (host clock
+around work that ends in ``torch.cuda.synchronize``), then run once more
+under ``torch.profiler`` with named ranges around the policy forward,
+the action draw, the env transition, the obs build and encoding, and
+the auto-reset; on the LOB venue also around the three stages of
+``lob/venue.execute_bar`` inside the transition: ``lob_seed`` (the books
+seeded through K5), ``lob_open_walk`` (the pending order's walk and
+fill) and ``lob_intrabar`` (the take-profit, the flow loop and the exit
+fill).  It prints and writes to
+``chiprun_out/profile_rollout_<config>.json``:
 
 * env steps/s and ms per phase;
 * device busy time (the union of CUDA kernel intervals) and the device's
   idle share of the profiled phase's wall time;
 * CUDA kernel launches per env step, and device time by kernel group
-  (the port's kernels K1-K3, the policy GEMMs, everything else);
+  (the port's kernels K1-K3 and K5, the policy GEMMs, everything else);
 * host time by range (the profiler's wall time summed per range);
 * the device time of one env step with no host in the way: the policy
   forward, the env transition, the obs and the auto-reset (greedy
@@ -34,14 +40,25 @@ from collections import defaultdict
 import torch
 
 from gymfx_tpu_torch import resolve_device
-from gymfx_tpu_torch.config.flagship import flagship_config
+from gymfx_tpu_torch.config.flagship import flagship_config, lob_config
 from gymfx_tpu_torch.core import env as env_core
 from gymfx_tpu_torch.core.runtime import Environment
+from gymfx_tpu_torch.lob import venue
 from gymfx_tpu_torch.train import ppo
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-RANGES = ("policy", "sample", "transition", "build_obs", "encode_obs", "masked_reset")
-OUR_KERNELS = ("step_obs_kernel", "fill_brackets_kernel", "mark_reward_kernel")
+CONFIGS = {"flagship": flagship_config, "lob": lob_config}
+RANGES = ("policy", "sample", "transition", "build_obs", "encode_obs", "masked_reset",
+          "lob_seed", "lob_open_walk", "lob_intrabar")
+OUR_KERNELS = ("step_obs_kernel", "fill_brackets_kernel", "mark_reward_kernel",
+               "lob_stream_kernel")
+# (module, attribute, range name) of every function the profile ranges
+RANGED = (
+    (env_core, "transition", "transition"), (env_core, "build_obs", "build_obs"),
+    (ppo, "masked_reset", "masked_reset"), (ppo, "sample_categorical", "sample"),
+    (venue, "seed_book", "lob_seed"), (venue, "open_walk", "lob_open_walk"),
+    (venue, "intrabar", "lob_intrabar"),
+)
 
 
 def _ranged(name, fn):
@@ -102,9 +119,9 @@ def graphed_step_ms(ro, state) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
-    config = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"),
-                             num_envs=n_envs, ppo_horizon=horizon)
+def profile_at(n_envs: int, horizon: int, device: torch.device, config_name: str = "flagship") -> dict:
+    config = CONFIGS[config_name](str(ROOT / "examples" / "data" / "eurusd_sample.csv"),
+                                  num_envs=n_envs, ppo_horizon=horizon)
     ro = ppo.PPOTrainer(Environment(config, device=device), ppo.ppo_config_from(config))
     state = ro.init_state(0)
     state = ro.rollout_phase(state)[0]
@@ -117,13 +134,9 @@ def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
         phase_ms.append((time.perf_counter() - t0) * 1e3)
     step_ms = graphed_step_ms(ro, state)
 
-    saved = {name: getattr(mod, name) for mod, name in
-             ((env_core, "transition"), (env_core, "build_obs"),
-              (ppo, "masked_reset"), (ppo, "sample_categorical"))}
-    env_core.transition = _ranged("transition", saved["transition"])
-    env_core.build_obs = _ranged("build_obs", saved["build_obs"])
-    ppo.masked_reset = _ranged("masked_reset", saved["masked_reset"])
-    ppo.sample_categorical = _ranged("sample", saved["sample_categorical"])
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in RANGED]
+    for (mod, attr, fn), (_, _, label) in zip(saved, RANGED):
+        setattr(mod, attr, _ranged(label, fn))
     forward, encode = ro.policy.forward, ro._encode
     ro.policy.forward = _ranged("policy", forward)
     ro._encode = _ranged("encode_obs", encode)
@@ -135,8 +148,8 @@ def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
-        for name, fn in saved.items():
-            setattr(env_core if name in ("transition", "build_obs") else ppo, name, fn)
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
         ro.policy.forward, ro._encode = forward, encode
 
     intervals, by_group, launches = [], defaultdict(float), defaultdict(int)
@@ -152,6 +165,7 @@ def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
     busy = _busy_us(intervals)
     steady = sorted(phase_ms)[1]
     return {
+        "config": config_name,
         "n_envs": n_envs,
         "horizon": horizon,
         "phase_ms": phase_ms,
@@ -169,16 +183,17 @@ def profile_at(n_envs: int, horizon: int, device: torch.device) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
     ap.add_argument("--n_envs", type=int, nargs="+", default=[8192])
     ap.add_argument("--horizon", type=int, default=64)
     args = ap.parse_args(argv)
     device = resolve_device()
-    rows = [profile_at(n, args.horizon, device) for n in args.n_envs]
+    rows = [profile_at(n, args.horizon, device, args.config) for n in args.n_envs]
     for row in rows:
         print(json.dumps(row))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_rollout.json").write_text(json.dumps(
+    (out / f"profile_rollout_{args.config}.json").write_text(json.dumps(
         {"device": torch.cuda.get_device_name(0), "rows": rows}, indent=1))
 
 

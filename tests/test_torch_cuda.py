@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K4 against their plain versions, on the card.
+"""The port's CUDA kernels K1-K5 against their plain versions, on the card.
 
 Each case launches a kernel and its plain PyTorch version on the same
 CUDA tensors.  K1-K3 must give ``torch.equal`` results (they are built
@@ -7,7 +7,8 @@ bits).  K4 (attention forward and backward) sums in another order than
 its plain version (an online softmax, f32 FMAs): float32 within
 1e-4 x max|plain|, bfloat16 within 2^-6 x max|plain| (the two round an
 f32 value to bf16 once each, so they differ by at most one bf16 ulp of
-an element, 2^-7 of the largest; twice that for margin).
+an element, 2^-7 of the largest; twice that for margin).  K5 (LOB stream
+matching) is int32: books and fill records ``torch.equal``.
 Every test needs an NVIDIA GPU and skips without one.  This file imports
 no JAX, so it also runs where only torch is installed:
 
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from gymfx_tpu_torch.core.types import EnvConfig, initial_state
-from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+from gymfx_tpu_torch.lob.book import empty_book
+from gymfx_tpu_torch.ops import cases, env_dynamics, fused_attention, lob_match, window_zscore
 from gymfx_tpu_torch.ops.cases import (
     FLAG_GRID,
     MARK_PARAMS,
@@ -136,3 +138,48 @@ def test_cuda_attention_reads_strided_inputs_and_rejects_what_it_cannot_take(cud
     wide = torch.zeros((1, 8, 1, 129), device=cuda_device)
     with pytest.raises(NotImplementedError):
         fused_attention.attention_forward(wide, wide, wide)
+
+
+def _lob_equal(msgs, depth, slots, device):
+    msgs = type(msgs)(*(x.to(device) for x in msgs))
+    book = empty_book(msgs.kind.shape[0], depth, slots, device)
+    before = lob_match.process_stream.launches
+    ours = lob_match.process_stream(book, msgs)
+    ref = lob_match.process_stream_plain(book, msgs)
+    assert lob_match.process_stream.launches == before + 1
+    for a, b in zip((*ours[0], *ours[1]), (*ref[0], *ref[1])):
+        assert torch.equal(a, b)
+    return ours
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,slots", [(8, 4), (16, 4), (24, 4), (48, 4), (64, 8), (33, 1)])
+@pytest.mark.parametrize("scenario", cases.LOB_SCENARIOS)
+def test_cuda_lob_stream_equals_plain_on_flow(cuda_device, scenario, depth, slots):
+    _lob_equal(cases.lob_flow_streams(scenario, n_books=37, n_msgs=96), depth, slots, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(cases.LOB_STREAMS))
+def test_cuda_lob_stream_equals_plain_on_hand_built_streams(cuda_device, name):
+    msgs, depth, slots = cases.lob_stream(name)
+    ours = _lob_equal(msgs, depth, slots, cuda_device)
+    if name == "agent_maker":
+        assert int(ours[1].agent_qty.sum()) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_lob_stream_equals_plain_on_seed_streams(cuda_device):
+    _lob_equal(cases.lob_seed_streams(n_books=1000), 24, 4, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_lob_stream_rejects_what_it_cannot_take(cuda_device):
+    msgs = cases.lob_flow_streams("lob_calm", n_books=2, n_msgs=8, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="depth"):
+        lob_match.process_stream(empty_book(2, 65, 4, cuda_device), msgs)
+    with pytest.raises(NotImplementedError, match="slots"):
+        lob_match.process_stream(empty_book(2, 8, 9, cuda_device), msgs)
+    with pytest.raises(ValueError, match="msgs.kind"):
+        lob_match.process_stream(empty_book(2, 8, 4, cuda_device),
+                                 msgs._replace(kind=msgs.kind.to(torch.int64)))

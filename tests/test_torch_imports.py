@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, flax, optax, pandas or gymfx_tpu inside.
 
-* A subprocess imports gymfx_tpu_torch, runs a 50-step CPU rollout and
-  a short PPO train step (rollout and update) with the MLP and with the
-  ring transformer (K4's plain versions), then checks that none of those
-  packages was imported.
+* A subprocess imports gymfx_tpu_torch, runs a 50-step CPU rollout, a
+  short PPO train step (rollout and update) with the MLP and with the
+  ring transformer (K4's plain versions) and a short LOB-venue episode
+  (its threefry flow and K5's plain version), then checks that none of
+  those packages was imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
   raise; configurations and options the port does not take raise
@@ -44,6 +45,9 @@ config.update(policy="transformer_ring", window_size=8,
               policy_kwargs={"d_model": 8, "n_heads": 2, "n_layers": 1})
 tr = PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
 tr.train_step(tr.init_state(0))
+config.update(venue="lob", rollout_env_kernel="off", lob_messages_per_bar=8,
+              strategy_plugin="direct_fixed_sltp")
+Environment(config, device="cpu").rollout(buy_hold_driver(), 5)
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """
@@ -99,7 +103,7 @@ def test_environment_without_cuda_and_without_device_raises():
 
 @pytest.mark.parametrize("over,item", [
     ({"reward_plugin": "sharpe_reward"}, 7),
-    ({"venue": "lob"}, 13),
+    ({"venue": "lob", "feed": "scengen"}, 14),
     ({"strategy_plugin": "my_plugin"}, 9),
     ({"financing_enabled": True}, 8),
 ])
