@@ -10,9 +10,9 @@ failure exits non-zero:
 
 1. device   CUDA must be available; prints the card and
             ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    nvcc builds the three libraries at once, one process per
-            source: K1-K3 (sm_90a, -fmad=false), K4 and K5 (sm_90a),
-            timed, with ptxas' register and spill report.
+2. build    nvcc builds the four libraries at once, one process per
+            source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4 and K5
+            (sm_90a), timed, with ptxas' register and spill report.
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
             32, 5) with NaN, ±inf, neutral envs and a binary mask; K2 and
@@ -39,7 +39,12 @@ failure exits non-zero:
             256 messages) at depths 8, 16, 24 and 48, an adversarial
             stream, a capacity overflow and agent maker fills; timed at
             both shapes, with fills/s (bench.py --lob's metric) at 1,024
-            x 256 x depth 24.
+            x 256 x depth 24.  K6 (q16 tape decode, torch.equal): int16
+            extremes, divisors 1, 60, 1440 and f32(1e5), ragged row
+            counts; K7 (batched scaled windows, bitwise with NaN matching
+            NaN): NaN and +-inf features, neutral rows, steps 0 and n,
+            clip 10, 0 and 1.5.  Their times come at the paths' shapes in
+            phases 8-10 (bound at 3.35 TB/s).
 4. main     PPO training at flagship width: 8,192 bar-venue envs, window
             32, OHLCV features (F=5, obs dim 164), the 3x256 tanh MLP in
             bf16 with weights from torch.Generator(seed), horizon 64, one
@@ -79,7 +84,36 @@ failure exits non-zero:
             reset builds an obs too) and 100 LOB-venue steps (K5 and K3
             100, K1 101, K2 none); each episode must equal the same
             episode on the CPU.
-8. summary  one JSON line {"kernels": [...]}, then the last line
+8. curriculum  four M1 tapes of 2^18 bars (EUR/USD-, GBP/USD-, AUD/USD-
+            and NZD/USD-like random walks in whole 1e-5 ticks, OHLCV,
+            generated from the seed into a temporary directory) as
+            config/flagship.curriculum_config ("flagship-curriculum-train":
+            8,192 envs, 3x256 bf16 MLP, horizon 64, window 32, F=5,
+            data_compress on, random starts): tape 0 resident f32, tapes
+            1-3 compressed.  Each compressed tape decoded on the card must
+            equal the direct f32 build and the plain decode (torch.equal,
+            every field); codec report, ratios and byte report printed; K6
+            timed at a pick's group beside the int16 stack before it.
+            PPOTrainer.train runs 4 supersteps (K=1): 4 picks, at least one
+            compressed; K2 and K3 64 launches a step, K1 66 (also the
+            random-start bank's obs and the active tape's fresh reset), K6
+            exactly its q16 groups per compressed pick and never for tape
+            0; losses finite, no update skipped.  One rollout phase on a compressed tape, re-run
+            with the plain decode and plain K1-K3, must be torch.equal.
+9. export   export_scaled_features on one tape for 262,143 steps:
+            (262,143, 32, 5) f32 through one K7 launch; the saved array
+            must equal the plain version's bitwise; K7 timed at that
+            shape; the windows' and the save's seconds printed apart.
+10. stream  one tape streamed with budgets that cut 256-bar shards:
+            data_compress on (the ring does not hold the tape: pinned
+            copies of compressed shards on a side stream, K6 once per q16
+            group per shard) and off (pinned f32 shards); a buy_hold
+            episode of one env for 2,048 steps over 8 shards each, equal
+            to the resident episode (torch.equal, every output and the
+            final state); K6 timed at a shard's group.  The episode is cut
+            to 2,048 steps for time (the eager one-env step is host-bound),
+            the tape is at full size.
+11. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -88,9 +122,11 @@ from __future__ import annotations
 
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -104,6 +140,14 @@ LOB_STEPS = 2
 LOB_SLOW_ROLLOUT_S = 60.0
 EPISODE_STEPS = 400
 LOB_EPISODE_STEPS = 100
+# the data path: four M1 tapes of 2^18 bars (about 8 months of an FX
+# trading week's grid), generated from SEED as random walks in whole
+# 1e-5 ticks at these pairs' levels
+TAPE_BARS = 2 ** 18
+TAPE_LEVELS = {"eurusd": 1.10, "gbpusd": 1.27, "audusd": 0.66, "nzdusd": 0.60}
+CURRICULUM_SUPERSTEPS = 4
+STREAM_STEPS = 2048
+STREAM_SHARD_BARS = 256
 
 # the H100 SXM data sheet: HBM3 bytes/s, f32 FLOP/s outside the tensor
 # cores, bf16 dense tensor-core FLOP/s
@@ -126,10 +170,14 @@ REPLACES = {
     "attention_forward": "gymfx_tpu/ops/fused_attention.py:172",
     "attention_backward": "gymfx_tpu/ops/fused_attention.py:150",
     "process_stream": "gymfx_tpu/ops/lob_match.py:289",
+    "decode_q16_block": "gymfx_tpu/ops/tape_decode.py:63",
+    "batched_scaled_windows": "gymfx_tpu/ops/window_zscore.py:110",
 }
 SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "attention_backward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
-           "process_stream": "gymfx_tpu_torch/csrc/lob_kernels.cu"}
+           "process_stream": "gymfx_tpu_torch/csrc/lob_kernels.cu",
+           "decode_q16_block": "gymfx_tpu_torch/csrc/data_kernels.cu",
+           "batched_scaled_windows": "gymfx_tpu_torch/csrc/data_kernels.cu"}
 # K5 cases: the bench.py --lob shape and its depth sweep
 LOB_BOOKS, LOB_MSGS, LOB_DEPTHS, LOB_SLOTS = 1024, 256, (8, 16, 24, 48), 4
 # K4 cases: label -> ((B, S, H, D), dtype, causal); "update" is the
@@ -221,6 +269,27 @@ def max_abs_err(torch, a, b) -> float:
     a, b = a.double(), b.double()
     diff = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bitwise equality of two f32 tensors, NaN matching NaN (of any
+    payload): torch.equal on the bits, where torch.equal on the values
+    would call two NaNs unequal and -0.0 equal to 0.0."""
+    nan_a, nan_b = a.isnan(), b.isnan()
+    return bool(torch.equal(nan_a, nan_b)) and bool(torch.equal(
+        torch.where(nan_a, 0, a.view(torch.int32)), torch.where(nan_b, 0, b.view(torch.int32))))
+
+
+def nan_abs_err(torch, a, b) -> float:
+    """max_abs_err over the elements that are not NaN on both sides."""
+    return max_abs_err(torch, torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+def k6_bound(delta):
+    """K6: the int16 block read, base and divisor read, the f32 block
+    written; an add, a conversion and a division per element."""
+    c, rows = delta.shape
+    return bound(nbytes(delta) + 8 * c + 4 * c * rows, 3 * c * rows, F32_FLOPS)
 
 
 def attention_tolerance(torch, ref) -> float:
@@ -478,6 +547,52 @@ def check_kernels_k5(torch, dev, kernels, results) -> None:
     kernels["process_stream"] = dict(max_abs_err=err, **{k: venue[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     results["k5"] = {"venue_seed": venue, "bench_lob_sweep": sweep}
+
+
+def check_kernels_k6_k7(torch, dev, kernels) -> None:
+    """K6 and K7 on seeded cases; their times at the paths' shapes come
+    with the curriculum, export and stream phases."""
+    from gymfx_tpu_torch.ops import cases, tape_decode, window_zscore
+
+    err6 = 0.0
+    rows_cases = (1003, 1024, 1, TAPE_BARS + 3)
+    for rows in rows_cases:
+        delta, base, inv = (torch.from_numpy(x).to(dev) for x in cases.q16_case(SEED + rows, rows))
+        ours = tape_decode.decode_q16_block(delta, base, inv)
+        ref = tape_decode.decode_q16_plain(delta, base, inv)
+        torch.cuda.synchronize()
+        check(torch.equal(ours, ref), f"K6 decode_q16_block != plain at {tuple(delta.shape)}")
+        err6 = max(err6, max_abs_err(torch, ours, ref))
+    err7, n7 = 0.0, 0
+    for seed, window, f in ((0, 8, 3), (1, WINDOW, 5), (2, 16, 1)):
+        args = [torch.from_numpy(x).to(dev) for x in cases.scaled_windows_case(seed, window=window, f=f)]
+        for clip in (10.0, 0.0, 1.5):
+            ours = window_zscore.batched_scaled_windows(*args, window=window, clip=clip)
+            ref = window_zscore.reference_scaled_windows(*args, window=window, clip=clip)
+            torch.cuda.synchronize()
+            check(bits_equal(torch, ours, ref),
+                  f"K7 batched_scaled_windows != plain (window {window}, F {f}, clip {clip})")
+            err7 = max(err7, nan_abs_err(torch, ours, ref))
+            n7 += 1
+    print(f"kernels: K6 equal to plain on {len(rows_cases)} blocks (int16 extremes, divisors "
+          f"1/60/1440/f32(1e5), ragged rows); K7 bitwise equal to plain on {n7} cases (NaN, "
+          f"+-inf, neutral rows, steps 0 and n, clip 10/0/1.5)")
+    kernels["decode_q16_block"] = dict(max_abs_err=err6)
+    kernels["batched_scaled_windows"] = dict(max_abs_err=err7)
+
+
+def make_tapes(tmp) -> dict:
+    """The four tapes, written as CSVs: name -> path."""
+    from gymfx_tpu_torch.ops import cases
+
+    timestamps = cases.m1_week_grid(TAPE_BARS)
+    paths = {}
+    for i, (name, level) in enumerate(TAPE_LEVELS.items()):
+        path = pathlib.Path(tmp) / f"{name}_m1.csv"
+        cases.write_bar_csv(path, cases.tick_walk_columns(TAPE_BARS, seed=SEED + i, level=level),
+                            timestamps)
+        paths[name] = str(path)
+    return paths
 
 
 def count_launches(fns) -> dict:
@@ -833,6 +948,293 @@ def episode_phase(torch, results) -> None:
                               "card_s": card_s, "cpu_s": cpu_s}
 
 
+def curriculum_phase(torch, dev, kernels, results, paths) -> None:
+    from gymfx_tpu_torch.config.flagship import curriculum_config
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.data import compress as C
+    from gymfx_tpu_torch.data import tapes as tapes_mod
+    from gymfx_tpu_torch.ops import env_dynamics, tape_decode, window_zscore
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    library = ",".join(f"file:{path}" for path in paths.values())
+    config = curriculum_config(library, timeframe="M1", num_envs=N_ENVS)
+    t0 = time.perf_counter()
+    env = Environment(config)
+    build_s = time.perf_counter() - t0
+    sampler = env.curriculum
+    check(env.cfg.n_bars == TAPE_BARS and sampler.num_tapes == len(paths), "curriculum library")
+    check(sampler.tape(0) is None and all(sampler.tape(i) is not None for i in (1, 2, 3)),
+          "tape 0 must be resident f32 and tapes 1-3 compressed")
+    groups, decode_ms, ratios = {}, {}, {}
+    for i in (1, 2, 3):
+        tape = sampler.tape(i)
+        groups[i] = len(C._q16_groups(tape.columns, [s.shape[1] for s in tape.slabs]))
+        decoded = sampler._tape_data(i)
+        plain = C.decode_shard_ref(tape, 0, device=dev)
+        direct = tapes_mod.dataset_for_spec(config, sampler.specs[i]).build_market_data(
+            device=dev, **env.md_kwargs)
+        torch.cuda.synchronize()
+        for name in direct._fields:
+            if name == "row0":
+                continue
+            check(torch.equal(getattr(decoded, name), getattr(direct, name)),
+                  f"curriculum tape {i}: decoded {name} != the direct f32 build")
+            check(torch.equal(getattr(decoded, name), getattr(plain, name)),
+                  f"curriculum tape {i}: decoded {name} != the plain-version decode")
+        decode_ms[i] = event_ms(torch, lambda: sampler._tape_data(i))
+        ratios[i] = tape.compression_ratio
+        del decoded, plain, direct
+    report = sampler.nbytes_report()
+    print(f"curriculum: {sampler.num_tapes} tapes of {TAPE_BARS:,} M1 bars built in {build_s:.1f} s; "
+          f"tapes 1-3 decoded by K6 equal the direct f32 build and the plain decode (torch.equal, "
+          f"every field)")
+    print(f"  codec_report (tape 1): {sampler.tape(1).codec_report()}")
+    print(f"  compression ratio {', '.join(f'tape {i} {r:.3f}' for i, r in ratios.items())}; "
+          f"nbytes_report {report}; q16 groups per tape {groups}; a pick's whole decode "
+          f"{', '.join(f'{ms:.3f}' for ms in decode_ms.values())} ms")
+
+    # K6 at a pick's largest group (tape 1, all of its bar-length q16 columns)
+    tape = sampler.tape(1)
+    arrs = C.shard_arrays(tape, 0)
+    items = C._q16_groups(tape.columns, [s.shape[1] for s in tape.slabs])[0]
+    slabs = [arrs["slabs"][s] for s, _ in items]
+    bases = [arrs["bases"][s] for s, _ in items]
+    inv = sampler._decoders[1].invs[0]
+    delta, base = torch.stack(slabs), torch.stack(bases)
+    ours = tape_decode.decode_q16_block(delta, base, inv)
+    ref = tape_decode.decode_q16_plain(delta, base, inv)
+    torch.cuda.synchronize()
+    check(torch.equal(ours, ref), f"K6 != plain at the pick's group {tuple(delta.shape)}")
+    b_ms, b_by = k6_bound(delta)
+    k6 = kernels["decode_q16_block"]
+    k6.update(
+        max_abs_err=max(k6["max_abs_err"], max_abs_err(torch, ours, ref)),
+        ms=device_ms(torch, lambda: tape_decode.decode_q16_block(delta, base, inv)),
+        plain_ms=device_ms(torch, lambda: tape_decode.decode_q16_plain(delta, base, inv)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=list(delta.shape),
+        stack_ms=device_ms(torch, lambda: torch.stack(slabs)),
+        host_us=host_us(torch, lambda: tape_decode.decode_q16_block(delta, base, inv)),
+    )
+    print(f"  K6 at a pick's group {tuple(delta.shape)}: {k6['ms'] * 1e3:.2f} us/call on the card "
+          f"(plain {k6['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us by {b_by}); the int16 "
+          f"stack before it {k6['stack_ms'] * 1e3:.2f} us")
+    del ours, ref, delta, base
+
+    trainer = PPOTrainer(env, ppo_config_from(config))
+    rows = []
+    step = trainer.train_step
+
+    def recording(state, data=None):
+        t_start = time.perf_counter()
+        state, metrics = step(state, data)
+        torch.cuda.synchronize()
+        rows.append(dict(ms=(time.perf_counter() - t_start) * 1e3,
+                         metrics={k: float(v) for k, v in metrics.items()}))
+        return state, metrics
+
+    trainer.train_step = recording
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               tape_decode.decode_q16_block, window_zscore.batched_scaled_windows)
+    for fn in counted:
+        fn.launches = 0
+    state, metrics = trainer.train(CURRICULUM_SUPERSTEPS * N_ENVS * HORIZON, seed=SEED)
+    launches = count_launches(counted)
+    picks = [i for _, i in sampler.picks]
+    # K1 twice more a step than K2 / K3: the obs of the random-start bank
+    # (one reset_at of every env a rollout phase) and of the active tape's
+    # fresh reset (the update phase's quarantine resets)
+    expected = {"step_obs": CURRICULUM_SUPERSTEPS * (HORIZON + 2),
+                "fill_brackets": CURRICULUM_SUPERSTEPS * HORIZON,
+                "mark_reward": CURRICULUM_SUPERSTEPS * HORIZON,
+                "decode_q16_block": sum(groups.get(i, 0) for i in picks),
+                "batched_scaled_windows": 0}
+    check(len(picks) == CURRICULUM_SUPERSTEPS, f"{len(picks)} picks, expected {CURRICULUM_SUPERSTEPS}")
+    check(any(i > 0 for i in picks), f"the seed picked no compressed tape: {picks}")
+    check(launches == expected, f"curriculum training launched {launches}, expected {expected}")
+    check(metrics["iterations"] == CURRICULUM_SUPERSTEPS, "curriculum iterations")
+    check_training(rows, "curriculum")
+    kernels["decode_q16_block"]["launches"] = launches["decode_q16_block"]
+    for key in ("obs_vec",):
+        check(bool(torch.isfinite(getattr(state, key)).all()), f"curriculum non-finite {key}")
+    labels = [sampler.specs[i].label.rsplit("/", 1)[-1] for i in picks]
+    step_ms = ", ".join(f"{r['ms']:.1f}" for r in rows)
+    losses = ", ".join(f"{r['metrics']['loss']:.5f}" for r in rows)
+    print(f"curriculum: {CURRICULUM_SUPERSTEPS} supersteps (K=1) of {HORIZON} steps x {N_ENVS} envs, "
+          f"picks {picks} ({', '.join(labels)}); train steps {step_ms} ms, "
+          f"{metrics['env_steps_per_sec']:,.0f} env steps/s; losses {losses}; launches {launches}")
+
+    # one rollout phase on a compressed tape: K6's decode and K1-K3,
+    # again with the plain decode and the plain K1-K3, on the card
+    i = next(i for i in picks if i > 0)
+    traj_state, (traj, last) = trainer.rollout_phase(trainer.init_state(SEED), sampler._tape_data(i))
+    kernel_fns = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
+    env_dynamics.fill_brackets = env_dynamics.fill_brackets_plain
+    env_dynamics.mark_reward = env_dynamics.mark_reward_plain
+    window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
+        window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
+    before = count_launches(counted)
+    try:
+        plain_tape = C.decode_shard_ref(sampler.tape(i), 0, device=dev)
+        ref_state, (ref_traj, ref_last) = trainer.rollout_phase(trainer.init_state(SEED), plain_tape)
+        torch.cuda.synchronize()
+    finally:
+        env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs = kernel_fns
+    check(count_launches(counted) == before, "the plain-version curriculum phase launched a kernel")
+    for key in ("obs", "action", "reward", "done", "logp", "value"):
+        check(torch.equal(traj[key], ref_traj[key]), f"curriculum tape {i} vs plain versions: traj {key}")
+    for field in ref_state.env_states._fields:
+        check(torch.equal(getattr(traj_state.env_states, field), getattr(ref_state.env_states, field)),
+              f"curriculum tape {i} vs plain versions: env state {field}")
+    check(torch.equal(last, ref_last), "curriculum vs plain versions: bootstrap value")
+    print(f"curriculum: rollout phase on tape {i} (K6 decode, K1-K3) == plain decode and plain "
+          f"versions on the card (torch.equal)")
+    results["curriculum"] = {
+        "config": "flagship-curriculum-train", "tapes": list(paths), "bars": TAPE_BARS,
+        "build_s": build_s, "compression_ratio": ratios, "nbytes_report": report,
+        "q16_groups": groups, "pick_decode_ms": decode_ms, "picks": picks,
+        "train_step_ms": [r["ms"] for r in rows], "metrics": [r["metrics"] for r in rows],
+        "env_steps_per_s": metrics["env_steps_per_sec"], "launches": launches,
+        "k6_pick_group": {k: v for k, v in kernels["decode_q16_block"].items()},
+    }
+
+
+def export_phase(torch, kernels, results, paths, tmp) -> None:
+    import numpy as np
+
+    from gymfx_tpu_torch.app.main import export_scaled_features
+    from gymfx_tpu_torch.config.flagship import FEATURE_COLUMNS, flagship_config
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import window_zscore
+
+    config = flagship_config(paths["eurusd"], timeframe="M1")
+    env = Environment(config)
+    n_steps = env.cfg.n_bars - 1
+    path = pathlib.Path(tmp) / "scaled_windows.npz"
+    window_zscore.batched_scaled_windows.launches = 0
+    t0 = time.perf_counter()
+    meta = export_scaled_features(env, config, n_steps, str(path))
+    wall = time.perf_counter() - t0
+    launches = window_zscore.batched_scaled_windows.launches
+    check(launches == 1, f"the export launched K7 {launches} times")
+    shape = [n_steps, WINDOW, len(FEATURE_COLUMNS)]
+    check(meta["shape"] == shape, f"export shape {meta['shape']} != {shape}")
+    saved = np.load(path)["scaled_windows"]
+    d = env.data
+    steps = torch.arange(1, n_steps + 1, dtype=torch.int32, device=d.close.device)
+    clip = float(env.cfg.feature_clip or 0.0)
+    args = (d.padded_features, d.feat_mean, d.feat_std, d.feat_neutral, steps)
+    ref = window_zscore.reference_scaled_windows(*args, window=WINDOW, clip=clip)
+    check(bits_equal(torch, torch.from_numpy(saved).to(ref.device), ref),
+          "the exported windows != the plain version's")
+    ours = window_zscore.batched_scaled_windows(*args, window=WINDOW, clip=clip)
+    torch.cuda.synchronize()
+    check(bits_equal(torch, ours, ref), "K7 != plain at the export's shape")
+    err = nan_abs_err(torch, ours, ref)
+    del ours, ref, saved
+    # the output written once, features, moments, flags and steps read once;
+    # a subtract, a divide, a select and the two-sided clip per element
+    moved = 4 * n_steps * WINDOW * len(FEATURE_COLUMNS) + nbytes(*args)
+    b_ms, b_by = bound(moved, 5 * n_steps * WINDOW * len(FEATURE_COLUMNS), F32_FLOPS)
+    k7 = kernels["batched_scaled_windows"]
+    k7.update(
+        max_abs_err=max(k7["max_abs_err"], err), launches=launches,
+        ms=device_ms(torch, lambda: window_zscore.batched_scaled_windows(*args, window=WINDOW, clip=clip),
+                     reps=10, trials=11),
+        plain_ms=event_ms(torch, lambda: window_zscore.reference_scaled_windows(*args, window=WINDOW,
+                                                                                 clip=clip)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape, moved_bytes=moved,
+    )
+    torch.cuda.empty_cache()
+    size_mb = path.stat().st_size / 1e6
+    path.unlink()
+    print(f"export: {shape} f32 ({4 * np.prod(shape) / 1e6:.1f} MB) through 1 K7 launch, equal to "
+          f"the plain version (bitwise); windows {meta['seconds']['windows']:.3f} s (K7, copy to the "
+          f"host), save {meta['seconds']['save']:.3f} s ({size_mb:.1f} MB npz), {wall:.3f} s in all")
+    print(f"  K7 at the export's shape: {k7['ms'] * 1e3:.1f} us/call on the card (plain "
+          f"{k7['plain_ms'] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by {b_by}, {moved / 1e6:.1f} MB)")
+    results["export"] = {"shape": shape, "seconds": meta["seconds"], "wall_s": wall,
+                         "npz_mb": size_mb, "k7": dict(k7)}
+
+
+def stream_phase(torch, kernels, results, paths) -> None:
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core.rollout import buy_hold_driver
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.data import compress as C
+    from gymfx_tpu_torch.data.feed import market_data_nbytes
+    from gymfx_tpu_torch.ops import env_dynamics, tape_decode, window_zscore
+
+    base = flagship_config(paths["eurusd"], timeframe="M1")
+    resident = Environment(base)
+    per_bar = market_data_nbytes(resident.data) / TAPE_BARS
+    # budgets whose plans cut shards of STREAM_SHARD_BARS bars: two decoded
+    # shards take half the uncompressed budget, an eighth of the compressed
+    span = (STREAM_SHARD_BARS + WINDOW + 1.5) * 2 * per_bar / 2**20
+    budgets = {"on": span / 0.125, "off": span}
+    t0 = time.perf_counter()
+    ref_state, ref = resident.rollout(buy_hold_driver(), STREAM_STEPS)
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    del resident
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               tape_decode.decode_q16_block)
+    rows = {}
+    for mode in ("on", "off"):
+        env = Environment(dict(base, stream_hbm_budget_mb=budgets[mode], data_compress=mode))
+        s = env.streamer
+        check(env.streaming and s.shard_bars == STREAM_SHARD_BARS,
+              f"stream {mode}: {s.shard_bars}-bar shards, expected {STREAM_SHARD_BARS}")
+        check(mode == "off" or not s.tape_resident, "the compressed ring holds the whole tape")
+        served = sum(1 for lo in s.starts if lo < STREAM_STEPS)
+        groups = 0 if s.tape is None else len(
+            C._q16_groups(s.tape.columns, [sl.shape[1] for sl in s.tape.slabs]))
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, out = env.rollout(buy_hold_driver(), STREAM_STEPS)
+        torch.cuda.synchronize()
+        episode_s = time.perf_counter() - t0
+        launches = count_launches(counted)
+        expected = {"step_obs": STREAM_STEPS + 1, "fill_brackets": STREAM_STEPS,
+                    "mark_reward": STREAM_STEPS, "decode_q16_block": served * groups}
+        check(launches == expected, f"stream {mode} launched {launches}, expected {expected}")
+        check(sorted(out) == sorted(ref), f"stream {mode}: output keys")
+        for key in ref:
+            check(torch.equal(out[key], ref[key]), f"stream {mode} vs resident episode: {key}")
+        for field in ref_state._fields:
+            check(torch.equal(getattr(state, field), getattr(ref_state, field)),
+                  f"stream {mode} vs resident episode: final state {field}")
+        rows[mode] = dict(budget_mb=budgets[mode], shard_bars=s.shard_bars, num_shards=s.num_shards,
+                          ring_shards=s.ring_shards, tape_resident=s.tape_resident,
+                          shards_served=served, q16_groups=groups, episode_s=episode_s,
+                          launches=launches, compression_ratio=s.compression_ratio)
+        print(f"stream {mode}: budget {budgets[mode]:.3f} MiB, shard_bars {s.shard_bars}, num_shards "
+              f"{s.num_shards}, ring_shards {s.ring_shards}, tape_resident {s.tape_resident}; "
+              f"buy_hold 1 env x {STREAM_STEPS} steps over {served} shards in {episode_s:.1f} s "
+              f"(resident {resident_s:.1f} s) == the resident episode (torch.equal, every output "
+              f"and the final state); launches {launches}")
+        if s.tape is not None:
+            # K6 at a streamed shard's largest group
+            arrs = C.shard_arrays(s.tape, 1)
+            items = C._q16_groups(s.tape.columns, [sl.shape[1] for sl in s.tape.slabs])[0]
+            delta = torch.stack([torch.as_tensor(arrs["slabs"][k]) for k, _ in items]).to(env.device)
+            base_ = torch.stack([torch.as_tensor(arrs["bases"][k]) for k, _ in items]).to(env.device)
+            inv = s._decoder.invs[0]
+            ours = tape_decode.decode_q16_block(delta, base_, inv)
+            check(torch.equal(ours, tape_decode.decode_q16_plain(delta, base_, inv)),
+                  f"K6 != plain at a shard's group {tuple(delta.shape)}")
+            b_ms, b_by = k6_bound(delta)
+            rows[mode]["k6_shard_group"] = dict(
+                shape=list(delta.shape), bound_ms=b_ms, bound_by=b_by,
+                ms=device_ms(torch, lambda: tape_decode.decode_q16_block(delta, base_, inv)),
+                plain_ms=device_ms(torch, lambda: tape_decode.decode_q16_plain(delta, base_, inv)))
+            row = rows[mode]["k6_shard_group"]
+            print(f"  K6 at a shard's group {tuple(delta.shape)}: {row['ms'] * 1e3:.2f} us/call "
+                  f"(plain {row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by})")
+        del env, state, out
+    results["stream"] = {"steps": STREAM_STEPS, "resident_s": resident_s, **rows}
+
+
 def main() -> None:
     if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
         fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
@@ -883,6 +1285,7 @@ def main() -> None:
     check_kernels_k1_k3(torch, dev, kernels)
     check_kernels_k4(torch, dev, kernels, results)
     check_kernels_k5(torch, dev, kernels, results)
+    check_kernels_k6_k7(torch, dev, kernels)
 
     # ---- 4. main: PPO training at flagship width ---------------------------
     main_phase(torch, kernels, results)
@@ -892,6 +1295,20 @@ def main() -> None:
     lob_phase(torch, kernels, results)
     # ---- 7. diagnostic episodes ---------------------------------------------
     episode_phase(torch, results)
+    # ---- 8-10. the data path: curriculum, export, stream --------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tapes_")
+    try:
+        t0 = time.perf_counter()
+        paths = make_tapes(tmp)
+        print(f"tapes: {len(paths)} M1 tapes of {TAPE_BARS:,} bars written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        curriculum_phase(torch, dev, kernels, results, paths)
+        torch.cuda.empty_cache()
+        export_phase(torch, kernels, results, paths, tmp)
+        torch.cuda.empty_cache()
+        stream_phase(torch, kernels, results, paths)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- 8. summary ---------------------------------------------------------
     summary = {"kernels": [

@@ -24,6 +24,15 @@ the book and arms a stop on every entry; ``position_size=40`` with
 setting of the JAX package's tests/test_lob.py:283/296-310.  Every other
 LOB knob keeps its default: 24 levels x 4 queue slots, 8 seeded levels,
 64 flow messages per bar, flow seed 0, tick 1e-5.
+
+``curriculum_config`` ("flagship-curriculum-train"): the flagship trained
+over a tape library (``feed="curriculum"``, the JAX package's
+data/tapes.py): ``tapes`` lists the tapes (``"file:PATH[@W],..."`` or a
+list of dicts; tape 0 is the env's own dataset), ``data_compress="on"``
+holds tapes 1.. compressed on the card (each pick decoded by K6 on the
+default ``lob_tick_size`` grid of 1e-5), and ``random_episode_start``
+spreads the 8,192 envs over each long tape instead of replaying its
+first bars.
 """
 from __future__ import annotations
 
@@ -77,6 +86,24 @@ def lob_config(input_data_file: str, **over) -> Dict[str, Any]:
         strategy_plugin="direct_fixed_sltp",
         position_size=40.0,
         lob_lot_units=1.0,
+    )
+    config.update(over)
+    return config
+
+
+def curriculum_config(tapes, **over) -> Dict[str, Any]:
+    """flagship-curriculum-train over ``tapes`` (the ``tapes`` config key:
+    a string or a list of entries; tape 0 is also ``input_data_file``)."""
+    from gymfx_tpu_torch.data.tapes import parse_tape_specs
+
+    first = parse_tape_specs({"tapes": tapes})[0]
+    config = flagship_config(
+        first.source,
+        feed="curriculum",
+        tapes=tapes,
+        data_compress="on",
+        random_episode_start=True,
+        lob_tick_size=1e-5,
     )
     config.update(over)
     return config

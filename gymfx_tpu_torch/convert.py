@@ -10,7 +10,8 @@ points (``gymfx_tpu_torch.resolve_device``).
                          value; a Dense kernel is (in, out), a Linear weight
                          (out, in))
   env_state_from_numpy   a batched EnvState's arrays -> EnvState tensors
-  market_data_from_numpy a MarketData's arrays -> MarketData tensors
+  market_data_from_numpy a MarketData's arrays -> MarketData tensors (a
+                         streamed shard's row0 kept, as an int)
 """
 from __future__ import annotations
 
@@ -100,8 +101,6 @@ def market_data_from_numpy(data: Any, device=None) -> MarketData:
     """MarketData tensors from a MarketData (or mapping) of arrays."""
     device = resolve_device(device)
     get = data.__getitem__ if isinstance(data, Mapping) else lambda k: getattr(data, k)
-    fields = {name: _tensor(get(name), device) for name in MarketData._fields
-              if name not in ("row0",)}
-    if int(np.asarray(get("row0"))) != 0:
-        raise ValueError("streamed shards (row0 != 0) are not ported")
-    return MarketData(row0=0, **fields)
+    fields = {name: _tensor(get(name), device) for name in MarketData._fields if name != "row0"}
+    # a streamed shard carries its global start row; the port keeps it an int
+    return MarketData(row0=int(np.asarray(get("row0"))), **fields)

@@ -13,7 +13,10 @@ their plain versions — in JAX that path is bitwise the plain-XLA step,
 so this is the same step either way.
 
 Step/bar timing, termination and every documented divergence are the
-JAX package's (see its module docstring).
+JAX package's (see its module docstring).  Cursors are global bar rows;
+every data read is rebased by ``data.row0`` through
+``core/obs.local_rows`` (JAX core/env.py:81-84, :140, :373), so one step
+serves the whole tape and every streamed shard.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from gymfx_tpu_torch.core import broker, rewards, strategy
 from gymfx_tpu_torch.core.broker import add_count_
-from gymfx_tpu_torch.core.obs import build_info, build_obs
+from gymfx_tpu_torch.core.obs import build_info, build_obs, local_rows
 from gymfx_tpu_torch.core.types import (
     ACTION_DIAG_INDEX,
     TERMINATION_BANKRUPT,
@@ -50,8 +53,12 @@ def reset_at(cfg: EnvConfig, params: EnvParams, data: MarketData,
     t0 = t0.to(torch.int32)
     n_envs = t0.shape[0]
     state = initial_state(cfg, n_envs, data.close.device)._replace(t=t0)
-    state = broker.mark_to_market(state, data.close[t0.long()], params)
-    rows = (t0.long() + 1)[:, None] + torch.arange(cfg.window_size, device=t0.device)
+    state = broker.mark_to_market(
+        state, data.close[local_rows(cfg, data, t0, data.close.shape[0])], params
+    )
+    # the window's first row, clamped so the window fits (dynamic_slice)
+    first = local_rows(cfg, data, t0 + 1, data.padded_close.shape[0] - cfg.window_size + 1)
+    rows = first[:, None] + torch.arange(cfg.window_size, device=t0.device)
     state = state._replace(
         prev_equity_delta=state.equity_delta,
         price_window=data.padded_close[rows].to(state.price_window.dtype),
@@ -123,7 +130,7 @@ def transition(cfg: EnvConfig, params: EnvParams, data: MarketData,
     act_strategy = live & ~exhausted
 
     t_new = torch.where(advance, state.t + 1, state.t)
-    ti = t_new.long()
+    ti = local_rows(cfg, data, t_new, data.close.shape[0])
     o, h, l, c = data.open[ti], data.high[ti], data.low[ti], data.close[ti]
     mow = data.minute_of_week[ti]
 
@@ -184,13 +191,15 @@ def transition(cfg: EnvConfig, params: EnvParams, data: MarketData,
         shifted = torch.cat([st.price_window[:, 1:], c[:, None].to(st.price_window.dtype)], dim=1)
         st = st._replace(price_window=torch.where(adv, shifted, st.price_window))
     if cfg.n_features > 0:
-        new_row = data.padded_features[ti + cfg.window_size]
+        new_row = data.padded_features[
+            local_rows(cfg, data, t_new + cfg.window_size, data.padded_features.shape[0])
+        ]
         shifted = torch.cat([st.feat_window[:, 1:], new_row[:, None, :]], dim=1)
         st = st._replace(feat_window=torch.where(adv[:, :, None], shifted, st.feat_window))
 
     st = st._replace(started=state.started | live)
 
-    fc_row = torch.clamp_max(st.t + 1, n - 1).long()
+    fc_row = local_rows(cfg, data, torch.clamp_max(st.t + 1, n - 1), data.close.shape[0])
     penalty = rewards.force_close_penalty(st, data.force_close[fc_row], cfg, params)
     penalty = torch.where(live, penalty, 0.0)
     reward = base_reward - penalty
@@ -218,7 +227,8 @@ def _event_overlay(state: EnvState, a, data: MarketData, cfg: EnvConfig,
     """Event-context action transform: block new entries / force-flat
     open positions while the no-trade column is active."""
     n = cfg.n_bars
-    row = torch.clamp_max(torch.clamp_max(state.t + 1, n), n - 1).long()
+    row = local_rows(cfg, data, torch.clamp_max(torch.clamp_max(state.t + 1, n), n - 1),
+                     data.close.shape[0])
     no_trade_value = data.ev_no_trade[row]
     active = no_trade_value >= params.event_no_trade_threshold
     pos_sign = broker.sign(state.pos).to(torch.int32)

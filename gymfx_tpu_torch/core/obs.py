@@ -4,7 +4,9 @@ The port of ``gymfx_tpu/core/obs.py``: every obs block gets a leading
 env axis (``features`` is (N, W, F), the agent-state scalars are
 (N, 1)).  The feature window goes through kernel K1
 (ops/window_zscore.step_obs) — on a CUDA tensor the kernel, on a CPU
-tensor its plain version.
+tensor its plain version.  Every data read goes through
+:func:`local_rows`, the JAX package's ``- data.row0`` rebase
+(core/obs.py:124, :210).
 """
 from __future__ import annotations
 
@@ -22,6 +24,19 @@ from gymfx_tpu_torch.ops import window_zscore
 CALENDAR_OBS_KEYS = tuple(k for k in CALENDAR_FEATURE_KEYS if k != "is_no_trade_window")
 
 
+def local_rows(cfg: EnvConfig, data: MarketData, idx, size: int):
+    """Global bar rows ``idx`` as indices into an array of ``data`` with
+    ``size`` rows.  The whole tape (row0 0, ``cfg.n_bars`` bars) is read
+    as it is; a streamed shard's reads are rebased by ``data.row0`` and
+    clamped to the array, as XLA's gather clamps them (torch would wrap a
+    negative index and fault past the end; the frozen cursor of an
+    episode that ended in an earlier shard reads outside this one)."""
+    i = idx.long()
+    if data.row0 == 0 and data.close.shape[0] == cfg.n_bars:
+        return i
+    return torch.clamp(i - data.row0, 0, size - 1)
+
+
 def _scaled_features(win, mean, std, neutral, cfg: EnvConfig):
     return window_zscore.step_obs(
         win, mean, std, neutral, binary_mask=cfg.binary_mask, clip=cfg.feature_clip
@@ -32,13 +47,15 @@ def build_obs(state: EnvState, data: MarketData, cfg: EnvConfig,
               params: EnvParams) -> Dict[str, Any]:
     n = cfg.n_bars
     step = torch.clamp_max(state.t + 1, n).long()
+    bars = data.close.shape[0]
     obs: Dict[str, Any] = {}
     if cfg.n_features > 0:
+        moment = local_rows(cfg, data, step, data.feat_mean.shape[0])
         obs["features"] = _scaled_features(
-            state.feat_window, data.feat_mean[step], data.feat_std[step],
-            data.feat_neutral[step], cfg,
+            state.feat_window, data.feat_mean[moment], data.feat_std[moment],
+            data.feat_neutral[moment], cfg,
         )
-    price = data.close[state.t.long()]
+    price = data.close[local_rows(cfg, data, state.t, bars)]
     prices = None
     if cfg.include_prices:
         prices = state.price_window
@@ -58,7 +75,7 @@ def build_obs(state: EnvState, data: MarketData, cfg: EnvConfig,
         recip = float(np.float32(1.0) / np.float32(max(1, n)))
         remaining = torch.clamp_min(n - (state.t + 1), 0).to(torch.float32) * recip
         obs["steps_remaining_norm"] = remaining[:, None]
-    row = torch.clamp_max(step, n - 1)
+    row = local_rows(cfg, data, torch.clamp_max(step, n - 1), bars)
     if cfg.stage_b_force_close_obs:
         fc = data.force_close[row]
         for i, key in enumerate(FORCE_CLOSE_FEATURE_KEYS):
@@ -82,10 +99,12 @@ def build_info(state: EnvState, data: MarketData, cfg: EnvConfig,
                params: EnvParams, event_info: Dict[str, Any] | None = None) -> Dict[str, Any]:
     n = cfg.n_bars
     t = state.t.long()
+    bars = data.close.shape[0]
+    price = data.close[local_rows(cfg, data, t, bars)]
     info: Dict[str, Any] = {
         "equity": params.initial_cash + state.equity_delta,
         "position": broker.sign(state.pos).to(torch.int32),
-        "price": data.close[t],
+        "price": price,
         "bar_index": state.t + 1,
         "total_bars": torch.full_like(state.t, n),
         "trades": state.trade_count,
@@ -102,7 +121,7 @@ def build_info(state: EnvState, data: MarketData, cfg: EnvConfig,
         info[f"execution_diagnostics/{key}"] = state.exec_diag[:, i]
     if event_info:
         info.update(event_info)
-    row = torch.clamp_max(torch.clamp_max(t + 1, n), n - 1)
+    row = local_rows(cfg, data, torch.clamp_max(torch.clamp_max(t + 1, n), n - 1), bars)
     if cfg.stage_b_force_close_obs:
         fc = data.force_close[row]
         for i, key in enumerate(FORCE_CLOSE_FEATURE_KEYS):
@@ -113,7 +132,7 @@ def build_info(state: EnvState, data: MarketData, cfg: EnvConfig,
             info[key] = cal[:, i]
         initial = torch.where(params.initial_cash == 0, 1.0, params.initial_cash)
         info["margin_closeout_percent"] = broker.margin_closeout_percent(
-            state, data.close[t], params, cfg.margin_model
+            state, price, params, cfg.margin_model
         ).to(torch.float32)
         info["margin_available_norm"] = (params.initial_cash + state.equity_delta) / initial
     return info

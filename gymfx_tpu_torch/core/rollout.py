@@ -1,6 +1,6 @@
 """Episode rollout: the driver loop as a Python loop over batched steps.
 
-The port of ``gymfx_tpu/core/rollout.py`` (lines 31-262).  The JAX
+The port of ``gymfx_tpu/core/rollout.py`` (lines 31-330).  The JAX
 package scans one env's episode; here one loop iteration steps every
 env of the batch.  Drivers are (init, act) pairs like the JAX package's,
 with a ``torch.Generator`` in place of a PRNG key:
@@ -123,7 +123,17 @@ def rollout(cfg: EnvConfig, params: EnvParams, data: MarketData, driver: Driver,
     state, obs = env_core.reset(cfg, params, data, n_envs)
     dcarry = driver.init() if driver_carry is None else driver_carry
     pieces = []
-    for i in range(int(steps)):
+    state, obs, dcarry = _steps(cfg, params, data, driver, state, obs, dcarry,
+                                range(int(steps)), generator, collect, pieces)
+    if not pieces:
+        return state, {}
+    return state, _stack(pieces)
+
+
+def _steps(cfg, params, data, driver, state, obs, dcarry, indices, generator, collect, pieces):
+    """Steps ``indices`` of an episode on ``data``; appends each step's
+    collected outputs to ``pieces``.  Returns (state, obs, driver carry)."""
+    for i in indices:
         action, dcarry = driver.act(dcarry, obs, i, generator)
         state, obs, reward, done, info = env_core.step(cfg, params, data, state, action)
         if collect:
@@ -133,9 +143,7 @@ def rollout(cfg: EnvConfig, params: EnvParams, data: MarketData, driver: Driver,
                     k: v for k, v in info.items() if k.startswith("event_context_")
                 }
             pieces.append(out)
-    if not pieces:
-        return state, {}
-    return state, _stack(pieces)
+    return state, obs, dcarry
 
 
 def _stack(pieces):
@@ -156,3 +164,41 @@ def rollout_chunked(cfg: EnvConfig, params: EnvParams, data: MarketData,
         raise ValueError("chunk_size must be >= 1")
     return rollout(cfg, params, data, driver, steps, generator, collect,
                    driver_carry, n_envs)
+
+
+def rollout_streamed(cfg: EnvConfig, params: EnvParams, streamer, driver: Driver,
+                     steps: int, generator: torch.Generator, collect: bool = True,
+                     driver_carry: Any = None):
+    """One env's episode over a :class:`~gymfx_tpu_torch.data.feed.BarStreamer`
+    (the JAX package's ``rollout_streamed``, core/rollout.py:266-330).
+
+    The same steps as :func:`rollout` on the resident tape, with the same
+    global cursors; each shard's ``row0`` rebases them into its arrays,
+    and the streamer issues shard ``k + 1``'s copy before shard ``k``'s
+    steps run.  Step ``i`` moves the cursor to bar ``i``, so the shard
+    serving cursors ``[lo, hi)`` runs steps ``[lo, hi)``.
+
+    As in the JAX package, an episode that ends mid-stream freezes its
+    cursor; once a later shard no longer covers it, the inert post-done
+    reads clamp to that shard's edge and may differ from the resident
+    episode.  Every step up to the end is the resident episode's.
+    """
+    state = obs = None
+    dcarry = driver.init() if driver_carry is None else driver_carry
+    pieces = []
+    done_steps = 0
+    for lo, hi, shard in streamer.iter_shards():
+        if state is None:
+            # the cursor starts at bar 0, which shard 0 always covers
+            state, obs = env_core.reset(cfg, params, shard, 1)
+            if steps <= 0:
+                return state, {}
+        end = steps if hi is None else min(int(hi), steps)
+        state, obs, dcarry = _steps(cfg, params, shard, driver, state, obs, dcarry,
+                                    range(done_steps, end), generator, collect, pieces)
+        done_steps = max(done_steps, end)
+        if done_steps >= steps:
+            break
+    if not pieces:
+        return state, {}
+    return state, _stack(pieces)

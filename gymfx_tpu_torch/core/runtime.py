@@ -1,9 +1,13 @@
 """Host-side runtime: merged config dict -> bound environment on a device.
 
 The port of ``gymfx_tpu/core/runtime.py``'s ``Environment`` facade for
-the replay feed: it loads the dataset once, builds the static EnvConfig,
-the EnvParams and the MarketData tensors on its device, and exposes
-``reset`` / ``step`` / ``rollout`` / ``make_driver``.
+the replay and curriculum feeds: it loads the dataset once, builds the
+static EnvConfig, the EnvParams and the MarketData tensors on its
+device, and exposes ``reset`` / ``step`` / ``rollout`` / ``make_driver``.
+With ``stream_hbm_budget_mb`` a history larger than the budget is
+streamed in shards (``streamer``, no resident ``data``); with
+``feed="curriculum"`` a ``CurriculumSampler`` holds the other tapes
+(``curriculum``), compressed when ``data_compress`` is on.
 
 The device is CUDA unless the caller passes ``device="cpu"``; without
 CUDA and without a device it raises.  On CUDA every configuration the
@@ -29,7 +33,16 @@ from gymfx_tpu_torch.core.types import (
     make_env_params,
     not_ported,
 )
-from gymfx_tpu_torch.data.feed import MarketData, MarketDataset, load_market_dataset
+from gymfx_tpu_torch.data import tapes as tapes_mod
+from gymfx_tpu_torch.data.compress import validate_compress_mode
+from gymfx_tpu_torch.data.feed import (
+    BarStreamer,
+    MarketData,
+    MarketDataset,
+    load_market_dataset,
+    market_data_nbytes,
+    market_data_to_device,
+)
 from gymfx_tpu_torch.lob.venue import validate_lob_venue
 
 
@@ -56,18 +69,25 @@ class Environment:
                  device=None):
         self.device = resolve_device(device)
         self.config = dict(config)
+        # feed: "replay" loads the CSV; "curriculum" samples over a
+        # registry of tapes (data/tapes.py) whose tape 0 is this
+        # Environment's dataset; the sampler is built once the device data
+        # exists (below)
         feed = str(config.get("feed") or "replay").lower()
+        self.curriculum = None
+        curriculum_specs = None
         if feed == "scengen":
             raise not_ported("the scengen feed", 14)
         if feed == "curriculum":
-            raise not_ported("the curriculum feed", 15)
-        if feed != "replay":
+            curriculum_specs = tapes_mod.parse_tape_specs(self.config)
+        elif feed != "replay":
             raise ValueError(f"feed must be replay|scengen|curriculum, got {feed!r}")
-        if config.get("stream_hbm_budget_mb"):
-            raise not_ported("bar streaming (stream_hbm_budget_mb)", 15)
-        if str(config.get("data_compress", "off")).lower() != "off":
-            raise not_ported("compressed tapes (data_compress)", 15)
-        self.dataset = dataset if dataset is not None else load_market_dataset(self.config)
+        if dataset is not None:
+            self.dataset = dataset
+        elif feed == "curriculum":
+            self.dataset = tapes_mod.dataset_for_spec(self.config, curriculum_specs[0])
+        else:
+            self.dataset = load_market_dataset(self.config)
         if len(self.dataset) < int(config.get("window_size", 32)) + 2:
             raise ValueError("input data is empty or too short for the configured window")
 
@@ -91,9 +111,16 @@ class Environment:
             raise not_ported("FX financing rates (data/financing.py)", 8)
         validate_lob_venue(self.cfg, self.config)
         self.params: EnvParams = make_env_params(self.config, self.cfg, self.device)
-        self.data: MarketData = self.dataset.build_market_data(
+
+        budget = config.get("stream_hbm_budget_mb")
+        self.stream_budget_mb: Optional[float] = float(budget) if budget else None
+        # the int16 tick-delta wire format of streamed shards and of the
+        # curriculum's tape library (data/compress.py); "on" and
+        # "interpret" both decode through K6 on the card
+        self.data_compress = validate_compress_mode(config.get("data_compress", "off"))
+        self.tick_size = float(config.get("lob_tick_size", 1e-5) or 1e-5)
+        md_kwargs = dict(
             window_size=self.cfg.window_size,
-            device=self.device,
             feature_columns=feature_columns,
             feature_scaling=str(config.get("feature_scaling", "rolling_zscore")),
             feature_scaling_window=int(config.get("feature_scaling_window", 256)),
@@ -112,23 +139,86 @@ class Environment:
             force_close_window_hours=int(config.get("force_close_window_hours", 4)),
             monday_entry_window_hours=int(config.get("monday_entry_window_hours", 4)),
         )
+        self.md_kwargs = md_kwargs  # every tape of this Environment is built with these
+
+        self.streamer: Optional[BarStreamer] = None
+        self.host_data: Optional[MarketData] = None
+        host = self.dataset.build_market_data(device=None, **md_kwargs)
+        if (self.stream_budget_mb is not None
+                and market_data_nbytes(host) > self.stream_budget_mb * 2**20):
+            # streamed: shards go to the device on demand (the rollout
+            # path); no resident copy exists
+            self.streamer = BarStreamer(
+                host, window_size=self.cfg.window_size, budget_mb=self.stream_budget_mb,
+                compress=self.data_compress, tick_size=self.tick_size, device=self.device,
+            )
+            self.host_data = self.streamer.host_data
+            if self.data_compress != "off":
+                del host
+                self.dataset.release_frame()
+            self.data: Optional[MarketData] = None
+        else:
+            # resident (a budget the tape fits changes nothing)
+            self.data = market_data_to_device(host, self.device)
+
+        if curriculum_specs is not None:
+            if self.streamer is not None:
+                raise ValueError(
+                    "feed=curriculum cannot be combined with shard "
+                    "streaming (stream_hbm_budget_mb="
+                    f"{self.stream_budget_mb}): the sampler swaps whole "
+                    "tapes at superstep boundaries; raise the budget or "
+                    "compress the tape library with data_compress=on"
+                )
+            self.curriculum = tapes_mod.CurriculumSampler(
+                self.config, curriculum_specs, base_data=self.data, md_kwargs=md_kwargs,
+                device=self.device, compress=self.data_compress, tick_size=self.tick_size,
+            )
 
     @property
     def n_bars(self) -> int:
         return self.cfg.n_bars
 
+    @property
+    def streaming(self) -> bool:
+        return self.streamer is not None
+
+    def require_resident_data(self, what: str) -> MarketData:
+        """The resident device MarketData, or a loud error for paths that
+        need random access to the whole history (trainers, the export,
+        stepping) while the dataset is streamed in shards."""
+        if self.data is None:
+            raise ValueError(
+                f"{what} requires the full bar history resident in "
+                "device memory, but this Environment streams it in "
+                f"shards (stream_hbm_budget_mb={self.stream_budget_mb}); "
+                "unset stream_hbm_budget_mb or raise the budget"
+            )
+        return self.data
+
     def reset(self, n_envs: int = 1, params: Optional[EnvParams] = None):
         """(state, obs) of ``n_envs`` fresh episodes at bar row 0."""
-        return env_core.reset(self.cfg, params or self.params, self.data, n_envs)
+        return env_core.reset(self.cfg, params or self.params,
+                              self.require_resident_data("reset()"), n_envs)
 
     def step(self, state: EnvState, action, params: Optional[EnvParams] = None):
         """One step of every env in ``state``: (state, obs, reward, done, info)."""
-        return env_core.step(self.cfg, params or self.params, self.data, state, action)
+        return env_core.step(self.cfg, params or self.params,
+                             self.require_resident_data("step()"), state, action)
 
     def rollout(self, driver, steps: int, seed: int = 0, params=None,
                 collect: bool = True, n_envs: int = 1):
-        """Episode rollout of ``n_envs`` envs; outputs are (steps, n_envs)."""
+        """Episode rollout of ``n_envs`` envs; outputs are (steps, n_envs).
+        A streaming Environment runs one env through its shards
+        (``rollout_streamed``)."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        if self.streamer is not None:
+            if n_envs != 1:
+                raise ValueError("a streamed episode is one env (n_envs=1)")
+            return rollout_mod.rollout_streamed(
+                self.cfg, params or self.params, self.streamer, driver, int(steps), gen,
+                collect=collect,
+            )
         return rollout_mod.rollout(
             self.cfg, params or self.params, self.data, driver, int(steps), gen,
             collect=collect, n_envs=n_envs,

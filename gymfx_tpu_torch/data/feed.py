@@ -1,4 +1,5 @@
-"""Market data pipeline: CSV -> host dataset -> columnar tensors.
+"""Market data pipeline: CSV -> host dataset -> columnar tensors, and
+the streaming of a long history in shards.
 
 The port's copy of ``gymfx_tpu/data/feed.py`` (MarketData, the CSV
 load, ``MarketDataset.build_market_data`` and ``_build_feature_tensors``)
@@ -8,7 +9,13 @@ columns are backfilled from ``price_column``, VOLUME defaults to 0.
 Every host computation keeps the JAX package's f64 op order, and the
 cast to the final dtype happens in numpy before ``torch.from_numpy``, so
 each field is bitwise the JAX package's ``build_market_data(device=False)``
-(tests/test_torch_data.py).
+(tests/test_torch_data.py).  ``build_market_data(device=None)`` keeps
+the numpy arrays on the host, as the JAX package's ``device=False`` does.
+
+``market_data_nbytes``, ``market_data_nbytes_report``,
+``shard_market_data`` and :class:`BarStreamer` are the JAX package's
+(:262-594): the streamer plans the same shards for the same budget, and
+moves them to the card through pinned host memory on a side CUDA stream.
 """
 from __future__ import annotations
 
@@ -48,7 +55,10 @@ class MarketData(NamedTuple):
     feat_mean: Any     # (n + 1, F) float32
     feat_std: Any      # (n + 1, F) float32
     feat_neutral: Any  # (n + 1,) bool
-    row0: Any = 0      # always 0: the port keeps the whole history resident
+    # global bar row of local index 0 (an int): 0 for a resident tape, the
+    # shard's start for a streamed shard (shard_market_data), so the env
+    # keeps global cursors and rebases every read
+    row0: Any = 0
     scen_flags: Any = 0
 
     @property
@@ -103,13 +113,23 @@ class MarketDataset:
         self.timestamps = frame.timestamps
 
     def __len__(self) -> int:
+        if self.frame is None:
+            return self._released_len
         return len(self.frame)
+
+    def release_frame(self) -> None:
+        """Drop the loaded frame once the tape exists in another form (a
+        compressed streamed tape); ``len()`` keeps working, building market
+        data again raises."""
+        if self.frame is not None:
+            self._released_len = len(self.frame)
+            self.frame = None
 
     def build_market_data(
         self,
         *,
         window_size: int,
-        device: torch.device,
+        device: Optional[torch.device],
         feature_columns: Sequence[str] = (),
         feature_scaling: str = "rolling_zscore",
         feature_scaling_window: int = 256,
@@ -127,6 +147,12 @@ class MarketDataset:
             raise NotImplementedError(
                 "FX financing rates (data/financing.py) come with "
                 "ROADMAP.md Queue 1 item 8"
+            )
+        if self.frame is None:
+            raise ValueError(
+                "this dataset's frame was released (release_frame) after "
+                "its device tensors were built — market data cannot be "
+                "rebuilt from it"
             )
         columns = self.frame.columns
         n = len(self.frame)
@@ -183,10 +209,10 @@ class MarketDataset:
         def T(x, dt):
             # cast on the host first (the JAX package's np.asarray(x, dt)),
             # so the device tensor holds exactly those bits
-            return torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(device)
+            return np.ascontiguousarray(x, dtype=dt)
 
         f32 = np.float32
-        return MarketData(
+        host = MarketData(
             open=T(o, npd),
             high=T(h, npd),
             low=T(l, npd),
@@ -207,6 +233,7 @@ class MarketDataset:
             row0=0,
             scen_flags=T(np.zeros(n, np.int32), np.int32),
         )
+        return host if device is None else market_data_to_device(host, device)
 
 
 def _build_feature_tensors(
@@ -344,3 +371,290 @@ def load_dataframe(config: Dict[str, Any]) -> Frame:
 
 def load_market_dataset(config: Dict[str, Any]) -> MarketDataset:
     return MarketDataset(load_dataframe(config), config)
+
+
+def market_data_to_device(data: MarketData, device, non_blocking: bool = False) -> MarketData:
+    """``data``'s arrays (numpy or tensors) as tensors on ``device``;
+    ``row0`` stays the int it is."""
+    device = torch.device(device)
+
+    def put(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(device, non_blocking=non_blocking)
+
+    return MarketData(*(x if name == "row0" else put(x)
+                        for name, x in zip(MarketData._fields, data)))
+
+
+def market_data_nbytes(data: MarketData) -> int:
+    """Total array bytes of a MarketData (host or device).  ``row0``
+    counts as the 4-byte int32 scalar the JAX package stores, so a
+    budget plans the same shards here as there."""
+    total = 0
+    for name, leaf in zip(MarketData._fields, data):
+        if name == "row0":
+            total += 4
+            continue
+        nbytes = getattr(leaf, "nbytes", None)
+        if nbytes is not None:
+            total += int(nbytes)
+    return total
+
+
+def market_data_nbytes_report(data: Optional[MarketData], tape=None) -> Dict[str, Any]:
+    """Decoded vs compressed byte accounting for one tape: ``decoded``
+    the full-width footprint of ``data``, ``compressed`` that of its
+    :class:`~gymfx_tpu_torch.data.compress.CompressedTape` (None when the
+    tape is not compressed), ``ratio`` the tape's compression ratio."""
+    decoded = market_data_nbytes(data) if data is not None else None
+    if tape is None:
+        return {"decoded": decoded, "compressed": None, "ratio": None}
+    return {
+        "decoded": decoded if decoded is not None
+        else tape.decoded_shard_nbytes * tape.num_shards,
+        "compressed": tape.nbytes,
+        "ratio": tape.compression_ratio,
+    }
+
+
+def shard_market_data(data: MarketData, start: int, shard_bars: int,
+                      window_size: int) -> MarketData:
+    """Slice one streaming shard out of a MarketData (numpy arrays or
+    tensors; slices are views).
+
+    A shard anchored at global row ``start`` serves env steps whose bar
+    cursor lands in ``[start, start + shard_bars)``; a step at cursor
+    ``t`` also reads row ``t + 1``, so the bar arrays carry one row of
+    lookahead, the front-padded window sources ``window_size`` more, and
+    the (n + 1)-row scaler moments one more again.  ``row0 = start``.
+    """
+    n = int(data.close.shape[0])
+    hi = start + int(shard_bars) + 1
+    if hi > n:
+        raise ValueError(f"shard [{start}, {hi}) exceeds dataset of {n} bars")
+    bar = slice(start, hi)
+    padded = slice(start, hi + int(window_size))
+    feat = slice(start, hi + 1)
+    return data._replace(
+        open=data.open[bar],
+        high=data.high[bar],
+        low=data.low[bar],
+        close=data.close[bar],
+        volume=data.volume[bar],
+        padded_close=data.padded_close[padded],
+        minute_of_week=data.minute_of_week[bar],
+        calendar=data.calendar[bar],
+        force_close=data.force_close[bar],
+        ev_no_trade=data.ev_no_trade[bar],
+        ev_spread_mult=data.ev_spread_mult[bar],
+        ev_slip_mult=data.ev_slip_mult[bar],
+        rollover_accrual=data.rollover_accrual[bar],
+        padded_features=data.padded_features[padded],
+        feat_mean=data.feat_mean[feat],
+        feat_std=data.feat_std[feat],
+        feat_neutral=data.feat_neutral[feat],
+        row0=int(start),
+        scen_flags=data.scen_flags[bar],
+    )
+
+
+def _pinned(x):
+    """A page-locked CPU tensor holding ``x`` (numpy array or tensor)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.contiguous().pin_memory()
+
+
+class BarStreamer:
+    """Double-buffered host-to-device streaming of a long bar history.
+
+    The port of the JAX package's ``BarStreamer`` (the planner, ``starts``,
+    the compressed ring, ``serve_ranges``, ``iter_shards``).  The history
+    is cut into shards of one shape; shard ``k + 1``'s copy is issued
+    before shard ``k`` is handed out for compute.  At most two decoded
+    shards are resident, so each targets half the budget.
+
+    ``compress != "off"`` stores the tape in the int16 tick-delta format
+    (data/compress.py): the planner budgets on the compressed resident
+    size plus two decoded shards; the whole compressed tape stays on the
+    device when the ring holds it (``tape_resident``), else each
+    compressed shard is copied over; K6 decodes each shard.  The host f32
+    tape is dropped after encoding.
+
+    On the card the double buffer is: the host source (the f32 tape, or
+    the compressed one when it is not resident) pinned once, here; each
+    shard's ``non_blocking`` copies issued on a side CUDA stream, with an
+    event that the compute stream waits on before the shard's decode or
+    first read; ``record_stream`` on the copies, so their memory is not
+    reused while compute still reads it.  Nothing syncs the host per
+    shard.  On the CPU a shard is plain slicing.
+    """
+
+    def __init__(self, host_data: MarketData, *, window_size: int, budget_mb: float,
+                 min_shard_bars: int = 64, compress: str = "off", tick_size: float = 1e-5,
+                 what: str = "", device=None):
+        from gymfx_tpu_torch.data import compress as C
+
+        self.compress = C.validate_compress_mode(compress)
+        self.window_size = int(window_size)
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        n = int(host_data.close.shape[0])
+        total = market_data_nbytes(host_data)
+        per_bar = max(1.0, total / max(1, n))
+        budget_bytes = float(budget_mb) * 2**20
+        if self.compress == "off":
+            shard_bars = int(budget_bytes / 2.0 / per_bar) - self.window_size - 1
+        else:
+            # two decoded f32 buffers take an eighth of the budget; the
+            # rest holds the compressed resident ring (checked below)
+            shard_bars = int(budget_bytes * 0.125 / 2.0 / per_bar) - self.window_size - 1
+        shard_bars = max(int(min_shard_bars), shard_bars)
+        if shard_bars >= n - 1:
+            raise ValueError(
+                f"dataset ({n} bars, {total / 2**20:.1f} MiB) fits the "
+                f"{budget_mb} MiB streaming budget — streaming is not "
+                "needed; unset stream_hbm_budget_mb"
+            )
+        self.n_bars = n
+        self.shard_bars = shard_bars
+        # regular starts every shard_bars; the final shard is anchored so
+        # its lookahead row is the last bar (it overlaps the previous one)
+        starts = list(range(0, n - shard_bars - 1, shard_bars))
+        last = n - shard_bars - 1
+        if not starts or starts[-1] != last:
+            starts.append(last)
+        self.starts = starts
+
+        cuda = self.device.type == "cuda"
+        self._side = torch.cuda.Stream(self.device) if cuda else None
+        self.tape = None
+        self._decoder = None
+        self.ring_shards = 2  # uncompressed: the double buffer
+        self.tape_resident = False
+        if self.compress == "off":
+            self.host_data = host_data
+            # the shards' source: pinned on the card's host, else the host
+            # arrays themselves as CPU tensors (no copy)
+            self._source = MarketData(*(
+                x if name == "row0" else (_pinned(x) if cuda else torch.as_tensor(x))
+                for name, x in zip(MarketData._fields, host_data)
+            ))
+            return
+        tape = C.encode_market_data(
+            host_data, starts=starts, shard_bars=shard_bars,
+            window_size=self.window_size, tick_size=tick_size, what=what,
+        )
+        ring_bytes = budget_bytes - 2.0 * tape.decoded_shard_nbytes
+        ring = int(ring_bytes // max(1, tape.shard_nbytes))
+        if ring < 2:
+            raise ValueError(
+                f"stream_hbm_budget_mb={budget_mb} cannot hold two "
+                f"decoded shards ({2 * tape.decoded_shard_nbytes / 2**20:.1f}"
+                " MiB) plus two compressed shards "
+                f"({tape.shard_nbytes / 2**20:.2f} MiB each, "
+                f"{tape.nbytes / 2**20:.1f} MiB total compressed) — raise "
+                "the budget or set data_compress=off"
+            )
+        self.ring_shards = min(ring, len(starts))
+        # the whole compressed tape fits the ring: park it on the device
+        # once and decode shards from resident slabs; otherwise stream the
+        # compressed shards from (pinned) host memory
+        self.tape_resident = ring >= len(starts)
+        if self.tape_resident:
+            tape = C.device_tape(tape, self.device)
+        elif cuda:
+            tape = tape._replace(slabs=tuple(_pinned(s) for s in tape.slabs),
+                                 bases=tuple(_pinned(b) for b in tape.bases),
+                                 raws=tuple(_pinned(r) for r in tape.raws))
+        self.tape = tape
+        self._decoder = C.make_shard_decoder(tape, self.compress, self.device)
+        # compressed mode never holds the full-width tape and its
+        # compressed form at the same time
+        self.host_data = None
+        self._source = None
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.starts)
+
+    @property
+    def resident_bars(self) -> int:
+        """Bar capacity resident on the device under the budget."""
+        return self.ring_shards * self.shard_bars
+
+    @property
+    def compression_ratio(self) -> Optional[float]:
+        return None if self.tape is None else self.tape.compression_ratio
+
+    def nbytes_report(self) -> Dict[str, Any]:
+        """Compressed vs decoded byte accounting (see
+        :func:`market_data_nbytes_report`)."""
+        return market_data_nbytes_report(self.host_data, self.tape)
+
+    def serve_ranges(self):
+        """[(lo, hi_or_None), ...]: shard k serves bar cursors in
+        [lo, hi); the final shard serves to the end (hi=None)."""
+        out = []
+        for k, lo in enumerate(self.starts):
+            hi = self.starts[k + 1] if k + 1 < len(self.starts) else None
+            out.append((lo, hi))
+        return out
+
+    def _stage(self, k: int):
+        """Issue shard ``k``'s copy: (its arrays, the copy's CUDA event or
+        None when nothing was copied)."""
+        from gymfx_tpu_torch.data import compress as C
+
+        if self.tape is not None:
+            arrs = C.shard_arrays(self.tape, k)
+            if self.tape_resident or self._side is None:
+                return arrs, None
+            with torch.cuda.stream(self._side):
+                arrs = dict(arrs, **{
+                    key: tuple(x.to(self.device, non_blocking=True) for x in arrs[key])
+                    for key in ("slabs", "bases", "raws")
+                })
+                event = torch.cuda.Event()
+                event.record(self._side)
+            return arrs, event
+        shard = shard_market_data(self._source, self.starts[k], self.shard_bars,
+                                  self.window_size)
+        if self._side is None:
+            return shard, None
+        with torch.cuda.stream(self._side):
+            shard = market_data_to_device(shard, self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._side)
+        return shard, event
+
+    def _materialize(self, staged) -> MarketData:
+        """The compute stream waits for the staged copy, then the shard is
+        decoded (compressed) or read as it is."""
+        arrs, event = staged
+        if event is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(event)
+            copies = ([x for key in ("slabs", "bases", "raws") for x in arrs[key]]
+                      if self.tape is not None else
+                      [x for name, x in zip(MarketData._fields, arrs) if name != "row0"])
+            for x in copies:
+                x.record_stream(compute)
+        if self.tape is not None:
+            return self._decoder(arrs)
+        return arrs
+
+    def _device_shard(self, k: int) -> MarketData:
+        return self._materialize(self._stage(k))
+
+    def iter_shards(self):
+        """Yield ``(serve_lo, serve_hi_or_None, shard)`` in order, with
+        shard ``k + 1``'s copy already issued before shard ``k`` is
+        handed to the caller for compute."""
+        nxt = self._stage(0)
+        for k in range(len(self.starts)):
+            cur = self._materialize(nxt)
+            if k + 1 < len(self.starts):
+                nxt = self._stage(k + 1)
+            hi = self.starts[k + 1] if k + 1 < len(self.starts) else None
+            yield self.starts[k], hi, cur

@@ -11,6 +11,8 @@ by nvcc at first use and loaded with ``ctypes``:
                (the same flags without -fmad=false)
     lob        csrc/lob_kernels.cu (K5), integer only (the same flags as
                attention)
+    data       csrc/data_kernels.cu (K6 q16 tape decode, K7 batched scaled
+               windows), bitwise to the plain versions (the env flags)
 
 ``-fmad=false`` keeps every multiply and add separate, as the plain
 PyTorch versions compute them; ``--use_fast_math`` is never used (IEEE
@@ -40,11 +42,13 @@ SOURCES = {
     "env": _PACKAGE / "csrc" / "env_kernels.cu",
     "attention": _PACKAGE / "csrc" / "attention_kernels.cu",
     "lob": _PACKAGE / "csrc" / "lob_kernels.cu",
+    "data": _PACKAGE / "csrc" / "data_kernels.cu",
 }
 FLAGS = {
     "env": (*_COMMON, "-fmad=false", *_SHARED),
     "attention": (*_COMMON, *_SHARED),
     "lob": (*_COMMON, *_SHARED),
+    "data": (*_COMMON, "-fmad=false", *_SHARED),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -143,7 +147,15 @@ def _bind_lob(lib: ctypes.CDLL) -> None:
     lib.gymfx_lob_pointer_count.restype = ctypes.c_int
 
 
-_BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob}
+def _bind_data(lib: ctypes.CDLL) -> None:
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.gymfx_q16_decode.argtypes = [vp, vp, vp, vp, i, ll, i, vp]
+    lib.gymfx_q16_decode.restype = i
+    lib.gymfx_scaled_windows.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, ll, ll, f, vp]
+    lib.gymfx_scaled_windows.restype = i
+
+
+_BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob, "data": _bind_data}
 
 
 def load_library(name: str = "env") -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Seeded inputs for the kernels K1-K3 and K5, drawn with numpy.
+"""Seeded inputs for the kernels K1-K3 and K5-K7, drawn with numpy.
 
 One source of cases for everything that holds a kernel to its plain
 version or to the JAX package: chip_smoke.py on the card, and the tests
@@ -8,6 +8,10 @@ and K3 get open, flat, flipping and (with ``big``) huge ledgers, pending
 and forced orders, brackets at, inside and across the bar, and -inf
 reward peaks, over the grid of K2's static flags.  K5 gets the venue's
 seed streams, every scenario's flow mix and three hand-built streams.
+K6 gets int16 deltas at both ends of their range, divisors 1, 60, 1440
+and f32(1e5), and a ragged row count; K7 neutral rows, NaN and +-inf
+inputs, clip 0 and 10, and steps at 0 and at n.  :func:`tick_walk_columns`
+and :func:`write_bar_csv` make the on-grid M1 tapes of the data path.
 """
 from __future__ import annotations
 
@@ -204,3 +208,77 @@ def lob_seed_streams(n_books: int, seed: int = 0, device=None):
     o = np.random.default_rng(seed).integers(105_000, 115_000, n_books).astype(np.int32)
     return _messages(seed_messages(torch.from_numpy(o), 8, scenario_flow_params("lob_volatile")),
                      device)
+
+
+# ---------------------------------------------------------------------------
+# K6: q16 tape decode blocks; K7: batched scaled windows
+# ---------------------------------------------------------------------------
+Q16_INVS = (1.0, 60.0, 1440.0, float(np.float32(1e5)))
+
+
+def q16_case(seed=0, rows=1003, invs=Q16_INVS):
+    """(delta (C, rows) int16, base (C,) int32, inv (C,) f32) with the
+    int16 extremes in every column."""
+    rng = np.random.default_rng(seed)
+    c = len(invs)
+    delta = rng.integers(-32768, 32768, (c, rows)).astype(np.int16)
+    delta[:, 0], delta[:, -1] = -32768, 32767
+    base = rng.integers(-2**20, 2**20, c).astype(np.int32)
+    base[-1] = 110_000  # an EUR/USD-like price in ticks
+    return delta, base, np.asarray(invs, np.float32)
+
+
+def scaled_windows_case(seed=0, n=300, window=8, f=3, batch=64):
+    """(padded_features (n + W, F), mean (n + 1, F), std, neutral (n + 1,),
+    steps (B,)) for K7, with NaN / +-inf features, zero stds, neutral
+    rows and steps 0 and n."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(0, 3, (n + window, f)).astype(np.float32)
+    feats[5, 0], feats[6, 1 % f], feats[7, 2 % f] = np.nan, np.inf, -np.inf
+    feats[9, 1 % f] = 1e30
+    mean = rng.normal(0, 1, (n + 1, f)).astype(np.float32)
+    std = (rng.random((n + 1, f)) + 0.1).astype(np.float32)
+    std[3, 0] = 0.0
+    neutral = rng.random(n + 1) < 0.2
+    neutral[:2] = True
+    neutral[3:5] = False  # steps 3 and 4 scale the NaN / inf rows
+    steps = rng.integers(0, n + 1, batch).astype(np.int32)
+    steps[:5] = (0, n, 1, 4, 3)
+    return feats, mean, std, neutral, steps
+
+
+def tick_walk_columns(n, seed=0, level=1.1, vol_ticks=5.0, tick=1e-5):
+    """OHLCV float64 columns of a random walk in whole ticks (every price
+    on the ``tick`` grid): closes step by N(0, vol_ticks) ticks, opens are
+    the previous close, wicks reach 0-3 ticks beyond the body, volumes are
+    whole units."""
+    rng = np.random.default_rng(seed)
+    close = int(round(level / tick)) + np.cumsum(np.rint(rng.normal(0, vol_ticks, n))).astype(np.int64)
+    open_ = np.concatenate([close[:1], close[:-1]])
+    high = np.maximum(open_, close) + rng.integers(0, 4, n)
+    low = np.minimum(open_, close) - rng.integers(0, 4, n)
+    cols = {k: v * tick for k, v in
+            (("OPEN", open_), ("HIGH", high), ("LOW", low), ("CLOSE", close))}
+    cols = {k: np.round(v, 5) for k, v in cols.items()}
+    cols["VOLUME"] = rng.integers(1, 500, n).astype(np.float64)
+    return cols
+
+
+def m1_week_grid(n, start="2024-01-01T00:00"):
+    """``n`` M1 timestamps (datetime64[m]) on an FX trading week's grid:
+    every minute Monday to Friday UTC, from Monday ``start``."""
+    weeks = n // 7200 + 1
+    minutes = np.arange(np.datetime64(start, "m"), np.datetime64(start, "m")
+                        + np.timedelta64(weeks * 7 * 1440, "m"))
+    weekday = (minutes.astype("datetime64[D]").astype(np.int64) - 4) % 7  # 0 = Monday
+    return minutes[weekday < 5][:n]
+
+
+def write_bar_csv(path, columns, timestamps) -> None:
+    """A DATE_TIME,OPEN,HIGH,LOW,CLOSE,VOLUME file, prices with 5 decimals."""
+    stamps = np.datetime_as_string(timestamps, unit="s")
+    o, h, l, c, v = (columns[k] for k in ("OPEN", "HIGH", "LOW", "CLOSE", "VOLUME"))
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("DATE_TIME,OPEN,HIGH,LOW,CLOSE,VOLUME\n")
+        fh.writelines(f"{t},{a:.5f},{b:.5f},{d:.5f},{e:.5f},{int(x)}\n"
+                      for t, a, b, d, e, x in zip(stamps, o, h, l, c, v))

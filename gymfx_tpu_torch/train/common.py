@@ -1,5 +1,6 @@
 """Shared trainer helpers: the port of ``gymfx_tpu/train/common.py``'s
-``make_train_many`` (:18-40), ``validate_minibatch_scheme`` and
+``make_train_many`` (:18-40), ``make_train_many_with_data`` (:43-57),
+``validate_minibatch_scheme`` and
 ``resolve_minibatch_scheme`` (:315-371), ``minibatch_plan`` (:374-409)
 and ``masked_reset``.
 
@@ -33,14 +34,23 @@ def masked_reset(done, fresh, cur):
 def make_train_many(step: Callable):
     """``train_many(state, k)``: ``k`` train steps of ``step(state) ->
     (state, metrics)``, the metrics stacked on a leading ``(k,)`` axis."""
+    many = make_train_many_with_data(lambda state, _: step(state))
+    return lambda state, k: many(state, None, k)
 
-    def train_many(state, k: int):
+
+def make_train_many_with_data(step: Callable):
+    """The curriculum's ``train_many(state, data, k)``: ``k`` train steps
+    of ``step(state, data) -> (state, metrics)`` on one tape, the metrics
+    stacked on a leading ``(k,)`` axis (the JAX package's
+    ``make_train_many_with_data``, :43-57)."""
+
+    def train_many(state, data, k: int):
         k = int(k)
         if k < 1:
             raise ValueError(f"train_many needs k >= 1, got {k}")
         history = []
         for _ in range(k):
-            state, metrics = step(state)
+            state, metrics = step(state, data)
             history.append(metrics)
         return state, {key: torch.stack([m[key] for m in history]) for key in history[0]}
 

@@ -5,7 +5,9 @@ The port of ``gymfx_tpu/train/ppo.py``: :class:`PPOConfig`,
 :func:`ppo_config_from` (:45-163), :class:`TrainState` and
 :class:`PPOTrainer` with ``init_state``, ``rollout_phase`` (:307-386,
 :452-467), ``_gae`` (:388-406), ``_loss`` (:408-443), ``update_phase``
-(:469-615), ``train_step`` and ``train_many``.
+(:469-615), ``train_step``, ``train_many`` and ``train`` (:637-802).
+Each phase takes an explicit tape ``data`` (the curriculum's pick), as
+the JAX package's phases do; a streamed Environment is refused.
 
 * Rollout: ``horizon`` steps of the policy acting (categorical draw from
   a ``torch.Generator``), every env stepping through the kernel chain
@@ -32,7 +34,8 @@ draws (its threefry stream and torch's never match).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import time
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -43,6 +46,7 @@ from gymfx_tpu_torch.core.types import EnvState, not_ported
 from gymfx_tpu_torch.resilience.guards import quarantine_mask, select_tree, tree_all_finite
 from gymfx_tpu_torch.train.common import (
     make_train_many,
+    make_train_many_with_data,
     masked_reset,
     minibatch_plan,
     validate_minibatch_scheme,
@@ -176,7 +180,8 @@ class PPOTrainer:
         self.pcfg = pcfg
         self.device = env.device
         cfg = env.cfg
-        reset_state, reset_obs = env_core.reset(cfg, env.params, env.data, 1)
+        data = env.require_resident_data("PPO training (random-access rollouts)")
+        reset_state, reset_obs = env_core.reset(cfg, env.params, data, 1)
         self.obs_spec = make_obs_spec(reset_obs)
         self._encode = make_obs_encoder(pcfg.policy, cfg.window_size, self.obs_spec)
         self._reset_state = reset_state
@@ -191,6 +196,10 @@ class PPOTrainer:
         ).to(self.device)
         self.optimizer = ClipAdam(pcfg.lr, pcfg.max_grad_norm, pcfg.opt_state_dtype)
         self.train_many = make_train_many(self.train_step)
+        # feed=curriculum: the sampler swaps whole tapes at superstep
+        # boundaries, and each phase takes the active tape explicitly
+        self.curriculum = env.curriculum
+        self.train_many_with_data = make_train_many_with_data(self.train_step)
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
@@ -209,27 +218,38 @@ class PPOTrainer:
         return torch.func.functional_call(self.policy, params, (x,))
 
     # ------------------------------------------------------------------
+    def _fresh(self, data):
+        """The fresh single-env reset (state, policy input): the env's
+        own, or that of an explicit tape."""
+        if data is None:
+            return self._reset_state, self._reset_vec
+        reset_state, reset_obs = env_core.reset(self.env.cfg, self.env.params, data, 1)
+        return reset_state, self._encode(reset_obs)
+
     @torch.no_grad()
-    def rollout_phase(self, state: TrainState, *, actions=None, start_offsets=None):
-        """Collect one horizon.  Returns (post-rollout state, (trajectory
-        dict of (horizon, n_envs, ...) tensors, bootstrap value (n_envs,))).
+    def rollout_phase(self, state: TrainState, data=None, *, actions=None, start_offsets=None):
+        """Collect one horizon on the env's tape, or on the tape ``data``
+        (the curriculum's pick: the random-start bank and the fresh reset
+        then come from it).  Returns (post-rollout state, (trajectory dict
+        of (horizon, n_envs, ...) tensors, bootstrap value (n_envs,))).
 
         ``actions`` ((horizon, n_envs) int) and ``start_offsets``
         ((n_envs,) int) replace the phase's own draws (test hook)."""
         env, cfg, pcfg = self.env, self.env.cfg, self.pcfg
         gen, params = state.generator, state.params
         n, horizon = pcfg.n_envs, pcfg.horizon
+        tape = env.data if data is None else data
         if self._random_start:
             if start_offsets is None:
                 start_offsets = torch.randint(
                     0, max(1, cfg.n_bars - 2), (n,), generator=gen, device=self.device
                 )
             reset_state, fresh_obs = env_core.reset_at(
-                cfg, env.params, env.data, start_offsets.to(self.device)
+                cfg, env.params, tape, start_offsets.to(self.device)
             )
             reset_vec = self._encode(fresh_obs)
         else:
-            reset_state, reset_vec = self._reset_state, self._reset_vec
+            reset_state, reset_vec = self._fresh(data)
 
         dev = self.device
         traj = {
@@ -249,9 +269,9 @@ class PPOTrainer:
                 action = actions[t].to(device=dev, dtype=torch.int64)
             logp = F.log_softmax(logits, dim=1).gather(1, action[:, None])[:, 0]
             env_states2, reward, done, _ = env_core.transition(
-                cfg, env.params, env.data, env_states, action
+                cfg, env.params, tape, env_states, action
             )
-            obs_vec2 = self._encode(env_core.build_obs(env_states2, env.data, cfg, env.params))
+            obs_vec2 = self._encode(env_core.build_obs(env_states2, tape, cfg, env.params))
             traj["obs"][t] = obs_vec
             traj["action"][t] = action
             traj["logp"][t] = logp
@@ -305,11 +325,12 @@ class PPOTrainer:
         return (loss.detach(), {k: a.detach() for k, a in aux.items()},
                 dict(zip(leaves.keys(), grads)))
 
-    def update_phase(self, state: TrainState, rollout_out, *, permutations=None):
+    def update_phase(self, state: TrainState, rollout_out, data=None, *, permutations=None):
         """GAE, the minibatched epochs and the guard's bookkeeping on one
         collected trajectory.  Returns (new state, metrics dict of 0-d
-        tensors).  ``permutations`` ((epochs, n_perm) int) replaces the
-        per-epoch draws (test hook)."""
+        tensors).  Quarantined envs restart from the fresh reset of the
+        active tape ``data`` (the env's own when None).  ``permutations``
+        ((epochs, n_perm) int) replaces the per-epoch draws (test hook)."""
         pcfg = self.pcfg
         traj, last_value = rollout_out
         advs, returns = self._gae(traj, last_value)
@@ -378,8 +399,9 @@ class PPOTrainer:
                 env_axis=1,
             ) | quarantine_mask({"obs_vec": obs_vec, "env_states": env_states},
                                 env_axis=0, mode="nan")
-            env_states = masked_reset(poison, self._reset_state, env_states)
-            obs_vec = masked_reset(poison, self._reset_vec, obs_vec)
+            reset_state, reset_vec = self._fresh(data)
+            env_states = masked_reset(poison, reset_state, env_states)
+            obs_vec = masked_reset(poison, reset_vec, obs_vec)
             metrics["poisoned_env_resets"] = poison.to(torch.float32).sum()
         else:
             metrics = dict(
@@ -395,7 +417,66 @@ class PPOTrainer:
         return new_state, metrics
 
     # ------------------------------------------------------------------
-    def train_step(self, state: TrainState):
-        """One rollout phase then one update phase: (state, metrics)."""
-        inter, rollout_out = self.rollout_phase(state)
-        return self.update_phase(inter, rollout_out)
+    def train_step(self, state: TrainState, data=None):
+        """One rollout phase then one update phase, on the env's tape or
+        on ``data``: (state, metrics)."""
+        inter, rollout_out = self.rollout_phase(state, data)
+        return self.update_phase(inter, rollout_out, data)
+
+    def train(self, total_env_steps: int, seed: int = 0, log_every: int = 0,
+              initial_params=None, initial_state: Optional[TrainState] = None, *,
+              supersteps_per_dispatch: int = 1, checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 0, step_offset: int = 0, checkpoint_metadata=None,
+              max_consecutive_skips: Optional[int] = None, preempt_at: Optional[int] = None,
+              telemetry=None, mesh_faults=(), checkpoint_keep: int = 0):
+        """Run PPO for about ``total_env_steps`` env steps (the JAX
+        package's loop, train/ppo.py:637-802): ``total_env_steps //
+        (n_envs * horizon)`` iterations (at least one), in supersteps of
+        ``supersteps_per_dispatch`` train steps.  Under ``feed=curriculum``
+        each superstep boundary draws one tape (``curriculum.pick``) and
+        the superstep trains on it.  ``initial_state`` continues a run,
+        ``initial_params`` warm-starts the params.
+
+        Returns ``(state, metrics)``: the last iteration's metrics as
+        floats plus ``env_steps_per_sec``, ``iterations`` and
+        ``total_env_steps``.  Logging, checkpoints, the divergence
+        watchdog, preemption, telemetry and mesh faults come with ROADMAP
+        Queue 1 item 10 and raise when set."""
+        unported = dict(log_every=log_every, checkpoint_dir=checkpoint_dir,
+                        checkpoint_every=checkpoint_every, step_offset=step_offset,
+                        checkpoint_metadata=checkpoint_metadata,
+                        max_consecutive_skips=max_consecutive_skips, preempt_at=preempt_at,
+                        telemetry=telemetry, mesh_faults=mesh_faults,
+                        checkpoint_keep=checkpoint_keep)
+        for name, value in unported.items():
+            if value or (name == "max_consecutive_skips" and value is not None):
+                raise not_ported(f"PPOTrainer.train({name}=...)", 10)
+        state = self.init_state(seed) if initial_state is None else initial_state
+        if initial_params is not None:
+            state = state._replace(params=initial_params)
+        steps_per_iter = self.pcfg.n_envs * self.pcfg.horizon
+        iters = max(1, int(total_env_steps) // steps_per_iter)
+        K = max(1, int(supersteps_per_dispatch or 1))
+        t0 = time.perf_counter()
+        metrics: Dict[str, Any] = {}
+        it = 0
+        while it < iters:
+            k = min(K, iters - it)
+            tape = None
+            if self.curriculum is not None:
+                # one weighted seed-deterministic tape per superstep boundary
+                _, _, tape = self.curriculum.pick(it)
+            if k == 1:
+                state, metrics = self.train_step(state, tape)
+            else:
+                state, stacked = self.train_many_with_data(state, tape, k)
+                metrics = {key: v[-1] for key, v in stacked.items()}
+            it += k
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        out = {key: float(v) for key, v in metrics.items()}
+        out["env_steps_per_sec"] = steps_per_iter * iters / dt
+        out["iterations"] = iters
+        out["total_env_steps"] = steps_per_iter * iters
+        return state, out

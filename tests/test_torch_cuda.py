@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K5 against their plain versions, on the card.
+"""The port's CUDA kernels K1-K7 against their plain versions, on the card.
 
 Each case launches a kernel and its plain PyTorch version on the same
 CUDA tensors.  K1-K3 must give ``torch.equal`` results (they are built
@@ -8,7 +8,11 @@ its plain version (an online softmax, f32 FMAs): float32 within
 1e-4 x max|plain|, bfloat16 within 2^-6 x max|plain| (the two round an
 f32 value to bf16 once each, so they differ by at most one bf16 ulp of
 an element, 2^-7 of the largest; twice that for margin).  K5 (LOB stream
-matching) is int32: books and fill records ``torch.equal``.
+matching) is int32: books and fill records ``torch.equal``.  K6 (q16
+tape decode) and K7 (batched scaled windows) ``torch.equal`` (-fmad=false,
+IEEE division), also through a compressed tape's shard decode and a
+streamed episode on the card (pinned copies on a side stream), which
+must equal the CPU's.
 Every test needs an NVIDIA GPU and skips without one.  This file imports
 no JAX, so it also runs where only torch is installed:
 
@@ -19,7 +23,14 @@ import torch
 
 from gymfx_tpu_torch.core.types import EnvConfig, initial_state
 from gymfx_tpu_torch.lob.book import empty_book
-from gymfx_tpu_torch.ops import cases, env_dynamics, fused_attention, lob_match, window_zscore
+from gymfx_tpu_torch.ops import (
+    cases,
+    env_dynamics,
+    fused_attention,
+    lob_match,
+    tape_decode,
+    window_zscore,
+)
 from gymfx_tpu_torch.ops.cases import (
     FLAG_GRID,
     MARK_PARAMS,
@@ -183,3 +194,101 @@ def test_cuda_lob_stream_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="msgs.kind"):
         lob_match.process_stream(empty_book(2, 8, 4, cuda_device),
                                  msgs._replace(kind=msgs.kind.to(torch.int64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1003, 1024, 257, 1, 262176])
+def test_cuda_q16_decode_equals_plain(cuda_device, rows):
+    delta, base, inv = (torch.from_numpy(x).to(cuda_device)
+                        for x in cases.q16_case(seed=rows, rows=rows))
+    before = tape_decode.decode_q16_block.launches
+    ours = tape_decode.decode_q16_block(delta, base, inv)
+    assert tape_decode.decode_q16_block.launches == before + 1
+    assert torch.equal(ours, tape_decode.decode_q16_plain(delta, base, inv))
+    # a block starting 2 bytes past an aligned address takes the scalar path
+    flat = torch.empty(delta.numel() + 1, dtype=torch.int16, device=cuda_device)
+    odd = flat[1:].view(delta.shape)
+    odd.copy_(delta)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    assert torch.equal(tape_decode.decode_q16_block(odd, base, inv),
+                       tape_decode.decode_q16_plain(odd, base, inv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [10.0, 0.0, 1.5])
+@pytest.mark.parametrize("seed,window,f", [(0, 8, 3), (1, 32, 5), (2, 16, 1)])
+def test_cuda_scaled_windows_equals_plain(cuda_device, seed, window, f, clip):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in cases.scaled_windows_case(seed, window=window, f=f)]
+    before = window_zscore.batched_scaled_windows.launches
+    ours = window_zscore.batched_scaled_windows(*args, window=window, clip=clip)
+    assert window_zscore.batched_scaled_windows.launches == before + 1
+    ref = window_zscore.reference_scaled_windows(*args, window=window, clip=clip)
+    assert torch.equal(ours.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(ours), torch.nan_to_num(ref))
+
+
+@pytest.mark.cuda
+def test_cuda_data_wrappers_reject_what_the_kernels_cannot_take(cuda_device):
+    delta, base, inv = (torch.from_numpy(x).to(cuda_device) for x in cases.q16_case(rows=64))
+    with pytest.raises(ValueError, match="delta"):
+        tape_decode.decode_q16_block(delta.to(torch.int32), base, inv)
+    with pytest.raises(ValueError, match="inv"):
+        tape_decode.decode_q16_block(delta, base, inv.double())
+    args = [torch.from_numpy(x).to(cuda_device) for x in cases.scaled_windows_case()]
+    with pytest.raises(ValueError, match="steps"):
+        window_zscore.batched_scaled_windows(*args[:4], args[4].long(), window=8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        window_zscore.batched_scaled_windows(*args, window=12)
+
+
+def _tick_csv(tmp_path, n):
+    path = tmp_path / "tape.csv"
+    cases.write_bar_csv(path, cases.tick_walk_columns(n, seed=7), cases.m1_week_grid(n))
+    return str(path)
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_tape_decodes_to_the_f32_build(cuda_device, tmp_path):
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.data import compress
+    from gymfx_tpu_torch.data.feed import load_market_dataset
+
+    config = dict(DEFAULT_VALUES, input_data_file=_tick_csv(tmp_path, 3 * 7200), timeframe="M1")
+    kw = dict(window_size=32, feature_columns=["OPEN", "HIGH", "LOW", "CLOSE", "VOLUME"])
+    dataset = load_market_dataset(config)
+    host = dataset.build_market_data(device=None, **kw)
+    tape = compress.device_tape(compress.encode_tape(host, window_size=32, tick_size=1e-5),
+                                cuda_device)
+    groups = len(compress._q16_groups(tape.columns, [s.shape[1] for s in tape.slabs]))
+    before = tape_decode.decode_q16_block.launches
+    decoded = compress.make_shard_decoder(tape, "on")(compress.shard_arrays(tape, 0))
+    assert tape_decode.decode_q16_block.launches == before + groups
+    direct = dataset.build_market_data(device=cuda_device, **kw)
+    for name in direct._fields:
+        if name != "row0":
+            assert torch.equal(getattr(direct, name), getattr(decoded, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,budget", [("off", 0.1), ("on", 0.2), ("on", 0.4)])
+def test_cuda_streamed_episode_equals_resident_and_cpu(cuda_device, tmp_path, mode, budget):
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.core.rollout import buy_hold_driver
+    from gymfx_tpu_torch.core.runtime import Environment
+
+    config = dict(DEFAULT_VALUES, input_data_file=_tick_csv(tmp_path, 4000), timeframe="M1",
+                  window_size=32, feature_columns=["CLOSE", "VOLUME"])
+    streamed_config = dict(config, stream_hbm_budget_mb=budget, data_compress=mode)
+    env = Environment(streamed_config)
+    # 373-bar shards; 68-bar compressed shards streamed from pinned
+    # memory (the ring holds 51 of 59); 170-bar shards, tape resident
+    assert env.streaming and env.streamer.num_shards >= 11
+    assert env.streamer.tape_resident == (budget == 0.4)
+    steps = 1200
+    _, out = env.rollout(buy_hold_driver(), steps)
+    _, ref = Environment(config).rollout(buy_hold_driver(), steps)
+    _, cpu = Environment(streamed_config, device="cpu").rollout(buy_hold_driver(), steps)
+    for key in ref:
+        assert torch.equal(out[key], ref[key]), key
+        assert torch.equal(out[key].cpu(), cpu[key]), key

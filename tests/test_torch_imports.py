@@ -2,9 +2,11 @@
 
 * A subprocess imports gymfx_tpu_torch, runs a 50-step CPU rollout, a
   short PPO train step (rollout and update) with the MLP and with the
-  ring transformer (K4's plain versions) and a short LOB-venue episode
-  (its threefry flow and K5's plain version), then checks that none of
-  those packages was imported.
+  ring transformer (K4's plain versions), a short LOB-venue episode
+  (its threefry flow and K5's plain version), a streamed episode over a
+  compressed tape (K6's plain version), curriculum training over two
+  tapes and the scaled-feature export (K7's plain version), then checks
+  that none of those packages was imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
   raise; configurations and options the port does not take raise
@@ -48,6 +50,19 @@ tr.train_step(tr.init_state(0))
 config.update(venue="lob", rollout_env_kernel="off", lob_messages_per_bar=8,
               strategy_plugin="direct_fixed_sltp")
 Environment(config, device="cpu").rollout(buy_hold_driver(), 5)
+import tempfile
+from gymfx_tpu_torch.app.main import export_scaled_features
+config = dict(DEFAULT_VALUES)
+config.update(input_data_file="examples/data/eurusd_sample.csv", window_size=8,
+              feature_columns=["CLOSE", "VOLUME"], stream_hbm_budget_mb=0.03,
+              data_compress="on")
+Environment(config, device="cpu").rollout(buy_hold_driver(), 150)
+config.update(stream_hbm_budget_mb=None, feed="curriculum", num_envs=4, ppo_horizon=4,
+              tapes="file:examples/data/eurusd_sample.csv,file:examples/data/gbpusd_sample.csv",
+              policy_kwargs={"hidden": [8, 8, 8]}, random_episode_start=True)
+env = Environment(config, device="cpu")
+PPOTrainer(env, ppo_config_from(config)).train(32)
+export_scaled_features(env, config, 16, tempfile.mkdtemp() + "/x.npz")
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """
@@ -106,6 +121,7 @@ def test_environment_without_cuda_and_without_device_raises():
     ({"venue": "lob", "feed": "scengen"}, 14),
     ({"strategy_plugin": "my_plugin"}, 9),
     ({"financing_enabled": True}, 8),
+    ({"feed": "curriculum", "tapes": "scengen:flash_crash"}, 14),
 ])
 def test_configs_not_ported_raise_naming_the_roadmap_item(over, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
