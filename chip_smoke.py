@@ -10,19 +10,24 @@ failure exits non-zero:
 
 1. device   CUDA must be available; prints the card and
             ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    nvcc builds the four libraries at once, one process per
-            source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4 and K5
-            (sm_90a), timed, with ptxas' register and spill report.
+2. build    nvcc builds the five libraries at once, one process per
+            source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4, K5 and
+            K4's probe for profile_attention.py (sm_90a), timed, with
+            ptxas' register and spill report.
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
             32, 5) with NaN, ±inf, neutral envs and a binary mask; K2 and
             K3 at 8192 envs over every combination of their static flags.
             K4 forward and backward at the update's shapes (4096, 256, 4,
             32) bf16, the rollout's (256, 256, 4, 32) bf16, a causal f32
-            case, S = 1024 and D = 128; float32 within 1e-4 x max|plain|,
-            bfloat16 within 2^-6 x max|plain| (each side rounds an f32
-            value once, so they differ by at most one bf16 ulp of an
-            element, 2^-7 of the largest).  Matmuls in the plain versions
+            case, S = 1024 and D = 128 (f32 and bf16); float32 (CUDA-core
+            route) within 1e-4 x max|plain|, bfloat16 (tensor-core route)
+            within 2^-6 x max|plain| (each side rounds an f32 value once,
+            so they differ by at most one bf16 ulp of an element, 2^-7 of
+            the largest), and within 2^-7 x max|emulation| of the
+            emulation of its rounding points (ops/cases.py), with two
+            backward calls bitwise equal; each case prints its route and
+            the bf16 kernels' shared memory.  Matmuls in the plain versions
             run in full f32 (TF32 off, printed).  Times, for every case:
             device time per call from CUDA-graph replays (CUDA events,
             median of 21 replays of 20 calls) for the kernels; the plain
@@ -189,7 +194,13 @@ ATTENTION_CASES = {
     "causal_f32": ((64, 256, 4, 32), "float32", True),
     "window_1024": ((16, 1024, 4, 32), "bfloat16", True),
     "head_dim_128": ((4, 77, 3, 128), "float32", False),
+    "head_dim_128_bf16": ((4, 77, 3, 128), "bfloat16", False),
 }
+# the bf16 kernels against the emulation of their rounding points
+# (gymfx_tpu_torch/ops/cases.py): only the order of the f32 sums differs,
+# so the two round nearly the same value to bf16 once: at most one ulp of
+# the largest element
+EMULATION_TOL = 2.0 ** -7
 
 
 def fail(msg: str) -> None:
@@ -401,6 +412,55 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
               f"wrapper host {k['host_us']:.1f} us/call")
 
 
+def check_k4_case(torch, fa, cases, q, k, v, g, causal):
+    """K4 forward and backward at one case against the plain versions
+    and, in bf16, against the emulation, with the backward repeated
+    bitwise; prints the case's line.  Returns (forward err, backward err)."""
+    shape, dtype = tuple(q.shape), q.dtype
+    bf16 = dtype == torch.bfloat16
+    out = fa.attention_forward(q, k, v, causal)
+    ref = fa.attention_forward_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    err, tol = max_abs_err(torch, out, ref), attention_tolerance(torch, ref)
+    check(out.dtype == dtype and err <= tol,
+          f"K4 forward != plain at {shape} {dtype} causal={causal}: {err} > {tol}")
+    del ref
+    emu_errs = []
+    if bf16:
+        emu = cases.attention_forward_emulated(q, k, v, causal)
+        e, t = max_abs_err(torch, out, emu), EMULATION_TOL * float(emu.float().abs().max())
+        check(e <= t, f"K4 forward != emulation at {shape} causal={causal}: {e} > {t}")
+        emu_errs.append(e / float(emu.float().abs().max()))
+        del emu
+    grads = fa.attention_backward(q, k, v, g, causal)
+    bwd_errs = []
+    for name, ours, plain in zip("qkv", grads, fa.attention_backward_plain(q, k, v, g, causal)):
+        e, t = max_abs_err(torch, ours, plain), attention_tolerance(torch, plain)
+        check(ours.dtype == dtype and e <= t,
+              f"K4 backward d{name} != plain at {shape} {dtype} causal={causal}: {e} > {t}")
+        bwd_errs.append(e)
+    if bf16:
+        for name, ours, emu in zip("qkv", grads, cases.attention_backward_emulated(q, k, v, g, causal)):
+            e, t = max_abs_err(torch, ours, emu), EMULATION_TOL * float(emu.float().abs().max())
+            check(e <= t, f"K4 backward d{name} != emulation at {shape} causal={causal}: {e} > {t}")
+            emu_errs.append(e / float(emu.float().abs().max()))
+        again = fa.attention_backward(q, k, v, g, causal)
+        check(all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(grads, again)),
+              f"K4 backward is not deterministic at {shape} causal={causal}")
+        del again
+    del grads
+    torch.cuda.synchronize()
+    line = (f"  K4 {shape} {str(dtype).split('.')[-1]} causal={causal}, route {fa.ROUTES[dtype]}: "
+            f"forward max err {err:.3g} (tol {tol:.3g}), backward max err {max(bwd_errs):.3g}")
+    if bf16:
+        smem = ", ".join(f"{k} {v}" for k, v in fa.bf16_kernel_smem(shape[-1]).items())
+        line += (f"; vs emulation max err / max|emulation| {max(emu_errs):.3g} (tol "
+                 f"{EMULATION_TOL:.3g}); backward bitwise equal over two calls; head dim "
+                 f"{fa.padded_head_dim(shape[-1])}, dynamic shared memory (bytes): {smem}")
+    print(line)
+    return err, max(bwd_errs)
+
+
 def check_kernels_k4(torch, dev, kernels, results) -> None:
     import torch.nn.functional as F
 
@@ -408,31 +468,17 @@ def check_kernels_k4(torch, dev, kernels, results) -> None:
 
     print(f"kernels: K4 plain versions with torch.backends.cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    from gymfx_tpu_torch.ops import cases
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = {"attention_forward": 0.0, "attention_backward": 0.0}
     timed = {}
     for label, (shape, dtype_name, causal) in ATTENTION_CASES.items():
         dtype = getattr(torch, dtype_name)
         q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
-        out = fa.attention_forward(q, k, v, causal)
-        ref = fa.attention_forward_plain(q, k, v, causal)
-        torch.cuda.synchronize()
-        err, tol = max_abs_err(torch, out, ref), attention_tolerance(torch, ref)
-        check(out.dtype == dtype and err <= tol,
-              f"K4 forward != plain at {shape} {dtype_name} causal={causal}: {err} > {tol}")
+        err, bwd_err = check_k4_case(torch, fa, cases, q, k, v, g, causal)
         errs["attention_forward"] = max(errs["attention_forward"], err)
-        del ref
-        bwd_errs = []
-        for name, ours, plain in zip("qkv", fa.attention_backward(q, k, v, g, causal),
-                                     fa.attention_backward_plain(q, k, v, g, causal)):
-            e, t = max_abs_err(torch, ours, plain), attention_tolerance(torch, plain)
-            check(ours.dtype == dtype and e <= t,
-                  f"K4 backward d{name} != plain at {shape} {dtype_name} causal={causal}: {e} > {t}")
-            bwd_errs.append(e)
-        errs["attention_backward"] = max(errs["attention_backward"], *bwd_errs)
-        torch.cuda.synchronize()
-        print(f"  K4 {shape} {dtype_name} causal={causal}: forward max err {err:.3g} (tol {tol:.3g}), "
-              f"backward max err {max(bwd_errs):.3g}")
+        errs["attention_backward"] = max(errs["attention_backward"], bwd_err)
         b, s, h, d = shape
         pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -465,6 +511,21 @@ def check_kernels_k4(torch, dev, kernels, results) -> None:
                   f"bound {row['bound_ms']:.4f} ms by {row['bound_by']})")
         del q, k, v, g, qt, kt, vt, leaves, lib_out, gt
         torch.cuda.empty_cache()
+    # every bf16 case of the card tests (each head dim the library
+    # instantiates, ragged and multi-tile windows), checked, not timed
+    for shape, causal in cases.ATTENTION_BF16_CASES:
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(4))
+        err, bwd_err = check_k4_case(torch, fa, cases, q, k, v, g, causal)
+        errs["attention_forward"] = max(errs["attention_forward"], err)
+        errs["attention_backward"] = max(errs["attention_backward"], bwd_err)
+    # a padded head dim on (B, S, H, D) views of (B, H, D, S) storage,
+    # whose d stride is S: the wrapper's padding must come out contiguous
+    q, k, v, g = (torch.randn((3, 2, 24, 70), generator=gen, device=dev).to(torch.bfloat16)
+                  .permute(0, 3, 1, 2) for _ in range(4))
+    err, bwd_err = check_k4_case(torch, fa, cases, q, k, v, g, True)
+    errs["attention_forward"] = max(errs["attention_forward"], err)
+    errs["attention_backward"] = max(errs["attention_backward"], bwd_err)
     for key in ("forward", "backward"):
         row = timed["update"][key]
         kernels[f"attention_{key}"] = dict(max_abs_err=errs[f"attention_{key}"], ms=row["ms"],

@@ -6,21 +6,25 @@ by nvcc at first use and loaded with ``ctypes``:
     env        csrc/env_kernels.cu (K1-K3), bitwise to the plain versions:
                nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
                     -fmad=false -shared -Xcompiler -fPIC
-    attention  csrc/attention_kernels.cu (K4 forward and backward), held to
-               its plain versions by a tolerance, so FMA contraction stays on
-               (the same flags without -fmad=false)
+    attention  csrc/attention_kernels.cu (K4 forward and backward: bf16 on
+               the tensor cores, f32 on the CUDA cores), held to its plain
+               versions by a tolerance, so FMA contraction stays on (the
+               same flags without -fmad=false)
     lob        csrc/lob_kernels.cu (K5), integer only (the same flags as
                attention)
     data       csrc/data_kernels.cu (K6 q16 tape decode, K7 batched scaled
                windows), bitwise to the plain versions (the env flags)
+    attention_probe  csrc/attention_probe.cu, K4's forward copies without
+               its arithmetic (the attention flags): a profiling tool, not
+               on any path, built only when profile_attention.py loads it
 
 ``-fmad=false`` keeps every multiply and add separate, as the plain
 PyTorch versions compute them; ``--use_fast_math`` is never used (IEEE
 division, accurate ``expf``).  A library's name carries a hash of its
 source and flags, so an edited source rebuilds, and a build writes to a
 temporary name and renames, so concurrent first uses never load a
-half-written file.  :func:`build_all` starts one nvcc per source at
-once.  Nothing is built or loaded at import: the CPU tests import every
+half-written file.  :func:`build_all` starts one nvcc per kernel
+library (:data:`KERNEL_LIBRARIES`, every source but the probe) at once.  Nothing is built or loaded at import: the CPU tests import every
 module on a machine without nvcc.
 """
 from __future__ import annotations
@@ -43,12 +47,16 @@ SOURCES = {
     "attention": _PACKAGE / "csrc" / "attention_kernels.cu",
     "lob": _PACKAGE / "csrc" / "lob_kernels.cu",
     "data": _PACKAGE / "csrc" / "data_kernels.cu",
+    "attention_probe": _PACKAGE / "csrc" / "attention_probe.cu",
 }
+# the libraries that hold the port's kernels (what build_all builds)
+KERNEL_LIBRARIES = ("env", "attention", "lob", "data")
 FLAGS = {
     "env": (*_COMMON, "-fmad=false", *_SHARED),
     "attention": (*_COMMON, *_SHARED),
     "lob": (*_COMMON, *_SHARED),
     "data": (*_COMMON, "-fmad=false", *_SHARED),
+    "attention_probe": (*_COMMON, *_SHARED),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -108,8 +116,9 @@ def build_library(name: str = "env", ptxas_verbose: bool = False) -> Tuple[pathl
 
 
 def build_all(ptxas_verbose: bool = False) -> Dict[str, Tuple[pathlib.Path, str]]:
-    """Every library at once: one nvcc per source, all started together."""
-    started = {name: _start(name, ptxas_verbose) for name in SOURCES}
+    """Every kernel library at once: one nvcc per source, all started
+    together."""
+    started = {name: _start(name, ptxas_verbose) for name in KERNEL_LIBRARIES}
     try:
         return {name: _finish(name, s) for name, s in started.items()}
     finally:
@@ -134,10 +143,14 @@ def _bind_env(lib: ctypes.CDLL) -> None:
 def _bind_attention(lib: ctypes.CDLL) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.gymfx_attn_fwd.argtypes = [vp, vp, vp, vp, strides, i, i, i, i, i, i, f, vp]
-    lib.gymfx_attn_fwd.restype = i
-    lib.gymfx_attn_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides, i, i, i, i, i, i, f, vp]
-    lib.gymfx_attn_bwd.restype = i
+    lib.gymfx_attn_fwd_f32.argtypes = [vp, vp, vp, vp, strides, i, i, i, i, i, f, vp]
+    lib.gymfx_attn_bwd_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides, i, i, i, i, i, f, vp]
+    lib.gymfx_attn_fwd_bf16.argtypes = [vp, vp, vp, vp, strides, i, i, i, i, i, f, vp]
+    lib.gymfx_attn_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, strides, i, i, i, i, i,
+                                        f, f, vp]
+    lib.gymfx_attn_bf16_smem.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    for fn in ("fwd_f32", "bwd_f32", "fwd_bf16", "bwd_bf16", "bf16_smem"):
+        getattr(lib, f"gymfx_attn_{fn}").restype = i
 
 
 def _bind_lob(lib: ctypes.CDLL) -> None:
@@ -155,7 +168,14 @@ def _bind_data(lib: ctypes.CDLL) -> None:
     lib.gymfx_scaled_windows.restype = i
 
 
-_BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob, "data": _bind_data}
+def _bind_attention_probe(lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.gymfx_attn_probe_skeleton.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+    lib.gymfx_attn_probe_skeleton.restype = i
+
+
+_BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob, "data": _bind_data,
+            "attention_probe": _bind_attention_probe}
 
 
 def load_library(name: str = "env") -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-"""Seeded inputs for the kernels K1-K3 and K5-K7, drawn with numpy.
+"""Seeded inputs for the kernels K1-K3 and K5-K7, drawn with numpy, and
+K4's bf16 cases with an emulation of its tensor-core kernels.
 
 One source of cases for everything that holds a kernel to its plain
 version or to the JAX package: chip_smoke.py on the card, and the tests
@@ -10,12 +11,16 @@ reward peaks, over the grid of K2's static flags.  K5 gets the venue's
 seed streams, every scenario's flow mix and three hand-built streams.
 K6 gets int16 deltas at both ends of their range, divisors 1, 60, 1440
 and f32(1e5), and a ragged row count; K7 neutral rows, NaN and +-inf
-inputs, clip 0 and 10, and steps at 0 and at n.  :func:`tick_walk_columns`
+inputs, clip 0 and 10, and steps at 0 and at n.  K4's bf16 cases (:data:`ATTENTION_BF16_CASES`)
+come with :func:`attention_forward_emulated` and
+:func:`attention_backward_emulated`, the tensor-core kernels' arithmetic
+with their rounding points in plain torch.  :func:`tick_walk_columns`
 and :func:`write_bar_csv` make the on-grid M1 tapes of the data path.
 """
 from __future__ import annotations
 
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -282,3 +287,99 @@ def write_bar_csv(path, columns, timestamps) -> None:
         fh.write("DATE_TIME,OPEN,HIGH,LOW,CLOSE,VOLUME\n")
         fh.writelines(f"{t},{a:.5f},{b:.5f},{d:.5f},{e:.5f},{int(x)}\n"
                       for t, a, b, d, e, x in zip(stamps, o, h, l, c, v))
+
+
+# ---------------------------------------------------------------------------
+# K4: bf16 attention cases and the tensor-core kernels' arithmetic
+# ---------------------------------------------------------------------------
+# (B, S, H, D), causal: the bf16 cases of the card tests and of
+# chip_smoke.py's kernel phase (the CPU tests run them at B <= 2): the
+# policies' width, a 1024 window, the smallest head dim, a ragged window
+# at the widest head dim, head dims the wrapper pads (24 -> 32, 40 -> 48,
+# 72 -> 80), so that every head dim the kernel library instantiates (16,
+# 32, ..., 128) runs, and a non-causal window of eight key tiles
+ATTENTION_BF16_CASES = [
+    ((64, 256, 4, 32), False),
+    ((2, 1024, 2, 64), True),
+    ((5, 50, 2, 16), True),
+    ((4, 77, 3, 128), False),
+    ((3, 40, 2, 24), True),
+    ((3, 100, 2, 40), False),
+    ((2, 130, 2, 72), True),
+    ((2, 200, 3, 96), False),
+    ((3, 65, 2, 112), True),
+    ((4, 512, 2, 32), False),
+]
+ATTENTION_TILE = 64  # keys per online-softmax step of the forward kernel
+_LOG2E = 1.4426950408889634
+
+
+def _log2_scores(q, k, causal, scale):
+    """(B, H, S, S) f32 scores in the kernels' log2 domain: q·k (f32 sums
+    of exact bf16 products) times scale·log2 e rounded to f32 once, as
+    the wrapper passes it; ``-inf`` above the diagonal when causal."""
+    qf, kf = (x.to(torch.float32) for x in (q, k))
+    sl2 = torch.tensor(scale * _LOG2E, dtype=torch.float32)
+    x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sl2
+    if causal:
+        s = x.shape[-1]
+        keep = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+        x = torch.where(keep, x, -math.inf)
+    return x
+
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def attention_forward_emulated(q, k, v, causal=False, scale=None):
+    """The tensor-core forward (``attn_fwd_tc``) in plain torch: per
+    64-key tile, the running max m, p = exp2(x - m) in f32 summed into l,
+    O rescaled by exp2(m_old - m_new) plus bf16(p)·V (f32 sums), then O / l
+    rounded to q's dtype.  Only the order of the f32 sums differs from
+    the kernel.  ``scale`` defaults to 1/√D."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    x = _log2_scores(q, k, causal, scale)
+    vf = v.to(torch.float32)
+    m = torch.full(x.shape[:-1], -math.inf, device=x.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, s, d), device=x.device)
+    for k0 in range(0, s, ATTENTION_TILE):
+        xt = x[..., k0:k0 + ATTENTION_TILE]
+        mx = torch.maximum(m, xt.amax(dim=-1))
+        mu = torch.where(mx == -math.inf, torch.zeros_like(mx), mx)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(xt - mu[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", _bf16_round(p), vf[:, k0:k0 + ATTENTION_TILE])
+        acc = acc * alpha[..., None] + pv
+        m = mx
+    return (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+
+
+def attention_backward_emulated(q, k, v, g, causal=False, scale=None):
+    """The tensor-core backward (``attn_bwd_dq_tc`` + ``attn_bwd_dkdv_tc``)
+    in plain torch: m, l = sum exp2(x - m), delta = sum exp2(x - m)·dP / l
+    and lse = m + log2 l in f32; p = exp2(x - lse) (P normalised first);
+    dS = p (dP - delta) scale in f32; dV = bf16(p)ᵀ dO, dQ = bf16(dS) K,
+    dK = bf16(dS)ᵀ Q with f32 sums; each rounded to q's dtype once."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qf, kf, vf, gf = (t.to(torch.float32) for t in (q, k, v, g))
+    x = _log2_scores(q, k, causal, scale)
+    m = x.amax(dim=-1, keepdim=True)
+    e = torch.exp2(x - m)
+    l = e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (e * dp).sum(dim=-1, keepdim=True) / l
+    del e
+    p = torch.exp2(x - (m + torch.log2(l)))
+    del x
+    ds = _bf16_round(p * (dp - delta) * scale)
+    del dp
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16_round(p), gf)
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)

@@ -3,11 +3,20 @@
 Replaces ``gymfx_tpu/ops/fused_attention.py::fused_window_attention``
 (forward ``_forward_batched`` / Pallas ``_kernel``, backward
 ``_backward_batched`` / Pallas ``_bwd_kernel``, tied by a
-``custom_vjp``).  The kernels are ``attn_fwd_kernel`` and
-``attn_bwd_kernel`` in ``csrc/attention_kernels.cu``; the module docstring
-there gives their design and what bounds them.
+``custom_vjp``).  The kernels are in ``csrc/attention_kernels.cu``, whose
+header gives their design and what bounds them.  Two routes, chosen by
+dtype before the launch (:data:`ROUTES`):
 
-Beside each kernel is its plain PyTorch version, the oracle:
+* bfloat16, the policies' route: ``attn_fwd_tc`` forward and
+  ``attn_bwd_dq_tc`` + ``attn_bwd_dkdv_tc`` backward, flash-style on the
+  tensor cores (bf16 operands, f32 accumulation).  The dQ kernel leaves
+  per-row statistics in an f32 (2, B, H, S) scratch
+  (:func:`stats_scratch`, allocated on every backward call) that the
+  dK/dV kernel reads.
+* float32: ``attn_fwd_kernel`` / ``attn_bwd_kernel``, f32 FMA on the CUDA
+  cores (their 1e-4 tolerance rules out TF32).
+
+Beside the kernels is their plain PyTorch version, the oracle:
 
 * :func:`attention_forward_plain` follows ``_kernel``: f32 cast, scores
   times the scale, ``-inf`` causal mask, max-subtract, exp, PV, divide
@@ -19,6 +28,8 @@ Beside each kernel is its plain PyTorch version, the oracle:
 
 The plain versions contract with ``torch.einsum``; the kernel path calls
 no library (no SDPA, cuDNN, cuBLAS or ``torch.matmul``).
+``gymfx_tpu_torch/ops/cases.py`` emulates the bf16 kernels' rounding
+points in plain torch.
 
 :class:`FusedWindowAttention` is the ``torch.autograd.Function``: its
 forward calls :func:`attention_forward` and saves q, k and v (not P), its
@@ -40,7 +51,6 @@ from gymfx_tpu_torch.ops import _build
 # the sequence-parallel backends' (ROADMAP.md Queue 1 item 17)
 MAX_FUSED_WINDOW = 1024
 MAX_HEAD_DIM = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _scores(qf, kf, scale: float, causal: bool):
@@ -94,16 +104,84 @@ def _check(name: str, q, *others) -> None:
                 f"{tuple(q.shape)} {q.dtype} {q.device}"
             )
     _, s, _, d = q.shape
-    if q.dtype not in _DTYPE_CODES or s > MAX_FUSED_WINDOW or d > MAX_HEAD_DIM or q.numel() == 0:
+    if q.dtype not in ROUTES or s > MAX_FUSED_WINDOW or d > MAX_HEAD_DIM or q.numel() == 0:
         raise NotImplementedError(
             f"{name}: the CUDA kernel takes float32 or bfloat16, 1 <= S <= "
             f"{MAX_FUSED_WINDOW} and D <= {MAX_HEAD_DIM}; got {q.dtype}, shape {tuple(q.shape)}"
         )
 
 
-def _strides(*tensors) -> ctypes.Array:
-    flat = [s for t in tensors for s in t.stride()]
+def _strides(*tensors, dims: int = 4) -> ctypes.Array:
+    flat = [st for t in tensors for st in t.stride()[:dims]]
     return (ctypes.c_longlong * len(flat))(*flat)
+
+
+# the kernels each dtype goes to
+ROUTES = {torch.bfloat16: "tensor-core bf16", torch.float32: "CUDA-core f32"}
+LOG2E = 1.4426950408889634
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the tensor-core kernels run at: ``d`` rounded up to a
+    multiple of 16 (the depth of one bf16 ``mma``)."""
+    return -(-int(d) // 16) * 16
+
+
+def _aligned_for_kernel(x, dp: int):
+    """``x`` as the tensor-core kernels read it: last stride 1, the b, s
+    and h strides and the pointer on 16 bytes, the head dim ``dp``."""
+    d = x.shape[-1]
+    if d != dp:
+        # into a new contiguous tensor: F.pad keeps the input's memory
+        # format, which for some strided views puts d off the unit stride
+        padded = x.new_zeros((*x.shape[:-1], dp))
+        padded[..., :d] = x
+        x = padded
+    if (x.stride(-1) != 1 or x.data_ptr() % 16
+            or any(st % 8 for st in x.stride()[:3])):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def prepare_bf16(*tensors):
+    """The (B, S, H, D) bf16 tensors as the tensor-core route hands them
+    to its kernels, and the scale.  Two copies can happen, neither on the
+    policies' path (contiguous q, k, v and cotangent, D = 32):
+
+    * D that is not a multiple of 16 is zero-padded to
+      :func:`padded_head_dim` (one copy of each tensor, into a contiguous
+      one, whatever the input's strides); the scale stays
+      1/√D of the original D, the zero columns add nothing to q·k, and
+      the caller slices the outputs back to D;
+    * a tensor whose last stride is not 1, or whose b, s or h stride or
+      pointer is not 16-byte aligned, is copied contiguous.
+
+    Returns (tensors, scale)."""
+    dp = padded_head_dim(tensors[0].shape[-1])
+    return tuple(_aligned_for_kernel(x, dp) for x in tensors), 1.0 / math.sqrt(tensors[0].shape[-1])
+
+
+def stats_scratch(b: int, s: int, h: int, device):
+    """The bf16 backward's f32 scratch: two (B, H, S) planes, per query
+    row lse = m + log2 l (in the log2 domain of the scaled scores) and
+    delta = rowsum(dP∘P), written by the dQ kernel, read by the dK/dV
+    kernel."""
+    return torch.empty((2, b, h, s), dtype=torch.float32, device=device)
+
+
+def bf16_kernel_smem(head_dim: int) -> dict:
+    """Dynamic shared memory, in bytes, of the tensor-core kernels a bf16
+    call at this head dim launches (asked of the kernel library, so it
+    builds it): the forward, the dQ and the dK/dV kernel."""
+    out = (ctypes.c_int * 3)()
+    dp = padded_head_dim(head_dim)
+    _build.check_launch(_build.load_library("attention").gymfx_attn_bf16_smem(dp, out),
+                        "bf16_kernel_smem")
+    return {"forward": out[0], "backward dQ": out[1], "backward dK/dV": out[2]}
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def attention_forward(q, k, v, causal: bool = False):
@@ -115,16 +193,21 @@ def attention_forward(q, k, v, causal: bool = False):
         raise ValueError(f"attention_forward: unsupported device {q.device}")
     _check("attention_forward", q, k, v)
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library("attention")
-    _build.check_launch(
-        lib.gymfx_attn_fwd(
+    if q.dtype == torch.bfloat16:
+        (q, k, v), scale = prepare_bf16(q, k, v)
+        dp = q.shape[-1]
+        out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
+        rc = lib.gymfx_attn_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, dims=3),
+            b, s, h, dp, int(bool(causal)), scale * LOG2E, _stream(q))
+        out = out[..., :d] if dp != d else out
+    else:
+        out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+        rc = lib.gymfx_attn_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v),
-            _DTYPE_CODES[q.dtype], b, s, h, d, int(bool(causal)), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        ),
-        "attention_forward",
-    )
+            b, s, h, d, int(bool(causal)), 1.0 / math.sqrt(d), _stream(q))
+    _build.check_launch(rc, "attention_forward")
     attention_forward.launches += 1
     return out
 
@@ -133,25 +216,34 @@ attention_forward.launches = 0
 
 
 def attention_backward(q, k, v, g, causal: bool = False):
-    """K4 backward: (dq, dk, dv) on (B, S, H, D) tensors; the kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    """K4 backward: (dq, dk, dv) on (B, S, H, D) tensors; the kernels on
+    CUDA tensors (two launches for bf16, one for f32; the count is of
+    calls), the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, g, causal)
     if q.device.type != "cuda":
         raise ValueError(f"attention_backward: unsupported device {q.device}")
     _check("attention_backward", q, k, v, g)
     b, s, h, d = q.shape
-    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     lib = _build.load_library("attention")
-    _build.check_launch(
-        lib.gymfx_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, g),
-            _DTYPE_CODES[q.dtype], b, s, h, d, int(bool(causal)), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        ),
-        "attention_backward",
-    )
+    if q.dtype == torch.bfloat16:
+        (q, k, v, g), scale = prepare_bf16(q, k, v, g)
+        dp = q.shape[-1]
+        dq, dk, dv = (torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device) for _ in range(3))
+        stats = stats_scratch(b, s, h, q.device)
+        rc = lib.gymfx_attn_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), _strides(q, k, v, g, dims=3), b, s, h, dp,
+            int(bool(causal)), scale, scale * LOG2E, _stream(q))
+        if dp != d:
+            dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
+    else:
+        dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+        rc = lib.gymfx_attn_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _strides(q, k, v, g), b, s, h, d, int(bool(causal)),
+            1.0 / math.sqrt(d), _stream(q))
+    _build.check_launch(rc, "attention_backward")
     attention_backward.launches += 1
     return dq, dk, dv
 

@@ -7,7 +7,12 @@ bits).  K4 (attention forward and backward) sums in another order than
 its plain version (an online softmax, f32 FMAs): float32 within
 1e-4 x max|plain|, bfloat16 within 2^-6 x max|plain| (the two round an
 f32 value to bf16 once each, so they differ by at most one bf16 ulp of
-an element, 2^-7 of the largest; twice that for margin).  K5 (LOB stream
+an element, 2^-7 of the largest; twice that for margin).  The bf16
+route (tensor cores) is also held to the emulation of its rounding points
+in ops/cases.py within 2^-7 x max|emulation| (only the order of the f32
+sums differs, so the two round nearly the same value to bf16: at most one
+ulp of the largest element), and two backward calls must give the same
+bits.  K5 (LOB stream
 matching) is int32: books and fill records ``torch.equal``.  K6 (q16
 tape decode) and K7 (batched scaled windows) ``torch.equal`` (-fmad=false,
 IEEE division), also through a compressed tape's shard decode and a
@@ -149,6 +154,67 @@ def test_cuda_attention_reads_strided_inputs_and_rejects_what_it_cannot_take(cud
     wide = torch.zeros((1, 8, 1, 129), device=cuda_device)
     with pytest.raises(NotImplementedError):
         fused_attention.attention_forward(wide, wide, wide)
+
+
+def _bits(x):
+    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", cases.ATTENTION_BF16_CASES,
+                         ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x))
+def test_cuda_bf16_attention_within_tolerance_of_plain_and_emulation(cuda_device, shape, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+                  for _ in range(4))
+    out = fused_attention.attention_forward(q, k, v, causal)
+    assert out.dtype == torch.bfloat16 and out.shape == shape
+    ref = fused_attention.attention_forward_plain(q, k, v, causal)
+    assert float((out.float() - ref.float()).abs().max()) <= _attention_tol(ref)
+    emu = cases.attention_forward_emulated(q, k, v, causal)
+    assert float((out.float() - emu.float()).abs().max()) <= 2.0 ** -7 * float(emu.float().abs().max())
+    grads = fused_attention.attention_backward(q, k, v, g, causal)
+    plain = fused_attention.attention_backward_plain(q, k, v, g, causal)
+    emulated = cases.attention_backward_emulated(q, k, v, g, causal)
+    for name, ours, p, e in zip("qkv", grads, plain, emulated):
+        assert ours.dtype == torch.bfloat16 and ours.shape == shape
+        assert float((ours.float() - p.float()).abs().max()) <= _attention_tol(p), f"d{name}"
+        assert (float((ours.float() - e.float()).abs().max())
+                <= 2.0 ** -7 * float(e.float().abs().max())), f"d{name} vs emulation"
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_attention_reads_transposed_and_strided_views(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    base = torch.randn((4, 3, 96, 32), generator=gen, device=cuda_device).to(torch.bfloat16)
+    heads_outer = base.transpose(1, 2)  # (B, S, H, D), read in place
+    dims_outer = base.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)  # last stride != 1
+    # a head dim the wrapper pads, on (B, H, D, S) storage (d stride S):
+    # the padded copy must reach the kernels with a unit d stride
+    padded_dims_outer = base[..., :24].permute(0, 1, 3, 2).contiguous().permute(0, 3, 1, 2)
+    for x in (heads_outer, dims_outer, padded_dims_outer):
+        assert not x.is_contiguous()
+        g = torch.randn(x.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+        out = fused_attention.fused_window_attention(x, x, x, causal=True)
+        ref = fused_attention.attention_forward_plain(x, x, x, True)
+        emu = cases.attention_forward_emulated(x, x, x, True)
+        assert float((out.float() - ref.float()).abs().max()) <= _attention_tol(ref)
+        assert float((out.float() - emu.float()).abs().max()) <= 2.0 ** -7 * float(emu.float().abs().max())
+        for ours, plain in zip(fused_attention.attention_backward(x, x, x, g, True),
+                               fused_attention.attention_backward_plain(x, x, x, g, True)):
+            assert float((ours.float() - plain.float()).abs().max()) <= _attention_tol(plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((64, 256, 4, 32), False), ((3, 77, 2, 24), True)])
+def test_cuda_bf16_attention_backward_is_deterministic(cuda_device, shape, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+                  for _ in range(4))
+    first = fused_attention.attention_backward(q, k, v, g, causal)
+    second = fused_attention.attention_backward(q, k, v, g, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def _lob_equal(msgs, depth, slots, device):
