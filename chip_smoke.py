@@ -41,10 +41,16 @@ failure exits non-zero:
             on books and fill records): the venue's seed streams at
             8,192 books (16 messages, 24 levels x 4 slots), the flow mix
             of every scenario at bench.py --lob's shape (1,024 books x
-            256 messages) at depths 8, 16, 24 and 48, an adversarial
-            stream, a capacity overflow and agent maker fills; timed at
-            both shapes, with fills/s (bench.py --lob's metric) at 1,024
-            x 256 x depth 24.  K6 (q16 tape decode, torch.equal): int16
+            256 messages) at depths 8, 16, 24 and 48, every hand-built
+            stream of ops/cases.py (adversarial, capacity overflow,
+            agent maker fills, agent sweeps, cancel and reuse), streams
+            whose lots wrap int32 sums, and one book for each of the
+            kernel's 16 templates (1-2 levels a lane x 1-8 slots), and
+            streams of one message kind each (ops/cases.py LOB_KINDS);
+            timed at both shapes in us/call and us/message, with fills/s
+            (bench.py --lob's metric) at 1,024 x 256 x depth 24, each
+            kind alone in us/message at that shape, and each template's
+            registers, stack frame and spills from ptxas.  K6 (q16 tape decode, torch.equal): int16
             extremes, divisors 1, 60, 1440 and f32(1e5), ragged row
             counts; K7 (batched scaled windows, bitwise with NaN matching
             NaN): NaN and +-inf features, neutral rows, steps 0 and n,
@@ -185,6 +191,8 @@ SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "batched_scaled_windows": "gymfx_tpu_torch/csrc/data_kernels.cu"}
 # K5 cases: the bench.py --lob shape and its depth sweep
 LOB_BOOKS, LOB_MSGS, LOB_DEPTHS, LOB_SLOTS = 1024, 256, (8, 16, 24, 48), 4
+# K5's templates: (levels a lane, queue slots), depth 1-32 -> 1, 33-64 -> 2
+K5_INSTANCES = [(per_lane, slots) for per_lane in (1, 2) for slots in range(1, 9)]
 # K4 cases: label -> ((B, S, H, D), dtype, causal); "update" is the
 # update's shape (4 minibatches of 64 envs x 64 steps), "rollout" the
 # rollout's
@@ -534,8 +542,30 @@ def check_kernels_k4(torch, dev, kernels, results) -> None:
     results["attention"] = timed
 
 
-def check_kernels_k5(torch, dev, kernels, results) -> None:
-    from gymfx_tpu_torch.lob.book import MSG_NOOP, empty_book
+def k5_ptxas(compiler_out: str) -> dict:
+    """ptxas' report (-Xptxas -v) of each K5 template, keyed "<levels a
+    lane, slots>": its registers, stack frame and spills."""
+    import re
+
+    found, entry = {}, None
+    for line in compiler_out.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)", line)
+        if m:
+            entry = re.search(r"lob_stream_kernelILi(\d+)ELi(\d+)EE", m.group(1))
+            continue
+        if entry is None:
+            continue
+        key = f"<{entry.group(1)}, {entry.group(2)}>"
+        if "stack frame" in line:
+            found.setdefault(key, {})["frame"] = line.strip()
+        elif "registers" in line:
+            found.setdefault(key, {})["registers"] = int(re.search(r"Used (\d+) registers",
+                                                                   line).group(1))
+    return found
+
+
+def check_kernels_k5(torch, dev, kernels, results, ptxas) -> None:
+    from gymfx_tpu_torch.lob.book import MSG_NOOP, Messages, empty_book
     from gymfx_tpu_torch.ops import cases, lob_match
 
     err = 0.0
@@ -587,6 +617,22 @@ def check_kernels_k5(torch, dev, kernels, results) -> None:
         n_cases += 1
         if name == "agent_maker":
             check(int(ours[1].agent_qty.sum()) == 4, "K5 agent maker fills")
+    # lots near 2^31 (level sums and the walk wrap), then one book per
+    # (levels a lane, slots) instantiation of the kernel
+    for depth, slots in ((4, 3), (2, 2), (33, 1), (40, 8)):
+        equal(cases.lob_wrap_streams(64, 80, seed=depth, device=dev), depth, slots,
+              f"int32 wrap depth {depth} slots {slots}")
+        n_cases += 1
+    volatile = cases.lob_flow_streams("lob_volatile", 5, 70, device=dev)
+    for per_lane, slots in K5_INSTANCES:
+        equal(volatile, 29 if per_lane == 1 else 61, slots, f"<{per_lane}, {slots}> instance")
+        n_cases += 1
+    # one message kind at a time, after the ADDs that build the books
+    start, kinds = cases.lob_kind_streams(LOB_BOOKS, LOB_MSGS, seed=SEED, device=dev)
+    for kind, msgs in kinds.items():
+        equal(Messages(*(torch.cat(pair, dim=1) for pair in zip(start, msgs))), 24, LOB_SLOTS,
+              f"{kind} stream")
+        n_cases += 1
     print(f"kernels: K5 equal to plain (torch.equal, books and fill records) on {n_cases} cases, "
           f"max abs err {err:g}")
 
@@ -597,17 +643,32 @@ def check_kernels_k5(torch, dev, kernels, results) -> None:
         row = timed(calm, depth, LOB_SLOTS, plain=depth == 24)
         row["fills_per_s"] = row["fill_events"] / (row["ms"] / 1e3)
         row["msgs_per_s"] = LOB_BOOKS * LOB_MSGS / (row["ms"] / 1e3)
+        row["us_per_msg"] = row["ms"] * 1e3 / LOB_MSGS
         sweep[depth] = row
         plain = "" if row["plain_ms"] is None else f"plain {row['plain_ms'] * 1e3:.0f} us, "
-        print(f"  K5 {LOB_BOOKS} books x {LOB_MSGS} msgs, depth {depth}: {row['ms'] * 1e3:.1f} us/call "
-              f"on the card ({plain}bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}), "
-              f"{row['fills_per_s']:,.0f} fills/s, {row['msgs_per_s']:,.0f} msgs/s")
-    print(f"  K5 venue seed streams ({N_ENVS} books x 16 msgs, depth 24): {venue['ms'] * 1e3:.2f} us/call "
-          f"(plain {venue['plain_ms'] * 1e3:.0f} us, bound {venue['bound_ms'] * 1e3:.2f} us by "
-          f"{venue['bound_by']}), wrapper host {host_us(torch, lambda: lob_match.process_stream(empty_book(N_ENVS, 24, LOB_SLOTS, dev), seed)):.1f} us/call")
+        print(f"  K5 {LOB_BOOKS} books x {LOB_MSGS} msgs, depth {depth}: {row['ms'] * 1e3:.1f} us/call, "
+              f"{row['us_per_msg']:.3f} us/msg on the card ({plain}bound {row['bound_ms'] * 1e3:.2f} us "
+              f"by {row['bound_by']}), {row['fills_per_s']:,.0f} fills/s, {row['msgs_per_s']:,.0f} msgs/s")
+    # where a message's time goes: each kind alone from the same books
+    built_books = lob_match.process_stream(empty_book(LOB_BOOKS, 24, LOB_SLOTS, dev), start)[0]
+    by_kind = {kind: device_ms(torch, lambda: lob_match.process_stream(built_books, msgs)) * 1e3
+               / LOB_MSGS for kind, msgs in kinds.items()}
+    print(f"  K5 {LOB_BOOKS} books x {LOB_MSGS} msgs of one kind, depth 24, from 12 levels a side: "
+          + ", ".join(f"{kind} {us:.3f}" for kind, us in by_kind.items()) + " us/msg")
+    venue["us_per_msg"] = venue["ms"] * 1e3 / seed.kind.shape[1]
+    print(f"  K5 venue seed streams ({N_ENVS} books x 16 msgs, depth 24): {venue['ms'] * 1e3:.2f} us/call, "
+          f"{venue['us_per_msg']:.3f} us/msg (plain {venue['plain_ms'] * 1e3:.0f} us, bound "
+          f"{venue['bound_ms'] * 1e3:.2f} us by {venue['bound_by']}), wrapper host "
+          f"{host_us(torch, lambda: lob_match.process_stream(empty_book(N_ENVS, 24, LOB_SLOTS, dev), seed)):.1f} us/call")
+    report = k5_ptxas(ptxas)
+    check(sorted(report) == sorted(f"<{a}, {b}>" for a, b in K5_INSTANCES),
+          f"K5 ptxas report lists {sorted(report)}, not every template")
+    for key, line in report.items():
+        print(f"  K5 ptxas {key}: {line.get('registers')} registers, {line.get('frame')}")
     kernels["process_stream"] = dict(max_abs_err=err, **{k: venue[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    results["k5"] = {"venue_seed": venue, "bench_lob_sweep": sweep}
+    results["k5"] = {"venue_seed": venue, "bench_lob_sweep": sweep, "us_per_msg_by_kind": by_kind,
+                     "ptxas": report}
 
 
 def check_kernels_k6_k7(torch, dev, kernels) -> None:
@@ -1345,7 +1406,7 @@ def main() -> None:
     kernels = {}
     check_kernels_k1_k3(torch, dev, kernels)
     check_kernels_k4(torch, dev, kernels, results)
-    check_kernels_k5(torch, dev, kernels, results)
+    check_kernels_k5(torch, dev, kernels, results, built["lob"][1])
     check_kernels_k6_k7(torch, dev, kernels)
 
     # ---- 4. main: PPO training at flagship width ---------------------------

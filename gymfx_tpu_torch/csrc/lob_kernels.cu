@@ -7,45 +7,83 @@
 //                  queue compaction, plus one nine-field fill record per
 //                  message.
 //
-// What it computes is gymfx_tpu/lob/book.py::process_stream (the port's
-// plain version: gymfx_tpu_torch/lob/book.py::process_stream).  Each
-// message takes exactly the branch that book.py's lax.switch / lax.cond
-// takes (NOOP; ADD: match the opposite half, rest the remainder on its
-// own; CANCEL: cancel on its own half; MARKET: match the opposite half).
-// The results are the argsort engine's on every book whose live levels
-// have distinct prices, which every book built by these operations has
-// (resting joins the level at its price).  Two eligible levels at one
-// price would each count only strictly better levels as prior, where the
-// argsort engine interleaves them by slot.
+// What it computes is the port's plain version,
+// gymfx_tpu_torch/lob/book.py::process_stream, and the Pallas kernel's
+// dense dispatch, message by message: both halves matched (the side the
+// message takes from with its take, the other with a take of 0), every
+// level whose int32 lot sum is <= 0 loses its price, a CANCEL cancels on
+// its own half, an ADD rests what it did not fill on its own half.  Sums wrap mod 2^32 as int32 sums
+// do in XLA and torch; the kind is clipped to 0-3.  Where no sum wraps,
+// this is gymfx_tpu/lob/book.py::process_stream, which matches only the
+// half a message takes from.
 //
-// What bounds it: the book is sequential over messages, so a book's
-// stream is one chain of dependent steps.  The bytes are small (a
-// D = 24, Q = 4 book is 432 int32 = 1.7 KB each way, a 16-message stream
-// 320 B in and 576 B of fill records out: ~35 MB for 8,192 books, 10.6 us
-// at 3.35 TB/s) and so is the arithmetic (a few int32 operations per
-// slot of the touched half per message).  What costs time is latency:
-// the chain of warp-synchronous steps per message.
+// Invariants it relies on, which every book built from empty_book by
+// these operations holds (gymfx_tpu_torch/ops/lob_match.py states them
+// too):
+//   - the levels that hold a nonzero price hold distinct prices, so the
+//     best eligible level is unique and the best-first walk below is the
+//     argsort engine's cumsum walk;
+//   - queues are front-compacted and slot quantities are >= 0, so a level
+//     the walk or a cancel did not touch is already compacted, and a
+//     rest's slot is the count of the level's live slots;
+//   - every empty slot holds oid 0;
+//   - a level whose lots are 0 holds price 0 (book.py zeroes it at every
+//     match; here only the levels a message empties are zeroed, see
+//     process).
 //
-// What the design does about it: one warp per book, both halves in
-// shared memory for the whole stream (read once, written once), lane l
-// owning levels l and l + 32 (so D <= 64) with their Q <= 8 slots.  The
-// TPU kernel's dense select-all-branches form is not carried over: a
-// warp takes only the branch its message needs (uniform across the
-// warp, no divergence).  Matching is sort-free, as in the TPU kernel:
-// a slot's fill is clip(take - prior, 0, avail), prior = the eligible
-// lots of strictly better level keys (a loop over the level keys in
-// shared memory) plus the FIFO prefix within its level; live levels
-// never share a price, so this is the sorted cumsum walk.  First-matching
-// and first-free levels come from warp ballots; compaction is an
-// in-lane pass over the level's slots (live slots first, then the
-// rest, each in order: the stable argsort of qty == 0).  Stats reduce
-// with warp shuffles; messages arrive 32 at a time, one per lane, and
-// are broadcast with shuffles.  Sums are taken mod 2^32 as int32 sums
-// wrap in XLA and torch.
+// What bounds it: a book's stream is one chain of dependent steps, and
+// the bytes are few (a D = 24, Q = 4 book is 432 int32 each way, a
+// 16-message stream 320 B in and 576 B of fill records out: ~35 MB for
+// 8,192 books, 10.6 us at 3.35 TB/s).  What costs time is the latency of
+// each message's chain of dependent instructions and warp reductions,
+// and with many books the instructions each message issues.
+//
+// What the design does about it: one warp per book, the whole book in
+// registers for the whole stream.  Lane l holds levels l and l + 32 (L
+// levels a lane, L = 1 or 2, so D <= 64), each as its price, its Q <= 8
+// slot quantities and oids, and its lot sum mod 2^32, kept up to date as
+// lots leave and arrive.  Each half also keeps, the same in every lane,
+// its exact lot total and `best`, a key no worse than its best level's.
+// L and Q are template parameters, so no register array is indexed at
+// run time.  A message takes one of two inlined copies of process (buy:
+// asks are the opposite half; sell: bids), so no half is chosen at run
+// time either.  Per message:
+//   - match (match_half, walk_exact): while the half's total fits in
+//     int32, a take <= 0 fills nothing and a best level that is not
+//     eligible ends the match, both without a warp step (the non-crossing
+//     add).  Otherwise the walk goes best level first, one round of two
+//     reductions (redux.sync) a level: its lots and the next key.  The
+//     level's owner fills it FIFO and drops its consumed slots with a
+//     barrel shift; the walk stops once the lots ahead reach the take.
+//     filled, value and the traded prices come out of the walk the same
+//     in every lane; the fill events and the agent's lots from three
+//     reductions after it.
+//   - rest (rest_lookup, rest_place): two min reductions over (level,
+//     queue full) codes find the level holding the price and the first
+//     free level (lot sum 0).  An ADD's own half is not touched by its
+//     match, so the lookup runs before the match, beside it; the owner
+//     then writes the slot with selects.
+//   - cancel (cancel_half): every lane scans its own slots for the oid;
+//     only the levels hit are compacted; two reductions (the lots
+//     removed, the best key left).
+// While a half's exact total exceeds int32 (lots near 2^31), sums of lots
+// may wrap: match_wrapped then visits every eligible level, fills each
+// slot by the argsort engine's wrapped clip, and zeroes the price of
+// every level whose int32 sum is <= 0, and the total is counted again
+// after each change.  No flow the venue makes comes near.  Messages
+// arrive 32 at a time (coalesced loads, one 16-byte shared memory read a
+// message); fill records are staged in shared memory and written as one
+// contiguous block of 32 x 9 ints.
+//
+// match_half, rest_lookup / rest_place and cancel_half act on a book in
+// registers only and assume nothing about where it came from: a kernel
+// that runs more than a stream (the agent's fills, stops and cancels
+// around the flow) calls them as they are.
 //
 // The extern "C" entry point launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError() (0 = launched).
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,6 +95,9 @@ constexpr int kMaxSlots = 8;
 constexpr int kWarpsPerBlock = 4;
 constexpr int kFillCols = 9;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNone = 0xffffffffu;  // above every level key and code
+constexpr long long kI32Max = INT_MAX;
+constexpr long long kI32Min = INT_MIN;
 
 // msg kinds (gymfx_tpu/lob/book.py)
 constexpr int kAdd = 1;
@@ -71,258 +112,525 @@ struct LobArgs {
 };
 constexpr int kLobPointers = 18;
 
-struct Half {
-  int* price;  // (D,)
-  int* qty;    // (D, Q)
-  int* oid;    // (D, Q)
+// One price level, held by one lane.
+template <int Q>
+struct Level {
+  int price;
+  unsigned sum;  // the queue's lots mod 2^32 (book.py's int32 sum)
+  int qty[Q];
+  int oid[Q];
 };
 
+// One half of a warp's book: lane l holds levels l, l + 32, ...; total
+// (the half's exact lots) and best (a key no worse than the best live
+// level's, see key_of) are the same in every lane.
+template <int L, int Q>
+struct Half {
+  Level<Q> lv[L];
+  long long total;
+  unsigned best;
+};
+
+// A match's fill record fields, the same in every lane.
 struct Stats {
   unsigned filled, value, events, agent_qty, agent_value;
   int pmin, pmax;
 };
 
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-__device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+__device__ __forceinline__ Stats no_fill() { return {0u, 0u, 0u, 0u, 0u, kPriceCap, 0}; }
+
+// A level's priority key on its half: lower is better (asks: the lowest
+// price; bids: the highest); kNone for a level without a price.
+template <bool kAsks>
+__device__ __forceinline__ unsigned key_of(int p) {
+  return p > 0 ? (kAsks ? (unsigned)p : (unsigned)(INT_MAX - p)) : kNone;
 }
 
-// Write a level's slots back front-compacted: slots with qty != 0 first,
-// then the rest, each group in slot order (book.py's stable argsort of
-// qty == 0, which carries each slot's oid along).  Returns the level's
-// new quantity sum (mod 2^32).
-__device__ __forceinline__ unsigned store_compacted(int* qty, int* oid,
-                                                    const int* tq, const int* to,
-                                                    int Q) {
-  int w = 0;
-  unsigned sum = 0;
-  for (int s = 0; s < Q; ++s) {
-    if (tq[s] != 0) {
-      qty[w] = tq[s];
-      oid[w] = to[s];
-      sum += (unsigned)tq[s];
-      ++w;
-    }
-  }
-  for (int s = 0; s < Q; ++s) {
-    if (tq[s] == 0) {
-      qty[w] = 0;
-      oid[w] = to[s];
-      ++w;
-    }
-  }
-  return sum;
+// Whether a taker with this limit may trade with the level of this key.
+template <bool kAsks>
+__device__ __forceinline__ bool eligible(unsigned key, int limit) {
+  if (key == kNone) return false;
+  const int p = kAsks ? (int)key : INT_MAX - (int)key;
+  return kAsks ? p <= limit : p >= limit;
 }
 
-// book.py::_match_half: take `take` lots against one half; the taker buys
-// (against_asks: eligible prices <= limit, best = lowest) or sells
-// (eligible prices >= limit, best = highest).  key/lav: D ints of scratch.
-__device__ Stats match_half(Half h, int D, int Q, int take, int limit,
-                            bool against_asks, int* key, int* lav, int lane) {
-  for (int d = lane; d < D; d += 32) {
-    int p = h.price[d];
-    bool elig = p > 0 && (against_asks ? p <= limit : p >= limit);
-    unsigned sum = 0;
-    if (elig)
-      for (int s = 0; s < Q; ++s) sum += (unsigned)h.qty[d * Q + s];
-    key[d] = elig ? (against_asks ? p : kPriceCap - p) : kPriceCap;
-    lav[d] = (int)sum;
-  }
-  __syncwarp();
-  Stats st = {0u, 0u, 0u, 0u, 0u, kPriceCap, 0};
-  for (int d = lane; d < D; d += 32) {
-    const int p = h.price[d];
-    const bool elig = p > 0 && (against_asks ? p <= limit : p >= limit);
-    const int k = key[d];
-    unsigned prior = 0;
-    for (int i = 0; i < D; ++i)
-      if (key[i] < k) prior += (unsigned)lav[i];
-    int tq[kMaxSlots], to[kMaxSlots];
-    unsigned level_fill = 0;
-    for (int s = 0; s < Q; ++s) {
-      const int q = h.qty[d * Q + s];
-      const int o = h.oid[d * Q + s];
-      const int avail = elig ? q : 0;
-      int f = (int)((unsigned)take - prior);
-      f = min(max(f, 0), avail);
-      prior += (unsigned)avail;
-      st.filled += (unsigned)f;
-      st.value += (unsigned)f * (unsigned)p;
-      st.events += f > 0 ? 1u : 0u;
-      if (o == kAgentOid && f > 0) {
-        st.agent_qty += (unsigned)f;
-        st.agent_value += (unsigned)f * (unsigned)p;
+template <bool kAsks, int L, int Q>
+__device__ __forceinline__ unsigned best_key(const Half<L, Q>& h) {
+  unsigned mine = kNone;
+#pragma unroll
+  for (int j = 0; j < L; ++j) mine = min(mine, key_of<kAsks>(h.lv[j].price));
+  return __reduce_min_sync(kFull, mine);
+}
+
+// book.py::_compact on one level: live slots (qty != 0) first, in order,
+// then empty ones (qty 0, oid 0): each slot moves to its rank among the
+// live slots.
+template <int Q>
+__device__ __forceinline__ void compact(Level<Q>& v) {
+  int q[Q], o[Q];
+#pragma unroll
+  for (int d = 0; d < Q; ++d) q[d] = o[d] = 0;
+  int rank = 0;
+#pragma unroll
+  for (int s = 0; s < Q; ++s) {
+    const bool live = v.qty[s] != 0;
+#pragma unroll
+    for (int d = 0; d <= s; ++d)
+      if (live && rank == d) {
+        q[d] = v.qty[s];
+        o[d] = v.oid[s];
       }
-      level_fill += (unsigned)f;
-      const int nq = q - f;
-      tq[s] = nq;
-      to[s] = nq > 0 ? o : 0;
+    rank += live ? 1 : 0;
+  }
+#pragma unroll
+  for (int d = 0; d < Q; ++d) {
+    v.qty[d] = q[d];
+    v.oid[d] = o[d];
+  }
+}
+
+// The half's exact lots (slot quantities are >= 0): 16-bit halves summed
+// apart, so neither warp sum can wrap.
+template <int L, int Q>
+__device__ __forceinline__ long long count_total(const Half<L, Q>& h) {
+  unsigned lo = 0, hi = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+#pragma unroll
+    for (int s = 0; s < Q; ++s) {
+      const unsigned x = (unsigned)h.lv[j].qty[s];
+      lo += x & 0xffffu;
+      hi += x >> 16;
     }
-    if ((int)level_fill > 0) {
+  lo = __reduce_add_sync(kFull, lo);
+  hi = __reduce_add_sync(kFull, hi);
+  return ((long long)hi << 16) + lo;
+}
+
+// After a match or cancel took `removed` lots (mod 2^32) from the half.
+template <int L, int Q>
+__device__ __forceinline__ void lots_left(Half<L, Q>& h, unsigned removed) {
+  h.total = h.total <= kI32Max ? h.total - (long long)removed : count_total(h);
+}
+
+// Drop a level's first k slots (the ones a FIFO fill consumed) and shift
+// the rest to the front: a barrel shifter, log2(Q) + 1 stages of selects.
+template <int Q>
+__device__ __forceinline__ void shift_out(Level<Q>& v, int k) {
+#pragma unroll
+  for (int b = 1; b <= Q; b <<= 1) {
+    const bool on = (k & b) != 0;
+#pragma unroll
+    for (int s = 0; s < Q; ++s) {
+      v.qty[s] = on ? (s + b < Q ? v.qty[s + b] : 0) : v.qty[s];
+      v.oid[s] = on ? (s + b < Q ? v.oid[s + b] : 0) : v.oid[s];
+    }
+  }
+}
+
+// The match while no sum of lots can wrap (the half's total within
+// int32) and the best level is eligible, take > 0: the best-first walk.
+// Each step is one round of two reductions (the lots of the level the
+// walk is at, and the next key); meanwhile the level's owner fills it
+// FIFO, drops its consumed slots and, if it emptied, zeroes its price.
+// `best` may name a level that has lost its price since (a cancel or a
+// reset makes the truth only worse): that step finds no owner and moves
+// on.  The walk stops once the lots ahead reach the take.
+template <bool kAsks, int L, int Q>
+__device__ __forceinline__ Stats walk_exact(Half<L, Q>& h, int take, int limit) {
+  Stats st = no_fill();
+  unsigned key[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) key[j] = key_of<kAsks>(h.lv[j].price);
+  unsigned best = h.best, ahead = 0u, last = kNone;
+  unsigned events = 0u, agent_qty = 0u, agent_value = 0u;  // this lane's
+  do {
+    const unsigned room = (unsigned)take - ahead;  // > 0: what the take still wants
+    bool own[L];
+    unsigned lots = 0u, mine = kNone;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      own[j] = key[j] == best;
+      lots = own[j] ? h.lv[j].sum : lots;
+      key[j] = own[j] ? kNone : key[j];
+      mine = min(mine, key[j]);
+    }
+    lots = __reduce_add_sync(kFull, lots);
+    const unsigned next = __reduce_min_sync(kFull, mine);
+    const int p = kAsks ? (int)best : INT_MAX - (int)best;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (!own[j]) continue;
+      Level<Q>& v = h.lv[j];
+      unsigned want = room;
+      int consumed = 0;
+#pragma unroll
+      for (int s = 0; s < Q; ++s) {
+        const unsigned a = (unsigned)v.qty[s];
+        const unsigned f = min(want, a);
+        want -= f;
+        events += f > 0u ? 1u : 0u;
+        const bool agent = v.oid[s] == kAgentOid;
+        agent_qty += agent ? f : 0u;
+        agent_value += agent ? f * (unsigned)p : 0u;
+        consumed += (a != 0u && f == a) ? 1 : 0;
+        v.qty[s] = (int)(a - f);
+      }
+      v.sum -= room - want;
+      if (v.sum == 0u) v.price = 0;  // book.py's reset of an emptied level
+      shift_out(v, consumed);
+    }
+    const unsigned f = min(lots, room);
+    st.value += f * (unsigned)p;
+    if (f > 0u) {
       st.pmin = min(st.pmin, p);
       st.pmax = max(st.pmax, p);
     }
-    const unsigned sum = store_compacted(h.qty + d * Q, h.oid + d * Q, tq, to, Q);
-    h.price[d] = (int)sum > 0 ? p : 0;
-  }
-  st.filled = warp_sum(st.filled);
-  st.value = warp_sum(st.value);
-  st.events = warp_sum(st.events);
-  st.agent_qty = warp_sum(st.agent_qty);
-  st.agent_value = warp_sum(st.agent_value);
-  st.pmin = warp_min(st.pmin);
-  st.pmax = warp_max(st.pmax);
-  __syncwarp();
+    ahead += lots;
+    last = best;
+    best = next;
+  } while ((int)ahead < take && eligible<kAsks>(best, limit));
+  st.events = __reduce_add_sync(kFull, events);
+  st.agent_qty = __reduce_add_sync(kFull, agent_qty);
+  st.agent_value = __reduce_add_sync(kFull, agent_value);
+  st.filled = min((unsigned)take, ahead);
+  // the level the take ended in, else the next one, is the best left
+  h.best = (int)ahead > take ? last : best;
+  h.total -= st.filled;
   return st;
 }
 
-// book.py::_rest_half: rest q lots of owner o at price p in the level that
-// already holds p, else the first free level, at its first free slot;
-// dropped (0) when there is none.
-__device__ int rest_half(Half h, int D, int Q, int p, int q, int o, int lane) {
-  int found = -1, free_level = -1;
-  for (int base = 0; base < D; base += 32) {
-    const int d = base + lane;
-    bool has = false, empty = false;
-    if (d < D) {
-      has = h.price[d] == p && h.price[d] > 0;
-      unsigned sum = 0;
-      for (int s = 0; s < Q; ++s) sum += (unsigned)h.qty[d * Q + s];
-      empty = sum == 0u;
+// book.py::_reset_empty_levels: a level whose int32 lot sum is <= 0
+// loses its price.
+template <int L, int Q>
+__device__ __forceinline__ void reset_empty(Half<L, Q>& h) {
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    if ((int)h.lv[j].sum <= 0) h.lv[j].price = 0;
+}
+
+// The match where sums of lots may wrap (the half's total beyond int32,
+// or take - total below INT_MIN): every eligible level is visited best
+// first, each slot fills book.py's wrapped clip(take - lots ahead, 0,
+// its lots), the visited levels are compacted, and the stats come from
+// reductions.  No flow the venue makes comes here.
+template <bool kAsks, int L, int Q>
+__device__ __forceinline__ Stats match_wrapped(Half<L, Q>& h, int take, int limit) {
+  Stats st = no_fill();
+  unsigned key[L], before[L];
+  bool visited[L];
+  unsigned mine = kNone;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    key[j] = key_of<kAsks>(h.lv[j].price);
+    before[j] = 0u;
+    visited[j] = false;
+    mine = min(mine, key[j]);
+  }
+  unsigned best = __reduce_min_sync(kFull, mine), ahead = 0u;
+  while (eligible<kAsks>(best, limit)) {
+    unsigned lots = 0u;
+    mine = kNone;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (key[j] == best) {
+        visited[j] = true;
+        before[j] = ahead;
+        key[j] = kNone;
+        lots = h.lv[j].sum;
+      }
+      mine = min(mine, key[j]);
     }
-    const unsigned m_has = __ballot_sync(kFull, has);
-    const unsigned m_free = __ballot_sync(kFull, empty);
-    if (found < 0 && m_has) found = base + __ffs(m_has) - 1;
-    if (free_level < 0 && m_free) free_level = base + __ffs(m_free) - 1;
+    ahead += __reduce_add_sync(kFull, lots);
+    best = __reduce_min_sync(kFull, mine);
   }
-  const int li = found >= 0 ? found : (free_level >= 0 ? free_level : 0);
-  int si = -1;
-  for (int s = 0; s < Q && si < 0; ++s)
-    if (h.qty[li * Q + s] == 0) si = s;
-  const bool can = q > 0 && (found >= 0 || free_level >= 0) && si >= 0;
-  __syncwarp();
-  if (can && lane == 0) {
-    h.qty[li * Q + si] = q;
-    h.oid[li * Q + si] = o;
-    h.price[li] = p;
+  unsigned filled = 0u, value = 0u, events = 0u, agent_qty = 0u, agent_value = 0u;
+  int pmin = kPriceCap, pmax = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (!visited[j]) continue;
+    Level<Q>& v = h.lv[j];
+    unsigned pos = before[j], level_fill = 0u;
+#pragma unroll
+    for (int s = 0; s < Q; ++s) {
+      const int a = v.qty[s];
+      const int f = min(max((int)((unsigned)take - pos), 0), a);
+      pos += (unsigned)a;
+      level_fill += (unsigned)f;
+      value += (unsigned)f * (unsigned)v.price;
+      events += f > 0 ? 1u : 0u;
+      if (v.oid[s] == kAgentOid && f > 0) {
+        agent_qty += (unsigned)f;
+        agent_value += (unsigned)f * (unsigned)v.price;
+      }
+      v.qty[s] = a - f;
+      if (v.qty[s] <= 0) v.oid[s] = 0;
+    }
+    if ((int)level_fill > 0) {
+      pmin = min(pmin, v.price);
+      pmax = max(pmax, v.price);
+    }
+    filled += level_fill;
+    compact(v);
+    v.sum -= level_fill;
   }
-  __syncwarp();
-  return can ? q : 0;
+  st.events = __reduce_add_sync(kFull, events);
+  st.agent_qty = __reduce_add_sync(kFull, agent_qty);
+  st.agent_value = __reduce_add_sync(kFull, agent_value);
+  st.filled = __reduce_add_sync(kFull, filled);
+  st.value = __reduce_add_sync(kFull, value);
+  st.pmin = __reduce_min_sync(kFull, pmin);
+  st.pmax = __reduce_max_sync(kFull, pmax);
+  lots_left(h, st.filled);
+  reset_empty(h);
+  return st;
+}
+
+// book.py::_match_half: take `take` lots from one half; the taker buys
+// (kAsks: eligible prices <= limit, best = lowest) or sells (eligible
+// prices >= limit, best = highest).
+template <bool kAsks, int L, int Q>
+__device__ __forceinline__ Stats match_half(Half<L, Q>& h, int take, int limit) {
+  // Within int32 no sum of lots ahead wraps: a take <= 0 fills nothing,
+  // nothing fills when the best level is not eligible, and the walk may
+  // stop at the take.
+  if (h.total <= kI32Max && (long long)take - h.total >= kI32Min) {
+    if (take <= 0 || !eligible<kAsks>(h.best, limit)) return no_fill();
+    return walk_exact<kAsks>(h, take, limit);
+  }
+  return match_wrapped<kAsks>(h, take, limit);
 }
 
 // book.py::_cancel_half: remove every live slot owned by target (0 hits
-// nothing), compact every level, zero the price of emptied levels.
-__device__ int cancel_half(Half h, int D, int Q, int target, int lane) {
-  unsigned removed = 0;
-  for (int d = lane; d < D; d += 32) {
-    int tq[kMaxSlots], to[kMaxSlots];
+// nothing); only the levels hit are compacted.
+template <bool kAsks, int L, int Q>
+__device__ __forceinline__ int cancel_half(Half<L, Q>& h, int target) {
+  if (target == 0) return 0;
+  unsigned removed = 0u, mine = kNone;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    Level<Q>& v = h.lv[j];
+    unsigned level = 0u;
+    bool hit_any = false;
+#pragma unroll
     for (int s = 0; s < Q; ++s) {
-      int q = h.qty[d * Q + s];
-      int o = h.oid[d * Q + s];
-      if (o == target && q > 0 && target != 0) {
-        removed += (unsigned)q;
-        q = 0;
-        o = 0;
-      }
-      tq[s] = q;
-      to[s] = o;
+      const bool hit = v.oid[s] == target && v.qty[s] > 0;
+      level += hit ? (unsigned)v.qty[s] : 0u;
+      v.qty[s] = hit ? 0 : v.qty[s];
+      v.oid[s] = hit ? 0 : v.oid[s];
+      hit_any |= hit;
     }
-    const unsigned sum = store_compacted(h.qty + d * Q, h.oid + d * Q, tq, to, Q);
-    if ((int)sum <= 0) h.price[d] = 0;
+    if (hit_any) {
+      compact(v);
+      v.sum -= level;
+      if ((int)v.sum <= 0) v.price = 0;
+    }
+    removed += level;
+    mine = min(mine, key_of<kAsks>(v.price));
   }
-  removed = warp_sum(removed);
-  __syncwarp();
+  removed = __reduce_add_sync(kFull, removed);
+  h.best = __reduce_min_sync(kFull, mine);
+  lots_left(h, removed);
   return (int)removed;
 }
 
+// book.py::_rest_half, first half: the level a rest at price p goes to
+// (the level holding p, else the first level whose lot sum is 0), as
+// 2 x level + (its queue is full: its last slot live), or kNone.  A
+// level whose int32 lot sum is <= 0 counts as holding no price, as after
+// reset_empty.
+template <int L, int Q>
+__device__ __forceinline__ unsigned rest_lookup(const Half<L, Q>& h, int p, int lane, int depth) {
+  unsigned has = kNone, free_level = kNone;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int d = lane + 32 * j;
+    const Level<Q>& v = h.lv[j];
+    const unsigned code = 2u * (unsigned)d + (v.qty[Q - 1] != 0 ? 1u : 0u);
+    if (v.price == p && p > 0 && (int)v.sum > 0) has = min(has, code);
+    if (v.sum == 0u && d < depth) free_level = min(free_level, code);
+  }
+  has = __reduce_min_sync(kFull, has);
+  free_level = __reduce_min_sync(kFull, free_level);
+  return has != kNone ? has : free_level;
+}
+
+// book.py::_rest_half, second half: rest q > 0 lots of owner o at price p
+// in the level rest_lookup picked, at the slot after its live ones (the
+// count of them); dropped (0) when there is no level or its queue is full.
+template <bool kAsks, int L, int Q>
+__device__ __forceinline__ int rest_place(Half<L, Q>& h, unsigned pick, int p, int q, int o,
+                                          int lane) {
+  if (pick == kNone || (pick & 1u)) return 0;
+  const int level = (int)(pick >> 1);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    Level<Q>& v = h.lv[j];
+    const bool here = level == lane + 32 * j;
+    int n = 0;
+#pragma unroll
+    for (int s = 0; s < Q; ++s) n += v.qty[s] != 0 ? 1 : 0;
+#pragma unroll
+    for (int s = 0; s < Q; ++s) {
+      const bool put = here && s == n;
+      v.qty[s] = put ? q : v.qty[s];
+      v.oid[s] = put ? o : v.oid[s];
+    }
+    v.price = here ? p : v.price;
+    v.sum += here ? (unsigned)q : 0u;
+  }
+  h.total += q;
+  h.best = min(h.best, key_of<kAsks>(p));
+  return q;
+}
+
+// book.py::process_message on a warp's book for a buy (kBuy: own = bids,
+// opp = asks) or a sell (own = asks, opp = bids): match opp with the take
+// (own with a take of 0, which fills nothing unless own's total exceeds
+// int32), zero the prices of levels left without lots, cancel on own,
+// rest on own, and write the message's fill record to row.  book.py
+// zeroes the price of every level whose int32 lot sum is <= 0 at every
+// match; here only a wrapped match does (reset_empty), since within int32
+// a level's sum is 0 exactly when it is empty, the walk and the cancel
+// zero the price of a level they empty, and a half beyond int32 always
+// matches wrapped.
+template <bool kBuy, int L, int Q>
+__device__ __forceinline__ void process(Half<L, Q>& own, Half<L, Q>& opp, int kind, int price,
+                                        int qty, int oid, int lane, int depth, int* row) {
+  constexpr bool kOwnAsks = !kBuy;
+  const bool is_add = kind == kAdd;
+  const int take = (is_add || kind == kMarket) ? qty : 0;
+  const bool own_narrow = own.total <= kI32Max;
+  // An ADD's rest goes to its own half, which the match leaves alone:
+  // look its level up now, beside the match's reductions.
+  const bool early = is_add && own_narrow;
+  unsigned pick = early ? rest_lookup(own, price, lane, depth) : kNone;
+  const Stats so = match_half<kBuy>(opp, take, is_add ? price : (kBuy ? kPriceCap : 0));
+  const Stats sw =
+      own_narrow ? no_fill() : match_half<kOwnAsks>(own, 0, is_add ? price : (kBuy ? 0 : kPriceCap));
+  const int cancelled = kind == kCancel ? cancel_half<kOwnAsks>(own, oid) : 0;
+  const int rest = (int)((is_add ? (unsigned)qty : 0u) - so.filled);
+  int rested = 0;
+  if (rest > 0) {
+    if (!early) pick = rest_lookup(own, price, lane, depth);
+    rested = rest_place<kOwnAsks>(own, pick, price, rest, oid, lane);
+  }
+  // every lane stores the same values (one store, no branch)
+  row[0] = (int)(so.filled + sw.filled);
+  row[1] = (int)(so.value + sw.value);
+  row[2] = (int)(so.events + sw.events);
+  row[3] = (int)(so.agent_qty + sw.agent_qty);
+  row[4] = (int)(so.agent_value + sw.agent_value);
+  row[5] = min(so.pmin, sw.pmin);
+  row[6] = max(so.pmax, sw.pmax);
+  row[7] = rested;
+  row[8] = cancelled;
+}
+
+template <bool kAsks, int L, int Q>
+__device__ __forceinline__ void load_half(Half<L, Q>& h, const int* price, const int* qty,
+                                          const int* oid, long long lvl0, int lane, int depth) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int d = lane + 32 * j;
+    Level<Q>& v = h.lv[j];
+    const bool here = d < depth;
+    v.price = here ? price[lvl0 + d] : 0;
+    v.sum = 0u;
+#pragma unroll
+    for (int s = 0; s < Q; ++s) {
+      v.qty[s] = here ? qty[(lvl0 + d) * Q + s] : 0;
+      v.oid[s] = here ? oid[(lvl0 + d) * Q + s] : 0;
+      v.sum += (unsigned)v.qty[s];
+    }
+  }
+  h.total = count_total(h);
+  h.best = best_key<kAsks>(h);
+}
+
+template <int L, int Q>
+__device__ __forceinline__ void store_half(const Half<L, Q>& h, int* price, int* qty, int* oid,
+                                           long long lvl0, int lane, int depth) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int d = lane + 32 * j;
+    if (d >= depth) continue;
+    const Level<Q>& v = h.lv[j];
+    price[lvl0 + d] = v.price;
+#pragma unroll
+    for (int s = 0; s < Q; ++s) {
+      qty[(lvl0 + d) * Q + s] = v.qty[s];
+      oid[(lvl0 + d) * Q + s] = v.oid[s];
+    }
+  }
+}
+
+template <int L, int Q>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-lob_stream_kernel(LobArgs a, long long n_books, int D, int Q, int M) {
-  extern __shared__ int smem[];
+lob_stream_kernel(LobArgs a, long long n_books, int depth, int n_msgs) {
+  __shared__ int4 s_msg[kWarpsPerBlock][32];
+  __shared__ int s_rec[kWarpsPerBlock][32 * kFillCols];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long b = (long long)blockIdx.x * kWarpsPerBlock + warp;
   if (b >= n_books) return;  // whole warps only: b is uniform in a warp
 
-  // per book: both prices, both (qty, oid) slabs, the match's level keys
-  // and eligible level sums
-  const int per_book = 2 * D + 4 * D * Q + 2 * D;
-  int* base = smem + warp * per_book;
-  Half bids = {base, base + 2 * D, base + 2 * D + D * Q};
-  Half asks = {base + D, base + 2 * D + 2 * D * Q, base + 2 * D + 3 * D * Q};
-  int* key = base + 2 * D + 4 * D * Q;
-  int* lav = key + D;
+  const long long lvl0 = b * depth;
+  Half<L, Q> bids, asks;
+  load_half<false>(bids, a.in[0], a.in[1], a.in[2], lvl0, lane, depth);
+  load_half<true>(asks, a.in[3], a.in[4], a.in[5], lvl0, lane, depth);
 
-  const long long lvl0 = b * D, slot0 = b * D * Q;
-  for (int i = lane; i < D; i += 32) {
-    bids.price[i] = a.in[0][lvl0 + i];
-    asks.price[i] = a.in[3][lvl0 + i];
-  }
-  for (int i = lane; i < D * Q; i += 32) {
-    bids.qty[i] = a.in[1][slot0 + i];
-    bids.oid[i] = a.in[2][slot0 + i];
-    asks.qty[i] = a.in[4][slot0 + i];
-    asks.oid[i] = a.in[5][slot0 + i];
-  }
-  __syncwarp();
-
-  const long long m0 = b * M;
-  int* fills = a.fills + m0 * kFillCols;
-  for (int chunk = 0; chunk < M; chunk += 32) {
-    const int mine = chunk + lane;
-    int mk = 0, ms = 0, mp = 0, mq = 0, mo = 0;
-    if (mine < M) {
-      mk = a.msg[0][m0 + mine];
-      ms = a.msg[1][m0 + mine];
-      mp = a.msg[2][m0 + mine];
-      mq = a.msg[3][m0 + mine];
-      mo = a.msg[4][m0 + mine];
+  const long long m0 = b * n_msgs;
+  int* rec = s_rec[warp];
+  for (int chunk = 0; chunk < n_msgs; chunk += 32) {
+    const int count = min(32, n_msgs - chunk);
+    if (lane < count) {  // (kind clipped to 0-3) x 2 + buy, price, qty, oid
+      const long long i = m0 + chunk + lane;
+      const int kind = min(max(a.msg[0][i], 0), 3);
+      s_msg[warp][lane] = make_int4(2 * kind + (a.msg[1][i] > 0 ? 1 : 0), a.msg[2][i],
+                                    a.msg[3][i], a.msg[4][i]);
     }
-    const int count = min(32, M - chunk);
+    __syncwarp();
     for (int j = 0; j < count; ++j) {
-      const int kind = min(max(__shfl_sync(kFull, mk, j), 0), 3);
-      const bool is_buy = __shfl_sync(kFull, ms, j) > 0;
-      const int price = __shfl_sync(kFull, mp, j);
-      const int qty = __shfl_sync(kFull, mq, j);
-      const int oid = __shfl_sync(kFull, mo, j);
-      Stats st = {0u, 0u, 0u, 0u, 0u, kPriceCap, 0};
-      int rested = 0, cancelled = 0;
-      if (kind == kAdd || kind == kMarket) {
-        const bool add = kind == kAdd;
-        if (is_buy) {
-          st = match_half(asks, D, Q, qty, add ? price : kPriceCap, true, key, lav, lane);
-          if (add) rested = rest_half(bids, D, Q, price, qty - (int)st.filled, oid, lane);
-        } else {
-          st = match_half(bids, D, Q, qty, add ? price : 0, false, key, lav, lane);
-          if (add) rested = rest_half(asks, D, Q, price, qty - (int)st.filled, oid, lane);
-        }
-      } else if (kind == kCancel) {
-        cancelled = cancel_half(is_buy ? bids : asks, D, Q, oid, lane);
-      }
-      const int rec[kFillCols] = {
-          (int)st.filled, (int)st.value, (int)st.events, (int)st.agent_qty,
-          (int)st.agent_value, st.pmin, st.pmax, rested, cancelled};
-      if (lane < kFillCols) fills[(long long)(chunk + j) * kFillCols + lane] = rec[lane];
+      const int4 m = s_msg[warp][j];
+      int* row = rec + j * kFillCols;
+      if (m.x & 1)
+        process<true>(bids, asks, m.x >> 1, m.y, m.z, m.w, lane, depth, row);
+      else
+        process<false>(asks, bids, m.x >> 1, m.y, m.z, m.w, lane, depth, row);
     }
+    __syncwarp();
+    int* out = a.fills + (m0 + chunk) * kFillCols;
+    for (int i = lane; i < count * kFillCols; i += 32) out[i] = rec[i];
+    __syncwarp();
   }
 
-  __syncwarp();
-  for (int i = lane; i < D; i += 32) {
-    a.out[0][lvl0 + i] = bids.price[i];
-    a.out[3][lvl0 + i] = asks.price[i];
-  }
-  for (int i = lane; i < D * Q; i += 32) {
-    a.out[1][slot0 + i] = bids.qty[i];
-    a.out[2][slot0 + i] = bids.oid[i];
-    a.out[4][slot0 + i] = asks.qty[i];
-    a.out[5][slot0 + i] = asks.oid[i];
+  store_half(bids, a.out[0], a.out[1], a.out[2], lvl0, lane, depth);
+  store_half(asks, a.out[3], a.out[4], a.out[5], lvl0, lane, depth);
+}
+
+template <int L, int Q>
+int launch(const LobArgs& a, long long n_books, int depth, int n_msgs, cudaStream_t stream) {
+  const long long blocks = (n_books + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  lob_stream_kernel<L, Q><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(a, n_books, depth,
+                                                                               n_msgs);
+  return (int)cudaGetLastError();
+}
+
+// every (levels a lane, slots) pair the wrapper takes
+template <int L>
+int launch_slots(int slots, const LobArgs& a, long long n_books, int depth, int n_msgs,
+                 cudaStream_t stream) {
+  switch (slots) {
+    case 1: return launch<L, 1>(a, n_books, depth, n_msgs, stream);
+    case 2: return launch<L, 2>(a, n_books, depth, n_msgs, stream);
+    case 3: return launch<L, 3>(a, n_books, depth, n_msgs, stream);
+    case 4: return launch<L, 4>(a, n_books, depth, n_msgs, stream);
+    case 5: return launch<L, 5>(a, n_books, depth, n_msgs, stream);
+    case 6: return launch<L, 6>(a, n_books, depth, n_msgs, stream);
+    case 7: return launch<L, 7>(a, n_books, depth, n_msgs, stream);
+    case 8: return launch<L, 8>(a, n_books, depth, n_msgs, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -335,8 +643,8 @@ int gymfx_lob_pointer_count() { return kLobPointers; }
 // ptrs: the six input book tensors, the five (B, M) message tensors, the
 // six output book tensors and the (B, M, 9) fill records, all int32 and
 // contiguous.  Requires 1 <= depth <= 64, 1 <= slots <= 8.
-int gymfx_lob_stream(void* const* ptrs, long long n_books, int depth, int slots,
-                     int n_msgs, void* stream) {
+int gymfx_lob_stream(void* const* ptrs, long long n_books, int depth, int slots, int n_msgs,
+                     void* stream) {
   if (depth < 1 || depth > kMaxDepth || slots < 1 || slots > kMaxSlots)
     return (int)cudaErrorInvalidValue;
   LobArgs a;
@@ -344,13 +652,9 @@ int gymfx_lob_stream(void* const* ptrs, long long n_books, int depth, int slots,
   for (int i = 0; i < 5; ++i) a.msg[i] = static_cast<const int*>(ptrs[6 + i]);
   for (int i = 0; i < 6; ++i) a.out[i] = static_cast<int*>(ptrs[11 + i]);
   a.fills = static_cast<int*>(ptrs[17]);
-  const int per_book = 2 * depth + 4 * depth * slots + 2 * depth;
-  const size_t smem = sizeof(int) * (size_t)per_book * kWarpsPerBlock;
-  const long long blocks = (n_books + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  lob_stream_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, smem,
-                      static_cast<cudaStream_t>(stream)>>>(a, n_books, depth, slots,
-                                                           n_msgs);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return depth <= 32 ? launch_slots<1>(slots, a, n_books, depth, n_msgs, s)
+                     : launch_slots<2>(slots, a, n_books, depth, n_msgs, s);
 }
 
 }  // extern "C"

@@ -8,7 +8,10 @@ card).  K1 gets windows with NaN, ±inf, 1e30, 0/0 and neutral envs; K2
 and K3 get open, flat, flipping and (with ``big``) huge ledgers, pending
 and forced orders, brackets at, inside and across the bar, and -inf
 reward peaks, over the grid of K2's static flags.  K5 gets the venue's
-seed streams, every scenario's flow mix and three hand-built streams.
+seed streams, every scenario's flow mix, five hand-built streams,
+streams whose lots wrap int32 sums and streams of one message kind each,
+and :func:`lob_stream_emulated` models the algorithm of its kernel on
+the CPU.
 K6 gets int16 deltas at both ends of their range, divisors 1, 60, 1440
 and f32(1e5), and a ragged row count; K7 neutral rows, NaN and +-inf
 inputs, clip 0 and 10, and steps at 0 and at n.  K4's bf16 cases (:data:`ATTENTION_BF16_CASES`)
@@ -174,6 +177,26 @@ LOB_STREAMS = {
     "agent_maker": ([
         (1, -1, 110, 4, 1 << 29), (1, -1, 110, 2, 41), (3, +1, 0, 3, 0), (3, +1, 0, 5, 0),
     ], (4, 3)),
+    # market orders sweeping more than half of each side through levels
+    # that hold agent slots (the first ends exactly on a level's last
+    # lot), then crossing limits that sweep the rest and rest beyond it
+    "agent_sweep": ([
+        (1, -1, 101, 3, 1), (1, -1, 101, 2, 1 << 29), (1, -1, 102, 4, 2), (1, -1, 103, 1, 1 << 29),
+        (1, -1, 103, 5, 3), (1, -1, 104, 2, 4), (1, -1, 105, 6, 1 << 29), (1, -1, 106, 3, 5),
+        (1, +1, 99, 2, 6), (1, +1, 98, 3, 1 << 29), (1, +1, 97, 4, 7), (1, +1, 96, 1, 8),
+        (3, +1, 0, 17, 0), (3, +1, 0, 4, 0), (3, -1, 0, 8, 0),
+        (1, +1, 106, 10, 9), (1, -1, 95, 20, 10), (3, +1, 0, 50, 0),
+    ], (8, 3)),
+    # a cancel empties a middle level of a full book; a later rest at a
+    # new price must take that level as the first free one (its kept lot
+    # sum back at 0), a rest at the cancelled price finds no level, and a
+    # partial cancel compacts a queue
+    "cancel_reuse": ([
+        (1, +1, 100, 2, 1), (1, +1, 99, 3, 2), (1, +1, 98, 4, 3), (1, +1, 97, 5, 4),
+        (1, +1, 96, 1, 11), (2, +1, 0, 0, 2), (1, +1, 95, 5, 5), (1, +1, 99, 1, 6),
+        (1, +1, 95, 2, 7), (1, +1, 95, 1, 8), (2, +1, 0, 0, 5), (1, +1, 95, 3, 12),
+        (3, -1, 0, 3, 0), (2, +1, 0, 0, 3), (1, -1, 94, 2, 13), (1, +1, 93, 1, 14),
+    ], (4, 2)),
 }
 
 
@@ -213,6 +236,258 @@ def lob_seed_streams(n_books: int, seed: int = 0, device=None):
     o = np.random.default_rng(seed).integers(105_000, 115_000, n_books).astype(np.int32)
     return _messages(seed_messages(torch.from_numpy(o), 8, scenario_flow_params("lob_volatile")),
                      device)
+
+
+def lob_wrap_streams(n_books: int, n_msgs: int, seed: int = 0, device=None):
+    """(B, M) streams of every kind, out-of-range kinds included, around
+    100 ticks with lots up to 2^31 - 1 and down to -2^31: level sums and
+    the cumsum walk wrap mod 2^32, and negative and zero takes come."""
+    rng = np.random.default_rng(seed)
+    shape = (n_books, n_msgs)
+    lots = np.array([1, 3, 7, 1 << 29, 1 << 30, (1 << 31) - 1, 0, -5, -(1 << 31) + 1, -(1 << 31)])
+    qty = rng.choice(lots, shape, p=[.2, .2, .1, .1, .1, .1, .05, .05, .05, .05])
+    cols = np.stack([rng.integers(-1, 5, shape), rng.choice([-1, 1], shape),
+                     rng.integers(97, 104, shape), qty, rng.integers(0, 12, shape)])
+    return _messages(cols.astype(np.int32), device)
+
+
+# One kind of message at a time, to split K5's time per message by kind:
+# each stream runs through the book that LOB_KIND_START leaves (12 levels
+# a side, bids 100 down, asks 101 up, 3 slots of 10 lots each, oids 1-36
+# on the bids and 37-72 on the asks).  A "rest" is a non-crossing ADD at 0-15
+# ticks behind its best price (a free slot, a new level or a drop); a "take"
+# is an ADD priced through the whole opposite side, of 1-2 lots, so it
+# fills at the best level and rests nothing; a "market" order takes 1-2
+# lots; a "cancel" names one of the 72 oids on either side, so about half
+# hit the first time.
+LOB_KINDS = ("noop", "rest", "take", "market", "cancel")
+
+
+def lob_kind_streams(n_books: int, n_msgs: int, seed: int = 0, device=None):
+    """(start, streams): the (B, 72) ADD stream that builds the books, and
+    for each of LOB_KINDS a (B, ``n_msgs``) stream of that kind alone."""
+    rng = np.random.default_rng(seed)
+    d, s = np.meshgrid(np.arange(12), np.arange(3), indexing="ij")
+    bids = [np.ones(36), np.ones(36), 100 - d.ravel(), np.full(36, 10), np.arange(1, 37)]
+    asks = [np.ones(36), -np.ones(36), 101 + d.ravel(), np.full(36, 10), np.arange(37, 73)]
+    start = np.concatenate([np.stack(bids), np.stack(asks)], axis=1)
+    start = np.broadcast_to(start[:, None, :], (5, n_books, 72))
+    shape = (n_books, n_msgs)
+    side = rng.choice([-1, 1], shape)
+    buy = side > 0
+    lots = rng.integers(1, 3, shape)
+    kinds = {
+        "noop": (0, side, np.full(shape, 100), lots, np.zeros(shape)),
+        "rest": (1, side, np.where(buy, 100, 101) - side * rng.integers(0, 16, shape), lots,
+                 rng.integers(73, 1 << 20, shape)),
+        "take": (1, side, np.where(buy, 112, 89), lots, rng.integers(73, 1 << 20, shape)),
+        "market": (3, side, np.zeros(shape), lots, np.zeros(shape)),
+        "cancel": (2, side, np.zeros(shape), np.zeros(shape), rng.integers(1, 73, shape)),
+    }
+    streams = {k: _messages([np.broadcast_to(c, shape).astype(np.int32) for c in cols], device)
+               for k, cols in kinds.items()}
+    return _messages(start.astype(np.int32), device), streams
+
+
+# K5's algorithm on the card (csrc/lob_kernels.cu), one book at a time in
+# plain Python: a model of the kernel's arithmetic, not of its lanes.  A
+# level's lots are kept as an int32 sum mod 2^32 and a half's exact total
+# as a Python int; matching walks the eligible levels best first, fills
+# only the levels it visited and compacts only those; a rest goes to the
+# level holding its price, else the first free one, at the slot after its
+# live ones.  Nothing on a path calls it: the CPU tests hold it to the
+# plain version, so the kernel's design is checked where there is no nvcc.
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+_NONE = 1 << 32  # above every level key
+
+
+def _i32(x: int) -> int:
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+class _EmuHalf:
+    """One half of one book as a warp holds it: per level the price, the
+    queue and the level's lot sum mod 2^32; the half's exact lot total
+    and ``best``, a priority key no worse than the best priced level's
+    (exact after a match, a cancel or the load; a rest can only better
+    it; a level losing its price leaves it better than the truth, which
+    costs a walk at most one step that finds no level)."""
+
+    def __init__(self, price, qty, oid, asks: bool):
+        self.price, self.qty, self.oid = list(price), [list(q) for q in qty], [list(o) for o in oid]
+        self.asks = asks
+        self.sum = [sum(q) & 0xFFFFFFFF for q in self.qty]
+        self.total = sum(map(sum, self.qty))
+        self.best = min(map(self._key, self.price))
+
+    def _key(self, p: int) -> int:
+        """Priority on this half, lower first; _NONE without a price."""
+        return (p if self.asks else _I32_MAX - p) if p > 0 else _NONE
+
+    def _eligible(self, key: int, limit: int) -> bool:
+        if key == _NONE:
+            return False
+        return key <= limit if self.asks else _I32_MAX - key >= limit
+
+    def match(self, take: int, limit: int):
+        """book.py::_match_half.  With the half's exact total within
+        int32 (and no take so negative that take - total wraps), no
+        prefix sum wraps: a take <= 0 fills nothing, nothing fills when
+        the best level is not eligible, and the walk stops once it has
+        reached the take.  Otherwise it visits every eligible level, with
+        the sums wrapping as the argsort engine's."""
+        from gymfx_tpu_torch.lob.book import AGENT_OID, PRICE_CAP
+
+        stats = [0, 0, 0, 0, 0, PRICE_CAP, 0]
+        fast = self.total <= _I32_MAX and take - self.total >= _I32_MIN
+        if fast and (take <= 0 or not self._eligible(self.best, limit)):
+            return stats
+        keys = [self._key(p) for p in self.price]  # eligible levels come first in key order
+        best = self.best if fast else min(keys)
+        ahead, visited, last = 0, {}, _NONE  # lots ahead of `best` (mod 2^32); level -> lots ahead of it
+        while self._eligible(best, limit):
+            if best in keys:  # live prices are distinct: one level, or none if `best` was stale
+                d = keys.index(best)
+                visited[d], keys[d] = ahead, _NONE
+                ahead = (ahead + self.sum[d]) & 0xFFFFFFFF
+            last, best = best, min(keys)
+            if fast and ahead >= take:
+                break
+        if fast:
+            self.best = last if ahead > take else best
+        for d, before in visited.items():
+            p, qty, oid = self.price[d], self.qty[d], self.oid[d]
+            level_fill = 0
+            for s, a in enumerate(qty):
+                f = min(max(_i32(take - before), 0), a)
+                before += a
+                level_fill += f
+                stats[0] += f
+                stats[1] += f * p
+                stats[2] += f > 0
+                if oid[s] == AGENT_OID and f > 0:
+                    stats[3] += f
+                    stats[4] += f * p
+                qty[s] = a - f
+                if qty[s] <= 0:
+                    oid[s] = 0
+            if _i32(level_fill) > 0:
+                stats[5], stats[6] = min(stats[5], p), max(stats[6], p)
+            self._compact(d)
+            self.sum[d] = (self.sum[d] - level_fill) & 0xFFFFFFFF
+            if fast and self.sum[d] == 0:
+                self.price[d] = 0  # the walk zeroes the price of a level it empties
+        stats[:5] = map(_i32, stats[:5])
+        self._retotal(stats[0])
+        if not fast:
+            self.reset()
+        return stats
+
+    def reset(self):
+        """Zero the price of every level whose int32 lot sum is <= 0: at
+        the end of a wrapped match only (book.py resets both halves at
+        every match, but within int32 a level's sum is 0 exactly when it
+        is empty, and the walk and the cancel zero the price of a level
+        they empty; a half beyond int32 always matches wrapped)."""
+        self.price = [p if _i32(s) > 0 else 0 for p, s in zip(self.price, self.sum)]
+
+    def cancel(self, target: int) -> int:
+        """book.py::_cancel_half: only the levels hit are compacted."""
+        if target == 0:
+            return 0
+        removed = 0
+        for d, (qty, oid) in enumerate(zip(self.qty, self.oid)):
+            hits = [s for s in range(len(qty)) if oid[s] == target and qty[s] > 0]
+            if not hits:
+                continue
+            level = sum(qty[s] for s in hits)
+            for s in hits:
+                qty[s] = oid[s] = 0
+            self._compact(d)
+            self.sum[d] = (self.sum[d] - level) & 0xFFFFFFFF
+            if _i32(self.sum[d]) <= 0:
+                self.price[d] = 0
+            removed += level
+        self.best = min(map(self._key, self.price))
+        removed = _i32(removed)
+        self._retotal(removed)
+        return removed
+
+    def rest(self, p: int, q: int, o: int) -> int:
+        """book.py::_rest_half: the level holding p, else the first level
+        whose lot sum is 0; its queue is full when its last slot is live
+        (queues are front-compacted), and the new slot is the count of
+        its live slots."""
+        if q <= 0:
+            return 0
+        has = [d for d, x in enumerate(self.price) if x == p and x > 0]
+        free = [d for d, s in enumerate(self.sum) if s == 0]
+        if not (has or free):
+            return 0
+        d = (has or free)[0]
+        qty = self.qty[d]
+        if qty[-1] != 0:
+            return 0
+        slot = sum(x != 0 for x in qty)
+        qty[slot], self.oid[d][slot] = q, o
+        self.price[d] = p
+        self.sum[d] = (self.sum[d] + q) & 0xFFFFFFFF
+        self.total += q
+        self.best = min(self.best, self._key(p))
+        return q
+
+    def _compact(self, d):
+        live = [s for s, x in enumerate(self.qty[d]) if x != 0]
+        n = len(self.qty[d])
+        self.qty[d] = [self.qty[d][s] for s in live] + [0] * (n - len(live))
+        self.oid[d] = [self.oid[d][s] for s in live] + [0] * (n - len(live))
+
+    def _retotal(self, removed: int):
+        """Within int32 the half's total drops by what left it, exactly;
+        beyond, it is counted again (the kernel's rare path)."""
+        if self.total <= _I32_MAX:
+            self.total -= removed
+        else:
+            self.total = sum(map(sum, self.qty))
+
+
+def lob_stream_emulated(book, msgs):
+    """K5's algorithm (csrc/lob_kernels.cu) on CPU tensors: (final books,
+    (B, M) fill records), to equal ``lob/book.py::process_stream`` on
+    books that hold the engine's invariants."""
+    from gymfx_tpu_torch.lob.book import (MSG_ADD, MSG_CANCEL, MSG_MARKET, PRICE_CAP, BookState,
+                                          FillRecord)
+
+    books = [x.tolist() for x in book]
+    streams = [x.tolist() for x in msgs]
+    out, records = [[] for _ in BookState._fields], []
+    for b in range(len(books[0])):
+        bids = _EmuHalf(books[0][b], books[1][b], books[2][b], asks=False)
+        asks = _EmuHalf(books[3][b], books[4][b], books[5][b], asks=True)
+        rows = []
+        for kind, side, p, q, o in zip(*(s[b] for s in streams)):
+            kind, is_buy = min(max(kind, 0), 3), side > 0
+            is_add = kind == MSG_ADD
+            take = q if kind in (MSG_ADD, MSG_MARKET) else 0
+            s_a = asks.match(take if is_buy else 0, p if is_add else PRICE_CAP)
+            s_b = bids.match(0 if is_buy else take, p if is_add else 0)
+            target = o if kind == MSG_CANCEL else 0
+            removed = bids.cancel(target) if is_buy else asks.cancel(target)
+            q_add = q if is_add else 0
+            rested = (bids.rest(p, _i32(q_add - s_a[0]), o) if is_buy
+                      else asks.rest(p, _i32(q_add - s_b[0]), o))
+            rows.append([_i32(x + y) for x, y in zip(s_a[:5], s_b[:5])]
+                        + [min(s_a[5], s_b[5]), max(s_a[6], s_b[6]), rested, removed])
+        records.append(rows)
+        for i, half in enumerate((bids, asks)):
+            out[3 * i].append(half.price)
+            out[3 * i + 1].append(half.qty)
+            out[3 * i + 2].append(half.oid)
+    dev = book.bid_qty.device
+    final = BookState(*(torch.tensor(x, dtype=torch.int32, device=dev).reshape(t.shape)
+                        for x, t in zip(out, book)))
+    fills = torch.tensor(records, dtype=torch.int32, device=dev).reshape(*msgs.kind.shape, 9)
+    return final, FillRecord(*fills.unbind(-1))
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,26 @@
 
 Replaces ``gymfx_tpu/ops/lob_match.py::fused_process_stream`` (pallas
 body ``_stream_kernel``).  The kernel is ``lob_stream_kernel`` in
-``csrc/lob_kernels.cu``: one warp per book, the book in shared memory for
-the whole stream, exact int32 (see the source for its design).  Its
-plain version is ``lob/book.py::process_stream``, the argsort engine
-looped over messages.
+``csrc/lob_kernels.cu``: one warp per book, the whole book in registers
+for the whole stream (lane l holds levels l and l + 32 with their queues
+and kept lot sums), a best-first walk of warp reductions per match, exact
+int32 (see the source for its design).  It is instantiated for 1 or 2
+levels a lane and 1-8 slots.  Its plain version is
+``lob/book.py::process_stream``, the argsort engine looped over
+messages; ``ops/cases.lob_stream_emulated`` models the kernel's
+algorithm on the CPU.  Like the Pallas kernel, the plain version matches
+both halves of the book for every message (the half it does not take
+from with a take of 0); where lots near 2^31 wrap int32 sums, that take
+of 0 can fill, so there the kernel and the plain version equal the
+Pallas kernel and not the JAX package's argsort engine.
+
+The kernel equals the plain version on books that hold what every book
+built from ``empty_book`` by these operations holds, and relies on it:
+
+- the levels with a nonzero price hold distinct prices;
+- queues are front-compacted, with slot quantities >= 0;
+- every empty slot holds oid 0;
+- a level whose lots are 0 holds price 0.
 
 :func:`process_stream` dispatches by device: a CPU book runs the plain
 version; a CUDA book launches the kernel or raises.  The kernel takes

@@ -251,6 +251,31 @@ def test_cuda_lob_stream_equals_plain_on_seed_streams(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 16, 24, 48])
+def test_cuda_lob_stream_equals_plain_at_bench_lob_shape(cuda_device, depth):
+    # bench.py --lob: 1,024 books x 256 lob_calm messages
+    ours = _lob_equal(cases.lob_flow_streams("lob_calm", n_books=1024, n_msgs=256), depth, 4,
+                      cuda_device)
+    assert int(ours[1].fill_events.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", range(1, 9))
+@pytest.mark.parametrize("levels_per_lane", [1, 2])
+def test_cuda_lob_stream_launches_every_instantiation(cuda_device, levels_per_lane, slots):
+    # one (levels a lane, slots) template each: depth 1-32 -> 1, 33-64 -> 2
+    depth = 29 if levels_per_lane == 1 else 61
+    _lob_equal(cases.lob_flow_streams("lob_volatile", n_books=5, n_msgs=70), depth, slots,
+               cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,slots", [(4, 3), (2, 2), (33, 1), (40, 8)])
+def test_cuda_lob_stream_equals_plain_where_int32_sums_wrap(cuda_device, depth, slots):
+    _lob_equal(cases.lob_wrap_streams(64, 80, seed=depth), depth, slots, cuda_device)
+
+
+@pytest.mark.cuda
 def test_cuda_lob_stream_rejects_what_it_cannot_take(cuda_device):
     msgs = cases.lob_flow_streams("lob_calm", n_books=2, n_msgs=8, device=cuda_device)
     with pytest.raises(NotImplementedError, match="depth"):
