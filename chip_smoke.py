@@ -13,11 +13,24 @@ failure exits non-zero:
 2. build    nvcc builds the five libraries at once, one process per
             source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4, K5 and
             K4's probe for profile_attention.py (sm_90a), timed, with
-            ptxas' register and spill report.
+            ptxas' register and spill report (and each env-library
+            kernel's registers and stack frame: K1's two paths, K2's 8
+            instantiations, K3).
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
-            32, 5) with NaN, ±inf, neutral envs and a binary mask; K2 and
-            K3 at 8192 envs over every combination of their static flags.
+            32, 5) with NaN, ±inf, neutral envs and a binary mask, three
+            mask/clip cases, also at N = 1, 63 and 8193, (63, 9, 3) (108-
+            byte faces), (63, 30, 5) and windows 4 bytes off 16-byte
+            alignment (both of its paths); K2 and K3 at 8192 envs over
+            every combination of their static flags, K2 also at N = 1, 63
+            and 8193 (the flagship's flags and one with slip_match,
+            financing and the ohlc policy).  Beside K1-K3's times: the
+            launch floor (an empty kernel at each one's grid, timed the
+            same way), K2's memory skeleton (its loads and stores without
+            its arithmetic), a clone of K1's window, each at one env, K1
+            on its env-block path, and what the wrappers' host time is
+            made of (a pointer check, the output allocations, a ctypes
+            launch).
             K4 forward and backward at the update's shapes (4096, 256, 4,
             32) bf16, the rollout's (256, 256, 4, 32) bf16, a causal f32
             case, S = 1024 and D = 128 (f32 and bf16); float32 (CUDA-core
@@ -330,14 +343,27 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
     n, w, f = N_ENVS, WINDOW, len(FEATURE_COLUMNS)
+    err, k1_cases = 0.0, 0
+    # the flagship's shape, the edge shapes, windows 4 bytes off 16-byte
+    # alignment (a slice of a larger buffer) and F = 5 rows that do not
+    # fill whole row groups: the last three take the env-block path
+    for (cn, cw, cf), offset in ([(shape, 0) for shape in cases.K1_EDGE_SHAPES]
+                                 + [((n, w, f), 1), ((63, 9, 3), 1), ((63, 30, 5), 0)]):
+        win, mean, std, neutral = on_card(*cases.obs_case(SEED, cn, cw, cf))
+        if offset:
+            buf = torch.empty(win.numel() + 4, device=dev)
+            win = buf[offset:offset + win.numel()].view(cn, cw, cf).copy_(win)
+            check(win.data_ptr() % 16 == 4 * offset, "K1: the window is not 4 bytes off alignment")
+        for mask, clip in [((), 10.0), ((False,) * (cf - 1) + (True,), 1.5), ((), 0.0)]:
+            ours = window_zscore.step_obs(win, mean, std, neutral, binary_mask=mask, clip=clip)
+            ref = window_zscore.scale_feature_window(win, mean, std, neutral, mask, clip)
+            torch.cuda.synchronize()
+            check(torch.equal(ours, ref),
+                  f"K1 step_obs != plain ({(cn, cw, cf)}, offset {offset}, mask={mask}, clip={clip})")
+            err = max(err, max_abs_err(torch, ours, ref))
+            k1_cases += 1
     win, mean, std, neutral = on_card(*cases.obs_case(SEED, n, w, f))
-    err = 0.0
-    for mask, clip in [((), 10.0), ((False, False, False, False, True), 1.5), ((), 0.0)]:
-        ours = window_zscore.step_obs(win, mean, std, neutral, binary_mask=mask, clip=clip)
-        ref = window_zscore.scale_feature_window(win, mean, std, neutral, mask, clip)
-        torch.cuda.synchronize()
-        check(torch.equal(ours, ref), f"K1 step_obs != plain (mask={mask}, clip={clip})")
-        err = max(err, max_abs_err(torch, ours, ref))
+    one = [t[:1].contiguous() for t in (win, mean, std, neutral)]
     b_ms, b_by = bound(2 * nbytes(win) + nbytes(mean, std, neutral),
                        OPS_PER_ITEM["step_obs"] * win.numel(), F32_FLOPS)
     kernels["step_obs"] = dict(
@@ -345,7 +371,13 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
         plain_ms=device_ms(torch, lambda: window_zscore.scale_feature_window(win, mean, std, neutral)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         host_us=host_us(torch, lambda: window_zscore.step_obs(win, mean, std, neutral)),
+        ms_one_env=device_ms(torch, lambda: window_zscore.step_obs(*one)),
     )
+    # the same window 4 bytes off alignment takes the env-block path
+    buf = torch.empty(win.numel() + 4, device=dev)
+    off = buf[1:1 + win.numel()].view(n, w, f).copy_(win)
+    kernels["step_obs"]["ms_env_blocks"] = device_ms(
+        torch, lambda: window_zscore.step_obs(off, mean, std, neutral))
 
     def ledger(cfg, seed):
         """cases.ledger_case at N_ENVS envs, on the card: (state, bars,
@@ -381,8 +413,30 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
                 check(torch.equal(a, b), f"K3 mark_reward != plain: {field} {cfg}")
                 errs["mark_reward"] = max(errs["mark_reward"], max_abs_err(torch, a, b))
             combos += 1
+    # K2 at its edge sizes, at the flagship's flags and with the three
+    # flags its kernel specialises on
+    k2_edges = 0
+    for size in cases.K2_EDGE_SIZES:
+        for flags in cases.K2_EDGE_FLAGS:
+            cfg = cases.flag_config(flags, cases.REWARDS[0], WINDOW)
+            p = cases.env_params(cases.PARAM_SETS["quantized"], dev)
+            fields, mark, bars, advance, _ = cases.ledger_case(size, size)
+            st = cases.ledger_state(cfg, {**fields, **mark}, dev)
+            o, h, l, c, acc = on_card(*(bars[k] for k in ("o", "h", "l", "c", "accrual")))
+            acc = acc if cfg.financing_enabled else None
+            adv = torch.from_numpy(advance).to(dev)
+            ref = env_dynamics.fill_brackets_plain(st, o, h, l, c, acc, adv, cfg, p)
+            ours = env_dynamics.fill_brackets(st._replace(exec_diag=st.exec_diag.clone()),
+                                              o, h, l, c, acc, adv, cfg, p)
+            for field in ref._fields:
+                check(torch.equal(getattr(ours, field), getattr(ref, field)),
+                      f"K2 fill_brackets != plain at N = {size}: {field} {cfg}")
+            k2_edges += 1
     torch.cuda.synchronize()
-    print(f"kernels: K1 equal to plain on 3 mask/clip cases; K2 and K3 equal to plain on {combos} flag combinations")
+    print(f"kernels: K1 equal to plain on {k1_cases} cases (shapes {list(cases.K1_EDGE_SHAPES)}, "
+          f"two windows 4 bytes off alignment and (63, 30, 5), 3 mask/clip cases each); K2 and K3 "
+          f"equal to plain on "
+          f"{combos} flag combinations, K2 also at N = {list(cases.K2_EDGE_SIZES)} ({k2_edges} cases)")
 
     # times at the flagship configuration's flags (no financing: K2 reads
     # neither the close nor the accrual)
@@ -402,6 +456,11 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
         plain_ms=device_ms(torch, fill_plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
         host_us=host_us(torch, fill),
     )
+    st1, bars1, adv1 = (st._replace(**{k: getattr(st, k)[:1].contiguous()
+                                       for k in env_dynamics.FILL_OUT_FIELDS + ("exec_diag",)}),
+                        [t[:1].contiguous() for t in (o, h, l, c)], adv[:1].contiguous())
+    kernels["fill_brackets"]["ms_one_env"] = device_ms(
+        torch, lambda: env_dynamics.fill_brackets(st1, *bars1, None, adv1, cfg, p))
     markf = lambda: env_dynamics.mark_reward(st, c, mark, live, cfg, p)  # noqa: E731
     mark_plain = lambda: env_dynamics.mark_reward_plain(st, c, mark, live, cfg, p)  # noqa: E731
     # eight fields, the close and two flags read; six fields and the reward written
@@ -413,11 +472,65 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
         plain_ms=device_ms(torch, mark_plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
         host_us=host_us(torch, markf),
     )
+    # the launch floor: an empty kernel at each kernel's grid, timed as
+    # the kernels are (a bound under it cannot be reached)
+    from gymfx_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    blocks, rows = window_zscore._step_obs_plan(n, w, f, dev, (), 10.0)[:2]
+    check(rows is not None, "K1: the flagship's shape does not take the row-group path")
+    grids = {
+        "step_obs": (rows[2], window_zscore.K1_ROW_THREADS, 0),
+        "step_obs_env_blocks": (blocks[2], window_zscore.K1_THREADS, blocks[1] * f * 9),
+        "fill_brackets": (-(-n // lib.gymfx_fill_threads()), lib.gymfx_fill_threads(), 0),
+        "mark_reward": (-(-n // 128), 128, 0),
+    }
+    for key, (grid, threads, smem) in grids.items():
+        floor_ms = device_ms(torch, lambda: _build.check_launch(
+            lib.gymfx_launch_floor(grid, threads, smem, _build.stream_handle(dev)), "launch_floor"))
+        if key == "step_obs_env_blocks":
+            kernels["step_obs"].update(env_blocks_launch_floor_ms=floor_ms,
+                                       env_blocks_grid=[grid, threads, smem])
+        else:
+            kernels[key].update(launch_floor_ms=floor_ms, grid=[grid, threads, smem])
+    # K2's memory skeleton: its loads and stores without its arithmetic
+    blocks2, _ = env_dynamics.fill_outputs(n, dev)
+    skel_ptrs = env_dynamics.fill_pointers(
+        env_dynamics._fill_inputs(st), blocks2, st.exec_diag, adv, [o, h, l],
+        env_dynamics._fill_params(p))
+    kernels["fill_brackets"]["skeleton_ms"] = device_ms(torch, lambda: _build.check_launch(
+        lib.gymfx_fill_skeleton(skel_ptrs, n, st.exec_diag.shape[1], 0,
+                                _build.stream_handle(dev)), "fill_skeleton"))
+    # K1's yardstick: a copy of its window (the same bytes, no arithmetic)
+    kernels["step_obs"]["copy_ms"] = device_ms(torch, lambda: win.clone())
+    # what the wrappers' host time is made of, us a call
+    host_parts = dict(
+        require_one_tensor=host_us(torch, lambda: _build.require(win, "win", torch.float32,
+                                                                 (n, w, f), win.device)),
+        k1_output_alloc=host_us(torch, lambda: torch.empty_like(win)),
+        k2_output_blocks_and_views=host_us(torch, lambda: env_dynamics.fill_outputs(n, dev)),
+        ctypes_launch_of_an_empty_kernel=host_us(torch, lambda: lib.gymfx_launch_floor(
+            1, 32, 0, _build.stream_handle(dev))),
+    )
+    kernels["step_obs"]["host_parts_us"] = host_parts
+    print("  wrapper host parts: " + ", ".join(f"{k} {v:.2f} us" for k, v in host_parts.items()))
+    print(f"  fill_brackets memory skeleton (every load and store, no arithmetic): "
+          f"{kernels['fill_brackets']['skeleton_ms'] * 1e3:.2f} us; step_obs window copy "
+          f"(torch clone): {kernels['step_obs']['copy_ms'] * 1e3:.2f} us")
     for key in ("step_obs", "fill_brackets", "mark_reward"):
         k = kernels[key]
+        grid, threads, smem = k["grid"]
         print(f"  {key}: {k['ms'] * 1e3:.2f} us/call on the card (plain {k['plain_ms'] * 1e3:.2f} us, "
-              f"bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']} at {BANDWIDTH / 1e12:.2f} TB/s), "
-              f"wrapper host {k['host_us']:.1f} us/call")
+              f"bound {k['bound_ms'] * 1e3:.2f} us by {k['bound_by']} at {BANDWIDTH / 1e12:.2f} TB/s, "
+              f"launch floor {k['launch_floor_ms'] * 1e3:.2f} us at {grid} CTAs x {threads} threads, "
+              f"{smem} B shared), wrapper host {k['host_us']:.1f} us/call"
+              + (f", {k['ms_one_env'] * 1e3:.2f} us/call at one env" if "ms_one_env" in k else ""))
+    k = kernels["step_obs"]
+    grid, threads, smem = k["env_blocks_grid"]
+    print(f"  step_obs on the env-block path (the window 4 bytes off alignment): "
+          f"{k['ms_env_blocks'] * 1e3:.2f} us/call, launch floor "
+          f"{k['env_blocks_launch_floor_ms'] * 1e3:.2f} us at {grid} CTAs x {threads} threads, "
+          f"{smem} B shared")
 
 
 def check_k4_case(torch, fa, cases, q, k, v, g, causal):
@@ -556,6 +669,34 @@ def k5_ptxas(compiler_out: str) -> dict:
         if entry is None:
             continue
         key = f"<{entry.group(1)}, {entry.group(2)}>"
+        if "stack frame" in line:
+            found.setdefault(key, {})["frame"] = line.strip()
+        elif "registers" in line:
+            found.setdefault(key, {})["registers"] = int(re.search(r"Used (\d+) registers",
+                                                                   line).group(1))
+    return found
+
+
+def env_ptxas(compiler_out: str) -> dict:
+    """ptxas' report (-Xptxas -v) of each kernel of the env library: K1's
+    two paths, K2's instantiations keyed "<slip_match, financing, ohlc>",
+    K3, the empty launch-floor kernel and K2's memory skeleton; registers
+    and the stack-frame line."""
+    import re
+
+    found, key = {}, None
+    for line in compiler_out.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)", line)
+        if m:
+            t = re.search(r"fill_brackets_kernelILb(\d)ELb(\d)ELb(\d)E", m.group(1))
+            key = (f"fill_brackets<{t.group(1)}, {t.group(2)}, {t.group(3)}>" if t else next(
+                (k for k in ("step_obs_rows", "step_obs", "mark_reward", "launch_floor",
+                             "fill_skeleton")
+                 if f"{k}_kernel" in m.group(1)),
+                None))
+            continue
+        if key is None:
+            continue
         if "stack frame" in line:
             found.setdefault(key, {})["frame"] = line.strip()
         elif "registers" in line:
@@ -1400,6 +1541,12 @@ def main() -> None:
                 print(f"  ptxas: {line.strip()}")
     print(f"build: {len(built)} libraries in {build_s:.2f} s (one nvcc per source, in parallel)")
     results["build_s"] = build_s
+    results["env_ptxas"] = env_ptxas(built["env"][1])
+    check(len(results["env_ptxas"]) == 13, f"ptxas reported {len(results['env_ptxas'])} of the "
+          "env library's 13 kernels (K1's two paths, 8 of K2, K3, the launch floor, K2's "
+          "memory skeleton)")
+    for key, row in results["env_ptxas"].items():
+        print(f"  env ptxas {key}: {row.get('registers')} registers; {row.get('frame')}")
 
     # ---- 3. kernels against their plain versions ----------------------------
     dev = torch.device("cuda")

@@ -12,26 +12,31 @@
 //                     (pallas body _mark_reward_kernel): mark to market,
 //                     drawdown carries and the pnl / dd reward at the close.
 //
-// What bounds them: bytes.  Each is an elementwise pass that does a few
-// dozen flops per element, far below the H100's ~20 flops per byte of
-// f32 ridge, so the least time is the bytes moved over 3.35 TB/s.  K1
-// reads the (N, W, F) window plus the (N, F) moments and writes the
-// window once; K2 / K3 read and write each per-env ledger field once.
-// At the flagship shapes (N = 8192, W = 32, F = 5) that is ~10.8 MB for
-// K1 (3.2 us at 3.35 TB/s), ~1.25 MB for K2 (153 bytes per env: 66 in,
-// 66 out, the advance flag, the bar's O/H/L and one counter read and
-// written in place; the close and the accrual only with financing) and
-// ~0.5 MB for K3 (66 bytes per env), so K2 and K3 are well under a
-// microsecond of bandwidth and pay mostly their launch.
+// What bounds them: bytes, and at these sizes the launch.  Each is an
+// elementwise pass that does a few dozen flops per element, far below
+// the H100's ~20 flops per byte of f32 ridge, so the least time is the
+// bytes moved over 3.35 TB/s.  K1 reads the (N, W, F) window plus the
+// (N, F) moments and writes the window once; K2 / K3 read and write each
+// per-env ledger field once.  At the flagship shapes (N = 8192, W = 32,
+// F = 5) that is ~10.8 MB for K1 (3.2 us at 3.35 TB/s), ~1.25 MB for K2
+// (153 bytes per env: 66 in, 66 out, the advance flag, the bar's O/H/L
+// and one counter read and written in place; the close and the accrual
+// only with financing) and ~0.5 MB for K3 (66 bytes per env), so K2 and
+// K3 are well under a microsecond of bandwidth and pay mostly their
+// launch and one chain of dependent arithmetic per env.
 //
 // What the design does about it: one pass, every input read once and
-// every output written once, no intermediate in device memory.  K1 is
-// one thread per (env, row, feature) element with coalesced reads of the
-// window; K2 and K3 are one thread per env over structure-of-arrays
+// every output written once, no intermediate in device memory.  K1
+// streams blocks of whole envs in 16-byte vectors with the block's
+// moments staged in shared memory and no run-time integer division
+// (below).  K2 and K3 are one thread per env over structure-of-arrays
 // field pointers (the EnvState tensors themselves; the Pallas kernels'
 // packing into (env_block, n_fields) faces existed for VMEM tiling and
-// would only add stack/unbind copies here).  The static config choices
-// arrive as an integer of flags: uniform branches, no divergence.
+// would only add stack/unbind copies here); K2 writes its outputs into
+// one block per type, issues every load first, specialises the flags
+// that cost the most at compile time and runs in CTAs of 64 so that the
+// flagship's 8,192 envs reach 128 SMs.  The remaining static config
+// choices arrive as an integer of flags: uniform branches, no divergence.
 //
 // Bitwise contract with the plain PyTorch versions (core/broker.py,
 // core/rewards.py, core/obs.py): build with -fmad=false (no FMA
@@ -46,6 +51,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 namespace {
 
@@ -79,28 +85,231 @@ __device__ __forceinline__ float opening_units(float pos, float target) {
 }
 
 // ---------------------------------------------------------------- K1
-__global__ void step_obs_kernel(const float* __restrict__ win,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ stdv,
-                                const unsigned char* __restrict__ neutral,
-                                const unsigned char* __restrict__ mask,
-                                float* __restrict__ out, long long total,
-                                int window_features, int features,
-                                float clip) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  long long env = i / window_features;
-  int f = (int)(i % features);
-  long long m = env * features + f;
-  float w = win[i];
-  float z = (w - mean[m]) / stdv[m];
-  float v = neutral[env] ? 0.f : z;
-  if (mask != nullptr && mask[f]) v = w;
+// Two tilings of one function; the wrapper picks per call
+// (ops/window_zscore.py, modelled on the CPU by ops/cases.py
+// step_obs_tiling and step_obs_row_tiling):
+//
+// Row groups (path 1, the flagship's F = 5 with W a multiple of 4 and
+// both pointers on 16-byte boundaries): a thread computes kRowGroup rows
+// of one env, 20 floats, so the feature of each element is a
+// compile-time constant; it reads its env's F means and stds and its
+// neutral flag into registers (the 8 threads of one env share them
+// through L1), and the binary mask arrives as a bit word.  No index
+// arithmetic per element.  The window moves coalesced: a warp's 32
+// groups are 160 neighbouring float4s, which its lanes load and store
+// 32 at a time through shared memory (each lane loading its own 80
+// bytes would spread every warp access over an 80-byte stride).
+//
+// Env blocks (path 0, any shape and alignment): a CTA of kObsThreads
+// streams a block of `eb` whole envs, eb * W * F contiguous floats.  It
+// stages the block's moments and a select code (bit 0 neutral env, bit 1
+// binary-mask column) in shared memory once, then moves the faces in
+// 16-byte vectors, kObsVectors a thread in flight.  Elements before the
+// output's first 16-byte boundary and after its last go through the same
+// arithmetic one by one (the scalar path); the input is read as float4
+// only when it shares the output's alignment.  The env and feature of
+// element j (j < eb * W * F, 32-bit and local to the block) come from
+// j / (W * F) and j / F by the multiply-high and shift that a compiler
+// emits for a constant divisor, with the constants computed on the host
+// (window_zscore.magic): q = (umulhi(j, lo) + (hi ? j : 0)) >> shift,
+// exact for every j < 2^31.
+//
+// Both grids cover every SM a few CTAs deep and walk the rest.
+constexpr int kObsThreads = 256;
+constexpr int kObsVectors = 2;
+constexpr int kRowFeatures = 5;
+constexpr int kRowThreads = 128;
+constexpr int kRowGroup = 4;  // rows a thread: 4 x 5 floats = 5 float4
+
+struct ObsGeometry {
+  int path;                     // 0 env blocks, 1 row groups
+  int env_block;                // path 0: envs a CTA takes at a time
+  int grid;
+  int f_lo, f_hi, f_shift;      // path 0: j / F
+  int wf_lo, wf_hi, wf_shift;   // path 0: j / (W * F); path 1: group / (W / kRowGroup)
+  int mask_bits;                // path 1: bit f set for a binary-mask column
+  int n_envs, window, features;
+  float clip;
+};
+constexpr int kObsGeometryInts = sizeof(ObsGeometry) / sizeof(int);
+
+__device__ __forceinline__ unsigned magic_div(unsigned j, unsigned lo, unsigned hi,
+                                              unsigned shift) {
+  return (__umulhi(j, lo) + (hi ? j : 0u)) >> shift;
+}
+
+// core/obs.scale_feature_window for one element, op for op
+__device__ __forceinline__ float scale_value(float w, float mean, float std, bool neutral,
+                                             bool raw, float clip) {
+  float z = (w - mean) / std;
+  float v = neutral ? 0.f : z;
+  v = raw ? w : v;
   if (clip > 0.f) v = jmin(jmax(v, -clip), clip);
   // nan_to_num(nan=0, posinf=clip, neginf=-clip): the JAX package's
   // `clip or 0.0` is clip itself for any nonzero clip, 0 for clip == 0
-  v = (v != v) ? 0.f : (v == INFINITY ? clip : (v == -INFINITY ? -clip : v));
-  out[i] = v;
+  return (v != v) ? 0.f : (v == INFINITY ? clip : (v == -INFINITY ? -clip : v));
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+step_obs_rows_kernel(const float4* __restrict__ win, const float* __restrict__ mean,
+                     const float* __restrict__ stdv, const unsigned char* __restrict__ neutral,
+                     float4* __restrict__ out, long long n_groups, float clip, ObsGeometry g) {
+  constexpr int F = kRowFeatures, E = kRowGroup * F, V = E / 4;
+  static_assert(E % 4 == 0, "a row group fills whole float4s");
+  // each warp moves its 32 groups' 32 * V float4 through shared memory:
+  // lane l takes float4s l, l + 32, ... (coalesced), then reads back its
+  // own group's V (an 80-byte stride, no bank conflict within a
+  // quarter-warp's 16-byte accesses)
+  __shared__ float4 stage[kRowThreads / 32][32 * V];
+  const int lane = threadIdx.x & 31;
+  float4* sw = stage[threadIdx.x >> 5];
+  const long long warps = (long long)gridDim.x * (kRowThreads / 32);
+  for (long long w0 = (long long)blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+       w0 * 32 < n_groups; w0 += warps) {
+    const long long g0 = w0 * 32, grp = g0 + lane;
+    const int span = (int)min(32LL, n_groups - g0) * V;  // float4s of this warp's groups
+    const bool own = grp < n_groups;
+    const long long env = magic_div((unsigned)(own ? grp : g0), g.wf_lo, g.wf_hi, g.wf_shift);
+    float4 r[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (32 * i + lane < span) r[i] = __ldg(win + g0 * V + 32 * i + lane);
+    float mu[F], sd[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      mu[f] = __ldg(mean + env * F + f);
+      sd[f] = __ldg(stdv + env * F + f);
+    }
+    const bool neut = __ldg(neutral + env);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (32 * i + lane < span) sw[32 * i + lane] = r[i];
+    __syncwarp();
+    if (own) {
+      float x[E];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float4 q = sw[lane * V + v];
+        x[4 * v] = q.x;
+        x[4 * v + 1] = q.y;
+        x[4 * v + 2] = q.z;
+        x[4 * v + 3] = q.w;
+      }
+#pragma unroll
+      for (int k = 0; k < E; ++k)
+        x[k] = scale_value(x[k], mu[k % F], sd[k % F], neut, (g.mask_bits >> (k % F)) & 1, clip);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        sw[lane * V + v] = make_float4(x[4 * v], x[4 * v + 1], x[4 * v + 2], x[4 * v + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (32 * i + lane < span) out[g0 * V + 32 * i + lane] = sw[32 * i + lane];
+    __syncwarp();  // the next span overwrites sw
+  }
+}
+
+__device__ __forceinline__ float scale_one(float w, unsigned j, const float2* ms,
+                                           const unsigned char* code,
+                                           const ObsGeometry& g, unsigned features,
+                                           float clip) {
+  unsigned env = magic_div(j, g.wf_lo, g.wf_hi, g.wf_shift);
+  unsigned f = j - magic_div(j, g.f_lo, g.f_hi, g.f_shift) * features;
+  unsigned m = env * features + f;
+  float2 mv = ms[m];
+  unsigned char c = code[m];
+  return scale_value(w, mv.x, mv.y, c & 1, c & 2, clip);
+}
+
+__global__ void __launch_bounds__(kObsThreads)
+step_obs_kernel(const float* __restrict__ win, const float* __restrict__ mean,
+                const float* __restrict__ stdv, const unsigned char* __restrict__ neutral,
+                const unsigned char* __restrict__ mask, float* __restrict__ out,
+                long long n_envs, int window_features, int features, float clip,
+                ObsGeometry g) {
+  extern __shared__ float2 obs_smem[];
+  const int eb = g.env_block;
+  float2* ms = obs_smem;
+  unsigned char* code = reinterpret_cast<unsigned char*>(obs_smem + eb * features);
+  const unsigned tid = threadIdx.x;
+  const long long n_blocks = (n_envs + eb - 1) / eb;
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const long long env0 = b * eb;
+    const int envs = (int)min((long long)eb, n_envs - env0);
+    const unsigned count = (unsigned)(envs * window_features);
+    const float* src = win + env0 * window_features;
+    float* dst = out + env0 * window_features;
+    unsigned head = ((16u - (unsigned)(reinterpret_cast<unsigned long long>(dst) & 15u)) & 15u) >> 2;
+    head = min(head, count);
+    const unsigned n_vec = (count - head) >> 2;
+    const unsigned tail0 = head + 4u * n_vec;
+    const bool vec_in = (reinterpret_cast<unsigned long long>(src + head) & 15u) == 0;
+    const float4* src4 = reinterpret_cast<const float4*>(src + head);
+    float4* dst4 = reinterpret_cast<float4*>(dst + head);
+
+    // the first pass's faces are in flight while the moments are staged
+    float4 r[kObsVectors];
+#pragma unroll
+    for (int u = 0; u < kObsVectors; ++u) {
+      unsigned v = tid + u * kObsThreads;
+      if (v < n_vec) {
+        if (vec_in) {
+          r[u] = __ldg(src4 + v);
+        } else {
+          const float* p = src + head + 4u * v;
+          r[u] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+        }
+      }
+    }
+    __syncthreads();  // the previous block's reads of the staged moments are done
+    const unsigned staged = (unsigned)(envs * features);
+    for (unsigned k = tid; k < staged; k += kObsThreads) {
+      unsigned e = magic_div(k, g.f_lo, g.f_hi, g.f_shift);
+      unsigned f = k - e * (unsigned)features;
+      ms[k] = make_float2(__ldg(mean + env0 * features + k), __ldg(stdv + env0 * features + k));
+      unsigned char c = neutral[env0 + e] ? 1 : 0;
+      if (mask != nullptr && mask[f]) c |= 2;
+      code[k] = c;
+    }
+    __syncthreads();
+
+    for (unsigned v0 = 0; v0 < n_vec; v0 += kObsThreads * kObsVectors) {
+      if (v0 > 0) {
+#pragma unroll
+        for (int u = 0; u < kObsVectors; ++u) {
+          unsigned v = v0 + tid + u * kObsThreads;
+          if (v < n_vec) {
+            if (vec_in) {
+              r[u] = __ldg(src4 + v);
+            } else {
+              const float* p = src + head + 4u * v;
+              r[u] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kObsVectors; ++u) {
+        unsigned v = v0 + tid + u * kObsThreads;
+        if (v < n_vec) {
+          unsigned j = head + 4u * v;
+          float4 o;
+          o.x = scale_one(r[u].x, j, ms, code, g, features, clip);
+          o.y = scale_one(r[u].y, j + 1, ms, code, g, features, clip);
+          o.z = scale_one(r[u].z, j + 2, ms, code, g, features, clip);
+          o.w = scale_one(r[u].w, j + 3, ms, code, g, features, clip);
+          dst4[v] = o;
+        }
+      }
+    }
+    // the scalar path: at most three elements before the vectors, three after
+    if (tid < head) dst[tid] = scale_one(__ldg(src + tid), tid, ms, code, g, features, clip);
+    if (tid < count - tail0) {
+      unsigned j = tail0 + tid;
+      dst[j] = scale_one(__ldg(src + j), j, ms, code, g, features, clip);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- K2
@@ -117,20 +326,23 @@ constexpr int kSlipOpen = 1, kSlipLimit = 2, kSlipMatch = 4, kFinancing = 8;
 constexpr int kLimitShift = 4;  // 0 cross, 1 touch, 2 conservative
 constexpr int kOhlc = 64;
 
+// Outputs are three blocks, one per type, (fields, n) row-major: field k
+// of env e at out_f[k * n + e] (ops/env_dynamics.py fill_outputs).
 struct FillArgs {
   const float* in_f[kNumFillFloats];
-  float* out_f[kNumFillFloats];
   const unsigned char* in_b[kNumFillBools];
-  unsigned char* out_b[kNumFillBools];
   const int* in_i[kNumFillInts];
-  int* out_i[kNumFillInts];
+  float* out_f;
+  unsigned char* out_b;
+  int* out_i;
   int* diag;  // (n, diag_stride), in place: column diag_idx gains the denials
   const unsigned char* advance;
-  const float* bar[kNumBars];  // accrual is null without financing
+  const float* bar[kNumBars];  // close and accrual are null without financing
   const float* par[kNumFillParams];
 };
-constexpr int kFillPointers = 2 * kNumFillFloats + 2 * kNumFillBools +
-                              2 * kNumFillInts + 2 + kNumBars + kNumFillParams;
+constexpr int kFillPointers = static_cast<int>(kNumFillFloats) + kNumFillBools + kNumFillInts + 3 + 2 +
+                              kNumBars + kNumFillParams;
+constexpr int kFillThreads = 64;
 
 struct Ledger {
   float pos, entry, cash, comm_paid, last_cost, pnl_sum, pnl_sumsq, open_comm;
@@ -181,139 +393,172 @@ __device__ void apply_fill(Ledger& s, float fill_price, float target,
   s.open_comm = (target == 0.f) ? 0.f : open_comm;
 }
 
-__global__ void fill_brackets_kernel(FillArgs a, long long n, int diag_stride,
-                                     int diag_idx, int flags) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ Ledger select_ledger(bool c, const Ledger& a, const Ledger& b) {
+  return Ledger{c ? a.pos : b.pos, c ? a.entry : b.entry, c ? a.cash : b.cash,
+                c ? a.comm_paid : b.comm_paid, c ? a.last_cost : b.last_cost,
+                c ? a.pnl_sum : b.pnl_sum, c ? a.pnl_sumsq : b.pnl_sumsq,
+                c ? a.open_comm : b.open_comm, c ? a.trade_count : b.trade_count,
+                c ? a.won : b.won, c ? a.lost : b.lost};
+}
+
+// One thread per env, CTAs of kFillThreads so that N = 8192 spreads over
+// 128 SMs.  The flags that remove the most work from the chain are
+// template parameters (kMatch: both snap_in_bar calls of the brackets and
+// the one of the fill; kFinance: the close, the accrual and their
+// product; kGaps: the ohlc policy's gap triggers), 8 instantiations; slip_open,
+// slip_limit and the limit-fill policy stay uniform run-time flags.
+//
+// Every load, the counter read of the in-place update included, comes
+// first.  After the fill's target is known the chain splits: the
+// position after the fill is the target itself, so the brackets, their
+// triggers and their fill prices do not wait for the first apply_fill;
+// only the second apply_fill joins the two.  Both ledgers are computed
+// for every env and `advance` selects, as the plain version's
+// select(advance, ...) does.
+template <bool kMatch, bool kFinance, bool kGaps>
+__global__ void __launch_bounds__(kFillThreads)
+fill_brackets_kernel(FillArgs a, int n, int diag_stride, int diag_idx, int flags) {
+  const int e = blockIdx.x * kFillThreads + threadIdx.x;
   if (e >= n) return;
   const bool slip_open = flags & kSlipOpen;
   const bool slip_limit = flags & kSlipLimit;
-  const bool slip_match = flags & kSlipMatch;
   const int limit = (flags >> kLimitShift) & 3;
   const bool cross = limit == 0;
   const bool strict = limit == 2;
-  const bool ohlc = flags & kOhlc;
-  FillParams p{*a.par[kSlippage], *a.par[kCommission], *a.par[kPriceTick],
-               *a.par[kSizeStep], *a.par[kMinQty]};
 
-  Ledger s{a.in_f[kPos][e], a.in_f[kEntry][e], a.in_f[kCash][e],
-           a.in_f[kCommPaid][e], a.in_f[kLastCost][e], a.in_f[kPnlSum][e],
-           a.in_f[kPnlSumsq][e], a.in_f[kOpenComm][e],
-           a.in_i[kTradeCount][e], a.in_i[kTradesWon][e], a.in_i[kTradesLost][e]};
-  float pend_target = a.in_f[kPendTarget][e];
-  float pend_sl = a.in_f[kPendSl][e];
-  float pend_tp = a.in_f[kPendTp][e];
-  float bsl = a.in_f[kBracketSl][e];
-  float btp = a.in_f[kBracketTp][e];
-  bool pend_active = a.in_b[kPendActive][e];
-  bool pend_forced = a.in_b[kPendForced][e];
-  const bool advance = a.advance[e];
-  const float o = a.bar[kOpen][e], h = a.bar[kHigh][e], l = a.bar[kLow][e];
-  int denied_count = 0;
-
-  if (advance) {
-    // ---- broker.fill_pending
-    float pos = s.pos;
-    float delta = (pend_active ? pend_target : pos) - pos;
-    float qty = quantize(fabsf(delta), p.size_step);
-    bool forced = pend_active && pend_forced;
-    qty = forced ? fabsf(delta) : qty;
-    bool denied = pend_active && !forced && delta != 0.f &&
-                  (qty < p.min_qty || (p.size_step > 0.f && qty <= 0.f));
-    float target = denied ? pos : pos + jsign(delta) * qty;
-    denied_count = denied ? 1 : 0;
-    float fill_price = o;
-    if (!slip_open || slip_match) {
-      float direction = jsign(target - pos);
-      float fin = o * (1.f + p.slippage * (slip_open ? 1.f : 0.f) * direction);
-      if (slip_match) fin = snap_in_bar(fin, l, h, p.tick);
-      float denom = 1.f + p.slippage * direction;
-      fill_price = fin / (denom == 0.f ? 1.f : denom);
-    }
-    apply_fill(s, fill_price, target, p);
-    bool entered = pend_active && s.pos != 0.f && opening_units(pos, target) > 0.f;
-    bsl = entered ? quantize(pend_sl, p.tick) : bsl;
-    btp = entered ? quantize(pend_tp, p.tick) : btp;
-    bool flat = s.pos == 0.f;
-    bsl = flat ? 0.f : bsl;
-    btp = flat ? 0.f : btp;
-    pend_active = false;
-    pend_forced = false;
-    pend_target = 0.f;
-    pend_sl = 0.f;
-    pend_tp = 0.f;
-
-    // ---- broker.check_brackets
-    pos = s.pos;
-    bool has_pos = pos != 0.f;
-    bool lng = pos > 0.f;
-    float sl = bsl, tp = btp;
-    bool has_sl = sl > 0.f, has_tp = tp > 0.f;
-    bool sl_trig = has_pos && has_sl && (lng ? l <= sl : h >= sl);
-    bool tp_trig = has_pos && has_tp &&
-                   (lng ? (strict ? h > tp : h >= tp) : (strict ? l < tp : l <= tp));
-    float sl_fill = lng ? (o <= sl ? o : sl) : (o >= sl ? o : sl);
-    float tp_fill = cross ? (lng ? (o >= tp ? o : tp) : (o <= tp ? o : tp)) : tp;
-    bool exit_sl, exit_tp;
-    if (ohlc) {
-      bool gap_sl = has_pos && has_sl && (lng ? o <= sl : o >= sl);
-      bool gap_tp = has_pos && has_tp &&
-                    (lng ? (strict ? o > tp : o >= tp) : (strict ? o < tp : o <= tp));
-      exit_sl = gap_sl || (sl_trig && !gap_tp && (lng ? !tp_trig : true));
-      exit_tp = (gap_tp || tp_trig) && !exit_sl;
-    } else {
-      exit_sl = sl_trig;
-      exit_tp = tp_trig && !sl_trig;
-    }
-    bool exiting = exit_sl || exit_tp;
-    float exit_dir = -jsign(pos);
-    float denom = 1.f + p.slippage * exit_dir;
-    float safe_denom = denom == 0.f ? 1.f : denom;
-    float sl_adj = sl_fill;
-    if (!(slip_open && !slip_match)) {
-      bool sl_gap = has_pos && has_sl && (lng ? o <= sl : o >= sl);
-      float sl_scale = sl_gap ? (slip_open ? 1.f : 0.f) : 1.f;
-      float sl_final = sl_fill * (1.f + p.slippage * sl_scale * exit_dir);
-      if (slip_match) sl_final = snap_in_bar(sl_final, l, h, p.tick);
-      sl_adj = sl_final / safe_denom;
-    }
-    float tp_adj;
-    if (slip_limit) {
-      float tp_final = tp_fill * (1.f + p.slippage * exit_dir);
-      if (slip_match) tp_final = snap_in_bar(tp_final, l, h, p.tick);
-      tp_final = lng ? jmax(tp_final, tp) : jmin(tp_final, tp);
-      tp_adj = tp_final / safe_denom;
-    } else {
-      tp_adj = tp_fill / safe_denom;
-    }
-    float adj_price = exit_sl ? sl_adj : tp_adj;
-    apply_fill(s, exiting ? adj_price : o, exiting ? 0.f : pos, p);
-    bsl = exiting ? 0.f : sl;
-    btp = exiting ? 0.f : tp;
+  // ---- every load
+  const FillParams p{__ldg(a.par[kSlippage]), __ldg(a.par[kCommission]),
+                     __ldg(a.par[kPriceTick]), __ldg(a.par[kSizeStep]),
+                     __ldg(a.par[kMinQty])};
+  const Ledger s0{__ldg(a.in_f[kPos] + e), __ldg(a.in_f[kEntry] + e),
+                  __ldg(a.in_f[kCash] + e), __ldg(a.in_f[kCommPaid] + e),
+                  __ldg(a.in_f[kLastCost] + e), __ldg(a.in_f[kPnlSum] + e),
+                  __ldg(a.in_f[kPnlSumsq] + e), __ldg(a.in_f[kOpenComm] + e),
+                  __ldg(a.in_i[kTradeCount] + e), __ldg(a.in_i[kTradesWon] + e),
+                  __ldg(a.in_i[kTradesLost] + e)};
+  const float pend_target = __ldg(a.in_f[kPendTarget] + e);
+  const float pend_sl = __ldg(a.in_f[kPendSl] + e);
+  const float pend_tp = __ldg(a.in_f[kPendTp] + e);
+  const float bsl0 = __ldg(a.in_f[kBracketSl] + e);
+  const float btp0 = __ldg(a.in_f[kBracketTp] + e);
+  const bool pend_active = __ldg(a.in_b[kPendActive] + e);
+  const bool pend_forced = __ldg(a.in_b[kPendForced] + e);
+  const bool advance = __ldg(a.advance + e);
+  const float o = __ldg(a.bar[kOpen] + e), h = __ldg(a.bar[kHigh] + e),
+              l = __ldg(a.bar[kLow] + e);
+  float close = 0.f, rate = 0.f;
+  if (kFinance) {
+    close = __ldg(a.bar[kClose] + e);
+    rate = __ldg(a.bar[kAccrual] + e);
   }
-  if (flags & kFinancing) {
-    float accrual = s.pos * a.bar[kClose][e] * a.bar[kAccrual][e];
+  int* diag = a.diag + (long long)e * diag_stride + diag_idx;
+  const int diag0 = *diag;
+
+  // ---- broker.fill_pending: the order's size and target
+  const float pos0 = s0.pos;
+  const float delta = (pend_active ? pend_target : pos0) - pos0;
+  float qty = quantize(fabsf(delta), p.size_step);
+  const bool forced = pend_active && pend_forced;
+  qty = forced ? fabsf(delta) : qty;
+  const bool denied = pend_active && !forced && delta != 0.f &&
+                      (qty < p.min_qty || (p.size_step > 0.f && qty <= 0.f));
+  // apply_fill leaves the position at exactly this target
+  const float target = denied ? pos0 : pos0 + jsign(delta) * qty;
+
+  // ---- what waits only for the target: the fill price ...
+  float fill_price = o;
+  if (!slip_open || kMatch) {
+    float direction = jsign(target - pos0);
+    float fin = o * (1.f + p.slippage * (slip_open ? 1.f : 0.f) * direction);
+    if (kMatch) fin = snap_in_bar(fin, l, h, p.tick);
+    float denom = 1.f + p.slippage * direction;
+    fill_price = fin / (denom == 0.f ? 1.f : denom);
+  }
+  // ... the brackets after the fill ...
+  const bool entered = pend_active && target != 0.f && opening_units(pos0, target) > 0.f;
+  float sl = entered ? quantize(pend_sl, p.tick) : bsl0;
+  float tp = entered ? quantize(pend_tp, p.tick) : btp0;
+  const bool flat = target == 0.f;
+  sl = flat ? 0.f : sl;
+  tp = flat ? 0.f : tp;
+
+  // ... and broker.check_brackets on the position `target`
+  const float pos = target;
+  const bool has_pos = pos != 0.f;
+  const bool lng = pos > 0.f;
+  const bool has_sl = sl > 0.f, has_tp = tp > 0.f;
+  const bool sl_trig = has_pos && has_sl && (lng ? l <= sl : h >= sl);
+  const bool tp_trig = has_pos && has_tp &&
+                       (lng ? (strict ? h > tp : h >= tp) : (strict ? l < tp : l <= tp));
+  const float sl_fill = lng ? (o <= sl ? o : sl) : (o >= sl ? o : sl);
+  const float tp_fill = cross ? (lng ? (o >= tp ? o : tp) : (o <= tp ? o : tp)) : tp;
+  bool exit_sl, exit_tp;
+  if (kGaps) {
+    bool gap_sl = has_pos && has_sl && (lng ? o <= sl : o >= sl);
+    bool gap_tp = has_pos && has_tp &&
+                  (lng ? (strict ? o > tp : o >= tp) : (strict ? o < tp : o <= tp));
+    exit_sl = gap_sl || (sl_trig && !gap_tp && (lng ? !tp_trig : true));
+    exit_tp = (gap_tp || tp_trig) && !exit_sl;
+  } else {
+    exit_sl = sl_trig;
+    exit_tp = tp_trig && !sl_trig;
+  }
+  const bool exiting = exit_sl || exit_tp;
+  const float exit_dir = -jsign(pos);
+  const float denom = 1.f + p.slippage * exit_dir;
+  const float safe_denom = denom == 0.f ? 1.f : denom;
+  float sl_adj = sl_fill;
+  if (!slip_open || kMatch) {
+    bool sl_gap = has_pos && has_sl && (lng ? o <= sl : o >= sl);
+    float sl_scale = sl_gap ? (slip_open ? 1.f : 0.f) : 1.f;
+    float sl_final = sl_fill * (1.f + p.slippage * sl_scale * exit_dir);
+    if (kMatch) sl_final = snap_in_bar(sl_final, l, h, p.tick);
+    sl_adj = sl_final / safe_denom;
+  }
+  float tp_adj;
+  if (slip_limit) {
+    float tp_final = tp_fill * (1.f + p.slippage * exit_dir);
+    if (kMatch) tp_final = snap_in_bar(tp_final, l, h, p.tick);
+    tp_final = lng ? jmax(tp_final, tp) : jmin(tp_final, tp);
+    tp_adj = tp_final / safe_denom;
+  } else {
+    tp_adj = tp_fill / safe_denom;
+  }
+  const float adj_price = exit_sl ? sl_adj : tp_adj;
+
+  // ---- the two fills, one after the other
+  Ledger s = s0;
+  apply_fill(s, fill_price, target, p);
+  apply_fill(s, exiting ? adj_price : o, exiting ? 0.f : pos, p);
+
+  // ---- select(advance, ...), then the financing accrual
+  s = select_ledger(advance, s, s0);
+  if (kFinance) {
+    float accrual = s.pos * close * rate;
     s.cash = s.cash + (advance ? accrual : 0.f);
   }
 
-  a.out_f[kPos][e] = s.pos;
-  a.out_f[kEntry][e] = s.entry;
-  a.out_f[kCash][e] = s.cash;
-  a.out_f[kCommPaid][e] = s.comm_paid;
-  a.out_f[kLastCost][e] = s.last_cost;
-  a.out_f[kPnlSum][e] = s.pnl_sum;
-  a.out_f[kPnlSumsq][e] = s.pnl_sumsq;
-  a.out_f[kOpenComm][e] = s.open_comm;
-  a.out_f[kPendTarget][e] = pend_target;
-  a.out_f[kPendSl][e] = pend_sl;
-  a.out_f[kPendTp][e] = pend_tp;
-  a.out_f[kBracketSl][e] = bsl;
-  a.out_f[kBracketTp][e] = btp;
-  a.out_b[kPendActive][e] = pend_active;
-  a.out_b[kPendForced][e] = pend_forced;
-  a.out_i[kTradeCount][e] = s.trade_count;
-  a.out_i[kTradesWon][e] = s.won;
-  a.out_i[kTradesLost][e] = s.lost;
-  a.diag[e * diag_stride + diag_idx] += denied_count;
+  float* out_f = a.out_f + e;
+  const long long stride = n;
+  out_f[kPos * stride] = s.pos;
+  out_f[kEntry * stride] = s.entry;
+  out_f[kCash * stride] = s.cash;
+  out_f[kCommPaid * stride] = s.comm_paid;
+  out_f[kLastCost * stride] = s.last_cost;
+  out_f[kPnlSum * stride] = s.pnl_sum;
+  out_f[kPnlSumsq * stride] = s.pnl_sumsq;
+  out_f[kOpenComm * stride] = s.open_comm;
+  out_f[kPendTarget * stride] = advance ? 0.f : pend_target;
+  out_f[kPendSl * stride] = advance ? 0.f : pend_sl;
+  out_f[kPendTp * stride] = advance ? 0.f : pend_tp;
+  out_f[kBracketSl * stride] = advance ? (exiting ? 0.f : sl) : bsl0;
+  out_f[kBracketTp * stride] = advance ? (exiting ? 0.f : tp) : btp0;
+  a.out_b[kPendActive * stride + e] = advance ? false : pend_active;
+  a.out_b[kPendForced * stride + e] = advance ? false : pend_forced;
+  a.out_i[kTradeCount * stride + e] = s.trade_count;
+  a.out_i[kTradesWon * stride + e] = s.won;
+  a.out_i[kTradesLost * stride + e] = s.lost;
+  *diag = diag0 + ((advance && denied) ? 1 : 0);
 }
 
 // ---------------------------------------------------------------- K3
@@ -390,35 +635,100 @@ unsigned int blocks_for(long long n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
 }
 
+using FillKernel = void (*)(FillArgs, int, int, int, int);
+// indexed by slip_match | financing << 1 | ohlc << 2
+constexpr FillKernel kFillKernels[8] = {
+    fill_brackets_kernel<false, false, false>, fill_brackets_kernel<true, false, false>,
+    fill_brackets_kernel<false, true, false>,  fill_brackets_kernel<true, true, false>,
+    fill_brackets_kernel<false, false, true>,  fill_brackets_kernel<true, false, true>,
+    fill_brackets_kernel<false, true, true>,   fill_brackets_kernel<true, true, true>,
+};
+
+// nothing but the launch: the floor under a kernel's time at its grid
+__global__ void launch_floor_kernel() {}
+
+// K2's memory skeleton: its launch, every load and every store, none of
+// its arithmetic (the outputs are not K2's; chip_smoke.py times it beside
+// the launch floor and the kernel)
+__global__ void __launch_bounds__(kFillThreads)
+fill_skeleton_kernel(FillArgs a, int n, int diag_stride, int diag_idx) {
+  const int e = blockIdx.x * kFillThreads + threadIdx.x;
+  if (e >= n) return;
+  float sum = __ldg(a.bar[kOpen] + e) + __ldg(a.bar[kHigh] + e) + __ldg(a.bar[kLow] + e);
+  for (int k = 0; k < kNumFillParams; ++k) sum += __ldg(a.par[k]);
+  const bool advance = __ldg(a.advance + e);
+  int* diag = a.diag + (long long)e * diag_stride + diag_idx;
+  const int diag0 = *diag;
+  const long long stride = n;
+  for (int k = 0; k < kNumFillFloats; ++k)
+    a.out_f[k * stride + e] = __ldg(a.in_f[k] + e) + (k == kCash ? sum : 0.f);
+  for (int k = 0; k < kNumFillBools; ++k)
+    a.out_b[k * stride + e] = advance ? 0 : __ldg(a.in_b[k] + e);
+  for (int k = 0; k < kNumFillInts; ++k) a.out_i[k * stride + e] = __ldg(a.in_i[k] + e);
+  *diag = diag0 + (advance ? 1 : 0);
+}
+
 }  // namespace
 
 extern "C" {
 
 int gymfx_fill_pointer_count() { return kFillPointers; }
 int gymfx_mark_pointer_count() { return kMarkPointers; }
+// K1's launch constants, which ops/window_zscore.py holds against its own:
+// {threads, vectors a thread, row-group features, row-group threads,
+//  rows a group, ints in ObsGeometry}
+void gymfx_step_obs_constants(int* out) {
+  const int c[6] = {kObsThreads, kObsVectors, kRowFeatures, kRowThreads, kRowGroup,
+                    kObsGeometryInts};
+  for (int k = 0; k < 6; ++k) out[k] = c[k];
+}
+int gymfx_fill_threads() { return kFillThreads; }
 
+// K1 CTAs of `path` that fit on one SM at `smem_bytes` of shared memory
+// (0 on error)
+int gymfx_step_obs_blocks_per_sm(int path, int smem_bytes) {
+  int blocks = 0;
+  cudaError_t rc = path == 1
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, step_obs_rows_kernel,
+                                                      kRowThreads, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, step_obs_kernel, kObsThreads,
+                                                      (size_t)smem_bytes);
+  return rc == cudaSuccess ? blocks : 0;
+}
+
+// geometry: an ObsGeometry as 14 ints, the clip's bits last
+// (ops/window_zscore.py _step_obs_plan)
 int gymfx_step_obs(const void* win, const void* mean, const void* stdv,
                    const void* neutral, const void* mask, void* out,
-                   long long n_envs, int window, int features, float clip,
-                   void* stream) {
-  const int threads = 256;
-  long long total = n_envs * window * features;
-  step_obs_kernel<<<blocks_for(total, threads), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(win), static_cast<const float*>(mean),
-      static_cast<const float*>(stdv),
-      static_cast<const unsigned char*>(neutral),
-      static_cast<const unsigned char*>(mask), static_cast<float*>(out), total,
-      window * features, features, clip);
+                   const int* geometry, void* stream) {
+  ObsGeometry g;
+  static_assert(sizeof(ObsGeometry) == kObsGeometryInts * sizeof(int), "4-byte fields only");
+  memcpy(&g, geometry, sizeof(g));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.path == 1) {
+    step_obs_rows_kernel<<<g.grid, kRowThreads, 0, st>>>(
+        static_cast<const float4*>(win), static_cast<const float*>(mean),
+        static_cast<const float*>(stdv), static_cast<const unsigned char*>(neutral),
+        static_cast<float4*>(out), (long long)g.n_envs * (g.window / kRowGroup), g.clip, g);
+  } else {
+    const size_t smem = (size_t)g.env_block * g.features * (sizeof(float2) + 1);
+    step_obs_kernel<<<g.grid, kObsThreads, smem, st>>>(
+        static_cast<const float*>(win), static_cast<const float*>(mean),
+        static_cast<const float*>(stdv), static_cast<const unsigned char*>(neutral),
+        static_cast<const unsigned char*>(mask), static_cast<float*>(out), g.n_envs,
+        g.window * g.features, g.features, g.clip, g);
+  }
   return (int)cudaGetLastError();
 }
 
 int gymfx_fill_brackets(void* const* ptrs, long long n, int diag_stride,
                         int diag_idx, int flags, void* stream) {
-  const int threads = 128;
-  fill_brackets_kernel<<<blocks_for(n, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      unpack<FillArgs>(ptrs), n, diag_stride, diag_idx, flags);
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int which = ((flags & kSlipMatch) ? 1 : 0) | ((flags & kFinancing) ? 2 : 0) |
+                    ((flags & kOhlc) ? 4 : 0);
+  kFillKernels[which]<<<blocks_for(n, kFillThreads), kFillThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      unpack<FillArgs>(ptrs), (int)n, diag_stride, diag_idx, flags);
   return (int)cudaGetLastError();
 }
 
@@ -428,6 +738,21 @@ int gymfx_mark_reward(void* const* ptrs, long long n, int reward_kind,
   mark_reward_kernel<<<blocks_for(n, threads), threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       unpack<MarkArgs>(ptrs), n, reward_kind);
+  return (int)cudaGetLastError();
+}
+
+int gymfx_fill_skeleton(void* const* ptrs, long long n, int diag_stride, int diag_idx,
+                        void* stream) {
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fill_skeleton_kernel<<<blocks_for(n, kFillThreads), kFillThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(unpack<FillArgs>(ptrs), (int)n,
+                                                              diag_stride, diag_idx);
+  return (int)cudaGetLastError();
+}
+
+int gymfx_launch_floor(int grid, int threads, int smem_bytes, void* stream) {
+  launch_floor_kernel<<<grid, threads, (size_t)smem_bytes,
+                        static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -29,6 +29,7 @@ module on a machine without nvcc.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import hashlib
 import os
@@ -37,6 +38,8 @@ import shutil
 import subprocess
 import tempfile
 from typing import Dict, Optional, Tuple
+
+import torch
 
 _PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
@@ -130,7 +133,7 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, Tuple[pathlib.Path, str]
 
 def _bind_env(lib: ctypes.CDLL) -> None:
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.gymfx_step_obs.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, f, vp]
+    lib.gymfx_step_obs.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.gymfx_step_obs.restype = i
     lib.gymfx_fill_brackets.argtypes = [vp, ll, i, i, i, vp]
     lib.gymfx_fill_brackets.restype = i
@@ -138,6 +141,15 @@ def _bind_env(lib: ctypes.CDLL) -> None:
     lib.gymfx_mark_reward.restype = i
     lib.gymfx_fill_pointer_count.restype = i
     lib.gymfx_mark_pointer_count.restype = i
+    lib.gymfx_step_obs_constants.argtypes = [ctypes.POINTER(i)]
+    lib.gymfx_step_obs_constants.restype = None
+    lib.gymfx_fill_threads.restype = i
+    lib.gymfx_step_obs_blocks_per_sm.argtypes = [i, i]
+    lib.gymfx_step_obs_blocks_per_sm.restype = i
+    lib.gymfx_launch_floor.argtypes = [i, i, i, vp]
+    lib.gymfx_fill_skeleton.argtypes = [vp, ll, i, i, vp]
+    lib.gymfx_fill_skeleton.restype = i
+    lib.gymfx_launch_floor.restype = i
 
 
 def _bind_attention(lib: ctypes.CDLL) -> None:
@@ -190,9 +202,10 @@ def load_library(name: str = "env") -> ctypes.CDLL:
 
 def require(t, name: str, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
-    on ``device`` (what a kernel's raw pointer may point at)."""
-    if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous()):
+    (a tuple) on ``device`` (what a kernel's raw pointer may point at).
+    The test is one expression of cheap attribute reads; the message is
+    built only when it fails."""
+    if t.dtype is not dtype or t.shape != shape or t.device != device or not t.is_contiguous():
         raise ValueError(
             f"{name} must be a contiguous {dtype} tensor of shape {tuple(shape)} "
             f"on {device}; got {t.dtype} {tuple(t.shape)} on {t.device}"
@@ -200,10 +213,30 @@ def require(t, name: str, dtype, shape, device) -> None:
         )
 
 
+def require_all(tensors, names, dtype, shape, device) -> None:
+    """:func:`require` for each of ``tensors`` (named by ``names``), its
+    test inline, which saves a Python call for each tensor that passes."""
+    for t, name in zip(tensors, names):
+        if t.dtype is not dtype or t.shape != shape or t.device != device or not t.is_contiguous():
+            require(t, name, dtype, shape, device)
+
+
 def pointer_array(tensors_or_none) -> ctypes.Array:
-    """A C array of device pointers (null for None), kept alive by the caller."""
+    """A C array of device pointers (null for None), kept alive by the
+    caller; filled through an ``array.array``, several times faster than
+    the ctypes array's own constructor."""
     ptrs = [0 if t is None else t.data_ptr() for t in tensors_or_none]
-    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+    return (ctypes.c_uint64 * len(ptrs)).from_buffer(array.array("Q", ptrs))
+
+
+def stream_handle(device) -> int:
+    """The raw handle of the current CUDA stream on ``device`` (a CUDA
+    torch.device): one call, where ``torch.cuda.current_stream`` builds a
+    Stream object first."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -38,6 +38,11 @@ FLAG_GRID = list(itertools.product(
     ("cross", "touch", "conservative"), ("worst_case", "ohlc"),
 ))
 REWARDS = ("pnl_reward", "dd_penalized_reward")
+# K2's edge sizes: one env, counts that no CTA of 64 divides; at the
+# flagship's flags and with slip_match, financing and the ohlc policy on
+# (the three flags its kernel specialises at compile time)
+K2_EDGE_SIZES = (1, 63, 8193)
+K2_EDGE_FLAGS = (FLAG_GRID[0], (False, True, True, True, "touch", "ohlc"))
 PARAM_SETS = {
     "plain": dict(slippage=1e-4, commission=2e-5, price_tick=0.0, size_step=0.0, min_qty=0.0),
     "quantized": dict(slippage=2e-4, commission=3e-5, price_tick=1e-5, size_step=0.01, min_qty=0.5),
@@ -47,20 +52,148 @@ _INT_PARAMS = ("entry_start_mow", "force_close_mow")
 
 
 def obs_case(seed=0, n=64, w=8, f=3):
-    """(win, mean, std, neutral) arrays for K1."""
+    """(win, mean, std, neutral) arrays for K1.  The special cells wrap
+    into small shapes (modulo n, w, f); a single env is not neutral."""
     rng = np.random.default_rng(seed)
     win = rng.normal(0, 3, (n, w, f)).astype(np.float32)
     win[0, 0, 0] = np.nan
-    win[1, 2, 1] = np.inf
-    win[2, 3, 2] = -np.inf
-    win[3, 1, 1] = 1e30
+    win[1 % n, 2 % w, 1 % f] = np.inf
+    win[2 % n, 3 % w, 2 % f] = -np.inf
+    win[3 % n, 1 % w, 1 % f] = 1e30
     mean = rng.normal(0, 1, (n, f)).astype(np.float32)
     std = (rng.random((n, f)) + 0.1).astype(np.float32)
-    std[4, 0] = 0.0  # 0/0 and x/0
-    win[4, :2, 0] = mean[4, 0]
+    std[4 % n, 0] = 0.0  # 0/0 and x/0
+    win[4 % n, :2, 0] = mean[4 % n, 0]
     neutral = rng.random(n) < 0.2
-    neutral[0] = True
+    neutral[0] = n > 1
     return win, mean, std, neutral
+
+
+# K1's edge shapes: the flagship's (8192, 32, 5); one env (the episode
+# and stream phases); env counts that no env block divides; faces of
+# 9 x 3 floats, 108 bytes, not a multiple of 16
+K1_EDGE_SHAPES = ((8192, 32, 5), (1, 32, 5), (63, 32, 5), (8193, 32, 5), (63, 9, 3))
+
+
+def step_obs_tiling(n, w, f, env_block, grid, threads, vectors, out_offset=0, in_offset=0):
+    """A CPU model of K1's tiling (csrc/env_kernels.cu step_obs_kernel):
+    which CTA, thread and vector covers each element of an (n, w, f)
+    window, and the env and feature it derives by the kernel's magic
+    numbers.  ``out_offset`` / ``in_offset`` are the output's and input's
+    data pointers in floats past a 16-byte boundary.
+
+    Returns int64 arrays, one entry per element covered: ``index`` (the
+    element, row-major), ``env``, ``feature``, ``cta``, ``thread``,
+    ``vector`` (the vector's number within its env block, -1 on the
+    scalar path), ``pass_`` and ``slot`` (which of the thread's
+    ``vectors`` registers in which pass), ``float4_in`` (whether the
+    input is read as a float4); and ``staged_*`` for the moments each CTA
+    stages (``staged_index`` into the (n, f) moments, with its env,
+    feature and thread)."""
+    from gymfx_tpu_torch.ops.window_zscore import magic, magic_div
+
+    wf = w * f
+    div_wf, div_f = magic(wf), magic(f)
+    blocks = np.arange(-(-n // env_block), dtype=np.int64)
+    env0 = blocks * env_block
+    envs = np.minimum(env_block, n - env0)
+    count = envs * wf
+    base = env0 * wf
+    head = np.minimum((4 - (out_offset + base) % 4) % 4, count)
+    n_vec = (count - head) // 4
+    tail0 = head + 4 * n_vec
+    float4_in = (in_offset + base + head) % 4 == 0
+
+    # the vectors: block b's vector v covers j = head + 4v .. + 3
+    vb = np.repeat(blocks, n_vec)
+    v = np.arange(vb.size, dtype=np.int64) - np.repeat(np.cumsum(n_vec) - n_vec, n_vec)
+    lane = np.tile(np.arange(4, dtype=np.int64), vb.size)
+    vb4, v4 = np.repeat(vb, 4), np.repeat(v, 4)
+    j_vec = head[vb4] + 4 * v4 + lane
+    # the scalar path: thread t takes head element t and tail element t
+    sb = np.concatenate([np.repeat(blocks, head), np.repeat(blocks, count - tail0)])
+    st = np.concatenate([np.arange(k) for k in head] + [np.arange(k) for k in count - tail0]
+                        ).astype(np.int64) if sb.size else np.zeros(0, np.int64)
+    j_scalar = np.where(np.arange(sb.size) < head.sum(), st, tail0[sb] + st)
+
+    b = np.concatenate([vb4, sb])
+    j = np.concatenate([j_vec, j_scalar])
+    vector = np.concatenate([v4, np.full(sb.size, -1, np.int64)])
+    thread = np.concatenate([v4 % threads, st])
+    q = magic_div(j, *div_f)
+    out = dict(
+        index=base[b] + j,
+        env=env0[b] + magic_div(j, *div_wf),
+        feature=j - q * f,
+        cta=b % grid,
+        thread=thread,
+        vector=vector,
+        pass_=np.where(vector >= 0, vector // (threads * vectors), -1),
+        slot=np.where(vector >= 0, (vector // threads) % vectors, -1),
+        float4_in=np.where(vector >= 0, float4_in[b], False),
+    )
+    kb = np.repeat(blocks, envs * f)
+    k = np.arange(kb.size, dtype=np.int64) - np.repeat(np.cumsum(envs * f) - envs * f, envs * f)
+    ke = magic_div(k, *div_f)
+    out.update(staged_index=env0[kb] * f + k, staged_env=env0[kb] + ke,
+               staged_feature=k - ke * f, staged_thread=k % threads)
+    return out
+
+
+def step_obs_row_tiling(n, w, f, grid, threads, group):
+    """The CPU model of K1's row-group path: group g (the ``group`` rows
+    of one env at elements g * group * f onward, group * f / 4 float4s)
+    belongs to lane g % 32 of warp g // 32; warp i is warp i % (threads
+    / 32) of CTA (i // (threads / 32)) % grid in pass i // (grid *
+    threads / 32).  The warp's lanes move its groups' float4s coalesced
+    (lane l the l-th of each 32, in ``slot`` order) through shared
+    memory; the lane that owns a group computes it.  The env comes from
+    g / (w / group) by the kernel's magic numbers; the feature of element
+    k of a group is k % f, a constant the kernel compiles in.  Keys as
+    :func:`step_obs_tiling` (no ``staged_*``), plus ``mover``, the thread
+    that loads and stores the element's float4."""
+    from gymfx_tpu_torch.ops.window_zscore import magic, magic_div
+
+    per, v = group * f, group * f // 4
+    groups = n * w // group
+    g = np.repeat(np.arange(groups, dtype=np.int64), per)
+    k = np.tile(np.arange(per, dtype=np.int64), groups)
+    warps_per_cta = threads // 32
+    warp = g // 32
+    vector = g * v + k // 4
+    within = vector - warp * 32 * v  # the float4's place in its warp's span
+    return dict(
+        index=g * per + k,
+        env=magic_div(g, *magic(w // group)),
+        feature=k % f,
+        cta=(warp // warps_per_cta) % grid,
+        thread=(warp % warps_per_cta) * 32 + g % 32,
+        vector=vector,
+        pass_=warp // (grid * warps_per_cta),
+        slot=within // 32,
+        mover=(warp % warps_per_cta) * 32 + within % 32,
+        float4_in=np.ones(g.size, bool),
+    )
+
+
+def step_obs_emulated(win, mean, std, neutral, binary_mask, clip, tiling):
+    """K1's arithmetic in numpy f32 over ``tiling`` (:func:`step_obs_tiling`
+    of win's shape): each element scaled by the moments of the env and
+    feature the tiling derives for it."""
+    n, w, f = win.shape
+    e, feat = tiling["env"], tiling["feature"]
+    x = win.reshape(-1)[tiling["index"]]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z = (x - mean[e, feat]) / std[e, feat]
+    v = np.where(neutral[e], np.float32(0), z)
+    if any(binary_mask):
+        v = np.where(np.asarray(binary_mask, bool)[feat], x, v)
+    if clip > 0:
+        v = np.minimum(np.maximum(v, np.float32(-clip)), np.float32(clip))
+    v = np.nan_to_num(v, nan=0.0, posinf=np.float32(clip), neginf=np.float32(-clip))
+    out = np.full(n * w * f, np.nan, np.float32)
+    out[tiling["index"]] = v.astype(np.float32)
+    return out.reshape(n, w, f)
 
 
 def ledger_case(seed, n=64, big=True):

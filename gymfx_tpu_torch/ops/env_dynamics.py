@@ -8,17 +8,22 @@
      ``broker.mark_to_market`` -> drawdown carries -> ``rewards.
      compute_reward`` (pnl or dd); returns the base reward.
 
-The kernels are ``fill_brackets_kernel`` and ``mark_reward_kernel`` in
+The kernels are ``fill_brackets_kernel`` (8 instantiations, by
+slip_match, financing and the ohlc policy) and ``mark_reward_kernel`` in
 ``csrc/env_kernels.cu``: one thread per env, reading the EnvState field
 tensors as structure-of-arrays pointers and writing fresh output tensors
 (the input state is left as it was, but for K2's counter column, which
-it advances in place).  Beside each wrapper is its plain
+it advances in place); K2's 18 outputs are rows of three blocks, one per
+type (:func:`fill_outputs`).  Beside each wrapper is its plain
 version (:func:`fill_brackets_plain`, :func:`mark_reward_plain`): the
 same chain of ``core/broker`` / ``core/rewards`` functions that
 ``core/env.step`` would run.  A CPU tensor runs the plain version; a
 CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
+
+import functools
+import operator
 
 import torch
 
@@ -91,6 +96,66 @@ def _cuda_device(st: EnvState, cfg: EnvConfig) -> torch.device:
     return device
 
 
+# K2's outputs: one (fields, N) block per type, handed out as row views
+_FILL_OUT_GROUPS = (
+    (FILL_FLOAT_FIELDS, torch.float32),
+    (FILL_BOOL_FIELDS, torch.bool),
+    (FILL_INT_FIELDS, torch.int32),
+)
+FILL_OUT_FIELDS = FILL_FLOAT_FIELDS + FILL_BOOL_FIELDS + FILL_INT_FIELDS
+_FILL_BAR_NAMES = ("open", "high", "low", "close", "accrual")
+_FILL_PARAM_NAMES = tuple(f"param {k}" for k in FILL_PARAM_FIELDS)
+_DENIED_COLUMN = EXEC_DIAG_INDEX["order_denied_min_quantity"]
+_fill_inputs = operator.attrgetter(*FILL_OUT_FIELDS)
+_fill_params = operator.attrgetter(*FILL_PARAM_FIELDS)
+# the kernel's FillArgs: 18 input fields, 3 output blocks, the counter
+# block, advance, 5 bar columns, 5 params
+FILL_POINTERS = len(FILL_OUT_FIELDS) + len(_FILL_OUT_GROUPS) + 2 + 5 + len(FILL_PARAM_FIELDS)
+
+
+def fill_outputs(n: int, device):
+    """K2's 18 output fields in three allocations, one (fields, n) block
+    per type: returns (blocks, {field: row view}).  Each row is a
+    contiguous (n,) tensor and no two overlap, so they stand in for 18
+    separate tensors; nothing in the port resizes a state field in place.
+    (``torch.save`` of one row saves its whole block.)"""
+    blocks = tuple(torch.empty((len(names), n), dtype=dtype, device=device)
+                   for names, dtype in _FILL_OUT_GROUPS)
+    rows = [row for block in blocks for row in block.unbind(0)]
+    return blocks, dict(zip(FILL_OUT_FIELDS, rows))
+
+
+_fill_flags_cache = {}
+
+
+def fill_flags(cfg: EnvConfig) -> int:
+    """K2's flag word for ``cfg`` (csrc/env_kernels.cu kSlipOpen ...),
+    computed once per config object."""
+    hit = _fill_flags_cache.get(id(cfg))
+    if hit is not None and hit[0] is cfg:
+        return hit[1]
+    flags = (
+        (1 if cfg.slip_open else 0)
+        | (2 if cfg.slip_limit else 0)
+        | (4 if cfg.slip_match else 0)
+        | (8 if cfg.financing_enabled else 0)
+        | (_LIMIT_FILL_CODES[cfg.limit_fill_policy] << 4)
+        | (64 if cfg.intrabar_collision_policy == "ohlc" else 0)
+    )
+    _fill_flags_cache[id(cfg)] = (cfg, flags)  # keeps cfg alive, so its id is not reused
+    return flags
+
+
+@functools.lru_cache(maxsize=None)
+def _fill_library():
+    """The env library, with K2's pointer count checked against the
+    kernel source once."""
+    lib = _build.load_library()
+    if lib.gymfx_fill_pointer_count() != FILL_POINTERS:
+        raise RuntimeError("fill_brackets: pointer layout does not match the kernel source")
+    return lib
+
+
 def fill_brackets(st: EnvState, o, h, l, c, accrual, advance, cfg: EnvConfig,
                   params: EnvParams) -> EnvState:
     """K2 on a CUDA state, its plain version on a CPU state.  ``accrual``
@@ -100,60 +165,48 @@ def fill_brackets(st: EnvState, o, h, l, c, accrual, advance, cfg: EnvConfig,
     ``order_denied_min_quantity`` column in place, so the (N, 17) counter
     block is neither copied nor moved: pass a block you own (core/env.
     transition passes the step's own copy).  The plain version leaves it
-    as it was and returns a new block."""
-    if st.pos.device.type == "cpu":
+    as it was and returns a new block.  The kernel's 18 output fields are
+    rows of three blocks (:func:`fill_outputs`)."""
+    device = st.pos.device
+    if device.type == "cpu":
         return fill_brackets_plain(st, o, h, l, c, accrual, advance, cfg, params)
-    device = _cuda_device(st, cfg)
+    _cuda_device(st, cfg)
     n = st.pos.shape[0]
-    for name in FILL_FLOAT_FIELDS:
-        _build.require(getattr(st, name), name, torch.float32, (n,), device)
-    for name in FILL_BOOL_FIELDS:
-        _build.require(getattr(st, name), name, torch.bool, (n,), device)
-    for name in FILL_INT_FIELDS:
-        _build.require(getattr(st, name), name, torch.int32, (n,), device)
-    _build.require(advance, "advance", torch.bool, (n,), device)
-    bars = [o, h, l, c, accrual if cfg.financing_enabled else None]
-    for name, t in zip(("open", "high", "low", "close", "accrual"), bars):
-        if t is not None:
-            _build.require(t, name, torch.float32, (n,), device)
-    for name in FILL_PARAM_FIELDS:
-        _build.require(getattr(params, name), f"param {name}", torch.float32, (), device)
+    shape = (n,)
+    inputs = _fill_inputs(st)
+    _build.require_all(inputs[:13], FILL_FLOAT_FIELDS, torch.float32, shape, device)
+    _build.require_all(inputs[13:15], FILL_BOOL_FIELDS, torch.bool, shape, device)
+    _build.require_all(inputs[15:], FILL_INT_FIELDS, torch.int32, shape, device)
+    _build.require(advance, "advance", torch.bool, shape, device)
+    financing = cfg.financing_enabled
+    bars = [o, h, l, c, accrual] if financing else [o, h, l, c]
+    _build.require_all(bars, _FILL_BAR_NAMES, torch.float32, shape, device)
+    par = _fill_params(params)
+    _build.require_all(par, _FILL_PARAM_NAMES, torch.float32, (), device)
     diag = st.exec_diag
     _build.require(diag, "exec_diag", torch.int32, (n, diag.shape[-1]), device)
 
-    outs = {name: torch.empty_like(getattr(st, name))
-            for name in FILL_FLOAT_FIELDS + FILL_BOOL_FIELDS + FILL_INT_FIELDS}
-    ptrs = _build.pointer_array(
-        [getattr(st, k) for k in FILL_FLOAT_FIELDS]
-        + [outs[k] for k in FILL_FLOAT_FIELDS]
-        + [getattr(st, k) for k in FILL_BOOL_FIELDS]
-        + [outs[k] for k in FILL_BOOL_FIELDS]
-        + [getattr(st, k) for k in FILL_INT_FIELDS]
-        + [outs[k] for k in FILL_INT_FIELDS]
-        + [diag, advance] + bars
-        + [getattr(params, k) for k in FILL_PARAM_FIELDS]
-    )
-    lib = _build.load_library()
-    if len(ptrs) != lib.gymfx_fill_pointer_count():
-        raise RuntimeError("fill_brackets: pointer layout does not match the kernel source")
-    flags = (
-        (1 if cfg.slip_open else 0)
-        | (2 if cfg.slip_limit else 0)
-        | (4 if cfg.slip_match else 0)
-        | (8 if cfg.financing_enabled else 0)
-        | (_LIMIT_FILL_CODES[cfg.limit_fill_policy] << 4)
-        | (64 if cfg.intrabar_collision_policy == "ohlc" else 0)
-    )
+    lib = _fill_library()
+    blocks, outs = fill_outputs(n, device)
     if n:
+        ptrs = fill_pointers(inputs, blocks, diag, advance, bars if financing else bars[:3], par)
         _build.check_launch(
             lib.gymfx_fill_brackets(
-                ptrs, n, diag.shape[1], EXEC_DIAG_INDEX["order_denied_min_quantity"],
-                flags, torch.cuda.current_stream(device).cuda_stream,
+                ptrs, n, diag.shape[1], _DENIED_COLUMN, fill_flags(cfg),
+                _build.stream_handle(device),
             ),
             "fill_brackets",
         )
         fill_brackets.launches += 1
     return st._replace(**outs)
+
+
+def fill_pointers(inputs, blocks, diag, advance, bars, par):
+    """The kernel's FillArgs as a C array: the 18 input fields, the three
+    output blocks, the counter block, advance, the bar columns (open,
+    high, low, then close and accrual or null) and the 5 params."""
+    return _build.pointer_array((*inputs, *blocks, diag, advance, *bars,
+                                 *(None,) * (5 - len(bars)), *par))
 
 
 def mark_reward(st: EnvState, c, mark_pred, live, cfg: EnvConfig,

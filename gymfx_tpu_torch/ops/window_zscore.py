@@ -2,7 +2,12 @@
 and K7: scaled feature windows for a batch of steps (the export).
 
 Replaces ``gymfx_tpu/ops/window_zscore.py::fused_step_obs``.  The kernel
-is ``step_obs_kernel`` in ``csrc/env_kernels.cu``; beside it here is its
+has two tilings in ``csrc/env_kernels.cu``: ``step_obs_rows_kernel`` for
+F = 5 windows whose rows fill whole groups of 4 on 16-byte aligned
+pointers (the flagship's), ``step_obs_kernel`` (blocks of whole envs)
+for every other shape and alignment; :func:`step_obs` picks one per call
+from a launch plan built once per shape (``ops/cases.py`` models both
+tilings on the CPU).  Beside it here is its
 plain PyTorch version, :func:`scale_feature_window`, op for op the JAX
 package's ``core/obs.scale_feature_window``: neutral envs to zero ->
 binary-mask columns pass raw -> clip to ±clip (only when clip > 0) ->
@@ -26,7 +31,9 @@ tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import struct
 from typing import Tuple
 
 import torch
@@ -49,37 +56,137 @@ def scale_feature_window(win, mean, std, neutral, binary_mask: Tuple[bool, ...] 
     return scaled.to(torch.float32)
 
 
-@functools.lru_cache(maxsize=8)
-def _mask_tensor(binary_mask: Tuple[bool, ...], device: torch.device):
-    return torch.tensor(binary_mask, dtype=torch.uint8, device=device)
+# K1's launch (csrc/env_kernels.cu).  Env blocks (path 0, any shape):
+# CTAs of K1_THREADS threads each take a block of whole envs, K1_VECTORS
+# float4 a thread in flight a pass; the env block is the largest of
+# K1_ENV_BLOCKS whose faces fit one pass (1 when a single face does not).
+# Row groups (path 1, F == K1_ROW_FEATURES, W a multiple of K1_ROW_GROUP,
+# both pointers 16-byte aligned): each of K1_ROW_THREADS threads a CTA
+# takes K1_ROW_GROUP rows of one env
+K1_THREADS = 256
+K1_VECTORS = 2
+K1_ENV_BLOCKS = (1, 2, 4, 8, 16, 32, 64)
+K1_SMEM_LIMIT = 48 * 1024  # the staged moments: 9 bytes an (env, feature)
+K1_ROW_FEATURES = 5
+K1_ROW_THREADS = 128
+K1_ROW_GROUP = 4
+_K1_CONSTANTS = (K1_THREADS, K1_VECTORS, K1_ROW_FEATURES, K1_ROW_THREADS, K1_ROW_GROUP, 14)
+
+
+def magic(d: int) -> Tuple[int, int, int]:
+    """(lo, hi, shift) with ``(umulhi(j, lo) + (j if hi else 0)) >> shift
+    == j // d`` for every 0 <= j < 2^31: m = ceil(2^(32 + l) / d) with
+    l = ceil(log2 d), split into its low 32 bits and its bit 32."""
+    if d < 1:
+        raise ValueError(f"magic: divisor {d}")
+    shift = (d - 1).bit_length()
+    m = -(-(1 << (32 + shift)) // d)
+    assert m < 1 << 33
+    return m & 0xFFFFFFFF, m >> 32, shift
+
+
+def magic_div(j, lo: int, hi: int, shift: int):
+    """The kernel's ``magic_div`` on ints or int64 numpy arrays."""
+    return (((j * lo) >> 32) + (j if hi else 0)) >> shift
+
+
+def env_block(w: int, f: int) -> int:
+    """Envs a path-0 CTA takes at a time for (W, F) faces."""
+    fit = [b for b in K1_ENV_BLOCKS if b * w * f <= 4 * K1_THREADS * K1_VECTORS]
+    return fit[-1] if fit else 1
+
+
+def step_obs_geometry(n: int, w: int, f: int, sm_count: int, blocks_per_sm: int):
+    """(env block, grid) of K1's env-block path at (n, w, f): the grid
+    covers every SM ``blocks_per_sm`` deep, or every env block if there
+    are fewer."""
+    eb = env_block(w, f)
+    if eb * w * f >= 1 << 31:
+        raise ValueError(f"step_obs: a face of {w} x {f} is over 2^31 elements")
+    if eb * f * 9 > K1_SMEM_LIMIT:
+        raise ValueError(f"step_obs: {f} features do not fit the staged moments")
+    return eb, max(1, min(-(-n // eb), sm_count * blocks_per_sm))
+
+
+def row_groups(n: int, w: int, f: int) -> int:
+    """Row groups of K1's path 1 at (n, w, f), 0 where it does not apply."""
+    if f != K1_ROW_FEATURES or w % K1_ROW_GROUP or n * w // K1_ROW_GROUP >= 1 << 31:
+        return 0
+    return n * w // K1_ROW_GROUP
+
+
+def row_grid(groups: int, sm_count: int, blocks_per_sm: int) -> int:
+    return max(1, min(-(-groups // K1_ROW_THREADS), sm_count * blocks_per_sm))
+
+
+def _as_c_int(x: int) -> int:
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _launch_ints(path, env_block_, grid, div_f, div_wf, mask_bits, n, w, f, clip):
+    """csrc/env_kernels.cu ObsGeometry as a C int array."""
+    clip_bits = struct.unpack("<i", struct.pack("<f", clip))[0]
+    return (ctypes.c_int * 14)(path, env_block_, grid, *map(_as_c_int, div_f),
+                               *map(_as_c_int, div_wf), mask_bits, n, w, f, clip_bits)
+
+
+@functools.lru_cache(maxsize=64)
+def _step_obs_plan(n: int, w: int, f: int, device: torch.device,
+                   binary_mask: Tuple[bool, ...], clip: float):
+    """The launches of K1 at one shape and clip, built once: (env-block
+    geometry, row-group geometry or None, mask pointer, mask tensor kept
+    alive); each geometry a C int array (csrc/env_kernels.cu ObsGeometry)."""
+    if n >= 1 << 31:
+        raise ValueError(f"step_obs: {n} envs")
+    lib = _build.load_library()
+    constants = (ctypes.c_int * 6)()
+    lib.gymfx_step_obs_constants(constants)
+    if tuple(constants) != _K1_CONSTANTS:
+        raise RuntimeError("step_obs: launch geometry does not match the kernel source")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = [lib.gymfx_step_obs_blocks_per_sm(0, env_block(w, f) * f * 9),
+              lib.gymfx_step_obs_blocks_per_sm(1, 0)]
+    if min(per_sm) < 1:
+        raise RuntimeError("step_obs: no CTA of the kernel fits an SM")
+    eb, grid = step_obs_geometry(n, w, f, sms, per_sm[0])
+    blocks = _launch_ints(0, eb, grid, magic(f), magic(w * f), 0, n, w, f, clip)
+    rows, groups = None, row_groups(n, w, f)
+    if groups:
+        mask_bits = sum(1 << k for k, m in enumerate(binary_mask) if m)
+        rows = _launch_ints(1, 0, row_grid(groups, sms, per_sm[1]), (0, 0, 0),
+                            magic(w // K1_ROW_GROUP), mask_bits, n, w, f, clip)
+    mask = torch.tensor(binary_mask, dtype=torch.uint8, device=device) if any(binary_mask) else None
+    return blocks, rows, (None if mask is None else mask.data_ptr()), mask
 
 
 def step_obs(win, mean, std, neutral, *, binary_mask: Tuple[bool, ...] = (),
              clip: float = 10.0):
     """The scaled (N, W, F) f32 policy input: the kernel on a CUDA tensor,
     the plain version on a CPU tensor."""
-    if win.device.type == "cpu":
+    device = win.device
+    if device.type == "cpu":
         return scale_feature_window(win, mean, std, neutral, binary_mask, clip)
-    if win.device.type != "cuda":
-        raise ValueError(f"step_obs: unsupported device {win.device}")
+    if device.type != "cuda":
+        raise ValueError(f"step_obs: unsupported device {device}")
     n, w, f = win.shape
-    _build.require(win, "step_obs: win", torch.float32, (n, w, f), win.device)
-    _build.require(mean, "step_obs: mean", torch.float32, (n, f), win.device)
-    _build.require(std, "step_obs: std", torch.float32, (n, f), win.device)
-    _build.require(neutral, "step_obs: neutral", torch.bool, (n,), win.device)
+    f32 = torch.float32
+    _build.require(win, "step_obs: win", f32, (n, w, f), device)
+    _build.require(mean, "step_obs: mean", f32, (n, f), device)
+    _build.require(std, "step_obs: std", f32, (n, f), device)
+    _build.require(neutral, "step_obs: neutral", torch.bool, (n,), device)
+    if not isinstance(binary_mask, tuple):
+        binary_mask = tuple(binary_mask)
     if len(binary_mask) not in (0, f):
         raise ValueError(f"step_obs: binary_mask has {len(binary_mask)} entries for {f} features")
     out = torch.empty_like(win)
-    if out.numel() == 0:
+    if n * w * f == 0:
         return out
-    mask = _mask_tensor(tuple(bool(m) for m in binary_mask), win.device) if any(binary_mask) else None
-    lib = _build.load_library()
+    blocks, rows, mask_ptr, _ = _step_obs_plan(n, w, f, device, binary_mask, clip)
+    src, dst = win.data_ptr(), out.data_ptr()
     _build.check_launch(
-        lib.gymfx_step_obs(
-            win.data_ptr(), mean.data_ptr(), std.data_ptr(), neutral.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            n, w, f, float(clip),
-            torch.cuda.current_stream(win.device).cuda_stream,
+        _build.load_library().gymfx_step_obs(
+            src, mean.data_ptr(), std.data_ptr(), neutral.data_ptr(), mask_ptr, dst,
+            blocks if rows is None or (src | dst) & 15 else rows, _build.stream_handle(device),
         ),
         "step_obs",
     )

@@ -38,6 +38,9 @@ from gymfx_tpu_torch.ops import (
 )
 from gymfx_tpu_torch.ops.cases import (
     FLAG_GRID,
+    K1_EDGE_SHAPES,
+    K2_EDGE_FLAGS,
+    K2_EDGE_SIZES,
     MARK_PARAMS,
     PARAM_SETS,
     REWARDS,
@@ -58,10 +61,25 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# K1 at the test's own (64, 8, 3), its edge shapes (cases.K1_EDGE_SHAPES),
+# windows whose data pointer is 4 or 8 bytes off 16-byte alignment (a
+# slice of a larger buffer) and F = 5 rows that fill no whole row group:
+# both of the kernel's paths (ops/window_zscore.py)
+K1_CASES = [((N, 8, 3), 0)] + [(shape, 0) for shape in K1_EDGE_SHAPES] + [
+    ((63, 9, 3), 1), ((8192, 32, 5), 1), ((64, 8, 3), 2), ((63, 30, 5), 0)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", K1_CASES, ids=str)
 @pytest.mark.parametrize("mask,clip", [((), 10.0), ((False, True, False), 1.5), ((), 0.0)])
-def test_cuda_step_obs_equals_plain(cuda_device, mask, clip):
-    win, mean, std, neutral = (torch.from_numpy(x).to(cuda_device) for x in obs_case(n=N))
+def test_cuda_step_obs_equals_plain(cuda_device, mask, clip, shape, offset):
+    n, w, f = shape
+    mask = tuple(mask[k % len(mask)] for k in range(f)) if mask else ()
+    win, mean, std, neutral = (torch.from_numpy(x).to(cuda_device) for x in obs_case(0, n, w, f))
+    if offset:
+        buf = torch.empty(win.numel() + 4, device=cuda_device)
+        win = buf[offset:offset + win.numel()].view(n, w, f).copy_(win)
+        assert win.data_ptr() % 16 == 4 * offset
     before = window_zscore.step_obs.launches
     ours = window_zscore.step_obs(win, mean, std, neutral, binary_mask=mask, clip=clip)
     ref = window_zscore.scale_feature_window(win, mean, std, neutral, mask, clip)
@@ -94,6 +112,27 @@ def test_cuda_fill_brackets_and_mark_reward_equal_plain(cuda_device, flags):
     assert torch.equal(ours_r, ref_r)
     for name in env_dynamics.MARK_OUT_FIELDS:
         assert torch.equal(getattr(ours_st, name), getattr(ref_st, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", K2_EDGE_FLAGS, ids=lambda f: "-".join(map(str, f)))
+@pytest.mark.parametrize("n", K2_EDGE_SIZES)
+def test_cuda_fill_brackets_equals_plain_at_edge_sizes(cuda_device, n, flags):
+    cfg = flag_config(flags)
+    params = env_params(PARAM_SETS["quantized"], cuda_device)
+    fields, mark, bars, advance, _ = ledger_case(n, n=n)
+    st = ledger_state(cfg, {**fields, **mark}, cuda_device)
+    o, h, l, c, acc = (torch.from_numpy(bars[k]).to(cuda_device)
+                       for k in ("o", "h", "l", "c", "accrual"))
+    acc = acc if cfg.financing_enabled else None
+    adv = torch.from_numpy(advance).to(cuda_device)
+    ref = env_dynamics.fill_brackets_plain(st, o, h, l, c, acc, adv, cfg, params)
+    before = env_dynamics.fill_brackets.launches
+    ours = env_dynamics.fill_brackets(st._replace(exec_diag=st.exec_diag.clone()),
+                                      o, h, l, c, acc, adv, cfg, params)
+    assert env_dynamics.fill_brackets.launches == before + 1
+    for name in ref._fields:
+        assert torch.equal(getattr(ours, name), getattr(ref, name)), name
 
 
 @pytest.mark.cuda

@@ -43,12 +43,16 @@ from gymfx_tpu_torch import convert
 from gymfx_tpu_torch.ops import env_dynamics, window_zscore
 from gymfx_tpu_torch.ops.cases import (
     FLAG_GRID,
+    K1_EDGE_SHAPES,
     PARAM_SETS,
     env_params,
     exec_diag_case,
     flag_config,
     ledger_case,
     obs_case,
+    step_obs_emulated,
+    step_obs_row_tiling,
+    step_obs_tiling,
 )
 
 from test_torch_parity import assert_bitwise, to_np, x64_off
@@ -225,3 +229,178 @@ def test_mark_reward_plain_matches_jax(reward, mode):
     for seed in range(3):
         _run_mark(reward, seed, mode)
     _run_mark(reward, 5, mode, initial_cash=0.0)
+
+
+# ---------------------------------------------------------------- K1's tiling
+# (csrc/env_kernels.cu step_obs_kernel; the CPU model ops/cases.step_obs_tiling)
+def _k1_launches(n, w, f):
+    """(grid, output offset, input offset) cases: the grid on 132 SMs at
+    8 CTAs each, grids that make every CTA walk several env blocks, and
+    data pointers 4, 8 and 12 bytes off 16-byte alignment."""
+    eb, grid = window_zscore.step_obs_geometry(n, w, f, 132, 8)
+    return [(grid, 0, 0), (3, 1, 0), (1, 0, 3), (7, 2, 2)]
+
+
+@pytest.mark.parametrize("env_block", window_zscore.K1_ENV_BLOCKS)
+@pytest.mark.parametrize("shape", K1_EDGE_SHAPES + ((64, 8, 3), (5, 7, 1)), ids=str)
+def test_step_obs_tiling_covers_each_element_once_and_derives_its_feature(shape, env_block):
+    n, w, f = shape
+    threads, vectors = window_zscore.K1_THREADS, window_zscore.K1_VECTORS
+    for grid, out_offset, in_offset in _k1_launches(n, w, f):
+        t = step_obs_tiling(n, w, f, env_block, grid, threads, vectors, out_offset, in_offset)
+        idx = t["index"]
+        assert np.array_equal(np.sort(idx), np.arange(n * w * f))  # each element once
+        assert np.array_equal(t["feature"], idx % f)
+        assert np.array_equal(t["env"], idx // (w * f))
+        assert ((0 <= t["thread"]) & (t["thread"] < threads)).all()
+        assert ((0 <= t["cta"]) & (t["cta"] < grid)).all()
+        vec = t["vector"] >= 0
+        # a vector's four elements are neighbours (the model lists them
+        # lane by lane), the first on a 16-byte boundary of the output; a
+        # float4 load only where the input is on one too
+        lanes = idx[vec].reshape(-1, 4)
+        assert (np.diff(lanes, axis=1) == 1).all()
+        assert ((out_offset + lanes[:, 0]) % 4 == 0).all()
+        loads = idx[t["float4_in"]].reshape(-1, 4)
+        assert ((in_offset + loads[:, 0]) % 4 == 0).all()
+        assert t["float4_in"][vec].all() == ((in_offset - out_offset) % 4 == 0)
+        assert (t["slot"][vec] < vectors).all()
+        assert (~vec).sum() <= 6 * -(-n // env_block)  # at most 3 + 3 scalars a block
+        # the staged moments: each (env, feature) once, its feature derived
+        k = t["staged_index"]
+        assert np.array_equal(np.sort(k), np.arange(n * f))
+        assert np.array_equal(t["staged_feature"], k % f)
+        assert np.array_equal(t["staged_env"], k // f)
+
+
+@pytest.mark.parametrize("shape", [s for s in K1_EDGE_SHAPES if window_zscore.row_groups(*s)]
+                         + [(3, 4, 5), (64, 8, 5)], ids=str)
+def test_step_obs_row_tiling_covers_each_element_once_and_derives_its_feature(shape):
+    n, w, f = shape
+    groups = window_zscore.row_groups(n, w, f)
+    assert groups == n * w // window_zscore.K1_ROW_GROUP
+    for grid in (window_zscore.row_grid(groups, 132, 8), 1, 3):
+        t = step_obs_row_tiling(n, w, f, grid, window_zscore.K1_ROW_THREADS,
+                                window_zscore.K1_ROW_GROUP)
+        idx = t["index"]
+        assert np.array_equal(np.sort(idx), np.arange(n * w * f))
+        assert np.array_equal(t["feature"], idx % f)
+        assert np.array_equal(t["env"], idx // (w * f))
+        lanes = idx.reshape(-1, 4)  # the float4s, 16-byte aligned
+        assert (np.diff(lanes, axis=1) == 1).all() and (lanes[:, 0] % 4 == 0).all()
+        assert (t["thread"] < window_zscore.K1_ROW_THREADS).all() and (t["cta"] < grid).all()
+        # coalesced: a warp's lanes move 32 neighbouring float4s in each slot,
+        # lane l the l-th of them, every float4 by a thread of the warp that
+        # computes it
+        vec, mover = t["vector"][::4], t["mover"][::4]
+        assert (mover // 32 == t["thread"][::4] // 32).all()
+        key = (t["cta"][::4] * 10 ** 6 + t["pass_"][::4] * 10 ** 3 + mover // 32) * 8 + t["slot"][::4]
+        order = np.argsort(key, kind="stable")
+        starts = np.r_[0, np.flatnonzero(np.diff(key[order])) + 1]
+        first = np.repeat(np.minimum.reduceat(vec[order], starts), np.diff(np.r_[starts, key.size]))
+        assert np.array_equal(vec[order] - first, mover[order] % 32)
+    # the row path takes only F = 5 and windows of whole groups
+    assert not window_zscore.row_groups(63, 9, 3) and not window_zscore.row_groups(4, 30, 5)
+
+
+@pytest.mark.parametrize("mask,clip", [((), 10.0), ("odd", 1.5), ((), 0.0), ("odd", -2.0)])
+@pytest.mark.parametrize("shape", K1_EDGE_SHAPES[1:] + ((64, 8, 3),), ids=str)
+def test_step_obs_emulated_tiling_equals_plain(shape, mask, clip):
+    n, w, f = shape
+    win, mean, std, neutral = obs_case(sum(shape), n, w, f)
+    mask = tuple(k % 2 == 1 for k in range(f)) if mask == "odd" else mask
+    ref = window_zscore.scale_feature_window(
+        *(torch.from_numpy(x) for x in (win, mean, std, neutral)), mask, clip)
+    tilings = {f"env block {eb}": step_obs_tiling(n, w, f, eb, 5, window_zscore.K1_THREADS,
+                                                  window_zscore.K1_VECTORS, out_offset=3,
+                                                  in_offset=1)
+               for eb in (1, window_zscore.env_block(w, f))}
+    if window_zscore.row_groups(n, w, f):
+        tilings["row groups"] = step_obs_row_tiling(n, w, f, 3, window_zscore.K1_ROW_THREADS,
+                                                    window_zscore.K1_ROW_GROUP)
+    for label, t in tilings.items():
+        ours = step_obs_emulated(win, mean, std, neutral, mask, clip, t)
+        assert_bitwise(ref, torch.from_numpy(ours), label)
+
+
+@pytest.mark.parametrize("divisors", [range(1, 300), [160, 108, 27, 1280, 2 ** 20 + 7, 2 ** 30 + 1]],
+                         ids=["small", "faces"])
+def test_magic_division_is_exact_below_2_31(divisors):
+    rng = np.random.default_rng(0)
+    j = np.concatenate([np.arange(4096), rng.integers(0, 2 ** 31, 4096),
+                        2 ** 31 - 1 - np.arange(64)]).astype(np.int64)
+    for d in divisors:
+        lo, hi, shift = window_zscore.magic(d)
+        assert 0 <= lo < 2 ** 32 and hi in (0, 1)
+        assert np.array_equal(window_zscore.magic_div(j, lo, hi, shift), j // d), d
+        assert np.array_equal(window_zscore.magic_div(j + d, lo, hi, shift), (j + d) // d) or d > 2 ** 20
+
+
+def test_step_obs_geometry_spreads_over_the_card_and_refuses_what_shared_memory_cannot_hold():
+    eb, grid = window_zscore.step_obs_geometry(8192, 32, 5, 132, 8)
+    assert eb in window_zscore.K1_ENV_BLOCKS and eb * 32 * 5 <= 4 * 256 * 2
+    assert grid == min(-(-8192 // eb), 132 * 8)
+    assert window_zscore.step_obs_geometry(1, 32, 5, 132, 8) == (eb, 1)
+    assert window_zscore.step_obs_geometry(3, 1024, 10, 132, 8) == (1, 3)  # a face bigger than a pass
+    with pytest.raises(ValueError, match="features"):
+        window_zscore.step_obs_geometry(4, 1, 6000, 132, 8)
+
+
+# ---------------------------------------------------------------- K2's launch path
+def test_fill_outputs_are_contiguous_disjoint_rows_of_three_blocks():
+    n = 37
+    blocks, outs = env_dynamics.fill_outputs(n, "cpu")
+    assert [b.dtype for b in blocks] == [torch.float32, torch.bool, torch.int32]
+    assert [tuple(b.shape) for b in blocks] == [(13, n), (2, n), (3, n)]
+    assert tuple(outs) == env_dynamics.FILL_OUT_FIELDS
+    groups = [(env_dynamics.FILL_FLOAT_FIELDS, torch.float32), (env_dynamics.FILL_BOOL_FIELDS, torch.bool),
+              (env_dynamics.FILL_INT_FIELDS, torch.int32)]
+    spans = []
+    for (names, dtype), block in zip(groups, blocks):
+        for k, name in enumerate(names):
+            t = outs[name]
+            assert t.dtype == dtype and tuple(t.shape) == (n,) and t.is_contiguous()
+            assert t.data_ptr() == block.data_ptr() + k * n * t.element_size()  # row k of its block
+            spans.append((t.data_ptr(), t.data_ptr() + n * t.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))  # no two overlap
+    # a write to one row leaves every other as it was
+    for t in outs.values():
+        t.zero_()
+    outs["cash_delta"].fill_(1.0)
+    outs["pending_forced"].fill_(True)
+    outs["trades_won"].fill_(3)
+    assert [int(t.float().sum()) for t in outs.values()] == [
+        n if k in ("cash_delta", "pending_forced") else 3 * n if k == "trades_won" else 0
+        for k in outs]
+    blocks0, outs0 = env_dynamics.fill_outputs(0, "cpu")
+    assert all(t.numel() == 0 for t in outs0.values())
+
+
+def test_fill_flags_encode_the_kernel_flag_word_once_per_config():
+    for flags in FLAG_GRID:
+        slip_open, slip_limit, slip_match, financing, limit_fill, collision = flags
+        cfg = flag_config(flags)
+        want = (slip_open | slip_limit << 1 | slip_match << 2 | financing << 3
+                | ("cross", "touch", "conservative").index(limit_fill) << 4
+                | (collision == "ohlc") << 6)
+        assert env_dynamics.fill_flags(cfg) == want
+        assert env_dynamics.fill_flags(cfg) == want  # from the cache
+    assert env_dynamics.FILL_POINTERS == 33
+
+
+def test_require_raises_on_what_a_raw_pointer_cannot_take():
+    from gymfx_tpu_torch.ops import _build
+
+    cpu = torch.device("cpu")
+    x = torch.zeros(6, 4)
+    _build.require(x, "x", torch.float32, (6, 4), cpu)
+    _build.require_all([x, x + 1], ["x", "y"], torch.float32, (6, 4), cpu)
+    for bad, why in [(x.double(), "float64"), (x[:, :2], r"\(6, 2\)"), (x.t(), "not contiguous"),
+                     (x.reshape(24), r"\(24,\)")]:
+        with pytest.raises(ValueError, match=why):
+            _build.require(bad, "x", torch.float32, (6, 4), cpu)
+        with pytest.raises(ValueError, match="^y must"):
+            _build.require_all([x, bad], ["x", "y"], torch.float32, (6, 4), cpu)
+    with pytest.raises(ValueError, match="meta"):
+        _build.require(x.to("meta"), "x", torch.float32, (6, 4), cpu)
