@@ -13,9 +13,10 @@ failure exits non-zero:
 2. build    nvcc builds the five libraries at once, one process per
             source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4, K5 and
             K4's probe for profile_attention.py (sm_90a), timed, with
-            ptxas' register and spill report (and each env-library
-            kernel's registers and stack frame: K1's two paths, K2's 8
-            instantiations, K3).
+            ptxas' register and spill report (and each env- and
+            data-library kernel's registers and stack frame: K1's two
+            paths, K2's 8 instantiations, K3, K2's and K3's memory
+            skeletons; K6, K7's two instantiations).
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
             32, 5) with NaN, ±inf, neutral envs and a binary mask, three
@@ -24,13 +25,16 @@ failure exits non-zero:
             alignment (both of its paths); K2 and K3 at 8192 envs over
             every combination of their static flags, K2 also at N = 1, 63
             and 8193 (the flagship's flags and one with slip_match,
-            financing and the ohlc policy).  Beside K1-K3's times: the
+            financing and the ohlc policy), K3 also at N = 1, 63 and 8193
+            with both rewards and mark_pred and live all true, all false
+            and mixed.  Beside K1-K3's times: the
             launch floor (an empty kernel at each one's grid, timed the
-            same way), K2's memory skeleton (its loads and stores without
-            its arithmetic), a clone of K1's window, each at one env, K1
+            same way), K2's and K3's memory skeletons (their loads and
+            stores without their arithmetic), a clone of K1's window, each at one env, K1
             on its env-block path, and what the wrappers' host time is
-            made of (a pointer check, the output allocations, a ctypes
-            launch).
+            made of (a pointer check, the output allocations, K3's seven
+            outputs as seven allocations and as one block's rows, a
+            ctypes launch).
             K4 forward and backward at the update's shapes (4096, 256, 4,
             32) bf16, the rollout's (256, 256, 4, 32) bf16, a causal f32
             case, S = 1024 and D = 128 (f32 and bf16); float32 (CUDA-core
@@ -67,8 +71,14 @@ failure exits non-zero:
             extremes, divisors 1, 60, 1440 and f32(1e5), ragged row
             counts; K7 (batched scaled windows, bitwise with NaN matching
             NaN): NaN and +-inf features, neutral rows, steps 0 and n,
-            clip 10, 0 and 1.5.  Their times come at the paths' shapes in
-            phases 8-10 (bound at 3.35 TB/s).
+            clip 10, 0 and 1.5, then random, the export's (1..n, a ragged
+            last tile) and clamped steps at F 1, 3, 5, 7 and W 8, 32, 64,
+            aligned and with the features 4 bytes off alignment, and at
+            600,000 steps (every CTA walks two tiles or more: the
+            export's steps, and turns of staged tiles alternating with
+            scattered, clamped ones) at F 3 and 5, aligned and not.  Their
+            times come at the paths' shapes in phases 8-10 (bound at 3.35
+            TB/s).
 4. main     PPO training at flagship width: 8,192 bar-venue envs, window
             32, OHLCV features (F=5, obs dim 164), the 3x256 tanh MLP in
             bf16 with weights from torch.Generator(seed), horizon 64, one
@@ -127,7 +137,10 @@ failure exits non-zero:
 9. export   export_scaled_features on one tape for 262,143 steps:
             (262,143, 32, 5) f32 through one K7 launch; the saved array
             must equal the plain version's bitwise; K7 timed at that
-            shape; the windows' and the save's seconds printed apart.
+            shape beside its launch floor at its grid, zeroing an output
+            of the same size (this card's write-bound yardstick) and its
+            wrapper's host time at 64 steps; the windows' and the save's
+            seconds printed apart.
 10. stream  one tape streamed with budgets that cut 256-bar shards:
             data_compress on (the ring does not hold the tape: pinned
             copies of compressed shards on a side stream, K6 once per q16
@@ -172,6 +185,8 @@ TAPE_LEVELS = {"eurusd": 1.10, "gbpusd": 1.27, "audusd": 0.66, "nzdusd": 0.60}
 CURRICULUM_SUPERSTEPS = 4
 STREAM_STEPS = 2048
 STREAM_SHARD_BARS = 256
+# K7 at a batch whose tiles outnumber twice its persistent grid's CTAs
+K7_MANY_TILES = 600_000
 
 # the H100 SXM data sheet: HBM3 bytes/s, f32 FLOP/s outside the tensor
 # cores, bf16 dense tensor-core FLOP/s
@@ -432,11 +447,35 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
                 check(torch.equal(getattr(ours, field), getattr(ref, field)),
                       f"K2 fill_brackets != plain at N = {size}: {field} {cfg}")
             k2_edges += 1
+    # K3 at its edge sizes, both rewards, mark_pred and live all true, all
+    # false and mixed
+    k3_edges = 0
+    for size in cases.K2_EDGE_SIZES:
+        for reward in cases.REWARDS:
+            cfg = cases.flag_config(cases.FLAG_GRID[0], reward, WINDOW)
+            p = cases.env_params({**cases.PARAM_SETS["plain"], **cases.MARK_PARAMS}, dev)
+            fields, mark, bars, _, rng = cases.ledger_case(size + 1, size)
+            st = cases.ledger_state(cfg, {**fields, **mark}, dev)
+            c = torch.from_numpy(bars["c"]).to(dev)
+            for mark_kind, live_kind in cases.K3_FLAG_PATTERNS:
+                mark_pred, live = on_card(cases.flag_pattern(mark_kind, size, rng),
+                                          cases.flag_pattern(live_kind, size, rng))
+                ours_st, ours_r = env_dynamics.mark_reward(st, c, mark_pred, live, cfg, p)
+                ref_st, ref_r = env_dynamics.mark_reward_plain(st, c, mark_pred, live, cfg, p)
+                check(torch.equal(ours_r, ref_r),
+                      f"K3 mark_reward != plain at N = {size}: reward {reward} {mark_kind}/{live_kind}")
+                for field in env_dynamics.MARK_OUT_FIELDS:
+                    check(torch.equal(getattr(ours_st, field), getattr(ref_st, field)),
+                          f"K3 mark_reward != plain at N = {size}: {field} {reward} "
+                          f"{mark_kind}/{live_kind}")
+                k3_edges += 1
     torch.cuda.synchronize()
     print(f"kernels: K1 equal to plain on {k1_cases} cases (shapes {list(cases.K1_EDGE_SHAPES)}, "
           f"two windows 4 bytes off alignment and (63, 30, 5), 3 mask/clip cases each); K2 and K3 "
           f"equal to plain on "
-          f"{combos} flag combinations, K2 also at N = {list(cases.K2_EDGE_SIZES)} ({k2_edges} cases)")
+          f"{combos} flag combinations, K2 also at N = {list(cases.K2_EDGE_SIZES)} ({k2_edges} cases), "
+          f"K3 also at N = {list(cases.K2_EDGE_SIZES)} x both rewards x mark/live all, none and "
+          f"mixed ({k3_edges} cases)")
 
     # times at the flagship configuration's flags (no financing: K2 reads
     # neither the close nor the accrual)
@@ -483,7 +522,7 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
         "step_obs": (rows[2], window_zscore.K1_ROW_THREADS, 0),
         "step_obs_env_blocks": (blocks[2], window_zscore.K1_THREADS, blocks[1] * f * 9),
         "fill_brackets": (-(-n // lib.gymfx_fill_threads()), lib.gymfx_fill_threads(), 0),
-        "mark_reward": (-(-n // 128), 128, 0),
+        "mark_reward": (-(-n // lib.gymfx_mark_threads()), lib.gymfx_mark_threads(), 0),
     }
     for key, (grid, threads, smem) in grids.items():
         floor_ms = device_ms(torch, lambda: _build.check_launch(
@@ -501,21 +540,32 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
     kernels["fill_brackets"]["skeleton_ms"] = device_ms(torch, lambda: _build.check_launch(
         lib.gymfx_fill_skeleton(skel_ptrs, n, st.exec_diag.shape[1], 0,
                                 _build.stream_handle(dev)), "fill_skeleton"))
+    # K3's memory skeleton: its loads and stores without its arithmetic
+    _, rows3 = env_dynamics.mark_outputs(n, dev)
+    skel3 = env_dynamics.mark_pointers(env_dynamics._mark_inputs(st), c, mark, live, rows3,
+                                       env_dynamics._mark_params(p))
+    kernels["mark_reward"]["skeleton_ms"] = device_ms(torch, lambda: _build.check_launch(
+        lib.gymfx_mark_skeleton(skel3, n, _build.stream_handle(dev)), "mark_skeleton"))
     # K1's yardstick: a copy of its window (the same bytes, no arithmetic)
     kernels["step_obs"]["copy_ms"] = device_ms(torch, lambda: win.clone())
-    # what the wrappers' host time is made of, us a call
+    # what the wrappers' host time is made of, us a call; K3's outputs in
+    # both forms (the wrapper takes the block)
     host_parts = dict(
         require_one_tensor=host_us(torch, lambda: _build.require(win, "win", torch.float32,
                                                                  (n, w, f), win.device)),
         k1_output_alloc=host_us(torch, lambda: torch.empty_like(win)),
         k2_output_blocks_and_views=host_us(torch, lambda: env_dynamics.fill_outputs(n, dev)),
+        k3_seven_output_allocs=host_us(torch, lambda: [torch.empty(n, device=dev)
+                                                       for _ in env_dynamics.MARK_OUTPUTS]),
+        k3_output_block_and_views=host_us(torch, lambda: env_dynamics.mark_outputs(n, dev)),
         ctypes_launch_of_an_empty_kernel=host_us(torch, lambda: lib.gymfx_launch_floor(
             1, 32, 0, _build.stream_handle(dev))),
     )
     kernels["step_obs"]["host_parts_us"] = host_parts
     print("  wrapper host parts: " + ", ".join(f"{k} {v:.2f} us" for k, v in host_parts.items()))
-    print(f"  fill_brackets memory skeleton (every load and store, no arithmetic): "
-          f"{kernels['fill_brackets']['skeleton_ms'] * 1e3:.2f} us; step_obs window copy "
+    print(f"  memory skeletons (every load and store, no arithmetic): fill_brackets "
+          f"{kernels['fill_brackets']['skeleton_ms'] * 1e3:.2f} us, mark_reward "
+          f"{kernels['mark_reward']['skeleton_ms'] * 1e3:.2f} us; step_obs window copy "
           f"(torch clone): {kernels['step_obs']['copy_ms'] * 1e3:.2f} us")
     for key in ("step_obs", "fill_brackets", "mark_reward"):
         k = kernels[key]
@@ -655,45 +705,17 @@ def check_kernels_k4(torch, dev, kernels, results) -> None:
     results["attention"] = timed
 
 
-def k5_ptxas(compiler_out: str) -> dict:
-    """ptxas' report (-Xptxas -v) of each K5 template, keyed "<levels a
-    lane, slots>": its registers, stack frame and spills."""
-    import re
-
-    found, entry = {}, None
-    for line in compiler_out.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)", line)
-        if m:
-            entry = re.search(r"lob_stream_kernelILi(\d+)ELi(\d+)EE", m.group(1))
-            continue
-        if entry is None:
-            continue
-        key = f"<{entry.group(1)}, {entry.group(2)}>"
-        if "stack frame" in line:
-            found.setdefault(key, {})["frame"] = line.strip()
-        elif "registers" in line:
-            found.setdefault(key, {})["registers"] = int(re.search(r"Used (\d+) registers",
-                                                                   line).group(1))
-    return found
-
-
-def env_ptxas(compiler_out: str) -> dict:
-    """ptxas' report (-Xptxas -v) of each kernel of the env library: K1's
-    two paths, K2's instantiations keyed "<slip_match, financing, ohlc>",
-    K3, the empty launch-floor kernel and K2's memory skeleton; registers
-    and the stack-frame line."""
+def ptxas_report(compiler_out: str, key_of) -> dict:
+    """ptxas' report (-Xptxas -v) of each kernel that ``key_of`` names
+    (mangled name -> key or None): its registers and stack-frame line
+    (which counts the spills)."""
     import re
 
     found, key = {}, None
     for line in compiler_out.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)", line)
         if m:
-            t = re.search(r"fill_brackets_kernelILb(\d)ELb(\d)ELb(\d)E", m.group(1))
-            key = (f"fill_brackets<{t.group(1)}, {t.group(2)}, {t.group(3)}>" if t else next(
-                (k for k in ("step_obs_rows", "step_obs", "mark_reward", "launch_floor",
-                             "fill_skeleton")
-                 if f"{k}_kernel" in m.group(1)),
-                None))
+            key = key_of(m.group(1))
             continue
         if key is None:
             continue
@@ -703,6 +725,47 @@ def env_ptxas(compiler_out: str) -> dict:
             found.setdefault(key, {})["registers"] = int(re.search(r"Used (\d+) registers",
                                                                    line).group(1))
     return found
+
+
+def k5_ptxas(compiler_out: str) -> dict:
+    """Each K5 template, keyed "<levels a lane, slots>"."""
+    import re
+
+    def key_of(name):
+        t = re.search(r"lob_stream_kernelILi(\d+)ELi(\d+)EE", name)
+        return f"<{t.group(1)}, {t.group(2)}>" if t else None
+
+    return ptxas_report(compiler_out, key_of)
+
+
+def env_ptxas(compiler_out: str) -> dict:
+    """Each kernel of the env library: K1's two paths, K2's
+    instantiations keyed "<slip_match, financing, ohlc>", K3, the empty
+    launch-floor kernel and K2's and K3's memory skeletons."""
+    import re
+
+    def key_of(name):
+        t = re.search(r"fill_brackets_kernelILb(\d)ELb(\d)ELb(\d)E", name)
+        if t:
+            return f"fill_brackets<{t.group(1)}, {t.group(2)}, {t.group(3)}>"
+        return next((k for k in ("step_obs_rows", "step_obs", "mark_reward", "launch_floor",
+                                 "fill_skeleton", "mark_skeleton") if f"{k}_kernel" in name), None)
+
+    return ptxas_report(compiler_out, key_of)
+
+
+def data_ptxas(compiler_out: str) -> dict:
+    """Each kernel of the data library: K6, and K7 keyed by its template
+    ("scaled_windows<5>", the export's F; "scaled_windows<0>", any F)."""
+    import re
+
+    def key_of(name):
+        t = re.search(r"scaled_windows_kernelILi(\d+)EE", name)
+        if t:
+            return f"scaled_windows<{t.group(1)}>"
+        return "q16_decode" if "q16_decode_kernel" in name else None
+
+    return ptxas_report(compiler_out, key_of)
 
 
 def check_kernels_k5(torch, dev, kernels, results, ptxas) -> None:
@@ -827,19 +890,62 @@ def check_kernels_k6_k7(torch, dev, kernels) -> None:
         check(torch.equal(ours, ref), f"K6 decode_q16_block != plain at {tuple(delta.shape)}")
         err6 = max(err6, max_abs_err(torch, ours, ref))
     err7, n7 = 0.0, 0
-    for seed, window, f in ((0, 8, 3), (1, WINDOW, 5), (2, 16, 1)):
-        args = [torch.from_numpy(x).to(dev) for x in cases.scaled_windows_case(seed, window=window, f=f)]
+    k7_cases = [(seed, window, f, "random", 0) for seed, window, f in
+                ((0, 8, 3), (1, WINDOW, 5), (2, 16, 1))]
+    # every step pattern (the export's 1..n leaves a ragged last tile) at
+    # F 1, 3, 5, 7 and W 8, 32, 64; the features 4 bytes off alignment
+    k7_cases += [(10 + i, window, f, steps, offset)
+                 for i, (window, f) in enumerate((w, f) for w in (8, 32, 64) for f in (1, 3, 5, 7))
+                 for steps in cases.K7_STEP_PATTERNS for offset in (0, 1)]
+    for seed, window, f, steps, offset in k7_cases:
+        args = [torch.from_numpy(x).to(dev)
+                for x in cases.scaled_windows_case(seed, window=window, f=f, steps=steps)]
+        if offset:
+            buf = torch.empty(args[0].numel() + 4, device=dev)
+            args[0] = buf[offset:offset + args[0].numel()].view(args[0].shape).copy_(args[0])
+            check(args[0].data_ptr() % 16 == 4 * offset, "K7: the features are not 4 bytes off")
         for clip in (10.0, 0.0, 1.5):
             ours = window_zscore.batched_scaled_windows(*args, window=window, clip=clip)
             ref = window_zscore.reference_scaled_windows(*args, window=window, clip=clip)
             torch.cuda.synchronize()
             check(bits_equal(torch, ours, ref),
-                  f"K7 batched_scaled_windows != plain (window {window}, F {f}, clip {clip})")
+                  f"K7 batched_scaled_windows != plain (window {window}, F {f}, steps {steps}, "
+                  f"offset {offset}, clip {clip})")
             err7 = max(err7, nan_abs_err(torch, ours, ref))
             n7 += 1
+    # every CTA walking at least two tiles: the export's steps and turns
+    # alternating staged tiles with scattered, clamped ones, F 3 and 5
+    for f in (3, 5):
+        feats, mean, std, neutral, export = (torch.from_numpy(x).to(dev) for x in
+                                             cases.scaled_windows_case(f, n=K7_MANY_TILES,
+                                                                       window=WINDOW, f=f,
+                                                                       steps="export"))
+        geometry = window_zscore._scaled_windows_plan(K7_MANY_TILES, WINDOW, f, feats.shape[0],
+                                                      mean.shape[0], 10.0, dev)
+        grid, tile, tiles = geometry[0], geometry[1], geometry[2]
+        check(tiles >= 2 * grid, f"K7: {tiles} tiles do not give each of {grid} CTAs two")
+        turns = torch.from_numpy(cases.scaled_windows_turn_steps(K7_MANY_TILES, tile, grid,
+                                                                 seed=f)).to(dev)
+        for offset in (0, 1):
+            buf = torch.empty(feats.numel() + 4, device=dev)
+            view = buf[offset:offset + feats.numel()].view(feats.shape).copy_(feats)
+            for label, steps in (("export", export), ("turns", turns)):
+                args = (view, mean, std, neutral, steps)
+                ours = window_zscore.batched_scaled_windows(*args, window=WINDOW, clip=10.0)
+                ref = window_zscore.reference_scaled_windows(*args, window=WINDOW, clip=10.0)
+                torch.cuda.synchronize()
+                check(bits_equal(torch, ours, ref),
+                      f"K7 batched_scaled_windows != plain ({K7_MANY_TILES} {label} steps, F {f}, "
+                      f"offset {offset}, {tiles} tiles on {grid} CTAs)")
+                err7 = max(err7, nan_abs_err(torch, ours, ref))
+                n7 += 1
+                del ours, ref
+    torch.cuda.empty_cache()
     print(f"kernels: K6 equal to plain on {len(rows_cases)} blocks (int16 extremes, divisors "
           f"1/60/1440/f32(1e5), ragged rows); K7 bitwise equal to plain on {n7} cases (NaN, "
-          f"+-inf, neutral rows, steps 0 and n, clip 10/0/1.5)")
+          f"+-inf, neutral rows, steps 0 and n, the export's steps, clamped steps, F 1/3/5/7, "
+          f"W 8/32/64, features 4 bytes off alignment, clip 10/0/1.5; {K7_MANY_TILES:,} steps "
+          f"with every CTA walking two tiles or more)")
     kernels["decode_q16_block"] = dict(max_abs_err=err6)
     kernels["batched_scaled_windows"] = dict(max_abs_err=err7)
 
@@ -1407,6 +1513,27 @@ def export_phase(torch, kernels, results, paths, tmp) -> None:
                                                                                  clip=clip)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape, moved_bytes=moved,
     )
+    # K7's launch floor at its grid, its wrapper's host time (at 64 steps
+    # of the tape, where the device time lies under it), and this card's
+    # yardstick for a write-bound pass: zeroing an output of the same size
+    from gymfx_tpu_torch.ops import _build
+
+    dev = d.padded_features.device
+    geometry = window_zscore._scaled_windows_plan(n_steps, WINDOW, len(FEATURE_COLUMNS),
+                                                  d.padded_features.shape[0],
+                                                  d.feat_mean.shape[0], clip, dev)
+    grid, smem = geometry[0], 2 * geometry[14]
+    env_lib = _build.load_library()
+    k7.update(
+        grid=[grid, window_zscore.K7_THREADS, smem], tile=geometry[1],
+        launch_floor_ms=device_ms(torch, lambda: _build.check_launch(env_lib.gymfx_launch_floor(
+            grid, window_zscore.K7_THREADS, smem, _build.stream_handle(dev)), "launch_floor")),
+        host_us=host_us(torch, lambda: window_zscore.batched_scaled_windows(
+            *args[:4], steps[:64], window=WINDOW, clip=clip)),
+    )
+    out = torch.empty(shape, device=dev)
+    k7["zero_ms"] = device_ms(torch, out.zero_, reps=10, trials=11)
+    del out
     torch.cuda.empty_cache()
     size_mb = path.stat().st_size / 1e6
     path.unlink()
@@ -1414,7 +1541,11 @@ def export_phase(torch, kernels, results, paths, tmp) -> None:
           f"the plain version (bitwise); windows {meta['seconds']['windows']:.3f} s (K7, copy to the "
           f"host), save {meta['seconds']['save']:.3f} s ({size_mb:.1f} MB npz), {wall:.3f} s in all")
     print(f"  K7 at the export's shape: {k7['ms'] * 1e3:.1f} us/call on the card (plain "
-          f"{k7['plain_ms'] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by {b_by}, {moved / 1e6:.1f} MB)")
+          f"{k7['plain_ms'] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by {b_by}, {moved / 1e6:.1f} MB; "
+          f"zeroing the output {k7['zero_ms'] * 1e3:.1f} us; launch floor "
+          f"{k7['launch_floor_ms'] * 1e3:.2f} us at {grid} CTAs x {window_zscore.K7_THREADS} threads, "
+          f"{smem} B shared, tiles of {k7['tile']}); wrapper host {k7['host_us']:.1f} us/call at 64 "
+          f"steps")
     results["export"] = {"shape": shape, "seconds": meta["seconds"], "wall_s": wall,
                          "npz_mb": size_mb, "k7": dict(k7)}
 
@@ -1542,11 +1673,15 @@ def main() -> None:
     print(f"build: {len(built)} libraries in {build_s:.2f} s (one nvcc per source, in parallel)")
     results["build_s"] = build_s
     results["env_ptxas"] = env_ptxas(built["env"][1])
-    check(len(results["env_ptxas"]) == 13, f"ptxas reported {len(results['env_ptxas'])} of the "
-          "env library's 13 kernels (K1's two paths, 8 of K2, K3, the launch floor, K2's "
-          "memory skeleton)")
-    for key, row in results["env_ptxas"].items():
-        print(f"  env ptxas {key}: {row.get('registers')} registers; {row.get('frame')}")
+    check(len(results["env_ptxas"]) == 14, f"ptxas reported {len(results['env_ptxas'])} of the "
+          "env library's 14 kernels (K1's two paths, 8 of K2, K3, the launch floor, K2's and "
+          "K3's memory skeletons)")
+    results["data_ptxas"] = data_ptxas(built["data"][1])
+    check(len(results["data_ptxas"]) == 3, f"ptxas reported {len(results['data_ptxas'])} of the "
+          "data library's 3 kernels (K6, K7's two instantiations)")
+    for lib_name in ("env", "data"):
+        for key, row in results[f"{lib_name}_ptxas"].items():
+            print(f"  {lib_name} ptxas {key}: {row.get('registers')} registers; {row.get('frame')}")
 
     # ---- 3. kernels against their plain versions ----------------------------
     dev = torch.device("cuda")

@@ -32,10 +32,11 @@
 // (below).  K2 and K3 are one thread per env over structure-of-arrays
 // field pointers (the EnvState tensors themselves; the Pallas kernels'
 // packing into (env_block, n_fields) faces existed for VMEM tiling and
-// would only add stack/unbind copies here); K2 writes its outputs into
-// one block per type, issues every load first, specialises the flags
-// that cost the most at compile time and runs in CTAs of 64 so that the
-// flagship's 8,192 envs reach 128 SMs.  The remaining static config
+// would only add stack/unbind copies here).  Both issue every load
+// first, with none behind a branch, so each pays one memory round trip,
+// and both run in CTAs of 64 so that the flagship's 8,192 envs reach 128
+// SMs; K2 writes its outputs into one block per type and specialises the
+// flags that cost the most at compile time.  The remaining static config
 // choices arrive as an integer of flags: uniform branches, no divergence.
 //
 // Bitwise contract with the plain PyTorch versions (core/broker.py,
@@ -577,39 +578,53 @@ struct MarkArgs {
   const float* par[kNumMarkParams];
 };
 constexpr int kMarkPointers = kNumMarkIn + 3 + kNumMarkOut + 1 + kNumMarkParams;
+constexpr int kMarkThreads = 64;
 
-__global__ void mark_reward_kernel(MarkArgs a, long long n, int reward_kind) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// One thread per env, CTAs of kMarkThreads so that N = 8192 spreads over
+// 128 SMs.  Every load comes first, none behind a branch, so the kernel
+// pays one memory round trip: the mark is computed for every env and
+// `mark` selects it, as the plain version's select(mark_pred, ...) does;
+// the reward kind is a uniform branch after the loads.
+__global__ void __launch_bounds__(kMarkThreads)
+mark_reward_kernel(MarkArgs a, int n, int reward_kind) {
+  const int e = blockIdx.x * kMarkThreads + threadIdx.x;
   if (e >= n) return;
-  const float initial_cash = *a.par[kInitialCash];
-  float eq = a.in[kMEq][e], prev = a.in[kMPrev][e], peak_eq = a.in[kMPeak][e];
-  float dd_money = a.in[kMDdMoney][e], dd_pct = a.in[kMDdPct][e];
-  float reward_peak = a.in[kMRewardPeak][e];
-  const bool live = a.live[e];
-  if (a.mark[e]) {
-    // ---- broker.mark_to_market
-    float marked = a.in[kMCash][e] + a.in[kMPos][e] * a.close[e];
-    float peak = jmax(peak_eq, marked);
-    float money_down = peak - marked;
-    float peak_equity = initial_cash + peak;
-    float pct_down = peak_equity > 0.f ? money_down / peak_equity * 100.f : 0.f;
-    prev = eq;
-    eq = marked;
-    peak_eq = peak;
-    dd_money = jmax(dd_money, money_down);
-    dd_pct = jmax(dd_pct, pct_down);
-  }
+  // ---- every load
+  const float initial_cash = __ldg(a.par[kInitialCash]);
+  const float reward_scale = __ldg(a.par[kRewardScale]);
+  const float penalty_lambda = __ldg(a.par[kPenaltyLambda]);
+  const float pos = __ldg(a.in[kMPos] + e), cash = __ldg(a.in[kMCash] + e);
+  const float eq0 = __ldg(a.in[kMEq] + e), prev0 = __ldg(a.in[kMPrev] + e);
+  const float peak0 = __ldg(a.in[kMPeak] + e);
+  const float dd_money0 = __ldg(a.in[kMDdMoney] + e), dd_pct0 = __ldg(a.in[kMDdPct] + e);
+  float reward_peak = __ldg(a.in[kMRewardPeak] + e);
+  const float close = __ldg(a.close + e);
+  const bool mark = __ldg(a.mark + e);
+  const bool live = __ldg(a.live + e);
+
+  // ---- broker.mark_to_market, selected by `mark`
+  const float marked = cash + pos * close;
+  const float peak_m = jmax(peak0, marked);
+  const float money_down = peak_m - marked;
+  const float peak_equity = initial_cash + peak_m;
+  const float pct_down = peak_equity > 0.f ? money_down / peak_equity * 100.f : 0.f;
+  const float eq = mark ? marked : eq0;
+  const float prev = mark ? eq0 : prev0;
+  const float peak_eq = mark ? peak_m : peak0;
+  const float dd_money = mark ? jmax(dd_money0, money_down) : dd_money0;
+  const float dd_pct = mark ? jmax(dd_pct0, pct_down) : dd_pct0;
+
   // ---- rewards.compute_reward
-  float initial = initial_cash == 0.f ? 1.f : initial_cash;
-  float r_norm = (eq - prev) / initial;
+  const float initial = initial_cash == 0.f ? 1.f : initial_cash;
+  const float r_norm = (eq - prev) / initial;
   float reward;
   if (reward_kind == kRewardPnl) {
-    reward = live ? r_norm * *a.par[kRewardScale] : 0.f;
+    reward = live ? r_norm * reward_scale : 0.f;
   } else {
-    float peak = live ? jmax(reward_peak, jmax(eq, prev)) : reward_peak;
-    bool peak_positive = (initial_cash + peak) > 0.f;
-    float dd_norm = peak_positive ? (peak - eq) / initial : 0.f;
-    float r = r_norm - *a.par[kPenaltyLambda] * dd_norm;
+    const float peak = live ? jmax(reward_peak, jmax(eq, prev)) : reward_peak;
+    const bool peak_positive = (initial_cash + peak) > 0.f;
+    const float dd_norm = peak_positive ? (peak - eq) / initial : 0.f;
+    const float r = r_norm - penalty_lambda * dd_norm;
     reward_peak = peak;
     reward = live ? r : 0.f;
   }
@@ -668,6 +683,20 @@ fill_skeleton_kernel(FillArgs a, int n, int diag_stride, int diag_idx) {
   *diag = diag0 + (advance ? 1 : 0);
 }
 
+// K3's memory skeleton: its launch, every load and every store, none of
+// its arithmetic but one sum (the outputs are not K3's; chip_smoke.py
+// times it beside the launch floor and the kernel)
+__global__ void __launch_bounds__(kMarkThreads)
+mark_skeleton_kernel(MarkArgs a, int n) {
+  const int e = blockIdx.x * kMarkThreads + threadIdx.x;
+  if (e >= n) return;
+  float sum = __ldg(a.in[kMPos] + e) + __ldg(a.in[kMCash] + e) + __ldg(a.close + e);
+  for (int k = 0; k < kNumMarkParams; ++k) sum += __ldg(a.par[k]);
+  const bool keep = __ldg(a.mark + e) && __ldg(a.live + e);
+  for (int k = 0; k < kNumMarkOut; ++k) a.out[k][e] = __ldg(a.in[kMEq + k] + e);
+  a.reward[e] = keep ? sum : 0.f;
+}
+
 }  // namespace
 
 extern "C" {
@@ -683,6 +712,7 @@ void gymfx_step_obs_constants(int* out) {
   for (int k = 0; k < 6; ++k) out[k] = c[k];
 }
 int gymfx_fill_threads() { return kFillThreads; }
+int gymfx_mark_threads() { return kMarkThreads; }
 
 // K1 CTAs of `path` that fit on one SM at `smem_bytes` of shared memory
 // (0 on error)
@@ -734,10 +764,17 @@ int gymfx_fill_brackets(void* const* ptrs, long long n, int diag_stride,
 
 int gymfx_mark_reward(void* const* ptrs, long long n, int reward_kind,
                       void* stream) {
-  const int threads = 128;
-  mark_reward_kernel<<<blocks_for(n, threads), threads, 0,
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  mark_reward_kernel<<<blocks_for(n, kMarkThreads), kMarkThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      unpack<MarkArgs>(ptrs), n, reward_kind);
+      unpack<MarkArgs>(ptrs), (int)n, reward_kind);
+  return (int)cudaGetLastError();
+}
+
+int gymfx_mark_skeleton(void* const* ptrs, long long n, void* stream) {
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  mark_skeleton_kernel<<<blocks_for(n, kMarkThreads), kMarkThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(unpack<MarkArgs>(ptrs), (int)n);
   return (int)cudaGetLastError();
 }
 

@@ -144,6 +144,9 @@ def _bind_env(lib: ctypes.CDLL) -> None:
     lib.gymfx_step_obs_constants.argtypes = [ctypes.POINTER(i)]
     lib.gymfx_step_obs_constants.restype = None
     lib.gymfx_fill_threads.restype = i
+    lib.gymfx_mark_threads.restype = i
+    lib.gymfx_mark_skeleton.argtypes = [vp, ll, vp]
+    lib.gymfx_mark_skeleton.restype = i
     lib.gymfx_step_obs_blocks_per_sm.argtypes = [i, i]
     lib.gymfx_step_obs_blocks_per_sm.restype = i
     lib.gymfx_launch_floor.argtypes = [i, i, i, vp]
@@ -173,11 +176,15 @@ def _bind_lob(lib: ctypes.CDLL) -> None:
 
 
 def _bind_data(lib: ctypes.CDLL) -> None:
-    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gymfx_q16_decode.argtypes = [vp, vp, vp, vp, i, ll, i, vp]
     lib.gymfx_q16_decode.restype = i
-    lib.gymfx_scaled_windows.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, ll, ll, f, vp]
+    lib.gymfx_scaled_windows.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.gymfx_scaled_windows.restype = i
+    lib.gymfx_scaled_windows_constants.argtypes = [ctypes.POINTER(i)]
+    lib.gymfx_scaled_windows_constants.restype = None
+    lib.gymfx_scaled_windows_blocks_per_sm.argtypes = [i, i]
+    lib.gymfx_scaled_windows_blocks_per_sm.restype = i
 
 
 def _bind_attention_probe(lib: ctypes.CDLL) -> None:

@@ -14,7 +14,9 @@ and :func:`lob_stream_emulated` models the algorithm of its kernel on
 the CPU.
 K6 gets int16 deltas at both ends of their range, divisors 1, 60, 1440
 and f32(1e5), and a ragged row count; K7 neutral rows, NaN and +-inf
-inputs, clip 0 and 10, and steps at 0 and at n.  K4's bf16 cases (:data:`ATTENTION_BF16_CASES`)
+inputs, clip 0 and 10, steps at 0 and at n, the export's steps and
+clamped ones, and :func:`scaled_windows_tiling` /
+:func:`scaled_windows_emulated` model its kernel's tiling on the CPU.  K4's bf16 cases (:data:`ATTENTION_BF16_CASES`)
 come with :func:`attention_forward_emulated` and
 :func:`attention_backward_emulated`, the tensor-core kernels' arithmetic
 with their rounding points in plain torch.  :func:`tick_walk_columns`
@@ -48,6 +50,8 @@ PARAM_SETS = {
     "quantized": dict(slippage=2e-4, commission=3e-5, price_tick=1e-5, size_step=0.01, min_qty=0.5),
 }
 MARK_PARAMS = dict(initial_cash=10000.0, reward_scale=2.0, penalty_lambda=0.5)
+# K3's flag patterns: (mark_pred, live), each all true, all false or mixed
+K3_FLAG_PATTERNS = tuple(itertools.product(("all", "none", "mixed"), repeat=2))
 _INT_PARAMS = ("entry_start_mow", "force_close_mow")
 
 
@@ -250,6 +254,15 @@ def ledger_case(seed, n=64, big=True):
     bars = dict(o=o, h=h, l=l, c=c, accrual=rng.normal(0, 1e-4, n).astype(f32))
     advance = rng.random(n) < 0.85
     return fields, mark, bars, advance, rng
+
+
+def flag_pattern(kind, n, rng):
+    """(n,) bool flags: "all" true, "none", or "mixed" (drawn from ``rng``)."""
+    if kind == "all":
+        return np.ones(n, bool)
+    if kind == "none":
+        return np.zeros(n, bool)
+    return rng.random(n) < 0.5
 
 
 def exec_diag_case(n, width, seed=1):
@@ -641,10 +654,19 @@ def q16_case(seed=0, rows=1003, invs=Q16_INVS):
     return delta, base, np.asarray(invs, np.float32)
 
 
-def scaled_windows_case(seed=0, n=300, window=8, f=3, batch=64):
+# K7's step patterns: "random" (steps drawn in [0, n], with 0 and n);
+# "export" (1..n, the export's: every tile's window starts run
+# consecutively but the last tile's is ragged); "clamped" (consecutive
+# runs across both ends of the clamp, then steps drawn in [-50, n + 50])
+K7_STEP_PATTERNS = ("random", "export", "clamped")
+
+
+def scaled_windows_case(seed=0, n=300, window=8, f=3, batch=64, steps="random"):
     """(padded_features (n + W, F), mean (n + 1, F), std, neutral (n + 1,),
     steps (B,)) for K7, with NaN / +-inf features, zero stds, neutral
-    rows and steps 0 and n."""
+    rows and, by ``steps`` (:data:`K7_STEP_PATTERNS`), B = ``batch``
+    steps with 0 and n, the export's steps 1..n (B = n), or steps
+    clamped below 0 and above n (B = 170 + ``batch``)."""
     rng = np.random.default_rng(seed)
     feats = rng.normal(0, 3, (n + window, f)).astype(np.float32)
     feats[5, 0], feats[6, 1 % f], feats[7, 2 % f] = np.nan, np.inf, -np.inf
@@ -655,9 +677,125 @@ def scaled_windows_case(seed=0, n=300, window=8, f=3, batch=64):
     neutral = rng.random(n + 1) < 0.2
     neutral[:2] = True
     neutral[3:5] = False  # steps 3 and 4 scale the NaN / inf rows
-    steps = rng.integers(0, n + 1, batch).astype(np.int32)
-    steps[:5] = (0, n, 1, 4, 3)
-    return feats, mean, std, neutral, steps
+    if steps == "random":
+        drawn = rng.integers(0, n + 1, batch).astype(np.int32)
+        drawn[:5] = (0, n, 1, 4, 3)
+    elif steps == "export":
+        drawn = np.arange(1, n + 1, dtype=np.int32)
+    elif steps == "clamped":
+        drawn = np.concatenate([np.arange(-70, 10), np.arange(n - 70, n + 20),
+                                rng.integers(-50, n + 51, batch)]).astype(np.int32)
+    else:
+        raise ValueError(f"scaled_windows_case: steps {steps!r}")
+    return feats, mean, std, neutral, drawn
+
+
+def scaled_windows_turn_steps(n, tile, grid, seed=0):
+    """The export's steps 1..n with the tiles of every odd turn of a K7
+    launch (``tile`` entries a tile, tile k CTA k % ``grid``'s
+    (k // grid)-th) scattered in [-50, n + 50]: each CTA walks a staged
+    tile, then one that reads device memory, then a staged one again."""
+    rng = np.random.default_rng(seed)
+    steps = np.arange(1, n + 1, dtype=np.int32)
+    odd = (np.arange(n) // tile // grid) % 2 == 1
+    steps[odd] = rng.integers(-50, n + 51, int(odd.sum()))
+    return steps
+
+
+def scaled_windows_tiling(steps, rows, m, w, f, tile, grid, threads, span_floats, in_offset=0):
+    """A CPU model of K7's tiling (csrc/data_kernels.cu
+    scaled_windows_kernel) for a batch ``steps`` over ``rows`` feature
+    rows and ``m`` moment rows: tile k (entries k * tile ..) belongs to
+    CTA k % grid as its (k // grid)-th; its steps' window starts and
+    moment rows clamp as XLA's; when the starts run consecutively (and
+    ``span_floats`` > 0) the tile stages its window span, from a source
+    ``in_offset`` floats past a 16-byte boundary.  Thread q % threads
+    takes quad q of the tile's output; the quad's step comes by the
+    kernel's magic numbers, its first feature by a modulus (F = 5) or
+    magic numbers, the next three by a wrapping increment.
+
+    Returns int64 arrays, one entry per element covered: ``index`` (the
+    output element, row-major), ``quad`` and ``lane`` (the float4 of the
+    output that stores it, and its place there), ``step`` (its batch
+    entry), ``feature``,
+    ``src`` (the padded_features element it scales, flat), ``moment``
+    (the flat (mean, std) element), ``flag`` (the neutral row), ``cta``,
+    ``thread``, ``turn`` (the tile's place in its CTA's walk) and
+    ``span`` (its place in the staged spans, tile k's span at k *
+    span_floats, or -1 where the tile reads device memory); and, for the
+    staged copies, ``copy_dst`` / ``copy_src`` (each float copied: its
+    place in the spans and in padded_features, flat) with ``copy_bytes``
+    (4 or 16: the size of the cp.async that moves it)."""
+    from gymfx_tpu_torch.ops.window_zscore import K7_TEMPLATE_F, magic, magic_div
+
+    steps = np.asarray(steps, np.int64)
+    b = steps.size
+    fq = w * f // 4
+    div_fq, div_f = magic(fq), magic(f)
+    start = np.clip(steps, 0, rows - w)
+    row = np.clip(steps, 0, m - 1)
+    keys = ("index", "step", "feature", "src", "moment", "flag", "cta", "thread", "turn", "span",
+            "quad", "lane")
+    out = {k: [] for k in keys + ("copy_dst", "copy_src", "copy_bytes")}
+    for tl in range(-(-b // tile)):
+        b0 = tl * tile
+        tv = min(tile, b - b0)
+        s0 = start[b0]
+        staged = span_floats > 0 and bool((start[b0:b0 + tv] == s0 + np.arange(tv)).all())
+        lead = (in_offset + s0 * f) % 4 if staged else 0
+        if staged:
+            length = (tv + w - 1) * f
+            head = min((4 - lead) % 4, length)
+            quads = (length - head) // 4
+            k = np.arange(length, dtype=np.int64)
+            out["copy_dst"].append(tl * span_floats + lead + k)
+            out["copy_src"].append(s0 * f + k)
+            out["copy_bytes"].append(np.where((k >= head) & (k < head + 4 * quads), 16, 4))
+        q = np.arange(tv * fq, dtype=np.int64)
+        t = magic_div(q, *div_fq)
+        e0 = (q - t * fq) * 4
+        feat = e0 % K7_TEMPLATE_F if f == K7_TEMPLATE_F else e0 - magic_div(e0, *div_f) * f
+        for k in range(4):
+            e = e0 + k
+            out["index"].append((b0 + t) * w * f + e)
+            out["step"].append(b0 + t)
+            out["feature"].append(feat)
+            out["moment"].append(row[b0 + t] * f + feat)
+            out["flag"].append(row[b0 + t])
+            out["src"].append((s0 + t) * f + e if staged else start[b0 + t] * f + e)
+            out["span"].append(tl * span_floats + lead + t * f + e if staged
+                               else np.full(q.size, -1, np.int64))
+            out["cta"].append(np.full(q.size, tl % grid, np.int64))
+            out["turn"].append(np.full(q.size, tl // grid, np.int64))
+            out["thread"].append(q % threads)
+            out["quad"].append(b0 * fq + q)
+            out["lane"].append(np.full(q.size, k, np.int64))
+            feat = np.where(feat + 1 == f, 0, feat + 1)
+    return {k: np.concatenate(v).astype(np.int64) if v else np.zeros(0, np.int64)
+            for k, v in out.items()}
+
+
+def scaled_windows_emulated(feats, mean, std, neutral, clip, tiling, b, w, span_floats):
+    """K7's arithmetic in numpy f32 over ``tiling``
+    (:func:`scaled_windows_tiling` of a batch of ``b`` steps): staged
+    tiles read their windows from the spans the model's copies fill
+    (every other float of a span NaN), the others from padded_features;
+    each element z-scored by the (mean, std) pair and neutral flag the
+    tiling derives for it, then clipped when clip > 0."""
+    n_f = feats.shape[1]
+    flat = feats.reshape(-1)
+    tiles = int(tiling["span"].max()) // span_floats + 1 if (tiling["span"] >= 0).any() else 0
+    spans = np.full(max(tiles * span_floats, 1), np.nan, np.float32)
+    spans[tiling["copy_dst"]] = flat[tiling["copy_src"]]
+    x = np.where(tiling["span"] >= 0, spans[np.maximum(tiling["span"], 0)], flat[tiling["src"]])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z = (x - mean.reshape(-1)[tiling["moment"]]) / std.reshape(-1)[tiling["moment"]]
+    v = np.where(neutral[tiling["flag"]], np.float32(0), z)
+    if clip > 0:
+        v = np.where(np.isnan(v), v, np.minimum(np.maximum(v, np.float32(-clip)), np.float32(clip)))
+    out = np.full(b * w * n_f, np.nan, np.float32)
+    out[tiling["index"]] = v.astype(np.float32)
+    return out.reshape(b, w, n_f)
 
 
 def tick_walk_columns(n, seed=0, level=1.1, vol_ticks=5.0, tick=1e-5):

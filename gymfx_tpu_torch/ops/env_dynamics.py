@@ -10,11 +10,12 @@
 
 The kernels are ``fill_brackets_kernel`` (8 instantiations, by
 slip_match, financing and the ohlc policy) and ``mark_reward_kernel`` in
-``csrc/env_kernels.cu``: one thread per env, reading the EnvState field
-tensors as structure-of-arrays pointers and writing fresh output tensors
-(the input state is left as it was, but for K2's counter column, which
-it advances in place); K2's 18 outputs are rows of three blocks, one per
-type (:func:`fill_outputs`).  Beside each wrapper is its plain
+``csrc/env_kernels.cu``: one thread per env in CTAs of 64, every load
+first, reading the EnvState field tensors as structure-of-arrays
+pointers and writing fresh output tensors (the input state is left as it
+was, but for K2's counter column, which it advances in place); K2's 18
+outputs are rows of three blocks, one per type (:func:`fill_outputs`),
+K3's 7 rows of one block (:func:`mark_outputs`).  Beside each wrapper is its plain
 version (:func:`fill_brackets_plain`, :func:`mark_reward_plain`): the
 same chain of ``core/broker`` / ``core/rewards`` functions that
 ``core/env.step`` would run.  A CPU tensor runs the plain version; a
@@ -209,43 +210,72 @@ def fill_pointers(inputs, blocks, diag, advance, bars, par):
                                  *(None,) * (5 - len(bars)), *par))
 
 
+# K3's outputs: the six carries and the reward, rows of one (7, N) block
+MARK_OUTPUTS = MARK_OUT_FIELDS + ("reward",)
+MARK_THREADS = 64  # csrc/env_kernels.cu kMarkThreads
+_MARK_PARAM_NAMES = tuple(f"param {k}" for k in MARK_PARAM_FIELDS)
+_mark_inputs = operator.attrgetter(*MARK_FLOAT_FIELDS)
+_mark_params = operator.attrgetter(*MARK_PARAM_FIELDS)
+# the kernel's MarkArgs: 8 input fields, the close, mark and live, the 7
+# outputs, 3 params
+MARK_POINTERS = len(MARK_FLOAT_FIELDS) + 3 + len(MARK_OUTPUTS) + len(MARK_PARAM_FIELDS)
+
+
+def mark_outputs(n: int, device):
+    """K3's 7 outputs in one allocation: returns (block, rows), the
+    (7, n) f32 block and its rows in :data:`MARK_OUTPUTS` order.  Each row
+    is a contiguous (n,) tensor and no two overlap, as :func:`fill_outputs`'
+    rows (``torch.save`` of one row saves the whole block)."""
+    block = torch.empty((len(MARK_OUTPUTS), n), dtype=torch.float32, device=device)
+    return block, block.unbind(0)
+
+
+@functools.lru_cache(maxsize=None)
+def _mark_library():
+    """The env library, with K3's pointer count and CTA size checked
+    against the kernel source once."""
+    lib = _build.load_library()
+    if lib.gymfx_mark_pointer_count() != MARK_POINTERS or lib.gymfx_mark_threads() != MARK_THREADS:
+        raise RuntimeError("mark_reward: pointer layout or CTA size does not match the kernel source")
+    return lib
+
+
+def mark_pointers(inputs, c, mark_pred, live, outs, par):
+    """The kernel's MarkArgs as a C array: the 8 input fields, the close,
+    the two flags, the 7 outputs and the 3 params."""
+    return _build.pointer_array((*inputs, c, mark_pred, live, *outs, *par))
+
+
 def mark_reward(st: EnvState, c, mark_pred, live, cfg: EnvConfig,
                 params: EnvParams):
     """K3 on a CUDA state, its plain version on a CPU state.  Returns
-    (new_state, base_reward)."""
-    if st.pos.device.type == "cpu":
+    (new_state, base_reward); the kernel's 7 outputs are rows of one
+    block (:func:`mark_outputs`)."""
+    device = st.pos.device
+    if device.type == "cpu":
         return mark_reward_plain(st, c, mark_pred, live, cfg, params)
-    device = _cuda_device(st, cfg)
+    _cuda_device(st, cfg)
     n = st.pos.shape[0]
-    for name in MARK_FLOAT_FIELDS:
-        _build.require(getattr(st, name), name, torch.float32, (n,), device)
-    _build.require(c, "close", torch.float32, (n,), device)
-    _build.require(mark_pred, "mark_pred", torch.bool, (n,), device)
-    _build.require(live, "live", torch.bool, (n,), device)
-    for name in MARK_PARAM_FIELDS:
-        _build.require(getattr(params, name), f"param {name}", torch.float32, (), device)
-    outs = {name: torch.empty_like(getattr(st, name)) for name in MARK_OUT_FIELDS}
-    reward = torch.empty_like(st.pos)
-    ptrs = _build.pointer_array(
-        [getattr(st, k) for k in MARK_FLOAT_FIELDS]
-        + [c, mark_pred, live]
-        + [outs[k] for k in MARK_OUT_FIELDS]
-        + [reward]
-        + [getattr(params, k) for k in MARK_PARAM_FIELDS]
-    )
-    lib = _build.load_library()
-    if len(ptrs) != lib.gymfx_mark_pointer_count():
-        raise RuntimeError("mark_reward: pointer layout does not match the kernel source")
+    shape = (n,)
+    inputs = _mark_inputs(st)
+    _build.require_all(inputs, MARK_FLOAT_FIELDS, torch.float32, shape, device)
+    _build.require(c, "close", torch.float32, shape, device)
+    _build.require_all((mark_pred, live), ("mark_pred", "live"), torch.bool, shape, device)
+    par = _mark_params(params)
+    _build.require_all(par, _MARK_PARAM_NAMES, torch.float32, (), device)
+    lib = _mark_library()
+    _, outs = mark_outputs(n, device)
     if n:
         _build.check_launch(
-            lib.gymfx_mark_reward(
-                ptrs, n, _REWARD_CODES[cfg.reward],
-                torch.cuda.current_stream(device).cuda_stream,
-            ),
+            lib.gymfx_mark_reward(mark_pointers(inputs, c, mark_pred, live, outs, par), n,
+                                  _REWARD_CODES[cfg.reward], _build.stream_handle(device)),
             "mark_reward",
         )
         mark_reward.launches += 1
-    return st._replace(**outs), reward
+    eq, prev, peak, dd_money, dd_pct, reward_peak, reward = outs
+    return st._replace(equity_delta=eq, prev_equity_delta=prev, peak_equity_delta=peak,
+                       max_drawdown_money=dd_money, max_drawdown_pct=dd_pct,
+                       reward_peak=reward_peak), reward
 
 
 fill_brackets.launches = 0

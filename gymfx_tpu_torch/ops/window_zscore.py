@@ -17,7 +17,13 @@ clip keeps its own value.
 
 K7 replaces ``gymfx_tpu/ops/window_zscore.py::batched_scaled_windows``
 (pallas body ``_kernel``).  The kernel is ``scaled_windows_kernel`` in
-``csrc/data_kernels.cu``; its plain version is
+``csrc/data_kernels.cu``: persistent CTAs walk tiles of consecutive batch
+entries, staging each tile's moments and, where its window starts run
+consecutively (the export's steps), the union of its windows in shared
+memory, one tile ahead; a launch plan built once per shape
+(:func:`scaled_windows_tile`, :func:`_scaled_windows_plan`) sizes the
+tiles, and ``ops/cases.scaled_windows_tiling`` models the tiling on the
+CPU.  Its plain version is
 :func:`reference_scaled_windows`, the JAX package's function of the same
 name: for each step ``s`` the window ``padded_features[s : s+W]``, then
 ``where(neutral[s], 0, (win - mean[s]) / std[s])``, then the clip when
@@ -214,11 +220,91 @@ def reference_scaled_windows(padded_features, feat_mean, feat_std, feat_neutral,
     return scaled
 
 
+# K7's launch (csrc/data_kernels.cu scaled_windows_kernel): persistent
+# CTAs of K7_THREADS threads, each holding two tile buffers in at most
+# K7_SMEM_LIMIT bytes of shared memory.  A tile is up to K7_TILES[0]
+# (at most one step a thread) consecutive batch entries; the largest
+# tile whose buffers fit with the window span staged is taken (down to
+# K7_MIN_STAGED_TILE), else the largest without it.  F = K7_TEMPLATE_F
+# is compiled in; any other F takes magic numbers
+K7_THREADS = 256
+K7_TEMPLATE_F = 5
+K7_TILES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
+K7_MIN_STAGED_TILE = 8
+K7_SMEM_LIMIT = 48 * 1024
+_K7_CONSTANTS = (K7_THREADS, K7_TEMPLATE_F, 18)
+
+
+def scaled_windows_buffer(tile: int, w: int, f: int, staged: bool) -> Tuple[int, int]:
+    """(span floats, bytes) of one K7 tile buffer: the window span when
+    staged (T + W - 1 rows after up to 3 floats of lead, in whole
+    float4s), the (mean, std) pairs of T x F, and each step's window
+    start, moment row and neutral flag; the bytes in whole 16."""
+    span = -(-(3 + (tile + w - 1) * f) // 4) * 4 if staged else 0
+    return span, -(-(4 * span + 8 * tile * f + 12 * tile) // 16) * 16
+
+
+def scaled_windows_tile(w: int, f: int) -> Tuple[int, int, int]:
+    """(tile, span floats, buffer bytes) of K7 at window ``w`` and ``f``
+    features: the largest staged tile of at least K7_MIN_STAGED_TILE
+    entries whose two buffers fit K7_SMEM_LIMIT, else the largest
+    unstaged one."""
+    for staged, tiles in ((True, [t for t in K7_TILES if t >= K7_MIN_STAGED_TILE]),
+                          (False, K7_TILES)):
+        for tile in tiles:
+            span, size = scaled_windows_buffer(tile, w, f, staged)
+            if 2 * size <= K7_SMEM_LIMIT:
+                return tile, span, size
+    raise ValueError(f"batched_scaled_windows: {f} features do not fit the staged moments")
+
+
+def scaled_windows_grid(b: int, tile: int, sm_count: int, blocks_per_sm: int) -> Tuple[int, int]:
+    """(tiles, grid) of K7: the fewest rounds of tiles that at most
+    ``blocks_per_sm`` CTAs on every SM can walk, and the fewest CTAs that
+    walk them in that many rounds, so that every CTA takes the same
+    number of tiles, give or take one."""
+    tiles = -(-b // tile)
+    rounds = -(-tiles // (sm_count * blocks_per_sm))
+    return tiles, -(-tiles // rounds)
+
+
+@functools.lru_cache(maxsize=64)
+def _scaled_windows_plan(b: int, w: int, f: int, rows: int, m: int, clip: float,
+                         device: torch.device):
+    """K7's launch at one shape and clip, built once: a WinGeometry
+    (csrc/data_kernels.cu) as a C int array."""
+    if max(b, rows, m) + K7_TILES[0] >= 1 << 31:
+        raise ValueError(f"batched_scaled_windows: {b} steps, {rows} feature rows, {m} moment rows")
+    tile, span, size = scaled_windows_tile(w, f)
+    fq = w * f // 4
+    if tile * fq >= 1 << 31:
+        raise ValueError(f"batched_scaled_windows: a tile of {tile} faces of {w} x {f} is over 2^31")
+    lib = _build.load_library("data")
+    constants = (ctypes.c_int * 3)()
+    lib.gymfx_scaled_windows_constants(constants)
+    if tuple(constants) != _K7_CONSTANTS:
+        raise RuntimeError("batched_scaled_windows: launch geometry does not match the kernel source")
+    per_sm = lib.gymfx_scaled_windows_blocks_per_sm(int(f == K7_TEMPLATE_F), 2 * size)
+    if per_sm < 1:
+        raise RuntimeError("batched_scaled_windows: no CTA of the kernel fits an SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles, grid = scaled_windows_grid(b, tile, sms, per_sm)
+    clip_bits = struct.unpack("<i", struct.pack("<f", clip))[0]
+    return (ctypes.c_int * _K7_CONSTANTS[2])(
+        grid, tile, tiles, b, w, f, fq, *map(_as_c_int, magic(fq)), *map(_as_c_int, magic(f)),
+        span, size, rows - w, m - 1, clip_bits)
+
+
 def batched_scaled_windows(padded_features, feat_mean, feat_std, feat_neutral, steps, *,
                            window: int, clip: float = 10.0):
     """Scaled feature windows for a batch of steps, (B, window, F) f32:
     the kernel on CUDA tensors, the plain version on CPU tensors.  Like
-    the JAX function it refuses a window that is not a multiple of 8."""
+    the JAX function it refuses a window that is not a multiple of 8.
+    On CUDA tensors it also refuses, with ValueError, F over 3,070 (two
+    buffers of one step's (mean, std) pairs must fit the kernel's 48 KB
+    of shared memory), B, feature rows or moment rows of 2^31 - 256 or
+    more, and a tile's output of 2^33 floats or more (its int32 quad
+    index); the plain version and the JAX function take them."""
     if window % 8 != 0:
         raise ValueError("window must be a multiple of 8 (TPU sublane tiling)")
     device = padded_features.device
@@ -242,12 +328,12 @@ def batched_scaled_windows(padded_features, feat_mean, feat_std, feat_neutral, s
     out = torch.empty((b, window, f), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    lib = _build.load_library("data")
+    geometry = _scaled_windows_plan(b, window, f, rows, m, float(clip), device)
     _build.check_launch(
-        lib.gymfx_scaled_windows(
+        _build.load_library("data").gymfx_scaled_windows(
             padded_features.data_ptr(), feat_mean.data_ptr(), feat_std.data_ptr(),
-            feat_neutral.data_ptr(), steps.data_ptr(), out.data_ptr(), b, window, f, rows, m,
-            float(clip), torch.cuda.current_stream(device).cuda_stream,
+            feat_neutral.data_ptr(), steps.data_ptr(), out.data_ptr(), geometry,
+            _build.stream_handle(device),
         ),
         name,
     )

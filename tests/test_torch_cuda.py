@@ -12,10 +12,13 @@ route (tensor cores) is also held to the emulation of its rounding points
 in ops/cases.py within 2^-7 x max|emulation| (only the order of the f32
 sums differs, so the two round nearly the same value to bf16: at most one
 ulp of the largest element), and two backward calls must give the same
-bits.  K5 (LOB stream
+bits.  K3 also at N = 1, 63 and 8,193 with both rewards and mark_pred and
+live all true, all false and mixed.  K5 (LOB stream
 matching) is int32: books and fill records ``torch.equal``.  K6 (q16
 tape decode) and K7 (batched scaled windows) ``torch.equal`` (-fmad=false,
-IEEE division), also through a compressed tape's shard decode and a
+IEEE division; K7 NaN for NaN, over random, the export's and clamped
+steps, F 1-7, W 8-64 and a feature view 4 bytes off alignment, and at
+a batch where every CTA walks several tiles), also through a compressed tape's shard decode and a
 streamed episode on the card (pinned copies on a side stream), which
 must equal the CPU's.
 Every test needs an NVIDIA GPU and skips without one.  This file imports
@@ -133,6 +136,27 @@ def test_cuda_fill_brackets_equals_plain_at_edge_sizes(cuda_device, n, flags):
     assert env_dynamics.fill_brackets.launches == before + 1
     for name in ref._fields:
         assert torch.equal(getattr(ours, name), getattr(ref, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mark_kind,live_kind", cases.K3_FLAG_PATTERNS, ids="-".join)
+@pytest.mark.parametrize("reward", REWARDS)
+@pytest.mark.parametrize("n", K2_EDGE_SIZES)
+def test_cuda_mark_reward_equals_plain_at_edge_sizes(cuda_device, n, reward, mark_kind, live_kind):
+    cfg = flag_config(FLAG_GRID[0], reward)
+    params = env_params({**PARAM_SETS["plain"], **MARK_PARAMS}, cuda_device)
+    fields, mark, bars, _, rng = ledger_case(n + 1, n=n)
+    st = ledger_state(cfg, {**fields, **mark}, cuda_device)
+    c = torch.from_numpy(bars["c"]).to(cuda_device)
+    mark_pred, live = (torch.from_numpy(cases.flag_pattern(kind, n, rng)).to(cuda_device)
+                       for kind in (mark_kind, live_kind))
+    before = env_dynamics.mark_reward.launches
+    ours_st, ours_r = env_dynamics.mark_reward(st, c, mark_pred, live, cfg, params)
+    assert env_dynamics.mark_reward.launches == before + 1
+    ref_st, ref_r = env_dynamics.mark_reward_plain(st, c, mark_pred, live, cfg, params)
+    assert torch.equal(ours_r, ref_r)
+    for name in env_dynamics.MARK_OUT_FIELDS:
+        assert torch.equal(getattr(ours_st, name), getattr(ref_st, name)), name
 
 
 @pytest.mark.cuda
@@ -344,16 +368,64 @@ def test_cuda_q16_decode_equals_plain(cuda_device, rows):
                        tape_decode.decode_q16_plain(odd, base, inv))
 
 
+# K7: the seeded cases, then F 1, 3, 5, 7 at W 8, 32, 64 (ops/cases.py)
+K7_CASES = [(0, 8, 3), (1, 32, 5), (2, 16, 1)] + [
+    (10 + i, w, f) for i, (w, f) in enumerate((w, f) for w in (8, 32, 64) for f in (1, 3, 5, 7))]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "4_bytes_off"])
+@pytest.mark.parametrize("steps", cases.K7_STEP_PATTERNS)
 @pytest.mark.parametrize("clip", [10.0, 0.0, 1.5])
-@pytest.mark.parametrize("seed,window,f", [(0, 8, 3), (1, 32, 5), (2, 16, 1)])
-def test_cuda_scaled_windows_equals_plain(cuda_device, seed, window, f, clip):
+@pytest.mark.parametrize("seed,window,f", K7_CASES)
+def test_cuda_scaled_windows_equals_plain(cuda_device, seed, window, f, clip, steps, offset):
+    # steps: random in [0, n]; the export's 1..n (300 steps: a ragged last
+    # tile); clamped below 0 and above n.  offset: padded_features a view
+    # 4 bytes past a 16-byte boundary
     args = [torch.from_numpy(x).to(cuda_device)
-            for x in cases.scaled_windows_case(seed, window=window, f=f)]
+            for x in cases.scaled_windows_case(seed, window=window, f=f, steps=steps)]
+    if offset:
+        buf = torch.empty(args[0].numel() + 4, device=cuda_device)
+        args[0] = buf[offset:offset + args[0].numel()].view(args[0].shape).copy_(args[0])
+        assert args[0].data_ptr() % 16 == 4 * offset
     before = window_zscore.batched_scaled_windows.launches
     ours = window_zscore.batched_scaled_windows(*args, window=window, clip=clip)
     assert window_zscore.batched_scaled_windows.launches == before + 1
     ref = window_zscore.reference_scaled_windows(*args, window=window, clip=clip)
+    assert torch.equal(ours.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(ours), torch.nan_to_num(ref))
+
+
+# K7 at a batch whose tiles outnumber twice the CTAs of the persistent
+# grid, so that every CTA walks at least two tiles through both buffers
+K7_MANY_TILES = 600_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "4_bytes_off"])
+@pytest.mark.parametrize("steps", ["export", "turns"])
+@pytest.mark.parametrize("f", [3, 5])
+def test_cuda_scaled_windows_equals_plain_when_each_cta_walks_several_tiles(cuda_device, f, steps,
+                                                                            offset):
+    # steps: the export's 1..n (every tile staged, the last one ragged), or
+    # turns alternating staged tiles and tiles of scattered and clamped
+    # steps (cases.scaled_windows_turn_steps); offset: the span's lead
+    # changes from tile to tile
+    n = K7_MANY_TILES
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in cases.scaled_windows_case(f, n=n, window=32, f=f, steps="export")]
+    geometry = window_zscore._scaled_windows_plan(n, 32, f, args[0].shape[0], args[1].shape[0],
+                                                  10.0, cuda_device)
+    grid, tile, tiles = geometry[0], geometry[1], geometry[2]
+    assert tiles >= 2 * grid and n % tile
+    if steps == "turns":
+        args[4] = torch.from_numpy(cases.scaled_windows_turn_steps(n, tile, grid, seed=f)).to(
+            cuda_device)
+    if offset:
+        buf = torch.empty(args[0].numel() + 4, device=cuda_device)
+        args[0] = buf[offset:offset + args[0].numel()].view(args[0].shape).copy_(args[0])
+    ours = window_zscore.batched_scaled_windows(*args, window=32, clip=10.0)
+    ref = window_zscore.reference_scaled_windows(*args, window=32, clip=10.0)
     assert torch.equal(ours.isnan(), ref.isnan())
     assert torch.equal(torch.nan_to_num(ours), torch.nan_to_num(ref))
 

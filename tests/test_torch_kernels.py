@@ -377,6 +377,45 @@ def test_fill_outputs_are_contiguous_disjoint_rows_of_three_blocks():
     assert all(t.numel() == 0 for t in outs0.values())
 
 
+# ---------------------------------------------------------------- K3's launch path
+def test_mark_threads_and_pointers_match_the_kernel_source():
+    import pathlib
+    import re
+
+    src = (pathlib.Path(env_dynamics.__file__).resolve().parent.parent / "csrc"
+           / "env_kernels.cu").read_text()
+    threads = int(re.search(r"constexpr int kMarkThreads = (\d+);", src).group(1))
+    assert env_dynamics.MARK_THREADS == threads == 64
+    # the flagship's 8,192 envs reach 128 of the H100's 132 SMs, one CTA each
+    assert -(-8192 // threads) == 128
+    counts = {"kNumMarkIn": len(env_dynamics.MARK_FLOAT_FIELDS),
+              "kNumMarkOut": len(env_dynamics.MARK_OUT_FIELDS),
+              "kNumMarkParams": len(env_dynamics.MARK_PARAM_FIELDS)}
+    for enum, n in counts.items():
+        body = re.search(r"enum \w+ \{([^}]*)\b" + enum + r"\b", src).group(1)
+        assert body.count(",") == n, enum
+    # MarkArgs: inputs, close, mark, live, outputs, reward, params
+    assert env_dynamics.MARK_POINTERS == sum(counts.values()) + 3 + 1 == 21
+
+
+def test_mark_outputs_are_contiguous_disjoint_rows_of_one_block():
+    n = 37
+    block, rows = env_dynamics.mark_outputs(n, "cpu")
+    assert block.dtype == torch.float32 and tuple(block.shape) == (7, n)
+    assert len(rows) == len(env_dynamics.MARK_OUTPUTS) == 7
+    assert env_dynamics.MARK_OUTPUTS[:6] == env_dynamics.MARK_OUT_FIELDS
+    for k, t in enumerate(rows):
+        assert t.dtype == torch.float32 and tuple(t.shape) == (n,) and t.is_contiguous()
+        assert t.data_ptr() == block.data_ptr() + k * n * 4  # row k of the block
+    spans = sorted((t.data_ptr(), t.data_ptr() + 4 * n) for t in rows)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))  # no two overlap
+    for k, t in enumerate(rows):
+        t.fill_(float(k))
+    assert [float(t.sum()) for t in rows] == [float(k * n) for k in range(7)]
+    _, empty = env_dynamics.mark_outputs(0, "cpu")
+    assert len(empty) == 7 and all(t.numel() == 0 for t in empty)
+
+
 def test_fill_flags_encode_the_kernel_flag_word_once_per_config():
     for flags in FLAG_GRID:
         slip_open, slip_limit, slip_match, financing, limit_fill, collision = flags
