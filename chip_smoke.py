@@ -82,32 +82,48 @@ failure exits non-zero:
 4. main     PPO training at flagship width: 8,192 bar-venue envs, window
             32, OHLCV features (F=5, obs dim 164), the 3x256 tanh MLP in
             bf16 with weights from torch.Generator(seed), horizon 64, one
-            epoch of 4 env-permuted minibatches; three train steps
-            (rollout phase, then update phase, each timed).  K1/K2/K3
-            must each launch exactly 64 times a step, losses must be
-            finite, no update skipped, the params must move; one rollout
-            phase re-run with the plain versions on the card must give
-            the same env states, trajectory and bootstrap value
-            (torch.equal).
+            epoch of 4 env-permuted minibatches; three train steps through
+            PPOTrainer.train_step, each timed: the first captures the
+            rollout and update phases as CUDA graphs (core/graphs.py),
+            every later one replays them.  K1/K2/K3 must each count 64
+            launches a phase at capture (x4: three warm-ups and the
+            capture; a replay moves no count), and a torch.profiler trace
+            of one replay must show each 64 times by kernel name and the
+            update none; losses finite, no update skipped, the params must
+            move; step 1's rollout phase replayed from the graph must
+            equal the same phase op by op with the plain versions on the
+            card (torch.equal).  Then graphed against eager
+            (torch.equal, the generator's state included): one rollout
+            phase, one update phase (params, Adam state, metrics,
+            quarantined envs), and train_many (k = 3) against three eager
+            train steps, from one saved state; capture seconds, graphed
+            and eager phase ms (medians of steps 2-3) and env steps/s.
 5. long     PPO training in the long-context configuration
             (config/flagship.long_context_config: transformer_ring,
             d_model 128, 4 heads, 2 layers, window 256, 256 envs, bf16),
-            two train steps.  K4 must launch 130 forwards per rollout
+            two graphed train steps.  K4 must count 130 forwards a rollout
             phase (65 policy forwards x 2 layers) plus 8 forwards and 8
-            backwards per update (4 minibatches x 2 layers), K1-K3 once
-            per env step; losses finite, no update skipped.  Then one
-            update phase from the saved state with fixed permutations,
-            once through K4 and once with its plain versions on the card
-            (which must launch no K4): loss and value loss within rtol
+            backwards an update (4 minibatches x 2 layers), K1-K3 64, at
+            capture (x4) and in the profiler trace of one replay; losses
+            finite, no update skipped.  Then one update phase from the
+            saved state with fixed permutations, once replayed through K4
+            (the permutations copied into a graph of their own) and once
+            op by op with its plain versions on the card (which must
+            launch no K4): loss and value loss within rtol
             1e-2, entropy within rtol 1e-3, policy loss within atol 1e-3
             (it is a mean of terms near zero), gradient global norm
             within rtol 5e-2 — the attention outputs differ by bf16
-            rounding flips, which the bf16 network carries on.
+            rounding flips, which the bf16 network carries on.  Then
+            graphed against eager as in main.
 6. lob      PPO training on the LOB venue at flagship width
             (config/flagship.lob_config, "flagship-lob-train": 8,192 envs,
             lob_volatile flow, 64 messages per bar, direct_fixed_sltp,
-            40-lot entries), two train steps (one if a rollout phase
-            takes over 60 s).  Per rollout phase K5, K1 and K3 must launch
+            40-lot entries), one train step (a rollout phase takes
+            ~35 s), then the update replayed once more, timed.  The
+            rollout runs eagerly on this venue (its step is ~35,000
+            eager kernels: ROADMAP item 24) and the update from its
+            graph; which phases ran graphed is printed.
+            Per rollout phase K5, K1 and K3 must launch
             64 times each and K2 never; the update launches none of them;
             losses finite, no update skipped.  One rollout phase re-run
             with the plain versions of K1, K3 and K5 on the card must give
@@ -115,8 +131,8 @@ failure exits non-zero:
             (torch.equal).
 7. episode  Environment.rollout with the buy_hold driver, 1 env, on the
             card: 400 bar-venue steps (K2 and K3 400 launches, K1 401: the
-            reset builds an obs too) and 100 LOB-venue steps (K5 and K3
-            100, K1 101, K2 none); each episode must equal the same
+            reset builds an obs too) and 50 LOB-venue steps (K5 and K3
+            50, K1 51, K2 none); each episode must equal the same
             episode on the CPU.
 8. curriculum  four M1 tapes of 2^18 bars (EUR/USD-, GBP/USD-, AUD/USD-
             and NZD/USD-like random walks in whole 1e-5 ticks, OHLCV,
@@ -128,12 +144,16 @@ failure exits non-zero:
             equal the direct f32 build and the plain decode (torch.equal,
             every field); codec report, ratios and byte report printed; K6
             timed at a pick's group beside the int16 stack before it.
-            PPOTrainer.train runs 4 supersteps (K=1): 4 picks, at least one
-            compressed; K2 and K3 64 launches a step, K1 66 (also the
-            random-start bank's obs and the active tape's fresh reset), K6
-            exactly its q16 groups per compressed pick and never for tape
-            0; losses finite, no update skipped.  One rollout phase on a compressed tape, re-run
-            with the plain decode and plain K1-K3, must be torch.equal.
+            PPOTrainer.train runs 4 supersteps (K=1), graphed: 4 picks, at
+            least one compressed, each copied into one staging tape, so
+            one graph a phase serves every tape; K2 and K3 64 a replay, K1
+            66 (65 in the rollout: also the random-start bank's obs; 1 in
+            the update: the active tape's fresh reset), at capture (x4) and
+            in the profiler trace of one replay; K6 exactly its q16 groups
+            per compressed pick and never for tape 0; losses finite, no
+            update skipped.  One graphed rollout phase on a compressed
+            tape, re-run op by op with the plain decode and plain K1-K3,
+            must be torch.equal; then graphed against eager as in main.
 9. export   export_scaled_features on one tape for 262,143 steps:
             (262,143, 32, 5) f32 through one K7 launch; the saved array
             must equal the plain version's bitwise; K7 timed at that
@@ -173,10 +193,11 @@ WINDOW = 32
 HORIZON = 64
 TRAIN_STEPS = 3
 LONG_STEPS = 2
-LOB_STEPS = 2
-LOB_SLOW_ROLLOUT_S = 60.0
+LOB_STEPS = 1
 EPISODE_STEPS = 400
-LOB_EPISODE_STEPS = 100
+# the eager LOB step takes ~0.4 s on the card; the episode's first trade
+# closes at step 1
+LOB_EPISODE_STEPS = 50
 # the data path: four M1 tapes of 2^18 bars (about 8 months of an FX
 # trading week's grid), generated from SEED as random walks in whole
 # 1e-5 ticks at these pairs' levels
@@ -217,6 +238,11 @@ SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "process_stream": "gymfx_tpu_torch/csrc/lob_kernels.cu",
            "decode_q16_block": "gymfx_tpu_torch/csrc/data_kernels.cu",
            "batched_scaled_windows": "gymfx_tpu_torch/csrc/data_kernels.cu"}
+# kernel-name patterns in a profiler trace of one graph replay (K4's
+# backward counted by its dQ kernel, one a bf16 backward call)
+KERNEL_NAMES = {"step_obs": "step_obs", "fill_brackets": "fill_brackets_kernel",
+                "mark_reward": "mark_reward_kernel", "attention_forward": "attn_fwd",
+                "attention_backward": "attn_bwd_dq"}
 # K5 cases: the bench.py --lob shape and its depth sweep
 LOB_BOOKS, LOB_MSGS, LOB_DEPTHS, LOB_SLOTS = 1024, 256, (8, 16, 24, 48), 4
 # K5's templates: (levels a lane, queue slots), depth 1-32 -> 1, 33-64 -> 2
@@ -968,23 +994,150 @@ def count_launches(fns) -> dict:
     return {fn.__name__: fn.launches for fn in fns}
 
 
-def train(torch, trainer, state, steps: int):
-    """``steps`` train steps, each a rollout phase then an update phase,
-    timed apart; returns (state, per-step rows, first step's rollout)."""
-    rows, first = [], None
-    for i in range(steps):
+def train(torch, trainer, state, steps: int, data=None):
+    """``steps`` train steps through ``trainer.train_step`` (on the card:
+    the rollout and update graphs, captured at the first), each timed;
+    returns (state, per-step rows)."""
+    rows = []
+    for _ in range(steps):
         t0 = time.perf_counter()
-        inter, rollout_out = trainer.rollout_phase(state)
+        state, metrics = trainer.train_step(state, data)
         torch.cuda.synchronize()
+        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                         metrics={k: float(v) for k, v in metrics.items()}))
+    return state, rows
+
+
+def copy_state(torch, state):
+    """A TrainState's tensors cloned, with a generator of its own at the
+    same state."""
+    from gymfx_tpu_torch.core import graphs
+
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return type(state)(*graphs.clone_tree(tuple(state[:4])), gen)
+
+
+def check_same(torch, a, b, what: str) -> None:
+    """Every leaf of two trees torch.equal."""
+    from gymfx_tpu_torch.resilience.guards import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"{what}: graphed and eager differ in structure")
+    bad = [i for i, (x, y) in enumerate(zip(la, lb)) if not torch.equal(x, y)]
+    check(not bad, f"{what}: graphed != eager (torch.equal) at leaves {bad[:8]} of {len(la)}")
+
+
+def check_same_state(torch, a, b, what: str) -> None:
+    check_same(torch, tuple(a[:4]), tuple(b[:4]), what)
+    check(torch.equal(a.generator.get_state(), b.generator.get_state()),
+          f"{what}: generator state graphed != eager")
+
+
+def capture_seconds(trainer) -> dict:
+    """Warm-up and capture seconds of each of the trainer's graphs."""
+    return {f"{key[0]}{'' if i < 2 else i}": graph.capture_s
+            for i, (key, graph) in enumerate(trainer._graphs.items())}
+
+
+def replay_launches(torch, trainer, kinds=("rollout", "update")) -> dict:
+    """Kernel launches of one replay of the trainer's first graph of each
+    kind, counted by kernel name in a torch.profiler trace: {kind: {kernel
+    key: count, "all": every kernel}}.  The replays overwrite the graphs'
+    static outputs."""
+    out = {}
+    for kind in kinds:
+        graph = next(g for key, g in trainer._graphs.items() if key[0] == kind)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph.graph.replay()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        out[kind] = {key: sum(pattern in n for n in names) for key, pattern in KERNEL_NAMES.items()}
+        out[kind]["all"] = len(names)
+    return out
+
+
+def check_replays(traced: dict, expected: dict, label: str) -> None:
+    for kind, counts in expected.items():
+        got = {k: v for k, v in traced[kind].items() if k != "all"}
+        check(got == counts, f"{label}: one {kind} replay launched {got} (profiler trace), "
+              f"expected {counts}")
+
+
+def graphed_vs_eager(torch, trainer, state, data, label: str, steps: int = 3) -> dict:
+    """From copies of ``state`` (its generator state included): one graphed
+    rollout phase, one graphed update phase and ``train_many`` (k =
+    ``steps``) against the same run op by op (``_rollout_phase_eager``,
+    ``_update_phase_eager``), torch.equal on every output and on the
+    generator state after; then each phase timed, graphed and eager, over
+    ``steps`` steps (medians of steps 2 on), and the chain's rate."""
+    sync = torch.cuda.synchronize
+    n, h = trainer.pcfg.n_envs, trainer.pcfg.horizon
+    a, b = copy_state(torch, state), copy_state(torch, state)
+    ga, ra = trainer.rollout_phase(a, data)
+    gb, rb = trainer._rollout_phase_eager(b, data)
+    check_same(torch, ra, rb, f"{label} rollout phase (trajectory, bootstrap value)")
+    check_same_state(torch, ga, gb, f"{label} rollout phase (env states, obs_vec)")
+    ua, ma = trainer.update_phase(ga, ra, data)
+    ub, mb = trainer._update_phase_eager(gb, rb, data)
+    check_same_state(torch, ua, ub, f"{label} update phase (params, Adam state, quarantined envs)")
+    check_same(torch, ma, mb, f"{label} update phase metrics")
+    start = copy_state(torch, ub)
+    many_in = copy_state(torch, start)
+    sync()
+    t0 = time.perf_counter()
+    many, stacked = trainer.train_many_with_data(many_in, data, steps)
+    sync()
+    many_ms = (time.perf_counter() - t0) * 1e3
+    ref, history, eager, graphed = copy_state(torch, start), [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        inter, rollout_out = trainer._rollout_phase_eager(ref, data)
+        sync()
         t1 = time.perf_counter()
-        state, metrics = trainer.update_phase(inter, rollout_out)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        if i == 0:
-            first = (inter, rollout_out)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        rows.append(dict(rollout_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3, metrics=metrics))
-    return state, rows, first
+        ref, metrics = trainer._update_phase_eager(inter, rollout_out, data)
+        sync()
+        eager.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        history.append(metrics)
+    check_same_state(torch, many, ref, f"{label} train_many (k = {steps}) vs {steps} eager steps")
+    check_same(torch, stacked, {k: torch.stack([m[k] for m in history]) for k in stacked},
+               f"{label} train_many metrics")
+    s = copy_state(torch, start)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        inter, rollout_out = trainer.rollout_phase(s, data)
+        sync()
+        t1 = time.perf_counter()
+        s, _ = trainer.update_phase(inter, rollout_out, data)
+        sync()
+        graphed.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+
+    def medians(rows):
+        steady = rows[1:] or rows
+        return (statistics.median(r for r, _ in steady), statistics.median(u for _, u in steady))
+
+    g_r, g_u = medians(graphed)
+    e_r, e_u = medians(eager)
+    out = {
+        "capture_s": capture_seconds(trainer),
+        "graphed_rollout_ms": [r for r, _ in graphed], "graphed_update_ms": [u for _, u in graphed],
+        "eager_rollout_ms": [r for r, _ in eager], "eager_update_ms": [u for _, u in eager],
+        "train_many_ms": many_ms,
+        "graphed_env_steps_per_s": n * h / (g_r + g_u) * 1e3,
+        "eager_env_steps_per_s": n * h / (e_r + e_u) * 1e3,
+        "train_many_env_steps_per_s": n * h * steps / many_ms * 1e3,
+    }
+    print(f"{label} graphed == eager on the card (torch.equal, generator state included): one "
+          f"rollout phase, one update phase, train_many (k = {steps}) vs {steps} eager steps")
+    print(f"  {label} capture s (warm-up and capture) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out["capture_s"].items())
+          + f"; rollout ms graphed {g_r:.2f} vs eager {e_r:.2f}, update ms graphed {g_u:.2f} vs "
+          f"eager {e_u:.2f} (medians of steps 2-{steps}); env steps/s graphed "
+          f"{out['graphed_env_steps_per_s']:,.0f} vs eager {out['eager_env_steps_per_s']:,.0f}; "
+          f"train_many (k = {steps}) {many_ms:.1f} ms, "
+          f"{out['train_many_env_steps_per_s']:,.0f} env steps/s")
+    return out
 
 
 def check_training(rows, label: str) -> None:
@@ -996,6 +1149,7 @@ def check_training(rows, label: str) -> None:
 
 
 def report_training(rows, n_envs: int, horizon: int, label: str) -> dict:
+    """The eagerly driven LOB loop's rows: rollout and update apart."""
     steady = rows[1:] or rows
     rollout = statistics.median(r["rollout_ms"] for r in steady)
     update = statistics.median(r["update_ms"] for r in steady)
@@ -1011,12 +1165,29 @@ def report_training(rows, n_envs: int, horizon: int, label: str) -> dict:
           f"{', '.join(f'{u:.1f}' for u in summary['update_ms'])} ms; "
           f"{summary['train_env_steps_per_s']:,.0f} env steps/s through rollout + update, "
           f"{summary['rollout_env_steps_per_s']:,.0f} through the rollout alone "
-          f"(medians of steps 2-{len(rows)}); losses {losses}")
+          f"({'medians of steps 2-%d' % len(rows) if len(rows) > 1 else 'step 1'}); "
+          f"losses {losses}")
+    return summary
+
+
+def report_steps(rows, n_envs: int, horizon: int, label: str) -> dict:
+    """Graphed train steps' rows: step ms (the first captures the graphs)."""
+    steady = rows[1:] or rows
+    step = statistics.median(r["step_ms"] for r in steady)
+    summary = dict(step_ms=[r["step_ms"] for r in rows],
+                   train_env_steps_per_s=n_envs * horizon / step * 1e3,
+                   metrics=[r["metrics"] for r in rows])
+    losses = ", ".join(f"{r['metrics']['loss']:.5f}" for r in rows)
+    print(f"{label}: {len(rows)} graphed train steps of {horizon} steps x {n_envs} envs: "
+          f"{', '.join(f'{r:.1f}' for r in summary['step_ms'])} ms (the first captures); "
+          f"{summary['train_env_steps_per_s']:,.0f} env steps/s (median of steps 2-{len(rows)}); "
+          f"losses {losses}")
     return summary
 
 
 def main_phase(torch, kernels, results) -> None:
     from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
     from gymfx_tpu_torch.ops import env_dynamics, fused_attention, lob_match, window_zscore
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
@@ -1035,28 +1206,41 @@ def main_phase(torch, kernels, results) -> None:
     for fn in (*counted, fused_attention.attention_forward, fused_attention.attention_backward,
                lob_match.process_stream):
         fn.launches = 0
-    state, rows, (inter, (traj, last_value)) = train(torch, trainer, state, TRAIN_STEPS)
+    state, rows = train(torch, trainer, state, TRAIN_STEPS)
     launches = count_launches(counted)
+    # the counts move where a wrapper launches into the warm-ups and into
+    # the capture; a replay moves none
+    per_phase = {"step_obs": HORIZON, "fill_brackets": HORIZON, "mark_reward": HORIZON}
+    runs = graphs.WARMUP + 1
+    check(launches == {k: runs * v for k, v in per_phase.items()},
+          f"main path launched {launches} at capture, expected {runs} x {per_phase}")
     for key, count in launches.items():
-        check(count == TRAIN_STEPS * HORIZON,
-              f"main path launched {key} {count} times, expected {TRAIN_STEPS * HORIZON}")
         kernels[key]["launches"] = count
     check(fused_attention.attention_forward.launches == 0, "the MLP path launched K4")
     check(lob_match.process_stream.launches == 0, "the bar venue launched K5")
+    check(sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"],
+          f"main path graphs {[k for k, *_ in trainer._graphs]}")
     check_training(rows, "main")
     check(any(not torch.equal(state.params[k], start[k]) for k in start), "the params did not move")
-    check(tuple(traj["obs"].shape) == (HORIZON, N_ENVS, 164) and traj["obs"].dtype == torch.bfloat16,
-          "trajectory obs shape/dtype")
-    for key in ("obs", "logp", "value", "reward"):
-        check(bool(torch.isfinite(traj[key]).all()), f"non-finite trajectory {key}")
     for field in ("pos", "cash_delta", "equity_delta", "entry_price", "max_drawdown_pct"):
         check(bool(torch.isfinite(getattr(state.env_states, field)).all()), f"non-finite state {field}")
     trades = int(state.env_states.trade_count.sum())
     check(trades > 0, "the policy made no trade")
-    summary = report_training(rows, N_ENVS, HORIZON, "main path")
-    print(f"  launches {launches}; {trades} closed trades")
+    state = copy_state(torch, state)
+    summary = report_steps(rows, N_ENVS, HORIZON, "main path")
+    traced = replay_launches(torch, trainer)
+    check_replays(traced, {"rollout": {**per_phase, "attention_forward": 0, "attention_backward": 0},
+                           "update": {k: 0 for k in KERNEL_NAMES}}, "main path")
+    print(f"  launches at capture {launches} ({runs} runs: {graphs.WARMUP} warm-ups and the "
+          f"capture); one replay by the profiler trace {traced}; {trades} closed trades")
 
-    # the first rollout phase again, with the plain versions on the card
+    # step 1's rollout phase, replayed from the graph, against the same
+    # phase op by op with the plain versions on the card
+    inter, (traj, last_value) = trainer.rollout_phase(trainer.init_state(SEED))
+    check(tuple(traj["obs"].shape) == (HORIZON, N_ENVS, 164) and traj["obs"].dtype == torch.bfloat16,
+          "trajectory obs shape/dtype")
+    for key in ("obs", "logp", "value", "reward"):
+        check(bool(torch.isfinite(traj[key]).all()), f"non-finite trajectory {key}")
     kernel_fns = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
     env_dynamics.fill_brackets = env_dynamics.fill_brackets_plain
     env_dynamics.mark_reward = env_dynamics.mark_reward_plain
@@ -1064,7 +1248,7 @@ def main_phase(torch, kernels, results) -> None:
         window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
     try:
         t0 = time.perf_counter()
-        ref_state, (ref_traj, ref_last) = trainer.rollout_phase(trainer.init_state(SEED))
+        ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(trainer.init_state(SEED))
         torch.cuda.synchronize()
         plain_phase_s = time.perf_counter() - t0
     finally:
@@ -1076,18 +1260,20 @@ def main_phase(torch, kernels, results) -> None:
         check(torch.equal(getattr(inter.env_states, field), getattr(ref_state.env_states, field)),
               f"main path vs plain versions: env state {field}")
     check(torch.equal(last_value, ref_last), "main path vs plain versions: bootstrap value")
-    print(f"main path == plain versions on the card (rollout phase of step 1, torch.equal); "
-          f"plain phase {plain_phase_s * 1e3:.1f} ms")
+    print(f"main path (graphed) == plain versions op by op on the card (rollout phase of step 1, "
+          f"torch.equal); plain phase {plain_phase_s * 1e3:.1f} ms")
+    compared = graphed_vs_eager(torch, trainer, state, None, "main path")
     results["main_path"] = {
         "n_envs": N_ENVS, "horizon": HORIZON, "window": WINDOW, "obs_dim": 164,
         "policy": "mlp 3x256 tanh bf16", "update": "1 epoch x 4 env-permuted minibatches",
-        **summary, "plain_rollout_ms": plain_phase_s * 1e3, "launches": launches,
-        "closed_trades": trades,
+        **summary, "plain_rollout_ms": plain_phase_s * 1e3, "launches_at_capture": launches,
+        "replay_launches": traced, "graphed_vs_eager": compared, "closed_trades": trades,
     }
 
 
 def long_phase(torch, kernels, results) -> None:
     from gymfx_tpu_torch.config.flagship import long_context_config
+    from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
     from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
@@ -1105,31 +1291,38 @@ def long_phase(torch, kernels, results) -> None:
                fused_attention.attention_forward, fused_attention.attention_backward)
     for fn in counted:
         fn.launches = 0
-    state, rows, _ = train(torch, trainer, state, LONG_STEPS)
+    state, rows = train(torch, trainer, state, LONG_STEPS)
     launches = count_launches(counted)
-    expected = {
-        "step_obs": LONG_STEPS * horizon, "fill_brackets": LONG_STEPS * horizon,
-        "mark_reward": LONG_STEPS * horizon,
-        # per step: (horizon + 1) policy forwards in the rollout, one per
-        # minibatch in the update, each through every layer
-        "attention_forward": LONG_STEPS * layers * ((horizon + 1) + mbs * pcfg.epochs),
-        "attention_backward": LONG_STEPS * layers * mbs * pcfg.epochs,
-    }
-    check(launches == expected, f"long path launched {launches}, expected {expected}")
-    check(expected["attention_forward"] == LONG_STEPS * (130 + 8)
-          and expected["attention_backward"] == LONG_STEPS * 8, "K4 launch arithmetic")
+    # per replay: (horizon + 1) policy forwards in the rollout, one per
+    # minibatch in the update, each through every layer
+    rollout = {"step_obs": horizon, "fill_brackets": horizon, "mark_reward": horizon,
+               "attention_forward": layers * (horizon + 1), "attention_backward": 0}
+    update = {"step_obs": 0, "fill_brackets": 0, "mark_reward": 0,
+              "attention_forward": layers * mbs * pcfg.epochs,
+              "attention_backward": layers * mbs * pcfg.epochs}
+    check(rollout["attention_forward"] == 130 and update["attention_forward"] == 8
+          and update["attention_backward"] == 8, "K4 launch arithmetic")
+    runs = graphs.WARMUP + 1
+    expected = {k: runs * (rollout[k] + update[k]) for k in rollout}
+    check(launches == expected, f"long path launched {launches} at capture, expected {expected}")
     for key in ("attention_forward", "attention_backward"):
         kernels[key]["launches"] = launches[key]
     check_training(rows, "long")
-    summary = report_training(rows, n, horizon, "long path")
-    print(f"  launches {launches}")
+    state = copy_state(torch, state)
+    summary = report_steps(rows, n, horizon, "long path")
+    traced = replay_launches(torch, trainer)
+    check_replays(traced, {"rollout": rollout, "update": update}, "long path")
+    print(f"  launches at capture {launches} ({runs} runs); one replay by the profiler trace "
+          f"{traced}")
 
-    # one update phase from the saved state, through K4 and through its
-    # plain versions on the card
+    # one update phase from the saved state: replayed from a graph through
+    # K4, and op by op through K4's plain versions on the card
     inter, rollout_out = trainer.rollout_phase(state)
     gen = torch.Generator(device=trainer.device).manual_seed(SEED)
     perms = torch.stack([torch.randperm(n, generator=gen, device=trainer.device)
                          for _ in range(pcfg.epochs)])
+    trainer.update_phase(inter, rollout_out, permutations=perms)  # captures the hook's graph
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, k4_metrics = trainer.update_phase(inter, rollout_out, permutations=perms)
     torch.cuda.synchronize()
@@ -1140,7 +1333,7 @@ def long_phase(torch, kernels, results) -> None:
     fused_attention.attention_backward = fused_attention.attention_backward_plain
     try:
         t0 = time.perf_counter()
-        _, plain_metrics = trainer.update_phase(inter, rollout_out, permutations=perms)
+        _, plain_metrics = trainer._update_phase_eager(inter, rollout_out, permutations=perms)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
     finally:
@@ -1153,15 +1346,18 @@ def long_phase(torch, kernels, results) -> None:
                             ("policy_loss", 0.0, 1e-3), ("grad_norm", 5e-2, 0.0)):
         check(abs(k4m[key] - pm[key]) <= atol + rtol * abs(pm[key]),
               f"long update through K4 vs plain attention: {key} {k4m[key]} vs {pm[key]}")
-    print(f"long update through K4 vs plain attention on the card: "
+    print(f"long update through K4 (graphed) vs plain attention (eager) on the card: "
           + ", ".join(f"{k} {k4m[k]:.6g} vs {pm[k]:.6g}"
                       for k in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm"))
           + f"; update {k4_s * 1e3:.1f} ms vs {plain_s * 1e3:.1f} ms")
+    compared = graphed_vs_eager(torch, trainer, state, None, "long path")
     results["long_context"] = {
         "n_envs": n, "horizon": horizon, "window": 256,
         "policy": "transformer_ring d_model 128, 4 heads, 2 layers, bf16",
-        **summary, "launches": launches, "k4_vs_plain_update": {"k4": k4m, "plain": pm},
+        **summary, "launches_at_capture": launches, "replay_launches": traced,
+        "k4_vs_plain_update": {"k4": k4m, "plain": pm},
         "k4_update_ms": k4_s * 1e3, "plain_update_ms": plain_s * 1e3,
+        "graphed_vs_eager": compared,
     }
 
 
@@ -1183,9 +1379,8 @@ def lob_phase(torch, kernels, results) -> None:
                lob_match.process_stream)
     per_phase = {"step_obs": HORIZON, "fill_brackets": 0, "mark_reward": HORIZON,
                  "process_stream": HORIZON}
-    rows, first, steps, k5_launches = [], None, LOB_STEPS, 0
-    i = 0
-    while i < steps:
+    rows, first, k5_launches = [], None, 0
+    for i in range(LOB_STEPS):
         for fn in counted:
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1201,13 +1396,19 @@ def lob_phase(torch, kernels, results) -> None:
         check(count_launches(counted) == launches, "the LOB update phase launched an env kernel")
         if i == 0:
             first = (inter, rollout_out)
-            if t1 - t0 > LOB_SLOW_ROLLOUT_S:
-                steps = 1
         rows.append(dict(rollout_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3,
                          metrics={k: float(v) for k, v in metrics.items()}))
-        i += 1
     kernels["process_stream"]["launches"] = k5_launches
+    # the first update captured its graph: one more replay, timed
+    t0 = time.perf_counter()
+    trainer.update_phase(*first)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
     check_training(rows, "lob")
+    graphed = sorted(k for k, *_ in trainer._graphs)
+    check(graphed == ["update"], f"LOB venue graphs {graphed}: expected the update phase's only")
+    print(f"lob path phases: update graphed (capture {capture_seconds(trainer)} s, a replay "
+          f"{replay_ms:.1f} ms), rollout eager (the LOB venue by configuration, ROADMAP item 24)")
     traj, last_value = first[1]
     for key in ("obs", "logp", "value", "reward"):
         check(bool(torch.isfinite(traj[key]).all()), f"LOB non-finite trajectory {key}")
@@ -1252,6 +1453,8 @@ def lob_phase(torch, kernels, results) -> None:
                 "depth": cfg.lob_depth_levels, "slots": cfg.lob_queue_slots},
         "train_steps": len(rows), **summary, "plain_rollout_ms": plain_phase_s * 1e3,
         "launches_per_rollout_phase": per_phase, "closed_trades": trades,
+        "graphed_phases": graphed, "capture_s": capture_seconds(trainer),
+        "update_replay_ms": replay_ms,
     }
 
 
@@ -1319,6 +1522,7 @@ def episode_phase(torch, results) -> None:
 
 def curriculum_phase(torch, dev, kernels, results, paths) -> None:
     from gymfx_tpu_torch.config.flagship import curriculum_config
+    from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
     from gymfx_tpu_torch.data import compress as C
     from gymfx_tpu_torch.data import tapes as tapes_mod
@@ -1409,31 +1613,45 @@ def curriculum_phase(torch, dev, kernels, results, paths) -> None:
     state, metrics = trainer.train(CURRICULUM_SUPERSTEPS * N_ENVS * HORIZON, seed=SEED)
     launches = count_launches(counted)
     picks = [i for _, i in sampler.picks]
-    # K1 twice more a step than K2 / K3: the obs of the random-start bank
-    # (one reset_at of every env a rollout phase) and of the active tape's
-    # fresh reset (the update phase's quarantine resets)
-    expected = {"step_obs": CURRICULUM_SUPERSTEPS * (HORIZON + 2),
-                "fill_brackets": CURRICULUM_SUPERSTEPS * HORIZON,
-                "mark_reward": CURRICULUM_SUPERSTEPS * HORIZON,
+    # per replay: K1 once more in the rollout than K2 / K3 (the obs of the
+    # random-start bank, one reset_at of every env) and once in the update
+    # (the active tape's fresh reset for the quarantine); counted at capture
+    # (the warm-ups and the capture), the decode once per compressed pick
+    rollout = {"step_obs": HORIZON + 1, "fill_brackets": HORIZON, "mark_reward": HORIZON,
+               "attention_forward": 0, "attention_backward": 0}
+    update = {"step_obs": 1, "fill_brackets": 0, "mark_reward": 0,
+              "attention_forward": 0, "attention_backward": 0}
+    runs = graphs.WARMUP + 1
+    expected = {"step_obs": runs * (HORIZON + 2), "fill_brackets": runs * HORIZON,
+                "mark_reward": runs * HORIZON,
                 "decode_q16_block": sum(groups.get(i, 0) for i in picks),
                 "batched_scaled_windows": 0}
     check(len(picks) == CURRICULUM_SUPERSTEPS, f"{len(picks)} picks, expected {CURRICULUM_SUPERSTEPS}")
     check(any(i > 0 for i in picks), f"the seed picked no compressed tape: {picks}")
     check(launches == expected, f"curriculum training launched {launches}, expected {expected}")
     check(metrics["iterations"] == CURRICULUM_SUPERSTEPS, "curriculum iterations")
+    check(sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"],
+          f"curriculum graphs {[k for k, *_ in trainer._graphs]}: one graph a phase for every tape")
     check_training(rows, "curriculum")
     kernels["decode_q16_block"]["launches"] = launches["decode_q16_block"]
     for key in ("obs_vec",):
         check(bool(torch.isfinite(getattr(state, key)).all()), f"curriculum non-finite {key}")
+    state = copy_state(torch, state)
+    traced = replay_launches(torch, trainer)
+    check_replays(traced, {"rollout": rollout, "update": update}, "curriculum")
+    check(traced["rollout"]["step_obs"] + traced["update"]["step_obs"] == HORIZON + 2,
+          "curriculum K1 a train step")
     labels = [sampler.specs[i].label.rsplit("/", 1)[-1] for i in picks]
     step_ms = ", ".join(f"{r['ms']:.1f}" for r in rows)
     losses = ", ".join(f"{r['metrics']['loss']:.5f}" for r in rows)
     print(f"curriculum: {CURRICULUM_SUPERSTEPS} supersteps (K=1) of {HORIZON} steps x {N_ENVS} envs, "
-          f"picks {picks} ({', '.join(labels)}); train steps {step_ms} ms, "
-          f"{metrics['env_steps_per_sec']:,.0f} env steps/s; losses {losses}; launches {launches}")
+          f"picks {picks} ({', '.join(labels)}), each copied into the one staging tape; graphed "
+          f"train steps {step_ms} ms (the first captures), {metrics['env_steps_per_sec']:,.0f} env "
+          f"steps/s; losses {losses}; launches {launches} ({runs} runs at capture); one replay "
+          f"by the profiler trace {traced}")
 
-    # one rollout phase on a compressed tape: K6's decode and K1-K3,
-    # again with the plain decode and the plain K1-K3, on the card
+    # one rollout phase on a compressed tape: K6's decode and K1-K3 from the
+    # graph, again op by op with the plain decode and the plain K1-K3
     i = next(i for i in picks if i > 0)
     traj_state, (traj, last) = trainer.rollout_phase(trainer.init_state(SEED), sampler._tape_data(i))
     kernel_fns = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
@@ -1444,7 +1662,8 @@ def curriculum_phase(torch, dev, kernels, results, paths) -> None:
     before = count_launches(counted)
     try:
         plain_tape = C.decode_shard_ref(sampler.tape(i), 0, device=dev)
-        ref_state, (ref_traj, ref_last) = trainer.rollout_phase(trainer.init_state(SEED), plain_tape)
+        ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(trainer.init_state(SEED),
+                                                                       plain_tape)
         torch.cuda.synchronize()
     finally:
         env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs = kernel_fns
@@ -1455,14 +1674,16 @@ def curriculum_phase(torch, dev, kernels, results, paths) -> None:
         check(torch.equal(getattr(traj_state.env_states, field), getattr(ref_state.env_states, field)),
               f"curriculum tape {i} vs plain versions: env state {field}")
     check(torch.equal(last, ref_last), "curriculum vs plain versions: bootstrap value")
-    print(f"curriculum: rollout phase on tape {i} (K6 decode, K1-K3) == plain decode and plain "
-          f"versions on the card (torch.equal)")
+    print(f"curriculum: rollout phase on tape {i} (K6 decode, K1-K3, graphed) == plain decode and "
+          f"plain versions op by op on the card (torch.equal)")
+    compared = graphed_vs_eager(torch, trainer, state, sampler._tape_data(i), "curriculum")
     results["curriculum"] = {
         "config": "flagship-curriculum-train", "tapes": list(paths), "bars": TAPE_BARS,
         "build_s": build_s, "compression_ratio": ratios, "nbytes_report": report,
         "q16_groups": groups, "pick_decode_ms": decode_ms, "picks": picks,
         "train_step_ms": [r["ms"] for r in rows], "metrics": [r["metrics"] for r in rows],
         "env_steps_per_s": metrics["env_steps_per_sec"], "launches": launches,
+        "replay_launches": traced, "graphed_vs_eager": compared,
         "k6_pick_group": {k: v for k, v in kernels["decode_q16_block"].items()},
     }
 
@@ -1640,6 +1861,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     results = {}
+    t_start = time.perf_counter()
 
     # ---- 1. device -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -1683,34 +1905,42 @@ def main() -> None:
         for key, row in results[f"{lib_name}_ptxas"].items():
             print(f"  {lib_name} ptxas {key}: {row.get('registers')} registers; {row.get('frame')}")
 
+    phase_s = results["phase_s"] = {"build": build_s}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+
     # ---- 3. kernels against their plain versions ----------------------------
     dev = torch.device("cuda")
     kernels = {}
-    check_kernels_k1_k3(torch, dev, kernels)
-    check_kernels_k4(torch, dev, kernels, results)
-    check_kernels_k5(torch, dev, kernels, results, built["lob"][1])
-    check_kernels_k6_k7(torch, dev, kernels)
+    timed("kernels K1-K3", check_kernels_k1_k3, torch, dev, kernels)
+    timed("kernels K4", check_kernels_k4, torch, dev, kernels, results)
+    timed("kernels K5", check_kernels_k5, torch, dev, kernels, results, built["lob"][1])
+    timed("kernels K6-K7", check_kernels_k6_k7, torch, dev, kernels)
 
     # ---- 4. main: PPO training at flagship width ---------------------------
-    main_phase(torch, kernels, results)
+    timed("main", main_phase, torch, kernels, results)
     # ---- 5. long: PPO training in the long-context configuration ----------
-    long_phase(torch, kernels, results)
+    timed("long", long_phase, torch, kernels, results)
     # ---- 6. lob: PPO training on the LOB venue -----------------------------
-    lob_phase(torch, kernels, results)
+    timed("lob", lob_phase, torch, kernels, results)
     # ---- 7. diagnostic episodes ---------------------------------------------
-    episode_phase(torch, results)
+    timed("episode", episode_phase, torch, results)
     # ---- 8-10. the data path: curriculum, export, stream --------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tapes_")
     try:
         t0 = time.perf_counter()
         paths = make_tapes(tmp)
+        phase_s["tapes"] = time.perf_counter() - t0
         print(f"tapes: {len(paths)} M1 tapes of {TAPE_BARS:,} bars written in "
-              f"{time.perf_counter() - t0:.1f} s")
-        curriculum_phase(torch, dev, kernels, results, paths)
+              f"{phase_s['tapes']:.1f} s")
+        timed("curriculum", curriculum_phase, torch, dev, kernels, results, paths)
         torch.cuda.empty_cache()
-        export_phase(torch, kernels, results, paths, tmp)
+        timed("export", export_phase, torch, kernels, results, paths, tmp)
         torch.cuda.empty_cache()
-        stream_phase(torch, kernels, results, paths)
+        timed("stream", stream_phase, torch, kernels, results, paths)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1728,7 +1958,10 @@ def main() -> None:
     results["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    results["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
+    print(f"chip_smoke: every phase passed in {results['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + ")")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

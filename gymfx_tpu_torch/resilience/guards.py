@@ -40,10 +40,12 @@ def _float_leaves(tree: Any) -> List[torch.Tensor]:
 
 def tree_all_finite(tree: Any) -> torch.Tensor:
     """0-d bool tensor: every element of every floating leaf is finite
-    (integer and bool leaves cannot hold NaN and are skipped)."""
+    (integer and bool leaves cannot hold NaN and are skipped); on the
+    tree's device (the CPU for a tree with no tensor)."""
     leaves = _float_leaves(tree)
     if not leaves:
-        return torch.tensor(True)
+        tensors = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+        return torch.ones((), dtype=torch.bool, device=tensors[0].device if tensors else "cpu")
     return torch.stack([torch.isfinite(x).all() for x in leaves]).all()
 
 

@@ -1,13 +1,12 @@
 """Shared trainer helpers: the port of ``gymfx_tpu/train/common.py``'s
-``make_train_many`` (:18-40), ``make_train_many_with_data`` (:43-57),
-``validate_minibatch_scheme`` and
+``make_train_many_with_data`` (:43-57), ``validate_minibatch_scheme`` and
 ``resolve_minibatch_scheme`` (:315-371), ``minibatch_plan`` (:374-409)
 and ``masked_reset``.
 
-Trees of fields are dicts of tensors.  ``make_train_many`` is a Python
-loop here: PyTorch runs eagerly, so there is no dispatch to fuse; the
-metrics still come back stacked on a leading ``(k,)`` axis, on the
-device.
+Trees of fields are dicts of tensors.  ``make_train_many_with_data`` is
+the eager loop (the CPU's): on a CUDA device ``PPOTrainer`` chains its
+phases' graph replays instead (train/ppo.py); either way the metrics
+come back stacked on a leading ``(k,)`` axis, on the device.
 """
 from __future__ import annotations
 
@@ -29,13 +28,6 @@ def masked_reset(done, fresh, cur):
     if isinstance(cur, tuple):
         return type(cur)(*(one(f, c) for f, c in zip(fresh, cur)))
     return one(fresh, cur)
-
-
-def make_train_many(step: Callable):
-    """``train_many(state, k)``: ``k`` train steps of ``step(state) ->
-    (state, metrics)``, the metrics stacked on a leading ``(k,)`` axis."""
-    many = make_train_many_with_data(lambda state, _: step(state))
-    return lambda state, k: many(state, None, k)
 
 
 def make_train_many_with_data(step: Callable):

@@ -53,6 +53,12 @@ class ClipAdam:
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0):
         self.lr, self.max_grad_norm, self.mu_dtype = float(lr), float(max_grad_norm), mu_dtype
         self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
+        # the decay meets the stored moment in its dtype, as JAX's weakly
+        # typed float does: against a bf16 mu, b1 rounds to bf16 first.
+        # Built once, on the host: a 0-d CPU tensor enters a CUDA kernel as
+        # a scalar argument, so an update allocates nothing on the host
+        # (nothing inside a CUDA graph's capture)
+        self._b1_mu = torch.tensor(b1, dtype=mu_dtype)
 
     def init(self, params: Tree) -> AdamState:
         device = next(iter(params.values())).device
@@ -66,10 +72,7 @@ class ClipAdam:
         """(updates, new state, pre-clip gradient global norm)."""
         b1, b2 = self.b1, self.b2
         grads, g_norm = clip_by_global_norm(grads, self.max_grad_norm)
-        # the decay meets the stored moment in its dtype, as JAX's weakly
-        # typed float does: against a bf16 mu, b1 rounds to bf16 first
-        mu = {k: (1 - b1) * g + state.mu[k] * torch.tensor(b1, dtype=self.mu_dtype)
-              for k, g in grads.items()}
+        mu = {k: (1 - b1) * g + state.mu[k] * self._b1_mu for k, g in grads.items()}
         nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k] for k, g in grads.items()}
         count = torch.where(state.count < _INT32_MAX, state.count + 1, state.count)
         c = count.to(torch.float32)

@@ -27,6 +27,15 @@ structure.  The metrics are the JAX package's dict of 0-d tensors, plus
 ``grad_norm``, the mean pre-clip gradient global norm of the updates
 taken.
 
+On a CUDA device the phases are the JAX package's compiled, donated
+programs (``jax.jit(self._train_step_impl, donate_argnums=0)``, :227;
+the curriculum's traced tape, :234-249; ``train_many``, :631): each is a
+CUDA graph (core/graphs.py) captured at its first call for each static
+signature and replayed, the update graph reading the rollout graph's
+static outputs in place, every explicit tape copied into one staging
+tape.  Each phase is a body function of its inputs
+(``_rollout_body``, ``_update_body``) that syncs nothing with the host.
+
 Test hooks: ``rollout_phase(state, actions=..., start_offsets=...)`` and
 ``update_phase(state, rollout_out, permutations=...)`` replace the
 phase's own draws with given ones, so a test can feed the JAX package's
@@ -41,11 +50,11 @@ import torch
 from torch.nn import functional as F
 
 from gymfx_tpu_torch.core import env as env_core
+from gymfx_tpu_torch.core import graphs
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.core.types import EnvState, not_ported
 from gymfx_tpu_torch.resilience.guards import quarantine_mask, select_tree, tree_all_finite
 from gymfx_tpu_torch.train.common import (
-    make_train_many,
     make_train_many_with_data,
     masked_reset,
     minibatch_plan,
@@ -167,7 +176,17 @@ def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> 
 
 
 class PPOTrainer:
-    """PPO for one Environment and PPOConfig."""
+    """PPO for one Environment and PPOConfig.
+
+    On a CUDA device each phase runs from a CUDA graph (core/graphs.py),
+    captured at its first call for each static signature and replayed
+    after: the rollout phase on the bar venue (on the LOB venue it runs
+    eagerly: its step is ~35,000 eager kernels, whose graph waits for
+    the flow kernel of ROADMAP item 24) and the update phase on every
+    venue.  A capture error raises; nothing falls back to eager on the
+    card.  On the CPU both phases run eagerly.  ``_rollout_phase_eager``
+    and ``_update_phase_eager`` run a phase op by op on any device, for
+    comparisons."""
 
     def __init__(self, env: Environment, pcfg: PPOConfig):
         if pcfg.superstep_overlap:
@@ -195,11 +214,22 @@ class PPOTrainer:
             dtype=pcfg.policy_dtype, kwargs=dict(pcfg.policy_kwargs), window=cfg.window_size,
         ).to(self.device)
         self.optimizer = ClipAdam(pcfg.lr, pcfg.max_grad_norm, pcfg.opt_state_dtype)
-        self.train_many = make_train_many(self.train_step)
+        # the guard's updates-a-phase metric: copied to the device once,
+        # here, never inside a captured update phase
+        self._guard_updates = torch.tensor(float(pcfg.epochs * pcfg.minibatches),
+                                           device=self.device)
         # feed=curriculum: the sampler swaps whole tapes at superstep
         # boundaries, and each phase takes the active tape explicitly
         self.curriculum = env.curriculum
-        self.train_many_with_data = make_train_many_with_data(self.train_step)
+        # the phases' CUDA graphs (core/graphs.py), by static signature;
+        # the one generator registered with them, set from the state's
+        # generator before each replay; the staging tape every explicit
+        # tape is copied into, so one graph serves every tape
+        self._graphs_on = self.device.type == "cuda"
+        self._graph_rollout = cfg.venue != "lob"
+        self._graphs: Dict[tuple, graphs.PhaseGraph] = {}
+        self._gen = torch.Generator(device=self.device)
+        self._staging = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
@@ -226,17 +256,48 @@ class PPOTrainer:
         reset_state, reset_obs = env_core.reset(self.env.cfg, self.env.params, data, 1)
         return reset_state, self._encode(reset_obs)
 
-    @torch.no_grad()
     def rollout_phase(self, state: TrainState, data=None, *, actions=None, start_offsets=None):
         """Collect one horizon on the env's tape, or on the tape ``data``
         (the curriculum's pick: the random-start bank and the fresh reset
         then come from it).  Returns (post-rollout state, (trajectory dict
-        of (horizon, n_envs, ...) tensors, bootstrap value (n_envs,))).
+        of (horizon, n_envs, ...) tensors, bootstrap value (n_envs,))),
+        new tensors that no later call overwrites; ``state.generator``
+        advances.  On a CUDA device the phase is replayed from its graph
+        (bar venue; the LOB venue's rollout runs eagerly), on the CPU it
+        runs eagerly.
 
         ``actions`` ((horizon, n_envs) int) and ``start_offsets``
-        ((n_envs,) int) replace the phase's own draws (test hook)."""
+        ((n_envs,) int) replace the phase's own draws (test hook; on the
+        card they are copied into the static buffers of a graph of their
+        own)."""
+        graphed = self._graphs_on and self._graph_rollout
+        run = self._rollout_phase_graphed if graphed else self._rollout_phase_eager
+        return run(state, data, actions=actions, start_offsets=start_offsets)
+
+    def _rollout_phase_graphed(self, state: TrainState, data=None, *, actions=None,
+                               start_offsets=None):
+        """:meth:`rollout_phase` from the rollout graph, its outputs cloned."""
+        hooks = self._hooks(actions=actions, start_offsets=start_offsets)
+        out = graphs.clone_tree(self._rollout_graphed(state, self._stage(data), hooks).outputs)
+        return (state._replace(env_states=out["env_states"], obs_vec=out["obs_vec"]),
+                (out["traj"], out["last_value"]))
+
+    def _rollout_phase_eager(self, state: TrainState, data=None, *, actions=None,
+                             start_offsets=None):
+        """:meth:`rollout_phase` op by op, drawing from ``state.generator``."""
+        env_states, obs_vec, traj, last_value = self._rollout_body(
+            state.params, state.env_states, state.obs_vec, data, state.generator,
+            actions, start_offsets)
+        return state._replace(env_states=env_states, obs_vec=obs_vec), (traj, last_value)
+
+    @torch.no_grad()
+    def _rollout_body(self, params, env_states, obs_vec, data, gen, actions=None,
+                      start_offsets=None):
+        """The rollout phase as a function of its inputs, drawing from
+        ``gen``: (env states, obs_vec, trajectory, bootstrap value).  It
+        syncs nothing with the host, so it is what the rollout graph
+        captures."""
         env, cfg, pcfg = self.env, self.env.cfg, self.pcfg
-        gen, params = state.generator, state.params
         n, horizon = pcfg.n_envs, pcfg.horizon
         tape = env.data if data is None else data
         if self._random_start:
@@ -260,7 +321,6 @@ class PPOTrainer:
             "reward": torch.empty((horizon, n), dtype=torch.float32, device=dev),
             "done": torch.empty((horizon, n), dtype=torch.bool, device=dev),
         }
-        env_states, obs_vec = state.env_states, state.obs_vec
         for t in range(horizon):
             logits, value = self.policy_forward(params, obs_vec)
             if actions is None:
@@ -281,7 +341,7 @@ class PPOTrainer:
             env_states = masked_reset(done, reset_state, env_states2)
             obs_vec = masked_reset(done, reset_vec, obs_vec2)
         _, last_value = self.policy_forward(params, obs_vec)
-        return state._replace(env_states=env_states, obs_vec=obs_vec), (traj, last_value)
+        return env_states, obs_vec, traj, last_value
 
     # ------------------------------------------------------------------
     def _gae(self, traj, last_value):
@@ -328,11 +388,47 @@ class PPOTrainer:
     def update_phase(self, state: TrainState, rollout_out, data=None, *, permutations=None):
         """GAE, the minibatched epochs and the guard's bookkeeping on one
         collected trajectory.  Returns (new state, metrics dict of 0-d
-        tensors).  Quarantined envs restart from the fresh reset of the
-        active tape ``data`` (the env's own when None).  ``permutations``
-        ((epochs, n_perm) int) replaces the per-epoch draws (test hook)."""
-        pcfg = self.pcfg
+        tensors), new tensors that no later call overwrites;
+        ``state.generator`` advances.  Quarantined envs restart from the
+        fresh reset of the active tape ``data`` (the env's own when None).
+        On a CUDA device the phase is replayed from its graph (every
+        venue), on the CPU it runs eagerly.  ``permutations`` ((epochs,
+        n_perm) int) replaces the per-epoch draws (test hook; on the card
+        copied into the static buffer of a graph of its own)."""
+        run = self._update_phase_graphed if self._graphs_on else self._update_phase_eager
+        return run(state, rollout_out, data, permutations=permutations)
+
+    def _update_phase_graphed(self, state: TrainState, rollout_out, data=None, *,
+                              permutations=None):
+        """:meth:`update_phase` from the update graph, its outputs cloned."""
         traj, last_value = rollout_out
+        inputs = dict(params=state.params, opt_state=state.opt_state, env_states=state.env_states,
+                      obs_vec=state.obs_vec, traj=traj, last_value=last_value,
+                      **self._hooks(permutations=permutations))
+        out = graphs.clone_tree(
+            self._update_graphed(inputs, self._stage(data), state.generator).outputs)
+        return self._updated_state(out, state.generator), out["metrics"]
+
+    def _update_phase_eager(self, state: TrainState, rollout_out, data=None, *,
+                            permutations=None):
+        """:meth:`update_phase` op by op, drawing from ``state.generator``."""
+        traj, last_value = rollout_out
+        out = self._update_body(state.params, state.opt_state, state.env_states, state.obs_vec,
+                                traj, last_value, data, state.generator, permutations)
+        return self._updated_state(out, state.generator), out["metrics"]
+
+    @staticmethod
+    def _updated_state(out, generator) -> TrainState:
+        return TrainState(out["params"], out["opt_state"], out["env_states"], out["obs_vec"],
+                          generator)
+
+    def _update_body(self, params, opt_state, env_states, obs_vec, traj, last_value, data, gen,
+                     permutations=None):
+        """The update phase as a function of its inputs, drawing from
+        ``gen``: a dict of params, opt_state, env_states, obs_vec and
+        metrics.  It syncs nothing with the host, so it is what the update
+        graph captures."""
+        pcfg = self.pcfg
         advs, returns = self._gae(traj, last_value)
         fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
                   "adv": advs, "ret": returns}
@@ -340,12 +436,11 @@ class PPOTrainer:
             fields, scheme=pcfg.minibatch_scheme, n_envs=pcfg.n_envs,
             horizon=pcfg.horizon, minibatches=pcfg.minibatches,
         )
-        params, opt_state = state.params, state.opt_state
         guard = pcfg.nonfinite_guard
         losses, terms, oks, norms = [], [], [], []
         for epoch in range(pcfg.epochs):
             if permutations is None:
-                perm = torch.randperm(n_perm, generator=state.generator, device=self.device)
+                perm = torch.randperm(n_perm, generator=gen, device=self.device)
             else:
                 perm = permutations[epoch].to(self.device)
             for i in range(pcfg.minibatches):
@@ -368,7 +463,6 @@ class PPOTrainer:
                 norms.append(g_norm)
         losses, norms = torch.stack(losses), torch.stack(norms)
         stacked = {k: torch.stack([t[k] for t in terms]) for k in terms[0]}
-        env_states, obs_vec = state.env_states, state.obs_vec
         if guard:
             okf = torch.stack(oks).to(torch.float32)
             n_ok = okf.sum()
@@ -387,8 +481,7 @@ class PPOTrainer:
                 mean_reward=traj["reward"].mean(),
                 mean_episode_done=traj["done"].to(torch.float32).mean(),
                 nonfinite_skips=(1.0 - okf).sum(),
-                guard_updates=torch.tensor(float(pcfg.epochs * pcfg.minibatches),
-                                           device=self.device),
+                guard_updates=self._guard_updates,
                 grad_norm=mmean(norms),
             )
             # quarantine: envs whose rollout or carried state went
@@ -413,15 +506,147 @@ class PPOTrainer:
                 mean_episode_done=traj["done"].to(torch.float32).mean(),
                 grad_norm=norms.mean(),
             )
-        new_state = TrainState(params, opt_state, env_states, obs_vec, state.generator)
-        return new_state, metrics
+        return dict(params=params, opt_state=opt_state, env_states=env_states, obs_vec=obs_vec,
+                    metrics=metrics)
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, data=None):
         """One rollout phase then one update phase, on the env's tape or
-        on ``data``: (state, metrics)."""
-        inter, rollout_out = self.rollout_phase(state, data)
-        return self.update_phase(inter, rollout_out, data)
+        on ``data``: (state, metrics).
+
+        On a CUDA device the two graphs replay back to back, the update
+        graph reading the rollout graph's static outputs in place, and
+        the returned state's tensors are the update graph's static
+        outputs: the next train step or ``train_many`` overwrites them
+        (the port's form of JAX's ``donate_argnums=0``; clone what must
+        outlive it).  The metrics are new tensors."""
+        if not self._graphs_on:
+            inter, rollout_out = self.rollout_phase(state, data)
+            return self.update_phase(inter, rollout_out, data)
+        state, stacked = self._train_many_graphed(state, data, 1)
+        return state, {key: v[0] for key, v in stacked.items()}
+
+    def train_many(self, state: TrainState, k: int):
+        """``k`` train steps on the env's tape: (state, metrics stacked on
+        a leading ``(k,)`` axis); see :meth:`train_many_with_data`."""
+        return self.train_many_with_data(state, None, k)
+
+    def train_many_with_data(self, state: TrainState, data, k: int):
+        """``k`` train steps on one tape (the JAX package's
+        ``make_train_many_with_data``, gymfx_tpu/train/common.py:43-57):
+        (state, metrics stacked on a leading ``(k,)`` axis).  On a CUDA
+        device ``data`` is copied into the staging tape once, the 2k
+        replays are chained with no host round trip, and the metrics are
+        stacked on the device (the caller fetches them once); the state is
+        donated as in :meth:`train_step`."""
+        run = self._train_many_graphed if self._graphs_on else \
+            make_train_many_with_data(self.train_step)
+        return run(state, data, k)
+
+    def _train_many_graphed(self, state: TrainState, data, k: int):
+        """:meth:`train_many_with_data` from the graphs."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"train_many needs k >= 1, got {k}")
+        tape = self._stage(data)
+        history = []
+        for _ in range(k):
+            state, metrics = self._train_step_graphed(state, tape)
+            history.append(torch.stack(list(metrics.values())))
+        return state, dict(zip(metrics, torch.stack(history).unbind(1)))
+
+    # ---- the graphs (core/graphs.py) ------------------------------------
+    def _hooks(self, **hooks):
+        """The test hooks that are set, on the device: static inputs of a
+        graph of their own."""
+        return {k: v.to(self.device) for k, v in hooks.items() if v is not None}
+
+    def _stage(self, data):
+        """The tape the graphs read for ``data``: None for the env's own,
+        else the staging tape with ``data``'s tensors copied in (every tape
+        of a curriculum has one shape, so one staging tape, and one graph
+        keyed on it, serves them all; the graphs hold it, so it is never
+        freed under them)."""
+        if data is None:
+            return None
+        fields = {k: v for k, v in data._asdict().items() if isinstance(v, torch.Tensor)}
+        staging = self._staging
+        if staging is None or graphs.signature(data) != graphs.signature(staging):
+            self._staging = data._replace(**{k: v.clone() for k, v in fields.items()})
+            return self._staging
+        graphs.copy_tree({k: getattr(staging, k) for k in fields}, fields)
+        return staging
+
+    def _graph(self, kind: str, inputs, tape, build):
+        """The cached graph of ``kind`` for this static signature (built by
+        ``build()`` on a miss)."""
+        key = (kind, id(tape), self.pcfg, self.env.cfg, tuple(sorted(inputs)),
+               graphs.signature(inputs))
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = build()
+        return graph
+
+    def _replay(self, graph, inputs, generator):
+        """Run ``graph`` on ``inputs`` from ``generator``'s state, advance
+        ``generator`` as the eager phase would, and return ``graph``."""
+        self._gen.set_state(generator.get_state())
+        graph(inputs)
+        generator.set_state(self._gen.get_state())
+        return graph
+
+    def _rollout_graphed(self, state: TrainState, tape, hooks):
+        """The rollout graph for ``state`` on ``tape`` (None or the staging
+        tape), run: its static outputs are env_states, obs_vec, traj and
+        last_value."""
+        inputs = dict(params=state.params, env_states=state.env_states, obs_vec=state.obs_vec,
+                      **hooks)
+
+        def body(x):
+            env_states, obs_vec, traj, last_value = self._rollout_body(
+                x["params"], x["env_states"], x["obs_vec"], tape, self._gen,
+                x.get("actions"), x.get("start_offsets"))
+            return dict(env_states=env_states, obs_vec=obs_vec, traj=traj, last_value=last_value)
+
+        graph = self._graph("rollout", inputs, tape, lambda: graphs.PhaseGraph(
+            body, graphs.clone_tree(inputs), self._gen))
+        return self._replay(graph, inputs, state.generator)
+
+    def _update_graphed(self, inputs, tape, generator, shared=()):
+        """The update graph for ``inputs`` on ``tape``, run: its static
+        outputs are params, opt_state, env_states, obs_vec and metrics.  A
+        graph built here takes the tensors of ``inputs`` named in
+        ``shared`` as its static buffers (the rollout graph's), and copies
+        of the rest."""
+
+        def body(x):
+            return self._update_body(x["params"], x["opt_state"], x["env_states"], x["obs_vec"],
+                                     x["traj"], x["last_value"], tape, self._gen,
+                                     x.get("permutations"))
+
+        graph = self._graph("update", inputs, tape, lambda: graphs.PhaseGraph(body, {
+            k: v if k in shared else graphs.clone_tree(v) for k, v in inputs.items()}, self._gen))
+        return self._replay(graph, inputs, generator)
+
+    def _train_step_graphed(self, state: TrainState, tape):
+        """One train step from the graphs on ``tape``: (state, metrics),
+        both the update graph's static outputs.  The update graph's static
+        inputs are the rollout graph's static buffers, so nothing is
+        copied between the two."""
+        shared = ()
+        if self._graph_rollout:
+            graph = self._rollout_graphed(state, tape, {})
+            rollout, params = graph.outputs, graph.inputs["params"]
+            shared = ("params", "env_states", "obs_vec", "traj", "last_value")
+        else:
+            # the LOB venue's rollout runs eagerly (ROADMAP item 24)
+            inter, (traj, last_value) = self._rollout_phase_eager(state, tape)
+            rollout = dict(env_states=inter.env_states, obs_vec=inter.obs_vec, traj=traj,
+                           last_value=last_value)
+            params = state.params
+        inputs = dict(params=params, opt_state=state.opt_state, **rollout)
+        out = self._update_graphed(inputs, tape, state.generator, shared).outputs
+        return self._updated_state(out, state.generator), out["metrics"]
 
     def train(self, total_env_steps: int, seed: int = 0, log_every: int = 0,
               initial_params=None, initial_state: Optional[TrainState] = None, *,

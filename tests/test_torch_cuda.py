@@ -494,3 +494,183 @@ def test_cuda_streamed_episode_equals_resident_and_cpu(cuda_device, tmp_path, mo
     for key in ref:
         assert torch.equal(out[key], ref[key]), key
         assert torch.equal(out[key].cpu(), cpu[key]), key
+
+
+# ---- the train step's CUDA graphs (train/ppo.py, core/graphs.py) ------------
+# Graphed phases against the same phases op by op (_rollout_phase_eager,
+# _update_phase_eager) from one state and generator state: torch.equal on
+# every output and on the generator's state after (the same kernels in the
+# same order draw the same numbers).
+REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
+GRAPH_KINDS = ["mlp", "transformer_ring", "curriculum"]
+
+
+def _graph_trainer(kind, tmp_path, **over):
+    from gymfx_tpu_torch.config import flagship
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    csv = str(REPO / "examples" / "data" / "eurusd_sample.csv")
+    small = dict(num_envs=64, ppo_horizon=8, policy_kwargs={"hidden": [32, 32, 32]})
+    if kind == "mlp":
+        config = flagship.flagship_config(csv, **small)
+    elif kind == "transformer_ring":
+        config = flagship.long_context_config(
+            csv, num_envs=16, ppo_horizon=8, window_size=32,
+            policy_kwargs={"d_model": 32, "n_heads": 2, "n_layers": 2})
+    else:
+        paths = []
+        for i in range(2):
+            path = tmp_path / f"tape{i}.csv"
+            cases.write_bar_csv(path, cases.tick_walk_columns(600, seed=30 + i),
+                                cases.m1_week_grid(600))
+            paths.append(f"file:{path}")
+        config = flagship.curriculum_config(",".join(paths), timeframe="M1", **small)
+    config.update(over)
+    return PPOTrainer(Environment(config), ppo_config_from(config))
+
+
+def _tape(trainer):
+    return None if trainer.curriculum is None else trainer.curriculum._tape_data(1)
+
+
+def _copy(state):
+    from gymfx_tpu_torch.core import graphs
+
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return type(state)(*graphs.clone_tree(tuple(state[:4])), gen)
+
+
+def _assert_equal(a, b, what):
+    from gymfx_tpu_torch.resilience.guards import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb), what
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert torch.equal(x, y), f"{what}: leaf {i}"
+
+
+def _assert_states_equal(a, b, what):
+    _assert_equal(tuple(a[:4]), tuple(b[:4]), what)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state()), f"{what}: generator"
+
+
+def _eager_step(trainer, state, data):
+    return trainer._update_phase_eager(*trainer._rollout_phase_eager(state, data), data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_cuda_graphed_phases_and_train_many_equal_eager(cuda_device, tmp_path, kind):
+    trainer = _graph_trainer(kind, tmp_path)
+    data = _tape(trainer)
+    s0 = trainer.init_state(3)
+    a, (ta, la) = trainer.rollout_phase(_copy(s0), data)
+    b, (tb, lb) = trainer._rollout_phase_eager(_copy(s0), data)
+    assert [k for k, *_ in trainer._graphs] == ["rollout"]
+    _assert_equal((ta, la), (tb, lb), "rollout trajectory")
+    _assert_states_equal(a, b, "rollout state")
+    ua, ma = trainer.update_phase(a, (ta, la), data)
+    ub, mb = trainer._update_phase_eager(b, (tb, lb), data)
+    _assert_states_equal(ua, ub, "update state")
+    _assert_equal(ma, mb, "update metrics")
+    assert float(ma["nonfinite_skips"]) == 0.0
+    many, stacked = trainer.train_many_with_data(_copy(ub), data, 3)
+    ref, history = _copy(ub), []
+    for _ in range(3):
+        ref, metrics = _eager_step(trainer, ref, data)
+        history.append(metrics)
+    _assert_states_equal(many, ref, "train_many state")
+    _assert_equal(stacked, {k: torch.stack([m[k] for m in history]) for k in stacked},
+                  "train_many metrics")
+    assert all(g.graph is not None for g in trainer._graphs.values())
+
+
+@pytest.mark.cuda
+def test_cuda_returned_phases_outlive_the_next_replay(cuda_device, tmp_path):
+    trainer = _graph_trainer("mlp", tmp_path)
+    first, (traj, last) = trainer.rollout_phase(trainer.init_state(1))
+    kept = _copy(first), {k: v.clone() for k, v in traj.items()}, last.clone()
+    trainer.rollout_phase(trainer.init_state(2))
+    _assert_equal((first[:4], traj, last), (kept[0][:4], kept[1], kept[2]), "first phase")
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_recapture_when_the_shape_or_the_config_changes(cuda_device, tmp_path):
+    trainer = _graph_trainer("mlp", tmp_path)
+    s0 = trainer.init_state(0)
+    trainer.train_step(_copy(s0))
+    trainer.train_step(_copy(s0))
+    assert len(trainer._graphs) == 2  # captured once, replayed
+    for pcfg in (trainer.pcfg._replace(clip_eps=0.1, ent_coef=0.05),
+                 trainer.pcfg._replace(n_envs=32, horizon=4)):
+        trainer.pcfg = pcfg
+        s = trainer.init_state(0)
+        ours, metrics = trainer.train_step(_copy(s))
+        ref, ref_metrics = _eager_step(trainer, _copy(s), None)
+        _assert_states_equal(ours, ref, f"after {pcfg}")
+        _assert_equal(metrics, ref_metrics, f"metrics after {pcfg}")
+        assert tuple(ours.obs_vec.shape)[0] == pcfg.n_envs
+    assert len(trainer._graphs) == 6
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_replay_for_a_state_with_another_generator(cuda_device, tmp_path):
+    trainer = _graph_trainer("curriculum", tmp_path)
+    data = _tape(trainer)
+    states = [trainer.init_state(seed) for seed in (1, 2, 1)]
+    for i, s in enumerate(states):
+        ours, metrics = trainer.train_step(_copy(s), data)
+        ours = _copy(ours)
+        ref, ref_metrics = _eager_step(trainer, _copy(s), data)
+        _assert_states_equal(ours, ref, f"state {i}")
+        _assert_equal(metrics, ref_metrics, f"metrics {i}")
+    assert len(trainer._graphs) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_take_the_test_hooks(cuda_device, tmp_path):
+    trainer = _graph_trainer("curriculum", tmp_path)
+    data, pcfg = _tape(trainer), trainer.pcfg
+    g = torch.Generator().manual_seed(5)
+    actions = torch.randint(0, 3, (pcfg.horizon, pcfg.n_envs), generator=g, dtype=torch.int32)
+    offsets = torch.randint(0, trainer.env.cfg.n_bars - 2, (pcfg.n_envs,), generator=g)
+    perms = torch.stack([torch.randperm(pcfg.n_envs, generator=g) for _ in range(pcfg.epochs)])
+    s0 = trainer.init_state(4)
+    hooks = dict(actions=actions, start_offsets=offsets)
+    a, ra = trainer.rollout_phase(_copy(s0), data, **hooks)
+    b, rb = trainer._rollout_phase_eager(_copy(s0), data, **hooks)
+    _assert_equal(ra, rb, "hooked rollout")
+    _assert_states_equal(a, b, "hooked rollout state")
+    assert torch.equal(ra[0]["action"].cpu(), actions)
+    ua, ma = trainer.update_phase(a, ra, data, permutations=perms)
+    ub, mb = trainer._update_phase_eager(b, rb, data, permutations=perms)
+    _assert_states_equal(ua, ub, "hooked update state")
+    _assert_equal(ma, mb, "hooked update metrics")
+    assert sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"]
+
+
+@pytest.mark.cuda
+def test_cuda_capture_error_raises_without_an_eager_retry(cuda_device, tmp_path):
+    from gymfx_tpu_torch.core import graphs
+
+    with pytest.raises(RuntimeError):
+        graphs.PhaseGraph(lambda x: {"y": x["a"] * x["a"].sum().item()},
+                          {"a": torch.ones(4, device=cuda_device)})
+    trainer = _graph_trainer("mlp", tmp_path)
+    encode, calls = trainer._encode, []
+
+    def syncing(obs):
+        calls.append(1)
+        out = encode(obs)
+        out.sum().item()  # a host sync: legal eagerly, refused under capture
+        return out
+
+    trainer._encode = syncing
+    with pytest.raises(RuntimeError):
+        trainer.train_step(trainer.init_state(0))
+    # the warm-ups' steps and the capture's first, then nothing: no retry
+    assert len(calls) == graphs.WARMUP * trainer.pcfg.horizon + 1
+    assert not trainer._graphs
+    assert float(torch.ones(2, device=cuda_device).sum()) == 2.0
