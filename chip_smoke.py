@@ -11,8 +11,8 @@ failure exits non-zero:
 1. device   CUDA must be available; prints the card and
             ``nvidia-smi --query-gpu=name,power.limit``.
 2. build    nvcc builds the five libraries at once, one process per
-            source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4, K5 and
-            K4's probe for profile_attention.py (sm_90a), timed, with
+            source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4, K5 with
+            K8, and K4's probe for profile_attention.py (sm_90a), timed, with
             ptxas' register and spill report (and each env- and
             data-library kernel's registers and stack frame: K1's two
             paths, K2's 8 instantiations, K3, K2's and K3's memory
@@ -54,7 +54,7 @@ failure exits non-zero:
             H100 SXM's 3.35 TB/s and the operations over its peak for
             their type (f32 67 TFLOP/s for K1-K3 and f32 K4 cases, the
             bf16 tensor cores' 989 TFLOP/s for bf16 K4 cases, int32 16.7
-            TOP/s for K5).  K5 (LOB stream matching, int32, torch.equal
+            TOP/s for K5 and K8).  K5 (LOB stream matching, int32, torch.equal
             on books and fill records): the venue's seed streams at
             8,192 books (16 messages, 24 levels x 4 slots), the flow mix
             of every scenario at bench.py --lob's shape (1,024 books x
@@ -67,7 +67,19 @@ failure exits non-zero:
             timed at both shapes in us/call and us/message, with fills/s
             (bench.py --lob's metric) at 1,024 x 256 x depth 24, each
             kind alone in us/message at that shape, and each template's
-            registers, stack frame and spills from ptxas.  K6 (q16 tape decode, torch.equal): int16
+            registers, stack frame and spills from ptxas.  K8 (one bar
+            of the LOB venue, int32, torch.equal on the final books and
+            its eight results): the venue's shape (8,192 books of 24 x 4
+            seeded by the venue's seed stream, 64 lob_volatile messages,
+            the agent's orders of ops/cases.LOB_BAR_PATHS: open walks
+            both ways, a forced liquidation, a sub-lot denial, gap stops,
+            free-running brackets, a take-profit filled in part then
+            pulled by the stop, a stop firing on the last message, no
+            brackets), one case per template, and books whose lots wrap
+            int32; timed at the venue's shape beside its bound, its
+            launch floor, its plain version and its wrapper's host time
+            (50 calls enqueued), with each template's ptxas registers,
+            stack frame and spills.  K6 (q16 tape decode, torch.equal): int16
             extremes, divisors 1, 60, 1440 and f32(1e5), ragged row
             counts; K7 (batched scaled windows, bitwise with NaN matching
             NaN): NaN and +-inf features, neutral rows, steps 0 and n,
@@ -118,20 +130,20 @@ failure exits non-zero:
 6. lob      PPO training on the LOB venue at flagship width
             (config/flagship.lob_config, "flagship-lob-train": 8,192 envs,
             lob_volatile flow, 64 messages per bar, direct_fixed_sltp,
-            40-lot entries), one train step (a rollout phase takes
-            ~35 s), then the update replayed once more, timed.  The
-            rollout runs eagerly on this venue (its step is ~35,000
-            eager kernels: ROADMAP item 24) and the update from its
-            graph; which phases ran graphed is printed.
-            Per rollout phase K5, K1 and K3 must launch
-            64 times each and K2 never; the update launches none of them;
-            losses finite, no update skipped.  One rollout phase re-run
-            with the plain versions of K1, K3 and K5 on the card must give
-            the same env states, trajectory and bootstrap value
-            (torch.equal).
+            40-lot entries), three train steps from the rollout and update
+            graphs, as main.  Per rollout phase K1, K3, K5 and K8 must
+            launch 64 times each and K2 never, the update none of them: at
+            capture (x4) and by kernel name in a profiler trace of one
+            replay, which must run no sort, scan or scatter kernel (the
+            argsort engine; torch.gather's kernel aside); kernels a step
+            printed.  Losses finite, no update skipped.  Step 1's rollout
+            phase replayed from the graph, re-run op by op with the plain
+            versions of K1, K3, K5 and K8 on the card, must give the same
+            env states, trajectory and bootstrap value (torch.equal).
+            Then graphed against eager as in main.
 7. episode  Environment.rollout with the buy_hold driver, 1 env, on the
             card: 400 bar-venue steps (K2 and K3 400 launches, K1 401: the
-            reset builds an obs too) and 50 LOB-venue steps (K5 and K3
+            reset builds an obs too) and 50 LOB-venue steps (K3, K5 and K8
             50, K1 51, K2 none); each episode must equal the same
             episode on the CPU.
 8. curriculum  four M1 tapes of 2^18 bars (EUR/USD-, GBP/USD-, AUD/USD-
@@ -193,9 +205,9 @@ WINDOW = 32
 HORIZON = 64
 TRAIN_STEPS = 3
 LONG_STEPS = 2
-LOB_STEPS = 1
+LOB_STEPS = 3
 EPISODE_STEPS = 400
-# the eager LOB step takes ~0.4 s on the card; the episode's first trade
+# the eager one-env LOB step is host-bound; the episode's first trade
 # closes at step 1
 LOB_EPISODE_STEPS = 50
 # the data path: four M1 tapes of 2^18 bars (about 8 months of an FX
@@ -230,23 +242,39 @@ REPLACES = {
     "attention_forward": "gymfx_tpu/ops/fused_attention.py:172",
     "attention_backward": "gymfx_tpu/ops/fused_attention.py:150",
     "process_stream": "gymfx_tpu/ops/lob_match.py:289",
+    # K8 has no Pallas counterpart: it is the counterpart of the reference's
+    # lax.scan over a bar's flow
+    "lob_bar": "gymfx_tpu/lob/venue.py:267",
     "decode_q16_block": "gymfx_tpu/ops/tape_decode.py:63",
     "batched_scaled_windows": "gymfx_tpu/ops/window_zscore.py:110",
 }
 SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "attention_backward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "process_stream": "gymfx_tpu_torch/csrc/lob_kernels.cu",
+           "lob_bar": "gymfx_tpu_torch/csrc/lob_kernels.cu",
            "decode_q16_block": "gymfx_tpu_torch/csrc/data_kernels.cu",
            "batched_scaled_windows": "gymfx_tpu_torch/csrc/data_kernels.cu"}
 # kernel-name patterns in a profiler trace of one graph replay (K4's
 # backward counted by its dQ kernel, one a bf16 backward call)
 KERNEL_NAMES = {"step_obs": "step_obs", "fill_brackets": "fill_brackets_kernel",
                 "mark_reward": "mark_reward_kernel", "attention_forward": "attn_fwd",
-                "attention_backward": "attn_bwd_dq"}
+                "attention_backward": "attn_bwd_dq", "process_stream": "lob_stream_kernel",
+                "lob_bar": "lob_bar_kernel"}
+# kernels of the argsort engine (lob/book.py): none may run in a replayed
+# LOB rollout phase
+ENGINE_KERNELS = ("sort", "scan", "scatter", "cumsum")
+# torch.gather's kernel (a scatter-gather kernel that is not scatter-like):
+# the rollout gathers the sampled action's log-probability once a step
+GATHER_KERNEL = "_cuda_scatter_gather_internal_kernel<false"
+# traces of one replay taken at most, where a trace lost records, and the
+# seconds a trace waits after the replay before the profiler stops
+TRACE_TRIES, TRACE_DRAIN_S = 5, 0.5
 # K5 cases: the bench.py --lob shape and its depth sweep
 LOB_BOOKS, LOB_MSGS, LOB_DEPTHS, LOB_SLOTS = 1024, 256, (8, 16, 24, 48), 4
 # K5's templates: (levels a lane, queue slots), depth 1-32 -> 1, 33-64 -> 2
 K5_INSTANCES = [(per_lane, slots) for per_lane in (1, 2) for slots in range(1, 9)]
+# K8 at the venue's shape: flagship-lob-train's books, lob_volatile bars
+K8_MSGS, K8_SCENARIO = 64, "lob_volatile"
 # K4 cases: label -> ((B, S, H, D), dtype, causal); "update" is the
 # update's shape (4 minibatches of 64 envs x 64 steps), "rollout" the
 # rollout's
@@ -764,6 +792,17 @@ def k5_ptxas(compiler_out: str) -> dict:
     return ptxas_report(compiler_out, key_of)
 
 
+def k8_ptxas(compiler_out: str) -> dict:
+    """Each K8 template, keyed "<levels a lane, slots>"."""
+    import re
+
+    def key_of(name):
+        t = re.search(r"lob_bar_kernelILi(\d+)ELi(\d+)EE", name)
+        return f"<{t.group(1)}, {t.group(2)}>" if t else None
+
+    return ptxas_report(compiler_out, key_of)
+
+
 def env_ptxas(compiler_out: str) -> dict:
     """Each kernel of the env library: K1's two paths, K2's
     instantiations keyed "<slip_match, financing, ohlc>", K3, the empty
@@ -890,6 +929,8 @@ def check_kernels_k5(torch, dev, kernels, results, ptxas) -> None:
           f"{venue['us_per_msg']:.3f} us/msg (plain {venue['plain_ms'] * 1e3:.0f} us, bound "
           f"{venue['bound_ms'] * 1e3:.2f} us by {venue['bound_by']}), wrapper host "
           f"{host_us(torch, lambda: lob_match.process_stream(empty_book(N_ENVS, 24, LOB_SLOTS, dev), seed)):.1f} us/call")
+    print(f"  K5 with process returning its record: {venue['ms'] * 1e3:.2f} us at the venue's "
+          f"shape, {sweep[24]['ms'] * 1e3:.1f} us at bench.py --lob's")
     report = k5_ptxas(ptxas)
     check(sorted(report) == sorted(f"<{a}, {b}>" for a, b in K5_INSTANCES),
           f"K5 ptxas report lists {sorted(report)}, not every template")
@@ -899,6 +940,107 @@ def check_kernels_k5(torch, dev, kernels, results, ptxas) -> None:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     results["k5"] = {"venue_seed": venue, "bench_lob_sweep": sweep, "us_per_msg_by_kind": by_kind,
                      "ptxas": report}
+
+
+def check_kernels_k8(torch, dev, kernels, results, ptxas) -> None:
+    """K8 against its plain version (torch.equal, final books and results)
+    at the venue's shape, at every template and where lot sums wrap int32;
+    timed at the venue's shape."""
+    from gymfx_tpu_torch.lob.book import MSG_NOOP, BookState
+    from gymfx_tpu_torch.ops import _build, cases, lob_bar
+    from gymfx_tpu_torch.ops.lob_bar import BarFills
+
+    err = 0.0
+
+    def on_card(case):
+        return tuple(type(x)(*(t.to(dev) for t in x)) for x in case[:3])
+
+    def equal(args, label):
+        nonlocal err
+        ours = lob_bar.run_bar(*args)
+        ref = lob_bar.run_bar_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip((*BookState._fields, *BarFills._fields), (*ours[0], *ours[1]),
+                              (*ref[0], *ref[1])):
+            err = max(err, max_abs_err(torch, a, b))
+            check(torch.equal(a, b), f"K8 run_bar != plain: {label} {name}")
+        return ours
+
+    case = cases.lob_bar_case(N_ENVS, depth=24, slots=LOB_SLOTS, n_msgs=K8_MSGS, seed=SEED,
+                              scenario=K8_SCENARIO)
+    book, flow, orders = args = on_card(case)
+    paths = case[3]
+    _, fills = equal(args, "the venue's shape")
+    f = {k: v.cpu().numpy() for k, v in fills._asdict().items()}
+    occurred = {path: {"books": int((paths == path).sum()),
+                       "tp": int((f["tp_lots"][paths == path] > 0).sum()),
+                       "fired": int(f["fired"][paths == path].sum())}
+                for path in cases.LOB_BAR_PATHS}
+    # each path did what it was built for (as tests/test_torch_lob_bar.py
+    # holds it on the CPU)
+    held = cases.lob_bar_paths(book, flow, orders, fills, paths)
+    check(sorted(held) == sorted(cases.LOB_BAR_PATHS) and all(held.values()),
+          f"K8 paths at the venue's shape {held}: {occurred}")
+    n_cases = 1
+    for per_lane, slots in K5_INSTANCES:
+        equal(on_card(cases.lob_bar_case(44, depth=29 if per_lane == 1 else 61, slots=slots,
+                                         n_msgs=70, seed=slots)), f"<{per_lane}, {slots}> instance")
+        n_cases += 1
+    for depth, slots in ((4, 3), (2, 2), (6, 2), (33, 1), (40, 8)):
+        equal(on_card(cases.lob_bar_wrap_case(64, 40, depth, slots, seed=depth)),
+              f"int32 wrap depth {depth} slots {slots}")
+        n_cases += 1
+    print(f"kernels: K8 equal to plain (torch.equal, final books and results) on {n_cases} cases "
+          f"(the venue's shape, every template, int32 wrap), max abs err {err:g}; paths at the "
+          f"venue's shape {occurred}")
+
+    # the bound: every input read once and every output written once; one
+    # int32 operation for each flow message that is not a NOOP, each agent
+    # walk, rest and cancel that this run's orders make (the stop's cancel
+    # and walk where it fired on a print) and each book slot whose lots or
+    # owner the bar changed: what the function must do, not this design's
+    # cost (a resting ADD or a cancel by oid touches one slot)
+    out = lob_bar.run_bar(*args)
+    moved = 2 * nbytes(*book) + nbytes(*flow) + nbytes(*orders) + nbytes(*out[1])
+    gap = fills.gap_lots > 0
+    tp_rest = (orders.take_profit > 0) & (orders.pos_lots > 0) & ~gap
+    agent_ops = int((orders.open_lots > 0).sum() + gap.sum() + tp_rest.sum()
+                    + 2 * ((fills.fired != 0) & ~gap).sum())
+    active = int((torch.clamp(flow.kind, 0, 3) != MSG_NOOP).sum())
+    changed = sum(int((a != b).sum()) for a, b in zip(
+        (book.bid_qty, book.bid_oid, book.ask_qty, book.ask_oid),
+        (out[0].bid_qty, out[0].bid_oid, out[0].ask_qty, out[0].ask_oid)))
+    b_ms, b_by = bound(moved, active + agent_ops + changed, INT32_OPS)
+    env_lib = _build.load_library("env")
+    grid, threads, smem = -(-N_ENVS // 4), 128, 4 * 32 * 16
+    floor_ms = device_ms(torch, lambda: _build.check_launch(env_lib.gymfx_launch_floor(
+        grid, threads, smem, _build.stream_handle(dev)), "launch_floor"))
+    ms = device_ms(torch, lambda: lob_bar.run_bar(*args))
+    plain_ms = event_ms(torch, lambda: lob_bar.run_bar_plain(*args), reps=1, trials=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        lob_bar.run_bar(*args)
+    host = (time.perf_counter() - t0) / 50 * 1e6  # enqueued, not waited for
+    torch.cuda.synchronize()
+    report = k8_ptxas(ptxas)
+    check(sorted(report) == sorted(f"<{a}, {b}>" for a, b in K5_INSTANCES),
+          f"K8 ptxas report lists {sorted(report)}, not every template")
+    print(f"  K8 {N_ENVS} books x {K8_MSGS} {K8_SCENARIO} msgs, 24 x {LOB_SLOTS}: "
+          f"{ms * 1e3:.2f} us on the card (bound {b_ms * 1e3:.2f} us by {b_by}: {moved / 1e6:.1f} MB, "
+          f"{active} flow messages, {agent_ops} agent operations, {changed} slots changed; launch floor "
+          f"{floor_ms * 1e3:.2f} us at {grid} CTAs x {threads} threads, {smem} B shared), plain "
+          f"{plain_ms * 1e3:.0f} us, wrapper host {host:.1f} us/call (50 calls enqueued)")
+    for key, line in report.items():
+        print(f"  K8 ptxas {key}: {line.get('registers')} registers, {line.get('frame')}")
+    kernels["lob_bar"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None, launch_floor_ms=floor_ms,
+                              wrapper_host_us=host)
+    results["k8"] = {"venue": {"books": N_ENVS, "messages": K8_MSGS, "depth": 24,
+                               "slots": LOB_SLOTS, "moved_bytes": moved, "active_messages": active,
+                               "agent_operations": agent_ops, "slots_changed": changed,
+                               "paths": occurred},
+                     "ptxas": report, **kernels["lob_bar"]}
 
 
 def check_kernels_k6_k7(torch, dev, kernels) -> None:
@@ -1040,29 +1182,55 @@ def capture_seconds(trainer) -> dict:
             for i, (key, graph) in enumerate(trainer._graphs.items())}
 
 
-def replay_launches(torch, trainer, kinds=("rollout", "update")) -> dict:
-    """Kernel launches of one replay of the trainer's first graph of each
-    kind, counted by kernel name in a torch.profiler trace: {kind: {kernel
-    key: count, "all": every kernel}}.  The replays overwrite the graphs'
-    static outputs."""
-    out = {}
-    for kind in kinds:
-        graph = next(g for key, g in trainer._graphs.items() if key[0] == kind)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            graph.graph.replay()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA]
-        out[kind] = {key: sum(pattern in n for n in names) for key, pattern in KERNEL_NAMES.items()}
-        out[kind]["all"] = len(names)
-    return out
+def replay_kernel_names(torch, trainer, kind: str) -> list:
+    """The kernels of one replay of the trainer's first graph of ``kind``,
+    by name from a torch.profiler trace (the replay overwrites the graph's
+    static outputs).  The profiler stops TRACE_DRAIN_S after the replay
+    ends, so that CUPTI can hand over the replay's last records."""
+    graph = next(g for key, g in trainer._graphs.items() if key[0] == kind)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_DRAIN_S)
+    return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def check_replays(traced: dict, expected: dict, label: str) -> None:
+def replay_launches(torch, trainer, expected: dict, label: str) -> tuple:
+    """One replay of the trainer's first graph of each kind in ``expected``,
+    its kernels counted by name in a torch.profiler trace; each kernel of
+    KERNEL_NAMES must launch as ``expected`` says, 0 where it says nothing.
+
+    CUPTI can drop activity records from a trace of a replay of ~10^5
+    kernels: a trace of one LOB rollout replay on an H100 lost the replay's
+    last records and showed 63 of its 64 K1, K3 and K8 kernels.  So a
+    trace whose counts fall short is taken again, up to TRACE_TRIES
+    traces.  A replay launches the same kernels every time, so the trace
+    that agrees is accepted only if every trace before it holds fewer
+    kernels in all: those lost records, and a loss can only lower a count.
+    A count above the expected one fails at once.
+    Returns ({kind: {key: count, "all": kernels, "traces": kernels of each
+    trace taken}}, {kind: names in the accepted trace})."""
+    traced, names = {}, {}
     for kind, counts in expected.items():
-        got = {k: v for k, v in traced[kind].items() if k != "all"}
-        check(got == counts, f"{label}: one {kind} replay launched {got} (profiler trace), "
-              f"expected {counts}")
+        want = {k: counts.get(k, 0) for k in KERNEL_NAMES}
+        tries = []
+        for _ in range(TRACE_TRIES):
+            got_names = replay_kernel_names(torch, trainer, kind)
+            got = {key: sum(pattern in n for n in got_names)
+                   for key, pattern in KERNEL_NAMES.items()}
+            tries.append((got, len(got_names)))
+            check(all(got[k] <= want[k] for k in want),
+                  f"{label}: one {kind} replay launched {got} (profiler trace), expected {want}")
+            if got == want:
+                break
+        check(got == want, f"{label}: one {kind} replay launched {got} (profiler trace), "
+              f"expected {want}; {len(tries)} traces {tries}")
+        check(all(n < len(got_names) for _, n in tries[:-1]),
+              f"{label}: {kind} traces {tries[:-1]} before the accepted one of "
+              f"{len(got_names)} kernels did not lose records")
+        traced[kind] = {**got, "all": len(got_names), "traces": [n for _, n in tries]}
+        names[kind] = got_names
+    return traced, names
 
 
 def graphed_vs_eager(torch, trainer, state, data, label: str, steps: int = 3) -> dict:
@@ -1148,28 +1316,6 @@ def check_training(rows, label: str) -> None:
         check(m["nonfinite_skips"] == 0.0, f"{label} step {i}: {m['nonfinite_skips']} updates skipped")
 
 
-def report_training(rows, n_envs: int, horizon: int, label: str) -> dict:
-    """The eagerly driven LOB loop's rows: rollout and update apart."""
-    steady = rows[1:] or rows
-    rollout = statistics.median(r["rollout_ms"] for r in steady)
-    update = statistics.median(r["update_ms"] for r in steady)
-    summary = dict(
-        rollout_ms=[r["rollout_ms"] for r in rows], update_ms=[r["update_ms"] for r in rows],
-        rollout_env_steps_per_s=n_envs * horizon / rollout * 1e3,
-        train_env_steps_per_s=n_envs * horizon / (rollout + update) * 1e3,
-        metrics=[r["metrics"] for r in rows],
-    )
-    losses = ", ".join(f"{r['metrics']['loss']:.5f}" for r in rows)
-    print(f"{label}: {len(rows)} train steps of {horizon} steps x {n_envs} envs: rollout "
-          f"{', '.join(f'{r:.1f}' for r in summary['rollout_ms'])} ms, update "
-          f"{', '.join(f'{u:.1f}' for u in summary['update_ms'])} ms; "
-          f"{summary['train_env_steps_per_s']:,.0f} env steps/s through rollout + update, "
-          f"{summary['rollout_env_steps_per_s']:,.0f} through the rollout alone "
-          f"({'medians of steps 2-%d' % len(rows) if len(rows) > 1 else 'step 1'}); "
-          f"losses {losses}")
-    return summary
-
-
 def report_steps(rows, n_envs: int, horizon: int, label: str) -> dict:
     """Graphed train steps' rows: step ms (the first captures the graphs)."""
     steady = rows[1:] or rows
@@ -1189,7 +1335,7 @@ def main_phase(torch, kernels, results) -> None:
     from gymfx_tpu_torch.config.flagship import flagship_config
     from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
-    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, lob_match, window_zscore
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, lob_bar, lob_match, window_zscore
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     config = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
@@ -1204,7 +1350,7 @@ def main_phase(torch, kernels, results) -> None:
     torch.cuda.synchronize()
     counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
     for fn in (*counted, fused_attention.attention_forward, fused_attention.attention_backward,
-               lob_match.process_stream):
+               lob_match.process_stream, lob_bar.run_bar):
         fn.launches = 0
     state, rows = train(torch, trainer, state, TRAIN_STEPS)
     launches = count_launches(counted)
@@ -1217,7 +1363,8 @@ def main_phase(torch, kernels, results) -> None:
     for key, count in launches.items():
         kernels[key]["launches"] = count
     check(fused_attention.attention_forward.launches == 0, "the MLP path launched K4")
-    check(lob_match.process_stream.launches == 0, "the bar venue launched K5")
+    check(lob_match.process_stream.launches == 0 == lob_bar.run_bar.launches,
+          "the bar venue launched K5 or K8")
     check(sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"],
           f"main path graphs {[k for k, *_ in trainer._graphs]}")
     check_training(rows, "main")
@@ -1228,9 +1375,9 @@ def main_phase(torch, kernels, results) -> None:
     check(trades > 0, "the policy made no trade")
     state = copy_state(torch, state)
     summary = report_steps(rows, N_ENVS, HORIZON, "main path")
-    traced = replay_launches(torch, trainer)
-    check_replays(traced, {"rollout": {**per_phase, "attention_forward": 0, "attention_backward": 0},
-                           "update": {k: 0 for k in KERNEL_NAMES}}, "main path")
+    traced, _ = replay_launches(
+        torch, trainer, {"rollout": {**per_phase, "attention_forward": 0, "attention_backward": 0},
+                         "update": {}}, "main path")
     print(f"  launches at capture {launches} ({runs} runs: {graphs.WARMUP} warm-ups and the "
           f"capture); one replay by the profiler trace {traced}; {trades} closed trades")
 
@@ -1310,8 +1457,7 @@ def long_phase(torch, kernels, results) -> None:
     check_training(rows, "long")
     state = copy_state(torch, state)
     summary = report_steps(rows, n, horizon, "long path")
-    traced = replay_launches(torch, trainer)
-    check_replays(traced, {"rollout": rollout, "update": update}, "long path")
+    traced, _ = replay_launches(torch, trainer, {"rollout": rollout, "update": update}, "long path")
     print(f"  launches at capture {launches} ({runs} runs); one replay by the profiler trace "
           f"{traced}")
 
@@ -1363,68 +1509,68 @@ def long_phase(torch, kernels, results) -> None:
 
 def lob_phase(torch, kernels, results) -> None:
     from gymfx_tpu_torch.config.flagship import lob_config
+    from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
-    from gymfx_tpu_torch.ops import env_dynamics, lob_match, window_zscore
+    from gymfx_tpu_torch.ops import env_dynamics, lob_bar, lob_match, window_zscore
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     config = lob_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
     trainer = PPOTrainer(Environment(config), ppo_config_from(config))
     cfg, pcfg = trainer.env.cfg, trainer.pcfg
     check((pcfg.n_envs, pcfg.horizon, cfg.window_size, cfg.venue, cfg.lob_messages_per_bar,
-           cfg.lob_depth_levels, cfg.lob_queue_slots) == (N_ENVS, HORIZON, WINDOW, "lob", 64, 24, 4),
+           cfg.lob_depth_levels, cfg.lob_queue_slots, cfg.lob_scenario)
+          == (N_ENVS, HORIZON, WINDOW, "lob", K8_MSGS, 24, LOB_SLOTS, K8_SCENARIO),
           "flagship-lob-train config changed")
     state = trainer.init_state(SEED)
     torch.cuda.synchronize()
     counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
-               lob_match.process_stream)
+               lob_match.process_stream, lob_bar.run_bar)
+    for fn in counted:
+        fn.launches = 0
+    state, rows = train(torch, trainer, state, LOB_STEPS)
+    launches = count_launches(counted)
+    # per rollout phase; the update launches none of them.  The counts move
+    # at the warm-ups and the capture, a replay moves none
     per_phase = {"step_obs": HORIZON, "fill_brackets": 0, "mark_reward": HORIZON,
-                 "process_stream": HORIZON}
-    rows, first, k5_launches = [], None, 0
-    for i in range(LOB_STEPS):
-        for fn in counted:
-            fn.launches = 0
-        t0 = time.perf_counter()
-        inter, rollout_out = trainer.rollout_phase(state)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        launches = count_launches(counted)
-        check(launches == per_phase, f"LOB rollout phase {i} launched {launches}, expected {per_phase}")
-        k5_launches += launches["process_stream"]
-        state, metrics = trainer.update_phase(inter, rollout_out)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        check(count_launches(counted) == launches, "the LOB update phase launched an env kernel")
-        if i == 0:
-            first = (inter, rollout_out)
-        rows.append(dict(rollout_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3,
-                         metrics={k: float(v) for k, v in metrics.items()}))
-    kernels["process_stream"]["launches"] = k5_launches
-    # the first update captured its graph: one more replay, timed
-    t0 = time.perf_counter()
-    trainer.update_phase(*first)
-    torch.cuda.synchronize()
-    replay_ms = (time.perf_counter() - t0) * 1e3
-    check_training(rows, "lob")
+                 "process_stream": HORIZON, "run_bar": HORIZON}
+    runs = graphs.WARMUP + 1
+    check(launches == {k: runs * v for k, v in per_phase.items()},
+          f"LOB path launched {launches} at capture, expected {runs} x {per_phase}")
+    for key in ("process_stream", "lob_bar"):
+        kernels[key]["launches"] = launches["run_bar" if key == "lob_bar" else key]
     graphed = sorted(k for k, *_ in trainer._graphs)
-    check(graphed == ["update"], f"LOB venue graphs {graphed}: expected the update phase's only")
-    print(f"lob path phases: update graphed (capture {capture_seconds(trainer)} s, a replay "
-          f"{replay_ms:.1f} ms), rollout eager (the LOB venue by configuration, ROADMAP item 24)")
-    traj, last_value = first[1]
-    for key in ("obs", "logp", "value", "reward"):
-        check(bool(torch.isfinite(traj[key]).all()), f"LOB non-finite trajectory {key}")
+    check(graphed == ["rollout", "update"], f"LOB venue graphs {graphed}")
+    check_training(rows, "lob")
+    summary = report_steps(rows, N_ENVS, HORIZON, "lob path")
+    expected = {k.replace("run_bar", "lob_bar"): v for k, v in per_phase.items()}
+    traced, names = replay_launches(torch, trainer, {"rollout": expected, "update": {}}, "lob path")
+    names = names["rollout"]
+    gathers = sum(GATHER_KERNEL in n for n in names)
+    engine = sum(any(k in n.lower() for k in ENGINE_KERNELS) and GATHER_KERNEL not in n
+                 for n in names)
+    check(engine == 0, f"a LOB rollout replay ran {engine} sort, scan or scatter kernels: "
+          "the argsort engine is on the path")
+    per_step = len(names) / HORIZON
+    print(f"  launches at capture {launches} ({runs} runs); one replay by the profiler trace "
+          f"{traced}: {per_step:.1f} kernels a step, {engine} sort, scan or scatter, "
+          f"{gathers} gathers")
     env_states = state.env_states
     for field in ("pos", "cash_delta", "equity_delta", "entry_price"):
         check(bool(torch.isfinite(getattr(env_states, field)).all()), f"LOB non-finite state {field}")
     trades = int(env_states.trade_count.sum())
     check(trades > 0, "the LOB policy closed no trade")
     partial = int(((env_states.pos.abs() % config["position_size"]) != 0).sum())
-    summary = report_training(rows, N_ENVS, HORIZON, "lob path")
-    print(f"  launches per rollout phase {per_phase}; {trades} closed trades, {partial} envs "
-          f"holding a partly exited position")
+    state = copy_state(torch, state)
 
-    # the first rollout phase again, with the plain versions on the card
-    kernel_fns = (lob_match.process_stream, env_dynamics.mark_reward, window_zscore.step_obs)
+    # step 1's rollout phase, replayed from the graph, against the same
+    # phase op by op with the plain versions of K1, K3, K5 and K8 on the card
+    inter, (traj, last_value) = trainer.rollout_phase(trainer.init_state(SEED))
+    for key in ("obs", "logp", "value", "reward"):
+        check(bool(torch.isfinite(traj[key]).all()), f"LOB non-finite trajectory {key}")
+    kernel_fns = (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
+                  window_zscore.step_obs)
     lob_match.process_stream = lob_match.process_stream_plain
+    lob_bar.run_bar = lob_bar.run_bar_plain
     env_dynamics.mark_reward = env_dynamics.mark_reward_plain
     window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
         window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
@@ -1432,29 +1578,30 @@ def lob_phase(torch, kernels, results) -> None:
         fn.launches = 0
     try:
         t0 = time.perf_counter()
-        ref_state, (ref_traj, ref_last) = trainer.rollout_phase(trainer.init_state(SEED))
+        ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(trainer.init_state(SEED))
         torch.cuda.synchronize()
         plain_phase_s = time.perf_counter() - t0
     finally:
-        lob_match.process_stream, env_dynamics.mark_reward, window_zscore.step_obs = kernel_fns
+        (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
+         window_zscore.step_obs) = kernel_fns
     check(sum(count_launches(counted).values()) == 0, "the plain-version LOB phase launched a kernel")
-    inter = first[0]
     for key in ("obs", "action", "reward", "done", "logp", "value"):
         check(torch.equal(traj[key], ref_traj[key]), f"LOB path vs plain versions: traj {key}")
     for field in ref_state.env_states._fields:
         check(torch.equal(getattr(inter.env_states, field), getattr(ref_state.env_states, field)),
               f"LOB path vs plain versions: env state {field}")
     check(torch.equal(last_value, ref_last), "LOB path vs plain versions: bootstrap value")
-    print(f"lob path == plain versions on the card (rollout phase of step 1, torch.equal); "
-          f"plain phase {plain_phase_s * 1e3:.1f} ms")
+    print(f"lob path (graphed) == plain versions op by op on the card (rollout phase of step 1, "
+          f"torch.equal); plain phase {plain_phase_s * 1e3:.1f} ms; {trades} closed trades, "
+          f"{partial} envs holding a partly exited position")
+    compared = graphed_vs_eager(torch, trainer, state, None, "lob path")
     results["lob_path"] = {
         "config": "flagship-lob-train", "n_envs": N_ENVS, "horizon": HORIZON, "window": WINDOW,
         "lob": {"scenario": cfg.lob_scenario, "messages_per_bar": cfg.lob_messages_per_bar,
                 "depth": cfg.lob_depth_levels, "slots": cfg.lob_queue_slots},
-        "train_steps": len(rows), **summary, "plain_rollout_ms": plain_phase_s * 1e3,
-        "launches_per_rollout_phase": per_phase, "closed_trades": trades,
-        "graphed_phases": graphed, "capture_s": capture_seconds(trainer),
-        "update_replay_ms": replay_ms,
+        **summary, "plain_rollout_ms": plain_phase_s * 1e3, "launches_at_capture": launches,
+        "replay_launches": traced, "kernels_per_step": per_step, "engine_kernels": engine,
+        "closed_trades": trades, "graphed_phases": graphed, "graphed_vs_eager": compared,
     }
 
 
@@ -1487,12 +1634,12 @@ def episode_phase(torch, results) -> None:
     results["episode_final_equity"] = final_equity
 
     # the same on the LOB venue (flagship-lob-train: direct_fixed_sltp,
-    # 40-lot entries), K5 seeding every step's books
+    # 40-lot entries), K5 seeding every step's books and K8 running its bar
     from gymfx_tpu_torch.config.flagship import lob_config
-    from gymfx_tpu_torch.ops import lob_match
+    from gymfx_tpu_torch.ops import lob_bar, lob_match
 
     config = lob_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
-    counted = (*counted, lob_match.process_stream)
+    counted = (*counted, lob_match.process_stream, lob_bar.run_bar)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1501,7 +1648,8 @@ def episode_phase(torch, results) -> None:
     card_s = time.perf_counter() - t0
     episode_launches = count_launches(counted)
     expected = {"step_obs": LOB_EPISODE_STEPS + 1, "fill_brackets": 0,
-                "mark_reward": LOB_EPISODE_STEPS, "process_stream": LOB_EPISODE_STEPS}
+                "mark_reward": LOB_EPISODE_STEPS, "process_stream": LOB_EPISODE_STEPS,
+                "run_bar": LOB_EPISODE_STEPS}
     check(episode_launches == expected, f"LOB episode launched {episode_launches}, expected {expected}")
     t0 = time.perf_counter()
     _, cpu_out = Environment(config, device="cpu").rollout(rollout_mod.buy_hold_driver(),
@@ -1637,8 +1785,7 @@ def curriculum_phase(torch, dev, kernels, results, paths) -> None:
     for key in ("obs_vec",):
         check(bool(torch.isfinite(getattr(state, key)).all()), f"curriculum non-finite {key}")
     state = copy_state(torch, state)
-    traced = replay_launches(torch, trainer)
-    check_replays(traced, {"rollout": rollout, "update": update}, "curriculum")
+    traced, _ = replay_launches(torch, trainer, {"rollout": rollout, "update": update}, "curriculum")
     check(traced["rollout"]["step_obs"] + traced["update"]["step_obs"] == HORIZON + 2,
           "curriculum K1 a train step")
     labels = [sampler.specs[i].label.rsplit("/", 1)[-1] for i in picks]
@@ -1918,6 +2065,7 @@ def main() -> None:
     timed("kernels K1-K3", check_kernels_k1_k3, torch, dev, kernels)
     timed("kernels K4", check_kernels_k4, torch, dev, kernels, results)
     timed("kernels K5", check_kernels_k5, torch, dev, kernels, results, built["lob"][1])
+    timed("kernels K8", check_kernels_k8, torch, dev, kernels, results, built["lob"][1])
     timed("kernels K6-K7", check_kernels_k6_k7, torch, dev, kernels)
 
     # ---- 4. main: PPO training at flagship width ---------------------------

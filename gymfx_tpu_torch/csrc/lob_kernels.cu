@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel for the LOB venue's stream matching.
+// Hand-written Hopper (sm_90a) kernels for the LOB venue's book.
 //
 //   K5 lob_stream  replaces gymfx_tpu/ops/lob_match.py::fused_process_stream
 //                  (pallas body _stream_kernel): a message stream matched
@@ -6,6 +6,15 @@
 //                  priority, exact int32 — matching, resting, cancels and
 //                  queue compaction, plus one nine-field fill record per
 //                  message.
+//   K8 lob_bar     has no Pallas counterpart: it is the port's counterpart
+//                  of the lax.scan over a bar's flow inside the reference's
+//                  jitted step (gymfx_tpu/lob/venue.py:236-267).  One bar
+//                  of the LOB venue on the books K5 seeded: the agent's
+//                  open walk, gap stop and resting take-profit, then the
+//                  bar's flow message by message with the agent's maker
+//                  fills, the stop's trigger, the take-profit's cancel and
+//                  the stop's walk (lob/venue.py, ops/lob_bar.py; described
+//                  above lob_bar_kernel below).
 //
 // What it computes is the port's plain version,
 // gymfx_tpu_torch/lob/book.py::process_stream, and the Pallas kernel's
@@ -75,13 +84,45 @@
 // message); fill records are staged in shared memory and written as one
 // contiguous block of 32 x 9 ints.
 //
-// match_half, rest_lookup / rest_place and cancel_half act on a book in
-// registers only and assume nothing about where it came from: a kernel
-// that runs more than a stream (the agent's fills, stops and cancels
-// around the flow) calls them as they are.
+// match_half, rest_lookup / rest_place, cancel_half and process act on a
+// book in registers only and assume nothing about where it came from; K8
+// calls them as they are.
 //
-// The extern "C" entry point launches on the caller's stream, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).
+// K8 lob_bar.  What it computes is the plain version
+// gymfx_tpu_torch/ops/lob_bar.py::run_bar_plain, venue.py's book work of
+// one bar, step for step: the open walk (book.py::match_market, its
+// remainder priced at the open tick), the gap stop's walk, the
+// take-profit's add_limit of AGENT_OID at max(tp, 1) (process of an ADD,
+// which is add_limit: a cancel of oid 0 changes nothing after a match),
+// then per flow message process, the trigger has_sl & !fired & rem > 0 &
+// printed, book.py::cancel of AGENT_OID on the exit's half (cancel_half,
+// never a CANCEL message: book.py::cancel matches nothing) and the walk of
+// rem backstopped at the stop.  Where the stop does not fire, the cancel
+// names oid 0 and the walk takes 0 lots, as in the plain version; both
+// return without a warp step on a half within int32.  Its inputs are ints
+// computed before any book work (ops/lob_bar.py BarOrders); its outputs
+// the eight ints the ledger fills need (BarFills) and the final books.
+// Sums, values and the remaining lots wrap mod 2^32 as torch's int32
+// does (unsigned arithmetic, cast).  Where a half's lots exceed int32,
+// K8 does what book.py does, as K5 does: the walks match wrapped, and
+// after each cancel every level of both halves whose int32 lot sum is
+// <= 0 loses its price (reset_empty; within int32 that changes nothing).
+// The CPU tests hold ops/cases.lob_bar_emulated, this algorithm, to the
+// plain version on such books too.
+//
+// What bounds K8: as K5, each book's chain of dependent steps, and no
+// longer the bytes (the venue's 8,192 books of 24 x 4 and 64 messages:
+// 14.2 MB of book each way, 10.5 MB of flow, 0.5 MB of orders and
+// results, 11.8 us at 3.35 TB/s).  Its design is K5's: one warp per book,
+// the whole book in registers from the open walk to the last message,
+// the flow staged 32 messages at a time through shared memory, the
+// agent's seven inputs read once per warp and its eight results written
+// by lane 0.  A message's record stays in registers.  The agent's work
+// takes one of two inlined copies by the exit's side, as process does by
+// the message's, so no register array is indexed at run time.
+//
+// The extern "C" entry points launch on the caller's stream, do not
+// synchronise, and return cudaGetLastError() (0 = launched).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -138,6 +179,34 @@ struct Stats {
 };
 
 __device__ __forceinline__ Stats no_fill() { return {0u, 0u, 0u, 0u, 0u, kPriceCap, 0}; }
+
+// book.py::_record of the two halves' match stats, at most one of which
+// saw a nonzero take: sums mod 2^32, the traded prices' min and max.
+__device__ __forceinline__ Stats both(const Stats& a, const Stats& b) {
+  return {a.filled + b.filled, a.value + b.value, a.events + b.events,
+          a.agent_qty + b.agent_qty, a.agent_value + b.agent_value,
+          min(a.pmin, b.pmin), max(a.pmax, b.pmax)};
+}
+
+// One message's fill record (book.py::FillRecord): the match's stats, the
+// lots rested and the lots cancelled.
+struct Record {
+  Stats s;
+  int rested, cancelled;
+};
+
+// The record as book.py's nine int32 columns.
+__device__ __forceinline__ void store_record(int* row, const Record& r) {
+  row[0] = (int)r.s.filled;
+  row[1] = (int)r.s.value;
+  row[2] = (int)r.s.events;
+  row[3] = (int)r.s.agent_qty;
+  row[4] = (int)r.s.agent_value;
+  row[5] = r.s.pmin;
+  row[6] = r.s.pmax;
+  row[7] = r.rested;
+  row[8] = r.cancelled;
+}
 
 // A level's priority key on its half: lower is better (asks: the lowest
 // price; bids: the highest); kNone for a level without a price.
@@ -488,15 +557,15 @@ __device__ __forceinline__ int rest_place(Half<L, Q>& h, unsigned pick, int p, i
 // opp = asks) or a sell (own = asks, opp = bids): match opp with the take
 // (own with a take of 0, which fills nothing unless own's total exceeds
 // int32), zero the prices of levels left without lots, cancel on own,
-// rest on own, and write the message's fill record to row.  book.py
+// rest on own; returns the message's fill record.  book.py
 // zeroes the price of every level whose int32 lot sum is <= 0 at every
 // match; here only a wrapped match does (reset_empty), since within int32
 // a level's sum is 0 exactly when it is empty, the walk and the cancel
 // zero the price of a level they empty, and a half beyond int32 always
 // matches wrapped.
 template <bool kBuy, int L, int Q>
-__device__ __forceinline__ void process(Half<L, Q>& own, Half<L, Q>& opp, int kind, int price,
-                                        int qty, int oid, int lane, int depth, int* row) {
+__device__ __forceinline__ Record process(Half<L, Q>& own, Half<L, Q>& opp, int kind, int price,
+                                          int qty, int oid, int lane, int depth) {
   constexpr bool kOwnAsks = !kBuy;
   const bool is_add = kind == kAdd;
   const int take = (is_add || kind == kMarket) ? qty : 0;
@@ -515,16 +584,8 @@ __device__ __forceinline__ void process(Half<L, Q>& own, Half<L, Q>& opp, int ki
     if (!early) pick = rest_lookup(own, price, lane, depth);
     rested = rest_place<kOwnAsks>(own, pick, price, rest, oid, lane);
   }
-  // every lane stores the same values (one store, no branch)
-  row[0] = (int)(so.filled + sw.filled);
-  row[1] = (int)(so.value + sw.value);
-  row[2] = (int)(so.events + sw.events);
-  row[3] = (int)(so.agent_qty + sw.agent_qty);
-  row[4] = (int)(so.agent_value + sw.agent_value);
-  row[5] = min(so.pmin, sw.pmin);
-  row[6] = max(so.pmax, sw.pmax);
-  row[7] = rested;
-  row[8] = cancelled;
+  const Stats s = both(so, sw);
+  return {s, rested, cancelled};
 }
 
 template <bool kAsks, int L, int Q>
@@ -593,11 +654,13 @@ lob_stream_kernel(LobArgs a, long long n_books, int depth, int n_msgs) {
     __syncwarp();
     for (int j = 0; j < count; ++j) {
       const int4 m = s_msg[warp][j];
+      // every lane stores the same values (one store, no branch), inside
+      // each side's copy, where process leaves its record
       int* row = rec + j * kFillCols;
       if (m.x & 1)
-        process<true>(bids, asks, m.x >> 1, m.y, m.z, m.w, lane, depth, row);
+        store_record(row, process<true>(bids, asks, m.x >> 1, m.y, m.z, m.w, lane, depth));
       else
-        process<false>(asks, bids, m.x >> 1, m.y, m.z, m.w, lane, depth, row);
+        store_record(row, process<false>(asks, bids, m.x >> 1, m.y, m.z, m.w, lane, depth));
     }
     __syncwarp();
     int* out = a.fills + (m0 + chunk) * kFillCols;
@@ -609,29 +672,220 @@ lob_stream_kernel(LobArgs a, long long n_books, int depth, int n_msgs) {
   store_half(asks, a.out[3], a.out[4], a.out[5], lvl0, lane, depth);
 }
 
-template <int L, int Q>
-int launch(const LobArgs& a, long long n_books, int depth, int n_msgs, cudaStream_t stream) {
-  const long long blocks = (n_books + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  lob_stream_kernel<L, Q><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(a, n_books, depth,
-                                                                               n_msgs);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// K8 lob_bar: one bar of the LOB venue on a warp's book
+// ---------------------------------------------------------------------------
+struct BarArgs {
+  const int* in[6];     // the seeded books, as LobArgs
+  const int* msg[5];    // the bar's flow: kind, side, price, qty, oid, (B, M)
+  const int* order[7];  // the agent's orders (kOpenLots ...), (B,)
+  int* out[6];          // the final books
+  int* fill[8];         // the agent's results (kOpenValue ...), (B,)
+};
+constexpr int kBarPointers = 32;
+// ops/lob_bar.py BarOrders
+enum { kOpenLots, kOpenBuy, kOpenTick, kPosLots, kExitBuy, kStop, kTakeProfit };
+// ops/lob_bar.py BarFills
+enum { kOpenValue, kGapLots, kGapValue, kTpLots, kTpValue, kSlLots, kSlValue, kFired };
+
+// book.py::match_market: a market order of `lots` for a buy (kBuy: the
+// take walks the asks) or a sell, both halves matched as book.py matches
+// them (the other with a take of 0).
+template <bool kBuy, int L, int Q>
+__device__ __forceinline__ Stats match_market(Half<L, Q>& bids, Half<L, Q>& asks, int lots) {
+  const Stats sa = match_half<true>(asks, kBuy ? lots : 0, kPriceCap);
+  const Stats sb = match_half<false>(bids, kBuy ? 0 : lots, 0);
+  return both(sa, sb);
 }
 
-// every (levels a lane, slots) pair the wrapper takes
-template <int L>
-int launch_slots(int slots, const LobArgs& a, long long n_books, int depth, int n_msgs,
-                 cudaStream_t stream) {
-  switch (slots) {
-    case 1: return launch<L, 1>(a, n_books, depth, n_msgs, stream);
-    case 2: return launch<L, 2>(a, n_books, depth, n_msgs, stream);
-    case 3: return launch<L, 3>(a, n_books, depth, n_msgs, stream);
-    case 4: return launch<L, 4>(a, n_books, depth, n_msgs, stream);
-    case 5: return launch<L, 5>(a, n_books, depth, n_msgs, stream);
-    case 6: return launch<L, 6>(a, n_books, depth, n_msgs, stream);
-    case 7: return launch<L, 7>(a, n_books, depth, n_msgs, stream);
-    case 8: return launch<L, 8>(a, n_books, depth, n_msgs, stream);
-    default: return (int)cudaErrorInvalidValue;
+// venue.py::_walk_with_backstop: the market walk's value in tick-lots,
+// its unfilled remainder priced at the worst level it touched, else at
+// `backstop`; mod 2^32, as torch's int32.
+template <bool kBuy, int L, int Q>
+__device__ __forceinline__ unsigned walk(Half<L, Q>& bids, Half<L, Q>& asks, int lots,
+                                         int backstop) {
+  const Stats s = match_market<kBuy>(bids, asks, lots);
+  const int worst = (int)s.filled > 0 ? (kBuy ? s.pmax : s.pmin) : backstop;
+  return s.value + ((unsigned)lots - s.filled) * (unsigned)worst;
+}
+
+// The stop's work after a flow message (venue.py::intrabar's cancel and
+// walk) for an exit that buys (kBuy: the take-profit rests on the bids)
+// or sells: book.py::cancel of `target` on that half, then the exit's
+// walk of `take` lots backstopped at `stop`.  Where the stop does not
+// fire both are 0, as in the plain version: cancel_half and match_half
+// then return without a warp step (on a half within int32).  book.py's
+// cancel also zeroes the price of every level of both halves whose int32
+// lot sum is <= 0: within int32 no priced level is empty, and beyond it
+// reset_empty zeroes what book.py zeroes.
+template <bool kBuy, int L, int Q>
+__device__ __forceinline__ unsigned fire(Half<L, Q>& bids, Half<L, Q>& asks, int target,
+                                         int take, int stop) {
+  if (kBuy)
+    cancel_half<false>(bids, target);
+  else
+    cancel_half<true>(asks, target);
+  reset_empty(bids);
+  reset_empty(asks);
+  return walk<kBuy>(bids, asks, take, stop);
+}
+
+// venue.py's open_walk and intrabar on one book, their book work in the
+// plain version's order: the open walk, the gap stop, the take-profit's
+// rest (an ADD of AGENT_OID at max(tp, 1)), then for each flow message
+// process, the agent's maker fills, the stop's trigger and fire.  The
+// agent's scalars are the same in every lane; every branch on a side is
+// the book's own, so none diverges inside a warp.  The two walks at the
+// open share one loop, and the take-profit's rest is message 0 of the
+// flow's loop, so each side's walk and process is inlined once there
+// (fire holds the other walk): a third of the code, and of the build
+// time, of a copy at each call site.
+template <int L, int Q>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+lob_bar_kernel(BarArgs a, long long n_books, int depth, int n_msgs) {
+  __shared__ int4 s_msg[kWarpsPerBlock][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long b = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= n_books) return;  // whole warps only: b is uniform in a warp
+
+  const long long lvl0 = b * depth;
+  Half<L, Q> bids, asks;
+  load_half<false>(bids, a.in[0], a.in[1], a.in[2], lvl0, lane, depth);
+  load_half<true>(asks, a.in[3], a.in[4], a.in[5], lvl0, lane, depth);
+  const int open_lots = a.order[kOpenLots][b];
+  const bool open_buy = a.order[kOpenBuy][b] != 0;
+  const int o_t = a.order[kOpenTick][b];
+  const int pos_lots = a.order[kPosLots][b];
+  const bool exit_buy = a.order[kExitBuy][b] != 0;  // exiting a short buys
+  const int sl = a.order[kStop][b];
+  const int tp = a.order[kTakeProfit][b];
+
+  const bool has_sl = sl > 0 && pos_lots > 0;
+  const bool has_tp = tp > 0 && pos_lots > 0;
+  // a bar that gaps open through the stop exits at the open walk
+  const bool gap_sl = has_sl && (exit_buy ? o_t >= sl : o_t <= sl);
+  const int gap_lots = gap_sl ? pos_lots : 0;
+  // the pending order's market walk at the open, then the gap stop's: one
+  // inlined copy of each side's walk serves both
+  unsigned open_value = 0u, gap_value = 0u;
+#pragma unroll 1
+  for (int w = 0; w < 2; ++w) {
+    const bool buy = w == 0 ? open_buy : exit_buy;
+    const int lots = w == 0 ? open_lots : gap_lots;
+    const unsigned v = buy ? walk<true>(bids, asks, lots, o_t) : walk<false>(bids, asks, lots, o_t);
+    open_value = w == 0 ? v : open_value;
+    gap_value = w == 0 ? gap_value : v;
   }
+
+  // Message 0 is the take-profit's rest (an ADD of AGENT_OID at max(tp,
+  // 1), skipped when the gap stop flattened the bar; its marketable part
+  // fills at maker prices), messages 1..M the bar's flow: one inlined
+  // copy of each side's process serves both.
+  const int tp_rest = has_tp && !gap_sl ? pos_lots : 0;
+  unsigned rem = 0u, tp_lots = 0u, tp_value = 0u;
+  unsigned sl_lots = (unsigned)gap_lots, sl_value = gap_value;
+  bool fired = gap_sl;
+  const long long m0 = b * n_msgs - 1;  // the flow's row, one message behind
+  for (int chunk = 0; chunk <= n_msgs; chunk += 32) {
+    const int count = min(32, n_msgs + 1 - chunk);
+    if (lane < count) {  // as lob_stream_kernel stages them
+      const int i = chunk + lane;
+      if (i == 0) {
+        s_msg[warp][lane] = make_int4(2 * kAdd + (exit_buy ? 1 : 0), max(tp, 1), tp_rest, kAgentOid);
+      } else {
+        const long long k = m0 + i;
+        const int kind = min(max(a.msg[0][k], 0), 3);
+        s_msg[warp][lane] = make_int4(2 * kind + (a.msg[1][k] > 0 ? 1 : 0), a.msg[2][k],
+                                      a.msg[3][k], a.msg[4][k]);
+      }
+    }
+    __syncwarp();
+    for (int j = 0; j < count; ++j) {
+      const int4 m = s_msg[warp][j];
+      const Record r = (m.x & 1) ? process<true>(bids, asks, m.x >> 1, m.y, m.z, m.w, lane, depth)
+                                 : process<false>(asks, bids, m.x >> 1, m.y, m.z, m.w, lane, depth);
+      if (chunk + j == 0) {  // the take-profit's immediate fill
+        rem = (unsigned)pos_lots - (unsigned)gap_lots - r.s.filled;
+        tp_lots = r.s.filled;
+        tp_value = r.s.value;
+        continue;
+      }
+      // flow takers reaching the resting take-profit (maker fills)
+      rem -= r.s.agent_qty;
+      tp_lots += r.s.agent_qty;
+      tp_value += r.s.agent_value;
+      // the stop triggers on the first print at or through it
+      const bool printed = exit_buy ? r.s.pmax >= sl : r.s.pmin <= sl;
+      const bool trig = has_sl && !fired && (int)rem > 0 && printed;
+      const int target = trig ? kAgentOid : 0;
+      const int take = trig ? (int)rem : 0;
+      const unsigned xvalue = exit_buy ? fire<true>(bids, asks, target, take, sl)
+                                       : fire<false>(bids, asks, target, take, sl);
+      if (trig) {
+        sl_lots += rem;
+        sl_value += xvalue;
+        rem = 0u;
+      }
+      fired = fired || trig;
+    }
+    __syncwarp();
+  }
+
+  if (lane == 0) {
+    a.fill[kOpenValue][b] = (int)open_value;
+    a.fill[kGapLots][b] = gap_lots;
+    a.fill[kGapValue][b] = (int)gap_value;
+    a.fill[kTpLots][b] = (int)tp_lots;
+    a.fill[kTpValue][b] = (int)tp_value;
+    a.fill[kSlLots][b] = (int)sl_lots;
+    a.fill[kSlValue][b] = (int)sl_value;
+    a.fill[kFired][b] = fired ? 1 : 0;
+  }
+  store_half(bids, a.out[0], a.out[1], a.out[2], lvl0, lane, depth);
+  store_half(asks, a.out[3], a.out[4], a.out[5], lvl0, lane, depth);
+}
+
+template <int L, int Q>
+void start(const LobArgs& a, unsigned blocks, long long n_books, int depth, int n_msgs,
+           cudaStream_t stream) {
+  lob_stream_kernel<L, Q><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(a, n_books, depth, n_msgs);
+}
+
+template <int L, int Q>
+void start(const BarArgs& a, unsigned blocks, long long n_books, int depth, int n_msgs,
+           cudaStream_t stream) {
+  lob_bar_kernel<L, Q><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(a, n_books, depth, n_msgs);
+}
+
+// K5 or K8 (by the arguments' type) at every (levels a lane, slots) pair
+// the wrappers take: depth 1-32 -> 1 level a lane, 33-64 -> 2
+template <int L, class Args>
+void start_slots(int slots, const Args& a, unsigned blocks, long long n_books, int depth,
+                 int n_msgs, cudaStream_t stream) {
+  switch (slots) {
+    case 1: return start<L, 1>(a, blocks, n_books, depth, n_msgs, stream);
+    case 2: return start<L, 2>(a, blocks, n_books, depth, n_msgs, stream);
+    case 3: return start<L, 3>(a, blocks, n_books, depth, n_msgs, stream);
+    case 4: return start<L, 4>(a, blocks, n_books, depth, n_msgs, stream);
+    case 5: return start<L, 5>(a, blocks, n_books, depth, n_msgs, stream);
+    case 6: return start<L, 6>(a, blocks, n_books, depth, n_msgs, stream);
+    case 7: return start<L, 7>(a, blocks, n_books, depth, n_msgs, stream);
+    default: return start<L, 8>(a, blocks, n_books, depth, n_msgs, stream);
+  }
+}
+
+template <class Args>
+int launch(const Args& a, long long n_books, int depth, int slots, int n_msgs, void* stream) {
+  if (depth < 1 || depth > kMaxDepth || slots < 1 || slots > kMaxSlots)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n_books + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (depth <= 32)
+    start_slots<1>(slots, a, blocks, n_books, depth, n_msgs, s);
+  else
+    start_slots<2>(slots, a, blocks, n_books, depth, n_msgs, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -640,21 +894,34 @@ extern "C" {
 
 int gymfx_lob_pointer_count() { return kLobPointers; }
 
+int gymfx_lob_bar_pointer_count() { return kBarPointers; }
+
 // ptrs: the six input book tensors, the five (B, M) message tensors, the
 // six output book tensors and the (B, M, 9) fill records, all int32 and
 // contiguous.  Requires 1 <= depth <= 64, 1 <= slots <= 8.
 int gymfx_lob_stream(void* const* ptrs, long long n_books, int depth, int slots, int n_msgs,
                      void* stream) {
-  if (depth < 1 || depth > kMaxDepth || slots < 1 || slots > kMaxSlots)
-    return (int)cudaErrorInvalidValue;
   LobArgs a;
   for (int i = 0; i < 6; ++i) a.in[i] = static_cast<const int*>(ptrs[i]);
   for (int i = 0; i < 5; ++i) a.msg[i] = static_cast<const int*>(ptrs[6 + i]);
   for (int i = 0; i < 6; ++i) a.out[i] = static_cast<int*>(ptrs[11 + i]);
   a.fills = static_cast<int*>(ptrs[17]);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return depth <= 32 ? launch_slots<1>(slots, a, n_books, depth, n_msgs, s)
-                     : launch_slots<2>(slots, a, n_books, depth, n_msgs, s);
+  return launch(a, n_books, depth, slots, n_msgs, stream);
+}
+
+// ptrs: the six input book tensors, the five (B, M) flow tensors, the
+// seven (B,) order tensors (ops/lob_bar.py BarOrders), the six output book
+// tensors and the eight (B,) result tensors (BarFills), all int32 and
+// contiguous.  Requires 1 <= depth <= 64, 1 <= slots <= 8.
+int gymfx_lob_bar(void* const* ptrs, long long n_books, int depth, int slots, int n_msgs,
+                  void* stream) {
+  BarArgs a;
+  for (int i = 0; i < 6; ++i) a.in[i] = static_cast<const int*>(ptrs[i]);
+  for (int i = 0; i < 5; ++i) a.msg[i] = static_cast<const int*>(ptrs[6 + i]);
+  for (int i = 0; i < 7; ++i) a.order[i] = static_cast<const int*>(ptrs[11 + i]);
+  for (int i = 0; i < 6; ++i) a.out[i] = static_cast<int*>(ptrs[18 + i]);
+  for (int i = 0; i < 8; ++i) a.fill[i] = static_cast<int*>(ptrs[24 + i]);
+  return launch(a, n_books, depth, slots, n_msgs, stream);
 }
 
 }  // extern "C"

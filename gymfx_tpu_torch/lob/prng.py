@@ -50,7 +50,9 @@ def PRNGKey(seed: int, device=None):
 def fold_in(key, data):
     """``jax.random.fold_in`` of each key with uint32 ``data`` (broadcast
     against the key batch): the block function of the count (0, data)."""
-    data = torch.as_tensor(data, device=key.device).to(torch.int64) & _MASK
+    if not isinstance(data, torch.Tensor):  # a tensor is used as it is: no host copy
+        data = torch.as_tensor(data, device=key.device)
+    data = data.to(torch.int64) & _MASK
     y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
     return torch.stack([y1, y2], dim=-1)
 

@@ -7,47 +7,55 @@ fresh book seeded at its bar open, the pending order walks it at the
 open, the take-profit rests in it as an agent order, and the bar's
 seeded flow runs through it with a stop triggered on prints.
 
-Its three stages are functions of their own, so a profiler can range
-them (``profile_rollout.py``):
+Its stages are functions of their own, so a profiler can range them
+(``profile_rollout.py``):
 
-  :func:`seed_book`  the fresh books, seeded through K5
-                     (ops/lob_match.process_stream)
-  :func:`open_walk`  the pending order's market walk at the open and its
-                     ledger fill
-  :func:`intrabar`   the gap stop, the resting take-profit and the scan
-                     of ``lob_messages_per_bar`` flow messages through
-                     ``book.process_message``, then the exit fill
+  :func:`seed_book`   ``lob_seed``: the fresh books, seeded through K5
+                      (ops/lob_match.process_stream)
+  :func:`bar_flow`    ``lob_flow``: the bar's seeded flow messages
+  :func:`bar_orders`  ``lob_orders``: the agent's int32 inputs of the
+                      bar's book work (ops/lob_bar.BarOrders), from the
+                      state alone
+  ``lob_bar.run_bar`` ``lob_bar``: every book operation of the bar, K8
+                      (the open walk, the gap stop, the resting
+                      take-profit, the flow with the stop's trigger,
+                      cancel and walk)
+  :func:`bar_fills`   ``lob_fills``: the open fill, the exit fill and the
+                      brackets
 
-Where the JAX package's ``lax.cond`` on the stop trigger computes both
-branches and selects, the port runs the fire branch for every env with a
-zero cancel target and a zero walk where the stop did not fire: bitwise
-no-ops on the book (lob/book.py), and an exit value of 0, as the other
-branch gives.  Prices divide by the tick as a 0-d tensor on the env's
-device (CUDA divides by a host scalar through its reciprocal).
+The reference interleaves the open fill with the book work; here every
+book input is computed first, which the ledger allows: ``apply_fill``
+lands the position exactly on its target, and it leaves the brackets
+alone, so the position after the open fill and the armed brackets are
+known before the book runs, and the book's results are needed only by
+the two fills after it.  Every float op is the reference's, on the same
+values.  Prices divide by the tick as a 0-d tensor on the env's device
+(CUDA divides by a host scalar through its reciprocal).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 
 from gymfx_tpu_torch.core import broker
 from gymfx_tpu_torch.core.types import EnvConfig, EnvParams, EnvState
-from gymfx_tpu_torch.lob.book import (
-    AGENT_OID,
-    BookState,
-    Messages,
-    add_limit,
-    cancel,
-    empty_book,
-    match_market,
-    process_message,
-)
+from gymfx_tpu_torch.lob.book import BookState, Messages, empty_book
 from gymfx_tpu_torch.lob.flow import bar_key, bar_messages, price_to_ticks, seed_messages
 from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
-from gymfx_tpu_torch.ops import lob_match
+from gymfx_tpu_torch.ops import lob_bar, lob_match
+from gymfx_tpu_torch.ops.lob_bar import BarFills, BarOrders
 
 I32 = torch.int32
+
+
+class Entry(NamedTuple):
+    """The open fill's inputs that are not the book's, (N,) each."""
+
+    denied: Any         # bool: the pending order was below one lot
+    ledger_target: Any  # float: the position after the open fill
+    bracket_sl: Any     # float: the brackets after the open fill
+    bracket_tp: Any
 
 
 def lot_size(cfg: EnvConfig, params: EnvParams):
@@ -74,20 +82,6 @@ def _vwap_price(value, lots, tick, dtype):
     return value.to(dtype) / lots_f * tick
 
 
-def _walk_with_backstop(book: BookState, is_buy, lots, backstop_ticks):
-    """Market-walk ``lots`` against the books; the unfilled remainder is
-    priced at the worst touched level (else ``backstop_ticks``).
-    Returns (books, total value in tick-lots, worst touched)."""
-    book, fill = match_market(book, is_buy, lots)
-    worst = torch.where(
-        fill.filled_qty > 0,
-        torch.where(is_buy, fill.price_max, fill.price_min),
-        backstop_ticks,
-    )
-    value = fill.filled_value + (lots - fill.filled_qty) * worst
-    return book, value, worst
-
-
 def seed_book(o_t, cfg: EnvConfig) -> BookState:
     """Fresh books seeded with the scenario's baseline depth at each env's
     open tick ``o_t``: the seed stream runs through K5."""
@@ -97,110 +91,86 @@ def seed_book(o_t, cfg: EnvConfig) -> BookState:
     return book
 
 
-def open_walk(state: EnvState, book: BookState, o, o_t, tick, cfg: EnvConfig,
-              params: EnvParams):
-    """Step 1: the pending order executes as a market walk at the open.
-    Returns (state after the entry fill and bracket arming, books)."""
+def bar_flow(o_t, h_t, l_t, c_t, t_global, cfg: EnvConfig) -> Messages:
+    """The bar's ``lob_messages_per_bar`` flow messages per env, keyed by
+    its bar row ``t_global``: (N, M)."""
+    return bar_messages(
+        bar_key(cfg.lob_flow_seed, t_global), o_t, h_t, l_t, c_t,
+        cfg.lob_messages_per_bar, scenario_flow_params(cfg.lob_scenario),
+    )
+
+
+def bar_orders(state: EnvState, o_t, tick, cfg: EnvConfig, params: EnvParams):
+    """The agent's inputs of the bar's book work, from the state before
+    it: the pending order's lots and side at the open (a forced
+    liquidation always trades >= 1 lot and lands the ledger on its target;
+    a sub-lot order is denied), the position after the open fill in lots,
+    its exit side and the brackets armed after the fill in ticks.
+    Returns (BarOrders, Entry)."""
     d = state.pos.dtype
     lot_units = lot_size(cfg, params)
     raw_target = torch.where(state.pending_active, state.pending_target, state.pos)
     delta = raw_target - state.pos
     lots_raw = to_lots(delta, lot_units)
     forced = state.pending_active & state.pending_forced
-    # a forced liquidation always trades (>= 1 lot for pricing) and the
-    # ledger lands exactly on its target
     lots = torch.where(forced & (delta != 0), torch.clamp_min(lots_raw, 1), lots_raw)
     denied = state.pending_active & ~forced & (delta != 0) & (lots < 1)
     exec_lots = torch.where(state.pending_active & ~denied, lots, 0)
-    is_buy = delta > 0
-    book, open_value, _ = _walk_with_backstop(book, is_buy, exec_lots, o_t)
-    open_price = _vwap_price(open_value, exec_lots, tick, d)
-
     signed_lots = broker.sign(delta) * exec_lots.to(d) * lot_units
     ledger_target = torch.where(denied, state.pos, state.pos + signed_lots)
     ledger_target = torch.where(forced, raw_target, ledger_target)
-
-    state = state._replace(
-        exec_diag=broker.add_count(state.exec_diag, "order_denied_min_quantity", denied)
-    )
-    st = broker.apply_fill(
-        state, torch.where(exec_lots > 0, open_price, o), ledger_target, params
-    )
-    # brackets arm when the fill opened units, quantized to the tick grid
+    # brackets arm when the fill opens units, quantized to the tick grid;
+    # apply_fill lands the position on ledger_target exactly
     entered = (
         state.pending_active
-        & (st.pos != 0)
+        & (ledger_target != 0)
         & (broker.opening_units(state.pos, ledger_target) > 0)
     )
     sl_armed = bracket_ticks(state.pending_sl, tick).to(d) * tick
     tp_armed = bracket_ticks(state.pending_tp, tick).to(d) * tick
-    flat = st.pos == 0
+    flat = ledger_target == 0
+    bracket_sl = torch.where(flat, 0.0, torch.where(entered, sl_armed, state.bracket_sl))
+    bracket_tp = torch.where(flat, 0.0, torch.where(entered, tp_armed, state.bracket_tp))
+    orders = BarOrders(
+        open_lots=exec_lots,
+        open_buy=(delta > 0).to(I32),
+        open_tick=o_t,
+        pos_lots=to_lots(ledger_target, lot_units),
+        exit_buy=(~(ledger_target > 0)).to(I32),  # exiting a short buys
+        stop=bracket_ticks(bracket_sl, tick),
+        take_profit=bracket_ticks(bracket_tp, tick),
+    )
+    return orders, Entry(denied, ledger_target, bracket_sl, bracket_tp)
+
+
+def bar_fills(state: EnvState, entry: Entry, orders: BarOrders, fills: BarFills, o, tick,
+              cfg: EnvConfig, params: EnvParams) -> EnvState:
+    """The ledger after the bar: the open walk's fill, then the exits as
+    one fill at their lots-weighted vwap (exact: realized PnL and
+    commission are linear in price at fixed lots); brackets survive a
+    partial take-profit, a full exit or a fired stop clears them."""
+    d = state.pos.dtype
+    lot_units = lot_size(cfg, params)
+    state = state._replace(
+        exec_diag=broker.add_count(state.exec_diag, "order_denied_min_quantity", entry.denied)
+    )
+    open_price = _vwap_price(fills.open_value, orders.open_lots, tick, d)
+    st = broker.apply_fill(
+        state, torch.where(orders.open_lots > 0, open_price, o), entry.ledger_target, params
+    )
     st = st._replace(
         pending_active=torch.zeros_like(state.pending_active),
         pending_target=torch.zeros_like(state.pending_target),
         pending_sl=torch.zeros_like(state.pending_sl),
         pending_tp=torch.zeros_like(state.pending_tp),
         pending_forced=torch.zeros_like(state.pending_forced),
-        bracket_sl=torch.where(flat, 0.0, torch.where(entered, sl_armed, st.bracket_sl)),
-        bracket_tp=torch.where(flat, 0.0, torch.where(entered, tp_armed, st.bracket_tp)),
+        bracket_sl=entry.bracket_sl,
+        bracket_tp=entry.bracket_tp,
     )
-    return st, book
 
-
-def intrabar(st: EnvState, book: BookState, o, o_t, h_t, l_t, c_t, t_global, tick,
-             cfg: EnvConfig, params: EnvParams) -> EnvState:
-    """Step 2 and 3: the take-profit rests in the book, the stop triggers
-    on prints of the bar's flow, and the exits book as one ledger fill."""
-    d = st.pos.dtype
-    lot_units = lot_size(cfg, params)
-    pos_lots = to_lots(st.pos, lot_units)
-    long = st.pos > 0
-    exit_is_buy = ~long  # exiting a short buys
-    sl = bracket_ticks(st.bracket_sl, tick)
-    tp = bracket_ticks(st.bracket_tp, tick)
-    has_sl = (sl > 0) & (pos_lots > 0)
-    has_tp = (tp > 0) & (pos_lots > 0)
-
-    # a bar that gaps open through the stop exits at the open walk
-    gap_sl = has_sl & torch.where(long, o_t <= sl, o_t >= sl)
-    gap_lots = torch.where(gap_sl, pos_lots, 0)
-    book, gap_value, _ = _walk_with_backstop(book, exit_is_buy, gap_lots, o_t)
-
-    # rest the TP (skipped when the gap stop already flattened the bar);
-    # its marketable part fills immediately at maker prices
-    tp_rest = torch.where(has_tp & ~gap_sl, pos_lots, 0)
-    agent = torch.full_like(tp_rest, AGENT_OID)
-    book, tp_fill0 = add_limit(book, exit_is_buy, torch.clamp_min(tp, 1), tp_rest, agent)
-
-    rem = pos_lots - gap_lots - tp_fill0.filled_qty
-    fired = gap_sl
-    tp_lots, tp_value = tp_fill0.filled_qty, tp_fill0.filled_value
-    sl_lots, sl_value = gap_lots, gap_value
-    flow = bar_messages(
-        bar_key(cfg.lob_flow_seed, t_global), o_t, h_t, l_t, c_t,
-        cfg.lob_messages_per_bar, scenario_flow_params(cfg.lob_scenario),
-    )
-    for m in range(cfg.lob_messages_per_bar):
-        book, fill = process_message(book, Messages(*(x[:, m] for x in flow)))
-        # flow takers reaching our resting TP (maker fills)
-        rem = rem - fill.agent_qty
-        tp_lots = tp_lots + fill.agent_qty
-        tp_value = tp_value + fill.agent_value
-        # stop trigger: the first print at/through the stop level
-        printed = torch.where(long, fill.price_min <= sl, fill.price_max >= sl)
-        trig = has_sl & ~fired & (rem > 0) & printed
-        # fire: pull the TP, walk the remaining lots (no-ops where ~trig)
-        book, _ = cancel(book, exit_is_buy, torch.where(trig, agent, 0))
-        book, xvalue, _ = _walk_with_backstop(book, exit_is_buy, torch.where(trig, rem, 0), sl)
-        sl_lots = sl_lots + torch.where(trig, rem, 0)
-        sl_value = sl_value + torch.where(trig, xvalue, 0)
-        rem = torch.where(trig, 0, rem)
-        fired = fired | trig
-
-    # aggregate exit fill (lots-weighted vwap; exact: realized PnL and
-    # commission are linear in price at fixed lots)
-    exit_lots = tp_lots + sl_lots
-    exit_value = tp_value + sl_value
+    pos_lots = orders.pos_lots
+    exit_lots = fills.tp_lots + fills.sl_lots
+    exit_value = fills.tp_value + fills.sl_value
     full_exit = (exit_lots >= pos_lots) & (pos_lots > 0)
     exit_target = torch.where(
         full_exit,
@@ -214,9 +184,7 @@ def intrabar(st: EnvState, book: BookState, o, o_t, h_t, l_t, c_t, t_global, tic
         torch.where(exit_lots > 0, exit_target, st.pos),
         params,
     )
-    # brackets survive a partial TP (re-rested with the remaining lots
-    # next bar); a full exit or fired stop clears them
-    cleared = (st.pos == 0) | fired
+    cleared = (st.pos == 0) | (fills.fired != 0)
     return st._replace(
         bracket_sl=torch.where(cleared, 0.0, st.bracket_sl),
         bracket_tp=torch.where(cleared, 0.0, st.bracket_tp),
@@ -235,8 +203,10 @@ def execute_bar(state: EnvState, o, h, l, c, t_global, cfg: EnvConfig,
     h_t = torch.maximum(price_to_ticks(h, tick), torch.maximum(o_t, c_t))
     l_t = torch.minimum(price_to_ticks(l, tick), torch.minimum(o_t, c_t))
     book = seed_book(o_t, cfg)
-    st, book = open_walk(state, book, o, o_t, tick, cfg, params)
-    return intrabar(st, book, o, o_t, h_t, l_t, c_t, t_global, tick, cfg, params)
+    flow = bar_flow(o_t, h_t, l_t, c_t, t_global, cfg)
+    orders, entry = bar_orders(state, o_t, tick, cfg, params)
+    _, fills = lob_bar.run_bar(book, flow, orders)
+    return bar_fills(state, entry, orders, fills, o, tick, cfg, params)
 
 
 def validate_lob_venue(cfg: EnvConfig, config: Dict[str, Any]) -> None:

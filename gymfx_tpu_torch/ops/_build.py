@@ -10,8 +10,10 @@ by nvcc at first use and loaded with ``ctypes``:
                the tensor cores, f32 on the CUDA cores), held to its plain
                versions by a tolerance, so FMA contraction stays on (the
                same flags without -fmad=false)
-    lob        csrc/lob_kernels.cu (K5), integer only (the same flags as
-               attention)
+    lob        csrc/lob_kernels.cu (K5, K8), integer only (the attention
+               flags, and --split-compile=0: its 32 templates' optimizer
+               passes run on every core, 22 s against 54 s alone on the
+               H100's 8-core host, with the same registers and spills)
     data       csrc/data_kernels.cu (K6 q16 tape decode, K7 batched scaled
                windows), bitwise to the plain versions (the env flags)
     attention_probe  csrc/attention_probe.cu, K4's forward copies without
@@ -57,7 +59,7 @@ KERNEL_LIBRARIES = ("env", "attention", "lob", "data")
 FLAGS = {
     "env": (*_COMMON, "-fmad=false", *_SHARED),
     "attention": (*_COMMON, *_SHARED),
-    "lob": (*_COMMON, *_SHARED),
+    "lob": (*_COMMON, "--split-compile=0", *_SHARED),
     "data": (*_COMMON, "-fmad=false", *_SHARED),
     "attention_probe": (*_COMMON, *_SHARED),
 }
@@ -169,10 +171,12 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
 
 
 def _bind_lob(lib: ctypes.CDLL) -> None:
-    lib.gymfx_lob_stream.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.gymfx_lob_stream.restype = ctypes.c_int
+    for fn in (lib.gymfx_lob_stream, lib.gymfx_lob_bar):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.gymfx_lob_pointer_count.restype = ctypes.c_int
+    lib.gymfx_lob_bar_pointer_count.restype = ctypes.c_int
 
 
 def _bind_data(lib: ctypes.CDLL) -> None:

@@ -597,43 +597,276 @@ class _EmuHalf:
             self.total = sum(map(sum, self.qty))
 
 
-def lob_stream_emulated(book, msgs):
-    """K5's algorithm (csrc/lob_kernels.cu) on CPU tensors: (final books,
-    (B, M) fill records), to equal ``lob/book.py::process_stream`` on
-    books that hold the engine's invariants."""
-    from gymfx_tpu_torch.lob.book import (MSG_ADD, MSG_CANCEL, MSG_MARKET, PRICE_CAP, BookState,
-                                          FillRecord)
+def _emu_both(s_a, s_b):
+    """book.py::_record's first seven fields from the two halves' stats."""
+    return [_i32(x + y) for x, y in zip(s_a[:5], s_b[:5])] + [min(s_a[5], s_b[5]),
+                                                              max(s_a[6], s_b[6])]
 
-    books = [x.tolist() for x in book]
-    streams = [x.tolist() for x in msgs]
-    out, records = [[] for _ in BookState._fields], []
-    for b in range(len(books[0])):
-        bids = _EmuHalf(books[0][b], books[1][b], books[2][b], asks=False)
-        asks = _EmuHalf(books[3][b], books[4][b], books[5][b], asks=True)
-        rows = []
-        for kind, side, p, q, o in zip(*(s[b] for s in streams)):
-            kind, is_buy = min(max(kind, 0), 3), side > 0
-            is_add = kind == MSG_ADD
-            take = q if kind in (MSG_ADD, MSG_MARKET) else 0
-            s_a = asks.match(take if is_buy else 0, p if is_add else PRICE_CAP)
-            s_b = bids.match(0 if is_buy else take, p if is_add else 0)
-            target = o if kind == MSG_CANCEL else 0
-            removed = bids.cancel(target) if is_buy else asks.cancel(target)
-            q_add = q if is_add else 0
-            rested = (bids.rest(p, _i32(q_add - s_a[0]), o) if is_buy
-                      else asks.rest(p, _i32(q_add - s_b[0]), o))
-            rows.append([_i32(x + y) for x, y in zip(s_a[:5], s_b[:5])]
-                        + [min(s_a[5], s_b[5]), max(s_a[6], s_b[6]), rested, removed])
-        records.append(rows)
+
+def _emu_process(bids, asks, kind, side, p, q, o):
+    """K5's process on one book's two _EmuHalf: the nine-field record."""
+    from gymfx_tpu_torch.lob.book import MSG_ADD, MSG_CANCEL, MSG_MARKET, PRICE_CAP
+
+    kind, is_buy = min(max(kind, 0), 3), side > 0
+    is_add = kind == MSG_ADD
+    take = q if kind in (MSG_ADD, MSG_MARKET) else 0
+    s_a = asks.match(take if is_buy else 0, p if is_add else PRICE_CAP)
+    s_b = bids.match(0 if is_buy else take, p if is_add else 0)
+    target = o if kind == MSG_CANCEL else 0
+    removed = bids.cancel(target) if is_buy else asks.cancel(target)
+    q_add = q if is_add else 0
+    rested = (bids.rest(p, _i32(q_add - s_a[0]), o) if is_buy
+              else asks.rest(p, _i32(q_add - s_b[0]), o))
+    return _emu_both(s_a, s_b) + [rested, removed]
+
+
+def _emu_books(book):
+    """Each book of ``book`` as (bids, asks) _EmuHalf pairs."""
+    rows = [x.tolist() for x in book]
+    return [(_EmuHalf(rows[0][b], rows[1][b], rows[2][b], asks=False),
+             _EmuHalf(rows[3][b], rows[4][b], rows[5][b], asks=True)) for b in range(len(rows[0]))]
+
+
+def _emu_final(halves, book):
+    """The final books of (bids, asks) _EmuHalf pairs, shaped as ``book``."""
+    from gymfx_tpu_torch.lob.book import BookState
+
+    out = [[] for _ in BookState._fields]
+    for bids, asks in halves:
         for i, half in enumerate((bids, asks)):
             out[3 * i].append(half.price)
             out[3 * i + 1].append(half.qty)
             out[3 * i + 2].append(half.oid)
     dev = book.bid_qty.device
-    final = BookState(*(torch.tensor(x, dtype=torch.int32, device=dev).reshape(t.shape)
-                        for x, t in zip(out, book)))
-    fills = torch.tensor(records, dtype=torch.int32, device=dev).reshape(*msgs.kind.shape, 9)
-    return final, FillRecord(*fills.unbind(-1))
+    return BookState(*(torch.tensor(x, dtype=torch.int32, device=dev).reshape(t.shape)
+                       for x, t in zip(out, book)))
+
+
+def lob_stream_emulated(book, msgs):
+    """K5's algorithm (csrc/lob_kernels.cu) on CPU tensors: (final books,
+    (B, M) fill records), to equal ``lob/book.py::process_stream`` on
+    books that hold the engine's invariants."""
+    from gymfx_tpu_torch.lob.book import FillRecord
+
+    halves = _emu_books(book)
+    streams = [x.tolist() for x in msgs]
+    records = [[_emu_process(bids, asks, *m) for m in zip(*(s[b] for s in streams))]
+               for b, (bids, asks) in enumerate(halves)]
+    fills = torch.tensor(records, dtype=torch.int32, device=book.bid_qty.device)
+    return _emu_final(halves, book), FillRecord(*fills.reshape(*msgs.kind.shape, 9).unbind(-1))
+
+
+# ---------------------------------------------------------------------------
+# K8: one bar of the LOB venue (ops/lob_bar.py)
+# ---------------------------------------------------------------------------
+def _emu_walk(bids, asks, is_buy, lots, backstop):
+    """K8's walk: book.py::match_market on both halves, the remainder
+    priced at the worst level touched, else at ``backstop`` (int32)."""
+    from gymfx_tpu_torch.lob.book import PRICE_CAP
+
+    s = _emu_both(asks.match(lots if is_buy else 0, PRICE_CAP), bids.match(0 if is_buy else lots, 0))
+    worst = (s[6] if is_buy else s[5]) if s[0] > 0 else backstop
+    return _i32(s[1] + (lots - s[0]) * worst)
+
+
+def lob_bar_emulated(book, flow, orders):
+    """K8's algorithm (csrc/lob_kernels.cu lob_bar_kernel) on CPU
+    tensors, one book at a time on K5's _EmuHalf model: (final books,
+    BarFills), to equal ``ops/lob_bar.run_bar_plain``.  After each cancel
+    every level of both halves whose int32 lot sum is <= 0 loses its price,
+    as book.py's cancel resets them (a no-op within int32)."""
+    from gymfx_tpu_torch.lob.book import AGENT_OID, MSG_ADD
+    from gymfx_tpu_torch.ops.lob_bar import BarFills
+
+    halves = _emu_books(book)
+    streams = [x.tolist() for x in flow]
+    cols = [x.tolist() for x in orders]
+    results = []
+    for b, (bids, asks) in enumerate(halves):
+        open_lots, open_buy, o_t, pos_lots, exit_buy, sl, tp = (c[b] for c in cols)
+        open_value = _emu_walk(bids, asks, open_buy != 0, open_lots, o_t)
+        exit_buy = exit_buy != 0
+        has_sl, has_tp = sl > 0 and pos_lots > 0, tp > 0 and pos_lots > 0
+        gap_sl = has_sl and (o_t >= sl if exit_buy else o_t <= sl)
+        gap_lots = pos_lots if gap_sl else 0
+        gap_value = _emu_walk(bids, asks, exit_buy, gap_lots, o_t)
+        tp_rest = pos_lots if has_tp and not gap_sl else 0
+        tp0 = _emu_process(bids, asks, MSG_ADD, 1 if exit_buy else -1, max(tp, 1), tp_rest,
+                           AGENT_OID)
+        rem = _i32(pos_lots - gap_lots - tp0[0])
+        tp_lots, tp_value, sl_lots, sl_value, fired = tp0[0], tp0[1], gap_lots, gap_value, gap_sl
+        for m in zip(*(s[b] for s in streams)):
+            r = _emu_process(bids, asks, *m)
+            rem, tp_lots, tp_value = _i32(rem - r[3]), _i32(tp_lots + r[3]), _i32(tp_value + r[4])
+            printed = r[6] >= sl if exit_buy else r[5] <= sl
+            trig = has_sl and not fired and rem > 0 and printed
+            target, take = (AGENT_OID, rem) if trig else (0, 0)
+            if exit_buy:
+                bids.cancel(target)
+            else:
+                asks.cancel(target)
+            bids.reset()
+            asks.reset()
+            xvalue = _emu_walk(bids, asks, exit_buy, take, sl)
+            if trig:
+                sl_lots, sl_value, rem = _i32(sl_lots + rem), _i32(sl_value + xvalue), 0
+            fired = fired or trig
+        results.append([open_value, gap_lots, gap_value, tp_lots, tp_value, sl_lots, sl_value,
+                        int(fired)])
+    out = torch.tensor(results, dtype=torch.int32, device=book.bid_qty.device).reshape(-1, 8)
+    return _emu_final(halves, book), BarFills(*out.T.contiguous().unbind(0))
+
+
+# The K8 cases: each book's orders follow one of LOB_BAR_PATHS (cycled
+# over the books) at offsets drawn per book.  "long" / "short" hold 40 lots
+# with brackets 1-12 ticks off the open (the flow decides what fills and
+# fires); "scripted" paths replace the book's flow by NOOPs and a few
+# messages written to force the path: a take-profit partly filled by a
+# market order and then pulled by the stop a later print fires
+# ("tp_then_stop"), a stop that fires on the last message ("stop_last").
+LOB_BAR_PATHS = ("open_buy", "open_sell", "forced", "denied", "gap_long", "gap_short", "long",
+                 "short", "tp_then_stop", "stop_last", "no_brackets")
+
+
+def lob_bar_case(n_books, depth=24, slots=4, n_msgs=64, seed=0, scenario="lob_volatile",
+                 device=None):
+    """(books, flow, orders, paths) for K8: books seeded at EUR/USD-like
+    open ticks (min(8, depth) levels a side, the venue's seed stream through
+    K5's plain version), each book's bar flow from ``bar_messages`` under
+    ``scenario`` (bar rows 0..n_books-1 of flow seed ``seed``) and its
+    orders from LOB_BAR_PATHS; ``paths`` (B,) numpy names each book's path.
+    Every tensor int32 on ``device``."""
+    from gymfx_tpu_torch.lob import book as book_mod
+    from gymfx_tpu_torch.lob.book import MSG_MARKET, MSG_NOOP, Messages
+    from gymfx_tpu_torch.lob.flow import bar_key, bar_messages, seed_messages
+    from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
+    from gymfx_tpu_torch.ops.lob_bar import BarOrders
+
+    rng = np.random.default_rng(seed)
+    fp = scenario_flow_params(scenario)
+    o = rng.integers(105_000, 115_000, n_books).astype(np.int32)
+    c = o + rng.integers(-20, 21, n_books).astype(np.int32)
+    h = np.maximum(o, c) + rng.integers(0, 15, n_books).astype(np.int32)
+    lo = np.minimum(o, c) - rng.integers(0, 15, n_books).astype(np.int32)
+    o_t, h_t, l_t, c_t = (torch.from_numpy(x) for x in (o, h, lo, c))
+    book = book_mod.empty_book(n_books, depth, slots)
+    book, _ = book_mod.process_stream(book, seed_messages(o_t, min(8, depth), fp))
+    rows = torch.arange(n_books, dtype=torch.int32)
+    flow = [x.numpy().copy() for x in bar_messages(bar_key(seed, rows), o_t, h_t, l_t, c_t,
+                                                       n_msgs, fp)]
+
+    paths = np.array([LOB_BAR_PATHS[i % len(LOB_BAR_PATHS)] for i in range(n_books)])
+    cols = np.zeros((7, n_books), np.int64)  # BarOrders' fields
+    cols[2] = o
+    off = rng.integers(1, 13, (2, n_books))
+    for i, path in enumerate(paths):
+        lots, sl, tp = 40, 0, 0
+        exit_buy = path in ("open_sell", "gap_short", "short") or (path == "no_brackets" and i % 2)
+        if path in ("open_buy", "open_sell"):
+            cols[0, i], cols[1, i] = 40, not exit_buy
+            sl, tp = (o[i] + off[0, i], o[i] - off[1, i]) if exit_buy else (o[i] - off[0, i],
+                                                                            o[i] + off[1, i])
+        elif path == "forced":  # a sub-lot position closed: one lot walks, the ledger lands flat
+            cols[0, i], cols[1, i], lots, exit_buy = 1, i % 2, 0, True
+        elif path == "denied":  # the order is below a lot: nothing walks
+            lots, exit_buy = 0, True
+        elif path in ("gap_long", "gap_short"):
+            sl = o[i] + (-off[0, i] if exit_buy else off[0, i])
+            tp = o[i] + (-50 if exit_buy else 50)
+        elif path in ("long", "short"):
+            sl = o[i] + (off[0, i] if exit_buy else -off[0, i])
+            tp = o[i] + (-off[1, i] if exit_buy else off[1, i])
+        elif path == "tp_then_stop":
+            # long: the TP rests at o + 1 behind the seed's 16 lots (given a
+            # second slot), a market buy fills 4 of its lots, a market sell
+            # prints at o - 2 and fires the stop at o - 1
+            sl, tp = o[i] - 1, o[i] + 1
+            script = [(MSG_MARKET, 1, 0, 20), (MSG_MARKET, -1, 0, 20)]
+        elif path == "stop_last":  # long: only the last message prints through the stop
+            sl, tp = o[i] - 3, o[i] + 500
+            script = [(MSG_MARKET, -1, 0, 60)]
+        cols[3, i], cols[4, i], cols[5, i], cols[6, i] = lots, exit_buy, sl, tp
+        if path in ("tp_then_stop", "stop_last"):
+            flow[0][i], flow[3][i] = MSG_NOOP, 1
+            at = n_msgs - len(script) if path == "stop_last" else n_msgs // 2
+            for k, (kind, side, price, qty) in enumerate(script):
+                flow[0][i, at + k], flow[1][i, at + k] = kind, side
+                flow[2][i, at + k], flow[3][i, at + k] = price, qty
+    to = (lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32, device=device))
+    return (book_mod.BookState(*(x.to(device) for x in book)), Messages(*map(to, flow)),
+            BarOrders(*map(to, cols)), paths)
+
+
+def lob_bar_paths(book, flow, orders, fills, paths):
+    """{path: whether it did what it was built for} for a
+    :func:`lob_bar_case` bar and its results ``fills``.  The flow decides
+    the free-running brackets ("long" and "short", judged together); a
+    take-profit rests in a seeded book only where it has room (a second
+    slot, or levels beyond the 8 seeded), and "tp_then_stop"'s slot behind
+    the seed's needs a second slot.  "stop_last" reruns the plain version
+    without the last message, where the stop must not fire."""
+    from gymfx_tpu_torch.lob.book import Messages
+    from gymfx_tpu_torch.ops.lob_bar import run_bar_plain
+
+    f = {k: v.cpu().numpy() for k, v in fills._asdict().items()}
+    o = {k: v.cpu().numpy() for k, v in orders._asdict().items()}
+    depth, slots = book.bid_qty.shape[1:]
+
+    def on(path):
+        return paths == path
+
+    def every(x):
+        return bool(np.all(x))
+
+    walked = o["open_lots"] > 0
+    free = on("long") | on("short")
+    free_ok = bool((f["fired"][free] == 1).any()) and (
+        slots == 1 and depth <= 8 or bool((f["tp_lots"][free] > 0).any()))
+    scripted, last, none = on("tp_then_stop"), on("stop_last"), on("no_brackets")
+    _, cut = run_bar_plain(book, Messages(*(x[:, :-1].contiguous() for x in flow)), orders)
+    gap = {path: every(f["gap_lots"][on(path)] == 40) and every(f["fired"][on(path)] == 1)
+           for path in ("gap_long", "gap_short")}
+    return {
+        "open_buy": bool((walked & (o["open_buy"] == 1) & on("open_buy")).any())
+        and every(f["open_value"][on("open_buy")] > 0),
+        "open_sell": bool((walked & (o["open_buy"] == 0) & on("open_sell")).any())
+        and every(f["open_value"][on("open_sell")] > 0),
+        "forced": every(((o["open_lots"] == 1) & (o["pos_lots"] == 0))[on("forced")]),
+        "denied": every(f["open_value"][on("denied")] == 0),
+        **gap,
+        "long": free_ok,
+        "short": free_ok,
+        "tp_then_stop": every(f["fired"][scripted] == 1) and (
+            slots == 1 or every(f["tp_lots"][scripted] == 4)
+            and every(f["sl_lots"][scripted] == 36)),
+        "stop_last": every(f["fired"][last] == 1) and every(f["sl_lots"][last] == 40)
+        and every(cut.fired.cpu().numpy()[last] == 0),
+        "no_brackets": every(f["tp_lots"][none] == 0) and every(f["sl_lots"][none] == 0)
+        and every(f["fired"][none] == 0),
+    }
+
+
+def lob_bar_wrap_case(n_books, n_msgs, depth, slots, seed=0, device=None):
+    """(books, flow, orders) for K8 where lot sums wrap int32: books built
+    from lob_wrap_streams (through K5's plain version), a flow of the same
+    kind, and orders of 0 to 2^31 - 1 lots, either side, with brackets
+    among the streams' 97-103 ticks."""
+    from gymfx_tpu_torch.lob import book as book_mod
+    from gymfx_tpu_torch.ops.lob_bar import BarOrders
+
+    book = book_mod.empty_book(n_books, depth, slots)
+    book, _ = book_mod.process_stream(book, lob_wrap_streams(n_books, 24, seed=seed))
+    flow = lob_wrap_streams(n_books, n_msgs, seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    lots = np.array([0, 1, 5, 40, 1 << 29, 1 << 30, (1 << 31) - 1])
+    ticks = rng.integers(96, 105, (3, n_books))
+    cols = np.stack([rng.choice(lots, n_books), rng.integers(0, 2, n_books), ticks[0],
+                     rng.choice(lots, n_books), rng.integers(0, 2, n_books),
+                     np.where(rng.random(n_books) < 0.8, ticks[1], 0),
+                     np.where(rng.random(n_books) < 0.8, ticks[2], 0)])
+    to = (lambda x: torch.as_tensor(x, dtype=torch.int32, device=device).contiguous())
+    return (book_mod.BookState(*(x.to(device) for x in book)),
+            type(flow)(*(x.to(device) for x in flow)), BarOrders(*map(to, cols)))
 
 
 # ---------------------------------------------------------------------------

@@ -10,16 +10,16 @@ For each env count: the configuration's PPO rollout phase
 phases (host clock around work that ends in ``torch.cuda.synchronize``),
 then run once more under ``torch.profiler`` with named ranges around the
 policy forward, the action draw, the env transition, the obs build and
-encoding, and the auto-reset; on the LOB venue also around the three
+encoding, and the auto-reset; on the LOB venue also around the five
 stages of ``lob/venue.execute_bar`` inside the transition: ``lob_seed``
-(the books seeded through K5), ``lob_open_walk`` (the pending order's walk
-and fill) and ``lob_intrabar`` (the take-profit, the flow loop and the
-exit fill).  The update phase on that rollout's trajectory likewise, with
+(the books seeded through K5), ``lob_flow`` (the bar's flow messages, the
+threefry draws), ``lob_orders`` (the agent's int32 inputs), ``lob_bar``
+(the bar's book work, K8) and ``lob_fills`` (the open and exit fills).  The update phase on that rollout's trajectory likewise, with
 ranges around GAE, the minibatch gathers, the loss forward, the loss and
 its gradients (forward and ``autograd.grad``), the optimizer, the guard's
 finite check and selects, and the quarantine.  Then both phases from
-their CUDA graphs (train/ppo.py; the LOB venue's rollout is not graphed):
-the capture's seconds, three timed replays and one profiled replay.  It
+their CUDA graphs (train/ppo.py): the capture's seconds, three timed
+replays and one profiled replay.  It
 prints and writes to ``chiprun_out/profile_rollout_<config>.json``:
 
 * env steps/s and ms per phase, eager and graphed;
@@ -27,7 +27,8 @@ prints and writes to ``chiprun_out/profile_rollout_<config>.json``:
   idle share of the profiled phase's wall time, eager and graphed;
 * CUDA kernel launches per env step (rollout) or per phase (update), and
   device time by kernel group (the port's kernels K1-K5, the policy
-  GEMMs, everything else);
+  GEMMs, everything else) and the kernels by name (``kernels_by_name``:
+  launches and device ms), so a replay's split shows what leads;
 * host time by range (the profiler's wall time summed per range; nested
   ranges count inside their parent too) and device time by range (the
   kernels each range launched, the backward's apart: autograd runs it on
@@ -42,6 +43,7 @@ It needs a CUDA device and raises without one.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
 import subprocess
@@ -55,30 +57,33 @@ from gymfx_tpu_torch.config.flagship import flagship_config, lob_config, long_co
 from gymfx_tpu_torch.core import env as env_core
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.lob import venue
+from gymfx_tpu_torch.ops import lob_bar
 from gymfx_tpu_torch.train import ppo
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = {"flagship": flagship_config, "long": long_context_config, "lob": lob_config}
 RANGES = ("policy", "sample", "transition", "build_obs", "encode_obs", "masked_reset",
-          "lob_seed", "lob_open_walk", "lob_intrabar")
+          "lob_seed", "lob_flow", "lob_orders", "lob_bar", "lob_fills")
 UPDATE_RANGES = ("gae", "take", "loss_forward", "loss_and_grads", "optimizer",
                  "apply_updates", "guard_finite", "guard_select", "quarantine", "masked_reset")
 TOP_KERNELS = 12
-# kernel-name prefixes: K1 (both paths), K2, K3, K4 forward and backward, K5
+# kernel-name prefixes: K1 (both paths), K2, K3, K4 forward and backward, K5, K8
 OUR_KERNELS = ("step_obs", "fill_brackets_kernel", "mark_reward_kernel", "attn_fwd", "attn_bwd",
-               "lob_stream_kernel")
+               "lob_stream_kernel", "lob_bar_kernel")
 # (module, attribute, range name) of every function the profile ranges
 RANGED = (
     (env_core, "transition", "transition"), (env_core, "build_obs", "build_obs"),
     (ppo, "masked_reset", "masked_reset"), (ppo, "sample_categorical", "sample"),
-    (venue, "seed_book", "lob_seed"), (venue, "open_walk", "lob_open_walk"),
-    (venue, "intrabar", "lob_intrabar"),
+    (venue, "seed_book", "lob_seed"), (venue, "bar_flow", "lob_flow"),
+    (venue, "bar_orders", "lob_orders"), (lob_bar, "run_bar", "lob_bar"),
+    (venue, "bar_fills", "lob_fills"),
     (ppo, "apply_updates", "apply_updates"), (ppo, "tree_all_finite", "guard_finite"),
     (ppo, "select_tree", "guard_select"), (ppo, "quarantine_mask", "quarantine"),
 )
 
 
 def _ranged(name, fn):
+    @functools.wraps(fn)  # a wrapper's launch count travels with it
     def wrapped(*args, **kwargs):
         with torch.profiler.record_function(name):
             return fn(*args, **kwargs)
@@ -184,7 +189,7 @@ def _profiled(fn, ro, per: int) -> dict:
         ro.policy.forward, ro.optimizer.update = forward, update
         ppo.minibatch_plan = plan
 
-    intervals, by_group, launches = [], defaultdict(float), defaultdict(int)
+    intervals, by_group, launches, count = [], defaultdict(float), defaultdict(int), defaultdict(int)
     host_us, device_us, by_name = defaultdict(float), defaultdict(float), defaultdict(float)
     ranges = set(RANGES) | set(UPDATE_RANGES)
     for ev in prof.events():
@@ -195,6 +200,7 @@ def _profiled(fn, ro, per: int) -> dict:
             group = _kernel_group(ev.name)
             by_group[group] += ev.time_range.elapsed_us()
             by_name[ev.name] += ev.time_range.elapsed_us()
+            count[ev.name] += 1
             launches[group] += 1
         elif ev.name in ranges:
             host_us[ev.name] += ev.time_range.elapsed_us()
@@ -214,6 +220,8 @@ def _profiled(fn, ro, per: int) -> dict:
         "host_ms_by_range": {k: v / 1e3 for k, v in host_us.items()},
         "device_ms_by_range": {k: v / 1e3 for k, v in device_us.items()},
         "top_kernels_ms": {name: us / 1e3 for name, us in top},
+        "kernels_by_name": {name: {"launches_per": count[name] / per, "ms": us / 1e3}
+                            for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])},
     }
 
 
@@ -253,18 +261,17 @@ def profile_at(n_envs, horizon: int, device: torch.device, config_name: str = "f
 
     # both phases replayed from their graphs
     gen = inter.generator
-    if ro._graph_rollout:
-        graph = ro._rollout_graphed(inter, None, {})
+    graph = ro._rollout_graphed(inter, None, {})
 
-        def replay_rollout():
-            ro._replay(graph, None, gen)
+    def replay_rollout():
+        ro._replay(graph, None, gen)
 
-        ms = _timed(replay_rollout)
-        row["rollout_graphed"] = {
-            "capture_s": graph.capture_s, "phase_ms": ms,
-            "env_steps_per_s": n_envs * horizon / (sorted(ms)[1] / 1e3),
-            **_profiled(replay_rollout, ro, horizon),
-        }
+    ms = _timed(replay_rollout)
+    row["rollout_graphed"] = {
+        "capture_s": graph.capture_s, "phase_ms": ms,
+        "env_steps_per_s": n_envs * horizon / (sorted(ms)[1] / 1e3),
+        **_profiled(replay_rollout, ro, horizon),
+    }
     inputs = dict(params=inter.params, opt_state=inter.opt_state, env_states=inter.env_states,
                   obs_vec=inter.obs_vec, traj=rollout_out[0], last_value=rollout_out[1])
     graph = ro._update_graphed(inputs, None, gen)

@@ -180,10 +180,9 @@ class PPOTrainer:
 
     On a CUDA device each phase runs from a CUDA graph (core/graphs.py),
     captured at its first call for each static signature and replayed
-    after: the rollout phase on the bar venue (on the LOB venue it runs
-    eagerly: its step is ~35,000 eager kernels, whose graph waits for
-    the flow kernel of ROADMAP item 24) and the update phase on every
-    venue.  A capture error raises; nothing falls back to eager on the
+    after: the rollout phase and the update phase, on either venue (the
+    LOB venue's bar is one kernel, K8, so its step is small enough to
+    capture).  A capture error raises; nothing falls back to eager on the
     card.  On the CPU both phases run eagerly.  ``_rollout_phase_eager``
     and ``_update_phase_eager`` run a phase op by op on any device, for
     comparisons."""
@@ -226,7 +225,6 @@ class PPOTrainer:
         # generator before each replay; the staging tape every explicit
         # tape is copied into, so one graph serves every tape
         self._graphs_on = self.device.type == "cuda"
-        self._graph_rollout = cfg.venue != "lob"
         self._graphs: Dict[tuple, graphs.PhaseGraph] = {}
         self._gen = torch.Generator(device=self.device)
         self._staging = None
@@ -262,16 +260,14 @@ class PPOTrainer:
         then come from it).  Returns (post-rollout state, (trajectory dict
         of (horizon, n_envs, ...) tensors, bootstrap value (n_envs,))),
         new tensors that no later call overwrites; ``state.generator``
-        advances.  On a CUDA device the phase is replayed from its graph
-        (bar venue; the LOB venue's rollout runs eagerly), on the CPU it
-        runs eagerly.
+        advances.  On a CUDA device the phase is replayed from its graph,
+        on the CPU it runs eagerly.
 
         ``actions`` ((horizon, n_envs) int) and ``start_offsets``
         ((n_envs,) int) replace the phase's own draws (test hook; on the
         card they are copied into the static buffers of a graph of their
         own)."""
-        graphed = self._graphs_on and self._graph_rollout
-        run = self._rollout_phase_graphed if graphed else self._rollout_phase_eager
+        run = self._rollout_phase_graphed if self._graphs_on else self._rollout_phase_eager
         return run(state, data, actions=actions, start_offsets=start_offsets)
 
     def _rollout_phase_graphed(self, state: TrainState, data=None, *, actions=None,
@@ -633,18 +629,9 @@ class PPOTrainer:
         both the update graph's static outputs.  The update graph's static
         inputs are the rollout graph's static buffers, so nothing is
         copied between the two."""
-        shared = ()
-        if self._graph_rollout:
-            graph = self._rollout_graphed(state, tape, {})
-            rollout, params = graph.outputs, graph.inputs["params"]
-            shared = ("params", "env_states", "obs_vec", "traj", "last_value")
-        else:
-            # the LOB venue's rollout runs eagerly (ROADMAP item 24)
-            inter, (traj, last_value) = self._rollout_phase_eager(state, tape)
-            rollout = dict(env_states=inter.env_states, obs_vec=inter.obs_vec, traj=traj,
-                           last_value=last_value)
-            params = state.params
-        inputs = dict(params=params, opt_state=state.opt_state, **rollout)
+        graph = self._rollout_graphed(state, tape, {})
+        inputs = dict(params=graph.inputs["params"], opt_state=state.opt_state, **graph.outputs)
+        shared = ("params", "env_states", "obs_vec", "traj", "last_value")
         out = self._update_graphed(inputs, tape, state.generator, shared).outputs
         return self._updated_state(out, state.generator), out["metrics"]
 

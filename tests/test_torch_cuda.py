@@ -14,7 +14,9 @@ sums differs, so the two round nearly the same value to bf16: at most one
 ulp of the largest element), and two backward calls must give the same
 bits.  K3 also at N = 1, 63 and 8,193 with both rewards and mark_pred and
 live all true, all false and mixed.  K5 (LOB stream
-matching) is int32: books and fill records ``torch.equal``.  K6 (q16
+matching) is int32: books and fill records ``torch.equal``; so is K8
+(one bar of the LOB venue): final books and results, at every template,
+on the venue's bars and where lot sums wrap int32.  K6 (q16
 tape decode) and K7 (batched scaled windows) ``torch.equal`` (-fmad=false,
 IEEE division; K7 NaN for NaN, over random, the export's and clamped
 steps, F 1-7, W 8-64 and a feature view 4 bytes off alignment, and at
@@ -35,6 +37,7 @@ from gymfx_tpu_torch.ops import (
     cases,
     env_dynamics,
     fused_attention,
+    lob_bar,
     lob_match,
     tape_decode,
     window_zscore,
@@ -350,6 +353,55 @@ def test_cuda_lob_stream_rejects_what_it_cannot_take(cuda_device):
                                  msgs._replace(kind=msgs.kind.to(torch.int64)))
 
 
+def _bar_equal(case, device):
+    book, flow, orders = (type(x)(*(t.to(device) for t in x)) for x in case[:3])
+    before = lob_bar.run_bar.launches
+    ours = lob_bar.run_bar(book, flow, orders)
+    ref = lob_bar.run_bar_plain(book, flow, orders)
+    assert lob_bar.run_bar.launches == before + 1
+    for a, b in zip((*ours[0], *ours[1]), (*ref[0], *ref[1])):
+        assert torch.equal(a, b)
+    return ours
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", range(1, 9))
+@pytest.mark.parametrize("levels_per_lane", [1, 2])
+def test_cuda_lob_bar_equals_plain_at_every_instantiation(cuda_device, levels_per_lane, slots):
+    # K8: one (levels a lane, slots) template each, every path of
+    # cases.LOB_BAR_PATHS on lob_volatile bars
+    depth = 29 if levels_per_lane == 1 else 61
+    _bar_equal(cases.lob_bar_case(44, depth=depth, slots=slots, n_msgs=70, seed=slots),
+               cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", cases.LOB_SCENARIOS)
+@pytest.mark.parametrize("depth", [8, 24, 48])
+def test_cuda_lob_bar_equals_plain_on_venue_bars(cuda_device, depth, scenario):
+    ours = _bar_equal(cases.lob_bar_case(300, depth=depth, slots=4, n_msgs=64, seed=depth,
+                                         scenario=scenario), cuda_device)
+    assert int(ours[1].fired.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,slots", [(4, 3), (2, 2), (6, 2), (33, 1), (40, 8)])
+def test_cuda_lob_bar_equals_plain_where_int32_sums_wrap(cuda_device, depth, slots):
+    _bar_equal(cases.lob_bar_wrap_case(64, 40, depth, slots, seed=depth), cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_lob_bar_rejects_what_it_cannot_take(cuda_device):
+    book, flow, orders, _ = cases.lob_bar_case(4, depth=8, slots=4, n_msgs=8, device=cuda_device)
+    for depth, slots, match in ((65, 4, "depth"), (8, 9, "slots")):
+        with pytest.raises(NotImplementedError, match=match):
+            lob_bar.run_bar(empty_book(4, depth, slots, cuda_device), flow, orders)
+    with pytest.raises(ValueError, match="flow.qty"):
+        lob_bar.run_bar(book, flow._replace(qty=flow.qty.to(torch.int64)), orders)
+    with pytest.raises(ValueError, match="orders.stop"):
+        lob_bar.run_bar(book, flow, orders._replace(stop=orders.stop[:3]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1003, 1024, 257, 1, 262176])
 def test_cuda_q16_decode_equals_plain(cuda_device, rows):
@@ -502,7 +554,7 @@ def test_cuda_streamed_episode_equals_resident_and_cpu(cuda_device, tmp_path, mo
 # every output and on the generator's state after (the same kernels in the
 # same order draw the same numbers).
 REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
-GRAPH_KINDS = ["mlp", "transformer_ring", "curriculum"]
+GRAPH_KINDS = ["mlp", "transformer_ring", "curriculum", "lob"]
 
 
 def _graph_trainer(kind, tmp_path, **over):
@@ -518,6 +570,8 @@ def _graph_trainer(kind, tmp_path, **over):
         config = flagship.long_context_config(
             csv, num_envs=16, ppo_horizon=8, window_size=32,
             policy_kwargs={"d_model": 32, "n_heads": 2, "n_layers": 2})
+    elif kind == "lob":
+        config = flagship.lob_config(csv, lob_messages_per_bar=16, **small)
     else:
         paths = []
         for i in range(2):

@@ -7,8 +7,8 @@ the same entry points run (``_rollout_phase_graphed``, ``_update_phase_graphed``
 ``_train_many_graphed``): inputs copied into static buffers, the body run,
 its outputs copied into the first call's.  Here, at small sizes (a few
 envs, horizon 4-8, narrow policies; the flagship MLP, transformer_ring
-with K4's plain version, and the curriculum with random starts and a
-compressed tape):
+with K4's plain version, the curriculum with random starts and a
+compressed tape, and the LOB venue with 8 flow messages a bar):
 
 * the bodies the graphs capture never sync the host: a
   ``TorchFunctionMode`` refuses ``item``, ``tolist``, ``bool``, ``int``,
@@ -50,7 +50,7 @@ from test_torch_rollout import _pair as _rollout_pair
 
 CSV = str(__import__("pathlib").Path(__file__).resolve().parent.parent
           / "examples" / "data" / "eurusd_sample.csv")
-KINDS = ["mlp", "transformer_ring", "curriculum"]
+KINDS = ["mlp", "transformer_ring", "curriculum", "lob"]
 
 
 class NoHostSync(TorchFunctionMode):
@@ -96,6 +96,8 @@ def _trainer(kind, tmp_path):
         config = flagship.long_context_config(
             CSV, num_envs=4, ppo_horizon=4, ppo_minibatches=2, window_size=16,
             policy_kwargs={"d_model": 16, "n_heads": 2, "n_layers": 2})
+    elif kind == "lob":
+        config = flagship.lob_config(CSV, lob_messages_per_bar=8, **small)
     else:
         config = flagship.curriculum_config(_tapes(tmp_path), timeframe="M1", **small)
     with warnings.catch_warnings():

@@ -6,7 +6,10 @@
   with ``lob_volatile`` flow and 1-unit lots: the depth walk of a 40-lot
   entry, the sub-lot denial, the forced liquidation, the gap through the
   stop, resting take-profits with partial maker fills and stops fired on
-  prints (the scenarios of the JAX package's tests/test_lob.py:296-352).
+  prints (the scenarios of the JAX package's tests/test_lob.py:296-352);
+  and, on a batch of its own, take-profits one tick off the open filled
+  in part and then pulled by a stop that fires on a later print, long
+  and short.
   Against the JAX function run op by op (``jax.disable_jit``, 4 flow
   messages per bar: eager JAX costs ~1 s a message): BITWISE, every
   field.  Against the jitted function (8 messages per bar): every
@@ -52,6 +55,7 @@ from gymfx_tpu_torch import convert
 from gymfx_tpu_torch.core.types import EnvState, make_env_config
 from gymfx_tpu_torch.lob import venue
 from gymfx_tpu_torch.lob.flow import price_to_ticks
+from gymfx_tpu_torch.ops import lob_bar
 from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
 from test_torch_parity import assert_bitwise, paired_envs, random_walk_columns, to_np, x64_off
@@ -86,19 +90,19 @@ def _grid_columns(n, seed):
     return {k: (v if k == "VOLUME" else np.round(v, 5)) for k, v in cols.items()}
 
 
-def _venue_case(n_msgs):
+def _venue_case(n_msgs, scenarios=SCENARIOS):
     """(JAX env, port env, JAX state, port state, bar rows): one env per
     (scenario, bar)."""
     jax_env, torch_env = paired_envs(_grid_columns(40, 7), window_size=8,
                                      **dict(LOB, lob_messages_per_bar=n_msgs))
-    rows = np.array([t for _ in SCENARIOS for t in BARS], np.int64)
+    rows = np.array([t for _ in scenarios for t in BARS], np.int64)
     n = len(rows)
     data = torch_env.data
     o = to_np(data.open)[rows]
     base, _ = torch_env.reset(n)
     fields = {k: to_np(v).copy() for k, v in base._asdict().items()}
     for i, (pos, entry, (active, target, forced), (sl, tp)) in enumerate(
-            s for s in SCENARIOS.values() for _ in BARS):
+            s for s in scenarios.values() for _ in BARS):
         o_tick = np.float32(np.round(o[i] / TICK))
         sl_px = np.float32((o_tick + sl) * TICK) if sl else np.float32(0)
         tp_px = np.float32((o_tick + tp) * TICK) if tp else np.float32(0)
@@ -167,6 +171,46 @@ def test_execute_bar_matches_jax(jit, n_msgs):
         assert partial.any(), f"{name}: no partial maker fill at any bar"
     for name in ("stop_long", "stop_short"):
         assert (pos[by[name]] == 0.0).any(), f"{name}: no stop fired on prints"
+
+
+# a take-profit one tick off the open rests behind the seed's lots, a
+# stop three ticks off on the other side: the flow fills the take-profit
+# in part, then prints through the stop, which pulls what rests of it
+TP_THEN_STOP = {
+    "long": (40.0, 1.1, (False, 0.0, False), (-3, 1)),
+    "short": (-40.0, 1.1, (False, 0.0, False), (3, -1)),
+}
+
+
+@pytest.mark.parametrize("jit,n_msgs", [(False, 4), (True, 8)], ids=["op_by_op", "jit"])
+def test_execute_bar_matches_jax_when_a_stop_pulls_a_partly_filled_take_profit(jit, n_msgs):
+    jax_env, torch_env, jstate, state, rows = _venue_case(n_msgs, TP_THEN_STOP)
+    with x64_off():
+        ref = _jax_execute(jax_env, jstate, rows, jit)
+    tr = torch.from_numpy(rows)
+    d, cfg = torch_env.data, torch_env.cfg
+    ours = venue.execute_bar(state, d.open[tr], d.high[tr], d.low[tr], d.close[tr],
+                             tr.to(torch.int32), cfg, torch_env.params)
+    for name in ours._fields:
+        if not jit or name in INT_FIELDS or name.startswith(("bracket", "pending", "pos")):
+            assert_bitwise(getattr(ref, name), getattr(ours, name), name)
+        else:
+            np.testing.assert_allclose(to_np(getattr(ours, name)), to_np(getattr(ref, name)),
+                                       rtol=1e-6, atol=1e-5, err_msg=name)
+    # the path occurred: the bar's book work, through the venue's stages
+    tick = torch.tensor(cfg.lob_tick_size, dtype=torch.float32)
+    o_t, c_t = price_to_ticks(d.open[tr], tick), price_to_ticks(d.close[tr], tick)
+    h_t = torch.maximum(price_to_ticks(d.high[tr], tick), torch.maximum(o_t, c_t))
+    l_t = torch.minimum(price_to_ticks(d.low[tr], tick), torch.minimum(o_t, c_t))
+    orders, _ = venue.bar_orders(state, o_t, tick, cfg, torch_env.params)
+    _, fills = lob_bar.run_bar_plain(venue.seed_book(o_t, cfg),
+                                     venue.bar_flow(o_t, h_t, l_t, c_t, tr.to(torch.int32), cfg),
+                                     orders)
+    pulled = (fills.tp_lots > 0) & (fills.tp_lots < 40) & (fills.fired == 1) & (fills.gap_lots == 0)
+    by_side = pulled.reshape(len(TP_THEN_STOP), len(BARS)).any(dim=1)
+    assert bool(by_side.all() if jit else by_side.any()), pulled
+    assert (to_np(ours.pos)[pulled.numpy()] == 0.0).all()
+    assert (to_np(ours.bracket_sl)[pulled.numpy()] == 0.0).all()
 
 
 def test_seed_book_matches_jax_process_stream():
