@@ -10,13 +10,13 @@ failure exits non-zero:
 
 1. device   CUDA must be available; prints the card and
             ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    nvcc builds the five libraries at once, one process per
-            source: K1-K3 and K6-K7 (sm_90a, -fmad=false), K4, K5 with
-            K8, and K4's probe for profile_attention.py (sm_90a), timed, with
-            ptxas' register and spill report (and each env- and
-            data-library kernel's registers and stack frame: K1's two
-            paths, K2's 8 instantiations, K3, K2's and K3's memory
-            skeletons; K6, K7's two instantiations).
+2. build    nvcc builds the five kernel libraries at once, one process
+            per source: K1-K3, K6-K7 and K9 (sm_90a, -fmad=false), K4, K5
+            with K8 (sm_90a), timed, with ptxas' register and spill
+            report (and each env-, data- and flow-library kernel's
+            registers and stack frame: K1's two paths, K2's 8
+            instantiations, K3, K2's and K3's memory skeletons; K6, K7's
+            two instantiations; K9).
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
             32, 5) with NaN, ±inf, neutral envs and a binary mask, three
@@ -79,10 +79,18 @@ failure exits non-zero:
             int32; timed at the venue's shape beside its bound, its
             launch floor, its plain version and its wrapper's host time
             (50 calls enqueued), with each template's ptxas registers,
-            stack frame and spills.  K6 (q16 tape decode, torch.equal): int16
-            extremes, divisors 1, 60, 1440 and f32(1e5), ragged row
-            counts; K7 (batched scaled windows, bitwise with NaN matching
-            NaN): NaN and +-inf features, neutral rows, steps 0 and n,
+            stack frame and spills.  K9 (one bar's flow messages, int32,
+            torch.equal on the five streams): every scenario at the
+            venue's shape (8,192 envs x 64 messages) with int32 and int64
+            bar rows, and at 13 x 17, 37 x 70, 1 x 1 and 4,099 x 33;
+            timed at the venue's shape beside its bound (the function's
+            threefry blocks and each message's operations, at the int32
+            rate), its launch floor, its plain version and its wrapper's
+            host time, with its ptxas registers and frame.  K6 (q16
+            tape decode, torch.equal): int16 extremes, divisors 1, 60,
+            1440 and f32(1e5), ragged row counts; K7 (batched scaled
+            windows, bitwise with NaN matching NaN): NaN and +-inf
+            features, neutral rows, steps 0 and n,
             clip 10, 0 and 1.5, then random, the export's (1..n, a ragged
             last tile) and clamped steps at F 1, 3, 5, 7 and W 8, 32, 64,
             aligned and with the features 4 bytes off alignment, and at
@@ -131,20 +139,22 @@ failure exits non-zero:
             (config/flagship.lob_config, "flagship-lob-train": 8,192 envs,
             lob_volatile flow, 64 messages per bar, direct_fixed_sltp,
             40-lot entries), three train steps from the rollout and update
-            graphs, as main.  Per rollout phase K1, K3, K5 and K8 must
-            launch 64 times each and K2 never, the update none of them: at
-            capture (x4) and by kernel name in a profiler trace of one
-            replay, which must run no sort, scan or scatter kernel (the
-            argsort engine; torch.gather's kernel aside); kernels a step
-            printed.  Losses finite, no update skipped.  Step 1's rollout
-            phase replayed from the graph, re-run op by op with the plain
-            versions of K1, K3, K5 and K8 on the card, must give the same
+            graphs, as main.  Per rollout phase K1, K3, K5, K8 and K9
+            must launch 64 times each and K2 never, the update none of
+            them: at capture (x4) and by kernel name in a profiler trace
+            of one replay, which must run no sort, scan or scatter kernel
+            (the argsort engine; torch.gather's kernel aside) and no int64
+            bitwise or shift kernel (the plain flow's threefry words);
+            kernels a step printed.  Losses finite, no update skipped.
+            Step 1's rollout phase replayed from the graph, re-run op by
+            op with the plain versions of K1, K3, K5, K8 and K9 on the
+            card, must give the same
             env states, trajectory and bootstrap value (torch.equal).
             Then graphed against eager as in main.
 7. episode  Environment.rollout with the buy_hold driver, 1 env, on the
             card: 400 bar-venue steps (K2 and K3 400 launches, K1 401: the
-            reset builds an obs too) and 50 LOB-venue steps (K3, K5 and K8
-            50, K1 51, K2 none); each episode must equal the same
+            reset builds an obs too) and 50 LOB-venue steps (K3, K5, K8
+            and K9 50, K1 51, K2 none); each episode must equal the same
             episode on the CPU.
 8. curriculum  four M1 tapes of 2^18 bars (EUR/USD-, GBP/USD-, AUD/USD-
             and NZD/USD-like random walks in whole 1e-5 ticks, OHLCV,
@@ -245,6 +255,9 @@ REPLACES = {
     # K8 has no Pallas counterpart: it is the counterpart of the reference's
     # lax.scan over a bar's flow
     "lob_bar": "gymfx_tpu/lob/venue.py:267",
+    # K9 has no Pallas counterpart either: it is the counterpart of the
+    # jax.random draws of the reference's bar_messages
+    "bar_flow": "gymfx_tpu/lob/flow.py:102",
     "decode_q16_block": "gymfx_tpu/ops/tape_decode.py:63",
     "batched_scaled_windows": "gymfx_tpu/ops/window_zscore.py:110",
 }
@@ -252,6 +265,7 @@ SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "attention_backward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "process_stream": "gymfx_tpu_torch/csrc/lob_kernels.cu",
            "lob_bar": "gymfx_tpu_torch/csrc/lob_kernels.cu",
+           "bar_flow": "gymfx_tpu_torch/csrc/flow_kernels.cu",
            "decode_q16_block": "gymfx_tpu_torch/csrc/data_kernels.cu",
            "batched_scaled_windows": "gymfx_tpu_torch/csrc/data_kernels.cu"}
 # kernel-name patterns in a profiler trace of one graph replay (K4's
@@ -259,7 +273,7 @@ SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
 KERNEL_NAMES = {"step_obs": "step_obs", "fill_brackets": "fill_brackets_kernel",
                 "mark_reward": "mark_reward_kernel", "attention_forward": "attn_fwd",
                 "attention_backward": "attn_bwd_dq", "process_stream": "lob_stream_kernel",
-                "lob_bar": "lob_bar_kernel"}
+                "lob_bar": "lob_bar_kernel", "bar_flow": "bar_flow_kernel"}
 # kernels of the argsort engine (lob/book.py): none may run in a replayed
 # LOB rollout phase
 ENGINE_KERNELS = ("sort", "scan", "scatter", "cumsum")
@@ -275,6 +289,17 @@ LOB_BOOKS, LOB_MSGS, LOB_DEPTHS, LOB_SLOTS = 1024, 256, (8, 16, 24, 48), 4
 K5_INSTANCES = [(per_lane, slots) for per_lane in (1, 2) for slots in range(1, 9)]
 # K8 at the venue's shape: flagship-lob-train's books, lob_volatile bars
 K8_MSGS, K8_SCENARIO = 64, "lob_volatile"
+# K9: int32 operations of one threefry-2x32 block (lob/prng.py) in their
+# fewest instructions: 20 rounds of add, rotate (one funnel shift) and xor,
+# the count's add to the key, and one add for each of the 5 key
+# injections (the other folds into the round's add as a 3-input add; a
+# key's parity word and injection constants are the key's, not a
+# block's); of a message beyond its draws: a word's xor (one a draw), a
+# uniform's shift, or and subtraction, randint's fold of its two words,
+# and the path's float32 operations and the selects and clamps
+THREEFRY_OPS, K9_UNIFORM_OPS, K9_RANDINT_OPS, K9_MSG_OPS = 66, 3, 6, 24
+# K9 at odd shapes: (envs, messages, bar-row dtype)
+K9_ODD = ((13, 17, "int64"), (37, 70, "int32"), (1, 1, "int32"), (4099, 33, "int64"))
 # K4 cases: label -> ((B, S, H, D), dtype, causal); "update" is the
 # update's shape (4 minibatches of 64 envs x 64 steps), "rollout" the
 # rollout's
@@ -803,6 +828,12 @@ def k8_ptxas(compiler_out: str) -> dict:
     return ptxas_report(compiler_out, key_of)
 
 
+def flow_ptxas(compiler_out: str) -> dict:
+    """K9's one kernel, keyed "bar_flow"."""
+    return ptxas_report(compiler_out,
+                        lambda name: "bar_flow" if "bar_flow_kernel" in name else None)
+
+
 def env_ptxas(compiler_out: str) -> dict:
     """Each kernel of the env library: K1's two paths, K2's
     instantiations keyed "<slip_match, financing, ohlc>", K3, the empty
@@ -1041,6 +1072,100 @@ def check_kernels_k8(torch, dev, kernels, results, ptxas) -> None:
                                "agent_operations": agent_ops, "slots_changed": changed,
                                "paths": occurred},
                      "ptxas": report, **kernels["lob_bar"]}
+
+
+def k9_work(torch, out, fp):
+    """(threefry blocks, int32 operations) that K9's function needs for
+    the messages ``out``: an env's keys (fold_in, the split keys and
+    randint's halves of the keys its messages draw from), each message's
+    kind and price jitter, its side and qty outside a crash window (which
+    forces them), an ADD's band and a cancel's target.  A message was a
+    cancel before any crash window iff its oid is not 1 + its index."""
+    n, m = out.kind.shape
+    idx = torch.arange(m, device=out.kind.device)
+    crash = (idx >= fp.crash_at) & (idx < fp.crash_at + fp.crash_len) & (fp.crash_at >= 0)
+    free = ~crash.expand(n, m)  # side and qty drawn
+    add, cxl = out.kind == 1, out.oid != 1 + idx
+    per_env = (2 + 3 + 4 * free.any(1).long() + 3 * add.any(1).long() + cxl.any(1).long())
+    counts = {k: int(v.sum()) for k, v in
+              dict(msgs=torch.ones_like(add), free=free, add=add, cxl=cxl).items()}
+    msg_blocks = 3 * counts["msgs"] + 3 * counts["free"] + 2 * counts["add"] + counts["cxl"]
+    blocks = int(per_env.sum()) + msg_blocks
+    uniforms = counts["msgs"] + counts["free"] + counts["cxl"]
+    randints = counts["msgs"] + counts["free"] + counts["add"]
+    ops = (blocks * THREEFRY_OPS + msg_blocks + uniforms * K9_UNIFORM_OPS
+           + randints * K9_RANDINT_OPS + counts["msgs"] * K9_MSG_OPS)
+    return blocks, ops
+
+
+def check_kernels_k9(torch, dev, kernels, results, ptxas) -> None:
+    """K9 against its plain version (torch.equal, the five streams) for
+    every scenario at the venue's shape and at odd shapes; timed at the
+    venue's shape beside its bound, launch floor, plain version and host
+    enqueue."""
+    from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
+    from gymfx_tpu_torch.ops import _build, cases, lob_flow
+
+    err, n_cases = 0.0, 0
+
+    def equal(n, n_msgs, scenario, rows, seed):
+        nonlocal err, n_cases
+        bars = cases.lob_flow_bars(n, rows, seed=seed, device=dev)
+        fp = scenario_flow_params(scenario)
+        ours = lob_flow.bar_flow(SEED, *bars, n_msgs, fp)
+        ref = lob_flow.bar_flow_plain(SEED, *bars, n_msgs, fp)
+        torch.cuda.synchronize()
+        for name, a, b in zip(ref._fields, ours, ref):
+            err = max(err, max_abs_err(torch, a, b))
+            check(torch.equal(a, b), f"K9 bar_flow != plain: {scenario} {n} x {n_msgs} {rows} {name}")
+        n_cases += 1
+        return bars, fp
+
+    for scenario in cases.LOB_SCENARIOS:
+        for rows in ("int32", "int64"):
+            equal(N_ENVS, K8_MSGS, scenario, rows, seed=1)
+        for n, n_msgs, rows in K9_ODD:
+            equal(n, n_msgs, scenario, rows, seed=n)
+    print(f"kernels: K9 equal to plain (torch.equal, the five streams) on {n_cases} cases (every "
+          f"scenario at {N_ENVS} envs x {K8_MSGS} messages, int32 and int64 bar rows, and at "
+          f"{', '.join(f'{n} x {m}' for n, m, _ in K9_ODD)}), max abs err {err:g}")
+
+    bars, fp = equal(N_ENVS, K8_MSGS, K8_SCENARIO, "int32", seed=0)
+    # the bound: the bar rows and ticks read once, the five streams written
+    # once; the threefry blocks and operations that this run's messages
+    # need (k9_work)
+    out = lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp)
+    moved = nbytes(*bars) + nbytes(*out)
+    blocks, ops = k9_work(torch, out, fp)
+    b_ms, b_by = bound(moved, ops, INT32_OPS)
+    env_lib = _build.load_library("env")
+    grid, threads = -(-N_ENVS // 4), 128
+    floor_ms = device_ms(torch, lambda: _build.check_launch(env_lib.gymfx_launch_floor(
+        grid, threads, 0, _build.stream_handle(dev)), "launch_floor"))
+    ms = device_ms(torch, lambda: lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp))
+    plain_ms = device_ms(torch, lambda: lob_flow.bar_flow_plain(SEED, *bars, K8_MSGS, fp),
+                         reps=2, trials=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp)
+    host = (time.perf_counter() - t0) / 50 * 1e6  # enqueued, not waited for
+    torch.cuda.synchronize()
+    report = flow_ptxas(ptxas)
+    check(sorted(report) == ["bar_flow"], f"K9 ptxas report lists {sorted(report)}")
+    print(f"  K9 {N_ENVS} envs x {K8_MSGS} {K8_SCENARIO} msgs: {ms * 1e3:.2f} us on the card "
+          f"(bound {b_ms * 1e3:.2f} us by {b_by}: {blocks:,} threefry blocks, {ops / 1e6:.1f}M "
+          f"int32 operations, {moved / 1e6:.2f} MB; launch floor {floor_ms * 1e3:.2f} us at {grid} "
+          f"CTAs x {threads} threads), plain {plain_ms * 1e3:.1f} us (graph replays), wrapper host "
+          f"{host:.1f} us/call (50 calls enqueued); ptxas {report['bar_flow'].get('registers')} "
+          f"registers, {report['bar_flow'].get('frame')}")
+    kernels["bar_flow"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None, launch_floor_ms=floor_ms,
+                               wrapper_host_us=host)
+    results["k9"] = {"venue": {"envs": N_ENVS, "messages": K8_MSGS, "scenario": K8_SCENARIO,
+                               "threefry_blocks": blocks, "operations": ops,
+                               "moved_bytes": moved, "cases": n_cases},
+                     "ptxas": report, **kernels["bar_flow"]}
 
 
 def check_kernels_k6_k7(torch, dev, kernels) -> None:
@@ -1335,7 +1460,8 @@ def main_phase(torch, kernels, results) -> None:
     from gymfx_tpu_torch.config.flagship import flagship_config
     from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
-    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, lob_bar, lob_match, window_zscore
+    from gymfx_tpu_torch.ops import (env_dynamics, fused_attention, lob_bar, lob_flow, lob_match,
+                                     window_zscore)
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     config = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
@@ -1350,7 +1476,7 @@ def main_phase(torch, kernels, results) -> None:
     torch.cuda.synchronize()
     counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
     for fn in (*counted, fused_attention.attention_forward, fused_attention.attention_backward,
-               lob_match.process_stream, lob_bar.run_bar):
+               lob_match.process_stream, lob_bar.run_bar, lob_flow.bar_flow):
         fn.launches = 0
     state, rows = train(torch, trainer, state, TRAIN_STEPS)
     launches = count_launches(counted)
@@ -1363,8 +1489,8 @@ def main_phase(torch, kernels, results) -> None:
     for key, count in launches.items():
         kernels[key]["launches"] = count
     check(fused_attention.attention_forward.launches == 0, "the MLP path launched K4")
-    check(lob_match.process_stream.launches == 0 == lob_bar.run_bar.launches,
-          "the bar venue launched K5 or K8")
+    check(lob_match.process_stream.launches == 0 == lob_bar.run_bar.launches
+          == lob_flow.bar_flow.launches, "the bar venue launched K5, K8 or K9")
     check(sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"],
           f"main path graphs {[k for k, *_ in trainer._graphs]}")
     check_training(rows, "main")
@@ -1511,7 +1637,7 @@ def lob_phase(torch, kernels, results) -> None:
     from gymfx_tpu_torch.config.flagship import lob_config
     from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
-    from gymfx_tpu_torch.ops import env_dynamics, lob_bar, lob_match, window_zscore
+    from gymfx_tpu_torch.ops import env_dynamics, lob_bar, lob_flow, lob_match, window_zscore
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     config = lob_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
@@ -1524,7 +1650,7 @@ def lob_phase(torch, kernels, results) -> None:
     state = trainer.init_state(SEED)
     torch.cuda.synchronize()
     counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
-               lob_match.process_stream, lob_bar.run_bar)
+               lob_match.process_stream, lob_bar.run_bar, lob_flow.bar_flow)
     for fn in counted:
         fn.launches = 0
     state, rows = train(torch, trainer, state, LOB_STEPS)
@@ -1532,11 +1658,11 @@ def lob_phase(torch, kernels, results) -> None:
     # per rollout phase; the update launches none of them.  The counts move
     # at the warm-ups and the capture, a replay moves none
     per_phase = {"step_obs": HORIZON, "fill_brackets": 0, "mark_reward": HORIZON,
-                 "process_stream": HORIZON, "run_bar": HORIZON}
+                 "process_stream": HORIZON, "run_bar": HORIZON, "bar_flow": HORIZON}
     runs = graphs.WARMUP + 1
     check(launches == {k: runs * v for k, v in per_phase.items()},
           f"LOB path launched {launches} at capture, expected {runs} x {per_phase}")
-    for key in ("process_stream", "lob_bar"):
+    for key in ("process_stream", "lob_bar", "bar_flow"):
         kernels[key]["launches"] = launches["run_bar" if key == "lob_bar" else key]
     graphed = sorted(k for k, *_ in trainer._graphs)
     check(graphed == ["rollout", "update"], f"LOB venue graphs {graphed}")
@@ -1550,10 +1676,16 @@ def lob_phase(torch, kernels, results) -> None:
                  for n in names)
     check(engine == 0, f"a LOB rollout replay ran {engine} sort, scan or scatter kernels: "
           "the argsort engine is on the path")
+    # the plain flow's threefry words are int64 elementwise kernels (bitwise
+    # and, or, xor and the shifts): K9 leaves none
+    int64_words = sum(("bitwise" in n.lower() or "shift" in n.lower()) and "long" in n
+                      for n in names)
+    check(int64_words == 0, f"a LOB rollout replay ran {int64_words} int64 bitwise or shift "
+          "kernels: the plain flow is on the path")
     per_step = len(names) / HORIZON
     print(f"  launches at capture {launches} ({runs} runs); one replay by the profiler trace "
           f"{traced}: {per_step:.1f} kernels a step, {engine} sort, scan or scatter, "
-          f"{gathers} gathers")
+          f"{int64_words} int64 bitwise or shift, {gathers} gathers")
     env_states = state.env_states
     for field in ("pos", "cash_delta", "equity_delta", "entry_price"):
         check(bool(torch.isfinite(getattr(env_states, field)).all()), f"LOB non-finite state {field}")
@@ -1563,14 +1695,16 @@ def lob_phase(torch, kernels, results) -> None:
     state = copy_state(torch, state)
 
     # step 1's rollout phase, replayed from the graph, against the same
-    # phase op by op with the plain versions of K1, K3, K5 and K8 on the card
+    # phase op by op with the plain versions of K1, K3, K5, K8 and K9 on the
+    # card
     inter, (traj, last_value) = trainer.rollout_phase(trainer.init_state(SEED))
     for key in ("obs", "logp", "value", "reward"):
         check(bool(torch.isfinite(traj[key]).all()), f"LOB non-finite trajectory {key}")
     kernel_fns = (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
-                  window_zscore.step_obs)
+                  window_zscore.step_obs, lob_flow.bar_flow)
     lob_match.process_stream = lob_match.process_stream_plain
     lob_bar.run_bar = lob_bar.run_bar_plain
+    lob_flow.bar_flow = lob_flow.bar_flow_plain
     env_dynamics.mark_reward = env_dynamics.mark_reward_plain
     window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
         window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
@@ -1583,7 +1717,7 @@ def lob_phase(torch, kernels, results) -> None:
         plain_phase_s = time.perf_counter() - t0
     finally:
         (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
-         window_zscore.step_obs) = kernel_fns
+         window_zscore.step_obs, lob_flow.bar_flow) = kernel_fns
     check(sum(count_launches(counted).values()) == 0, "the plain-version LOB phase launched a kernel")
     for key in ("obs", "action", "reward", "done", "logp", "value"):
         check(torch.equal(traj[key], ref_traj[key]), f"LOB path vs plain versions: traj {key}")
@@ -1601,6 +1735,7 @@ def lob_phase(torch, kernels, results) -> None:
                 "depth": cfg.lob_depth_levels, "slots": cfg.lob_queue_slots},
         **summary, "plain_rollout_ms": plain_phase_s * 1e3, "launches_at_capture": launches,
         "replay_launches": traced, "kernels_per_step": per_step, "engine_kernels": engine,
+        "int64_word_kernels": int64_words,
         "closed_trades": trades, "graphed_phases": graphed, "graphed_vs_eager": compared,
     }
 
@@ -1636,10 +1771,10 @@ def episode_phase(torch, results) -> None:
     # the same on the LOB venue (flagship-lob-train: direct_fixed_sltp,
     # 40-lot entries), K5 seeding every step's books and K8 running its bar
     from gymfx_tpu_torch.config.flagship import lob_config
-    from gymfx_tpu_torch.ops import lob_bar, lob_match
+    from gymfx_tpu_torch.ops import lob_bar, lob_flow, lob_match
 
     config = lob_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
-    counted = (*counted, lob_match.process_stream, lob_bar.run_bar)
+    counted = (*counted, lob_match.process_stream, lob_bar.run_bar, lob_flow.bar_flow)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1649,7 +1784,7 @@ def episode_phase(torch, results) -> None:
     episode_launches = count_launches(counted)
     expected = {"step_obs": LOB_EPISODE_STEPS + 1, "fill_brackets": 0,
                 "mark_reward": LOB_EPISODE_STEPS, "process_stream": LOB_EPISODE_STEPS,
-                "run_bar": LOB_EPISODE_STEPS}
+                "run_bar": LOB_EPISODE_STEPS, "bar_flow": LOB_EPISODE_STEPS}
     check(episode_launches == expected, f"LOB episode launched {episode_launches}, expected {expected}")
     t0 = time.perf_counter()
     _, cpu_out = Environment(config, device="cpu").rollout(rollout_mod.buy_hold_driver(),
@@ -2045,6 +2180,7 @@ def main() -> None:
     check(len(results["env_ptxas"]) == 14, f"ptxas reported {len(results['env_ptxas'])} of the "
           "env library's 14 kernels (K1's two paths, 8 of K2, K3, the launch floor, K2's and "
           "K3's memory skeletons)")
+    check(len(flow_ptxas(built["flow"][1])) == 1, "ptxas reported no K9 in the flow library")
     results["data_ptxas"] = data_ptxas(built["data"][1])
     check(len(results["data_ptxas"]) == 3, f"ptxas reported {len(results['data_ptxas'])} of the "
           "data library's 3 kernels (K6, K7's two instantiations)")
@@ -2066,6 +2202,7 @@ def main() -> None:
     timed("kernels K4", check_kernels_k4, torch, dev, kernels, results)
     timed("kernels K5", check_kernels_k5, torch, dev, kernels, results, built["lob"][1])
     timed("kernels K8", check_kernels_k8, torch, dev, kernels, results, built["lob"][1])
+    timed("kernels K9", check_kernels_k9, torch, dev, kernels, results, built["flow"][1])
     timed("kernels K6-K7", check_kernels_k6_k7, torch, dev, kernels)
 
     # ---- 4. main: PPO training at flagship width ---------------------------

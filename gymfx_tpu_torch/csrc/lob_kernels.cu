@@ -121,6 +121,20 @@
 // takes one of two inlined copies by the exit's side, as process does by
 // the message's, so no register array is indexed at run time.
 //
+// Where a message's time goes (gymfx_tpu_torch/profile_lob_bar.py, the
+// venue's books and orders with the flow of one kind at a time): one
+// warp alone runs a bar in ~47 us and six a scheduler take ~1.9x that,
+// so the SM is busy issuing, and what a message issues decides the time;
+// a NOOP, which changes nothing, paid 55% of the mix's cost.  So K8 skips
+// what changes nothing, in branches uniform in the warp: a NOOP skips
+// process where both halves are within int32 (there process matches both
+// with a take of 0 and rests nothing), and fire runs only where the stop
+// triggers or a half is beyond int32 (elsewhere its cancel of oid 0, its
+// resets and its walk of 0 lots change nothing).  The launch bounds ask
+// for 6 CTAs an SM at <1, Q <= 4> (kBarMinBlocks): 80 registers, 24 warps
+// an SM; at 8 CTAs (64 registers) it spills and runs slower.  Several
+// books a warp would serialise their kinds' and sides' paths.
+//
 // The extern "C" entry points launch on the caller's stream, do not
 // synchronise, and return cudaGetLastError() (0 = launched).
 
@@ -141,6 +155,7 @@ constexpr long long kI32Max = INT_MAX;
 constexpr long long kI32Min = INT_MIN;
 
 // msg kinds (gymfx_tpu/lob/book.py)
+constexpr int kNoop = 0;
 constexpr int kAdd = 1;
 constexpr int kCancel = 2;
 constexpr int kMarket = 3;
@@ -274,6 +289,13 @@ __device__ __forceinline__ long long count_total(const Half<L, Q>& h) {
   lo = __reduce_add_sync(kFull, lo);
   hi = __reduce_add_sync(kFull, hi);
   return ((long long)hi << 16) + lo;
+}
+
+// Whether the half's exact lots are within int32: then no sum of lots
+// wraps, and every level whose lot sum is 0 has lost its price.
+template <int L, int Q>
+__device__ __forceinline__ bool narrow(const Half<L, Q>& h) {
+  return h.total <= kI32Max;
 }
 
 // After a match or cancel took `removed` lots (mod 2^32) from the half.
@@ -683,6 +705,11 @@ struct BarArgs {
   int* fill[8];         // the agent's results (kOpenValue ...), (B,)
 };
 constexpr int kBarPointers = 32;
+// CTAs an SM that K8's launch bounds ask for at one level a lane and up
+// to 4 slots (the venue's <1, 4>): ptxas fits 80 registers, 24 warps an
+// SM, with a 24-byte frame (90 registers and 20 warps without), 4% faster
+// on an H100 (profile_lob_bar.py --min_blocks)
+constexpr int kBarMinBlocks = 6;
 // ops/lob_bar.py BarOrders
 enum { kOpenLots, kOpenBuy, kOpenTick, kPosLots, kExitBuy, kStop, kTakeProfit };
 // ops/lob_bar.py BarFills
@@ -741,7 +768,7 @@ __device__ __forceinline__ unsigned fire(Half<L, Q>& bids, Half<L, Q>& asks, int
 // (fire holds the other walk): a third of the code, and of the build
 // time, of a copy at each call site.
 template <int L, int Q>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, L == 1 && Q <= 4 ? kBarMinBlocks : 1)
 lob_bar_kernel(BarArgs a, long long n_books, int depth, int n_msgs) {
   __shared__ int4 s_msg[kWarpsPerBlock][32];
   const int lane = threadIdx.x & 31;
@@ -803,8 +830,12 @@ lob_bar_kernel(BarArgs a, long long n_books, int depth, int n_msgs) {
     __syncwarp();
     for (int j = 0; j < count; ++j) {
       const int4 m = s_msg[warp][j];
-      const Record r = (m.x & 1) ? process<true>(bids, asks, m.x >> 1, m.y, m.z, m.w, lane, depth)
-                                 : process<false>(asks, bids, m.x >> 1, m.y, m.z, m.w, lane, depth);
+      // a NOOP on two halves within int32 changes nothing (process would
+      // match both with a take of 0 and rest nothing)
+      Record r = {no_fill(), 0, 0};
+      if (m.x >> 1 != kNoop || !narrow(bids) || !narrow(asks))
+        r = (m.x & 1) ? process<true>(bids, asks, m.x >> 1, m.y, m.z, m.w, lane, depth)
+                      : process<false>(asks, bids, m.x >> 1, m.y, m.z, m.w, lane, depth);
       if (chunk + j == 0) {  // the take-profit's immediate fill
         rem = (unsigned)pos_lots - (unsigned)gap_lots - r.s.filled;
         tp_lots = r.s.filled;
@@ -818,14 +849,18 @@ lob_bar_kernel(BarArgs a, long long n_books, int depth, int n_msgs) {
       // the stop triggers on the first print at or through it
       const bool printed = exit_buy ? r.s.pmax >= sl : r.s.pmin <= sl;
       const bool trig = has_sl && !fired && (int)rem > 0 && printed;
-      const int target = trig ? kAgentOid : 0;
-      const int take = trig ? (int)rem : 0;
-      const unsigned xvalue = exit_buy ? fire<true>(bids, asks, target, take, sl)
-                                       : fire<false>(bids, asks, target, take, sl);
-      if (trig) {
-        sl_lots += rem;
-        sl_value += xvalue;
-        rem = 0u;
+      // where the stop does not fire, fire's cancel of oid 0, its resets
+      // and its walk of 0 lots change nothing on halves within int32
+      if (trig || !narrow(bids) || !narrow(asks)) {
+        const int target = trig ? kAgentOid : 0;
+        const int take = trig ? (int)rem : 0;
+        const unsigned xvalue = exit_buy ? fire<true>(bids, asks, target, take, sl)
+                                         : fire<false>(bids, asks, target, take, sl);
+        if (trig) {
+          sl_lots += rem;
+          sl_value += xvalue;
+          rem = 0u;
+        }
       }
       fired = fired || trig;
     }

@@ -94,12 +94,18 @@ def randint(key, n: int, minval: int, maxval: int):
                            minval, maxval)
 
 
+def randint_constants(minval: int, maxval: int):
+    """``_randint``'s (span, multiplier) for int32 [minval, maxval): the
+    modulus and (2^16 mod span)^2 mod span, host integers."""
+    span = (int(maxval) - int(minval)) & _MASK if maxval > minval else 1
+    return span, (((2 ** 16 % span) ** 2) & _MASK) % span
+
+
 def bits_to_randint(higher, lower, minval: int, maxval: int):
     """``_randint``'s fold of two 32-bit draws (from the two halves of
     ``split(key)``) into [minval, maxval): int32."""
-    span = (int(maxval) - int(minval)) & _MASK if maxval > minval else 1
+    span, multiplier = randint_constants(minval, maxval)
     # uint32 arithmetic: each product and sum wraps mod 2^32, as in JAX
-    multiplier = (((2 ** 16 % span) ** 2) & _MASK) % span
     offset = ((((higher % span) * multiplier) & _MASK) + lower % span) & _MASK
     value = (int(minval) + offset % span) & _MASK
     return torch.where(value >= 2 ** 31, value - 2 ** 32, value).to(torch.int32)

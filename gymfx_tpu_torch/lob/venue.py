@@ -12,7 +12,8 @@ Its stages are functions of their own, so a profiler can range them
 
   :func:`seed_book`   ``lob_seed``: the fresh books, seeded through K5
                       (ops/lob_match.process_stream)
-  :func:`bar_flow`    ``lob_flow``: the bar's seeded flow messages
+  :func:`bar_flow`    ``lob_flow``: the bar's seeded flow messages, K9
+                      (ops/lob_flow.bar_flow)
   :func:`bar_orders`  ``lob_orders``: the agent's int32 inputs of the
                       bar's book work (ops/lob_bar.BarOrders), from the
                       state alone
@@ -41,9 +42,9 @@ import torch
 from gymfx_tpu_torch.core import broker
 from gymfx_tpu_torch.core.types import EnvConfig, EnvParams, EnvState
 from gymfx_tpu_torch.lob.book import BookState, Messages, empty_book
-from gymfx_tpu_torch.lob.flow import bar_key, bar_messages, price_to_ticks, seed_messages
+from gymfx_tpu_torch.lob.flow import price_to_ticks, seed_messages
 from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
-from gymfx_tpu_torch.ops import lob_bar, lob_match
+from gymfx_tpu_torch.ops import lob_bar, lob_flow, lob_match
 from gymfx_tpu_torch.ops.lob_bar import BarFills, BarOrders
 
 I32 = torch.int32
@@ -93,11 +94,9 @@ def seed_book(o_t, cfg: EnvConfig) -> BookState:
 
 def bar_flow(o_t, h_t, l_t, c_t, t_global, cfg: EnvConfig) -> Messages:
     """The bar's ``lob_messages_per_bar`` flow messages per env, keyed by
-    its bar row ``t_global``: (N, M)."""
-    return bar_messages(
-        bar_key(cfg.lob_flow_seed, t_global), o_t, h_t, l_t, c_t,
-        cfg.lob_messages_per_bar, scenario_flow_params(cfg.lob_scenario),
-    )
+    its bar row ``t_global``: (N, M), through K9."""
+    return lob_flow.bar_flow(cfg.lob_flow_seed, t_global, o_t, h_t, l_t, c_t,
+                             cfg.lob_messages_per_bar, scenario_flow_params(cfg.lob_scenario))
 
 
 def bar_orders(state: EnvState, o_t, tick, cfg: EnvConfig, params: EnvParams):

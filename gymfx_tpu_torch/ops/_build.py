@@ -16,6 +16,8 @@ by nvcc at first use and loaded with ``ctypes``:
                H100's 8-core host, with the same registers and spills)
     data       csrc/data_kernels.cu (K6 q16 tape decode, K7 batched scaled
                windows), bitwise to the plain versions (the env flags)
+    flow       csrc/flow_kernels.cu (K9, the LOB flow's threefry draws and
+               float32 path), bitwise to the plain version (the env flags)
     attention_probe  csrc/attention_probe.cu, K4's forward copies without
                its arithmetic (the attention flags): a profiling tool, not
                on any path, built only when profile_attention.py loads it
@@ -52,15 +54,17 @@ SOURCES = {
     "attention": _PACKAGE / "csrc" / "attention_kernels.cu",
     "lob": _PACKAGE / "csrc" / "lob_kernels.cu",
     "data": _PACKAGE / "csrc" / "data_kernels.cu",
+    "flow": _PACKAGE / "csrc" / "flow_kernels.cu",
     "attention_probe": _PACKAGE / "csrc" / "attention_probe.cu",
 }
 # the libraries that hold the port's kernels (what build_all builds)
-KERNEL_LIBRARIES = ("env", "attention", "lob", "data")
+KERNEL_LIBRARIES = ("env", "attention", "lob", "data", "flow")
 FLAGS = {
     "env": (*_COMMON, "-fmad=false", *_SHARED),
     "attention": (*_COMMON, *_SHARED),
     "lob": (*_COMMON, "--split-compile=0", *_SHARED),
     "data": (*_COMMON, "-fmad=false", *_SHARED),
+    "flow": (*_COMMON, "-fmad=false", *_SHARED),
     "attention_probe": (*_COMMON, *_SHARED),
 }
 
@@ -191,6 +195,14 @@ def _bind_data(lib: ctypes.CDLL) -> None:
     lib.gymfx_scaled_windows_blocks_per_sm.restype = i
 
 
+def _bind_flow(lib: ctypes.CDLL) -> None:
+    vp = ctypes.c_void_p
+    lib.gymfx_bar_flow.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+    lib.gymfx_bar_flow.restype = ctypes.c_int
+    lib.gymfx_flow_pointer_count.restype = ctypes.c_int
+    lib.gymfx_flow_const_count.restype = ctypes.c_int
+
+
 def _bind_attention_probe(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.gymfx_attn_probe_skeleton.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
@@ -198,7 +210,7 @@ def _bind_attention_probe(lib: ctypes.CDLL) -> None:
 
 
 _BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob, "data": _bind_data,
-            "attention_probe": _bind_attention_probe}
+            "flow": _bind_flow, "attention_probe": _bind_attention_probe}
 
 
 def load_library(name: str = "env") -> ctypes.CDLL:

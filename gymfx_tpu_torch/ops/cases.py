@@ -11,7 +11,10 @@ reward peaks, over the grid of K2's static flags.  K5 gets the venue's
 seed streams, every scenario's flow mix, five hand-built streams,
 streams whose lots wrap int32 sums and streams of one message kind each,
 and :func:`lob_stream_emulated` models the algorithm of its kernel on
-the CPU.
+the CPU; K8 gets the venue's bars and books whose lots wrap int32
+(:func:`lob_bar_emulated`), K9 bars at int32 and int64 rows
+(:func:`lob_flow_bars`) and :func:`bar_flow_emulated`, a model of its
+lanes in numpy uint32.
 K6 gets int16 deltas at both ends of their range, divisors 1, 60, 1440
 and f32(1e5), and a ragged row count; K7 neutral rows, NaN and +-inf
 inputs, clip 0 and 10, steps at 0 and at n, the export's steps and
@@ -674,8 +677,10 @@ def lob_bar_emulated(book, flow, orders):
     tensors, one book at a time on K5's _EmuHalf model: (final books,
     BarFills), to equal ``ops/lob_bar.run_bar_plain``.  After each cancel
     every level of both halves whose int32 lot sum is <= 0 loses its price,
-    as book.py's cancel resets them (a no-op within int32)."""
-    from gymfx_tpu_torch.lob.book import AGENT_OID, MSG_ADD
+    as book.py's cancel resets them (a no-op within int32).  A NOOP skips
+    process, and a message after which the stop does not fire skips the
+    cancel, the resets and the walk, where both halves are within int32."""
+    from gymfx_tpu_torch.lob.book import AGENT_OID, MSG_ADD, MSG_NOOP, PRICE_CAP
     from gymfx_tpu_torch.ops.lob_bar import BarFills
 
     halves = _emu_books(book)
@@ -696,10 +701,15 @@ def lob_bar_emulated(book, flow, orders):
         rem = _i32(pos_lots - gap_lots - tp0[0])
         tp_lots, tp_value, sl_lots, sl_value, fired = tp0[0], tp0[1], gap_lots, gap_value, gap_sl
         for m in zip(*(s[b] for s in streams)):
-            r = _emu_process(bids, asks, *m)
+            narrow = bids.total <= _I32_MAX and asks.total <= _I32_MAX
+            # a NOOP on two halves within int32 changes nothing
+            r = (_emu_process(bids, asks, *m) if min(max(m[0], 0), 3) != MSG_NOOP or not narrow
+                 else [0, 0, 0, 0, 0, PRICE_CAP, 0, 0, 0])
             rem, tp_lots, tp_value = _i32(rem - r[3]), _i32(tp_lots + r[3]), _i32(tp_value + r[4])
             printed = r[6] >= sl if exit_buy else r[5] <= sl
             trig = has_sl and not fired and rem > 0 and printed
+            if not (trig or bids.total > _I32_MAX or asks.total > _I32_MAX):
+                continue  # fire would change nothing
             target, take = (AGENT_OID, rem) if trig else (0, 0)
             if exit_buy:
                 bids.cancel(target)
@@ -868,6 +878,156 @@ def lob_bar_wrap_case(n_books, n_msgs, depth, slots, seed=0, device=None):
     return (book_mod.BookState(*(x.to(device) for x in book)),
             type(flow)(*(x.to(device) for x in flow)), BarOrders(*map(to, cols)))
 
+
+# ---------------------------------------------------------------------------
+# K9: one bar's flow messages (ops/lob_flow.py)
+# ---------------------------------------------------------------------------
+# K9's algorithm on the card (csrc/flow_kernels.cu bar_flow_kernel), in
+# numpy uint32 and float32: a model of its lanes.  One warp an env; the
+# arrays below are (N, 32), one column a lane.  Nothing on a path calls it:
+# the CPU tests hold it to the plain version, so the kernel's key sharing,
+# its lane-to-message map and its float path are checked where there is
+# no nvcc.
+FLOW_LANES = 32
+# a scenario's flow with one message kind alone: FlowParams overrides
+FLOW_ONE_KIND = {
+    "noop": dict(p_noop=1.0, p_add=0.0, p_cancel=0.0),
+    "add": dict(p_noop=0.0, p_add=1.0, p_cancel=0.0),
+    "cancel": dict(p_noop=0.0, p_add=0.0, p_cancel=1.0),
+    "market": dict(p_noop=0.0, p_add=0.0, p_cancel=0.0),
+}
+_FLOW_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def lob_flow_bars(n: int, rows: str = "int32", seed: int = 0, device=None):
+    """(t, o, h, l, c): ``n`` envs' bar rows and EUR/USD-like OHLC ticks
+    for K9, (N,) each.  ``rows`` "int32": int32 rows over the whole range
+    (0, 1 and 2^31 - 1 among them, negative ones too); "int64": int64 rows
+    from 2^31 up (2^31 and 2^32 among them), whose low 32 bits key the
+    flow."""
+    rng = np.random.default_rng(seed)
+    o = rng.integers(105_000, 115_000, n).astype(np.int32)
+    c = (o + rng.integers(-40, 41, n)).astype(np.int32)
+    h = (np.maximum(o, c) + rng.integers(0, 20, n)).astype(np.int32)
+    lo = (np.minimum(o, c) - rng.integers(0, 20, n)).astype(np.int32)
+    if rows == "int32":
+        t = rng.integers(-(2 ** 31), 2 ** 31, n).astype(np.int32)
+        t[:3] = (0, 1, 2 ** 31 - 1)[:n]
+    else:
+        t = rng.integers(2 ** 31, 2 ** 40, n).astype(np.int64)
+        t[:2] = (2 ** 31, 2 ** 32)[:n]
+    return tuple(torch.from_numpy(x).to(device) for x in (t, o, h, lo, c))
+
+
+def _threefry_u32(k0, k1, x1):
+    """bar_flow_kernel's threefry: the block of the count (0, x1) under
+    the key (k0, k1), broadcast numpy uint32 arrays."""
+    k0, k1, x1 = (np.asarray(x, np.uint32) for x in (k0, k1, x1))
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    a, b = np.broadcast_arrays(k0, x1 + k1)
+    a, b = a.copy(), b.copy()
+    for i in range(5):
+        for r in _FLOW_ROTATIONS[i % 2]:
+            a = a + b
+            b = ((b << np.uint32(r)) | (b >> np.uint32(32 - r))) ^ a
+        a = a + ks[(i + 1) % 3]
+        b = b + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return a, b
+
+
+def _shfl(words, src):
+    """__shfl_sync of a (k0, k1) pair of (N, 32) words: each lane reads
+    lane ``src`` (one lane for all, or a (32,) lane index a lane)."""
+    src = np.broadcast_to(src, (FLOW_LANES,))
+    return tuple(w[:, src] for w in words)
+
+
+def bar_flow_emulated(flow_seed, t_global, o_t, h_t, l_t, c_t, n_msgs: int, fp):
+    """K9's algorithm on CPU tensors: (N, ``n_msgs``) int32 Messages, to
+    equal ``ops/lob_flow.bar_flow_plain``.  The kernel's constants come
+    from ``ops/lob_flow.flow_constants``, as the wrapper passes them."""
+    from gymfx_tpu_torch.lob.book import PRICE_CAP, Messages
+    from gymfx_tpu_torch.lob.flow import QTY_CAP
+    from gymfx_tpu_torch.ops.lob_flow import flow_constants
+
+    words = np.array(flow_constants(fp, flow_seed), np.int32)
+    seed = words[0].view(np.uint32)
+    thr = words[1:4].view(np.float32)
+    span, mult = words[4:7].view(np.uint32), words[7:10].view(np.uint32)
+    lo = words[10:13]
+    base_qty, market_qty, crash_at, crash_len, crash_qty = (int(x) for x in words[13:18])
+    t = t_global.numpy().astype(np.int64).astype(np.uint32)  # the low 32-bit word
+    o, h, l, c = (x.numpy().astype(np.int32)[:, None] for x in (o_t, h_t, l_t, c_t))
+    n = t.shape[0]
+    lane = np.arange(FLOW_LANES)
+    j = np.minimum(lane, 5)
+
+    # the keys: every lane the fold_in, lane j < 6 split key j, then half j % 2
+    # of split key 2 + j / 2 shuffled from its lane
+    key = _threefry_u32(np.uint32(0), seed, t[:, None] + np.zeros(FLOW_LANES, np.uint32))
+    split = _threefry_u32(key[0], key[1], j.astype(np.uint32))
+    parent = _shfl(split, 2 + j // 2)
+    half = _threefry_u32(parent[0], parent[1], (j & 1).astype(np.uint32))
+    k_kind, k_side, k_cxl = (_shfl(split, s) for s in (0, 1, 5))
+    k_jit, k_qty, k_band = ((_shfl(half, 2 * d), _shfl(half, 2 * d + 1)) for d in range(3))
+
+    def draw(k, i):
+        y = _threefry_u32(k[0], k[1], np.uint32(i))
+        return y[0] ^ y[1]
+
+    def uniform(bits):
+        return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+
+    def randint(halves, i, d):
+        offset = (draw(halves[0], i) % span[d]) * mult[d] + draw(halves[1], i) % span[d]
+        return (lo[d].view(np.uint32) + offset % span[d]).view(np.int32)
+
+    def clamp_tick(x):
+        return np.minimum(np.maximum(x, 1), PRICE_CAP - 1)
+
+    f32 = np.float32
+    bull = c >= o
+    of, cf = o.astype(f32), c.astype(f32)
+    w0, w1 = np.where(bull, l, h).astype(f32), np.where(bull, h, l).astype(f32)
+    d0, d1, d2 = w0 - of, w1 - w0, cf - w1
+    div = n_msgs - 1
+    out = np.zeros((5, n, n_msgs), np.int32)
+    for ln in range(FLOW_LANES):  # lane ln draws messages ln, ln + 32, ...
+        for i in range(ln, n_msgs, FLOW_LANES):
+            tt = f32(0)
+            if div > 0:
+                step = f32(i) / f32(div)
+                tt = f32(0) * (f32(1) - step) + f32(3) * step if i < div else f32(3)
+            seg0 = of + d0 * np.clip(tt, f32(0), f32(1))
+            seg1 = w0 + d1 * np.clip(tt - f32(1), f32(0), f32(1))
+            seg2 = w1 + d2 * np.clip(tt - f32(2), f32(0), f32(1))
+            seg = seg0 if tt <= 1 else (seg1 if tt <= 2 else seg2)
+            path = clamp_tick(np.rint(seg).astype(np.int32))
+            def key_at(k, ln=ln):  # this lane's copy of a broadcast key
+                return tuple(w[:, ln] for w in k)
+
+            jitter = randint([key_at(k) for k in k_jit], i, 0)[:, None]
+            mid = clamp_tick(np.minimum(np.maximum(path + jitter, l), h))
+            u_kind = uniform(draw(key_at(k_kind), i))[:, None]
+            kind = np.where(u_kind < thr[0], 0, np.where(u_kind < thr[1], 1,
+                                                         np.where(u_kind < thr[2], 2, 3)))
+            side = np.where(uniform(draw(key_at(k_side), i))[:, None] < f32(0.5), 1, -1)
+            band = 1 + randint([key_at(k) for k in k_band], i, 2)[:, None]
+            add_price = clamp_tick(mid - side * band)
+            qty = np.where(kind == 3, market_qty, base_qty) + randint(
+                [key_at(k) for k in k_qty], i, 1)[:, None]
+            u_cxl = uniform(draw(key_at(k_cxl), i))[:, None]
+            cxl = np.minimum(1 + np.floor(u_cxl * f32(max(i, 1))).astype(np.int32), i)
+            oid = np.where(kind == 2, cxl, 1 + i)
+            if crash_at >= 0 and crash_at <= i < crash_at + crash_len:
+                kind, side = np.full_like(kind, 3), np.full_like(side, -1)
+                qty = np.full_like(qty, crash_qty)
+            qty = np.minimum(np.maximum(qty, 1), QTY_CAP)
+            price = np.where(kind == 1, add_price, mid)
+            for s, col in enumerate((kind, side, price, qty, oid)):
+                out[s, :, i] = col[:, 0]
+    dev = o_t.device
+    return Messages(*(torch.from_numpy(x).to(dev) for x in out))
 
 # ---------------------------------------------------------------------------
 # K6: q16 tape decode blocks; K7: batched scaled windows

@@ -12,8 +12,8 @@ then run once more under ``torch.profiler`` with named ranges around the
 policy forward, the action draw, the env transition, the obs build and
 encoding, and the auto-reset; on the LOB venue also around the five
 stages of ``lob/venue.execute_bar`` inside the transition: ``lob_seed``
-(the books seeded through K5), ``lob_flow`` (the bar's flow messages, the
-threefry draws), ``lob_orders`` (the agent's int32 inputs), ``lob_bar``
+(the books seeded through K5), ``lob_flow`` (the bar's flow messages,
+K9), ``lob_orders`` (the agent's int32 inputs), ``lob_bar``
 (the bar's book work, K8) and ``lob_fills`` (the open and exit fills).  The update phase on that rollout's trajectory likewise, with
 ranges around GAE, the minibatch gathers, the loss forward, the loss and
 its gradients (forward and ``autograd.grad``), the optimizer, the guard's
@@ -26,7 +26,7 @@ prints and writes to ``chiprun_out/profile_rollout_<config>.json``:
 * device busy time (the union of CUDA kernel intervals) and the device's
   idle share of the profiled phase's wall time, eager and graphed;
 * CUDA kernel launches per env step (rollout) or per phase (update), and
-  device time by kernel group (the port's kernels K1-K5, the policy
+  device time by kernel group (the port's kernels K1-K5, K8, K9, the policy
   GEMMs, everything else) and the kernels by name (``kernels_by_name``:
   launches and device ms), so a replay's split shows what leads;
 * host time by range (the profiler's wall time summed per range; nested
@@ -67,9 +67,9 @@ RANGES = ("policy", "sample", "transition", "build_obs", "encode_obs", "masked_r
 UPDATE_RANGES = ("gae", "take", "loss_forward", "loss_and_grads", "optimizer",
                  "apply_updates", "guard_finite", "guard_select", "quarantine", "masked_reset")
 TOP_KERNELS = 12
-# kernel-name prefixes: K1 (both paths), K2, K3, K4 forward and backward, K5, K8
+# kernel-name prefixes: K1 (both paths), K2, K3, K4 forward and backward, K5, K8, K9
 OUR_KERNELS = ("step_obs", "fill_brackets_kernel", "mark_reward_kernel", "attn_fwd", "attn_bwd",
-               "lob_stream_kernel", "lob_bar_kernel")
+               "lob_stream_kernel", "lob_bar_kernel", "bar_flow_kernel")
 # (module, attribute, range name) of every function the profile ranges
 RANGED = (
     (env_core, "transition", "transition"), (env_core, "build_obs", "build_obs"),

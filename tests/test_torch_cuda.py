@@ -16,7 +16,10 @@ bits.  K3 also at N = 1, 63 and 8,193 with both rewards and mark_pred and
 live all true, all false and mixed.  K5 (LOB stream
 matching) is int32: books and fill records ``torch.equal``; so is K8
 (one bar of the LOB venue): final books and results, at every template,
-on the venue's bars and where lot sums wrap int32.  K6 (q16
+on the venue's bars and where lot sums wrap int32; and K9 (a bar's flow
+messages: threefry words and a float32 path, -fmad=false) for every
+scenario at the venue's shape and at odd ones, and replayed from a CUDA
+graph.  K6 (q16
 tape decode) and K7 (batched scaled windows) ``torch.equal`` (-fmad=false,
 IEEE division; K7 NaN for NaN, over random, the export's and clamped
 steps, F 1-7, W 8-64 and a feature view 4 bytes off alignment, and at
@@ -33,11 +36,13 @@ import torch
 
 from gymfx_tpu_torch.core.types import EnvConfig, initial_state
 from gymfx_tpu_torch.lob.book import empty_book
+from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
 from gymfx_tpu_torch.ops import (
     cases,
     env_dynamics,
     fused_attention,
     lob_bar,
+    lob_flow,
     lob_match,
     tape_decode,
     window_zscore,
@@ -400,6 +405,77 @@ def test_cuda_lob_bar_rejects_what_it_cannot_take(cuda_device):
         lob_bar.run_bar(book, flow._replace(qty=flow.qty.to(torch.int64)), orders)
     with pytest.raises(ValueError, match="orders.stop"):
         lob_bar.run_bar(book, flow, orders._replace(stop=orders.stop[:3]))
+
+
+def _flow_equal(n, n_msgs, scenario, rows, device, seed=0):
+    bars = cases.lob_flow_bars(n, rows, seed=seed, device=device)
+    fp = scenario_flow_params(scenario)
+    before = lob_flow.bar_flow.launches
+    ours = lob_flow.bar_flow(5, *bars, n_msgs, fp)
+    ref = lob_flow.bar_flow_plain(5, *bars, n_msgs, fp)
+    assert lob_flow.bar_flow.launches == before + 1
+    for name, a, b in zip(ref._fields, ours, ref):
+        assert torch.equal(a, b), name
+    return ours
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_msgs,rows", [(8192, 64, "int32"), (8192, 64, "int64"),
+                                           (13, 17, "int64"), (37, 70, "int32"), (1, 1, "int32"),
+                                           (4099, 33, "int64")])
+@pytest.mark.parametrize("scenario", cases.LOB_SCENARIOS)
+def test_cuda_bar_flow_equals_plain(cuda_device, scenario, n, n_msgs, rows):
+    ours = _flow_equal(n, n_msgs, scenario, rows, cuda_device, seed=n_msgs)
+    if scenario == "lob_flash_crash" and n_msgs == 64:
+        assert bool((ours.kind[:, 24:32] == 3).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(cases.FLOW_ONE_KIND))
+def test_cuda_bar_flow_equals_plain_on_one_kind(cuda_device, kind):
+    fp = scenario_flow_params("lob_volatile")._replace(**cases.FLOW_ONE_KIND[kind])
+    bars = cases.lob_flow_bars(4099, "int64", seed=2, device=cuda_device)
+    ours = lob_flow.bar_flow(5, *bars, 70, fp)
+    for name, a, b in zip(ours._fields, ours, lob_flow.bar_flow_plain(5, *bars, 70, fp)):
+        assert torch.equal(a, b), f"{kind} {name}"
+    assert bool((ours.kind == list(cases.FLOW_ONE_KIND).index(kind)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_bar_flow_replays_from_a_cuda_graph(cuda_device):
+    fp = scenario_flow_params("lob_volatile")
+    bars = [x.clone() for x in cases.lob_flow_bars(512, "int32", seed=1, device=cuda_device)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lob_flow.bar_flow(9, *bars, 64, fp)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = lob_flow.bar_flow.launches
+    with torch.cuda.graph(graph):
+        out = lob_flow.bar_flow(9, *bars, 64, fp)
+    assert lob_flow.bar_flow.launches == before + 1
+    for step in range(3):  # new bars in the captured inputs each replay
+        for x, y in zip(bars, cases.lob_flow_bars(512, "int32", seed=10 + step,
+                                                 device=cuda_device)):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, lob_flow.bar_flow_plain(9, *bars, 64, fp)):
+            assert torch.equal(a, b)
+    assert lob_flow.bar_flow.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_bar_flow_rejects_what_it_cannot_take(cuda_device):
+    t, o, h, l, c = cases.lob_flow_bars(8, "int32", device=cuda_device)
+    fp = scenario_flow_params("lob_calm")
+    with pytest.raises(ValueError, match="h_t"):
+        lob_flow.bar_flow(0, t, o, h.to(torch.int64), l, c, 8, fp)
+    with pytest.raises(ValueError, match="t_global"):
+        lob_flow.bar_flow(0, t[:4], o, h, l, c, 8, fp)
+    with pytest.raises(ValueError, match="c_t"):
+        lob_flow.bar_flow(0, t, o, h, l, torch.stack([c, c], 1)[:, 0], 8, fp)
 
 
 @pytest.mark.cuda

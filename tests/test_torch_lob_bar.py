@@ -7,7 +7,8 @@ its plain version there).  Here, on the CPU:
   ``lob_bar_kernel``) on K5's model of a warp's book, equals the plain
   version ``run_bar_plain`` with ``torch.equal`` on the final books and
   every result, on seeded books and the venue's ``lob_volatile`` bar flow
-  at depths 8, 24 and 48 (1 and 2 levels a lane) and 1, 4 and 8 slots;
+  (and ``lob_thin``'s, a third of it NOOPs, which the kernel skips) at
+  depths 8, 24 and 48 (1 and 2 levels a lane) and 1, 4 and 8 slots;
   the agent's orders (``cases.LOB_BAR_PATHS``) cover open walks on both
   sides, a forced liquidation, a sub-lot denial, gap stops both ways,
   resting take-profits and stops left to the flow, a take-profit filled
@@ -45,6 +46,18 @@ def test_lob_bar_emulated_equals_plain_on_venue_bars(depth, slots):
     occurred = cases.lob_bar_paths(book, flow, orders, ref[1], paths)
     assert sorted(occurred) == sorted(cases.LOB_BAR_PATHS)
     assert all(occurred.values()), occurred
+
+
+@pytest.mark.parametrize("slots", [1, 4, 8])
+@pytest.mark.parametrize("depth", [8, 24, 48])
+def test_lob_bar_emulated_equals_plain_on_noop_flow(depth, slots):
+    """lob_thin's bars: a third of the flow is NOOPs, which the kernel
+    skips where both halves are within int32."""
+    book, flow, orders, _ = cases.lob_bar_case(66, depth=depth, slots=slots, n_msgs=64,
+                                               seed=depth + slots, scenario="lob_thin")
+    assert float((flow.kind == 0).float().mean()) > 0.25
+    ref = lob_bar.run_bar_plain(book, flow, orders)
+    _assert_equal(cases.lob_bar_emulated(book, flow, orders), ref)
 
 
 @pytest.mark.parametrize("depth,slots", [(4, 3), (2, 2), (6, 2), (33, 1), (40, 8)])
