@@ -152,10 +152,16 @@ failure exits non-zero:
             env states, trajectory and bootstrap value (torch.equal).
             Then graphed against eager as in main.
 7. episode  Environment.rollout with the buy_hold driver, 1 env, on the
-            card: 400 bar-venue steps (K2 and K3 400 launches, K1 401: the
-            reset builds an obs too) and 50 LOB-venue steps (K3, K5, K8
-            and K9 50, K1 51, K2 none); each episode must equal the same
-            episode on the CPU.
+            card, from the episode drivers' CUDA graphs (core/rollout.py:
+            one graph a chunk length, 64 steps and the remainder): 400
+            bar-venue steps (K2 and K3 4 x (64 + 16) launches, the warm-ups
+            and captures of both chunk graphs, K1 one more for the reset's
+            obs; a second, replayed episode adds only that reset) and 50
+            LOB-venue steps (K3, K5, K8 and K9 4 x 50, K1 one more, K2
+            none); each episode must equal the same episode op by op on
+            the card (eager, torch.equal on every output and the final
+            state) and on the CPU; ms a step graphed, eager and with the
+            capture, and the capture seconds, printed.
 8. curriculum  four M1 tapes of 2^18 bars (EUR/USD-, GBP/USD-, AUD/USD-
             and NZD/USD-like random walks in whole 1e-5 ticks, OHLCV,
             generated from the seed into a temporary directory) as
@@ -187,19 +193,37 @@ failure exits non-zero:
             data_compress on (the ring does not hold the tape: pinned
             copies of compressed shards on a side stream, K6 once per q16
             group per shard) and off (pinned f32 shards); a buy_hold
-            episode of one env for 2,048 steps over 8 shards each, equal
-            to the resident episode (torch.equal, every output and the
-            final state); K6 timed at a shard's group.  The episode is cut
-            to 2,048 steps for time (the eager one-env step is host-bound),
+            episode of one env for 2,048 steps over 8 shards each, from the
+            chunk graphs (each shard copied into one staging shard, its
+            row0 a device tensor, so one graph serves every shard), equal
+            to the resident episode and to the same episode op by op
+            (torch.equal, every output and the final state); K6 timed at
+            a shard's group.  The episode is cut to 2,048 steps because the
+            eager episode it is held against is host-bound (~3 ms a step);
             the tape is at full size.
-11. summary one JSON line {"kernels": [...]}, then the last line
+11. cli     the command line (gymfx_tpu_torch/app/main.py main) on a
+            generated 2^15-bar M1 tape at flagship width with a quarter
+            of the bars held out: --mode training for 3 iterations with a
+            checkpoint after each (the JAX package's results keys, three
+            digest-verified steps); a resume from step 2 for one iteration,
+            whose step-3 train state must equal the uninterrupted run's
+            leaf by leaf (params, Adam state, env batch, generator state);
+            --driver_mode policy on the checkpoint, which must reproduce
+            the held-out summary number for number; the evaluation
+            episode's ms a step replayed and its capture seconds, 2,048 of
+            its steps graphed == eager, and one 64-step chunk replay's
+            kernels by name (K1, K2, K3 64 each); the diagnostic episode
+            with buy_hold (1 env, the whole tape; its first 2,048 steps ==
+            the CPU's) and random (8,192 envs x 2,048 steps == the eager
+            episode on the card), each through main.
+12. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
-
 It also writes its numbers to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import shutil
 import statistics
@@ -228,6 +252,16 @@ TAPE_LEVELS = {"eurusd": 1.10, "gbpusd": 1.27, "audusd": 0.66, "nzdusd": 0.60}
 CURRICULUM_SUPERSTEPS = 4
 STREAM_STEPS = 2048
 STREAM_SHARD_BARS = 256
+# the cli phase: a 2^15-bar M1 tape (a quarter held out), 3 training
+# iterations; the diagnostic and evaluation episodes held to eager ones of
+# 2,048 steps (the eager step is host-bound)
+CLI_BARS, CLI_ITERS, CLI_EAGER_STEPS = 2 ** 15, 3, 2048
+# the held-out summary's numbers (summarize_trading and the step Sharpe)
+CLI_SUMMARY_KEYS = ("initial_cash", "final_equity", "total_return", "max_drawdown_pct",
+                    "max_drawdown_money", "sharpe_ratio", "sqn", "trades_total", "trades_won",
+                    "trades_lost", "avg_trade_pnl", "metric_schema", "max_drawdown_fraction",
+                    "risk_penalty_lambda", "risk_adjusted_total_return", "rap",
+                    "sharpe_ratio_steps")
 # K7 at a batch whose tiles outnumber twice its persistent grid's CTAs
 K7_MANY_TILES = 600_000
 
@@ -1307,12 +1341,19 @@ def capture_seconds(trainer) -> dict:
             for i, (key, graph) in enumerate(trainer._graphs.items())}
 
 
-def replay_kernel_names(torch, trainer, kind: str) -> list:
-    """The kernels of one replay of the trainer's first graph of ``kind``,
+def first_graphs(trainer) -> dict:
+    """The trainer's first graph of each kind (rollout, update)."""
+    out = {}
+    for key, graph in trainer._graphs.items():
+        out.setdefault(key[0], graph)
+    return out
+
+
+def replay_kernel_names(torch, graph) -> list:
+    """The kernels of one replay of ``graph`` (a core/graphs.PhaseGraph),
     by name from a torch.profiler trace (the replay overwrites the graph's
     static outputs).  The profiler stops TRACE_DRAIN_S after the replay
     ends, so that CUPTI can hand over the replay's last records."""
-    graph = next(g for key, g in trainer._graphs.items() if key[0] == kind)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         graph.graph.replay()
         torch.cuda.synchronize()
@@ -1320,10 +1361,12 @@ def replay_kernel_names(torch, trainer, kind: str) -> list:
     return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def replay_launches(torch, trainer, expected: dict, label: str) -> tuple:
-    """One replay of the trainer's first graph of each kind in ``expected``,
-    its kernels counted by name in a torch.profiler trace; each kernel of
-    KERNEL_NAMES must launch as ``expected`` says, 0 where it says nothing.
+def replay_launches(torch, graphs_by_kind: dict, expected: dict, label: str) -> tuple:
+    """One replay of the graph of each kind in ``expected`` (``graphs_by_kind``
+    maps a kind to its PhaseGraph: a trainer's ``first_graphs``, or an
+    episode chunk's graph), its kernels counted by name in a
+    torch.profiler trace; each kernel of KERNEL_NAMES must launch as
+    ``expected`` says, 0 where it says nothing.
 
     CUPTI can drop activity records from a trace of a replay of ~10^5
     kernels: a trace of one LOB rollout replay on an H100 lost the replay's
@@ -1340,7 +1383,7 @@ def replay_launches(torch, trainer, expected: dict, label: str) -> tuple:
         want = {k: counts.get(k, 0) for k in KERNEL_NAMES}
         tries = []
         for _ in range(TRACE_TRIES):
-            got_names = replay_kernel_names(torch, trainer, kind)
+            got_names = replay_kernel_names(torch, graphs_by_kind[kind])
             got = {key: sum(pattern in n for n in got_names)
                    for key, pattern in KERNEL_NAMES.items()}
             tries.append((got, len(got_names)))
@@ -1502,7 +1545,7 @@ def main_phase(torch, kernels, results) -> None:
     state = copy_state(torch, state)
     summary = report_steps(rows, N_ENVS, HORIZON, "main path")
     traced, _ = replay_launches(
-        torch, trainer, {"rollout": {**per_phase, "attention_forward": 0, "attention_backward": 0},
+        torch, first_graphs(trainer), {"rollout": {**per_phase, "attention_forward": 0, "attention_backward": 0},
                          "update": {}}, "main path")
     print(f"  launches at capture {launches} ({runs} runs: {graphs.WARMUP} warm-ups and the "
           f"capture); one replay by the profiler trace {traced}; {trades} closed trades")
@@ -1583,7 +1626,8 @@ def long_phase(torch, kernels, results) -> None:
     check_training(rows, "long")
     state = copy_state(torch, state)
     summary = report_steps(rows, n, horizon, "long path")
-    traced, _ = replay_launches(torch, trainer, {"rollout": rollout, "update": update}, "long path")
+    traced, _ = replay_launches(torch, first_graphs(trainer), {"rollout": rollout, "update": update},
+                                "long path")
     print(f"  launches at capture {launches} ({runs} runs); one replay by the profiler trace "
           f"{traced}")
 
@@ -1669,7 +1713,8 @@ def lob_phase(torch, kernels, results) -> None:
     check_training(rows, "lob")
     summary = report_steps(rows, N_ENVS, HORIZON, "lob path")
     expected = {k.replace("run_bar", "lob_bar"): v for k, v in per_phase.items()}
-    traced, names = replay_launches(torch, trainer, {"rollout": expected, "update": {}}, "lob path")
+    traced, names = replay_launches(torch, first_graphs(trainer), {"rollout": expected, "update": {}},
+                                   "lob path")
     names = names["rollout"]
     gathers = sum(GATHER_KERNEL in n for n in names)
     engine = sum(any(k in n.lower() for k in ENGINE_KERNELS) and GATHER_KERNEL not in n
@@ -1740,6 +1785,36 @@ def lob_phase(torch, kernels, results) -> None:
     }
 
 
+def chunk_launches(steps: int, chunk: int = 64) -> int:
+    """A counted kernel's launches over a graphed episode of ``steps``
+    steps that captures its chunk graphs: each chunk length's graph runs
+    its body in the warm-ups and the capture, a replay moves no count."""
+    from gymfx_tpu_torch.core import graphs
+
+    lengths = {min(chunk, steps)} | ({steps % chunk} if steps > chunk else set())
+    return (graphs.WARMUP + 1) * sum(lengths - {0})
+
+
+def timed_episode(torch, env, driver, steps: int, **kw):
+    """``env.rollout`` timed: ((state, outputs), ms a step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = env.rollout(driver, steps, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def check_episodes_equal(torch, a, b, what: str) -> None:
+    """Two (state, outputs) episodes torch.equal, every output and every
+    field of the final state."""
+    (sa, oa), (sb, ob) = a, b
+    check(sorted(oa) == sorted(ob), f"{what}: output keys")
+    for key in oa:
+        check(torch.equal(oa[key], ob[key]), f"{what}: {key}")
+    for field in sa._fields:
+        check(torch.equal(getattr(sa, field), getattr(sb, field)), f"{what}: final state {field}")
+
+
 def episode_phase(torch, results) -> None:
     from gymfx_tpu_torch.config.flagship import flagship_config
     from gymfx_tpu_torch.core import rollout as rollout_mod
@@ -1751,13 +1826,22 @@ def episode_phase(torch, results) -> None:
     counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
     for fn in counted:
         fn.launches = 0
-    _, out = env.rollout(rollout_mod.buy_hold_driver(), EPISODE_STEPS)
-    torch.cuda.synchronize()
+    graphed, graphed_ms = timed_episode(torch, env, rollout_mod.buy_hold_driver(), EPISODE_STEPS)
+    state, out = graphed
     episode_launches = count_launches(counted)
-    # K2 and K3 once per step; K1 once per step and once for the reset's obs
-    expected = {"step_obs": EPISODE_STEPS + 1, "fill_brackets": EPISODE_STEPS,
-                "mark_reward": EPISODE_STEPS}
+    # K2 and K3 once per step of each chunk graph's warm-ups and capture;
+    # K1 also once for the reset's obs
+    at_capture = chunk_launches(EPISODE_STEPS)
+    expected = {"step_obs": at_capture + 1, "fill_brackets": at_capture, "mark_reward": at_capture}
     check(episode_launches == expected, f"episode launched {episode_launches}, expected {expected}")
+    capture_s = sum(g.capture_s for g in env.episode_graphs.graphs.values())
+    replayed, replay_ms = timed_episode(torch, env, rollout_mod.buy_hold_driver(), EPISODE_STEPS)
+    check(count_launches(counted) == {**expected, "step_obs": at_capture + 2},
+          "a replayed episode launched a kernel outside its reset")
+    eager, eager_ms = timed_episode(torch, env, rollout_mod.buy_hold_driver(), EPISODE_STEPS,
+                                    eager=True)
+    check_episodes_equal(torch, graphed, eager, "bar episode graphed vs eager")
+    check_episodes_equal(torch, replayed, eager, "bar episode replayed vs eager")
     cpu_env = Environment(config, device="cpu")
     _, cpu_out = cpu_env.rollout(rollout_mod.buy_hold_driver(), EPISODE_STEPS)
     for key in ("equity_delta", "reward", "done", "pos_units"):
@@ -1765,8 +1849,13 @@ def episode_phase(torch, results) -> None:
     final_equity = float(out["equity"][-1, 0])
     check(abs(final_equity - 10000.0) < 100.0, f"implausible final equity {final_equity}")
     print(f"episode: buy_hold, 1 env, {EPISODE_STEPS} steps: final equity {final_equity:.5f} "
-          f"(card == CPU, torch.equal); launches {episode_launches}")
-    results["episode_final_equity"] = final_equity
+          f"(graphed == eager on the card, card == CPU, torch.equal); launches {episode_launches} "
+          f"(chunk graphs {sorted(k[0] for k in env.episode_graphs.graphs)}, captured); ms a step "
+          f"graphed {replay_ms:.4f} (first run with capture {graphed_ms:.4f}), eager "
+          f"{eager_ms:.4f}; capture s {capture_s:.2f}")
+    results["episode"] = {"final_equity": final_equity, "steps": EPISODE_STEPS,
+                          "graphed_ms_per_step": replay_ms, "first_run_ms_per_step": graphed_ms,
+                          "eager_ms_per_step": eager_ms, "capture_s": capture_s}
 
     # the same on the LOB venue (flagship-lob-train: direct_fixed_sltp,
     # 40-lot entries), K5 seeding every step's books and K8 running its bar
@@ -1777,15 +1866,19 @@ def episode_phase(torch, results) -> None:
     counted = (*counted, lob_match.process_stream, lob_bar.run_bar, lob_flow.bar_flow)
     for fn in counted:
         fn.launches = 0
-    t0 = time.perf_counter()
-    _, out = Environment(config).rollout(rollout_mod.buy_hold_driver(), LOB_EPISODE_STEPS)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
+    lob_env = Environment(config)
+    graphed, card_ms = timed_episode(torch, lob_env, rollout_mod.buy_hold_driver(),
+                                     LOB_EPISODE_STEPS)
+    state, out = graphed
     episode_launches = count_launches(counted)
-    expected = {"step_obs": LOB_EPISODE_STEPS + 1, "fill_brackets": 0,
-                "mark_reward": LOB_EPISODE_STEPS, "process_stream": LOB_EPISODE_STEPS,
-                "run_bar": LOB_EPISODE_STEPS, "bar_flow": LOB_EPISODE_STEPS}
+    at_capture = chunk_launches(LOB_EPISODE_STEPS)
+    expected = {"step_obs": at_capture + 1, "fill_brackets": 0,
+                "mark_reward": at_capture, "process_stream": at_capture,
+                "run_bar": at_capture, "bar_flow": at_capture}
     check(episode_launches == expected, f"LOB episode launched {episode_launches}, expected {expected}")
+    eager, eager_ms = timed_episode(torch, lob_env, rollout_mod.buy_hold_driver(),
+                                    LOB_EPISODE_STEPS, eager=True)
+    check_episodes_equal(torch, graphed, eager, "LOB episode graphed vs eager")
     t0 = time.perf_counter()
     _, cpu_out = Environment(config, device="cpu").rollout(rollout_mod.buy_hold_driver(),
                                                            LOB_EPISODE_STEPS)
@@ -1796,11 +1889,13 @@ def episode_phase(torch, results) -> None:
     trades = int(out["trade_count"][-1, 0])
     check(trades > 0, "the LOB episode closed no trade")
     final_equity = float(out["equity"][-1, 0])
+    card_s = card_ms * LOB_EPISODE_STEPS / 1e3
     print(f"episode: LOB venue, buy_hold, 1 env, {LOB_EPISODE_STEPS} steps: final equity "
-          f"{final_equity:.5f}, {trades} closed trades (card == CPU, torch.equal, every output); "
-          f"launches {episode_launches}; {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU")
+          f"{final_equity:.5f}, {trades} closed trades (graphed == eager on the card, card == "
+          f"CPU, torch.equal, every output); launches {episode_launches}; {card_s:.1f} s on the "
+          f"card with the capture, eager {eager_ms:.3f} ms a step, {cpu_s:.1f} s on the CPU")
     results["lob_episode"] = {"final_equity": final_equity, "closed_trades": trades,
-                              "card_s": card_s, "cpu_s": cpu_s}
+                              "card_s": card_s, "eager_ms_per_step": eager_ms, "cpu_s": cpu_s}
 
 
 def curriculum_phase(torch, dev, kernels, results, paths) -> None:
@@ -1920,7 +2015,8 @@ def curriculum_phase(torch, dev, kernels, results, paths) -> None:
     for key in ("obs_vec",):
         check(bool(torch.isfinite(getattr(state, key)).all()), f"curriculum non-finite {key}")
     state = copy_state(torch, state)
-    traced, _ = replay_launches(torch, trainer, {"rollout": rollout, "update": update}, "curriculum")
+    traced, _ = replay_launches(torch, first_graphs(trainer), {"rollout": rollout, "update": update},
+                                "curriculum")
     check(traced["rollout"]["step_obs"] + traced["update"]["step_obs"] == HORIZON + 2,
           "curriculum K1 a train step")
     labels = [sampler.specs[i].label.rsplit("/", 1)[-1] for i in picks]
@@ -2055,6 +2151,7 @@ def export_phase(torch, kernels, results, paths, tmp) -> None:
 
 def stream_phase(torch, kernels, results, paths) -> None:
     from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.rollout import buy_hold_driver
     from gymfx_tpu_torch.core.runtime import Environment
     from gymfx_tpu_torch.data import compress as C
@@ -2092,8 +2189,11 @@ def stream_phase(torch, kernels, results, paths) -> None:
         torch.cuda.synchronize()
         episode_s = time.perf_counter() - t0
         launches = count_launches(counted)
-        expected = {"step_obs": STREAM_STEPS + 1, "fill_brackets": STREAM_STEPS,
-                    "mark_reward": STREAM_STEPS, "decode_q16_block": served * groups}
+        # each chunk length's graph counts in its warm-ups and capture; the
+        # staging shard makes one graph serve every shard
+        at_capture = (graphs.WARMUP + 1) * sum(k[0] for k in env.episode_graphs.graphs)
+        expected = {"step_obs": at_capture + 1, "fill_brackets": at_capture,
+                    "mark_reward": at_capture, "decode_q16_block": served * groups}
         check(launches == expected, f"stream {mode} launched {launches}, expected {expected}")
         check(sorted(out) == sorted(ref), f"stream {mode}: output keys")
         for key in ref:
@@ -2101,15 +2201,30 @@ def stream_phase(torch, kernels, results, paths) -> None:
         for field in ref_state._fields:
             check(torch.equal(getattr(state, field), getattr(ref_state, field)),
                   f"stream {mode} vs resident episode: final state {field}")
+        t0 = time.perf_counter()
+        again = env.rollout(buy_hold_driver(), STREAM_STEPS)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eager = env.rollout(buy_hold_driver(), STREAM_STEPS, eager=True)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        check_episodes_equal(torch, (state, out), eager, f"stream {mode} graphed vs eager")
+        check_episodes_equal(torch, again, eager, f"stream {mode} replayed vs eager")
+        capture_s = sum(g.capture_s for g in env.episode_graphs.graphs.values())
         rows[mode] = dict(budget_mb=budgets[mode], shard_bars=s.shard_bars, num_shards=s.num_shards,
                           ring_shards=s.ring_shards, tape_resident=s.tape_resident,
                           shards_served=served, q16_groups=groups, episode_s=episode_s,
+                          replay_episode_s=replay_s, eager_episode_s=eager_s, capture_s=capture_s,
                           launches=launches, compression_ratio=s.compression_ratio)
         print(f"stream {mode}: budget {budgets[mode]:.3f} MiB, shard_bars {s.shard_bars}, num_shards "
               f"{s.num_shards}, ring_shards {s.ring_shards}, tape_resident {s.tape_resident}; "
-              f"buy_hold 1 env x {STREAM_STEPS} steps over {served} shards in {episode_s:.1f} s "
-              f"(resident {resident_s:.1f} s) == the resident episode (torch.equal, every output "
-              f"and the final state); launches {launches}")
+              f"buy_hold 1 env x {STREAM_STEPS} steps over {served} shards, graphed: {episode_s:.2f} s "
+              f"with the capture ({capture_s:.2f} s), {replay_s:.2f} s replayed "
+              f"({replay_s * 1e3 / STREAM_STEPS:.4f} ms a step), eager {eager_s:.2f} s "
+              f"({eager_s * 1e3 / STREAM_STEPS:.4f} ms a step), resident {resident_s:.2f} s; == the "
+              f"resident episode and graphed == eager (torch.equal, every output and the final "
+              f"state); launches {launches}")
         if s.tape is not None:
             # K6 at a streamed shard's largest group
             arrs = C.shard_arrays(s.tape, 1)
@@ -2130,6 +2245,201 @@ def stream_phase(torch, kernels, results, paths) -> None:
                   f"(plain {row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by})")
         del env, state, out
     results["stream"] = {"steps": STREAM_STEPS, "resident_s": resident_s, **rows}
+
+
+def cli_phase(torch, results, tmp) -> None:
+    """The command line's PPO modes at flagship width (gymfx_tpu_torch/
+    app/main.py): training with checkpoints, a resume, the policy mode,
+    the evaluation episode's time and one chunk replay's kernels, and the
+    diagnostic episodes graphed against eager."""
+    from gymfx_tpu_torch.app.main import main as cli_main
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core import rollout as rollout_mod
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import cases
+    from gymfx_tpu_torch.train import checkpoint as ckpt
+    from gymfx_tpu_torch.train.common import build_train_eval_envs
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, greedy_policy_driver, evaluate, ppo_config_from
+
+    tmp = pathlib.Path(tmp) / "cli"
+    tmp.mkdir()
+    tape = tmp / "eurusd_m1.csv"
+    cases.write_bar_csv(tape, cases.tick_walk_columns(CLI_BARS, seed=SEED, level=1.10),
+                        cases.m1_week_grid(CLI_BARS))
+    config = flagship_config(str(tape), timeframe="M1", eval_split=0.25)
+    cfg_file = tmp / "flagship.json"
+    cfg_file.write_text(json.dumps(config))
+    per_iter = N_ENVS * HORIZON
+    eval_bars = CLI_BARS // 4
+
+    def cli(name, *argv):
+        t0 = time.perf_counter()
+        out = cli_main(["--load_config", str(cfg_file), "--results_file", str(tmp / f"{name}.json"),
+                        "--save_config", str(tmp / "saved_config.json"), "--quiet_mode", *argv])
+        torch.cuda.synchronize()
+        check(json.loads((tmp / f"{name}.json").read_text())
+              == json.loads(json.dumps(out, default=str)), f"cli {name}: results file != summary")
+        return out, time.perf_counter() - t0
+
+    # 1. train: 3 iterations, a checkpoint after each
+    full = tmp / "full"
+    trained, train_s = cli("train", "--mode", "training", "--checkpoint_dir", str(full),
+                           "--train_total_steps", str(CLI_ITERS * per_iter),
+                           "--checkpoint_every", "1")
+    for key in ("eval_scope", "eval_bars", "train_bars", "in_sample", "train_metrics",
+                "checkpoint_dir", *CLI_SUMMARY_KEYS):
+        check(key in trained, f"cli training results lack {key!r}")
+    check(trained["eval_scope"] == "held_out" and trained["eval_bars"] == eval_bars
+          and trained["train_bars"] == CLI_BARS - eval_bars,
+          f"cli training: eval {trained['eval_bars']}, train {trained['train_bars']} bars")
+    tm = trained["train_metrics"]
+    check(tm["iterations"] == CLI_ITERS and tm["nonfinite_skips"] == 0.0
+          and tm["last_checkpoint_step"] == CLI_ITERS * per_iter, f"cli train_metrics {tm}")
+    for key in ("loss", "policy_loss", "value_loss", "entropy"):
+        check(math.isfinite(tm[key]), f"cli training: {key} {tm[key]}")
+    steps_on_disk = ckpt._list_steps(full)
+    check(steps_on_disk == [i * per_iter for i in range(1, CLI_ITERS + 1)],
+          f"cli checkpoint steps {steps_on_disk}")
+    for step in steps_on_disk:
+        check(ckpt.verify_checkpoint(str(full), step)[1] is not None,
+              f"cli checkpoint step {step} has no digest")
+    check(ckpt.read_metadata(str(full)).get("state_format") == "composite", "cli metadata")
+    state_mb = (full / str(steps_on_disk[-1]) / "state.pt").stat().st_size / 2**20
+    print(f"cli train: {CLI_ITERS} iterations of {N_ENVS} envs x {HORIZON} steps on "
+          f"{CLI_BARS - eval_bars:,} bars, checkpoints {steps_on_disk} (digest-verified, "
+          f"{state_mb:.1f} MiB a state), held-out eval on {eval_bars:,} bars: total_return "
+          f"{trained['total_return']:.6g}, trades {trained['trades_total']}; in-sample "
+          f"total_return {trained['in_sample']['total_return']:.6g}; {train_s:.1f} s")
+
+    # 2. resume from the step-2 checkpoint for one iteration: the state
+    # equals the uninterrupted run's step-3 state, leaf by leaf
+    resumed = tmp / "resumed"
+    resumed.mkdir()
+    for step in steps_on_disk[:-1]:
+        shutil.copytree(full / str(step), resumed / str(step))
+        shutil.copy(full / f"digest_{step}.json", resumed)
+    shutil.copy(full / "metadata.json", resumed)
+    again, resume_s = cli("resume", "--mode", "training", "--checkpoint_dir", str(resumed),
+                          "--train_total_steps", str(per_iter), "--checkpoint_every", "1",
+                          "--resume_training", "true")
+    check(ckpt._list_steps(resumed) == steps_on_disk, f"cli resume steps {ckpt._list_steps(resumed)}")
+    final = f"{steps_on_disk[-1]}/state.pt"
+    a = torch.load(full / final, weights_only=True)
+    b = torch.load(resumed / final, weights_only=True)
+    check(list(a) == list(b), "cli resume: state leaves differ")
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    check(not differ, f"cli resume != the uninterrupted run at {differ[:8]}")
+    kinds = {k.split(".")[0] for k in a}
+    check({"params", "opt_state", "generator", "env_states"} <= kinds, f"cli state leaves {kinds}")
+    for key in CLI_SUMMARY_KEYS:
+        check(again[key] == trained[key], f"cli resume held-out {key}: {again[key]} vs {trained[key]}")
+    print(f"cli resume: step {steps_on_disk[-2]} + 1 iteration == the uninterrupted run (torch.equal "
+          f"on all {len(a)} leaves: params, Adam state, env batch, obs inputs, generator state); "
+          f"{resume_s:.1f} s")
+
+    # 3. policy mode on the checkpoint reproduces the held-out summary
+    policy, policy_s = cli("policy", "--mode", "inference", "--driver_mode", "policy",
+                           "--checkpoint_dir", str(full), "--steps", str(eval_bars - 1))
+    for key in CLI_SUMMARY_KEYS:
+        check(policy[key] == trained[key], f"cli policy mode {key}: {policy[key]} vs {trained[key]}")
+    check(policy["checkpoint_step"] == steps_on_disk[-1] and policy["mode"] == "inference"
+          and policy["eval_scope"] == "held_out", "cli policy mode labels")
+    print(f"cli policy: checkpoint step {policy['checkpoint_step']} reproduces the training run's "
+          f"held-out summary ({len(CLI_SUMMARY_KEYS)} numbers equal); {policy_s:.1f} s")
+
+    # 4. the evaluation episode: its time, graphed against eager, and the
+    # kernels of one chunk replay
+    _, eval_env = build_train_eval_envs(dict(config, ppo_minibatch_scheme="sample_permute"))
+    trainer = PPOTrainer(eval_env, ppo_config_from(dict(config, ppo_minibatch_scheme="sample_permute")))
+    params, _ = ckpt.load_params(str(full), template=trainer.params_template())
+    timing = {}
+    for run in ("first", "replayed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = evaluate(trainer, params)
+        timing[run] = time.perf_counter() - t0
+        for key in CLI_SUMMARY_KEYS:
+            check(summary[key] == trained[key], f"cli evaluate ({run}) {key}")
+    eval_graphs = eval_env.episode_graphs.graphs
+    capture_s = sum(g.capture_s for g in eval_graphs.values())
+    lengths = sorted(k[0] for k in eval_graphs)
+    check(lengths == [(eval_bars - 1) % 64, 64], f"cli evaluation graphs {lengths}")
+    driver, carry = greedy_policy_driver(trainer), (params, ())
+    episodes = {}
+    for eager in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        episodes[eager] = rollout_mod.rollout_chunked(
+            eval_env.cfg, eval_env.params, eval_env.data, driver, CLI_EAGER_STEPS, gen,
+            driver_carry=carry, cache=eval_env.episode_graphs, eager=eager)
+        torch.cuda.synchronize()
+        timing["eager" if eager else "graphed_2048"] = time.perf_counter() - t0
+    check_episodes_equal(torch, episodes[False], episodes[True],
+                         f"cli evaluation episode ({CLI_EAGER_STEPS} steps) graphed vs eager")
+    chunk = next(g for k, g in eval_graphs.items() if k[0] == 64)
+    traced, _ = replay_launches(torch, {"evaluation chunk": chunk},
+                                {"evaluation chunk": {"step_obs": 64, "fill_brackets": 64,
+                                                      "mark_reward": 64}}, "cli")
+    eval_ms = timing["replayed"] * 1e3 / (eval_bars - 1)
+    eager_ms = timing["eager"] * 1e3 / CLI_EAGER_STEPS
+    print(f"cli evaluation episode: {eval_bars - 1:,} greedy steps of 1 env, {eval_ms:.4f} ms a "
+          f"step replayed ({timing['first']:.2f} s the first time, with {capture_s:.2f} s of "
+          f"capture for chunk graphs {lengths}); graphed {CLI_EAGER_STEPS} steps "
+          f"{timing['graphed_2048'] * 1e3 / CLI_EAGER_STEPS:.4f} ms a step == eager "
+          f"{eager_ms:.4f} ms a step (torch.equal); one 64-step chunk replay by the profiler "
+          f"trace {traced['evaluation chunk']}")
+
+    # 5. the diagnostic episodes through main, held to the eager episode
+    diag = {}
+    one_env = dict(config, num_envs=1)
+    bh, bh_s = cli("buy_hold", "--mode", "inference", "--driver_mode", "buy_hold",
+                   "--num_envs", "1", "--steps", str(CLI_BARS - 1))
+    env = Environment(one_env)
+    (bh_state, bh_out), bh_ms = timed_episode(torch, env, rollout_mod.buy_hold_driver(),
+                                              CLI_BARS - 1)
+    n_steps = int(rollout_mod.episode_step_count(bh_out)[0])
+    check(bh["final_equity"] == float(bh_out["equity_delta"][n_steps - 1, 0].double())
+          + config["initial_cash"], "cli buy_hold summary vs its episode")
+    _, cpu_out = Environment(one_env, device="cpu").rollout(rollout_mod.buy_hold_driver(),
+                                                            CLI_EAGER_STEPS)
+    for key in cpu_out:
+        check(torch.equal(bh_out[key][:CLI_EAGER_STEPS].cpu(), cpu_out[key]),
+              f"cli buy_hold episode vs the CPU's first {CLI_EAGER_STEPS} steps: {key}")
+    diag["buy_hold"] = dict(steps=CLI_BARS - 1, main_s=bh_s, graphed_ms_per_step=bh_ms,
+                            final_equity=bh["final_equity"])
+    rnd, rnd_s = cli("random", "--mode", "inference", "--driver_mode", "random",
+                     "--num_envs", str(N_ENVS), "--steps", str(CLI_EAGER_STEPS))
+    env = Environment(config)
+    graphed, rnd_ms = timed_episode(torch, env, rollout_mod.random_driver(), CLI_EAGER_STEPS,
+                                    n_envs=N_ENVS)
+    eager, rnd_eager_ms = timed_episode(torch, env, rollout_mod.random_driver(), CLI_EAGER_STEPS,
+                                        n_envs=N_ENVS, eager=True)
+    check_episodes_equal(torch, graphed, eager, f"cli random {N_ENVS}-env episode graphed vs eager")
+    finals = graphed[1]["equity_delta"][-1].double().cpu() / config["initial_cash"]
+    check(rnd["batch"]["num_envs"] == N_ENVS
+          and rnd["batch"]["mean_total_return"] == float(finals.numpy().mean()),
+          "cli random batch statistics vs the episode")
+    diag["random"] = dict(steps=CLI_EAGER_STEPS, n_envs=N_ENVS, main_s=rnd_s,
+                          graphed_ms_per_step=rnd_ms, eager_ms_per_step=rnd_eager_ms,
+                          batch=rnd["batch"])
+    print(f"cli diagnostic: buy_hold 1 env x {CLI_BARS - 1:,} steps {bh_ms:.4f} ms a step graphed "
+          f"(main {bh_s:.1f} s), first {CLI_EAGER_STEPS} == the CPU's; random {N_ENVS} envs x "
+          f"{CLI_EAGER_STEPS} steps {rnd_ms:.4f} ms a step graphed vs {rnd_eager_ms:.4f} eager "
+          f"(torch.equal; main {rnd_s:.1f} s), batch {rnd['batch']}")
+    results["cli"] = {
+        "bars": CLI_BARS, "eval_bars": eval_bars, "iterations": CLI_ITERS,
+        "checkpoint_steps": steps_on_disk, "state_mib": state_mb, "train_s": train_s,
+        "resume_s": resume_s, "policy_s": policy_s, "train_metrics": tm,
+        "held_out": {k: trained[k] for k in CLI_SUMMARY_KEYS},
+        "evaluation": {"steps": eval_bars - 1, "ms_per_step": eval_ms,
+                       "first_s": timing["first"], "replayed_s": timing["replayed"],
+                       "capture_s": capture_s, "chunk_graphs": lengths,
+                       "eager_ms_per_step": eager_ms,
+                       "graphed_2048_ms_per_step": timing["graphed_2048"] * 1e3 / CLI_EAGER_STEPS,
+                       "chunk_replay_launches": traced["evaluation chunk"]},
+        "diagnostic": diag,
+    }
 
 
 def main() -> None:
@@ -2226,10 +2536,13 @@ def main() -> None:
         timed("export", export_phase, torch, kernels, results, paths, tmp)
         torch.cuda.empty_cache()
         timed("stream", stream_phase, torch, kernels, results, paths)
+        torch.cuda.empty_cache()
+        # ---- 11. cli: the command line's PPO modes ------------------------
+        timed("cli", cli_phase, torch, results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 8. summary ---------------------------------------------------------
+    # ---- 12. summary --------------------------------------------------------
     summary = {"kernels": [
         {
             "name": key, "route": "cuda",

@@ -30,9 +30,10 @@ def local_rows(cfg: EnvConfig, data: MarketData, idx, size: int):
     as it is; a streamed shard's reads are rebased by ``data.row0`` and
     clamped to the array, as XLA's gather clamps them (torch would wrap a
     negative index and fault past the end; the frozen cursor of an
-    episode that ended in an earlier shard reads outside this one)."""
+    episode that ended in an earlier shard reads outside this one).  A
+    staged shard's ``row0`` is a 0-d device tensor (core/rollout.py)."""
     i = idx.long()
-    if data.row0 == 0 and data.close.shape[0] == cfg.n_bars:
+    if isinstance(data.row0, int) and data.row0 == 0 and data.close.shape[0] == cfg.n_bars:
         return i
     return torch.clamp(i - data.row0, 0, size - 1)
 

@@ -161,6 +161,9 @@ class Environment:
             # resident (a budget the tape fits changes nothing)
             self.data = market_data_to_device(host, self.device)
 
+        # the episode chunks' CUDA graphs (core/rollout.py), by signature
+        self.episode_graphs = rollout_mod.EpisodeGraphs()
+
         if curriculum_specs is not None:
             if self.streamer is not None:
                 raise ValueError(
@@ -207,9 +210,12 @@ class Environment:
                              self.require_resident_data("step()"), state, action)
 
     def rollout(self, driver, steps: int, seed: int = 0, params=None,
-                collect: bool = True, n_envs: int = 1):
-        """Episode rollout of ``n_envs`` envs; outputs are (steps, n_envs).
-        A streaming Environment runs one env through its shards
+                collect: bool = True, n_envs: int = 1, chunk_size: int = 64,
+                eager: Optional[bool] = None):
+        """Episode rollout of ``n_envs`` envs in chunks of ``chunk_size``
+        steps, each replayed from its CUDA graph on the card (``eager`` as
+        in ``rollout_chunked``); outputs are (steps, n_envs).  A streaming
+        Environment runs one env through its shards
         (``rollout_streamed``)."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         if self.streamer is not None:
@@ -217,11 +223,12 @@ class Environment:
                 raise ValueError("a streamed episode is one env (n_envs=1)")
             return rollout_mod.rollout_streamed(
                 self.cfg, params or self.params, self.streamer, driver, int(steps), gen,
-                collect=collect,
+                collect=collect, chunk_size=chunk_size, cache=self.episode_graphs, eager=eager,
             )
-        return rollout_mod.rollout(
+        return rollout_mod.rollout_chunked(
             self.cfg, params or self.params, self.data, driver, int(steps), gen,
-            collect=collect, n_envs=n_envs,
+            collect=collect, chunk_size=chunk_size, n_envs=n_envs, cache=self.episode_graphs,
+            eager=eager,
         )
 
     def make_driver(self):
@@ -233,7 +240,7 @@ class Environment:
                 raise ValueError("driver_mode=replay requires replay_actions_file")
             with open(path, "r", encoding="utf-8") as fh:
                 actions = [int(row.get("action", 0)) for row in csv.DictReader(fh)]
-            return rollout_mod.replay_driver(actions or [0])
+            return rollout_mod.replay_driver(actions or [0], self.device)
         try:
             return rollout_mod.DRIVERS[mode]()
         except KeyError:

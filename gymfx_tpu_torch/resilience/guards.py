@@ -1,15 +1,16 @@
 """Non-finite train-step guards: the port of ``gymfx_tpu/resilience/guards.py``
-lines 28-83 (``tree_all_finite``, ``select_tree``, ``quarantine_mask``).
+(``tree_all_finite``, ``select_tree``, ``quarantine_mask``, :28-83; the
+host-side ``NonFiniteDivergenceError`` and ``SkipMonitor``, :86-146).
 
 A tree here is a tensor, a dict, or a tuple / NamedTuple of trees.  The
 guard's decision stays a device tensor: ``tree_all_finite`` returns a
 0-d bool tensor and ``select_tree`` is ``torch.where`` on it, so a
-guarded update never syncs the host.  ``SkipMonitor`` and the resilient
-loop come with ROADMAP.md Queue 1 item 10.
+guarded update never syncs the host; ``SkipMonitor`` reads the guard's
+counters on the host, one dispatch late (resilience/loop.py).
 """
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -77,3 +78,66 @@ def quarantine_mask(tree: Any, *, env_axis: int = 1, mode: str = "nonfinite") ->
     for m in masks[1:]:
         out = out | m
     return out
+
+
+class NonFiniteDivergenceError(RuntimeError):
+    """Training diverged: every update in N consecutive steps was
+    non-finite.  Carries the last metrics snapshot for the post-mortem."""
+
+    def __init__(self, message: str, metrics: Optional[Dict[str, Any]] = None):
+        super().__init__(message)
+        self.metrics = dict(metrics or {})
+
+
+class SkipMonitor:
+    """Host-side divergence watchdog for the trainer loops.
+
+    ``update(metrics)`` after every train step; a step whose skipped
+    update count reaches its total update count (``nonfinite_skips`` >=
+    ``guard_updates``) advances the consecutive counter, any usable
+    step resets it, and ``max_consecutive`` fully-skipped steps in a
+    row raise :class:`NonFiniteDivergenceError` with a diagnostic —
+    params are provably stale at that point, so continuing only burns
+    the allocation.
+    """
+
+    def __init__(self, max_consecutive: int = 10):
+        if int(max_consecutive) < 1:
+            raise ValueError(
+                f"max_consecutive must be >= 1, got {max_consecutive}"
+            )
+        self.max_consecutive = int(max_consecutive)
+        self.consecutive = 0
+        self.total_skips = 0
+        self.total_poisoned_env_resets = 0
+
+    def update(self, metrics: Dict[str, Any], *, step: Optional[int] = None) -> None:
+        skips = int(metrics.get("nonfinite_skips", 0))
+        total = int(metrics.get("guard_updates", 0))
+        self.total_skips += skips
+        self.total_poisoned_env_resets += int(
+            metrics.get("poisoned_env_resets", 0)
+        )
+        if total > 0 and skips >= total:
+            self.consecutive += 1
+        else:
+            self.consecutive = 0
+        if self.consecutive >= self.max_consecutive:
+            at = f" at iteration {step}" if step is not None else ""
+            raise NonFiniteDivergenceError(
+                f"training diverged{at}: all {total} updates were "
+                f"non-finite for {self.consecutive} consecutive steps "
+                f"({self.total_skips} updates skipped in total, "
+                f"{self.total_poisoned_env_resets} envs quarantine-reset); "
+                "params/opt-state are the last finite values — inspect "
+                "the data feed for NaN/inf contamination or lower the "
+                "learning rate, then resume from the latest checkpoint",
+                metrics={k: _to_float(v) for k, v in metrics.items()},
+            )
+
+
+def _to_float(v):
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return v

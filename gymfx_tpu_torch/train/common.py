@@ -1,5 +1,7 @@
 """Shared trainer helpers: the port of ``gymfx_tpu/train/common.py``'s
-``make_train_many_with_data`` (:43-57), ``validate_minibatch_scheme`` and
+``make_train_many_with_data`` (:43-57), ``build_train_eval_envs``
+(:126-187), ``labeled_eval_summary`` and ``eval_checkpointed_policy``
+(:249-311), ``validate_minibatch_scheme`` and
 ``resolve_minibatch_scheme`` (:315-371), ``minibatch_plan`` (:374-409)
 and ``masked_reset``.
 
@@ -11,9 +13,13 @@ come back stacked on a leading ``(k,)`` axis, on the device.
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from gymfx_tpu_torch.core.runtime import Environment
+from gymfx_tpu_torch.core.types import not_ported
+from gymfx_tpu_torch.data.feed import Frame, MarketDataset, load_dataframe
 
 
 def masked_reset(done, fresh, cur):
@@ -47,6 +53,111 @@ def make_train_many_with_data(step: Callable):
         return state, {key: torch.stack([m[key] for m in history]) for key in history[0]}
 
     return train_many
+
+
+def build_train_eval_envs(config: Dict[str, Any], *, device=None) -> Tuple[Any, Optional[Any]]:
+    """(train_env, eval_env-or-None) honouring the out-of-sample keys:
+
+    ``eval_data_file``   evaluate on a separate dataset file;
+    ``eval_split``       hold out the LAST fraction of bars (a chronological
+                         cut: a random one would leak future bars into
+                         training).
+    Without either, eval_env is None and evaluation is in-sample.  Both
+    envs are on ``device`` (CUDA unless named)."""
+    eval_file = config.get("eval_data_file")
+    split = config.get("eval_split")
+    feed = str(config.get("feed") or "replay").lower()
+    if eval_file and split:
+        raise ValueError("set either eval_data_file or eval_split, not both")
+    if feed == "curriculum" and split:
+        raise ValueError(
+            "feed=curriculum cannot hold out via eval_split (which tape "
+            "would be cut?); name a held-out tape with eval_data_file"
+        )
+    if feed == "scengen":
+        raise not_ported("the scengen feed", 14)
+    if eval_file:
+        eval_config = dict(config)
+        eval_config["input_data_file"] = str(eval_file)
+        if feed == "curriculum":
+            # train on a tape library, evaluate on the named replayed tape
+            eval_config["feed"] = "replay"
+            eval_config.pop("tapes", None)
+        return Environment(config, device=device), Environment(eval_config, device=device)
+    if split:
+        frac = float(split)
+        if not 0.0 < frac < 1.0:
+            raise ValueError(f"eval_split must be in (0, 1), got {split!r}")
+        min_bars = int(config.get("window_size", 32)) + 2
+        frame = load_dataframe(config)
+        n_all = len(frame)
+        cut = n_all - int(n_all * frac)
+        if cut < min_bars or n_all - cut < min_bars:
+            raise ValueError(
+                f"eval_split={frac} leaves too few bars (train {cut}, "
+                f"eval {n_all - cut}; both need >= {min_bars})"
+            )
+
+        def part(rows: slice) -> MarketDataset:
+            return MarketDataset(Frame({k: v[rows] for k, v in frame.columns.items()},
+                                       frame.timestamps[rows]), config)
+
+        return (Environment(config, dataset=part(slice(0, cut)), device=device),
+                Environment(config, dataset=part(slice(cut, None)), device=device))
+    return Environment(config, device=device), None
+
+
+def labeled_eval_summary(make_summary, train_env, eval_env) -> Dict[str, Any]:
+    """The out-of-sample summary shape: ``make_summary(env_or_None)`` runs
+    a greedy evaluation on the given env (None = the training env)."""
+    if eval_env is None:
+        summary = make_summary(None)
+        summary["eval_scope"] = "in_sample"
+        return summary
+    summary = make_summary(eval_env)
+    summary["eval_scope"] = "held_out"
+    summary["eval_bars"] = eval_env.n_bars
+    summary["train_bars"] = train_env.n_bars
+    summary["in_sample"] = make_summary(None)
+    return summary
+
+
+def eval_checkpointed_policy(
+    config: Dict[str, Any],
+    *,
+    build_envs,
+    make_trainer,
+    evaluate_fn,
+    resolve_policy=None,
+) -> Dict[str, Any]:
+    """The ``driver_mode=policy`` skeleton: checkpoint-dir guard,
+    metadata honour (``resolve_policy(meta, config)`` edits the config
+    copy), train/eval env build, template-checked params restore, greedy
+    evaluation, and the labeled summary keys."""
+    from gymfx_tpu_torch.train.checkpoint import load_params, read_metadata
+
+    ckpt_dir = config.get("checkpoint_dir")
+    if not ckpt_dir:
+        raise ValueError("driver_mode=policy requires checkpoint_dir")
+    meta = read_metadata(str(ckpt_dir))
+    config = dict(config)
+    # the minibatch scheme shapes only the update, which never runs in
+    # inference: pin the scheme valid for any env count so the
+    # env_permute default cannot refuse a one-env evaluation trainer
+    config["ppo_minibatch_scheme"] = "sample_permute"
+    if resolve_policy is not None:
+        resolve_policy(meta, config)
+    train_env, eval_env = build_envs(config)
+    env = eval_env if eval_env is not None else train_env
+    trainer = make_trainer(env, config)
+    # template-checked restore: an architecture mismatch fails at load
+    # time, not as a shape error inside the episode
+    params, step = load_params(str(ckpt_dir), template=trainer.params_template())
+    summary = evaluate_fn(trainer, params, config.get("steps"))
+    summary["checkpoint_step"] = step
+    summary["eval_scope"] = "held_out" if eval_env is not None else "in_sample"
+    summary["mode"] = "inference"
+    return summary
 
 
 def validate_minibatch_scheme(scheme: str, n_envs: int, minibatches: int,

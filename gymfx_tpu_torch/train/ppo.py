@@ -5,7 +5,10 @@ The port of ``gymfx_tpu/train/ppo.py``: :class:`PPOConfig`,
 :func:`ppo_config_from` (:45-163), :class:`TrainState` and
 :class:`PPOTrainer` with ``init_state``, ``rollout_phase`` (:307-386,
 :452-467), ``_gae`` (:388-406), ``_loss`` (:408-443), ``update_phase``
-(:469-615), ``train_step``, ``train_many`` and ``train`` (:637-802).
+(:469-615), ``train_step``, ``train_many`` and ``train`` (:637-802);
+the greedy evaluation (``greedy_policy_driver``, ``evaluate``,
+``_step_sharpe``, :804-866) and the command line's entries
+``eval_policy_from_config`` and ``train_from_config`` (:868-1027).
 Each phase takes an explicit tape ``data`` (the curriculum's pick), as
 the JAX package's phases do; a streamed Environment is refused.
 
@@ -46,18 +49,27 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
 from gymfx_tpu_torch.core import env as env_core
 from gymfx_tpu_torch.core import graphs
+from gymfx_tpu_torch.core.rollout import Driver, rollout_chunked
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.core.types import EnvState, not_ported
+from gymfx_tpu_torch.metrics import compute_analyzers, summarize_trading
 from gymfx_tpu_torch.resilience.guards import quarantine_mask, select_tree, tree_all_finite
+from gymfx_tpu_torch.resilience.loop import ResilientLoop
+from gymfx_tpu_torch.train.checkpoint import resume_from_config, save_checkpoint
 from gymfx_tpu_torch.train.common import (
+    build_train_eval_envs,
+    eval_checkpointed_policy,
+    labeled_eval_summary,
     make_train_many_with_data,
     masked_reset,
     minibatch_plan,
+    resolve_minibatch_scheme,
     validate_minibatch_scheme,
 )
 from gymfx_tpu_torch.train.optim import AdamState, ClipAdam, apply_updates
@@ -240,6 +252,12 @@ class PPOTrainer:
         env_states = EnvState(*(x.expand(n, *x.shape[1:]).clone() for x in self._reset_state))
         obs_vec = self._reset_vec.expand(n, *self.obs_shape).clone()
         return TrainState(params, self.optimizer.init(params), env_states, obs_vec, gen)
+
+    def params_template(self) -> Dict[str, torch.Tensor]:
+        """The params' structure, shapes, dtypes and device (the policy
+        module's parameters; a checkpoint's params are checked against
+        it)."""
+        return {k: v.detach() for k, v in self.policy.named_parameters()}
 
     def policy_forward(self, params: Dict[str, torch.Tensor], x):
         """(logits, value) of the policy with ``params`` on inputs ``x``."""
@@ -639,36 +657,49 @@ class PPOTrainer:
               initial_params=None, initial_state: Optional[TrainState] = None, *,
               supersteps_per_dispatch: int = 1, checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 0, step_offset: int = 0, checkpoint_metadata=None,
-              max_consecutive_skips: Optional[int] = None, preempt_at: Optional[int] = None,
+              max_consecutive_skips: int = 10, preempt_at: Optional[int] = None,
               telemetry=None, mesh_faults=(), checkpoint_keep: int = 0):
         """Run PPO for about ``total_env_steps`` env steps (the JAX
         package's loop, train/ppo.py:637-802): ``total_env_steps //
         (n_envs * horizon)`` iterations (at least one), in supersteps of
         ``supersteps_per_dispatch`` train steps.  Under ``feed=curriculum``
         each superstep boundary draws one tape (``curriculum.pick``) and
-        the superstep trains on it.  ``initial_state`` continues a run,
+        the superstep trains on it.  ``initial_state`` continues a run
+        exactly (a checkpoint's full train state, generator included),
         ``initial_params`` warm-starts the params.
 
+        Through ``resilience/loop.ResilientLoop``: ``checkpoint_every > 0``
+        saves the full state every that many iterations into
+        ``checkpoint_dir`` under the cumulative step ``step_offset`` + env
+        steps (newest ``checkpoint_keep`` kept, the resume step protected),
+        and under the non-finite guard ``max_consecutive_skips`` fully
+        skipped steps in a row save a diagnostic checkpoint and raise
+        ``NonFiniteDivergenceError``, read one dispatch late.
+
         Returns ``(state, metrics)``: the last iteration's metrics as
-        floats plus ``env_steps_per_sec``, ``iterations`` and
-        ``total_env_steps``.  Logging, checkpoints, the divergence
-        watchdog, preemption, telemetry and mesh faults come with ROADMAP
-        Queue 1 item 10 and raise when set."""
-        unported = dict(log_every=log_every, checkpoint_dir=checkpoint_dir,
-                        checkpoint_every=checkpoint_every, step_offset=step_offset,
-                        checkpoint_metadata=checkpoint_metadata,
-                        max_consecutive_skips=max_consecutive_skips, preempt_at=preempt_at,
-                        telemetry=telemetry, mesh_faults=mesh_faults,
-                        checkpoint_keep=checkpoint_keep)
-        for name, value in unported.items():
-            if value or (name == "max_consecutive_skips" and value is not None):
-                raise not_ported(f"PPOTrainer.train({name}=...)", 10)
+        floats plus ``env_steps_per_sec``, ``iterations``,
+        ``total_env_steps`` and ``last_checkpoint_step`` when one was
+        saved.  Logging, preemption and telemetry (ROADMAP Queue 1 item
+        10) and mesh faults (item 17) raise when set."""
+        for name, value, item in (("log_every", log_every, 10),
+                                  ("preempt_at", preempt_at is not None, 10),
+                                  ("telemetry", telemetry is not None, 10),
+                                  ("mesh_faults", mesh_faults, 17)):
+            if value:
+                raise not_ported(f"PPOTrainer.train({name}=...)", item)
         state = self.init_state(seed) if initial_state is None else initial_state
         if initial_params is not None:
             state = state._replace(params=initial_params)
         steps_per_iter = self.pcfg.n_envs * self.pcfg.horizon
         iters = max(1, int(total_env_steps) // steps_per_iter)
         K = max(1, int(supersteps_per_dispatch or 1))
+        hooks = ResilientLoop(
+            steps_per_iter=steps_per_iter, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, step_offset=step_offset,
+            checkpoint_metadata=checkpoint_metadata,
+            max_consecutive_skips=max_consecutive_skips if self.pcfg.nonfinite_guard else 0,
+            checkpoint_keep=int(checkpoint_keep or 0),
+        )
         t0 = time.perf_counter()
         metrics: Dict[str, Any] = {}
         it = 0
@@ -680,10 +711,14 @@ class PPOTrainer:
                 _, _, tape = self.curriculum.pick(it)
             if k == 1:
                 state, metrics = self.train_step(state, tape)
+                guard_metrics = metrics
             else:
-                state, stacked = self.train_many_with_data(state, tape, k)
-                metrics = {key: v[-1] for key, v in stacked.items()}
+                state, guard_metrics = self.train_many_with_data(state, tape, k)
+                metrics = {key: v[-1] for key, v in guard_metrics.items()}
+            # a checkpoint copies the state before the next step overwrites it
+            hooks.after_superstep(it, k, guard_metrics, lambda: (state, state.params))
             it += k
+        hooks.finish(lambda: (state, state.params))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -691,4 +726,165 @@ class PPOTrainer:
         out["env_steps_per_sec"] = steps_per_iter * iters / dt
         out["iterations"] = iters
         out["total_env_steps"] = steps_per_iter * iters
+        if hooks.last_checkpoint_step is not None:
+            out["last_checkpoint_step"] = hooks.last_checkpoint_step
         return state, out
+
+
+# ---------------------------------------------------------------------------
+def greedy_policy_driver(trainer: PPOTrainer) -> Driver:
+    """The deterministic (argmax) evaluation driver, one per trainer: the
+    params travel in the driver carry, so evaluating new weights replays
+    the episode graphs already captured for this driver."""
+    if getattr(trainer, "_greedy_driver", None) is not None:
+        return trainer._greedy_driver
+
+    def act(carry, obs, i, gen):
+        params, pcarry = carry
+        logits, _ = trainer.policy_forward(params, trainer._encode(obs))
+        return torch.argmax(logits, dim=-1).to(torch.int32), (params, pcarry)
+
+    trainer._greedy_driver = Driver(init=lambda: (), act=act)
+    return trainer._greedy_driver
+
+
+def evaluate(trainer: PPOTrainer, params, steps: Optional[int] = None, seed: int = 0):
+    """Greedy-policy episode of one env (``rollout_chunked``, from the
+    episode graphs on the card) -> the reference-style metrics summary."""
+    env = trainer.env
+    steps = int(steps or env.cfg.n_bars - 1)
+    gen = torch.Generator(device=env.device).manual_seed(int(seed))
+    state, out = rollout_chunked(
+        env.cfg, env.params, env.require_resident_data("evaluate"), greedy_policy_driver(trainer),
+        steps, gen, driver_carry=(params, ()), cache=env.episode_graphs,
+    )
+    initial_cash = float(env.params.initial_cash)
+    equity = out["equity_delta"][:, 0].cpu().numpy().astype(np.float64) + initial_cash
+    done = out["done"][:, 0].cpu().numpy()
+    ts = env.dataset.timestamps[1: steps + 1]
+    analyzers = compute_analyzers(equity=equity, done=done, state=env_state_row(state, 0),
+                                  timestamps=ts)
+    final_eq = float(equity[int(np.argmax(done))] if done.any() else equity[-1])
+    summary = summarize_trading(initial_cash=initial_cash, final_equity=final_eq,
+                                analyzers=analyzers, config=env.config)
+    tf_hours = env.dataset.timeframe_hours or (1.0 / 60.0)
+    summary["sharpe_ratio_steps"] = _step_sharpe(equity, tf_hours)
+    return summary
+
+
+def env_state_row(state: EnvState, i: int) -> EnvState:
+    """Env ``i`` of a batched EnvState, each field on the host (the
+    metrics read its scalars)."""
+    return EnvState(*(x[i].cpu() for x in state))
+
+
+def _step_sharpe(equity: np.ndarray, timeframe_hours: float) -> Optional[float]:
+    """Per-step Sharpe annualized by the bar timeframe (252 trading
+    days x 24h / bar hours steps per year)."""
+    rets = np.diff(equity) / equity[:-1]
+    if rets.size < 2 or rets.std(ddof=1) == 0:
+        return None
+    steps_per_year = 252.0 * 24.0 / max(timeframe_hours, 1e-9)
+    return float(rets.mean() / rets.std(ddof=1) * np.sqrt(steps_per_year))
+
+
+def eval_policy_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    """``driver_mode=policy``: load the checkpointed policy and run a
+    greedy evaluation episode (train/common.eval_checkpointed_policy,
+    which honours the checkpoint's recorded architecture and the
+    out-of-sample keys)."""
+
+    def resolve(meta, cfg):
+        if not cfg.get("policy") and meta.get("policy"):
+            cfg["policy"] = meta["policy"]
+            cfg.setdefault("policy_kwargs", meta.get("policy_kwargs") or {})
+
+    return eval_checkpointed_policy(
+        config,
+        build_envs=lambda cfg: build_train_eval_envs(cfg, device=device),
+        make_trainer=lambda env, cfg: PPOTrainer(env, ppo_config_from(cfg)),
+        evaluate_fn=lambda tr, params, steps: evaluate(tr, params, steps=steps),
+        resolve_policy=resolve,
+    )
+
+
+def train_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    """``mode=training``: train PPO, checkpoint, and return a summary that
+    merges the training metrics with the greedy evaluation's.  Without
+    ``elastic_resume`` the JAX package's ``elastic_entry`` is this plain
+    call; the elastic controller, a mesh, telemetry and fault profiles
+    raise (ROADMAP Queue 1 items 17 and 10)."""
+    _refuse_unported_training_keys(config)
+    return _train_from_config(config, device=device)
+
+
+def _refuse_unported_training_keys(config: Dict[str, Any]) -> None:
+    """``not_ported`` for each key of a training run the port does not
+    take yet: the elastic controller and a mesh (item 17), a fault
+    profile and telemetry (item 10).  With the defaults none raises."""
+    if config.get("elastic_resume"):
+        raise not_ported("elastic_resume (the elastic auto-resume controller)", 17)
+    if config.get("mesh_shape") not in (None, ""):
+        raise not_ported("mesh_shape (a device mesh, parallel/mesh.py)", 17)
+    if config.get("fault_profile"):
+        raise not_ported("fault_profile (fault injection and the preemption drill)", 10)
+    if _telemetry_requested(config):
+        raise not_ported("telemetry (gymfx_tpu/telemetry/)", 10)
+
+
+def _telemetry_requested(config: Dict[str, Any]) -> bool:
+    """Whether the JAX package's ``telemetry_from_config`` would build a
+    telemetry bundle for ``config`` (gymfx_tpu/telemetry/__init__.py:197-208)."""
+    port = config.get("telemetry_http_port")
+    return bool(
+        config.get("telemetry_enabled") or config.get("telemetry_jsonl")
+        or config.get("telemetry_spans") or (port not in (None, "") and int(port) >= 0)
+        or config.get("telemetry_ledger") or config.get("telemetry_flight_recorder_dir")
+        or config.get("telemetry_compile_watch") or config.get("telemetry_profile_dir")
+    )
+
+
+def _train_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    env, eval_env = build_train_eval_envs(config, device=device)
+    resolve_minibatch_scheme(
+        config, int(config.get("num_envs", 256) or 256), int(config.get("ppo_minibatches", 4)),
+    )
+    pcfg = ppo_config_from(config)
+    trainer = PPOTrainer(env, pcfg)
+    total = int(config.get("train_total_steps", 1_000_000))
+    # a full-state checkpoint continues the exact trajectory (Adam
+    # moments, env batch, generator); a params-only one warm-starts
+    resume_state, resume_params, resume_step = resume_from_config(config, trainer)
+    ckpt_meta = {"policy": pcfg.policy, "policy_kwargs": dict(pcfg.policy_kwargs)}
+    state, train_metrics = trainer.train(
+        total, seed=int(config.get("seed", 0) or 0),
+        initial_params=resume_params, initial_state=resume_state,
+        checkpoint_dir=config.get("checkpoint_dir"),
+        checkpoint_every=int(config.get("checkpoint_every", 0) or 0),
+        step_offset=resume_step,
+        checkpoint_metadata=ckpt_meta,
+        max_consecutive_skips=int(config.get("guard_max_consecutive_skips", 10) or 0),
+        supersteps_per_dispatch=int(config.get("supersteps_per_dispatch", 1) or 1),
+        checkpoint_keep=int(config.get("checkpoint_keep", 0) or 0),
+    )
+    # out-of-sample: a greedy episode on bars the agent never trained on;
+    # the in-sample numbers ride along for the generalization gap
+    summary = labeled_eval_summary(
+        lambda e: evaluate(trainer if e is None else PPOTrainer(e, pcfg), state.params),
+        env, eval_env,
+    )
+    summary["train_metrics"] = train_metrics
+
+    ckpt_dir = config.get("checkpoint_dir")
+    if ckpt_dir:
+        # the cumulative step: a resumed run advances past the loaded
+        # step, and a periodic checkpoint that already landed on the final
+        # step makes this save redundant
+        final_step = resume_step + train_metrics["total_env_steps"]
+        if train_metrics.get("last_checkpoint_step") != final_step:
+            save_checkpoint(
+                ckpt_dir, state, step=final_step, metadata=ckpt_meta, params=state.params,
+                keep=int(config.get("checkpoint_keep", 0) or 0), protect=(int(resume_step),),
+            )
+        summary["checkpoint_dir"] = str(ckpt_dir)
+    return summary

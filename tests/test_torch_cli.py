@@ -1,0 +1,247 @@
+"""The port's command line (gymfx_tpu_torch/app/main.py and config/) against
+the JAX package's (gymfx_tpu/app/main.py).
+
+* ``main(argv, device="cpu")`` against the JAX ``main(argv)`` on
+  examples/data/eurusd_sample.csv: the diagnostic episode with buy_hold
+  (300 steps, and past the tape's end with trading_metrics), flat, a
+  replay of a recorded action file (recorded by the port's random
+  episode, whose stream is torch's, then replayed by both), a
+  ``num_envs=4`` buy_hold batch evaluation, and the event-context
+  overlay with the scaled-feature export.  Every key of the results JSON
+  is on both sides; integers, strings, bools and None are equal, floats
+  within rtol 1e-6 (XLA:CPU contracts ``a ± b * c`` into an FMA in the
+  jitted episode, ROADMAP Queue 3; every case here happens to agree
+  bitwise).
+* The config layer is the JAX package's: the parser's flags, the merge
+  precedence, unknown ``--key value`` pairs flowing into the config, the
+  saved non-default config, and the gym loop's host driver.
+* A mode outside training|optimization|inference raises, and every
+  option the port does not take raises ``NotImplementedError`` naming
+  its ROADMAP Queue 1 item.
+* Without CUDA, ``main`` and every Python entry point (``run_mode``,
+  ``train_from_config``, ``eval_policy_from_config``, ``replay_driver``)
+  raise unless ``device="cpu"`` is passed.
+"""
+import csv
+import json
+import math
+
+import numpy as np
+import pytest
+
+from gymfx_tpu.app.main import main as jax_main
+from gymfx_tpu.app.main import make_cli_driver as jax_make_cli_driver
+from gymfx_tpu.config.cli import parse_args as jax_parse_args
+from gymfx_tpu.config.merger import convert_type as jax_convert_type
+from gymfx_tpu.config.merger import process_unknown_args as jax_process_unknown_args
+from gymfx_tpu_torch.app.main import main, make_cli_driver
+from gymfx_tpu_torch.config import DEFAULT_VALUES
+from gymfx_tpu_torch.config.cli import parse_args
+from gymfx_tpu_torch.config.merger import convert_type, merge_config, process_unknown_args
+
+from test_torch_parity import x64_off
+
+CSV = str(__import__("pathlib").Path(__file__).resolve().parent.parent
+          / "examples" / "data" / "eurusd_sample.csv")
+RTOL = 1e-6
+
+
+def _argv(tmp_path, *extra):
+    return ["--input_data_file", CSV, "--results_file", str(tmp_path / "results.json"),
+            "--save_config", str(tmp_path / "config.json"), "--quiet_mode", *extra]
+
+
+def _json(summary):
+    return json.loads(json.dumps(summary, default=str))
+
+
+def assert_results_match(ref, ours, path="results"):
+    """Every key on both sides, integers and strings equal, floats within
+    RTOL."""
+    if isinstance(ref, dict):
+        assert sorted(ours) == sorted(ref), f"{path}: keys {sorted(set(ours) ^ set(ref))}"
+        for key in ref:
+            assert_results_match(ref[key], ours[key], f"{path}/{key}")
+    elif isinstance(ref, float) or isinstance(ours, float):
+        assert isinstance(ref, float) and isinstance(ours, float), f"{path}: {ref!r} vs {ours!r}"
+        assert math.isclose(ours, ref, rel_tol=RTOL, abs_tol=0.0) or (
+            math.isnan(ours) and math.isnan(ref)), f"{path}: {ours!r} vs {ref!r}"
+    else:
+        assert ours == ref, f"{path}: {ours!r} vs {ref!r}"
+
+
+def _both(tmp_path, *extra):
+    with x64_off():
+        ref = _json(jax_main(_argv(tmp_path, *extra)))
+    ours = _json(main(_argv(tmp_path, *extra), device="cpu"))
+    assert_results_match(ref, ours)
+    assert json.loads((tmp_path / "results.json").read_text()) == ours
+    return ref, ours
+
+
+@pytest.mark.parametrize("extra", [
+    ("--driver_mode", "buy_hold", "--steps", "300"),
+    ("--driver_mode", "buy_hold", "--steps", "600", "--metrics_plugin", "trading_metrics"),
+    ("--driver_mode", "flat", "--steps", "200"),
+    # the default broker's slippage_perc (0.0, merged under the config)
+    # outranks --slippage in both packages; the commission applies
+    ("--driver_mode", "buy_hold", "--steps", "300", "--slippage", "0.001", "--commission", "2e-5"),
+], ids=["buy_hold", "buy_hold_past_the_end", "flat", "plugin_defaults"])
+def test_diagnostic_episode_results_match_jax(tmp_path, extra):
+    ref, ours = _both(tmp_path, *extra)
+    assert ours["action_diagnostics"]["steps"] > 0
+    assert "batch" not in ours
+
+
+def test_batch_evaluation_results_match_jax(tmp_path):
+    ref, ours = _both(tmp_path, "--driver_mode", "buy_hold", "--steps", "300", "--num_envs", "4")
+    assert ours["batch"]["num_envs"] == 4 and ours["batch"]["std_total_return"] == 0.0
+
+
+def test_recorded_actions_replay_round_trip_matches_jax(tmp_path):
+    record = tmp_path / "actions.csv"
+    recorded = main(_argv(tmp_path, "--driver_mode", "random", "--steps", "250", "--seed", "3",
+                          "--record_actions_file", str(record)), device="cpu")
+    with open(record, encoding="utf-8") as fh:
+        actions = [int(row["action"]) for row in csv.DictReader(fh)]
+    assert len(actions) == 250 and set(actions) == {0, 1, 2}
+    ref, ours = _both(tmp_path, "--driver_mode", "replay", "--steps", "250",
+                      "--replay_actions_file", str(record))
+    # the replayed episode is the recorded one
+    for key in ("final_equity", "trades_total", "action_diagnostics", "execution_diagnostics"):
+        assert ours[key] == _json(recorded)[key], key
+    # and buy_hold records the same file on both sides
+    for name, run in (("jax", jax_main), ("torch", main)):
+        argv = _argv(tmp_path, "--driver_mode", "buy_hold", "--steps", "40",
+                     "--record_actions_file", str(tmp_path / f"{name}.csv"))
+        with x64_off():
+            run(argv) if name == "jax" else run(argv, device="cpu")
+    assert (tmp_path / "jax.csv").read_text() == (tmp_path / "torch.csv").read_text()
+
+
+def test_event_context_overlay_and_feature_export_match_jax(tmp_path):
+    ref, ours = _both(tmp_path, "--driver_mode", "buy_hold", "--steps", "120", "--window_size", "8",
+                      "--event_context_execution_overlay", "true",
+                      "--feature_columns", '["CLOSE", "VOLUME"]',
+                      "--export_scaled_features", str(tmp_path / "windows.npz"))
+    assert ours["event_context_diagnostics"] and ours["export_scaled_features"]["shape"] == [120, 8, 2]
+    assert np.load(tmp_path / "windows.npz")["scaled_windows"].shape == (120, 8, 2)
+
+
+def test_parser_takes_the_jax_packages_flags():
+    ours, ref = vars(parse_args([])[0]), vars(jax_parse_args([])[0])
+    assert ours == ref and set(ours) <= set(DEFAULT_VALUES)
+    argv = ["--mode", "training", "--driver_mode", "policy", "--steps", "7", "--initial_cash",
+            "5.5", "--headers", "--venue", "lob", "--data_compress", "on", "--policy",
+            "transformer_ring", "--checkpoint_every", "2", "--elastic_resume", "--mesh_shape",
+            '{"data": 2}', "--ppo_minibatch_scheme", "sample_permute", "--quiet_mode",
+            "--telemetry_profile_every", "3", "--my_key", "0.25", "--flag"]
+    a, unknown = parse_args(argv)
+    b, jax_unknown = jax_parse_args(argv)
+    assert vars(a) == vars(b) and unknown == jax_unknown == ["--my_key", "0.25", "--flag"]
+    for bad in (["--mode", "bogus"], ["--steps", "x"], ["--policy", "lstm2"]):
+        with pytest.raises(SystemExit):
+            parse_args(bad)
+        with pytest.raises(SystemExit):
+            jax_parse_args(bad)
+
+
+@pytest.mark.parametrize("tokens", [
+    ["--a", "1", "--b", "--c", "x"], ["stray", "--flag"], ["--n", "none", "--t", "TRUE"],
+    ["--f", "1e-3", "--s", "1.2.3", "--i", "-4"], [],
+])
+def test_unknown_args_and_type_coercion_match_jax(tokens):
+    assert process_unknown_args(tokens) == jax_process_unknown_args(tokens)
+    for value in ("3", "3.5", "false", "null", "abc", 7, None):
+        assert convert_type(value) == jax_convert_type(value)
+
+
+def test_merge_precedence_and_unknown_args_flow_into_the_config(tmp_path):
+    merged = merge_config({"a": 1, "b": 1, "c": 1, "d": 1}, {"a": 0, "e": 0}, {}, {"b": 2, "c": 2},
+                          {"c": 3, "d": None}, {"d": "4"})
+    assert merged == {"a": 1, "b": 2, "c": 3, "d": 4, "e": 0}
+    file_config = tmp_path / "file.json"
+    file_config.write_text(json.dumps({"steps": 30, "initial_cash": 500.0}))
+    out = main(_argv(tmp_path, "--load_config", str(file_config), "--initial_cash", "2000",
+                     "--my_unknown_key", "0.5", "--reward_scale", "2"), device="cpu")
+    saved = json.loads((tmp_path / "config.json").read_text())
+    # the file beats the defaults, the flag beats the file, unknown args land
+    assert saved["steps"] == 30 and saved["initial_cash"] == 2000.0
+    assert saved["my_unknown_key"] == 0.5 and saved["reward_scale"] == 2
+    assert out["initial_cash"] == 2000.0 and out["action_diagnostics"]["steps"] == 30
+
+
+def test_a_mode_outside_the_three_raises(tmp_path):
+    file_config = tmp_path / "bad.json"
+    file_config.write_text(json.dumps({"mode": "bogus"}))
+    with pytest.raises(ValueError, match="mode must be one of"):
+        main(_argv(tmp_path, "--load_config", str(file_config)), device="cpu")
+
+
+@pytest.mark.parametrize("extra,item", [
+    (("--mode", "training", "--trainer", "impala"), 11),
+    (("--mode", "training", "--trainer", "pbt"), 12),
+    (("--mode", "training", "--trainer", "portfolio"), 12),
+    (("--mode", "optimization",), 12),
+    (("--driver_mode", "policy", "--portfolio_files", '{"EUR_USD": "x.csv"}'), 12),
+    (("--verify_execution", "true"), 13),
+    (("--mode", "training", "--fault_profile", "nan_bars=5"), 10),
+    (("--mode", "training", "--telemetry_enabled"), 10),
+    (("--mode", "training", "--telemetry_http_port", "0"), 10),
+    (("--mode", "training", "--elastic_resume"), 17),
+    (("--mode", "training", "--mesh_shape", '{"data": 1}'), 17),
+    (("--gym_loop", "true"), 18),
+    (("--metrics_plugin", "my_metrics"), 9),
+    (("--mode", "training", "--feed", "scengen"), 14),
+], ids=lambda v: v if isinstance(v, int) else "-".join(v).replace("--", "")[:40])
+def test_each_option_not_ported_raises_naming_its_item(tmp_path, extra, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}$"):
+        main(_argv(tmp_path, "--num_envs", "4", *extra), device="cpu")
+
+
+def test_an_unknown_driver_mode_raises(tmp_path):
+    file_config = tmp_path / "bad.json"
+    file_config.write_text(json.dumps({"driver_mode": "momentum"}))
+    with pytest.raises(ValueError, match="unknown driver_mode"):
+        main(_argv(tmp_path, "--load_config", str(file_config)), device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["buy_hold", "flat", "random", "replay"])
+def test_the_gym_loops_host_driver_matches_jax(tmp_path, mode):
+    path = tmp_path / "actions.csv"
+    path.write_text("action\n1\n2\n0\n2\n")
+    config = dict(DEFAULT_VALUES, driver_mode=mode, seed=5, replay_actions_file=str(path))
+    ours, ref = make_cli_driver(config), jax_make_cli_driver(config)
+    assert [ours(None, None, i) for i in range(12)] == [ref(None, None, i) for i in range(12)]
+    with pytest.raises(ValueError, match="unknown driver_mode"):
+        make_cli_driver(dict(config, driver_mode="nope"))
+
+
+@pytest.mark.parametrize("extra", [
+    ("--driver_mode", "buy_hold"),
+    ("--mode", "training", "--train_total_steps", "16"),
+    ("--driver_mode", "policy", "--checkpoint_dir", "no_such_checkpoint"),
+], ids=["diagnostic", "training", "policy"])
+def test_the_command_line_without_cuda_and_without_device_raises(tmp_path, extra):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is CUDA here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(_argv(tmp_path, *extra))
+
+
+def test_the_python_entry_points_without_cuda_and_without_device_raise(tmp_path):
+    import torch
+
+    from gymfx_tpu_torch.app.main import run_mode
+    from gymfx_tpu_torch.core.rollout import replay_driver
+    from gymfx_tpu_torch.train.ppo import eval_policy_from_config, train_from_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is CUDA here")
+    config = dict(DEFAULT_VALUES, input_data_file=CSV, checkpoint_dir=str(tmp_path))
+    for call in (lambda: run_mode(config), lambda: train_from_config(config),
+                 lambda: eval_policy_from_config(config), lambda: replay_driver([1, 2])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -804,3 +804,80 @@ def test_cuda_capture_error_raises_without_an_eager_retry(cuda_device, tmp_path)
     assert len(calls) == graphs.WARMUP * trainer.pcfg.horizon + 1
     assert not trainer._graphs
     assert float(torch.ones(2, device=cuda_device).sum()) == 2.0
+
+
+# ---- the episode drivers' CUDA graphs (core/rollout.py) ---------------------
+# Each episode replayed from its chunk graphs against the same episode with
+# every chunk op by op (eager=True), on the card: torch.equal on every
+# output and on the final state, for every driver, at chunk remainders,
+# on the LOB venue, and streamed through the staging shard.
+EPISODE_DRIVERS = ["buy_hold", "flat", "random", "replay", "greedy"]
+
+
+def _episode_driver(name, env):
+    from gymfx_tpu_torch.core import rollout as R
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, greedy_policy_driver, ppo_config_from
+
+    if name == "greedy":
+        trainer = PPOTrainer(env, ppo_config_from(dict(env.config, num_envs=4)))
+        return greedy_policy_driver(trainer), (trainer.init_state(0).params, ())
+    if name == "replay":
+        actions = torch.randint(0, 3, (150,), generator=torch.Generator().manual_seed(5))
+        return R.replay_driver(actions.numpy(), env.device), None
+    return R.DRIVERS[name](), None
+
+
+def _assert_episodes_equal(a, b, what):
+    (sa, oa), (sb, ob) = a, b
+    assert list(oa) == list(ob), what
+    for key in oa:
+        assert torch.equal(oa[key], ob[key]), f"{what}: {key}"
+    for field in sa._fields:
+        assert torch.equal(getattr(sa, field), getattr(sb, field)), f"{what}: state {field}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,n_envs", [(130, 1), (65, 8192)])
+@pytest.mark.parametrize("driver", EPISODE_DRIVERS)
+def test_cuda_graphed_episode_equals_eager(cuda_device, tmp_path, driver, steps, n_envs):
+    from gymfx_tpu_torch.config import flagship
+    from gymfx_tpu_torch.core import rollout as R
+    from gymfx_tpu_torch.core.runtime import Environment
+
+    config = flagship.flagship_config(_tick_csv(tmp_path, 2000), timeframe="M1",
+                                      policy_dtype="float32")
+    env = Environment(config)
+    drive, carry = _episode_driver(driver, env)
+    runs = []
+    for eager in (False, True):
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        runs.append(R.rollout_chunked(env.cfg, env.params, env.data, drive, steps, gen,
+                                      driver_carry=carry, n_envs=n_envs, eager=eager,
+                                      cache=env.episode_graphs))
+    _assert_episodes_equal(runs[0], runs[1], f"{driver} {steps} x {n_envs}")
+    assert sorted({key[0] for key in env.episode_graphs.graphs}) == sorted({64, steps % 64})
+    # a second graphed episode replays the same graphs and gives the same
+    again = R.rollout_chunked(env.cfg, env.params, env.data, drive, steps,
+                              torch.Generator(device=cuda_device).manual_seed(3),
+                              driver_carry=carry, n_envs=n_envs, cache=env.episode_graphs)
+    _assert_episodes_equal(again, runs[0], f"{driver} replayed again")
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_lob_and_streamed_episodes_equal_eager(cuda_device, tmp_path):
+    from gymfx_tpu_torch.config import DEFAULT_VALUES, flagship
+    from gymfx_tpu_torch.core.rollout import buy_hold_driver
+    from gymfx_tpu_torch.core.runtime import Environment
+
+    path = _tick_csv(tmp_path, 4000)
+    lob = Environment(flagship.lob_config(path, timeframe="M1"))
+    _assert_episodes_equal(lob.rollout(buy_hold_driver(), 70),
+                           lob.rollout(buy_hold_driver(), 70, eager=True), "LOB episode")
+    config = dict(DEFAULT_VALUES, input_data_file=path, timeframe="M1", window_size=32,
+                  feature_columns=["CLOSE", "VOLUME"], stream_hbm_budget_mb=0.2,
+                  data_compress="on")
+    env = Environment(config)
+    graphed = env.rollout(buy_hold_driver(), 1200)
+    _assert_episodes_equal(graphed, env.rollout(buy_hold_driver(), 1200, eager=True),
+                           "streamed episode")
+    assert env.episode_graphs.staging.row0.device.type == "cuda"

@@ -146,14 +146,14 @@ def test_buy_hold_episode_matches_jax_rollout():
 
 def test_replay_episode_matches_jax_rollout():
     actions = np.random.default_rng(4).integers(0, 3, 250)
-    ref = _episode((jax_replay(actions), replay_driver(actions)))
+    ref = _episode((jax_replay(actions), replay_driver(actions, "cpu")))
     assert int(np.asarray(ref["trade_count"])[-1]) > 5
 
 
 def test_chunked_episode_matches_jax_rollout_chunked():
     # 150 steps in chunks of 64: two full chunks and a remainder
     actions = np.random.default_rng(6).integers(0, 3, 150)
-    ref = _episode((jax_replay(actions), replay_driver(actions)), steps=150, chunk_size=64)
+    ref = _episode((jax_replay(actions), replay_driver(actions, "cpu")), steps=150, chunk_size=64)
     assert int(np.asarray(ref["trade_count"])[-1]) > 5
 
 

@@ -23,7 +23,14 @@ compressed tape, and the LOB venue with 8 flow messages a bar):
 * a pick copied into the staging tape gives the pick's own phase;
 * through the static buffers, the rollout still matches the JAX
   package's with its draws injected (as tests/test_torch_rollout.py
-  holds the eager phase).
+  holds the eager phase);
+* the episode drivers' chunk bodies (core/rollout.py) never sync the
+  host either, for every built-in driver and the greedy policy driver;
+  episodes through each chunk length's PhaseGraph (``eager=False``) equal
+  the op-by-op chunks for every driver at 1, 63, 64, 65 and 130 steps,
+  one graph per chunk length; a streamed episode through the staging
+  shard equals the eager one and the resident one; the device step index
+  drives buy_hold and replay.
 
 The card's side (graphed == eager with torch.equal, re-capture, hooks,
 capture errors) is in tests/test_torch_cuda.py.
@@ -36,7 +43,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
-from gymfx_tpu_torch.config import flagship
+from gymfx_tpu_torch.config import DEFAULT_VALUES, flagship
 from gymfx_tpu_torch.core import graphs
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.ops import cases
@@ -299,3 +306,110 @@ def test_tree_all_finite_of_a_tree_without_floats_is_on_the_trees_device():
     assert guards.tree_all_finite(tree).device.type == "meta"
     assert guards.tree_all_finite({}).device.type == "cpu"
     assert bool(guards.tree_all_finite({"i": torch.zeros(3, dtype=torch.int32)}))
+
+
+# ---- the episode drivers' chunks (core/rollout.py) ---------------------------
+def _episode_env(**over):
+    config = dict(DEFAULT_VALUES, input_data_file=CSV, window_size=8,
+                  feature_columns=["CLOSE", "VOLUME"], **over)
+    return Environment(config, device="cpu")
+
+
+def _episode_drivers(env):
+    from gymfx_tpu_torch.core import rollout as R
+
+    actions = np.random.default_rng(11).integers(0, 3, 70)
+    return {"buy_hold": R.buy_hold_driver(), "flat": R.flat_driver(),
+            "random": R.random_driver(), "replay": R.replay_driver(actions, "cpu")}
+
+
+@pytest.mark.parametrize("driver", ["buy_hold", "flat", "random", "replay", "greedy"])
+def test_episode_chunk_bodies_never_sync_the_host(driver):
+    from gymfx_tpu_torch.core import rollout as R
+    from gymfx_tpu_torch.train.ppo import greedy_policy_driver
+
+    env = _episode_env(event_context_execution_overlay=True, num_envs=3,
+                       ppo_minibatch_scheme="sample_permute", policy_kwargs={"hidden": [8, 8, 8]})
+    carry = None
+    if driver == "greedy":
+        trainer = PPOTrainer(env, ppo_config_from(env.config))
+        drive, carry = greedy_policy_driver(trainer), (trainer.init_state(0).params, ())
+    else:
+        drive = _episode_drivers(env)[driver]
+    state, obs = env.reset(3)
+    x = R._start(state, obs, drive, carry, env.device)
+    body = R._chunk_body(env.cfg, env.params, env.data, drive, 5, True,
+                         torch.Generator().manual_seed(0))
+    with NoHostSync():
+        out = body(x)
+    assert out["out"]["action"].shape == (5, 3)
+    assert "event_context" in out["out"] and int(out["i"]) == 5
+
+
+@pytest.mark.parametrize("steps", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("driver", ["buy_hold", "flat", "random", "replay"])
+def test_chunked_episodes_through_phase_graphs_equal_the_eager_loop(driver, steps):
+    from gymfx_tpu_torch.core import rollout as R
+
+    env = _episode_env()
+    drive = _episode_drivers(env)[driver]
+    for n_envs in (1, 3):
+        eager_state, eager = env.rollout(drive, steps, seed=4, n_envs=n_envs, eager=True)
+        state, out = env.rollout(drive, steps, seed=4, n_envs=n_envs, eager=False)
+        _assert_equal(tuple(state), tuple(eager_state), f"{driver} {steps} final state")
+        assert list(out) == list(eager) and out["action"].shape == (steps, n_envs)
+        _assert_equal(out, eager, f"{driver} {steps} outputs")
+        # rollout is rollout_chunked in chunks of 64
+        ref_state, ref = R.rollout(env.cfg, env.params, env.data, drive, steps,
+                                   torch.Generator().manual_seed(4), n_envs=n_envs, eager=False)
+        _assert_equal(ref, eager, f"{driver} {steps} rollout")
+    # one graph per chunk length (and per env count)
+    lengths = {key[0] for key in env.episode_graphs.graphs}
+    assert lengths == ({64, steps % 64} - {0} if steps >= 64 else {steps})
+
+
+def test_episode_graphs_are_reused_and_the_random_driver_advances_its_generator():
+    env = _episode_env()
+    drive = _episode_drivers(env)["random"]
+    a = env.rollout(drive, 130, seed=1, eager=False)[1]["action"]
+    graphs_after_one = dict(env.episode_graphs.graphs)
+    b = env.rollout(drive, 130, seed=2, eager=False)[1]["action"]
+    assert env.episode_graphs.graphs == graphs_after_one
+    assert not torch.equal(a, b)
+    # 130 steps draw as 130 eager steps draw: chunk 2 does not repeat chunk 1
+    assert not torch.equal(a[:64], a[64:128])
+
+
+@pytest.mark.parametrize("compress", ["on", "off"])
+@pytest.mark.parametrize("steps", [1, 65, 300, 498])
+def test_streamed_episode_through_phase_graphs_equals_eager_and_resident(steps, compress):
+    resident = _episode_env()
+    streamed = _episode_env(stream_hbm_budget_mb=0.03 if compress == "on" else 0.06,
+                            data_compress=compress)
+    assert streamed.streaming and streamed.streamer.num_shards > 2
+    drive = _episode_drivers(resident)["buy_hold"]
+    eager_state, eager = streamed.rollout(drive, steps, eager=True)
+    state, out = streamed.rollout(drive, steps, eager=False)
+    _, ref = resident.rollout(drive, steps)
+    _assert_equal(tuple(state), tuple(eager_state), "streamed final state")
+    _assert_equal(out, eager, "streamed graphed vs eager")
+    _assert_equal(out, ref, "streamed vs resident")
+    staging = streamed.episode_graphs.staging
+    if steps > 1:
+        # every shard went through the one staging shard, row0 on the device
+        assert isinstance(staging.row0, torch.Tensor) and staging.row0.dim() == 0
+
+
+def test_the_device_step_index_drives_buy_hold_and_replay():
+    from gymfx_tpu_torch.core import rollout as R
+
+    env = _episode_env()
+    state, obs = env.reset(2)
+    replay = R.replay_driver([2, 1, 1], "cpu")
+    for i, bh, rp in [(0, 1, 2), (1, 0, 1), (2, 0, 1), (3, 0, 0), (70, 0, 0)]:
+        idx = torch.tensor(i, dtype=torch.int32)
+        assert R.buy_hold_driver().act((), obs, idx, None)[0].tolist() == [bh, bh]
+        assert replay.act((), obs, idx, None)[0].tolist() == [rp, rp]
+    # a replay past its table holds, across chunk boundaries too
+    out = env.rollout(replay, 130, eager=False)[1]["action"][:, 0]
+    assert out[:3].tolist() == [2, 1, 1] and int(out[3:].abs().sum()) == 0

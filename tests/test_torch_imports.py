@@ -5,8 +5,9 @@
   ring transformer (K4's plain versions), a short LOB-venue episode
   (its threefry flow and K5's plain version), a streamed episode over a
   compressed tape (K6's plain version), curriculum training over two
-  tapes and the scaled-feature export (K7's plain version), then checks
-  that none of those packages was imported.
+  tapes, the scaled-feature export (K7's plain version), and the command
+  line: one training iteration with a checkpoint, then the policy mode on
+  that checkpoint; then checks that none of those packages was imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
   raise; configurations and options the port does not take raise
@@ -63,6 +64,19 @@ config.update(stream_hbm_budget_mb=None, feed="curriculum", num_envs=4, ppo_hori
 env = Environment(config, device="cpu")
 PPOTrainer(env, ppo_config_from(config)).train(32)
 export_scaled_features(env, config, 16, tempfile.mkdtemp() + "/x.npz")
+import json
+from gymfx_tpu_torch.app.main import main
+d = tempfile.mkdtemp()
+with open(d + "/small.json", "w") as fh:
+    json.dump({"policy_kwargs": {"hidden": [8, 8, 8]}, "feature_columns": ["CLOSE"]}, fh)
+cli = ["--input_data_file", "examples/data/eurusd_sample.csv", "--num_envs", "4",
+       "--ppo_horizon", "4", "--window_size", "8", "--load_config", d + "/small.json",
+       "--checkpoint_dir", d + "/ckpt", "--results_file", d + "/results.json",
+       "--save_config", d + "/saved.json", "--quiet_mode"]
+trained = main(cli + ["--mode", "training", "--train_total_steps", "16",
+                      "--checkpoint_every", "1"], device="cpu")
+assert trained["train_metrics"]["last_checkpoint_step"] == 16
+assert main(cli + ["--driver_mode", "policy", "--steps", "50"], device="cpu")["checkpoint_step"] == 16
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """

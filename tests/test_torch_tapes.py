@@ -21,8 +21,9 @@
   2), trains on it and reports the JAX loop's metrics.
 * Refusals: unequal bar counts, curriculum with streaming, ``scengen:``
   tapes (ROADMAP item 14), a bad ``data_compress``, a trainer on a
-  streamed Environment, and ``train``'s checkpoint / telemetry / mesh
-  arguments (item 10).
+  streamed Environment, and ``train``'s telemetry, preemption and logging
+  (item 10) and mesh (item 17) arguments; its checkpoints (item 10's
+  part that is ported) run on a curriculum too.
 """
 import pathlib
 
@@ -239,11 +240,14 @@ def test_refusals(tmp_path):
         PPOTrainer(Environment(streamed, device="cpu"), ppo_config_from(streamed))
     config = _library_config(num_envs=4, ppo_horizon=2)
     trainer = PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
-    for over in ({"checkpoint_dir": str(tmp_path)}, {"telemetry": object()},
-                 {"preempt_at": 3}, {"mesh_faults": ("kill:1",)}, {"max_consecutive_skips": 10},
-                 {"log_every": 1}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    for over, item in (({"telemetry": object()}, 10), ({"preempt_at": 3}, 10),
+                       ({"log_every": 1}, 10), ({"mesh_faults": ("kill:1",)}, 17)):
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             trainer.train(8, **over)
+    # checkpoints and the skip guard are ported: a curriculum run takes them
+    _, metrics = trainer.train(8, checkpoint_dir=str(tmp_path), checkpoint_every=1,
+                               max_consecutive_skips=10)
+    assert metrics["last_checkpoint_step"] == 8 and (tmp_path / "8" / "state.pt").is_file()
 
 
 def test_each_tape_decodes_with_its_own_codecs(tmp_path):
