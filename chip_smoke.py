@@ -27,7 +27,13 @@ failure exits non-zero:
             and 8193 (the flagship's flags and one with slip_match,
             financing and the ohlc policy), K3 also at N = 1, 63 and 8193
             with both rewards and mark_pred and live all true, all false
-            and mixed.  Beside K1-K3's times: the
+            and mixed.  K3's sharpe path (its ring of W returns read and
+            written a step) at N = 1, 63, 4,096 and 8,193, W = 2 and 64,
+            mark_pred and live all, none and mixed, stepped W + 3 times on
+            its own outputs so that the ring wraps: torch.equal at every
+            step; timed at the baseline configuration's N = 4,096, W = 64
+            beside its bound (K3's bytes and the ring read and written),
+            its plain version and K3's pnl path at the same N.  Beside K1-K3's times: the
             launch floor (an empty kernel at each one's grid, timed the
             same way), K2's and K3's memory skeletons (their loads and
             stores without their arithmetic), a clone of K1's window, each at one env, K1
@@ -201,7 +207,22 @@ failure exits non-zero:
             a shard's group.  The episode is cut to 2,048 steps because the
             eager episode it is held against is host-bound (~3 ms a step);
             the tape is at full size.
-11. cli     the command line (gymfx_tpu_torch/app/main.py main) on a
+11. baseline BASELINE.json's configurations 3 and 4 at full width
+            (config/flagship.py): baseline_sharpe_config ("baseline-sharpe-
+            atr-train": PPO, 4,096 envs, sharpe_reward over a 64-slot ring,
+            direct_atr_sltp, the 3x256 f32 MLP, horizon 32) and
+            impala_lstm_config ("baseline-impala-lstm-train": IMPALA, 4,096
+            envs, unroll 64, the LSTM (hidden 256) in bf16,
+            dd_penalized_reward), three graphed train steps each: K2 and
+            K3 a horizon (32) or an unroll (64) of launches a rollout
+            phase at capture (x4; the sharpe path's own count too) and by
+            name in the profiler trace of one replay, the update none;
+            losses finite, no update skipped; then graphed against eager
+            as in main (IMPALA's train_many, k = 3, crosses an actor sync)
+            with each phase's ms and env steps/s, and for IMPALA the
+            device ms of its learner replay (the LSTM over the segment,
+            forward and backward) beside the update phase's.
+12. cli     the command line (gymfx_tpu_torch/app/main.py main) on a
             generated 2^15-bar M1 tape at flagship width with a quarter
             of the bars held out: --mode training for 3 iterations with a
             checkpoint after each (the JAX package's results keys, three
@@ -215,13 +236,17 @@ failure exits non-zero:
             kernels by name (K1, K2, K3 64 each); the diagnostic episode
             with buy_hold (1 env, the whole tape; its first 2,048 steps ==
             the CPU's) and random (8,192 envs x 2,048 steps == the eager
-            episode on the card), each through main.
-12. summary one JSON line {"kernels": [...]}, then the last line
+            episode on the card), each through main.  Then IMPALA through
+            main (--trainer impala, impala_lstm_config on the same tape):
+            one iteration with a checkpoint, then --driver_mode policy on
+            it, which must reproduce the held-out summary.
+13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -279,10 +304,16 @@ K5_OPS_PER_SLOT = 8
 # kernel source (compares and selects included): the operation side of
 # the bound, which bytes outweigh for all three
 OPS_PER_ITEM = {"step_obs": 8, "fill_brackets": 120, "mark_reward": 20}
+# K3's sharpe path beyond K3's: a slot's select, two adds and a multiply,
+# and the mean, variance, two roots, the ratio and the selects after
+SHARPE_OPS_PER_SLOT, SHARPE_OPS = 4, 16
 REPLACES = {
     "step_obs": "gymfx_tpu/ops/window_zscore.py:193",
     "fill_brackets": "gymfx_tpu/ops/env_dynamics.py:234",
     "mark_reward": "gymfx_tpu/ops/env_dynamics.py:280",
+    # K3's sharpe path: the Pallas K3 refuses the sharpe reward, which the
+    # JAX package computes on its XLA path (gymfx_tpu/core/rewards.py:47)
+    "mark_reward_sharpe": "gymfx_tpu/ops/env_dynamics.py:280",
     "attention_forward": "gymfx_tpu/ops/fused_attention.py:172",
     "attention_backward": "gymfx_tpu/ops/fused_attention.py:150",
     "process_stream": "gymfx_tpu/ops/lob_match.py:289",
@@ -374,9 +405,16 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+    # no cyclic collection mid-capture: it could destroy a dead trainer's
+    # graphs, which invalidates this capture
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    finally:
+        gc.enable()
     times = []
     for _ in range(trials):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -694,6 +732,77 @@ def check_kernels_k1_k3(torch, dev, kernels) -> None:
           f"{k['ms_env_blocks'] * 1e3:.2f} us/call, launch floor "
           f"{k['env_blocks_launch_floor_ms'] * 1e3:.2f} us at {grid} CTAs x {threads} threads, "
           f"{smem} B shared")
+
+
+def check_kernels_k3_sharpe(torch, dev, kernels) -> None:
+    """K3's sharpe path against its plain version (torch.equal) on rings
+    that wrap, then timed at the baseline configuration's shape."""
+    from gymfx_tpu_torch.ops import _build, cases, env_dynamics
+
+    err, steps_checked, wraps = 0.0, 0, 0
+    for window in cases.SHARPE_WINDOWS:
+        for size in cases.SHARPE_SIZES:
+            for mark_kind, live_kind in cases.K3_FLAG_PATTERNS:
+                cfg, p, st, close, rng = cases.sharpe_case(size, window, size + window, dev)
+                closes = torch.from_numpy(cases.sharpe_closes(close, window + 3, rng)).to(dev)
+                for step in range(window + 3):
+                    mark_pred, live = (torch.from_numpy(cases.flag_pattern(kind, size, rng)).to(dev)
+                                       for kind in (mark_kind, live_kind))
+                    ours_st, ours_r = env_dynamics.mark_reward(st, closes[step], mark_pred, live,
+                                                               cfg, p)
+                    ref_st, ref_r = env_dynamics.mark_reward_plain(st, closes[step], mark_pred,
+                                                                   live, cfg, p)
+                    what = f"K3 sharpe != plain at N = {size}, W = {window}, step {step}, " \
+                           f"{mark_kind}/{live_kind}"
+                    check(torch.equal(ours_r, ref_r), f"{what}: reward")
+                    err = max(err, max_abs_err(torch, ours_r, ref_r))
+                    for field in env_dynamics.MARK_OUT_FIELDS + (
+                            "reward_buffer", "reward_buffer_idx", "reward_buffer_len"):
+                        a, b = getattr(ours_st, field), getattr(ref_st, field)
+                        check(torch.equal(a, b), f"{what}: {field}")
+                        err = max(err, max_abs_err(torch, a, b))
+                    wraps += int((live & (st.reward_buffer_idx == window - 1)).sum())
+                    st = ours_st
+                    steps_checked += 1
+    check(wraps > 0, "K3 sharpe: no ring wrapped")
+    torch.cuda.synchronize()
+    print(f"kernels: K3's sharpe path equal to plain (torch.equal, reward, carries, ring, slot "
+          f"and length) over {steps_checked} steps: N = {list(cases.SHARPE_SIZES)} x W = "
+          f"{list(cases.SHARPE_WINDOWS)} x mark/live all, none and mixed, W + 3 steps each on "
+          f"the kernel's own outputs ({wraps} ring wraps)")
+
+    # times at the baseline configuration's shape: 4,096 envs, W = 64
+    n, window = 4096, 64
+    cfg, p, st, close, rng = cases.sharpe_case(n, window, 7, dev)
+    c = torch.from_numpy(close).to(dev)
+    mark_pred = torch.ones(n, dtype=torch.bool, device=dev)
+    live = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    sharpe = lambda: env_dynamics.mark_reward(st, c, mark_pred, live, cfg, p)  # noqa: E731
+    plain = lambda: env_dynamics.mark_reward_plain(st, c, mark_pred, live, cfg, p)  # noqa: E731
+    pnl_cfg = cfg.__class__(window_size=cfg.window_size)
+    pnl = lambda: env_dynamics.mark_reward(st, c, mark_pred, live, pnl_cfg, p)  # noqa: E731
+    # K3's bytes, then the ring read and written (W floats each), its slot
+    # and length read and written, the annualization factor read
+    moved = (nbytes(*(getattr(st, k) for k in env_dynamics.MARK_FLOAT_FIELDS), c, mark_pred, live)
+             + nbytes(*(getattr(st, k) for k in env_dynamics.MARK_OUT_FIELDS), st.pos)
+             + 2 * nbytes(st.reward_buffer, st.reward_buffer_idx, st.reward_buffer_len) + 4)
+    ops = (OPS_PER_ITEM["mark_reward"] + SHARPE_OPS_PER_SLOT * window + SHARPE_OPS) * n
+    b_ms, b_by = bound(moved, ops, F32_FLOPS)
+    lib = _build.load_library()
+    kernels["mark_reward_sharpe"] = dict(
+        max_abs_err=err, ms=device_ms(torch, sharpe), plain_ms=device_ms(torch, plain),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, host_us=host_us(torch, sharpe),
+        pnl_path_ms_same_n=device_ms(torch, pnl), n_envs=n, window=window, bytes=moved,
+        launch_floor_ms=device_ms(torch, lambda: _build.check_launch(lib.gymfx_launch_floor(
+            -(-n // env_dynamics.MARK_THREADS), env_dynamics.MARK_THREADS, 0,
+            _build.stream_handle(dev)), "launch_floor")),
+    )
+    k = kernels["mark_reward_sharpe"]
+    print(f"  mark_reward sharpe path at N = {n}, W = {window}: {k['ms'] * 1e3:.2f} us/call on the "
+          f"card (plain {k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} us by "
+          f"{k['bound_by']}: {moved:,} bytes at {BANDWIDTH / 1e12:.2f} TB/s; launch floor "
+          f"{k['launch_floor_ms'] * 1e3:.2f} us; K3's pnl path at the same N "
+          f"{k['pnl_path_ms_same_n'] * 1e3:.2f} us), wrapper host {k['host_us']:.1f} us/call")
 
 
 def check_k4_case(torch, fa, cases, q, k, v, g, causal):
@@ -1310,13 +1419,22 @@ def train(torch, trainer, state, steps: int, data=None):
 
 
 def copy_state(torch, state):
-    """A TrainState's tensors cloned, with a generator of its own at the
-    same state."""
+    """A train state's tensors cloned (PPO's TrainState or IMPALA's
+    ImpalaState), with a generator of its own at the same state."""
     from gymfx_tpu_torch.core import graphs
 
-    gen = torch.Generator(device=state.generator.device)
-    gen.set_state(state.generator.get_state())
-    return type(state)(*graphs.clone_tree(tuple(state[:4])), gen)
+    def one(x):
+        if isinstance(x, torch.Generator):
+            gen = torch.Generator(device=x.device)
+            gen.set_state(x.get_state())
+            return gen
+        return graphs.clone_tree(x)
+
+    return type(state)(*(one(x) for x in state))
+
+
+def tensor_fields(torch, state) -> tuple:
+    return tuple(x for x in state if not isinstance(x, torch.Generator))
 
 
 def check_same(torch, a, b, what: str) -> None:
@@ -1330,7 +1448,7 @@ def check_same(torch, a, b, what: str) -> None:
 
 
 def check_same_state(torch, a, b, what: str) -> None:
-    check_same(torch, tuple(a[:4]), tuple(b[:4]), what)
+    check_same(torch, tensor_fields(torch, a), tensor_fields(torch, b), what)
     check(torch.equal(a.generator.get_state(), b.generator.get_state()),
           f"{what}: generator state graphed != eager")
 
@@ -1409,7 +1527,7 @@ def graphed_vs_eager(torch, trainer, state, data, label: str, steps: int = 3) ->
     generator state after; then each phase timed, graphed and eager, over
     ``steps`` steps (medians of steps 2 on), and the chain's rate."""
     sync = torch.cuda.synchronize
-    n, h = trainer.pcfg.n_envs, trainer.pcfg.horizon
+    n, h = phase_shape(trainer)
     a, b = copy_state(torch, state), copy_state(torch, state)
     ga, ra = trainer.rollout_phase(a, data)
     gb, rb = trainer._rollout_phase_eager(b, data)
@@ -1423,7 +1541,8 @@ def graphed_vs_eager(torch, trainer, state, data, label: str, steps: int = 3) ->
     many_in = copy_state(torch, start)
     sync()
     t0 = time.perf_counter()
-    many, stacked = trainer.train_many_with_data(many_in, data, steps)
+    many, stacked = (trainer.train_many(many_in, steps) if data is None
+                     else trainer.train_many_with_data(many_in, data, steps))
     sync()
     many_ms = (time.perf_counter() - t0) * 1e3
     ref, history, eager, graphed = copy_state(torch, start), [], [], []
@@ -1476,10 +1595,18 @@ def graphed_vs_eager(torch, trainer, state, data, label: str, steps: int = 3) ->
     return out
 
 
-def check_training(rows, label: str) -> None:
+def phase_shape(trainer) -> tuple:
+    """(envs, steps a rollout phase) of a PPO or an IMPALA trainer."""
+    if hasattr(trainer, "icfg"):
+        return trainer.icfg.n_envs, trainer.icfg.unroll
+    return trainer.pcfg.n_envs, trainer.pcfg.horizon
+
+
+def check_training(rows, label: str,
+                   keys=("loss", "policy_loss", "value_loss", "entropy", "grad_norm")) -> None:
     for i, row in enumerate(rows):
         m = row["metrics"]
-        for key in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm"):
+        for key in keys:
             check(m[key] == m[key] and abs(m[key]) != float("inf"), f"{label} step {i}: {key} {m[key]}")
         check(m["nonfinite_skips"] == 0.0, f"{label} step {i}: {m['nonfinite_skips']} updates skipped")
 
@@ -1783,6 +1910,96 @@ def lob_phase(torch, kernels, results) -> None:
         "int64_word_kernels": int64_words,
         "closed_trades": trades, "graphed_phases": graphed, "graphed_vs_eager": compared,
     }
+
+
+def baseline_phase(torch, kernels, results) -> None:
+    """BASELINE.json's configurations 3 (PPO on the sharpe reward) and 4
+    (IMPALA with the LSTM) at full width, from their graphs."""
+    from gymfx_tpu_torch.config.flagship import baseline_sharpe_config, impala_lstm_config
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import (env_dynamics, fused_attention, lob_bar, lob_flow, lob_match,
+                                     window_zscore)
+    from gymfx_tpu_torch.train.impala import ImpalaTrainer, impala_config_from
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    csv = str(ROOT / "examples" / "data" / "eurusd_sample.csv")
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
+    others = (fused_attention.attention_forward, fused_attention.attention_backward,
+              lob_match.process_stream, lob_bar.run_bar, lob_flow.bar_flow)
+    runs = graphs.WARMUP + 1
+    out = {}
+    for label, config in (("sharpe", baseline_sharpe_config(csv)), ("impala", impala_lstm_config(csv))):
+        env = Environment(config)
+        if label == "sharpe":
+            trainer = PPOTrainer(env, ppo_config_from(config))
+            check((trainer.pcfg.n_envs, trainer.pcfg.horizon, env.cfg.reward, env.cfg.sharpe_window,
+                   env.cfg.strategy, trainer.pcfg.policy_dtype) == (4096, 32, "sharpe_reward", 64,
+                                                                   "direct_atr_sltp", torch.float32),
+                  "baseline-sharpe-atr-train config changed")
+        else:
+            trainer = ImpalaTrainer(env, impala_config_from(config))
+            check((trainer.icfg.n_envs, trainer.icfg.unroll, env.cfg.reward, trainer.icfg.policy,
+                   trainer.icfg.policy_dtype, trainer.policy.hidden)
+                  == (4096, 64, "dd_penalized_reward", "lstm", torch.bfloat16, 256),
+                  "baseline-impala-lstm-train config changed")
+        n, horizon = phase_shape(trainer)
+        state = trainer.init_state(SEED)
+        torch.cuda.synchronize()
+        for fn in (*counted, *others):
+            fn.launches = 0
+        env_dynamics.mark_reward.sharpe_launches = 0
+        state, rows = train(torch, trainer, state, TRAIN_STEPS)
+        launches = count_launches(counted)
+        sharpe_launches = env_dynamics.mark_reward.sharpe_launches
+        per_phase = {"step_obs": 0, "fill_brackets": horizon, "mark_reward": horizon}
+        check(launches == {k: runs * v for k, v in per_phase.items()},
+              f"baseline {label} launched {launches} at capture, expected {runs} x {per_phase}")
+        check(sharpe_launches == (runs * horizon if label == "sharpe" else 0),
+              f"baseline {label}: K3's sharpe path launched {sharpe_launches} times")
+        check(all(fn.launches == 0 for fn in others), f"baseline {label} launched K4, K5, K8 or K9")
+        if label == "sharpe":
+            kernels["mark_reward_sharpe"]["launches"] = sharpe_launches
+        check(sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"],
+              f"baseline {label} graphs {[k for k, *_ in trainer._graphs]}")
+        check_training(rows, f"baseline {label}", keys=(
+            ("loss", "policy_loss", "value_loss", "entropy", "grad_norm") if label == "sharpe"
+            else ("loss", "policy_loss", "value_loss", "entropy", "mean_rho")))
+        for field in ("pos", "cash_delta", "equity_delta", "reward_buffer"):
+            check(bool(torch.isfinite(getattr(state.env_states, field)).all()),
+                  f"baseline {label}: non-finite state {field}")
+        state = copy_state(torch, state)
+        summary = report_steps(rows, n, horizon, f"baseline {label}")
+        traced, _ = replay_launches(torch, first_graphs(trainer),
+                                    {"rollout": per_phase, "update": {}}, f"baseline {label}")
+        print(f"  launches at capture {launches} (K3's sharpe path {sharpe_launches}; {runs} "
+              f"runs); one replay by the profiler trace {traced}")
+        compared = graphed_vs_eager(torch, trainer, state, None, f"baseline {label}")
+        row = {"n_envs": n, "steps_a_phase": horizon, **summary, "launches_at_capture": launches,
+               "sharpe_launches_at_capture": sharpe_launches, "replay_launches": traced,
+               "graphed_vs_eager": compared}
+        if label == "sharpe":
+            inter, (traj, _) = trainer.rollout_phase(copy_state(torch, state))
+            live = float((traj["reward"] != 0).to(torch.float32).mean())
+            check(live > 0, "baseline sharpe: every reward of a rollout was 0")
+            row["nonzero_reward_share"] = live
+        else:
+            # the learner's replay of the segment through the LSTM, forward
+            # and backward with V-trace and the loss (the update phase but
+            # its optimizer, guard and quarantine), replayed from a graph,
+            # beside the graphed update phase it is part of
+            inter, (traj, init_carry) = trainer.rollout_phase(copy_state(torch, state))
+            replay_ms = device_ms(torch, lambda: trainer.loss_and_grads(
+                inter.learner_params, traj, init_carry, inter.obs_vec), reps=3, trials=7)
+            update_ms = statistics.median(compared["graphed_update_ms"][1:])
+            row.update(learner_replay_graphed_ms=replay_ms, graphed_update_ms=update_ms,
+                       learner_replay_share=replay_ms / update_ms)
+            print(f"  IMPALA learner replay (LSTM over {horizon} steps x {n} envs, V-trace and "
+                  f"the loss, forward and backward; device ms from graph replays): "
+                  f"{replay_ms:.2f} ms, {replay_ms / update_ms:.0%} of the graphed update phase's "
+                  f"{update_ms:.2f} ms")
+        out[label] = row
+    results["baseline"] = out
 
 
 def chunk_launches(steps: int, chunk: int = 64) -> int:
@@ -2251,7 +2468,8 @@ def cli_phase(torch, results, tmp) -> None:
     """The command line's PPO modes at flagship width (gymfx_tpu_torch/
     app/main.py): training with checkpoints, a resume, the policy mode,
     the evaluation episode's time and one chunk replay's kernels, and the
-    diagnostic episodes graphed against eager."""
+    diagnostic episodes graphed against eager; then IMPALA's training with
+    a checkpoint and the policy mode on it."""
     from gymfx_tpu_torch.app.main import main as cli_main
     from gymfx_tpu_torch.config.flagship import flagship_config
     from gymfx_tpu_torch.core import rollout as rollout_mod
@@ -2272,9 +2490,9 @@ def cli_phase(torch, results, tmp) -> None:
     per_iter = N_ENVS * HORIZON
     eval_bars = CLI_BARS // 4
 
-    def cli(name, *argv):
+    def cli(name, *argv, cfg=cfg_file):
         t0 = time.perf_counter()
-        out = cli_main(["--load_config", str(cfg_file), "--results_file", str(tmp / f"{name}.json"),
+        out = cli_main(["--load_config", str(cfg), "--results_file", str(tmp / f"{name}.json"),
                         "--save_config", str(tmp / "saved_config.json"), "--quiet_mode", *argv])
         torch.cuda.synchronize()
         check(json.loads((tmp / f"{name}.json").read_text())
@@ -2423,6 +2641,40 @@ def cli_phase(torch, results, tmp) -> None:
     diag["random"] = dict(steps=CLI_EAGER_STEPS, n_envs=N_ENVS, main_s=rnd_s,
                           graphed_ms_per_step=rnd_ms, eager_ms_per_step=rnd_eager_ms,
                           batch=rnd["batch"])
+
+    # 6. IMPALA through main: one iteration with a checkpoint, then the
+    # policy mode on it reproduces the held-out summary
+    from gymfx_tpu_torch.config.flagship import impala_lstm_config
+
+    impala_cfg = tmp / "impala_config.json"
+    impala_config = impala_lstm_config(str(tape), timeframe="M1", eval_split=0.25)
+    impala_cfg.write_text(json.dumps(impala_config))
+    impala_dir = tmp / "impala"
+    impala_iter = impala_config["num_envs"] * impala_config["impala_unroll"]
+    imp, imp_s = cli("impala", "--mode", "training", "--checkpoint_dir", str(impala_dir),
+                     "--train_total_steps", str(impala_iter), "--checkpoint_every", "1",
+                     cfg=impala_cfg)
+    itm = imp["train_metrics"]
+    check(itm["iterations"] == 1 and itm["nonfinite_skips"] == 0.0
+          and itm["last_checkpoint_step"] == impala_iter and imp["eval_scope"] == "held_out",
+          f"cli impala train_metrics {itm}")
+    for key in ("loss", "policy_loss", "value_loss", "entropy", "mean_rho"):
+        check(math.isfinite(itm[key]), f"cli impala: {key} {itm[key]}")
+    check(ckpt._list_steps(impala_dir) == [impala_iter]
+          and ckpt.read_metadata(str(impala_dir)).get("policy") == "lstm",
+          "cli impala checkpoint")
+    imp_policy, imp_policy_s = cli("impala_policy", "--mode", "inference", "--driver_mode", "policy",
+                                   "--checkpoint_dir", str(impala_dir), "--steps",
+                                   str(eval_bars - 1), cfg=impala_cfg)
+    for key in CLI_SUMMARY_KEYS:
+        check(imp_policy[key] == imp[key], f"cli impala policy mode {key}: {imp_policy[key]} vs "
+              f"{imp[key]}")
+    print(f"cli impala: 1 iteration of {impala_config['num_envs']} envs x "
+          f"{impala_config['impala_unroll']} steps (LSTM bf16, dd_penalized_reward) with a "
+          f"checkpoint, {itm['env_steps_per_sec']:,.0f} env steps/s with the capture; held-out "
+          f"total_return {imp['total_return']:.6g}, trades {imp['trades_total']}; {imp_s:.1f} s; "
+          f"--driver_mode policy reproduces the held-out summary ({len(CLI_SUMMARY_KEYS)} numbers "
+          f"equal), {imp_policy_s:.1f} s")
     print(f"cli diagnostic: buy_hold 1 env x {CLI_BARS - 1:,} steps {bh_ms:.4f} ms a step graphed "
           f"(main {bh_s:.1f} s), first {CLI_EAGER_STEPS} == the CPU's; random {N_ENVS} envs x "
           f"{CLI_EAGER_STEPS} steps {rnd_ms:.4f} ms a step graphed vs {rnd_eager_ms:.4f} eager "
@@ -2439,6 +2691,8 @@ def cli_phase(torch, results, tmp) -> None:
                        "graphed_2048_ms_per_step": timing["graphed_2048"] * 1e3 / CLI_EAGER_STEPS,
                        "chunk_replay_launches": traced["evaluation chunk"]},
         "diagnostic": diag,
+        "impala": {"train_s": imp_s, "policy_s": imp_policy_s, "train_metrics": itm,
+                   "held_out": {k: imp[k] for k in CLI_SUMMARY_KEYS}},
     }
 
 
@@ -2509,6 +2763,7 @@ def main() -> None:
     dev = torch.device("cuda")
     kernels = {}
     timed("kernels K1-K3", check_kernels_k1_k3, torch, dev, kernels)
+    timed("kernels K3 sharpe", check_kernels_k3_sharpe, torch, dev, kernels)
     timed("kernels K4", check_kernels_k4, torch, dev, kernels, results)
     timed("kernels K5", check_kernels_k5, torch, dev, kernels, results, built["lob"][1])
     timed("kernels K8", check_kernels_k8, torch, dev, kernels, results, built["lob"][1])
@@ -2523,6 +2778,8 @@ def main() -> None:
     timed("lob", lob_phase, torch, kernels, results)
     # ---- 7. diagnostic episodes ---------------------------------------------
     timed("episode", episode_phase, torch, results)
+    # ---- 11. baseline: BASELINE.json's configurations 3 and 4 ---------------
+    timed("baseline", baseline_phase, torch, kernels, results)
     # ---- 8-10. the data path: curriculum, export, stream --------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tapes_")
     try:
@@ -2537,12 +2794,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         timed("stream", stream_phase, torch, kernels, results, paths)
         torch.cuda.empty_cache()
-        # ---- 11. cli: the command line's PPO modes ------------------------
+        # ---- 12. cli: the command line's PPO and IMPALA modes -------------
         timed("cli", cli_phase, torch, results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 12. summary --------------------------------------------------------
+    # ---- 13. summary --------------------------------------------------------
     summary = {"kernels": [
         {
             "name": key, "route": "cuda",

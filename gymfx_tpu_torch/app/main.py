@@ -12,7 +12,8 @@ key for key the JAX package's:
 
 * ``mode=training``: ``train/ppo.train_from_config`` (checkpoints, the
   non-finite skip guard, ``resume_training``, the greedy evaluation on
-  the held-out bars);
+  the held-out bars), or with ``trainer=impala``
+  ``train/impala.train_impala_from_config`` (the same, for IMPALA);
 * ``driver_mode=policy``: ``train/ppo.eval_policy_from_config`` restores
   a checkpoint's params and reruns its greedy evaluation;
 * anything else: :func:`_run_env_scan`, the diagnostic episode of a
@@ -21,7 +22,7 @@ key for key the JAX package's:
 
 Every entry runs on the card unless the caller passes ``device="cpu"``.
 What the port does not take raises ``core/types.not_ported`` naming its
-ROADMAP Queue 1 item: the IMPALA trainer (11), PBT, the portfolio trainer,
+ROADMAP Queue 1 item: PBT, the portfolio trainer,
 ``portfolio_files`` and ``mode=optimization`` (12), ``verify_execution``
 (13), the gym loop (18), a third-party plugin (9), and, in training, the
 elastic controller and a mesh (17), fault profiles and telemetry (10).
@@ -147,15 +148,17 @@ def make_cli_driver(config: Dict[str, Any]):
 
 
 def run_mode(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
-    """Dispatch: ``mode=training`` runs the PPO trainer;
-    ``driver_mode=policy`` restores a checkpoint and runs a greedy
-    evaluation episode; everything else runs the diagnostic episode."""
+    """Dispatch: ``mode=training`` runs the PPO trainer (the IMPALA
+    trainer with ``trainer=impala``); ``driver_mode=policy`` restores a
+    checkpoint and runs a greedy evaluation episode; everything else runs
+    the diagnostic episode."""
+    from gymfx_tpu_torch.train.impala import train_impala_from_config
     from gymfx_tpu_torch.train.ppo import eval_policy_from_config, train_from_config
 
     if config.get("mode") == "training":
         trainer = str(config.get("trainer", "ppo")).lower()
         if trainer == "impala":
-            raise not_ported("trainer=impala (train/impala.py)", 11)
+            return train_impala_from_config(config, device=device)
         if trainer in ("pbt", "portfolio"):
             raise not_ported(f"trainer={trainer}", 12)
         return train_from_config(config, device=device)

@@ -33,6 +33,23 @@ holds tapes 1.. compressed on the card (each pick decoded by K6 on the
 default ``lob_tick_size`` grid of 1e-5), and ``random_episode_start``
 spreads the 8,192 envs over each long tape instead of replaying its
 first bars.
+
+``baseline_sharpe_config`` ("baseline-sharpe-atr-train"): BASELINE.json's
+config 3 as the JAX package runs it at full size (tools/baseline_configs.py:
+85-112): 4,096 envs, ``sharpe_reward`` (its 64-slot ring, annualization
+252), ``direct_atr_sltp`` (ATR period 14, k_sl 2, k_tp 4), the 3x256 tanh
+MLP in float32, horizon 32, one epoch (of the default 4 env-permuted
+minibatches) on examples/data/eurusd_sample.csv.  ``rollout_env_kernel``
+stays ``"off"`` and ``rollout_obs_kernel`` too, since the JAX package
+refuses its env kernels with the sharpe reward (the port's K2 and K3 run
+all the same: the device decides); no feature columns, so K1 does not run.
+
+``impala_lstm_config`` ("baseline-impala-lstm-train"): BASELINE.json's
+config 4 as the JAX package benches it (tools/tpu_bench.py:60-75, the
+``impala_lstm`` row at :245): IMPALA over 4,096 envs with an unroll of
+64, window 32, the LSTM policy (hidden 256) in bfloat16 and
+``dd_penalized_reward`` at the default penalty, on
+examples/data/eurusd_sample.csv.
 """
 from __future__ import annotations
 
@@ -104,6 +121,43 @@ def curriculum_config(tapes, **over) -> Dict[str, Any]:
         data_compress="on",
         random_episode_start=True,
         lob_tick_size=1e-5,
+    )
+    config.update(over)
+    return config
+
+
+def baseline_sharpe_config(input_data_file: str, **over) -> Dict[str, Any]:
+    config = dict(DEFAULT_VALUES)
+    config.update(
+        input_data_file=input_data_file,
+        mode="training",
+        num_envs=4096,
+        reward_plugin="sharpe_reward",
+        strategy_plugin="direct_atr_sltp",
+        atr_period=14,
+        k_sl=2.0,
+        k_tp=4.0,
+        policy="mlp",
+        ppo_horizon=32,
+        ppo_epochs=1,
+        rollout_env_kernel="off",
+    )
+    config.update(over)
+    return config
+
+
+def impala_lstm_config(input_data_file: str, **over) -> Dict[str, Any]:
+    config = dict(DEFAULT_VALUES)
+    config.update(
+        input_data_file=input_data_file,
+        mode="training",
+        trainer="impala",
+        num_envs=4096,
+        impala_unroll=64,
+        policy="lstm",
+        policy_dtype="bfloat16",
+        reward_plugin="dd_penalized_reward",
+        window_size=32,
     )
     config.update(over)
     return config

@@ -9,6 +9,10 @@ points (``gymfx_tpu_torch.resolve_device``).
                          (Dense_0..k-1 hidden, Dense_k logits, Dense_k+1
                          value; a Dense kernel is (in, out), a Linear weight
                          (out, in))
+  lstm_params_from_flax  a flax LSTMPolicy param tree -> LSTMPolicy state_dict
+                         (Dense_0 the embedding, OptimizedLSTMCell_0's eight
+                         gate kernels stacked i, f, g, o, Dense_1 logits,
+                         Dense_2 value)
   env_state_from_numpy   a batched EnvState's arrays -> EnvState tensors
   market_data_from_numpy a MarketData's arrays -> MarketData tensors (a
                          streamed shard's row0 kept, as an int)
@@ -43,6 +47,28 @@ def mlp_params_from_flax(tree: Mapping[str, Any], device=None) -> Dict[str, torc
     for key, name in zip(dense, names):
         out[f"{name}.weight"] = _tensor(np.asarray(params[key]["kernel"]).T, device)
         out[f"{name}.bias"] = _tensor(params[key]["bias"], device)
+    return out
+
+
+def lstm_params_from_flax(tree: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """State dict for :class:`~gymfx_tpu_torch.train.policies.LSTMPolicy`
+    from a flax LSTMPolicy tree (the outer "params" level is optional).
+    ``OptimizedLSTMCell_0`` holds the input kernels ``ii, if, ig, io`` (no
+    bias) and the hidden kernels ``hi, hf, hg, ho`` with biases, each
+    (hidden, hidden); the port stacks each set along its output axis in
+    that gate order."""
+    device = resolve_device(device)
+    params = tree.get("params", tree)
+    cell = params["OptimizedLSTMCell_0"]
+    out: Dict[str, torch.Tensor] = {}
+    for key, name in (("Dense_0", "embed"), ("Dense_1", "logits"), ("Dense_2", "value")):
+        out[f"{name}.weight"] = _tensor(np.asarray(params[key]["kernel"]).T, device)
+        out[f"{name}.bias"] = _tensor(params[key]["bias"], device)
+    for part in ("i", "h"):
+        kernels = [np.asarray(cell[f"{part}{gate}"]["kernel"]) for gate in "ifgo"]
+        out[f"cell_{part}.weight"] = _tensor(np.concatenate(kernels, axis=1).T, device)
+    out["cell_h.bias"] = _tensor(np.concatenate([np.asarray(cell[f"h{g}"]["bias"])
+                                                 for g in "ifgo"]), device)
     return out
 
 

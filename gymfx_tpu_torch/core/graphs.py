@@ -14,7 +14,9 @@ On a CUDA device the body runs :data:`WARMUP` times on a side stream
 (PyTorch's warm-up recipe: every cached launch plan, cuBLAS workspace and
 shared-memory opt-in is settled there, never for the first time under
 capture), then once under ``torch.cuda.graph`` into the graph's private
-memory pool, with the owner's ``torch.Generator`` registered with the
+memory pool, with Python's cyclic garbage collector run first and held
+off during the capture (it would destroy an unreachable graph mid-
+capture, which invalidates the capture), with the owner's ``torch.Generator`` registered with the
 graph, so that every replay draws from that generator's state at replay
 time and advances it as the eager body would.  A capture error raises;
 nothing retries eagerly.  On the CPU nothing is captured: each call runs
@@ -26,6 +28,7 @@ when a graph is built there.
 """
 from __future__ import annotations
 
+import gc
 import time
 from collections import defaultdict
 from typing import Any, Callable, Optional
@@ -94,8 +97,17 @@ class PhaseGraph:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
-            self.outputs = self.body(self.inputs)
+        # a CUDA graph that dies in a reference cycle is destroyed by the
+        # cyclic collector, and destroying one while a stream captures
+        # invalidates the capture (torch.cuda.graph no longer collects
+        # first): collect before, and keep the collector off during it
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.outputs = self.body(self.inputs)
+        finally:
+            gc.enable()
         torch.cuda.synchronize()
         self.graph = graph
 

@@ -6,9 +6,10 @@ The port's counterpart of ``gymfx_tpu/core/types.py``:
   EnvState   per-episode carry; every field has a leading env axis
              (the JAX package vmaps one env, the port writes the axis out)
 
-Built-in strategy and reward names only; configurations the port does
-not take yet raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+Built-in strategy and reward names only (``pnl_reward``,
+``dd_penalized_reward`` and ``sharpe_reward``); configurations the port
+does not take yet raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ ACTION_DIAG_KEYS = (
 ACTION_DIAG_INDEX = {k: i for i, k in enumerate(ACTION_DIAG_KEYS)}
 
 BUILTIN_STRATEGIES = ("default", "direct_fixed_sltp", "direct_atr_sltp")
-PORTED_REWARDS = ("pnl_reward", "dd_penalized_reward")
+PORTED_REWARDS = ("pnl_reward", "dd_penalized_reward", "sharpe_reward")
 _KERNEL_MODES = ("off", "on", "interpret")
 
 
@@ -134,8 +135,6 @@ class EnvConfig:
             raise ValueError("action_space_mode must be discrete|continuous")
         if self.strategy not in BUILTIN_STRATEGIES:
             raise not_ported(f"registered strategy kernel {self.strategy!r}", 9)
-        if self.reward == "sharpe_reward":
-            raise not_ported("sharpe_reward (its per-env ring buffer)", 7)
         if self.reward not in PORTED_REWARDS:
             raise not_ported(f"registered reward kernel {self.reward!r}", 9)
         for knob in ("rollout_obs_kernel", "rollout_env_kernel", "lob_match_kernel"):
@@ -147,6 +146,14 @@ class EnvConfig:
             raise ValueError(
                 "rollout_env_kernel requires venue='bar' (the LOB venue's "
                 "matching has its own kernel knob, lob_match_kernel)"
+            )
+        if self.rollout_env_kernel != "off" and self.reward not in ("pnl_reward",
+                                                                     "dd_penalized_reward"):
+            raise ValueError(
+                "rollout_env_kernel supports reward kernels with packed scalar "
+                "carries (pnl_reward, dd_penalized_reward); sharpe_reward's "
+                "per-env ring buffer and registered kernels are XLA-only, got "
+                f"{self.reward!r}"
             )
         if self.rollout_env_kernel != "off" and self.dtype != torch.float32:
             raise ValueError(
@@ -201,6 +208,7 @@ class EnvParams(NamedTuple):
     continuous_action_threshold: Any
     reward_scale: Any
     penalty_lambda: Any
+    annualization_factor: Any
     sl_pips: Any
     tp_pips: Any
     pip_size: Any
@@ -401,6 +409,7 @@ def make_env_params(config: Dict[str, Any], cfg: EnvConfig,
         continuous_action_threshold=f(0.33 if threshold is None else threshold),
         reward_scale=f(config.get("reward_scale", 1.0)),
         penalty_lambda=f(config.get("penalty_lambda", 1.0)),
+        annualization_factor=f(config.get("annualization_factor", 252.0)),
         sl_pips=f(config.get("sl_pips", 20.0)),
         tp_pips=f(config.get("tp_pips", 40.0)),
         pip_size=f(config.get("pip_size", 0.0001)),

@@ -10,7 +10,10 @@
 //                     SL/TP brackets and financing accrual at the bar open.
 //   K3 mark_reward    replaces gymfx_tpu/ops/env_dynamics.py::fused_mark_reward
 //                     (pallas body _mark_reward_kernel): mark to market,
-//                     drawdown carries and the pnl / dd reward at the close.
+//                     drawdown carries and the pnl / dd reward at the close,
+//                     and the sharpe reward over its per-env ring buffer
+//                     (the JAX package computes that one on its XLA path
+//                     only: gymfx_tpu/core/rewards.py:47-78).
 //
 // What bounds them: bytes, and at these sizes the launch.  Each is an
 // elementwise pass that does a few dozen flops per element, far below
@@ -566,7 +569,7 @@ fill_brackets_kernel(FillArgs a, int n, int diag_stride, int diag_idx, int flags
 enum MarkIn { kMPos, kMCash, kMEq, kMPrev, kMPeak, kMDdMoney, kMDdPct, kMRewardPeak, kNumMarkIn };
 enum MarkOut { kOEq, kOPrev, kOPeak, kODdMoney, kODdPct, kORewardPeak, kNumMarkOut };
 enum MarkParam { kInitialCash, kRewardScale, kPenaltyLambda, kNumMarkParams };
-constexpr int kRewardPnl = 0, kRewardDd = 1;
+constexpr int kRewardPnl = 0, kRewardDd = 1, kRewardSharpe = 2;
 
 struct MarkArgs {
   const float* in[kNumMarkIn];
@@ -580,13 +583,42 @@ struct MarkArgs {
 constexpr int kMarkPointers = kNumMarkIn + 3 + kNumMarkOut + 1 + kNumMarkParams;
 constexpr int kMarkThreads = 64;
 
+// The sharpe reward's ring: the (n, window) buffer, its write slot and
+// live length in, the new buffer and the two counters out (new tensors:
+// the input state is left as it was), the annualization factor.  Null
+// pointers for the other rewards.
+struct SharpeArgs {
+  const float* buf;
+  const int* idx;
+  const int* len;
+  float* out_buf;
+  int* out_idx;
+  int* out_len;
+  const float* annualization;
+};
+constexpr int kSharpePointers = 7;
+
 // One thread per env, CTAs of kMarkThreads so that N = 8192 spreads over
 // 128 SMs.  Every load comes first, none behind a branch, so the kernel
 // pays one memory round trip: the mark is computed for every env and
 // `mark` selects it, as the plain version's select(mark_pred, ...) does;
 // the reward kind is a uniform branch after the loads.
+//
+// The sharpe path reads and writes its env's ring row (window floats; 16-
+// byte loads and stores where the window is a multiple of 4 and both
+// buffers are 16-byte aligned), writing the step's return into the live
+// slot on the way and summing the new row in slot order, one running sum
+// for x and one for x^2: the plain version's order
+// (core/rewards.ordered_sums), so the two agree bit for bit.
+__device__ __forceinline__ void sharpe_slot(float& v, int slot, int write_slot, float r,
+                                            float& total, float& total_sq) {
+  v = slot == write_slot ? r : v;
+  total = total + v;
+  total_sq = total_sq + v * v;
+}
+
 __global__ void __launch_bounds__(kMarkThreads)
-mark_reward_kernel(MarkArgs a, int n, int reward_kind) {
+mark_reward_kernel(MarkArgs a, SharpeArgs s, int n, int reward_kind, int window) {
   const int e = blockIdx.x * kMarkThreads + threadIdx.x;
   if (e >= n) return;
   // ---- every load
@@ -620,6 +652,45 @@ mark_reward_kernel(MarkArgs a, int n, int reward_kind) {
   float reward;
   if (reward_kind == kRewardPnl) {
     reward = live ? r_norm * reward_scale : 0.f;
+  } else if (reward_kind == kRewardSharpe) {
+    const int idx0 = __ldg(s.idx + e), len0 = __ldg(s.len + e);
+    const float annualization = __ldg(s.annualization);
+    const long long row = (long long)e * window;
+    // the slot this step writes (none when the env is not live)
+    const int write_slot = live ? idx0 : -1;
+    float total = 0.f, total_sq = 0.f;
+    const bool vec = (window & 3) == 0 &&
+        ((reinterpret_cast<unsigned long long>(s.buf) |
+          reinterpret_cast<unsigned long long>(s.out_buf)) & 15) == 0;
+    if (vec) {
+      const float4* in4 = reinterpret_cast<const float4*>(s.buf + row);
+      float4* out4 = reinterpret_cast<float4*>(s.out_buf + row);
+#pragma unroll 4
+      for (int k = 0; k < window / 4; ++k) {
+        float4 v = __ldg(in4 + k);
+        sharpe_slot(v.x, 4 * k, write_slot, r_norm, total, total_sq);
+        sharpe_slot(v.y, 4 * k + 1, write_slot, r_norm, total, total_sq);
+        sharpe_slot(v.z, 4 * k + 2, write_slot, r_norm, total, total_sq);
+        sharpe_slot(v.w, 4 * k + 3, write_slot, r_norm, total, total_sq);
+        out4[k] = v;
+      }
+    } else {
+      for (int k = 0; k < window; ++k) {
+        float v = __ldg(s.buf + row + k);
+        sharpe_slot(v, k, write_slot, r_norm, total, total_sq);
+        s.out_buf[row + k] = v;
+      }
+    }
+    const int len = live ? min(len0 + 1, window) : len0;
+    s.out_idx[e] = live ? (idx0 + 1) % window : idx0;
+    s.out_len[e] = len;
+    const float nf = (float)max(len, 1);
+    const float mean = total / nf;
+    const float var = (total_sq - nf * (mean * mean)) / jmax(nf - 1.f, 1.f);
+    const float stdv = sqrtf(jmax(var, 0.f));
+    const float sharpe = (len >= 2 && stdv > 0.f)
+        ? mean / (stdv > 0.f ? stdv : 1.f) * sqrtf(annualization) : 0.f;
+    reward = live ? sharpe : 0.f;
   } else {
     const float peak = live ? jmax(reward_peak, jmax(eq, prev)) : reward_peak;
     const bool peak_positive = (initial_cash + peak) > 0.f;
@@ -703,6 +774,7 @@ extern "C" {
 
 int gymfx_fill_pointer_count() { return kFillPointers; }
 int gymfx_mark_pointer_count() { return kMarkPointers; }
+int gymfx_sharpe_pointer_count() { return kSharpePointers; }
 // K1's launch constants, which ops/window_zscore.py holds against its own:
 // {threads, vectors a thread, row-group features, row-group threads,
 //  rows a group, ints in ObsGeometry}
@@ -762,12 +834,15 @@ int gymfx_fill_brackets(void* const* ptrs, long long n, int diag_stride,
   return (int)cudaGetLastError();
 }
 
-int gymfx_mark_reward(void* const* ptrs, long long n, int reward_kind,
-                      void* stream) {
+// sharpe_ptrs: a SharpeArgs (nulls unless reward_kind is the sharpe
+// reward); window: the ring's length (>= 1 for the sharpe reward)
+int gymfx_mark_reward(void* const* ptrs, void* const* sharpe_ptrs, long long n,
+                      int reward_kind, int window, void* stream) {
   if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (reward_kind == kRewardSharpe && window < 1) return (int)cudaErrorInvalidValue;
   mark_reward_kernel<<<blocks_for(n, kMarkThreads), kMarkThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      unpack<MarkArgs>(ptrs), (int)n, reward_kind);
+      unpack<MarkArgs>(ptrs), unpack<SharpeArgs>(sharpe_ptrs), (int)n, reward_kind, window);
   return (int)cudaGetLastError();
 }
 

@@ -143,10 +143,11 @@ def _bind_env(lib: ctypes.CDLL) -> None:
     lib.gymfx_step_obs.restype = i
     lib.gymfx_fill_brackets.argtypes = [vp, ll, i, i, i, vp]
     lib.gymfx_fill_brackets.restype = i
-    lib.gymfx_mark_reward.argtypes = [vp, ll, i, vp]
+    lib.gymfx_mark_reward.argtypes = [vp, vp, ll, i, i, vp]
     lib.gymfx_mark_reward.restype = i
     lib.gymfx_fill_pointer_count.restype = i
     lib.gymfx_mark_pointer_count.restype = i
+    lib.gymfx_sharpe_pointer_count.restype = i
     lib.gymfx_step_obs_constants.argtypes = [ctypes.POINTER(i)]
     lib.gymfx_step_obs_constants.restype = None
     lib.gymfx_fill_threads.restype = i

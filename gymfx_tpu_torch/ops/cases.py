@@ -7,7 +7,8 @@ version or to the JAX package: chip_smoke.py on the card, and the tests
 card).  K1 gets windows with NaN, ±inf, 1e30, 0/0 and neutral envs; K2
 and K3 get open, flat, flipping and (with ``big``) huge ledgers, pending
 and forced orders, brackets at, inside and across the bar, and -inf
-reward peaks, over the grid of K2's static flags.  K5 gets the venue's
+reward peaks, over the grid of K2's static flags; K3's sharpe path
+rings of every fill and write slot (:func:`sharpe_case`).  K5 gets the venue's
 seed streams, every scenario's flow mix, five hand-built streams,
 streams whose lots wrap int32 sums and streams of one message kind each,
 and :func:`lob_stream_emulated` models the algorithm of its kernel on
@@ -257,6 +258,38 @@ def ledger_case(seed, n=64, big=True):
     bars = dict(o=o, h=h, l=l, c=c, accrual=rng.normal(0, 1e-4, n).astype(f32))
     advance = rng.random(n) < 0.85
     return fields, mark, bars, advance, rng
+
+
+# K3's sharpe path: ring windows (2: the W the vector loads skip; 64: the
+# default, 16-byte loads) and env counts (one env, counts no CTA of 64
+# divides, the baseline configuration's 4,096)
+SHARPE_WINDOWS = (2, 64)
+SHARPE_SIZES = (1, 63, 4096, 8193)
+SHARPE_PARAMS = dict(MARK_PARAMS, annualization_factor=252.0)
+
+
+def sharpe_case(n, window, seed, device, big=False):
+    """K3's sharpe inputs: (config, params, ledger state with a ring of
+    returns ~1e-4 filled to a random length and a random write slot (a
+    full ring's anywhere), the close, rng).  Step the ring with closes
+    from :func:`sharpe_closes` to wrap it."""
+    cfg = EnvConfig(reward="sharpe_reward", sharpe_window=window, window_size=8)
+    fields, mark, bars, _, rng = ledger_case(seed, n, big=big)
+    st = ledger_state(cfg, {**fields, **mark}, device)
+    length = rng.integers(0, window + 1, n).astype(np.int32)
+    ring = (1e-4 * rng.normal(size=(n, window))).astype(np.float32)
+    ring[np.arange(window)[None, :] >= length[:, None]] = 0.0
+    slot = np.where(length < window, length, rng.integers(0, window, n)).astype(np.int32)
+    st = st._replace(reward_buffer=torch.from_numpy(ring).to(device),
+                     reward_buffer_idx=torch.from_numpy(slot).to(device),
+                     reward_buffer_len=torch.from_numpy(length).to(device))
+    return cfg, env_params(SHARPE_PARAMS, device), st, bars["c"], rng
+
+
+def sharpe_closes(close, steps, rng):
+    """(steps, n) f32 closes: a random walk of ~1e-3 a step from ``close``."""
+    walk = np.cumsum(rng.normal(0, 1e-3, (steps, close.shape[0])), axis=0)
+    return (close[None, :] * (1.0 + walk)).astype(np.float32)
 
 
 def flag_pattern(kind, n, rng):

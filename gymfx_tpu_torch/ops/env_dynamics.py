@@ -6,7 +6,10 @@
      plus the ``order_denied_min_quantity`` counter.
   K3 :func:`mark_reward` replaces ``fused_mark_reward``: gated
      ``broker.mark_to_market`` -> drawdown carries -> ``rewards.
-     compute_reward`` (pnl or dd); returns the base reward.
+     compute_reward`` (pnl, dd or sharpe); returns the base reward.  The
+     sharpe reward, which the JAX package computes on its XLA path only,
+     also reads and writes its (N, W) ring buffer and the buffer's write
+     slot and length (:func:`sharpe_outputs`).
 
 The kernels are ``fill_brackets_kernel`` (8 instantiations, by
 slip_match, financing and the ohlc policy) and ``mark_reward_kernel`` in
@@ -54,7 +57,7 @@ MARK_OUT_FIELDS = (
 MARK_PARAM_FIELDS = ("initial_cash", "reward_scale", "penalty_lambda")
 
 _LIMIT_FILL_CODES = {"cross": 0, "touch": 1, "conservative": 2}
-_REWARD_CODES = {"pnl_reward": 0, "dd_penalized_reward": 1}
+_REWARD_CODES = {"pnl_reward": 0, "dd_penalized_reward": 1, "sharpe_reward": 2}
 
 
 def select(pred, a: EnvState, b: EnvState) -> EnvState:
@@ -221,6 +224,19 @@ _mark_params = operator.attrgetter(*MARK_PARAM_FIELDS)
 MARK_POINTERS = len(MARK_FLOAT_FIELDS) + 3 + len(MARK_OUTPUTS) + len(MARK_PARAM_FIELDS)
 
 
+# the kernel's SharpeArgs: the ring buffer, its write slot and length, the
+# new buffer, the new slot and length, the annualization factor
+SHARPE_POINTERS = 7
+
+
+def sharpe_outputs(n: int, window: int, device):
+    """The sharpe reward's outputs: a new (n, window) f32 ring buffer and
+    one (2, n) int32 block whose rows are the write slot and the length."""
+    buf = torch.empty((n, window), dtype=torch.float32, device=device)
+    counters = torch.empty((2, n), dtype=torch.int32, device=device)
+    return buf, counters.unbind(0)
+
+
 def mark_outputs(n: int, device):
     """K3's 7 outputs in one allocation: returns (block, rows), the
     (7, n) f32 block and its rows in :data:`MARK_OUTPUTS` order.  Each row
@@ -235,7 +251,9 @@ def _mark_library():
     """The env library, with K3's pointer count and CTA size checked
     against the kernel source once."""
     lib = _build.load_library()
-    if lib.gymfx_mark_pointer_count() != MARK_POINTERS or lib.gymfx_mark_threads() != MARK_THREADS:
+    if (lib.gymfx_mark_pointer_count() != MARK_POINTERS
+            or lib.gymfx_sharpe_pointer_count() != SHARPE_POINTERS
+            or lib.gymfx_mark_threads() != MARK_THREADS):
         raise RuntimeError("mark_reward: pointer layout or CTA size does not match the kernel source")
     return lib
 
@@ -246,11 +264,23 @@ def mark_pointers(inputs, c, mark_pred, live, outs, par):
     return _build.pointer_array((*inputs, c, mark_pred, live, *outs, *par))
 
 
+_NO_SHARPE = (None,) * SHARPE_POINTERS
+
+
+def sharpe_pointers(st: EnvState, buf, idx, length, annualization):
+    """The kernel's SharpeArgs as a C array."""
+    return _build.pointer_array((st.reward_buffer, st.reward_buffer_idx, st.reward_buffer_len,
+                                 buf, idx, length, annualization))
+
+
 def mark_reward(st: EnvState, c, mark_pred, live, cfg: EnvConfig,
                 params: EnvParams):
     """K3 on a CUDA state, its plain version on a CPU state.  Returns
     (new_state, base_reward); the kernel's 7 outputs are rows of one
-    block (:func:`mark_outputs`)."""
+    block (:func:`mark_outputs`), and under the sharpe reward the ring
+    buffer and its two counters are new tensors too
+    (:func:`sharpe_outputs`).  ``mark_reward.sharpe_launches`` counts the
+    launches of the sharpe path among ``mark_reward.launches``."""
     device = st.pos.device
     if device.type == "cpu":
         return mark_reward_plain(st, c, mark_pred, live, cfg, params)
@@ -263,20 +293,40 @@ def mark_reward(st: EnvState, c, mark_pred, live, cfg: EnvConfig,
     _build.require_all((mark_pred, live), ("mark_pred", "live"), torch.bool, shape, device)
     par = _mark_params(params)
     _build.require_all(par, _MARK_PARAM_NAMES, torch.float32, (), device)
+    sharpe = cfg.reward == "sharpe_reward"
+    window = cfg.sharpe_window
+    if sharpe:
+        _build.require(st.reward_buffer, "reward_buffer", torch.float32, (n, window), device)
+        _build.require_all((st.reward_buffer_idx, st.reward_buffer_len),
+                           ("reward_buffer_idx", "reward_buffer_len"), torch.int32, shape, device)
+        _build.require(params.annualization_factor, "param annualization_factor",
+                       torch.float32, (), device)
     lib = _mark_library()
     _, outs = mark_outputs(n, device)
+    if sharpe:
+        ring, (ring_idx, ring_len) = sharpe_outputs(n, window, device)
     if n:
+        sharpe_ptrs = (sharpe_pointers(st, ring, ring_idx, ring_len, params.annualization_factor)
+                       if sharpe else _build.pointer_array(_NO_SHARPE))
         _build.check_launch(
-            lib.gymfx_mark_reward(mark_pointers(inputs, c, mark_pred, live, outs, par), n,
-                                  _REWARD_CODES[cfg.reward], _build.stream_handle(device)),
+            lib.gymfx_mark_reward(mark_pointers(inputs, c, mark_pred, live, outs, par),
+                                  sharpe_ptrs, n, _REWARD_CODES[cfg.reward], window,
+                                  _build.stream_handle(device)),
             "mark_reward",
         )
         mark_reward.launches += 1
+        if sharpe:
+            mark_reward.sharpe_launches += 1
     eq, prev, peak, dd_money, dd_pct, reward_peak, reward = outs
-    return st._replace(equity_delta=eq, prev_equity_delta=prev, peak_equity_delta=peak,
-                       max_drawdown_money=dd_money, max_drawdown_pct=dd_pct,
-                       reward_peak=reward_peak), reward
+    st = st._replace(equity_delta=eq, prev_equity_delta=prev, peak_equity_delta=peak,
+                     max_drawdown_money=dd_money, max_drawdown_pct=dd_pct,
+                     reward_peak=reward_peak)
+    if sharpe:
+        st = st._replace(reward_buffer=ring, reward_buffer_idx=ring_idx,
+                         reward_buffer_len=ring_len)
+    return st, reward
 
 
 fill_brackets.launches = 0
 mark_reward.launches = 0
+mark_reward.sharpe_launches = 0

@@ -1,12 +1,15 @@
 """Where the rollout and update phases' time goes, on the card, eager
 and replayed from their CUDA graphs.
 
-    python -m gymfx_tpu_torch.profile_rollout [--config flagship|long|lob]
-        [--n_envs 8192 32768] [--horizon 64]
+    python -m gymfx_tpu_torch.profile_rollout
+        [--config flagship|long|lob|sharpe|impala] [--n_envs 8192 32768]
+        [--horizon 64]
 
 For each env count: the configuration's PPO rollout phase
-(config/flagship.py: ``flagship_config``, ``long_context_config`` or
-``lob_config`` on the LOB venue) is run once to warm up, timed over three
+(config/flagship.py: ``flagship_config``, ``long_context_config``,
+``lob_config`` on the LOB venue or ``baseline_sharpe_config``, PPO on the
+sharpe reward) or, for ``impala`` (``impala_lstm_config``), its IMPALA
+rollout phase, is run once to warm up, timed over three
 phases (host clock around work that ends in ``torch.cuda.synchronize``),
 then run once more under ``torch.profiler`` with named ranges around the
 policy forward, the action draw, the env transition, the obs build and
@@ -17,7 +20,9 @@ K9), ``lob_orders`` (the agent's int32 inputs), ``lob_bar``
 (the bar's book work, K8) and ``lob_fills`` (the open and exit fills).  The update phase on that rollout's trajectory likewise, with
 ranges around GAE, the minibatch gathers, the loss forward, the loss and
 its gradients (forward and ``autograd.grad``), the optimizer, the guard's
-finite check and selects, and the quarantine.  Then both phases from
+finite check and selects, and the quarantine; for IMPALA, the learner's
+replay of the segment through the LSTM and V-trace in place of GAE and
+the minibatches.  Then both phases from
 their CUDA graphs (train/ppo.py): the capture's seconds, three timed
 replays and one profiled replay.  It
 prints and writes to ``chiprun_out/profile_rollout_<config>.json``:
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import pathlib
 import subprocess
@@ -53,19 +59,27 @@ from collections import defaultdict
 import torch
 
 from gymfx_tpu_torch import resolve_device
-from gymfx_tpu_torch.config.flagship import flagship_config, lob_config, long_context_config
+from gymfx_tpu_torch.config.flagship import (
+    baseline_sharpe_config,
+    flagship_config,
+    impala_lstm_config,
+    lob_config,
+    long_context_config,
+)
 from gymfx_tpu_torch.core import env as env_core
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.lob import venue
 from gymfx_tpu_torch.ops import lob_bar
-from gymfx_tpu_torch.train import ppo
+from gymfx_tpu_torch.train import impala, ppo
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-CONFIGS = {"flagship": flagship_config, "long": long_context_config, "lob": lob_config}
+CONFIGS = {"flagship": flagship_config, "long": long_context_config, "lob": lob_config,
+           "sharpe": baseline_sharpe_config, "impala": impala_lstm_config}
 RANGES = ("policy", "sample", "transition", "build_obs", "encode_obs", "masked_reset",
           "lob_seed", "lob_flow", "lob_orders", "lob_bar", "lob_fills")
 UPDATE_RANGES = ("gae", "take", "loss_forward", "loss_and_grads", "optimizer",
-                 "apply_updates", "guard_finite", "guard_select", "quarantine", "masked_reset")
+                 "apply_updates", "guard_finite", "guard_select", "quarantine", "masked_reset",
+                 "learner_replay", "vtrace")
 TOP_KERNELS = 12
 # kernel-name prefixes: K1 (both paths), K2, K3, K4 forward and backward, K5, K8, K9
 OUR_KERNELS = ("step_obs", "fill_brackets_kernel", "mark_reward_kernel", "attn_fwd", "attn_bwd",
@@ -79,6 +93,9 @@ RANGED = (
     (venue, "bar_fills", "lob_fills"),
     (ppo, "apply_updates", "apply_updates"), (ppo, "tree_all_finite", "guard_finite"),
     (ppo, "select_tree", "guard_select"), (ppo, "quarantine_mask", "quarantine"),
+    (impala, "masked_reset", "masked_reset"), (impala, "apply_updates", "apply_updates"),
+    (impala, "tree_all_finite", "guard_finite"), (impala, "select_tree", "guard_select"),
+    (impala, "quarantine_mask", "quarantine"),
 )
 
 
@@ -110,11 +127,13 @@ def _busy_us(intervals) -> float:
 
 
 def graphed_step_ms(ro, state) -> float:
-    """Device ms of one rollout step replayed from a CUDA graph."""
+    """Device ms of one rollout step replayed from a CUDA graph (PPO's
+    state or IMPALA's, whose actors act with their stale params)."""
     env, cfg = ro.env, ro.env.cfg
+    params = state.actor_params if isinstance(state, impala.ImpalaState) else state.params
 
     def step():
-        logits, _ = ro.policy_forward(state.params, state.obs_vec)
+        logits, _, _ = ro.policy_step(params, state.obs_vec, state.policy_carry)
         st2, _, done, _ = env_core.transition(cfg, env.params, env.data, state.env_states,
                                               torch.argmax(logits, dim=1))
         obs2 = ro._encode(env_core.build_obs(st2, env.data, cfg, env.params))
@@ -128,8 +147,13 @@ def graphed_step_ms(ro, state) -> float:
             step()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        step()
+    gc.collect()  # no cyclic collection mid-capture (core/graphs.PhaseGraph)
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            step()
+    finally:
+        gc.enable()
     times = []
     for _ in range(21):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -159,8 +183,10 @@ def _profiled(fn, ro, per: int) -> dict:
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in RANGED]
     for (mod, attr, fn_), (_, _, label) in zip(saved, RANGED):
         setattr(mod, attr, _ranged(label, fn_))
-    methods = {"_encode": "encode_obs", "_gae": "gae", "_loss": "loss_forward",
-               "loss_and_grads": "loss_and_grads"}
+    methods = {name: label for name, label in (
+        ("_encode", "encode_obs"), ("_gae", "gae"), ("_loss", "loss_forward"),
+        ("loss_and_grads", "loss_and_grads"), ("_learner_replay", "learner_replay"),
+        ("_vtrace", "vtrace")) if hasattr(ro, name)}
     kept = {name: getattr(ro, name) for name in methods}
     forward, update = ro.policy.forward, ro.optimizer.update
     plan = ppo.minibatch_plan
@@ -225,13 +251,19 @@ def _profiled(fn, ro, per: int) -> dict:
     }
 
 
-def profile_at(n_envs, horizon: int, device: torch.device, config_name: str = "flagship") -> dict:
-    """One row: ``n_envs`` envs (None: the configuration's own)."""
+def profile_at(n_envs, horizon, device: torch.device, config_name: str = "flagship") -> dict:
+    """One row: ``n_envs`` envs and a horizon (the IMPALA unroll) of
+    ``horizon`` steps (None: the configuration's own)."""
     over = {} if n_envs is None else {"num_envs": n_envs}
-    config = CONFIGS[config_name](str(ROOT / "examples" / "data" / "eurusd_sample.csv"),
-                                  ppo_horizon=horizon, **over)
+    if horizon is not None:
+        over["impala_unroll" if config_name == "impala" else "ppo_horizon"] = horizon
+    config = CONFIGS[config_name](str(ROOT / "examples" / "data" / "eurusd_sample.csv"), **over)
     n_envs = config["num_envs"]
-    ro = ppo.PPOTrainer(Environment(config, device=device), ppo.ppo_config_from(config))
+    env = Environment(config, device=device)
+    if config_name == "impala":
+        return _impala_row(impala.ImpalaTrainer(env, impala.impala_config_from(config)), config)
+    horizon = config["ppo_horizon"]
+    ro = ppo.PPOTrainer(env, ppo.ppo_config_from(config))
     state = ro.init_state(0)
     state = ro._rollout_phase_eager(state)[0]
     torch.cuda.synchronize()
@@ -273,7 +305,8 @@ def profile_at(n_envs, horizon: int, device: torch.device, config_name: str = "f
         **_profiled(replay_rollout, ro, horizon),
     }
     inputs = dict(params=inter.params, opt_state=inter.opt_state, env_states=inter.env_states,
-                  obs_vec=inter.obs_vec, traj=rollout_out[0], last_value=rollout_out[1])
+                  obs_vec=inter.obs_vec, policy_carry=inter.policy_carry, traj=rollout_out[0],
+                  last_value=rollout_out[1])
     graph = ro._update_graphed(inputs, None, gen)
 
     def replay_update():
@@ -284,12 +317,59 @@ def profile_at(n_envs, horizon: int, device: torch.device, config_name: str = "f
     return row
 
 
+def _impala_row(tr, config) -> dict:
+    """profile_at's row for the IMPALA trainer: its rollout and update
+    phases, eager and replayed from their graphs."""
+    n_envs, unroll = tr.icfg.n_envs, tr.icfg.unroll
+    holder = [tr._rollout_phase_eager(tr.init_state(0))[0]]
+    torch.cuda.synchronize()
+
+    def eager_rollout():
+        holder[0] = tr._rollout_phase_eager(holder[0])[0]
+
+    phase_ms = _timed(eager_rollout)
+    steady = sorted(phase_ms)[1]
+    row = {
+        "config": "impala", "n_envs": n_envs, "horizon": unroll, "phase_ms": phase_ms,
+        "env_steps_per_s": n_envs * unroll / (steady / 1e3), "eager_step_ms": steady / unroll,
+        "graphed_step_device_ms": graphed_step_ms(tr, holder[0]),
+        **_profiled(lambda: tr._rollout_phase_eager(holder[0]), tr, unroll),
+    }
+    inter, rollout_out = tr._rollout_phase_eager(tr.init_state(1))
+    tr._update_phase_eager(inter, rollout_out)
+    row["update_eager"] = {
+        "phase_ms": _timed(lambda: tr._update_phase_eager(inter, rollout_out)),
+        **_profiled(lambda: tr._update_phase_eager(inter, rollout_out), tr, 1),
+    }
+    gen = inter.generator
+    graph = tr._rollout_graphed(inter, {})
+
+    def replay_rollout():
+        tr._replay(graph, None, gen)
+
+    ms = _timed(replay_rollout)
+    row["rollout_graphed"] = {
+        "capture_s": graph.capture_s, "phase_ms": ms,
+        "env_steps_per_s": n_envs * unroll / (sorted(ms)[1] / 1e3),
+        **_profiled(replay_rollout, tr, unroll),
+    }
+    graph = tr._update_graphed(tr._update_inputs(inter, rollout_out), gen)
+
+    def replay_update():
+        tr._replay(graph, None, gen)
+
+    row["update_graphed"] = {"capture_s": graph.capture_s, "phase_ms": _timed(replay_update),
+                             **_profiled(replay_update, tr, 1)}
+    return row
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
     ap.add_argument("--n_envs", type=int, nargs="+", default=[None],
                     help="env counts (default: the configuration's own)")
-    ap.add_argument("--horizon", type=int, default=64)
+    ap.add_argument("--horizon", type=int, default=None,
+                    help="the rollout's steps (default: the configuration's own)")
     args = ap.parse_args(argv)
     device = resolve_device()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -322,15 +322,19 @@ def load_params(directory: str, template: Optional[Any] = None) -> Tuple[Any, in
 
 
 def load_train_state(directory: str, trainer: Any):
-    """Resume helper: ``(initial_state, initial_params, step)``, a full
-    train state when the checkpoint carries one, else params for a warm
-    start.  The template is ``trainer.init_state(0)``: the trainer's
-    configuration decides every leaf's shape and dtype."""
+    """Resume helper shared by the trainers: ``(initial_state,
+    initial_params, step)``, a full train state when the checkpoint
+    carries one, else params for a warm start.  The template is
+    ``trainer.init_state(0)`` (a PPO ``TrainState`` or an IMPALA
+    ``ImpalaState``): the trainer's configuration decides every leaf's
+    shape and dtype; a params-only checkpoint is read as the state's
+    ``params`` (PPO) or ``learner_params`` (IMPALA)."""
     template = trainer.init_state(0)
     if _composite(directory):
         state, step = load_checkpoint(directory, template=template)
         return state, None, step
-    params, step = load_params(directory, template=template.params)
+    field = "params" if "params" in type(template)._fields else "learner_params"
+    params, step = load_params(directory, template=getattr(template, field))
     return None, params, step
 
 

@@ -20,19 +20,21 @@ import torch
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.core.types import not_ported
 from gymfx_tpu_torch.data.feed import Frame, MarketDataset, load_dataframe
+from gymfx_tpu_torch.resilience.guards import tree_map
 
 
 def masked_reset(done, fresh, cur):
     """Where ``done`` ((N,) bool), replace each env's entry of ``cur``
-    with ``fresh``'s (a tensor or a NamedTuple of tensors; ``fresh``
-    broadcasts over the env axis, so a single-env (1, ...) reset state
-    serves every env)."""
+    with ``fresh``'s (a tensor, or a NamedTuple or tuple of tensors, such
+    as a recurrent carry; ``fresh`` broadcasts over the env axis, so a
+    single-env (1, ...) reset state serves every env)."""
 
     def one(f, c):
         return torch.where(done.view(-1, *([1] * (c.dim() - 1))), f, c)
 
     if isinstance(cur, tuple):
-        return type(cur)(*(one(f, c) for f, c in zip(fresh, cur)))
+        leaves = (one(f, c) for f, c in zip(fresh, cur))
+        return type(cur)(*leaves) if hasattr(cur, "_fields") else tuple(leaves)
     return one(fresh, cur)
 
 
@@ -205,29 +207,30 @@ def resolve_minibatch_scheme(config, n_envs: int, minibatches: int) -> None:
         config["ppo_minibatch_scheme"] = "sample_permute"
 
 
-def minibatch_plan(fields: Dict[str, torch.Tensor], *, scheme: str, n_envs: int,
+def minibatch_plan(fields: Dict[str, Any], *, scheme: str, n_envs: int,
                    horizon: int, minibatches: int):
     """``(n_perm, mb, take)``: a per-epoch permutation of ``n_perm``
     indices is cut into ``minibatches`` chunks of ``mb``, and ``take(idx)``
-    gathers one flat minibatch from the (T, N, ...) ``fields``.
+    gathers one flat minibatch from the (T, N, ...) ``fields`` (a field
+    may be a tuple of such tensors, as a recurrent carry is).
 
       sample_permute  an iid shuffle of all T*N samples;
       env_permute     permute envs; a minibatch holds whole (T, ...)
                       trajectories, flattened env-major.
     """
     if scheme == "env_permute":
-        source = {k: x.swapaxes(0, 1) for k, x in fields.items()}
+        source = tree_map(lambda x: x.swapaxes(0, 1), fields)
         mb = n_envs // minibatches
 
         def take(idx):
-            return {k: x[idx].reshape(mb * horizon, *x.shape[2:]) for k, x in source.items()}
+            return tree_map(lambda x: x[idx].reshape(mb * horizon, *x.shape[2:]), source)
 
         return n_envs, mb, take
 
     n_total = horizon * n_envs
-    source = {k: x.reshape(n_total, *x.shape[2:]) for k, x in fields.items()}
+    source = tree_map(lambda x: x.reshape(n_total, *x.shape[2:]), fields)
 
     def take(idx):
-        return {k: x[idx] for k, x in source.items()}
+        return tree_map(lambda x: x[idx], source)
 
     return n_total, n_total // minibatches, take

@@ -3,7 +3,7 @@ and the obs encodings.
 
 The port of ``gymfx_tpu/train/policies.py``: the obs spec and
 ``flatten_obs`` (:23-56), ``dense_window_attention`` (:59-77),
-``MLPPolicy`` (:84-106), ``RingTransformerEncoder`` and
+``MLPPolicy`` (:84-106), ``LSTMPolicy`` (:109-137), ``RingTransformerEncoder`` and
 ``RingTransformerPolicy`` in single-device mode (:189-314),
 ``tokens_from_obs`` and ``make_obs_encoder`` (:354-379), and
 ``TOKEN_POLICIES`` / ``policy_kwargs_for`` / ``make_trainer_policy`` /
@@ -26,8 +26,17 @@ Each module computes like its flax twin:
 Attention goes through K4 (``ops/fused_attention.py``) for every window
 up to 1024, kernel on the card and plain version on the CPU.  The
 sequence-parallel modes (a ``seq_axis``) come with ROADMAP.md Queue 1
-item 17; the flax ``TransformerPolicy``, LSTM and the continuous
-policies with item 11.
+item 17; the flax ``TransformerPolicy`` and the continuous policies with
+item 11.
+
+The LSTM follows flax's ``OptimizedLSTMCell`` (flax 0.12.3) at its
+rounding points: the input part ``x @ W_i`` and the hidden part
+``h @ W_h + b_h`` of the four gates are each a dense output in ``dtype``
+(the product rounded, then the bias added and rounded), summed in
+``dtype``; gates ``i, f, o`` are sigmoids and ``g`` a tanh, ``c' = f·c +
+i·g`` and ``h' = o·tanh(c')``, with the carry ``(c, h)`` kept in
+``dtype``.  XLA may keep f32 between those bf16 ops inside a fusion, so
+in bf16 the two packages agree within a tolerance the tests state.
 """
 from __future__ import annotations
 
@@ -156,6 +165,62 @@ class MLPPolicy(nn.Module):
         return self.logits(x), self.value(x).squeeze(-1)
 
 
+class LSTMPolicy(nn.Module):
+    """Recurrent actor-critic: a tanh dense embedding, flax's optimized
+    LSTM cell, float32 logits and value heads.  ``forward(x, carry)``
+    maps (N, obs_dim) inputs and an ``(c, h)`` carry of (N, hidden) to
+    (logits (N, A), value (N,), new carry).
+
+    The cell's gate kernels are stacked in flax's order ``i, f, g, o``:
+    ``cell_i`` holds ``ii, if, ig, io`` (no bias), ``cell_h`` holds
+    ``hi, hf, hg, ho`` with their biases (convert.lstm_params_from_flax)."""
+
+    recurrent = True
+
+    def __init__(self, obs_dim: int, n_actions: int = 3, hidden: int = 256,
+                 dtype=torch.float32):
+        super().__init__()
+        self.hidden = int(hidden)
+        self.embed = nn.Linear(int(obs_dim), self.hidden)
+        self.cell_i = nn.Linear(self.hidden, 4 * self.hidden, bias=False)
+        self.cell_h = nn.Linear(self.hidden, 4 * self.hidden)
+        self.logits = nn.Linear(self.hidden, n_actions)
+        self.value = nn.Linear(self.hidden, 1)
+        self.dtype = dtype
+
+    def initial_carry(self, batch: int, device=None):
+        """``(c, h)`` zeros of (batch, hidden) in the policy dtype: two
+        distinct buffers."""
+        shape = (int(batch), self.hidden)
+        return (torch.zeros(shape, dtype=self.dtype, device=device),
+                torch.zeros(shape, dtype=self.dtype, device=device))
+
+    def forward(self, x, carry):
+        dt = self.dtype
+        x = torch.tanh(_dense_rounded(x.to(dt), self.embed, dt))
+        c, h = carry
+        dense_h = _dense_rounded(h, self.cell_h, dt)
+        dense_i = torch.matmul(x, self.cell_i.weight.to(dt).t())
+        zi, zf, zg, zo = (dense_h + dense_i).chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
+        g = torch.tanh(zg)
+        new_c = f * c + i * g
+        new_h = o * torch.tanh(new_c)
+        y = new_h.to(torch.float32)
+        return self.logits(y), self.value(y).squeeze(-1), (new_c, new_h)
+
+
+def _dense_rounded(x, layer: nn.Linear, dtype):
+    """flax Dense in ``dtype``: the product in ``dtype``, then the bias
+    added in ``dtype`` (two roundings where F.linear may fuse them)."""
+    return torch.matmul(x, layer.weight.to(dtype).t()) + layer.bias.to(dtype)
+
+
+def is_recurrent(policy: nn.Module) -> bool:
+    """Whether ``policy`` threads a carry (``forward(x, carry)``)."""
+    return getattr(policy, "recurrent", False)
+
+
 class TransformerBlock(nn.Module):
     """One pre-norm layer of RingTransformerEncoder: attention through K4,
     then the 4x GELU MLP, each with a residual add."""
@@ -247,6 +312,8 @@ def make_policy(name: str, in_dim: int, *, continuous: bool = False,
     if name == "mlp":
         return MLPPolicy(in_dim, hidden=tuple(kwargs.pop("hidden", (256, 256, 256))),
                          dtype=dtype, **kwargs)
+    if name == "lstm":
+        return LSTMPolicy(in_dim, dtype=dtype, **kwargs)
     if name == "transformer_ring":
         return RingTransformerPolicy(in_dim, dtype=dtype, **kwargs)
     if name == "transformer_ulysses":

@@ -26,7 +26,11 @@ the JAX package's phases do; a streamed Environment is refused.
 
 Params are a dict of float32 tensors applied with
 ``torch.func.functional_call``; the policy module only gives the
-structure.  The metrics are the JAX package's dict of 0-d tensors, plus
+structure.  A recurrent policy (``policy="lstm"``) threads its ``(c, h)``
+carry through the rollout in ``TrainState.policy_carry``: the carry that
+entered each step is stored as ``traj["pcarry"]``, a done env restarts
+from a zero carry, and the update replays each sample with its stored
+carry (the JAX package's stored-state replay, :341-386, :416).  The metrics are the JAX package's dict of 0-d tensors, plus
 ``grad_norm``, the mean pre-clip gradient global norm of the updates
 taken.
 
@@ -74,6 +78,7 @@ from gymfx_tpu_torch.train.common import (
 )
 from gymfx_tpu_torch.train.optim import AdamState, ClipAdam, apply_updates
 from gymfx_tpu_torch.train.policies import (
+    is_recurrent,
     is_token_policy,
     make_obs_encoder,
     make_obs_spec,
@@ -161,6 +166,10 @@ class TrainState(NamedTuple):
     env_states: EnvState             # (n_envs,) batch
     obs_vec: Any                     # (n_envs, *obs_shape) float32 policy inputs
     generator: torch.Generator       # the phases' draws (actions, offsets, permutations)
+    # the recurrent carry ((c, h), each (n_envs, hidden) in the policy
+    # dtype), () for a feed-forward policy, which keeps its checkpoints'
+    # leaves as they were
+    policy_carry: Any = ()
 
 
 def sample_categorical(logits, generator: torch.Generator):
@@ -173,7 +182,9 @@ def sample_categorical(logits, generator: torch.Generator):
 
 def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> None:
     """Fill every Linear from ``generator``: weights ~ N(0, 1/fan_in),
-    biases 0 (flax Dense's lecun-normal scale, untruncated); positional
+    biases 0 (flax Dense's lecun-normal scale, untruncated; the LSTM's
+    recurrent kernels too, where flax starts from an orthogonal matrix:
+    the two packages' draws never match anyway); positional
     embeddings ~ N(0, 0.02²); LayerNorms stay at scale 1, bias 0."""
     with torch.no_grad():
         for module in policy.modules():
@@ -181,13 +192,55 @@ def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> 
                 w = torch.randn(module.weight.shape, generator=generator,
                                 device=generator.device)
                 module.weight.copy_(w / module.in_features ** 0.5)
-                module.bias.zero_()
+                if module.bias is not None:
+                    module.bias.zero_()
         for name, p in policy.named_parameters():
             if name.endswith("pos_embed"):
                 p.copy_(0.02 * torch.randn(p.shape, generator=generator, device=generator.device))
 
 
-class PPOTrainer:
+class PolicyTrainer:
+    """What the trainers share (PPOTrainer, train/impala.ImpalaTrainer):
+    the policy applied with given params and, for a recurrent policy, its
+    carry; and a phase graph replayed from a caller's generator.  A
+    trainer sets ``policy``, ``device``, ``_recurrent`` (``policies.
+    is_recurrent``) and ``_gen`` (the generator its graphs register)."""
+
+    def initial_carry(self, n: int):
+        """The policy's fresh carry for ``n`` envs: ``(c, h)`` zeros for
+        the LSTM, () for a feed-forward policy."""
+        return self.policy.initial_carry(n, self.device) if self._recurrent else ()
+
+    def params_template(self) -> Dict[str, torch.Tensor]:
+        """The params' structure, shapes, dtypes and device (the policy
+        module's parameters; a checkpoint's params are checked against
+        it)."""
+        return {k: v.detach() for k, v in self.policy.named_parameters()}
+
+    def policy_step(self, params: Dict[str, torch.Tensor], x, carry):
+        """(logits, value, new carry) of the policy with ``params`` on
+        inputs ``x``: the JAX package's ``_policy_forward`` (a feed-forward
+        policy passes the carry on)."""
+        if self._recurrent:
+            return torch.func.functional_call(self.policy, params, (x, carry))
+        logits, value = torch.func.functional_call(self.policy, params, (x,))
+        return logits, value, carry
+
+    def _hooks(self, **hooks):
+        """The test hooks that are set, on the device: static inputs of a
+        graph of their own."""
+        return {k: v.to(self.device) for k, v in hooks.items() if v is not None}
+
+    def _replay(self, graph, inputs, generator):
+        """Run ``graph`` on ``inputs`` from ``generator``'s state, advance
+        ``generator`` as the eager phase would, and return ``graph``."""
+        self._gen.set_state(generator.get_state())
+        graph(inputs)
+        generator.set_state(self._gen.get_state())
+        return graph
+
+
+class PPOTrainer(PolicyTrainer):
     """PPO for one Environment and PPOConfig.
 
     On a CUDA device each phase runs from a CUDA graph (core/graphs.py),
@@ -224,6 +277,7 @@ class PPOTrainer:
             pcfg.policy, in_dim, continuous=cfg.action_space_mode == "continuous",
             dtype=pcfg.policy_dtype, kwargs=dict(pcfg.policy_kwargs), window=cfg.window_size,
         ).to(self.device)
+        self._recurrent = is_recurrent(self.policy)
         self.optimizer = ClipAdam(pcfg.lr, pcfg.max_grad_norm, pcfg.opt_state_dtype)
         # the guard's updates-a-phase metric: copied to the device once,
         # here, never inside a captured update phase
@@ -251,17 +305,13 @@ class PPOTrainer:
         n = self.pcfg.n_envs
         env_states = EnvState(*(x.expand(n, *x.shape[1:]).clone() for x in self._reset_state))
         obs_vec = self._reset_vec.expand(n, *self.obs_shape).clone()
-        return TrainState(params, self.optimizer.init(params), env_states, obs_vec, gen)
+        return TrainState(params, self.optimizer.init(params), env_states, obs_vec, gen,
+                          self.initial_carry(n))
 
-    def params_template(self) -> Dict[str, torch.Tensor]:
-        """The params' structure, shapes, dtypes and device (the policy
-        module's parameters; a checkpoint's params are checked against
-        it)."""
-        return {k: v.detach() for k, v in self.policy.named_parameters()}
-
-    def policy_forward(self, params: Dict[str, torch.Tensor], x):
-        """(logits, value) of the policy with ``params`` on inputs ``x``."""
-        return torch.func.functional_call(self.policy, params, (x,))
+    def policy_forward(self, params: Dict[str, torch.Tensor], x, carry=()):
+        """(logits, value) of the policy with ``params`` on inputs ``x``
+        (and the carry ``carry`` of a recurrent policy)."""
+        return self.policy_step(params, x, carry)[:2]
 
     # ------------------------------------------------------------------
     def _fresh(self, data):
@@ -293,24 +343,26 @@ class PPOTrainer:
         """:meth:`rollout_phase` from the rollout graph, its outputs cloned."""
         hooks = self._hooks(actions=actions, start_offsets=start_offsets)
         out = graphs.clone_tree(self._rollout_graphed(state, self._stage(data), hooks).outputs)
-        return (state._replace(env_states=out["env_states"], obs_vec=out["obs_vec"]),
+        return (state._replace(env_states=out["env_states"], obs_vec=out["obs_vec"],
+                               policy_carry=out["policy_carry"]),
                 (out["traj"], out["last_value"]))
 
     def _rollout_phase_eager(self, state: TrainState, data=None, *, actions=None,
                              start_offsets=None):
         """:meth:`rollout_phase` op by op, drawing from ``state.generator``."""
-        env_states, obs_vec, traj, last_value = self._rollout_body(
-            state.params, state.env_states, state.obs_vec, data, state.generator,
-            actions, start_offsets)
-        return state._replace(env_states=env_states, obs_vec=obs_vec), (traj, last_value)
+        env_states, obs_vec, pcarry, traj, last_value = self._rollout_body(
+            state.params, state.env_states, state.obs_vec, state.policy_carry, data,
+            state.generator, actions, start_offsets)
+        return (state._replace(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry),
+                (traj, last_value))
 
     @torch.no_grad()
-    def _rollout_body(self, params, env_states, obs_vec, data, gen, actions=None,
+    def _rollout_body(self, params, env_states, obs_vec, pcarry, data, gen, actions=None,
                       start_offsets=None):
         """The rollout phase as a function of its inputs, drawing from
-        ``gen``: (env states, obs_vec, trajectory, bootstrap value).  It
-        syncs nothing with the host, so it is what the rollout graph
-        captures."""
+        ``gen``: (env states, obs_vec, policy carry, trajectory, bootstrap
+        value).  It syncs nothing with the host, so it is what the rollout
+        graph captures."""
         env, cfg, pcfg = self.env, self.env.cfg, self.pcfg
         n, horizon = pcfg.n_envs, pcfg.horizon
         tape = env.data if data is None else data
@@ -335,8 +387,13 @@ class PPOTrainer:
             "reward": torch.empty((horizon, n), dtype=torch.float32, device=dev),
             "done": torch.empty((horizon, n), dtype=torch.bool, device=dev),
         }
+        if self._recurrent:
+            # the carry that entered each step, replayed by the update
+            traj["pcarry"] = tuple(torch.empty((horizon, *x.shape), dtype=x.dtype, device=dev)
+                                   for x in pcarry)
+            carry0 = self.initial_carry(1)
         for t in range(horizon):
-            logits, value = self.policy_forward(params, obs_vec)
+            logits, value, pcarry2 = self.policy_step(params, obs_vec, pcarry)
             if actions is None:
                 action = sample_categorical(logits, gen)
             else:
@@ -354,8 +411,13 @@ class PPOTrainer:
             traj["done"][t] = done
             env_states = masked_reset(done, reset_state, env_states2)
             obs_vec = masked_reset(done, reset_vec, obs_vec2)
-        _, last_value = self.policy_forward(params, obs_vec)
-        return env_states, obs_vec, traj, last_value
+            if self._recurrent:
+                for store, x in zip(traj["pcarry"], pcarry):
+                    store[t] = x
+                pcarry2 = masked_reset(done, carry0, pcarry2)
+            pcarry = pcarry2
+        _, last_value, _ = self.policy_step(params, obs_vec, pcarry)
+        return env_states, obs_vec, pcarry, traj, last_value
 
     # ------------------------------------------------------------------
     def _gae(self, traj, last_value):
@@ -374,8 +436,9 @@ class PPOTrainer:
         return advs, advs + value
 
     def _loss(self, params, batch):
-        """(total loss, dict of its terms) of one flat minibatch."""
-        logits, value = self.policy_forward(params, batch["obs"])
+        """(total loss, dict of its terms) of one flat minibatch (a
+        recurrent policy replays each sample from its stored carry)."""
+        logits, value = self.policy_forward(params, batch["obs"], batch.get("pcarry", ()))
         logp_all = F.log_softmax(logits, dim=-1)
         logp = logp_all.gather(1, batch["action"].to(torch.int64)[:, None])[:, 0]
         entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1))
@@ -417,8 +480,8 @@ class PPOTrainer:
         """:meth:`update_phase` from the update graph, its outputs cloned."""
         traj, last_value = rollout_out
         inputs = dict(params=state.params, opt_state=state.opt_state, env_states=state.env_states,
-                      obs_vec=state.obs_vec, traj=traj, last_value=last_value,
-                      **self._hooks(permutations=permutations))
+                      obs_vec=state.obs_vec, policy_carry=state.policy_carry, traj=traj,
+                      last_value=last_value, **self._hooks(permutations=permutations))
         out = graphs.clone_tree(
             self._update_graphed(inputs, self._stage(data), state.generator).outputs)
         return self._updated_state(out, state.generator), out["metrics"]
@@ -428,24 +491,27 @@ class PPOTrainer:
         """:meth:`update_phase` op by op, drawing from ``state.generator``."""
         traj, last_value = rollout_out
         out = self._update_body(state.params, state.opt_state, state.env_states, state.obs_vec,
-                                traj, last_value, data, state.generator, permutations)
+                                state.policy_carry, traj, last_value, data, state.generator,
+                                permutations)
         return self._updated_state(out, state.generator), out["metrics"]
 
     @staticmethod
     def _updated_state(out, generator) -> TrainState:
         return TrainState(out["params"], out["opt_state"], out["env_states"], out["obs_vec"],
-                          generator)
+                          generator, out["policy_carry"])
 
-    def _update_body(self, params, opt_state, env_states, obs_vec, traj, last_value, data, gen,
-                     permutations=None):
+    def _update_body(self, params, opt_state, env_states, obs_vec, pcarry, traj, last_value,
+                     data, gen, permutations=None):
         """The update phase as a function of its inputs, drawing from
-        ``gen``: a dict of params, opt_state, env_states, obs_vec and
-        metrics.  It syncs nothing with the host, so it is what the update
-        graph captures."""
+        ``gen``: a dict of params, opt_state, env_states, obs_vec,
+        policy_carry and metrics.  It syncs nothing with the host, so it is
+        what the update graph captures."""
         pcfg = self.pcfg
         advs, returns = self._gae(traj, last_value)
         fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
                   "adv": advs, "ret": returns}
+        if self._recurrent:
+            fields["pcarry"] = traj["pcarry"]
         n_perm, mb, take = minibatch_plan(
             fields, scheme=pcfg.minibatch_scheme, n_envs=pcfg.n_envs,
             horizon=pcfg.horizon, minibatches=pcfg.minibatches,
@@ -509,6 +575,8 @@ class PPOTrainer:
             reset_state, reset_vec = self._fresh(data)
             env_states = masked_reset(poison, reset_state, env_states)
             obs_vec = masked_reset(poison, reset_vec, obs_vec)
+            if self._recurrent:
+                pcarry = masked_reset(poison, self.initial_carry(1), pcarry)
             metrics["poisoned_env_resets"] = poison.to(torch.float32).sum()
         else:
             metrics = dict(
@@ -521,7 +589,7 @@ class PPOTrainer:
                 grad_norm=norms.mean(),
             )
         return dict(params=params, opt_state=opt_state, env_states=env_states, obs_vec=obs_vec,
-                    metrics=metrics)
+                    policy_carry=pcarry, metrics=metrics)
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, data=None):
@@ -570,11 +638,6 @@ class PPOTrainer:
         return state, dict(zip(metrics, torch.stack(history).unbind(1)))
 
     # ---- the graphs (core/graphs.py) ------------------------------------
-    def _hooks(self, **hooks):
-        """The test hooks that are set, on the device: static inputs of a
-        graph of their own."""
-        return {k: v.to(self.device) for k, v in hooks.items() if v is not None}
-
     def _stage(self, data):
         """The tape the graphs read for ``data``: None for the env's own,
         else the staging tape with ``data``'s tensors copied in (every tape
@@ -601,26 +664,19 @@ class PPOTrainer:
             graph = self._graphs[key] = build()
         return graph
 
-    def _replay(self, graph, inputs, generator):
-        """Run ``graph`` on ``inputs`` from ``generator``'s state, advance
-        ``generator`` as the eager phase would, and return ``graph``."""
-        self._gen.set_state(generator.get_state())
-        graph(inputs)
-        generator.set_state(self._gen.get_state())
-        return graph
-
     def _rollout_graphed(self, state: TrainState, tape, hooks):
         """The rollout graph for ``state`` on ``tape`` (None or the staging
-        tape), run: its static outputs are env_states, obs_vec, traj and
-        last_value."""
+        tape), run: its static outputs are env_states, obs_vec,
+        policy_carry, traj and last_value."""
         inputs = dict(params=state.params, env_states=state.env_states, obs_vec=state.obs_vec,
-                      **hooks)
+                      policy_carry=state.policy_carry, **hooks)
 
         def body(x):
-            env_states, obs_vec, traj, last_value = self._rollout_body(
-                x["params"], x["env_states"], x["obs_vec"], tape, self._gen,
+            env_states, obs_vec, pcarry, traj, last_value = self._rollout_body(
+                x["params"], x["env_states"], x["obs_vec"], x["policy_carry"], tape, self._gen,
                 x.get("actions"), x.get("start_offsets"))
-            return dict(env_states=env_states, obs_vec=obs_vec, traj=traj, last_value=last_value)
+            return dict(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry, traj=traj,
+                        last_value=last_value)
 
         graph = self._graph("rollout", inputs, tape, lambda: graphs.PhaseGraph(
             body, graphs.clone_tree(inputs), self._gen))
@@ -628,15 +684,15 @@ class PPOTrainer:
 
     def _update_graphed(self, inputs, tape, generator, shared=()):
         """The update graph for ``inputs`` on ``tape``, run: its static
-        outputs are params, opt_state, env_states, obs_vec and metrics.  A
-        graph built here takes the tensors of ``inputs`` named in
-        ``shared`` as its static buffers (the rollout graph's), and copies
-        of the rest."""
+        outputs are params, opt_state, env_states, obs_vec, policy_carry
+        and metrics.  A graph built here takes the tensors of ``inputs``
+        named in ``shared`` as its static buffers (the rollout graph's),
+        and copies of the rest."""
 
         def body(x):
             return self._update_body(x["params"], x["opt_state"], x["env_states"], x["obs_vec"],
-                                     x["traj"], x["last_value"], tape, self._gen,
-                                     x.get("permutations"))
+                                     x["policy_carry"], x["traj"], x["last_value"], tape,
+                                     self._gen, x.get("permutations"))
 
         graph = self._graph("update", inputs, tape, lambda: graphs.PhaseGraph(body, {
             k: v if k in shared else graphs.clone_tree(v) for k, v in inputs.items()}, self._gen))
@@ -649,7 +705,7 @@ class PPOTrainer:
         copied between the two."""
         graph = self._rollout_graphed(state, tape, {})
         inputs = dict(params=graph.inputs["params"], opt_state=state.opt_state, **graph.outputs)
-        shared = ("params", "env_states", "obs_vec", "traj", "last_value")
+        shared = ("params", "env_states", "obs_vec", "policy_carry", "traj", "last_value")
         out = self._update_graphed(inputs, tape, state.generator, shared).outputs
         return self._updated_state(out, state.generator), out["metrics"]
 
@@ -741,7 +797,7 @@ def greedy_policy_driver(trainer: PPOTrainer) -> Driver:
 
     def act(carry, obs, i, gen):
         params, pcarry = carry
-        logits, _ = trainer.policy_forward(params, trainer._encode(obs))
+        logits, _, pcarry = trainer.policy_step(params, trainer._encode(obs), pcarry)
         return torch.argmax(logits, dim=-1).to(torch.int32), (params, pcarry)
 
     trainer._greedy_driver = Driver(init=lambda: (), act=act)
@@ -756,7 +812,7 @@ def evaluate(trainer: PPOTrainer, params, steps: Optional[int] = None, seed: int
     gen = torch.Generator(device=env.device).manual_seed(int(seed))
     state, out = rollout_chunked(
         env.cfg, env.params, env.require_resident_data("evaluate"), greedy_policy_driver(trainer),
-        steps, gen, driver_carry=(params, ()), cache=env.episode_graphs,
+        steps, gen, driver_carry=(params, trainer.initial_carry(1)), cache=env.episode_graphs,
     )
     initial_cash = float(env.params.initial_cash)
     equity = out["equity_delta"][:, 0].cpu().numpy().astype(np.float64) + initial_cash

@@ -13,7 +13,11 @@ in ops/cases.py within 2^-7 x max|emulation| (only the order of the f32
 sums differs, so the two round nearly the same value to bf16: at most one
 ulp of the largest element), and two backward calls must give the same
 bits.  K3 also at N = 1, 63 and 8,193 with both rewards and mark_pred and
-live all true, all false and mixed.  K5 (LOB stream
+live all true, all false and mixed, and its sharpe path at N = 1, 63,
+4,096 and 8,193 with rings of 2 and 64 slots, stepped on its own outputs
+across a ring wrap.  The train step's graphs (PPO on every configuration,
+with the LSTM and on the sharpe reward; IMPALA's two phases) equal the
+eager phases.  K5 (LOB stream
 matching) is int32: books and fill records ``torch.equal``; so is K8
 (one bar of the LOB venue): final books and results, at every template,
 on the venue's bars and where lot sums wrap int32; and K9 (a bar's flow
@@ -165,6 +169,57 @@ def test_cuda_mark_reward_equals_plain_at_edge_sizes(cuda_device, n, reward, mar
     assert torch.equal(ours_r, ref_r)
     for name in env_dynamics.MARK_OUT_FIELDS:
         assert torch.equal(getattr(ours_st, name), getattr(ref_st, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mark_kind,live_kind", cases.K3_FLAG_PATTERNS, ids="-".join)
+@pytest.mark.parametrize("window", cases.SHARPE_WINDOWS)
+@pytest.mark.parametrize("n", cases.SHARPE_SIZES)
+def test_cuda_mark_reward_sharpe_equals_plain_across_a_ring_wrap(cuda_device, n, window,
+                                                                 mark_kind, live_kind):
+    """K3's sharpe path, stepped W + 3 times on its own outputs (the ring
+    wraps), against the plain version at every step: torch.equal."""
+    cfg, params, st, close, rng = cases.sharpe_case(n, window, n + window, cuda_device)
+    closes = torch.from_numpy(cases.sharpe_closes(close, window + 3, rng)).to(cuda_device)
+    wrapped = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    nonzero = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    for step in range(window + 3):
+        mark_pred, live = (torch.from_numpy(cases.flag_pattern(kind, n, rng)).to(cuda_device)
+                           for kind in (mark_kind, live_kind))
+        before = (env_dynamics.mark_reward.launches, env_dynamics.mark_reward.sharpe_launches)
+        ring_in = st.reward_buffer.clone()
+        ours_st, ours_r = env_dynamics.mark_reward(st, closes[step], mark_pred, live, cfg, params)
+        assert (env_dynamics.mark_reward.launches, env_dynamics.mark_reward.sharpe_launches) \
+            == (before[0] + 1, before[1] + 1)
+        ref_st, ref_r = env_dynamics.mark_reward_plain(st, closes[step], mark_pred, live, cfg,
+                                                       params)
+        assert torch.equal(ours_r, ref_r), f"step {step}: reward"
+        for name in env_dynamics.MARK_OUT_FIELDS + ("reward_buffer", "reward_buffer_idx",
+                                                     "reward_buffer_len"):
+            assert torch.equal(getattr(ours_st, name), getattr(ref_st, name)), f"step {step}: {name}"
+        assert torch.equal(st.reward_buffer, ring_in)  # the input ring is left as it was
+        wrapped |= live & (st.reward_buffer_idx == window - 1)
+        nonzero |= ours_r != 0
+        st = ours_st
+    if live_kind == "all" or (live_kind == "mixed" and n > 1):
+        # W + 3 live steps pass every slot; a lone env live half the
+        # steps may not reach slot W - 1
+        assert bool(wrapped.any())
+    if live_kind != "none" and mark_kind == "all":  # unmarked equity gives equal returns
+        assert bool(nonzero.any())
+
+
+@pytest.mark.cuda
+def test_cuda_mark_reward_sharpe_rejects_a_ring_it_cannot_take(cuda_device):
+    cfg, params, st, close, _ = cases.sharpe_case(63, 64, 0, cuda_device)
+    c = torch.from_numpy(close).to(cuda_device)
+    flags = torch.ones(63, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="reward_buffer"):
+        env_dynamics.mark_reward(st._replace(reward_buffer=st.reward_buffer[:, :32]), c, flags,
+                                 flags, cfg, params)
+    with pytest.raises(ValueError, match="reward_buffer_idx"):
+        env_dynamics.mark_reward(st._replace(reward_buffer_idx=st.reward_buffer_idx.long()), c,
+                                 flags, flags, cfg, params)
 
 
 @pytest.mark.cuda
@@ -630,7 +685,7 @@ def test_cuda_streamed_episode_equals_resident_and_cpu(cuda_device, tmp_path, mo
 # every output and on the generator's state after (the same kernels in the
 # same order draw the same numbers).
 REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
-GRAPH_KINDS = ["mlp", "transformer_ring", "curriculum", "lob"]
+GRAPH_KINDS = ["mlp", "transformer_ring", "curriculum", "lob", "ppo_lstm", "sharpe"]
 
 
 def _graph_trainer(kind, tmp_path, **over):
@@ -648,6 +703,11 @@ def _graph_trainer(kind, tmp_path, **over):
             policy_kwargs={"d_model": 32, "n_heads": 2, "n_layers": 2})
     elif kind == "lob":
         config = flagship.lob_config(csv, lob_messages_per_bar=16, **small)
+    elif kind == "ppo_lstm":
+        config = flagship.impala_lstm_config(csv, trainer="ppo", num_envs=64, ppo_horizon=8,
+                                             policy_kwargs={"hidden": 32})
+    elif kind == "sharpe":
+        config = flagship.baseline_sharpe_config(csv, **small)
     else:
         paths = []
         for i in range(2):
@@ -665,11 +725,18 @@ def _tape(trainer):
 
 
 def _copy(state):
+    """A train state (PPO's or IMPALA's) with every tensor cloned and a
+    generator of its own at the same state."""
     from gymfx_tpu_torch.core import graphs
 
-    gen = torch.Generator(device=state.generator.device)
-    gen.set_state(state.generator.get_state())
-    return type(state)(*graphs.clone_tree(tuple(state[:4])), gen)
+    def one(x):
+        if isinstance(x, torch.Generator):
+            gen = torch.Generator(device=x.device)
+            gen.set_state(x.get_state())
+            return gen
+        return graphs.clone_tree(x)
+
+    return type(state)(*(one(x) for x in state))
 
 
 def _assert_equal(a, b, what):
@@ -682,7 +749,8 @@ def _assert_equal(a, b, what):
 
 
 def _assert_states_equal(a, b, what):
-    _assert_equal(tuple(a[:4]), tuple(b[:4]), what)
+    fields = lambda s: tuple(x for x in s if not isinstance(x, torch.Generator))  # noqa: E731
+    _assert_equal(fields(a), fields(b), what)
     assert torch.equal(a.generator.get_state(), b.generator.get_state()), f"{what}: generator"
 
 
@@ -714,6 +782,41 @@ def test_cuda_graphed_phases_and_train_many_equal_eager(cuda_device, tmp_path, k
     _assert_states_equal(many, ref, "train_many state")
     _assert_equal(stacked, {k: torch.stack([m[k] for m in history]) for k in stacked},
                   "train_many metrics")
+    assert all(g.graph is not None for g in trainer._graphs.values())
+
+
+@pytest.mark.cuda
+def test_cuda_impala_graphed_phases_and_train_many_equal_eager(cuda_device):
+    """IMPALA's rollout and update phases from their graphs against the
+    same phases op by op, then train_many (k = 3, a sync among them)
+    against three eager steps: torch.equal, the generator included."""
+    from gymfx_tpu_torch.config import flagship
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.train.impala import ImpalaTrainer, impala_config_from
+
+    csv = str(REPO / "examples" / "data" / "eurusd_sample.csv")
+    config = flagship.impala_lstm_config(csv, num_envs=64, impala_unroll=8, impala_sync_every=2,
+                                         policy_kwargs={"hidden": 32})
+    trainer = ImpalaTrainer(Environment(config), impala_config_from(config))
+    s0 = trainer.init_state(3)
+    a, ra = trainer.rollout_phase(_copy(s0))
+    b, rb = trainer._rollout_phase_eager(_copy(s0))
+    _assert_equal(ra, rb, "rollout segment and start carry")
+    _assert_states_equal(a, b, "rollout state")
+    ua, ma = trainer.update_phase(a, ra)
+    ub, mb = trainer._update_phase_eager(b, rb)
+    _assert_states_equal(ua, ub, "update state")
+    _assert_equal(ma, mb, "update metrics")
+    assert float(ma["nonfinite_skips"]) == 0.0
+    many, stacked = trainer.train_many(_copy(ub), 3)
+    ref, history = _copy(ub), []
+    for _ in range(3):
+        ref, metrics = trainer._update_phase_eager(*trainer._rollout_phase_eager(ref))
+        history.append(metrics)
+    _assert_states_equal(many, ref, "train_many state")
+    _assert_equal(stacked, {k: torch.stack([m[k] for m in history]) for k in stacked},
+                  "train_many metrics")
+    assert sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"]
     assert all(g.graph is not None for g in trainer._graphs.values())
 
 

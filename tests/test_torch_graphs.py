@@ -10,6 +10,8 @@ envs, horizon 4-8, narrow policies; the flagship MLP, transformer_ring
 with K4's plain version, the curriculum with random starts and a
 compressed tape, and the LOB venue with 8 flow messages a bar):
 
+* (the kinds also take PPO with the LSTM policy and its carry, and PPO on
+  the sharpe reward; IMPALA's two phases have tests of their own)
 * the bodies the graphs capture never sync the host: a
   ``TorchFunctionMode`` refuses ``item``, ``tolist``, ``bool``, ``int``,
   ``float``, ``__index__``, ``cpu``, ``numpy``, ``nonzero``,
@@ -57,7 +59,7 @@ from test_torch_rollout import _pair as _rollout_pair
 
 CSV = str(__import__("pathlib").Path(__file__).resolve().parent.parent
           / "examples" / "data" / "eurusd_sample.csv")
-KINDS = ["mlp", "transformer_ring", "curriculum", "lob"]
+KINDS = ["mlp", "transformer_ring", "curriculum", "lob", "ppo_lstm", "sharpe"]
 
 
 class NoHostSync(TorchFunctionMode):
@@ -105,6 +107,11 @@ def _trainer(kind, tmp_path):
             policy_kwargs={"d_model": 16, "n_heads": 2, "n_layers": 2})
     elif kind == "lob":
         config = flagship.lob_config(CSV, lob_messages_per_bar=8, **small)
+    elif kind == "ppo_lstm":
+        config = flagship.impala_lstm_config(CSV, trainer="ppo", **{**small, "policy_kwargs":
+                                                                     {"hidden": 16}})
+    elif kind == "sharpe":
+        config = flagship.baseline_sharpe_config(CSV, window=5, atr_period=3, **small)
     else:
         config = flagship.curriculum_config(_tapes(tmp_path), timeframe="M1", **small)
     with warnings.catch_warnings():
@@ -117,9 +124,20 @@ def _data(trainer, i=1):
 
 
 def _copy(state):
-    gen = torch.Generator()
-    gen.set_state(state.generator.get_state())
-    return TrainState(*graphs.clone_tree(tuple(state[:4])), gen)
+    """A train state (PPO's or IMPALA's) with every tensor cloned and a
+    generator of its own at the same state."""
+    def one(x):
+        if isinstance(x, torch.Generator):
+            gen = torch.Generator()
+            gen.set_state(x.get_state())
+            return gen
+        return graphs.clone_tree(x)
+
+    return type(state)(*(one(x) for x in state))
+
+
+def _tensor_fields(state):
+    return tuple(x for x in state if not isinstance(x, torch.Generator))
 
 
 def _assert_equal(a, b, what):
@@ -130,7 +148,7 @@ def _assert_equal(a, b, what):
 
 
 def _assert_states_equal(a, b, what):
-    _assert_equal(tuple(a[:4]), tuple(b[:4]), what)
+    _assert_equal(_tensor_fields(a), _tensor_fields(b), what)
     assert torch.equal(a.generator.get_state(), b.generator.get_state()), f"{what}: generator"
 
 
@@ -206,6 +224,54 @@ def test_new_inputs_in_the_same_buffers_and_returned_phases_keep_their_values(tm
     donated, _ = trainer._train_many_graphed(_copy(s1), None, 1)
     update = [g for (kind, *_), g in trainer._graphs.items() if kind == "update"][0]
     assert donated.params is update.outputs["params"]
+
+
+def _impala():
+    from gymfx_tpu_torch.train.impala import ImpalaTrainer, impala_config_from
+
+    config = flagship.impala_lstm_config(CSV, num_envs=8, impala_unroll=6, window_size=8,
+                                         impala_sync_every=2, policy_kwargs={"hidden": 16})
+    return ImpalaTrainer(Environment(config, device="cpu"), impala_config_from(config))
+
+
+def test_impala_captured_bodies_never_sync_the_host():
+    trainer = _impala()
+    icfg = trainer.icfg
+    state = trainer.init_state(0)
+    trainer._train_many_graphed(_copy(state), 1)
+    actions = torch.randint(0, 3, (icfg.unroll, icfg.n_envs), generator=torch.Generator().manual_seed(1))
+    inter, rollout_out = trainer._rollout_phase_graphed(_copy(state), actions=actions)
+    trainer._update_phase_graphed(inter, rollout_out)
+    assert sorted(k for k, *_ in trainer._graphs) == ["rollout", "rollout", "update"]
+    for graph in trainer._graphs.values():
+        with NoHostSync():
+            graph.body(graph.inputs)
+
+
+def test_impala_static_buffer_phases_equal_the_eager_phases():
+    trainer = _impala()
+    s0 = trainer.init_state(3)
+    a, rollout_a = trainer._rollout_phase_graphed(_copy(s0))
+    b, rollout_b = trainer._rollout_phase_eager(_copy(s0))
+    _assert_equal(rollout_a, rollout_b, "rollout segment and start carry")
+    _assert_states_equal(a, b, "rollout state")
+    ua, ma = trainer._update_phase_graphed(a, rollout_a)
+    ub, mb = trainer._update_phase_eager(b, rollout_b)
+    _assert_states_equal(ua, ub, "update state")
+    _assert_equal(ma, mb, "update metrics")
+    # the chained graphs (the update reading the rollout graph's buffers,
+    # the start carry its static input) against eager steps, over a sync
+    many, stacked = trainer._train_many_graphed(_copy(ub), 3)
+    ref, history = _copy(ub), []
+    for _ in range(3):
+        ref, metrics = trainer._update_phase_eager(*trainer._rollout_phase_eager(ref))
+        history.append(metrics)
+    _assert_states_equal(many, ref, "train_many state")
+    _assert_equal(stacked, {k: torch.stack([m[k] for m in history]) for k in stacked},
+                  "train_many metrics")
+    assert sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"]
+    for k in many.learner_params:
+        assert many.actor_params[k].data_ptr() != many.learner_params[k].data_ptr()
 
 
 def test_a_pick_copied_into_the_staging_tape_gives_the_picks_phase(tmp_path):

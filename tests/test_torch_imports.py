@@ -7,7 +7,8 @@
   compressed tape (K6's plain version), curriculum training over two
   tapes, the scaled-feature export (K7's plain version), and the command
   line: one training iteration with a checkpoint, then the policy mode on
-  that checkpoint; then checks that none of those packages was imported.
+  that checkpoint, for PPO and for IMPALA (the LSTM policy on the sharpe
+  reward); then checks that none of those packages was imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
   raise; configurations and options the port does not take raise
@@ -77,6 +78,15 @@ trained = main(cli + ["--mode", "training", "--train_total_steps", "16",
                       "--checkpoint_every", "1"], device="cpu")
 assert trained["train_metrics"]["last_checkpoint_step"] == 16
 assert main(cli + ["--driver_mode", "policy", "--steps", "50"], device="cpu")["checkpoint_step"] == 16
+with open(d + "/impala.json", "w") as fh:
+    json.dump({"policy": "lstm", "policy_kwargs": {"hidden": 8}, "trainer": "impala",
+               "impala_unroll": 4, "reward_plugin": "sharpe_reward", "window": 5}, fh)
+cli[cli.index(d + "/small.json")] = d + "/impala.json"
+cli[cli.index(d + "/ckpt")] = d + "/impala_ckpt"
+trained = main(cli + ["--mode", "training", "--train_total_steps", "16",
+                      "--checkpoint_every", "1"], device="cpu")
+assert trained["train_metrics"]["last_checkpoint_step"] == 16
+assert main(cli + ["--driver_mode", "policy", "--steps", "50"], device="cpu")["checkpoint_step"] == 16
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """
@@ -131,7 +141,8 @@ def test_environment_without_cuda_and_without_device_raises():
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"reward_plugin": "sharpe_reward"}, 7),
+    # sharpe_reward runs since PR 13; bfloat16 envs are what item 7 still holds
+    ({"reward_plugin": "sharpe_reward", "compute_dtype": "bfloat16"}, 7),
     ({"venue": "lob", "feed": "scengen"}, 14),
     ({"strategy_plugin": "my_plugin"}, 9),
     ({"financing_enabled": True}, 8),
@@ -148,11 +159,16 @@ def test_float64_env_on_the_card_raises_before_any_kernel():
 
 
 def test_policies_other_than_mlp_raise():
+    """The policies item 11 still holds (the LSTM trains since PR 13):
+    the flax TransformerPolicy and the continuous LSTM."""
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     env = Environment(_config(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        PPOTrainer(env, ppo_config_from(_config(policy="lstm", num_envs=4)))
+        PPOTrainer(env, ppo_config_from(_config(policy="transformer", num_envs=4)))
+    config = _config(policy="lstm", num_envs=4, action_space_mode="continuous")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
 
 
 @pytest.mark.parametrize("over,item", [
