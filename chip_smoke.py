@@ -240,6 +240,42 @@ failure exits non-zero:
             main (--trainer impala, impala_lstm_config on the same tape):
             one iteration with a checkpoint, then --driver_mode policy on
             it, which must reproduce the held-out summary.
+14. portfolio BASELINE.json's configuration 5 (config/flagship.py
+            portfolio_pbt_config, "baseline-portfolio-pbt": PBT over the
+            EUR/USD, GBP/USD, USD/JPY portfolio, the flax Transformer
+            policy in float32, 4 members x 64 envs x 3 pairs = 768 pair
+            rows, horizon 64, exploit/explore every 2 steps).  Before it,
+            in the kernels phase, K2 and K3 with a param row per env
+            (three distinct rows) against their plain versions
+            (torch.equal) at 768 and 24,576 rows over every flag
+            combination and both rewards, and both param forms timed at
+            8,192 rows (the per-row form also at 24,576).  Then the
+            env itself with per-pair commission and slippage
+            (portfolio_param_overrides: config 5 sets none, so its own
+            steps pass every param 0-d): 4 steps at 768 rows, one K2
+            and one K3 launch a step, equal to the CPU's plain step
+            (torch.equal).  Then 3 population steps with one
+            exploit/explore, graphed against eager (torch.equal,
+            generator included); K2 and K3 4 x 64
+            launches at capture, 64 each by name in one rollout replay
+            (one launch a step for every row of the population); no
+            capture after the first step; the phases' ms and env
+            steps/s, and PBTTrainer.train over the configuration's
+            200,000 env steps (12 population steps).  Then the same
+            population under policy=transformer_ring (K4's f32 route):
+            one step graphed == eager, K4's f32 forward and backward
+            counted by name in the replays, and K4 f32 forward and
+            backward checked against their plain versions and timed at
+            the rollout's (256, 32, 4, 32) and an update minibatch's
+            (4,096, 32, 4, 32) beside its plain version, SDPA and its
+            bound.
+15. portfolio cli  main --trainer portfolio on portfolio_transformer_config
+            (examples/configs/train_portfolio_transformer.json: 512 envs,
+            margin 0.02, leverage 20) with eval_split 0.3 for 2
+            iterations with a checkpoint each; --driver_mode policy on it,
+            which must reproduce the held-out summary; main --trainer pbt
+            on portfolio_pbt_config with eval_split 0.3 for 4 population
+            steps, the best member's held-out summary.
 13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -281,6 +317,9 @@ STREAM_SHARD_BARS = 256
 # iterations; the diagnostic and evaluation episodes held to eager ones of
 # 2,048 steps (the eager step is host-bound)
 CLI_BARS, CLI_ITERS, CLI_EAGER_STEPS = 2 ** 15, 3, 2048
+# K2 and K3 with a param row per env: baseline-portfolio-pbt's rows (4
+# members x 64 envs x 3 pairs) and the flagship's envs x 3 pairs
+PORTFOLIO_ROWS = (768, 8192 * 3)
 # the held-out summary's numbers (summarize_trading and the step Sharpe)
 CLI_SUMMARY_KEYS = ("initial_cash", "final_equity", "total_return", "max_drawdown_pct",
                     "max_drawdown_money", "sharpe_ratio", "sqn", "trades_total", "trades_won",
@@ -2696,6 +2735,408 @@ def cli_phase(torch, results, tmp) -> None:
     }
 
 
+# ---------------------------------------------------------------- portfolio
+def check_kernels_k2_k3_rows(torch, dev, kernels) -> None:
+    """K2 and K3 with a param row per env (a portfolio's pair rows):
+    equal to their plain versions (torch.equal) at PORTFOLIO_ROWS rows
+    with three distinct param rows (cases.PAIR_PARAM_ROWS), every K2 flag
+    combination and both rewards; then both param forms timed at N_ENVS
+    rows, and the per-row form at N_ENVS * 3."""
+    from gymfx_tpu_torch.core.types import EnvConfig
+    from gymfx_tpu_torch.ops import cases, env_dynamics
+
+    def ledger(cfg, seed, n):
+        fields, mark, bars, advance, rng = cases.ledger_case(seed, n)
+        st = cases.ledger_state(cfg, {**fields, **mark}, dev)
+        o, h, l, c, acc = (torch.from_numpy(bars[k]).to(dev) for k in ("o", "h", "l", "c", "accrual"))
+        adv, mark_pred, live = (torch.from_numpy(x).to(dev) for x in
+                                (advance, rng.random(n) < 0.7, rng.random(n) < 0.8))
+        return st, (o, h, l, c, acc if cfg.financing_enabled else None), adv, mark_pred, live
+
+    combos = 0
+    for n in PORTFOLIO_ROWS:
+        p = cases.row_params(cases.PAIR_PARAM_ROWS, n, dev)
+        for flags in cases.FLAG_GRID:
+            for reward in cases.REWARDS:
+                cfg = cases.flag_config(flags, reward, WINDOW)
+                st, (o, h, l, c, acc), adv, mark, live = ledger(cfg, 100 + combos, n)
+                ref = env_dynamics.fill_brackets_plain(st, o, h, l, c, acc, adv, cfg, p)
+                ours = env_dynamics.fill_brackets(st._replace(exec_diag=st.exec_diag.clone()),
+                                                  o, h, l, c, acc, adv, cfg, p)
+                for field in ref._fields:
+                    check(torch.equal(getattr(ours, field), getattr(ref, field)),
+                          f"K2 per-row params != plain at {n} rows: {field} {cfg}")
+                ours_st, ours_r = env_dynamics.mark_reward(st, c, mark, live, cfg, p)
+                ref_st, ref_r = env_dynamics.mark_reward_plain(st, c, mark, live, cfg, p)
+                check(torch.equal(ours_r, ref_r), f"K3 per-row params != plain at {n} rows: reward")
+                for field in env_dynamics.MARK_OUT_FIELDS:
+                    check(torch.equal(getattr(ours_st, field), getattr(ref_st, field)),
+                          f"K3 per-row params != plain at {n} rows: {field} {cfg}")
+                combos += 1
+    torch.cuda.synchronize()
+    print(f"kernels: K2 and K3 with a param row per env equal to plain (torch.equal) on "
+          f"{combos} cases ({list(PORTFOLIO_ROWS)} rows x {len(cases.FLAG_GRID)} flag "
+          f"combinations x {len(cases.REWARDS)} rewards, {len(cases.PAIR_PARAM_ROWS)} distinct "
+          f"param rows)")
+    # both forms, back to back, at the flagship's flags
+    cfg = EnvConfig(window_size=WINDOW)
+    for key in ("fill_brackets", "mark_reward"):
+        kernels[key]["param_rows"] = {}
+    for n in (N_ENVS, N_ENVS * 3):
+        st, (o, h, l, c, _), adv, mark, live = ledger(cfg, 7, n)
+        forms = {"rows": cases.row_params(cases.PAIR_PARAM_ROWS, n, dev)}
+        if n == N_ENVS:
+            forms["shared"] = cases.env_params({**cases.PARAM_SETS["plain"], **cases.MARK_PARAMS}, dev)
+        fields2 = [getattr(st, k) for k in env_dynamics.FILL_FLOAT_FIELDS
+                   + env_dynamics.FILL_BOOL_FIELDS + env_dynamics.FILL_INT_FIELDS]
+        moved2 = 2 * nbytes(*fields2) + nbytes(o, h, l, adv) + 2 * n * st.exec_diag.element_size()
+        moved3 = nbytes(*(getattr(st, k) for k in env_dynamics.MARK_FLOAT_FIELDS), c, mark, live) \
+            + nbytes(*(getattr(st, k) for k in env_dynamics.MARK_OUT_FIELDS), st.pos)
+        for form, p in forms.items():
+            par2 = len(env_dynamics.FILL_PARAM_FIELDS) * 4 * (n if form == "rows" else 1)
+            par3 = len(env_dynamics.MARK_PARAM_FIELDS) * 4 * (n if form == "rows" else 1)
+            b2 = bound(moved2 + par2, OPS_PER_ITEM["fill_brackets"] * n, F32_FLOPS)
+            b3 = bound(moved3 + par3, OPS_PER_ITEM["mark_reward"] * n, F32_FLOPS)
+            row2 = dict(
+                n=n, ms=device_ms(torch, lambda: env_dynamics.fill_brackets(
+                    st, o, h, l, c, None, adv, cfg, p)),
+                plain_ms=device_ms(torch, lambda: env_dynamics.fill_brackets_plain(
+                    st, o, h, l, c, None, adv, cfg, p)),
+                bound_ms=b2[0], bound_by=b2[1])
+            row3 = dict(
+                n=n, ms=device_ms(torch, lambda: env_dynamics.mark_reward(st, c, mark, live, cfg, p)),
+                plain_ms=device_ms(torch, lambda: env_dynamics.mark_reward_plain(
+                    st, c, mark, live, cfg, p)),
+                bound_ms=b3[0], bound_by=b3[1])
+            for key, row in (("fill_brackets", row2), ("mark_reward", row3)):
+                kernels[key]["param_rows"][f"{form}_{n}"] = row
+                print(f"  {key} params {form} at N = {n:,}: {row['ms'] * 1e3:.2f} us/call "
+                      f"(plain {row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} "
+                      f"us by {row['bound_by']})")
+
+
+def check_portfolio_param_rows(torch) -> dict:
+    """baseline-portfolio-pbt's env with per-pair commission and slippage
+    (``portfolio_param_overrides``), so that K2 and K3 take those params
+    as (R,) columns and the rest as 0-d values: 4 steps over 256 books
+    (the PBT's 768 rows), one K2 and one K3 launch a step, every output
+    equal to the CPU's plain step (torch.equal).  The kernels alone meet
+    their plain versions at 24,576 rows too (check_kernels_k2_k3_rows).  (Config 5 itself sets no per-pair values: its pairs
+    share every param, and its steps launch with no per-row column.)"""
+    import numpy as np
+
+    from gymfx_tpu_torch.config.flagship import portfolio_pbt_config
+    from gymfx_tpu_torch.core.portfolio import PortfolioEnvironment
+    from gymfx_tpu_torch.ops import env_dynamics
+    from gymfx_tpu_torch.resilience.guards import tree_leaves
+
+    config = portfolio_pbt_config(str(ROOT), portfolio_param_overrides={
+        "EUR_USD": {"commission": 2e-5, "slippage": 1e-5},
+        "GBP_USD": {"commission": 5e-5, "slippage": 3e-5}})
+    envs = {d: PortfolioEnvironment(config, device=d) for d in ("cpu", "cuda")}
+    k2k3 = (env_dynamics.fill_brackets, env_dynamics.mark_reward)
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for books in (PORTFOLIO_ROWS[0] // 3,):
+        pair = envs["cuda"].rows(books)[0].pair
+        per_row = sorted(k for k in env_dynamics.FILL_PARAM_FIELDS + env_dynamics.MARK_PARAM_FIELDS
+                         if getattr(pair, k).dim() == 1)
+        check(per_row == ["commission", "slippage"],
+              f"portfolio param rows: per-row params {per_row}, expected commission and slippage")
+        states = {d: envs[d].reset(books)[0] for d in envs}
+        for _ in range(4):
+            actions = torch.from_numpy(rng.integers(0, 4, (books, 3)))
+            before = count_launches(k2k3)
+            stepped = {d: envs[d].step(states[d], actions.to(d)) for d in envs}
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in count_launches(k2k3).items()}
+            check(launched == {"fill_brackets": 1, "mark_reward": 1},
+                  f"portfolio param rows: {launched} launches in a step of {books * 3} rows")
+            for a, b in zip(tree_leaves(stepped["cpu"]), tree_leaves(stepped["cuda"])):
+                check(torch.equal(a, b.cpu()),
+                      f"portfolio param rows: a step of {books * 3} rows != the CPU's plain step")
+            states = {d: stepped[d][0] for d in envs}
+        out[books * 3] = per_row
+    print(f"portfolio param rows: 4 env steps at {list(out)} rows with per-pair commission and "
+          f"slippage (per-row columns {per_row}, the other params 0-d) equal to the CPU's plain "
+          f"step (torch.equal, every leaf), one K2 and one K3 launch a step")
+    return {"rows": list(out), "per_row_params": per_row, "steps": 4}
+
+
+def pbt_steps(torch, pbt, state, fitness, iters: int, eager: bool):
+    """``iters`` population steps with exploit/explore after each
+    ``pbt.pbt.interval``-th, as PBTTrainer.train runs them (its rng from
+    SEED + 1): (state, fitness, replacements, per-step rows)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    rows, replaced = [], []
+    for it in range(iters):
+        t0 = time.perf_counter()
+        state, metrics = pbt.trainer.train_step(state, eager=eager)
+        torch.cuda.synchronize()
+        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                         metrics={k: v.tolist() for k, v in metrics.items()}))
+        decay = pbt.pbt.fitness_decay
+        fitness = decay * fitness + (1 - decay) * metrics["mean_reward"].cpu().numpy().astype(
+            np.float64)
+        if (it + 1) % pbt.pbt.interval == 0:
+            state, fitness, who = pbt._exploit_explore(state, fitness, rng)
+            replaced.append(who)
+    return state, fitness, replaced, rows
+
+
+def portfolio_phase(torch, kernels, results) -> None:
+    """baseline-portfolio-pbt at full size: 3 population steps with one
+    exploit/explore graphed against eager (torch.equal), K2 and K3 64
+    launches each in one rollout replay for the whole population, no
+    capture after the first step, env steps/s through the phases and
+    through PBTTrainer.train; the same population under the
+    transformer_ring policy (K4's f32 route): one step graphed == eager,
+    K4's launches by name, K4 f32 timed at the path's shapes."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from gymfx_tpu_torch.config.flagship import portfolio_pbt_config
+    from gymfx_tpu_torch.core.portfolio import PortfolioEnvironment
+    from gymfx_tpu_torch.ops import cases, env_dynamics
+    from gymfx_tpu_torch.ops import fused_attention as fa
+    from gymfx_tpu_torch.train.pbt import _pbt_config_from, make_portfolio_pbt
+
+    results["portfolio_param_rows"] = check_portfolio_param_rows(torch)
+    config = portfolio_pbt_config(str(ROOT))
+    env = PortfolioEnvironment(config)
+    pbt = make_portfolio_pbt(dict(config), _pbt_config_from(config), env)
+    tr = pbt.trainer
+    pcfg, members, pairs = tr.pcfg, pbt.pbt.population, env.cfg.n_pairs
+    rows_n = members * pcfg.n_envs * pairs
+    label = "portfolio pbt"
+    state0, fitness0 = pbt.init_population(SEED)
+    k2k3 = (env_dynamics.fill_brackets, env_dynamics.mark_reward)
+    before = count_launches(k2k3)
+    t0 = time.perf_counter()
+    ga, fa_, rep_a, rows_a = pbt_steps(torch, pbt, copy_state(torch, state0), fitness0.copy(), 3,
+                                       eager=False)
+    graphed_s = time.perf_counter() - t0
+    at_capture = {k: v - before[k] for k, v in count_launches(k2k3).items()}
+    check(tr.captures() == 2, f"{label}: {tr.captures()} graphs captured, expected 2")
+    # captured at step 1: 3 warm-ups and the capture, 64 steps each; steps
+    # 2 and 3 replay (launch nothing from the host)
+    check(at_capture == {"fill_brackets": 4 * pcfg.horizon, "mark_reward": 4 * pcfg.horizon},
+          f"{label}: K2/K3 launches at capture {at_capture}")
+    before = count_launches(k2k3)
+    t0 = time.perf_counter()
+    gb, fb_, rep_b, rows_b = pbt_steps(torch, pbt, copy_state(torch, state0), fitness0.copy(), 3,
+                                       eager=True)
+    eager_s = time.perf_counter() - t0
+    eager_launches = {k: v - before[k] for k, v in count_launches(k2k3).items()}
+    check(eager_launches == {"fill_brackets": 3 * pcfg.horizon, "mark_reward": 3 * pcfg.horizon},
+          f"{label}: eager K2/K3 launches {eager_launches}, expected one each a step")
+    check(rep_a == rep_b and len(rep_a) == 1, f"{label}: replaced {rep_a} graphed, {rep_b} eager")
+    check(np.array_equal(fa_, fb_), f"{label}: fitness {fa_} graphed, {fb_} eager")
+    check_same_state(torch, ga, gb, f"{label} 3 population steps with an exploit/explore")
+    traced, _ = replay_launches(torch, first_graphs(tr), {
+        "rollout": {"fill_brackets": pcfg.horizon, "mark_reward": pcfg.horizon}, "update": {}},
+        label)
+    print(f"{label}: graphed == eager (torch.equal, generator included) over 3 population steps "
+          f"of {members} members x {pcfg.n_envs} envs x {pairs} pairs ({rows_n} rows) with one "
+          f"exploit/explore (replaced {rep_a[0]}); K2/K3 one launch a step for every row: "
+          f"{traced['rollout']['fill_brackets']} and {traced['rollout']['mark_reward']} in one "
+          f"rollout replay (profiler trace, {traced['rollout']['all']} kernels), "
+          f"{traced['update']['all']} kernels in an update replay; 3 steps {graphed_s:.1f} s "
+          f"graphed (the first captures), {eager_s:.1f} s eager")
+    # the phases' times, graphed, from the state after those steps
+    s = ga
+    phase_rows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        inter, out = tr.rollout_phase(s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, _ = tr.update_phase(inter, out)
+        torch.cuda.synchronize()
+        phase_rows.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    roll_ms = statistics.median(r for r, _ in phase_rows[1:])
+    upd_ms = statistics.median(u for _, u in phase_rows[1:])
+    step_ms = statistics.median(r["step_ms"] for r in rows_a[1:])
+    per_iter = members * pcfg.n_envs * pcfg.horizon
+    t0 = time.perf_counter()
+    result = pbt.train(int(config["train_total_steps"]), seed=SEED)
+    train_s = time.perf_counter() - t0
+    check(tr.captures() == 2, f"{label}: PBTTrainer.train captured again ({tr.captures()} graphs)")
+    check(result["iterations"] == int(config["train_total_steps"]) // per_iter,
+          f"{label}: {result['iterations']} iterations")
+    check(all(math.isfinite(x) for x in result["fitness"]), f"{label}: fitness {result['fitness']}")
+    results["portfolio_pbt"] = dict(
+        rows=rows_n, graphed_steps=rows_a, eager_steps=rows_b, launches_at_capture=at_capture,
+        replay_launches=traced, rollout_ms=roll_ms, update_ms=upd_ms, step_ms=step_ms,
+        phases_env_steps_per_s=per_iter / (roll_ms + upd_ms) * 1e3,
+        step_env_steps_per_s=per_iter / step_ms * 1e3,
+        train_env_steps_per_s=result["env_steps_per_sec"], train_s=train_s,
+        train_iterations=result["iterations"], replacements=result["replacements"],
+        capture_s=capture_seconds(tr))
+    print(f"{label}: rollout replay {roll_ms:.1f} ms, update replay {upd_ms:.1f} ms (medians of "
+          f"2 of 3), train step {step_ms:.1f} ms: {per_iter / (roll_ms + upd_ms) * 1e3:,.0f} env "
+          f"steps/s through the phases; PBTTrainer.train {result['iterations']} population steps "
+          f"({result['total_env_steps']:,} env steps) {train_s:.1f} s, "
+          f"{result['env_steps_per_sec']:,.0f} env steps/s, no capture; replacements "
+          f"{result['replacements']}; {results['device']['nvidia_smi']}")
+    del pbt, tr, ga, gb, s, inter, out, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- transformer_ring on the portfolio: K4's f32 route
+    config = portfolio_pbt_config(str(ROOT), policy="transformer_ring")
+    pbt = make_portfolio_pbt(dict(config), _pbt_config_from(config), env)
+    tr = pbt.trainer
+    label = "portfolio ring"
+    state0, _ = pbt.init_population(SEED)
+    k4 = (fa.attention_forward, fa.attention_backward)
+    before = count_launches(k4)
+    ga, ma = tr.train_step(copy_state(torch, state0))
+    torch.cuda.synchronize()
+    at_capture = {k: v - before[k] for k, v in count_launches(k4).items()}
+    gb, mb = tr.train_step(copy_state(torch, state0), eager=True)
+    check_same_state(torch, ga, gb, f"{label} one population step")
+    check_same(torch, ma, mb, f"{label} metrics")
+    layers = len(tr.policy.encoder.layers)
+    updates = pcfg.epochs * pcfg.minibatches
+    fwd_roll = layers * (pcfg.horizon + 1)
+    traced, names = replay_launches(torch, first_graphs(tr), {
+        "rollout": {"fill_brackets": pcfg.horizon, "mark_reward": pcfg.horizon,
+                    "attention_forward": fwd_roll},
+        "update": {"attention_forward": layers * updates}}, label)
+    f32_bwd = sum("attn_bwd_kernel" in n for n in names["update"])
+    f32_fwd = sum("attn_fwd_kernel" in n for n in names["rollout"] + names["update"])
+    check(f32_bwd == layers * updates, f"{label}: {f32_bwd} f32 backward kernels in an update replay")
+    check(f32_fwd == fwd_roll + layers * updates, f"{label}: {f32_fwd} f32 forward kernels")
+    print(f"{label}: one population step graphed == eager (torch.equal); K4 f32 in one rollout "
+          f"replay {traced['rollout']['attention_forward']} forwards, in one update replay "
+          f"{traced['update']['attention_forward']} forwards and {f32_bwd} backwards "
+          f"(attn_fwd_kernel / attn_bwd_kernel by name); at capture {at_capture}")
+    # K4's f32 route at this path's shapes: the rollout's books and an
+    # update minibatch's samples, members folded into the batch
+    heads, d_model = tr.policy.encoder.layers[0].n_heads, tr.policy.encoder.pos_embed.shape[1]
+    mb_samples = members * (pcfg.n_envs // pcfg.minibatches) * pcfg.horizon
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timed = {}
+    for name, b in (("rollout", members * pcfg.n_envs), ("update", mb_samples)):
+        shape = (b, env.cfg.window_size, heads, d_model // heads)
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+        bsz, s, h, d = shape
+        pairs_qk = bsz * h * s * s
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # forward and dq/dk/dv against the plain versions, each within
+        # attention_tolerance of the plain result
+        err, bwd_err = check_k4_case(torch, fa, cases, q, k, v, g, False)
+        for key, e in (("forward", err), ("backward", bwd_err)):
+            kernels[f"attention_{key}"]["max_abs_err"] = max(
+                kernels[f"attention_{key}"]["max_abs_err"], e)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        gt = g.transpose(1, 2)
+        fb, fby = bound(4 * nbytes(q), 4 * d * pairs_qk, F32_FLOPS)
+        bb, bby = bound(7 * nbytes(q), 10 * d * pairs_qk, F32_FLOPS)
+        timed[name] = {
+            "shape": list(shape),
+            "forward": dict(ms=device_ms(torch, lambda: fa.attention_forward(q, k, v)),
+                            plain_ms=event_ms(torch, lambda: fa.attention_forward_plain(q, k, v)),
+                            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt), reps=10),
+                            bound_ms=fb, bound_by=fby, max_abs_err=err),
+            "backward": dict(ms=device_ms(torch, lambda: fa.attention_backward(q, k, v, g)),
+                             plain_ms=event_ms(torch, lambda: fa.attention_backward_plain(q, k, v, g)),
+                             library_ms=event_ms(torch, lambda: torch.autograd.grad(
+                                 lib_out, leaves, gt, retain_graph=True), reps=10),
+                             bound_ms=bb, bound_by=bby, max_abs_err=bwd_err),
+        }
+        for key in ("forward", "backward"):
+            row = timed[name][key]
+            print(f"  K4 f32 {key} at the portfolio {name} shape {shape}: {row['ms']:.4f} ms "
+                  f"(plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms by {row['bound_by']})")
+    for key in ("forward", "backward"):
+        kernels[f"attention_{key}"]["portfolio_f32"] = {
+            name: dict(timed[name][key], shape=timed[name]["shape"]) for name in timed}
+    kernels["attention_forward"]["portfolio_f32"]["launches"] = {
+        "rollout_replay": traced["rollout"]["attention_forward"],
+        "update_replay": traced["update"]["attention_forward"]}
+    kernels["attention_backward"]["portfolio_f32"]["launches"] = {"update_replay": f32_bwd}
+    results["portfolio_ring"] = dict(replay_launches=traced, at_capture=at_capture,
+                                     capture_s=capture_seconds(tr), k4_f32=timed)
+    del pbt, tr, ga, gb, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def portfolio_cli_phase(torch, results, tmp) -> None:
+    """The command line on the portfolio: ``main --trainer portfolio`` on
+    portfolio-transformer-train for 2 iterations with a checkpoint each,
+    ``--driver_mode policy`` on that checkpoint (the held-out summary
+    again), and ``main --trainer pbt`` on baseline-portfolio-pbt with
+    ``eval_split`` (the best member's held-out summary)."""
+    from gymfx_tpu_torch.app.main import main as cli_main
+    from gymfx_tpu_torch.config.flagship import portfolio_pbt_config, portfolio_transformer_config
+    from gymfx_tpu_torch.train import checkpoint as ckpt
+
+    tmp = pathlib.Path(tmp) / "portfolio_cli"
+    tmp.mkdir()
+
+    def cli(name, config, *argv):
+        cfg_file = tmp / f"{name}_config.json"
+        cfg_file.write_text(json.dumps(config))
+        t0 = time.perf_counter()
+        out = cli_main(["--load_config", str(cfg_file), "--results_file", str(tmp / f"{name}.json"),
+                        "--save_config", str(tmp / "saved_config.json"), "--quiet_mode", *argv])
+        torch.cuda.synchronize()
+        check(json.loads((tmp / f"{name}.json").read_text())
+              == json.loads(json.dumps(out, default=str)), f"cli {name}: results file != summary")
+        return out, time.perf_counter() - t0
+
+    config = portfolio_transformer_config(str(ROOT), eval_split=0.3)
+    per_iter = config["num_envs"] * config["ppo_horizon"]
+    ck = tmp / "portfolio_ck"
+    trained, train_s = cli("portfolio_train", config, "--checkpoint_dir", str(ck),
+                           "--train_total_steps", str(2 * per_iter), "--checkpoint_every", "1")
+    check(trained["trainer"] == "portfolio_ppo" and trained["eval_scope"] == "held_out",
+          f"cli portfolio: {trained.get('trainer')} {trained.get('eval_scope')}")
+    tm = trained["train_metrics"]
+    check(tm["iterations"] == 2 and tm["last_checkpoint_step"] == 2 * per_iter, f"cli portfolio {tm}")
+    for key in ("loss", "policy_loss", "value_loss", "entropy"):
+        check(math.isfinite(tm[key]), f"cli portfolio training: {key} {tm[key]}")
+    steps_on_disk = ckpt._list_steps(ck)
+    check(steps_on_disk == [per_iter, 2 * per_iter], f"cli portfolio checkpoint steps {steps_on_disk}")
+    policy = dict(config, mode="inference", driver_mode="policy", policy=None)
+    evaluated, eval_s = cli("portfolio_policy", policy, "--checkpoint_dir", str(ck),
+                            "--steps", str(trained["eval_bars"] - 1))
+    for key in CLI_SUMMARY_KEYS + ("pairs",):
+        check(evaluated.get(key) == trained.get(key),
+              f"cli portfolio policy mode: {key} {evaluated.get(key)} != training's {trained.get(key)}")
+    print(f"cli portfolio: main --trainer portfolio (portfolio-transformer-train, "
+          f"{config['num_envs']} envs x {config['ppo_horizon']} steps x 3 pairs) 2 iterations, "
+          f"checkpoints {steps_on_disk}, held-out total_return {trained['total_return']:.6g} on "
+          f"{trained['eval_bars']} bars, {tm['env_steps_per_sec']:,.0f} env steps/s, {train_s:.1f} s; "
+          f"--driver_mode policy reproduces the held-out summary, {eval_s:.1f} s")
+    # 4 population steps (2 exploit/explore): the portfolio phase trains
+    # the full 12 through PBTTrainer.train
+    config = portfolio_pbt_config(str(ROOT), eval_split=0.3)
+    pbt_steps_n = 4 * config["pbt_population"] * config["num_envs"] * config["ppo_horizon"]
+    out, pbt_s = cli("pbt_train", config, "--train_total_steps", str(pbt_steps_n))
+    check(out["trainer"] == "pbt_portfolio" and out["eval_scope"] == "held_out"
+          and "in_sample" in out, f"cli pbt: {out.get('trainer')} {out.get('eval_scope')}")
+    pbt = out["pbt"]
+    check(pbt["population"] == 4 and len(pbt["fitness"]) == 4 and 0 <= pbt["best_member"] < 4
+          and pbt["iterations"] == 4, f"cli pbt: {pbt}")
+    for key in CLI_SUMMARY_KEYS:
+        check(key in out, f"cli pbt results lack {key!r}")
+    print(f"cli pbt: main --trainer pbt (baseline-portfolio-pbt, eval_split 0.3) "
+          f"{pbt['iterations']} population steps, {pbt['env_steps_per_sec']:,.0f} env steps/s, "
+          f"best member {pbt['best_member']}, held-out total_return {out['total_return']:.6g}, "
+          f"{pbt_s:.1f} s")
+    results["portfolio_cli"] = dict(train_s=train_s, eval_s=eval_s, pbt_s=pbt_s,
+                                    train_metrics=tm, pbt=pbt)
+
+
 def main() -> None:
     if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
         fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
@@ -2769,6 +3210,7 @@ def main() -> None:
     timed("kernels K8", check_kernels_k8, torch, dev, kernels, results, built["lob"][1])
     timed("kernels K9", check_kernels_k9, torch, dev, kernels, results, built["flow"][1])
     timed("kernels K6-K7", check_kernels_k6_k7, torch, dev, kernels)
+    timed("kernels K2-K3 rows", check_kernels_k2_k3_rows, torch, dev, kernels)
 
     # ---- 4. main: PPO training at flagship width ---------------------------
     timed("main", main_phase, torch, kernels, results)
@@ -2780,6 +3222,8 @@ def main() -> None:
     timed("episode", episode_phase, torch, results)
     # ---- 11. baseline: BASELINE.json's configurations 3 and 4 ---------------
     timed("baseline", baseline_phase, torch, kernels, results)
+    # ---- 14. portfolio: BASELINE.json's configuration 5 ---------------------
+    timed("portfolio", portfolio_phase, torch, kernels, results)
     # ---- 8-10. the data path: curriculum, export, stream --------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tapes_")
     try:
@@ -2796,6 +3240,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         # ---- 12. cli: the command line's PPO and IMPALA modes -------------
         timed("cli", cli_phase, torch, results, tmp)
+        # ---- 15. portfolio cli: the command line's portfolio and PBT modes
+        timed("portfolio cli", portfolio_cli_phase, torch, results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

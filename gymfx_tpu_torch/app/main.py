@@ -13,17 +13,23 @@ key for key the JAX package's:
 * ``mode=training``: ``train/ppo.train_from_config`` (checkpoints, the
   non-finite skip guard, ``resume_training``, the greedy evaluation on
   the held-out bars), or with ``trainer=impala``
-  ``train/impala.train_impala_from_config`` (the same, for IMPALA);
+  ``train/impala.train_impala_from_config`` (the same, for IMPALA), with
+  ``trainer=portfolio`` ``train/portfolio_ppo.train_portfolio_from_config``
+  (the multi-pair portfolio over ``portfolio_files``), with
+  ``trainer=pbt`` ``train/pbt.train_pbt_from_config`` (population-based
+  training over the portfolio);
 * ``driver_mode=policy``: ``train/ppo.eval_policy_from_config`` restores
-  a checkpoint's params and reruns its greedy evaluation;
+  a checkpoint's params and reruns its greedy evaluation (with
+  ``portfolio_files``, ``train/portfolio_ppo.
+  eval_portfolio_policy_from_config``);
 * anything else: :func:`_run_env_scan`, the diagnostic episode of a
   built-in driver, from the episode graphs on the card; with ``num_envs >
   1`` a batch evaluation of that many envs in one batched episode.
 
 Every entry runs on the card unless the caller passes ``device="cpu"``.
 What the port does not take raises ``core/types.not_ported`` naming its
-ROADMAP Queue 1 item: PBT, the portfolio trainer,
-``portfolio_files`` and ``mode=optimization`` (12), ``verify_execution``
+ROADMAP Queue 1 item: ``mode=optimization`` and PBT without
+``portfolio_files`` (12), ``verify_execution``
 (13), the gym loop (18), a third-party plugin (9), and, in training, the
 elastic controller and a mesh (17), fault profiles and telemetry (10).
 
@@ -159,8 +165,14 @@ def run_mode(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
         trainer = str(config.get("trainer", "ppo")).lower()
         if trainer == "impala":
             return train_impala_from_config(config, device=device)
-        if trainer in ("pbt", "portfolio"):
-            raise not_ported(f"trainer={trainer}", 12)
+        if trainer == "pbt":
+            from gymfx_tpu_torch.train.pbt import train_pbt_from_config
+
+            return train_pbt_from_config(config, device=device)
+        if trainer == "portfolio":
+            from gymfx_tpu_torch.train.portfolio_ppo import train_portfolio_from_config
+
+            return train_portfolio_from_config(config, device=device)
         return train_from_config(config, device=device)
     if config.get("mode") == "optimization":
         raise not_ported("mode=optimization (train/optimize.py)", 12)
@@ -172,7 +184,9 @@ def run_mode(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
                 "separate inference invocation"
             )
         if config.get("portfolio_files"):
-            raise not_ported("portfolio_files (the portfolio policy's evaluation)", 12)
+            from gymfx_tpu_torch.train.portfolio_ppo import eval_portfolio_policy_from_config
+
+            return eval_portfolio_policy_from_config(config, device=device)
         return eval_policy_from_config(config, device=device)
     return _run_env(config, device=device)
 

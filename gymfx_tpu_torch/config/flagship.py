@@ -50,6 +50,20 @@ config 4 as the JAX package benches it (tools/tpu_bench.py:60-75, the
 64, window 32, the LSTM policy (hidden 256) in bfloat16 and
 ``dd_penalized_reward`` at the default penalty, on
 examples/data/eurusd_sample.csv.
+
+``portfolio_pbt_config`` ("baseline-portfolio-pbt"): BASELINE.json's
+config 5 as the JAX package runs it at full size (tools/baseline_configs.py:
+139-157): population-based training over the three-pair portfolio
+(EUR_USD, GBP_USD, USD_JPY from examples/data/), the flax Transformer
+policy (d_model 128, 4 heads, 2 layers) over a window of 32 bars, float32,
+a population of 4 x 64 envs, horizon 64, exploit/explore every 2 steps,
+200,000 env steps (12 population steps of 16,384).  Its env step runs K2
+and K3 over the 768 pair rows; no feature columns, so K1 does not run.
+
+``portfolio_transformer_config`` ("portfolio-transformer-train"):
+examples/configs/train_portfolio_transformer.json, the single portfolio
+trainer: 512 envs, horizon 64, ``margin_rate`` 0.02 (the account's margin
+preflight and closeout on), leverage 20, the Transformer policy.
 """
 from __future__ import annotations
 
@@ -158,6 +172,57 @@ def impala_lstm_config(input_data_file: str, **over) -> Dict[str, Any]:
         policy_dtype="bfloat16",
         reward_plugin="dd_penalized_reward",
         window_size=32,
+    )
+    config.update(over)
+    return config
+
+
+PORTFOLIO_FILES = {
+    "EUR_USD": "examples/data/eurusd_sample.csv",
+    "GBP_USD": "examples/data/gbpusd_sample.csv",
+    "USD_JPY": "examples/data/usdjpy_sample.csv",
+}
+
+
+def _portfolio_files(root: str) -> Dict[str, str]:
+    return {pair: f"{root.rstrip('/')}/{path}" if root else path
+            for pair, path in PORTFOLIO_FILES.items()}
+
+
+def portfolio_pbt_config(root: str = "", **over) -> Dict[str, Any]:
+    """baseline-portfolio-pbt; ``root`` is the directory that holds
+    examples/ (the working directory when empty)."""
+    config = dict(DEFAULT_VALUES)
+    config.update(
+        mode="training",
+        trainer="pbt",
+        portfolio_files=_portfolio_files(root),
+        policy="transformer",
+        window_size=32,
+        num_envs=64,
+        ppo_horizon=64,
+        pbt_population=4,
+        pbt_interval=2,
+        train_total_steps=200_000,
+    )
+    config.update(over)
+    return config
+
+
+def portfolio_transformer_config(root: str = "", **over) -> Dict[str, Any]:
+    """portfolio-transformer-train (examples/configs/
+    train_portfolio_transformer.json)."""
+    config = dict(DEFAULT_VALUES)
+    config.update(
+        mode="training",
+        trainer="portfolio",
+        policy="transformer",
+        portfolio_files=_portfolio_files(root),
+        num_envs=512,
+        ppo_horizon=64,
+        train_total_steps=5_000_000,
+        margin_rate=0.02,
+        leverage=20.0,
     )
     config.update(over)
     return config

@@ -13,6 +13,16 @@ points (``gymfx_tpu_torch.resolve_device``).
                          (Dense_0 the embedding, OptimizedLSTMCell_0's eight
                          gate kernels stacked i, f, g, o, Dense_1 logits,
                          Dense_2 value)
+  ring_transformer_params_from_flax
+                         a flax RingTransformerPolicy (or the portfolio's
+                         PortfolioRingTransformerPolicy) tree -> state_dict
+  transformer_params_from_flax
+                         a flax TransformerPolicy (or PortfolioTransformerPolicy)
+                         tree -> state_dict (MultiHeadDotProductAttention's
+                         query/key/value/out as Linear layers)
+  stack_members          P members' state dicts -> one with a leading (P,)
+                         member axis (the portfolio trainers' params; the
+                         portfolio MLP converts through mlp_params_from_flax)
   env_state_from_numpy   a batched EnvState's arrays -> EnvState tensors
   market_data_from_numpy a MarketData's arrays -> MarketData tensors (a
                          streamed shard's row0 kept, as an int)
@@ -89,15 +99,10 @@ def ring_transformer_params_from_flax(tree: Mapping[str, Any],
     out: Dict[str, torch.Tensor] = {}
 
     def linear(name: str, dense, in_axes: int = 1) -> None:
-        # a kernel's first ``in_axes`` axes are contracted: (in..., out...)
-        kernel = np.asarray(dense["kernel"])
-        fan_in = int(np.prod(kernel.shape[:in_axes]))
-        out[f"{name}.weight"] = _tensor(kernel.reshape(fan_in, -1).T, device)
-        out[f"{name}.bias"] = _tensor(np.asarray(dense["bias"]).reshape(-1), device)
+        _linear(out, name, dense, device, in_axes)
 
     def norm(name: str, key: str) -> None:
-        out[f"{name}.weight"] = _tensor(enc[key]["scale"], device)
-        out[f"{name}.bias"] = _tensor(enc[key]["bias"], device)
+        _norm(out, name, enc[key], device)
 
     linear("encoder.embed", enc["Dense_0"])
     out["encoder.pos_embed"] = _tensor(enc["pos_embed"], device)
@@ -113,6 +118,59 @@ def ring_transformer_params_from_flax(tree: Mapping[str, Any],
     for key, head in (("Dense_0", "logits"), ("Dense_1", "value")):
         linear(head, params[key])
     return out
+
+
+def transformer_params_from_flax(tree: Mapping[str, Any],
+                                 device=None) -> Dict[str, torch.Tensor]:
+    """State dict for :class:`~gymfx_tpu_torch.train.policies.TransformerPolicy`
+    or the portfolio's ``PortfolioTransformerPolicy`` (train/portfolio_ppo.py)
+    from the flax tree of either (the outer "params" level is optional).
+    Flax names the modules in call order: Dense_0 the token embedding,
+    ``pos_embed``; per layer l, LayerNorm_{2l}, MultiHeadDotProductAttention_l
+    (query/key/value kernels (d_model, H, Dh), out (H, Dh, d_model)),
+    LayerNorm_{2l+1}, Dense_{2l+1} and Dense_{2l+2} (the MLP); LayerNorm_{2L}
+    last, then Dense_{2L+1} and Dense_{2L+2}, the logits and value heads."""
+    device = resolve_device(device)
+    params = tree.get("params", tree)
+    n_layers = sum(1 for k in params if k.startswith("MultiHeadDotProductAttention_"))
+    out: Dict[str, torch.Tensor] = {}
+    _linear(out, "encoder.embed", params["Dense_0"], device)
+    out["encoder.pos_embed"] = _tensor(params["pos_embed"], device)
+    for l in range(n_layers):
+        pre = f"encoder.layers.{l}"
+        _norm(out, f"{pre}.ln1", params[f"LayerNorm_{2 * l}"], device)
+        mha = params[f"MultiHeadDotProductAttention_{l}"]
+        for proj, name in (("query", "q"), ("key", "k"), ("value", "v"), ("out", "out")):
+            _linear(out, f"{pre}.{name}", mha[proj], device, 2 if proj == "out" else 1)
+        _norm(out, f"{pre}.ln2", params[f"LayerNorm_{2 * l + 1}"], device)
+        for j, fc in enumerate(("fc1", "fc2")):
+            _linear(out, f"{pre}.{fc}", params[f"Dense_{2 * l + 1 + j}"], device)
+    _norm(out, "encoder.norm", params[f"LayerNorm_{2 * n_layers}"], device)
+    for j, head in enumerate(("logits", "value")):
+        _linear(out, head, params[f"Dense_{2 * n_layers + 1 + j}"], device)
+    return out
+
+
+def stack_members(members) -> Dict[str, torch.Tensor]:
+    """One state dict of P members' state dicts (each a dict of tensors of
+    one structure), every leaf stacked on a leading (P,) member axis: the
+    population's params (train/pbt.py), or one member's as P = 1."""
+    members = list(members)
+    return {k: torch.stack([m[k] for m in members]) for k in members[0]}
+
+
+def _linear(out: Dict[str, torch.Tensor], name: str, dense, device, in_axes: int = 1) -> None:
+    """``name``.weight / .bias from a flax Dense or DenseGeneral whose
+    kernel's first ``in_axes`` axes are contracted: (in..., out...)."""
+    kernel = np.asarray(dense["kernel"])
+    fan_in = int(np.prod(kernel.shape[:in_axes]))
+    out[f"{name}.weight"] = _tensor(kernel.reshape(fan_in, -1).T, device)
+    out[f"{name}.bias"] = _tensor(np.asarray(dense["bias"]).reshape(-1), device)
+
+
+def _norm(out: Dict[str, torch.Tensor], name: str, layer_norm, device) -> None:
+    out[f"{name}.weight"] = _tensor(layer_norm["scale"], device)
+    out[f"{name}.bias"] = _tensor(layer_norm["bias"], device)
 
 
 def env_state_from_numpy(state: Any, device=None) -> EnvState:

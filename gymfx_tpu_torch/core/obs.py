@@ -31,7 +31,9 @@ def local_rows(cfg: EnvConfig, data: MarketData, idx, size: int):
     clamped to the array, as XLA's gather clamps them (torch would wrap a
     negative index and fault past the end; the frozen cursor of an
     episode that ended in an earlier shard reads outside this one).  A
-    staged shard's ``row0`` is a 0-d device tensor (core/rollout.py)."""
+    staged shard's ``row0`` is a 0-d device tensor (core/rollout.py); a
+    portfolio's tape, its pairs' tapes end to end, has an (N,) tensor of
+    per-row bases (core/portfolio.py)."""
     i = idx.long()
     if isinstance(data.row0, int) and data.row0 == 0 and data.close.shape[0] == cfg.n_bars:
         return i

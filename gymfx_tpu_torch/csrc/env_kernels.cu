@@ -330,6 +330,15 @@ constexpr int kSlipOpen = 1, kSlipLimit = 2, kSlipMatch = 4, kFinancing = 8;
 constexpr int kLimitShift = 4;  // 0 cross, 1 touch, 2 conservative
 constexpr int kOhlc = 64;
 
+// Each param of K2 and K3 is one value for every row, or a column of n
+// values, one per row (a portfolio's pairs: the Pallas kernels' (b, NP)
+// params block); bit k of `par_rows` says which param k is.  A shared
+// param is read at offset 0 by every thread (one cached value), so the
+// single-pair paths move the bytes they moved before.
+__device__ __forceinline__ float param_at(const float* const* par, int k, int par_rows, int e) {
+  return __ldg(par[k] + (((par_rows >> k) & 1) ? e : 0));
+}
+
 // Outputs are three blocks, one per type, (fields, n) row-major: field k
 // of env e at out_f[k * n + e] (ops/env_dynamics.py fill_outputs).
 struct FillArgs {
@@ -421,7 +430,8 @@ __device__ __forceinline__ Ledger select_ledger(bool c, const Ledger& a, const L
 // select(advance, ...) does.
 template <bool kMatch, bool kFinance, bool kGaps>
 __global__ void __launch_bounds__(kFillThreads)
-fill_brackets_kernel(FillArgs a, int n, int diag_stride, int diag_idx, int flags) {
+fill_brackets_kernel(FillArgs a, int n, int diag_stride, int diag_idx, int flags,
+                     int par_rows) {
   const int e = blockIdx.x * kFillThreads + threadIdx.x;
   if (e >= n) return;
   const bool slip_open = flags & kSlipOpen;
@@ -431,9 +441,11 @@ fill_brackets_kernel(FillArgs a, int n, int diag_stride, int diag_idx, int flags
   const bool strict = limit == 2;
 
   // ---- every load
-  const FillParams p{__ldg(a.par[kSlippage]), __ldg(a.par[kCommission]),
-                     __ldg(a.par[kPriceTick]), __ldg(a.par[kSizeStep]),
-                     __ldg(a.par[kMinQty])};
+  const FillParams p{param_at(a.par, kSlippage, par_rows, e),
+                     param_at(a.par, kCommission, par_rows, e),
+                     param_at(a.par, kPriceTick, par_rows, e),
+                     param_at(a.par, kSizeStep, par_rows, e),
+                     param_at(a.par, kMinQty, par_rows, e)};
   const Ledger s0{__ldg(a.in_f[kPos] + e), __ldg(a.in_f[kEntry] + e),
                   __ldg(a.in_f[kCash] + e), __ldg(a.in_f[kCommPaid] + e),
                   __ldg(a.in_f[kLastCost] + e), __ldg(a.in_f[kPnlSum] + e),
@@ -618,13 +630,14 @@ __device__ __forceinline__ void sharpe_slot(float& v, int slot, int write_slot, 
 }
 
 __global__ void __launch_bounds__(kMarkThreads)
-mark_reward_kernel(MarkArgs a, SharpeArgs s, int n, int reward_kind, int window) {
+mark_reward_kernel(MarkArgs a, SharpeArgs s, int n, int reward_kind, int window,
+                   int par_rows) {
   const int e = blockIdx.x * kMarkThreads + threadIdx.x;
   if (e >= n) return;
   // ---- every load
-  const float initial_cash = __ldg(a.par[kInitialCash]);
-  const float reward_scale = __ldg(a.par[kRewardScale]);
-  const float penalty_lambda = __ldg(a.par[kPenaltyLambda]);
+  const float initial_cash = param_at(a.par, kInitialCash, par_rows, e);
+  const float reward_scale = param_at(a.par, kRewardScale, par_rows, e);
+  const float penalty_lambda = param_at(a.par, kPenaltyLambda, par_rows, e);
   const float pos = __ldg(a.in[kMPos] + e), cash = __ldg(a.in[kMCash] + e);
   const float eq0 = __ldg(a.in[kMEq] + e), prev0 = __ldg(a.in[kMPrev] + e);
   const float peak0 = __ldg(a.in[kMPeak] + e);
@@ -721,7 +734,7 @@ unsigned int blocks_for(long long n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
 }
 
-using FillKernel = void (*)(FillArgs, int, int, int, int);
+using FillKernel = void (*)(FillArgs, int, int, int, int, int);
 // indexed by slip_match | financing << 1 | ohlc << 2
 constexpr FillKernel kFillKernels[8] = {
     fill_brackets_kernel<false, false, false>, fill_brackets_kernel<true, false, false>,
@@ -823,26 +836,29 @@ int gymfx_step_obs(const void* win, const void* mean, const void* stdv,
   return (int)cudaGetLastError();
 }
 
+// par_rows: bit k set where param k is a column of n values (param_at)
 int gymfx_fill_brackets(void* const* ptrs, long long n, int diag_stride,
-                        int diag_idx, int flags, void* stream) {
+                        int diag_idx, int flags, int par_rows, void* stream) {
   if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int which = ((flags & kSlipMatch) ? 1 : 0) | ((flags & kFinancing) ? 2 : 0) |
                     ((flags & kOhlc) ? 4 : 0);
   kFillKernels[which]<<<blocks_for(n, kFillThreads), kFillThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      unpack<FillArgs>(ptrs), (int)n, diag_stride, diag_idx, flags);
+      unpack<FillArgs>(ptrs), (int)n, diag_stride, diag_idx, flags, par_rows);
   return (int)cudaGetLastError();
 }
 
 // sharpe_ptrs: a SharpeArgs (nulls unless reward_kind is the sharpe
-// reward); window: the ring's length (>= 1 for the sharpe reward)
+// reward); window: the ring's length (>= 1 for the sharpe reward);
+// par_rows as K2's
 int gymfx_mark_reward(void* const* ptrs, void* const* sharpe_ptrs, long long n,
-                      int reward_kind, int window, void* stream) {
+                      int reward_kind, int window, int par_rows, void* stream) {
   if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (reward_kind == kRewardSharpe && window < 1) return (int)cudaErrorInvalidValue;
   mark_reward_kernel<<<blocks_for(n, kMarkThreads), kMarkThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      unpack<MarkArgs>(ptrs), unpack<SharpeArgs>(sharpe_ptrs), (int)n, reward_kind, window);
+      unpack<MarkArgs>(ptrs), unpack<SharpeArgs>(sharpe_ptrs), (int)n, reward_kind, window,
+      par_rows);
   return (int)cudaGetLastError();
 }
 

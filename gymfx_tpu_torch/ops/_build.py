@@ -141,9 +141,9 @@ def _bind_env(lib: ctypes.CDLL) -> None:
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.gymfx_step_obs.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.gymfx_step_obs.restype = i
-    lib.gymfx_fill_brackets.argtypes = [vp, ll, i, i, i, vp]
+    lib.gymfx_fill_brackets.argtypes = [vp, ll, i, i, i, i, vp]
     lib.gymfx_fill_brackets.restype = i
-    lib.gymfx_mark_reward.argtypes = [vp, vp, ll, i, i, vp]
+    lib.gymfx_mark_reward.argtypes = [vp, vp, ll, i, i, i, vp]
     lib.gymfx_mark_reward.restype = i
     lib.gymfx_fill_pointer_count.restype = i
     lib.gymfx_mark_pointer_count.restype = i

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from gymfx_tpu_torch.core.types import EnvConfig, EnvParams, EnvState, initial_state
+from gymfx_tpu_torch.ops.env_dynamics import FILL_PARAM_FIELDS, MARK_PARAM_FIELDS
 
 # every combination of K2's static flags: (slip_open, slip_limit,
 # slip_match, financing_enabled, limit_fill_policy,
@@ -54,6 +55,15 @@ PARAM_SETS = {
     "quantized": dict(slippage=2e-4, commission=3e-5, price_tick=1e-5, size_step=0.01, min_qty=0.5),
 }
 MARK_PARAMS = dict(initial_cash=10000.0, reward_scale=2.0, penalty_lambda=0.5)
+# K2's and K3's params per row: three distinct rows, a portfolio's three
+# pairs (each row's own commission, slippage, tick grid and reward params)
+PAIR_PARAM_ROWS = (
+    dict(PARAM_SETS["plain"], **MARK_PARAMS),
+    dict(PARAM_SETS["quantized"], initial_cash=5000.0, reward_scale=1.0, penalty_lambda=0.25),
+    dict(slippage=5e-5, commission=1e-5, price_tick=1e-3, size_step=1.0, min_qty=1.0,
+         initial_cash=20000.0, reward_scale=0.5, penalty_lambda=1.0),
+)
+ROW_PARAM_FIELDS = FILL_PARAM_FIELDS + MARK_PARAM_FIELDS  # the params K2 and K3 read
 # K3's flag patterns: (mark_pred, live), each all true, all false or mixed
 K3_FLAG_PATTERNS = tuple(itertools.product(("all", "none", "mixed"), repeat=2))
 _INT_PARAMS = ("entry_start_mow", "force_close_mow")
@@ -322,6 +332,16 @@ def env_params(values, device) -> EnvParams:
         else torch.tensor(values.get(k, 0.0), dtype=torch.float32, device=device)
         for k in EnvParams._fields
     ))
+
+
+def row_params(rows, n: int, device) -> EnvParams:
+    """EnvParams whose K2 and K3 params are (n,) columns, row e holding
+    ``rows[e % len(rows)]``'s value (books of pairs, book-major); every
+    other field 0-d, ``rows[0]``'s."""
+    idx = np.arange(n) % len(rows)
+    columns = {k: torch.from_numpy(np.array([r.get(k, 0.0) for r in rows], np.float32)[idx])
+               .to(device) for k in ROW_PARAM_FIELDS}
+    return env_params(rows[0], device)._replace(**columns)
 
 
 def ledger_state(cfg: EnvConfig, fields, device) -> EnvState:

@@ -11,6 +11,13 @@
      also reads and writes its (N, W) ring buffer and the buffer's write
      slot and length (:func:`sharpe_outputs`).
 
+Each param is a 0-d tensor (one value for every env) or an ``(N,)``
+column (one value per row: a portfolio's pairs; the Pallas kernels' ``(b,
+NP)`` params block, though their ``custom_vmap`` rules keep only its
+first row, ROADMAP.md Queue 3); :func:`param_rows` gives the kernels'
+mask of which is which.  The plain versions broadcast an ``(N,)`` param
+as they do a 0-d one.
+
 The kernels are ``fill_brackets_kernel`` (8 instantiations, by
 slip_match, financing and the ohlc policy) and ``mark_reward_kernel`` in
 ``csrc/env_kernels.cu``: one thread per env in CTAs of 64, every load
@@ -89,6 +96,22 @@ def mark_reward_plain(st: EnvState, c, mark_pred, live, cfg: EnvConfig,
     Returns (new_state, base_reward)."""
     st = select(mark_pred, broker.mark_to_market(st, c, params), st)
     return rewards.compute_reward(st, cfg, params, live)
+
+
+def param_rows(par, names, n: int, device) -> int:
+    """The kernels' ``par_rows`` mask for the params ``par``: bit k set
+    where param k is an ``(n,)`` column, clear where it is 0-d (raises on
+    any other shape, dtype or device)."""
+    rows = 0
+    for k, t in enumerate(par):
+        shape = ()
+        if t.dim():
+            rows |= 1 << k
+            shape = (n,)
+        if t.dtype is not torch.float32 or t.shape != shape or t.device != device \
+                or not t.is_contiguous():
+            _build.require(t, names[k], torch.float32, shape, device)
+    return rows
 
 
 def _cuda_device(st: EnvState, cfg: EnvConfig) -> torch.device:
@@ -186,7 +209,7 @@ def fill_brackets(st: EnvState, o, h, l, c, accrual, advance, cfg: EnvConfig,
     bars = [o, h, l, c, accrual] if financing else [o, h, l, c]
     _build.require_all(bars, _FILL_BAR_NAMES, torch.float32, shape, device)
     par = _fill_params(params)
-    _build.require_all(par, _FILL_PARAM_NAMES, torch.float32, (), device)
+    rows = param_rows(par, _FILL_PARAM_NAMES, n, device)
     diag = st.exec_diag
     _build.require(diag, "exec_diag", torch.int32, (n, diag.shape[-1]), device)
 
@@ -196,7 +219,7 @@ def fill_brackets(st: EnvState, o, h, l, c, accrual, advance, cfg: EnvConfig,
         ptrs = fill_pointers(inputs, blocks, diag, advance, bars if financing else bars[:3], par)
         _build.check_launch(
             lib.gymfx_fill_brackets(
-                ptrs, n, diag.shape[1], _DENIED_COLUMN, fill_flags(cfg),
+                ptrs, n, diag.shape[1], _DENIED_COLUMN, fill_flags(cfg), rows,
                 _build.stream_handle(device),
             ),
             "fill_brackets",
@@ -292,7 +315,7 @@ def mark_reward(st: EnvState, c, mark_pred, live, cfg: EnvConfig,
     _build.require(c, "close", torch.float32, shape, device)
     _build.require_all((mark_pred, live), ("mark_pred", "live"), torch.bool, shape, device)
     par = _mark_params(params)
-    _build.require_all(par, _MARK_PARAM_NAMES, torch.float32, (), device)
+    rows = param_rows(par, _MARK_PARAM_NAMES, n, device)
     sharpe = cfg.reward == "sharpe_reward"
     window = cfg.sharpe_window
     if sharpe:
@@ -310,7 +333,7 @@ def mark_reward(st: EnvState, c, mark_pred, live, cfg: EnvConfig,
                        if sharpe else _build.pointer_array(_NO_SHARPE))
         _build.check_launch(
             lib.gymfx_mark_reward(mark_pointers(inputs, c, mark_pred, live, outs, par),
-                                  sharpe_ptrs, n, _REWARD_CODES[cfg.reward], window,
+                                  sharpe_ptrs, n, _REWARD_CODES[cfg.reward], window, rows,
                                   _build.stream_handle(device)),
             "mark_reward",
         )

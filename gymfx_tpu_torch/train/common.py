@@ -1,6 +1,7 @@
 """Shared trainer helpers: the port of ``gymfx_tpu/train/common.py``'s
 ``make_train_many_with_data`` (:43-57), ``build_train_eval_envs``
-(:126-187), ``labeled_eval_summary`` and ``eval_checkpointed_policy``
+(:126-187), ``build_portfolio_train_eval_envs`` (:201-246),
+``labeled_eval_summary`` and ``eval_checkpointed_policy``
 (:249-311), ``validate_minibatch_scheme`` and
 ``resolve_minibatch_scheme`` (:315-371), ``minibatch_plan`` (:374-409)
 and ``masked_reset``.
@@ -109,6 +110,46 @@ def build_train_eval_envs(config: Dict[str, Any], *, device=None) -> Tuple[Any, 
     return Environment(config, device=device), None
 
 
+def build_portfolio_train_eval_envs(config: Dict[str, Any], *,
+                                    device=None) -> Tuple[Any, Optional[Any]]:
+    """(train_env, eval_env-or-None) for the multi-pair portfolio env (the
+    JAX package's :201-246): ``eval_portfolio_files`` evaluates on a
+    separate per-pair file map (the same pairs in the same order: the
+    policy's heads are positional); ``eval_split`` holds out the LAST
+    fraction of the aligned bars, cut after the cross-pair join.
+    ``eval_data_file`` is refused: one file cannot describe a book."""
+    from gymfx_tpu_torch.core.portfolio import PortfolioEnvironment
+
+    if config.get("eval_data_file"):
+        raise ValueError(
+            "portfolio trainers hold out via eval_split or "
+            "eval_portfolio_files (a per-pair file map); eval_data_file "
+            "is single-pair only"
+        )
+    eval_files = config.get("eval_portfolio_files")
+    split = config.get("eval_split")
+    if eval_files and split:
+        raise ValueError("set either eval_portfolio_files or eval_split, not both")
+    if eval_files:
+        eval_config = dict(config)
+        eval_config["portfolio_files"] = dict(eval_files)
+        eval_config.pop("eval_portfolio_files", None)
+        train_env = PortfolioEnvironment(config, device=device)
+        eval_env = PortfolioEnvironment(eval_config, device=device)
+        if list(eval_env.pairs) != list(train_env.pairs):
+            raise ValueError(
+                "eval_portfolio_files must list the same pairs in the "
+                f"same order as portfolio_files (train {train_env.pairs}, "
+                f"eval {eval_env.pairs})"
+            )
+        return train_env, eval_env
+    if split:
+        frac = float(split)
+        return (PortfolioEnvironment(config, split=("train", frac), device=device),
+                PortfolioEnvironment(config, split=("eval", frac), device=device))
+    return PortfolioEnvironment(config, device=device), None
+
+
 def labeled_eval_summary(make_summary, train_env, eval_env) -> Dict[str, Any]:
     """The out-of-sample summary shape: ``make_summary(env_or_None)`` runs
     a greedy evaluation on the given env (None = the training env)."""
@@ -131,11 +172,12 @@ def eval_checkpointed_policy(
     make_trainer,
     evaluate_fn,
     resolve_policy=None,
+    validate=None,
 ) -> Dict[str, Any]:
     """The ``driver_mode=policy`` skeleton: checkpoint-dir guard,
     metadata honour (``resolve_policy(meta, config)`` edits the config
-    copy), train/eval env build, template-checked params restore, greedy
-    evaluation, and the labeled summary keys."""
+    copy), train/eval env build, ``validate(meta, env)``, template-checked
+    params restore, greedy evaluation, and the labeled summary keys."""
     from gymfx_tpu_torch.train.checkpoint import load_params, read_metadata
 
     ckpt_dir = config.get("checkpoint_dir")
@@ -151,6 +193,8 @@ def eval_checkpointed_policy(
         resolve_policy(meta, config)
     train_env, eval_env = build_envs(config)
     env = eval_env if eval_env is not None else train_env
+    if validate is not None:
+        validate(meta, env)
     trainer = make_trainer(env, config)
     # template-checked restore: an architecture mismatch fails at load
     # time, not as a shape error inside the episode

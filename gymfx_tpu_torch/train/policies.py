@@ -26,8 +26,16 @@ Each module computes like its flax twin:
 Attention goes through K4 (``ops/fused_attention.py``) for every window
 up to 1024, kernel on the card and plain version on the CPU.  The
 sequence-parallel modes (a ``seq_axis``) come with ROADMAP.md Queue 1
-item 17; the flax ``TransformerPolicy`` and the continuous policies with
-item 11.
+item 17; the continuous policies with item 11.  The flax
+``TransformerPolicy`` (:140-179) attends through flax's
+``MultiHeadDotProductAttention``, which no Pallas kernel computes: its
+port is plain torch ops (:func:`flax_attention`).
+
+Every module may also be applied with member-stacked params (each
+parameter with a leading population axis P, the input (P, ...)): the
+dense layers then run as one batched GEMM (:func:`_dense`) and K4 takes
+the members folded into its batch, so a population's policies are one
+forward.
 
 The LSTM follows flax's ``OptimizedLSTMCell`` (flax 0.12.3) at its
 rounding points: the input part ``x @ W_i`` and the hidden part
@@ -76,16 +84,20 @@ def flatten_obs(obs: Dict[str, Any], spec: Optional[ObsSpec] = None):
     return torch.cat(parts, dim=1)
 
 
-def tokens_from_obs(obs: Dict[str, Any], window: int, spec: Optional[ObsSpec] = None):
+def tokens_from_obs(obs: Dict[str, Any], window: int, spec: Optional[ObsSpec] = None,
+                    min_dims: int = 2):
     """Batched Dict obs -> (N, window, token_dim) float32 tokens, in sorted
-    key order: a block whose first per-env dim is the window gives per-bar
-    columns; every other block is flattened and broadcast along the window."""
+    key order: a block of at least ``min_dims`` dims whose first per-env
+    dim is the window gives per-bar columns; every other block is
+    flattened and broadcast along the window.  A portfolio's window blocks
+    are (window, I) a book, so it passes ``min_dims=3``: a shape test on
+    the first per-env axis alone would misfire when n_pairs == window."""
     keys = spec.keys if spec is not None else tuple(sorted(obs.keys()))
     cols = []
     for k in keys:
         v = obs[k]
         n = v.shape[0]
-        if v.dim() >= 2 and v.shape[1] == window:
+        if v.dim() >= min_dims and v.shape[1] == window:
             cols.append(v.reshape(n, window, -1).to(torch.float32))
         else:
             flat = v.reshape(n, -1).to(torch.float32)
@@ -123,7 +135,24 @@ def dense_window_attention(q, k, v):
 
 
 def _dense(x, layer: nn.Linear, dtype):
-    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    """``layer`` applied in ``dtype``.  Applied with member-stacked params
+    (a leading member axis P on the weight, (P, out, in), and on ``x``,
+    (P, ..., in): a population's policies), one batched GEMM for all
+    members."""
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    if w.dim() == 2:
+        return F.linear(x, w, b)
+    p = w.shape[0]
+    y = torch.baddbmm(b[:, None, :], x.reshape(p, -1, x.shape[-1]), w.transpose(1, 2))
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def _member_view(param, x, dims: int):
+    """``param`` (of ``dims`` dims, or member-stacked with a leading
+    (P,) more) shaped to broadcast against ``x`` (P, ..., param's dims)."""
+    if param.dim() == dims:
+        return param
+    return param.view(param.shape[0], *([1] * (x.dim() - param.dim())), *param.shape[1:])
 
 
 class LayerNorm(nn.Module):
@@ -139,8 +168,8 @@ class LayerNorm(nn.Module):
         x32 = x.to(torch.float32)
         mean = x32.mean(dim=-1, keepdim=True)
         var = torch.clamp_min((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-        mul = torch.rsqrt(var + self.epsilon) * self.weight
-        return ((x32 - mean) * mul + self.bias).to(dtype)
+        mul = torch.rsqrt(var + self.epsilon) * _member_view(self.weight, x32, 1)
+        return ((x32 - mean) * mul + _member_view(self.bias, x32, 1)).to(dtype)
 
 
 class MLPPolicy(nn.Module):
@@ -222,12 +251,18 @@ def is_recurrent(policy: nn.Module) -> bool:
 
 
 class TransformerBlock(nn.Module):
-    """One pre-norm layer of RingTransformerEncoder: attention through K4,
-    then the 4x GELU MLP, each with a residual add."""
+    """One pre-norm transformer layer: LayerNorm, the q/k/v projections to
+    (H, Dh) with biases, ``attention`` over (..., W, H, Dh), the output
+    projection and a residual add; LayerNorm, the 4x GELU MLP and a
+    residual add.  ``attention`` is K4 (``dense_window_attention``) in
+    RingTransformerEncoder and flax's multi-head attention
+    (``flax_attention``) in TransformerPolicy's trunk."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, attention):
         super().__init__()
-        self.n_heads = n_heads
+        if d_model % n_heads:
+            raise ValueError(f"d_model {d_model} is not a multiple of n_heads {n_heads}")
+        self.n_heads, self.attention = n_heads, attention
         self.ln1 = LayerNorm(d_model)
         # flax DenseGeneral((H, Dh)) kernels (d_model, H, Dh) as (H*Dh, d_model) weights
         self.q, self.k, self.v = (nn.Linear(d_model, d_model) for _ in range(3))
@@ -241,7 +276,7 @@ class TransformerBlock(nn.Module):
         y = self.ln1(x, dtype)
         heads = (self.n_heads, y.shape[-1] // self.n_heads)
         q, k, v = (_dense(y, lin, dtype).unflatten(-1, heads) for lin in (self.q, self.k, self.v))
-        a = dense_window_attention(q, k, v)
+        a = self.attention(q, k, v)
         x = x + _dense(a.flatten(-2), self.out, dtype)
         y = F.gelu(_dense(self.ln2(x, dtype), self.fc1, dtype), approximate="tanh")
         return x + _dense(y, self.fc2, dtype)
@@ -249,31 +284,78 @@ class TransformerBlock(nn.Module):
 
 class RingTransformerEncoder(nn.Module):
     """The transformer trunk over (..., window, token_dim) tokens, returning
-    the mean-pooled (..., d_model) embedding (single-device mode)."""
+    the mean-pooled (..., d_model) embedding (single-device mode).  Its
+    layers attend through ``attention``: K4, or ``flax_attention`` for the
+    trunk of the JAX package's ``TransformerPolicy`` (policies.py
+    :140-179)."""
 
     def __init__(self, token_dim: int, window: int = 32, d_model: int = 128, n_heads: int = 4,
                  n_layers: int = 2, dtype=torch.float32, seq_axis: Optional[str] = None,
-                 seq_shards: int = 1, sp_backend: str = "ring"):
+                 seq_shards: int = 1, sp_backend: str = "ring",
+                 attention=dense_window_attention):
         super().__init__()
         if sp_backend not in ("ring", "ulysses"):
             raise ValueError(f"unknown sp_backend {sp_backend!r} (expected 'ring' or 'ulysses')")
         if seq_axis is not None or int(seq_shards) != 1:
             raise not_ported(f"sequence-parallel attention (seq_axis={seq_axis!r}, "
                              f"seq_shards={seq_shards})", 17)
-        if d_model % n_heads:
-            raise ValueError(f"d_model {d_model} is not a multiple of n_heads {n_heads}")
         self.dtype = dtype
         self.embed = nn.Linear(int(token_dim), d_model)
         self.pos_embed = nn.Parameter(torch.zeros(int(window), d_model))
-        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads) for _ in range(n_layers))
+        self.layers = nn.ModuleList(TransformerBlock(d_model, n_heads, attention)
+                                    for _ in range(n_layers))
         self.norm = LayerNorm(d_model)
 
     def forward(self, tokens):
         dt = self.dtype
-        x = _dense(tokens.to(dt), self.embed, dt) + self.pos_embed.to(dt)
+        x = _dense(tokens.to(dt), self.embed, dt)
+        x = x + _member_view(self.pos_embed, x, 2).to(dt)
         for layer in self.layers:
             x = layer(x, dt)
         return self.norm(x, dt).mean(dim=-2)
+
+
+def flax_attention(q, k, v):
+    """The core of flax ``nn.MultiHeadDotProductAttention`` (self-attention,
+    no mask, no dropout) on (..., W, H, Dh) in plain torch ops: the query
+    divided by sqrt(Dh) rounded to its dtype, the scores
+    ``einsum("...qhd,...khd->...hqk")``, a softmax in that dtype and the
+    weighted values.  No Pallas kernel computes this attention in the JAX
+    package."""
+    # jnp.sqrt(depth).astype(dtype): the divisor rounded to dtype first
+    depth = float(torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(q.dtype))
+    w = _softmax(torch.einsum("...qhd,...khd->...hqk", q / depth, k))
+    return torch.einsum("...hqk,...khd->...qhd", w, v)
+
+
+def _softmax(x):
+    """``jax.nn.softmax`` at its rounding points in ``x``'s dtype: the
+    shift, the exponential and the quotient each rounded, the sum
+    accumulated in float32 and rounded (torch's own softmax rounds once)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+class TransformerPolicy(nn.Module):
+    """The JAX package's ``TransformerPolicy``: attention over the
+    observation window (BASELINE config 5), float32 logits and value
+    heads on the pooled embedding.  Its positional embedding has one row
+    per token, so the policy is built for one window."""
+
+    def __init__(self, token_dim: int, window: int, n_actions: int = 3, d_model: int = 128,
+                 n_heads: int = 4, n_layers: int = 2, dtype=torch.float32):
+        super().__init__()
+        self.encoder = RingTransformerEncoder(token_dim, window, d_model, n_heads, n_layers,
+                                              dtype, attention=flax_attention)
+        self.logits = nn.Linear(d_model, n_actions)
+        self.value = nn.Linear(d_model, 1)
+
+    def forward(self, tokens):
+        pooled = self.encoder(tokens).to(torch.float32)
+        return _dense(pooled, self.logits, torch.float32), \
+            _dense(pooled, self.value, torch.float32).squeeze(-1)
 
 
 class RingTransformerPolicy(nn.Module):
@@ -289,14 +371,15 @@ class RingTransformerPolicy(nn.Module):
 
     def forward(self, tokens):
         pooled = self.encoder(tokens).to(torch.float32)
-        return self.logits(pooled), self.value(pooled).squeeze(-1)
+        return _dense(pooled, self.logits, torch.float32), \
+            _dense(pooled, self.value, torch.float32).squeeze(-1)
 
 
 def policy_kwargs_for(name: str, kwargs: Dict[str, Any], window: int) -> Dict[str, Any]:
     """Trainer-side kwarg resolution: the ring policies need the window
     for their positional embeddings."""
     kwargs = dict(kwargs)
-    if name in ("transformer_ring", "transformer_ulysses"):
+    if name in TOKEN_POLICIES:
         kwargs.setdefault("window", window)
     return kwargs
 
@@ -314,6 +397,8 @@ def make_policy(name: str, in_dim: int, *, continuous: bool = False,
                          dtype=dtype, **kwargs)
     if name == "lstm":
         return LSTMPolicy(in_dim, dtype=dtype, **kwargs)
+    if name == "transformer":
+        return TransformerPolicy(in_dim, dtype=dtype, **kwargs)
     if name == "transformer_ring":
         return RingTransformerPolicy(in_dim, dtype=dtype, **kwargs)
     if name == "transformer_ulysses":

@@ -173,11 +173,11 @@ class TrainState(NamedTuple):
 
 
 def sample_categorical(logits, generator: torch.Generator):
-    """One draw per row, by the Gumbel-max trick (jax.random.categorical's
-    method, with torch's uniform stream)."""
+    """One draw per categorical over the last axis, by the Gumbel-max trick
+    (jax.random.categorical's method, with torch's uniform stream)."""
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> None:

@@ -18,6 +18,9 @@ the JAX package's (gymfx_tpu/app/main.py).
 * A mode outside training|optimization|inference raises, and every
   option the port does not take raises ``NotImplementedError`` naming
   its ROADMAP Queue 1 item.
+* ``--trainer portfolio`` writes the JAX ``main``'s result keys, and its
+  checkpoint's policy mode reproduces the held-out summary; ``--trainer
+  pbt`` with ``portfolio_files`` trains the population.
 * Without CUDA, ``main`` and every Python entry point (``run_mode``,
   ``train_from_config``, ``eval_policy_from_config``, ``replay_driver``)
   raise unless ``device="cpu"`` is passed.
@@ -182,10 +185,16 @@ def test_a_mode_outside_the_three_raises(tmp_path):
     # IMPALA trains since PR 13; what of it item 11 still holds: a tape library
     pytest.param(("--mode", "training", "--trainer", "impala", "--feed", "curriculum"), 11,
                  id="mode-training-trainer-impala-11"),
+    # PBT trains over a portfolio; without portfolio_files (the bar-venue
+    # PPO trainer's population) it waits on item 12
     (("--mode", "training", "--trainer", "pbt"), 12),
-    (("--mode", "training", "--trainer", "portfolio"), 12),
+    # the portfolio trains; its tape library waits on item 12
+    pytest.param(("--mode", "training", "--trainer", "portfolio", "--feed", "curriculum"), 12,
+                 id="mode-training-trainer-portfolio-12"),
     (("--mode", "optimization",), 12),
-    (("--driver_mode", "policy", "--portfolio_files", '{"EUR_USD": "x.csv"}'), 12),
+    pytest.param(("--driver_mode", "policy", "--portfolio_files", '{"EUR_USD": "x.csv"}',
+                  "--checkpoint_dir", "ckpt", "--feed", "curriculum"), 12,
+                 id='driver_mode-policy-portfolio_files-{"EUR-12'),
     (("--verify_execution", "true"), 13),
     (("--mode", "training", "--fault_profile", "nan_bars=5"), 10),
     (("--mode", "training", "--telemetry_enabled"), 10),
@@ -247,3 +256,61 @@ def test_the_python_entry_points_without_cuda_and_without_device_raise(tmp_path)
                  lambda: eval_policy_from_config(config), lambda: replay_driver([1, 2])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+PORTFOLIO = {"portfolio_files": {"EUR_USD": "examples/data/eurusd_sample.csv",
+                                 "GBP_USD": "examples/data/gbpusd_sample.csv",
+                                 "USD_JPY": "examples/data/usdjpy_sample.csv"},
+             "window_size": 8, "max_rows": 40, "num_envs": 4, "ppo_horizon": 8,
+             "ppo_minibatches": 2, "eval_split": 0.4, "margin_rate": 0.02, "leverage": 20.0}
+
+
+def _keys(tree):
+    """The nested key structure of a results dict."""
+    if isinstance(tree, dict):
+        return {k: _keys(v) for k, v in tree.items()}
+    return None
+
+
+def test_the_portfolio_trainer_and_its_policy_mode_through_main(tmp_path):
+    """``--trainer portfolio`` through ``main`` on the CPU: the JAX
+    ``main``'s result keys (the numbers differ: torch's draws are not
+    JAX's), a checkpoint after each of 2 iterations, and ``--driver_mode
+    policy`` on it reproducing the held-out summary exactly."""
+    config = tmp_path / "portfolio.json"
+    config.write_text(json.dumps({**PORTFOLIO, "trainer": "portfolio", "policy": "transformer"}))
+    common = ["--load_config", str(config), "--train_total_steps", "64", "--mode", "training",
+              "--checkpoint_every", "1"]
+    ours = main(_argv(tmp_path, *common, "--checkpoint_dir", str(tmp_path / "ck")), device="cpu")
+    with x64_off():
+        ref = jax_main(_argv(tmp_path / "jax", *common, "--checkpoint_dir",
+                             str(tmp_path / "jax_ck")))
+    ref["checkpoint_dir"] = ours["checkpoint_dir"]
+    assert _keys(_json(ours)) == _keys(_json(ref))
+    assert ours["trainer"] == "portfolio_ppo" and ours["eval_scope"] == "held_out"
+    assert ours["train_metrics"]["last_checkpoint_step"] == 64
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir() if p.name.isdigit()) == ["32", "64"]
+    policy = tmp_path / "policy.json"
+    policy.write_text(json.dumps({**PORTFOLIO, "policy": None}))
+    evaluated = main(_argv(tmp_path, "--load_config", str(policy), "--driver_mode", "policy",
+                           "--checkpoint_dir", str(tmp_path / "ck"),
+                           "--steps", str(ours["eval_bars"] - 1)), device="cpu")
+    assert evaluated["checkpoint_step"] == 64 and evaluated["mode"] == "inference"
+    for key in ("total_return", "final_equity", "max_drawdown_pct", "trades_total", "pairs",
+                "sharpe_ratio_steps", "rap"):
+        assert evaluated[key] == ours[key], key
+
+
+def test_population_based_training_through_main(tmp_path):
+    """``--trainer pbt`` with ``portfolio_files``: the best
+    member's held-out summary and the ``pbt`` block; the results file
+    holds the summary."""
+    config = tmp_path / "pbt.json"
+    config.write_text(json.dumps({**PORTFOLIO, "trainer": "pbt", "pbt_population": 2,
+                                  "pbt_interval": 1}))
+    out = main(_argv(tmp_path, "--load_config", str(config), "--mode", "training",
+                     "--train_total_steps", "128"), device="cpu")
+    assert out["trainer"] == "pbt_portfolio" and out["eval_scope"] == "held_out"
+    assert out["pbt"]["iterations"] == 2 and len(out["pbt"]["learning_rates"]) == 2
+    assert [r["iter"] for r in out["pbt"]["replacements"]] == [1]
+    assert json.loads((tmp_path / "results.json").read_text()) == _json(out)

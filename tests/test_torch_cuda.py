@@ -984,3 +984,120 @@ def test_cuda_graphed_lob_and_streamed_episodes_equal_eager(cuda_device, tmp_pat
     _assert_episodes_equal(graphed, env.rollout(buy_hold_driver(), 1200, eager=True),
                            "streamed episode")
     assert env.episode_graphs.staging.row0.device.type == "cuda"
+
+
+# ---------------------------------------------------------------- the portfolio
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [63, 768])
+@pytest.mark.parametrize("flags", FLAG_GRID, ids=lambda f: "-".join(map(str, f)))
+def test_cuda_fill_brackets_and_mark_reward_with_row_params_equal_plain(cuda_device, flags, n):
+    """K2 and K3 with a param row per env (cases.PAIR_PARAM_ROWS: three
+    distinct rows, a portfolio's pairs), and with some params per row and
+    the rest shared, equal their plain versions."""
+    i = FLAG_GRID.index(flags)
+    cfg = flag_config(flags, REWARDS[i % 2])
+    rows = cases.row_params(cases.PAIR_PARAM_ROWS, n, cuda_device)
+    mixed = env_params(cases.PAIR_PARAM_ROWS[0], cuda_device)._replace(
+        commission=rows.commission, initial_cash=rows.initial_cash)
+    fields, mark, bars, advance, rng = ledger_case(200 + i, n=n)
+    st = ledger_state(cfg, {**fields, **mark}, cuda_device)
+    o, h, l, c, acc = (torch.from_numpy(bars[k]).to(cuda_device)
+                       for k in ("o", "h", "l", "c", "accrual"))
+    acc = acc if cfg.financing_enabled else None
+    adv = torch.from_numpy(advance).to(cuda_device)
+    mark_pred = torch.from_numpy(rng.random(n) < 0.7).to(cuda_device)
+    live = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
+    for params in (rows, mixed):
+        ref = env_dynamics.fill_brackets_plain(st, o, h, l, c, acc, adv, cfg, params)
+        ours = env_dynamics.fill_brackets(st._replace(exec_diag=st.exec_diag.clone()),
+                                          o, h, l, c, acc, adv, cfg, params)
+        for name in ref._fields:
+            assert torch.equal(getattr(ours, name), getattr(ref, name)), name
+        ours_st, ours_r = env_dynamics.mark_reward(st, c, mark_pred, live, cfg, params)
+        ref_st, ref_r = env_dynamics.mark_reward_plain(st, c, mark_pred, live, cfg, params)
+        assert torch.equal(ours_r, ref_r)
+        for name in env_dynamics.MARK_OUT_FIELDS:
+            assert torch.equal(getattr(ours_st, name), getattr(ref_st, name)), name
+
+
+PORTFOLIO = {"portfolio_files": {"EUR_USD": "examples/data/eurusd_sample.csv",
+                                 "GBP_USD": "examples/data/gbpusd_sample.csv",
+                                 "USD_JPY": "examples/data/usdjpy_sample.csv"},
+             "window_size": 8, "max_rows": 40, "margin_rate": 0.02, "leverage": 20.0,
+             "portfolio_param_overrides": {"GBP_USD": {"commission": 1e-4}}}
+
+
+def _portfolio_env(device, **over):
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.core.portfolio import PortfolioEnvironment
+
+    return PortfolioEnvironment({**DEFAULT_VALUES, **PORTFOLIO, **over}, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features", [False, True])
+def test_cuda_portfolio_step_launches_one_k2_and_one_k3_for_every_row(cuda_device, features):
+    """A portfolio step of 5 books x 3 pairs: one K2 and one K3 launch for
+    all 15 rows, with the pairs' own commission (and with OHLCV feature
+    columns one K1 launch over the rows' windows); every output equal to
+    the CPU's plain step (the kernels equal their plain versions)."""
+    import numpy as np
+
+    from gymfx_tpu_torch.resilience.guards import tree_leaves
+
+    over = {"feature_columns": ["OPEN", "HIGH", "LOW", "CLOSE", "VOLUME"]} if features else {}
+    envs = {d: _portfolio_env(d, **over) for d in ("cpu", cuda_device)}
+    states = {d: envs[d].reset(5)[0] for d in envs}
+    rng = np.random.default_rng(0)
+    kernels = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
+    for _ in range(12):
+        actions = torch.from_numpy(rng.integers(0, 4, (5, 3)))
+        before = [k.launches for k in kernels]
+        out = {d: envs[d].step(states[d], actions.to(d)) for d in envs}
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, int(features)]
+        cpu, card = out["cpu"], out[cuda_device]
+        for a, b in zip(tree_leaves(cpu), tree_leaves(card)):
+            assert torch.equal(a, b.cpu())
+        states = {d: out[d][0] for d in envs}
+    assert envs[cuda_device].rows(5)[0].pair.commission.shape == (15,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["transformer", "transformer_ring"])
+def test_cuda_pbt_steps_graphed_equal_eager_with_an_exploit(cuda_device, policy):
+    """Two population steps with an exploit/explore between them, graphed
+    (two captures, none after) against eager: every leaf torch.equal."""
+    import numpy as np
+
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.resilience.guards import tree_leaves
+    from gymfx_tpu_torch.train.pbt import _pbt_config_from, make_portfolio_pbt
+
+    config = {**DEFAULT_VALUES, **PORTFOLIO, "num_envs": 8, "ppo_horizon": 8,
+              "pbt_population": 4, "policy": policy}
+    pbt = make_portfolio_pbt(dict(config), _pbt_config_from(config), _portfolio_env(cuda_device))
+    state0, _ = pbt.init_population(0)
+
+    def copy(s):
+        gen = torch.Generator(device=cuda_device)
+        gen.set_state(s.generator.get_state())
+        return s._replace(**{k: graphs.clone_tree(getattr(s, k)) for k in s._fields
+                             if k != "generator"}, generator=gen)
+
+    def run(eager):
+        s = copy(state0)
+        s, m = pbt.trainer.train_step(s, eager=eager)
+        s, fitness, replaced = pbt._exploit_explore(
+            s, m["mean_reward"].cpu().numpy().astype(np.float64), np.random.default_rng(1))
+        s, m2 = pbt.trainer.train_step(s, eager=eager)
+        return s, m2, replaced
+
+    ga, gm, grep = run(False)
+    assert pbt.trainer.captures() == 2
+    ea, em, erep = run(True)
+    assert grep == erep
+    for a, b in zip(tree_leaves((ga[:4], gm)), tree_leaves((ea[:4], em))):
+        assert torch.equal(a, b)
+    assert torch.equal(ga.generator.get_state(), ea.generator.get_state())
+    assert pbt.trainer.captures() == 2

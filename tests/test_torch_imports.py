@@ -8,7 +8,9 @@
   tapes, the scaled-feature export (K7's plain version), and the command
   line: one training iteration with a checkpoint, then the policy mode on
   that checkpoint, for PPO and for IMPALA (the LSTM policy on the sharpe
-  reward); then checks that none of those packages was imported.
+  reward), and population-based training over the three-pair portfolio
+  with the Transformer policy; then checks that none of those packages
+  was imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
   raise; configurations and options the port does not take raise
@@ -87,6 +89,16 @@ trained = main(cli + ["--mode", "training", "--train_total_steps", "16",
                       "--checkpoint_every", "1"], device="cpu")
 assert trained["train_metrics"]["last_checkpoint_step"] == 16
 assert main(cli + ["--driver_mode", "policy", "--steps", "50"], device="cpu")["checkpoint_step"] == 16
+files = {"EUR_USD": "examples/data/eurusd_sample.csv",
+         "GBP_USD": "examples/data/gbpusd_sample.csv",
+         "USD_JPY": "examples/data/usdjpy_sample.csv"}
+with open(d + "/pbt.json", "w") as fh:
+    json.dump({"trainer": "pbt", "portfolio_files": files, "policy": "transformer",
+               "pbt_population": 2, "pbt_interval": 1, "max_rows": 24, "eval_split": 0.5,
+               "ppo_minibatches": 2}, fh)
+cli[cli.index(d + "/impala.json")] = d + "/pbt.json"
+pbt = main(cli + ["--mode", "training", "--train_total_steps", "64"], device="cpu")
+assert pbt["trainer"] == "pbt_portfolio" and pbt["pbt"]["iterations"] == 2
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """
@@ -159,13 +171,15 @@ def test_float64_env_on_the_card_raises_before_any_kernel():
 
 
 def test_policies_other_than_mlp_raise():
-    """The policies item 11 still holds (the LSTM trains since PR 13):
-    the flax TransformerPolicy and the continuous LSTM."""
+    """The policies item 11 still holds: the continuous ones (the LSTM and
+    the flax TransformerPolicy train)."""
+    from gymfx_tpu_torch.train.policies import TransformerPolicy
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
-    env = Environment(_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        PPOTrainer(env, ppo_config_from(_config(policy="transformer", num_envs=4)))
+    config = _config(policy="transformer", num_envs=4, window_size=8,
+                     policy_kwargs={"d_model": 8, "n_heads": 2, "n_layers": 1})
+    trainer = PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
+    assert isinstance(trainer.policy, TransformerPolicy)
     config = _config(policy="lstm", num_envs=4, action_space_mode="continuous")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))

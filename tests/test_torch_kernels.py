@@ -20,6 +20,12 @@ Pins:
   jitted program, so those results differ from the op-by-op ones by up
   to an ulp of the product (ROADMAP.md Queue 3).
 
+* K2 / K3 with a param row per env (a portfolio's pair rows):
+  the plain versions against the JAX chains vmapped over envs and their
+  param rows, op by op BITWISE and jitted within the tolerance above;
+  the Pallas kernels' vmap rules keep only the first param row (pinned);
+  the ``par_rows`` mask and the kernels' argument against their source.
+
 The CUDA kernels against these plain versions: tests/test_torch_cuda.py.
 """
 import itertools
@@ -44,12 +50,14 @@ from gymfx_tpu_torch.ops import env_dynamics, window_zscore
 from gymfx_tpu_torch.ops.cases import (
     FLAG_GRID,
     K1_EDGE_SHAPES,
+    PAIR_PARAM_ROWS,
     PARAM_SETS,
     env_params,
     exec_diag_case,
     flag_config,
     ledger_case,
     obs_case,
+    row_params,
     step_obs_emulated,
     step_obs_row_tiling,
     step_obs_tiling,
@@ -443,3 +451,156 @@ def test_require_raises_on_what_a_raw_pointer_cannot_take():
             _build.require_all([x, bad], ["x", "y"], torch.float32, (6, 4), cpu)
     with pytest.raises(ValueError, match="meta"):
         _build.require(x.to("meta"), "x", torch.float32, (6, 4), cpu)
+
+
+# ---------------------------------------------------------------- K2 / K3 with a param row per env
+def _row_params(n):
+    """(JAX EnvParams, port EnvParams): K2's and K3's params per row
+    (``cases.PAIR_PARAM_ROWS``, a portfolio's three pairs, row e holding
+    pair e % 3's), every other field 0; the JAX leaves all (n,), to be
+    vmapped with the envs."""
+    tparams = row_params(PAIR_PARAM_ROWS, n, "cpu")
+    jparams = jax.tree.map(lambda _: jnp.zeros((n,), jnp.float32), jax_initial_params())
+    jparams = jparams._replace(**{
+        k: jnp.broadcast_to(jnp.asarray(to_np(getattr(tparams, k))), (n,)).astype(
+            jnp.int32 if k in ("entry_start_mow", "force_close_mow") else jnp.float32)
+        for k in jparams._fields if k != "user"})
+    return jparams, tparams
+
+
+def _jax_fill_rows(jcfg, mode):
+    """The JAX K2 chain with params vmapped alongside the envs (the
+    portfolio's vmap over pairs): "ops", "xla" or "pallas"."""
+    def xla(st, o, h, l, c, acc, adv, p):
+        st = jselect(adv, jbroker.fill_pending(st, o, p, jcfg, h, l), st)
+        st = jselect(adv, jbroker.check_brackets(st, o, h, l, jcfg, p), st)
+        if jcfg.financing_enabled:
+            st = st._replace(cash_delta=st.cash_delta + jnp.where(adv, st.pos * c * acc, 0.0))
+        return st
+
+    def pallas(st, o, h, l, c, acc, adv, p):
+        return jdyn.fused_fill_brackets(st, o, h, l, c, acc if jcfg.financing_enabled else None,
+                                        adv, jcfg, p, interpret=True)
+    return {"ops": jax.vmap(xla), "xla": jax.jit(jax.vmap(xla)), "pallas": jax.vmap(pallas)}[mode]
+
+
+@pytest.mark.parametrize("mode", ["ops", "xla"])
+@pytest.mark.parametrize("flags", INTERPRET_FLAGS, ids=lambda f: "-".join(map(str, f)))
+def test_fill_brackets_plain_with_row_params_matches_jax(flags, mode):
+    """K2's plain version with a param row per env against the JAX chain
+    vmapped over envs and their param rows: op by op BITWISE, jitted
+    within rtol 1e-6 / atol 1e-5 (on ledgers of small notional)."""
+    jcfg, tcfg = _flag_config(flags)
+    jparams, tparams = _row_params(N)
+    fields, _, bars, advance, _ = ledger_case(31 + INTERPRET_FLAGS.index(flags), big=False)
+    jst, tst = _states(jcfg, fields)
+    jbars = [jnp.asarray(bars[k]) for k in ("o", "h", "l", "c", "accrual")]
+    with x64_off(), jax.disable_jit(mode == "ops"):
+        ref = _jax_fill_rows(jcfg, mode)(jst, *jbars, jnp.asarray(advance), jparams)
+    tb = [torch.from_numpy(bars[k]) for k in ("o", "h", "l", "c", "accrual")]
+    ours = env_dynamics.fill_brackets(tst, *tb[:4], tb[4] if tcfg.financing_enabled else None,
+                                      torch.from_numpy(advance), tcfg, tparams)
+    for name in ours._fields:
+        _compare(getattr(ref, name), getattr(ours, name), f"{flags}: {name}", exact=mode == "ops")
+    assert int((ours.pos != tst.pos).sum()) > 5
+    # each row's own commission: the rows of one ledger case under row 0's
+    # params alone differ
+    shared = env_dynamics.fill_brackets_plain(
+        tst, *tb[:4], tb[4] if tcfg.financing_enabled else None, torch.from_numpy(advance),
+        tcfg, env_params(PAIR_PARAM_ROWS[0], "cpu"))
+    assert not torch.equal(shared.cash_delta, ours.cash_delta)
+
+
+@pytest.mark.parametrize("mode", ["ops", "xla"])
+@pytest.mark.parametrize("reward", ["pnl_reward", "dd_penalized_reward"])
+def test_mark_reward_plain_with_row_params_matches_jax(reward, mode):
+    jcfg, tcfg = _flag_config(FLAG_GRID[0], reward=reward)
+    jparams, tparams = _row_params(N)
+    fields, mark, bars, _, rng = ledger_case(41, big=False)
+    jst, tst = _states(jcfg, {**fields, **mark})
+    mark_pred, live = rng.random(N) < 0.7, rng.random(N) < 0.8
+
+    def one(st, c, m, lv, p):
+        st = jselect(m, jbroker.mark_to_market(st, c, p), st)
+        return jrewards.compute_reward(st, jcfg, p, lv)
+
+    run = jax.vmap(one) if mode == "ops" else jax.jit(jax.vmap(one))
+    with x64_off(), jax.disable_jit(mode == "ops"):
+        ref_st, ref_r = run(jst, jnp.asarray(bars["c"]), jnp.asarray(mark_pred),
+                            jnp.asarray(live), jparams)
+    ours_st, ours_r = env_dynamics.mark_reward(tst, torch.from_numpy(bars["c"]),
+                                               torch.from_numpy(mark_pred),
+                                               torch.from_numpy(live), tcfg, tparams)
+    _compare(ref_r, ours_r, f"{reward}: reward", mode == "ops")
+    for name in env_dynamics.MARK_OUT_FIELDS:
+        _compare(getattr(ref_st, name), getattr(ours_st, name), f"{reward}: {name}",
+                 mode == "ops")
+
+
+def test_the_pallas_vmap_rules_read_the_first_param_row():
+    """The JAX package's Pallas K2 and K3 fold the vmapped envs into one
+    launch but keep one params row, the first (``_rule``'s ``pp[:1]``,
+    gymfx_tpu/ops/env_dynamics.py:262 and :299): under a vmap whose param
+    rows differ (a portfolio's pairs with ``rollout_env_kernel`` on) every
+    env computes with row 0's.  Pinned here against the port's plain
+    version given row 0's params for every env (within rtol 1e-6 / atol
+    1e-5, the interpreter's contractions); the port's kernels take every
+    row's own, as the JAX package's XLA path, its default, does."""
+    flags = INTERPRET_FLAGS[1]
+    jcfg, tcfg = _flag_config(flags)
+    jparams, _ = _row_params(N)
+    fields, mark, bars, advance, rng = ledger_case(51, big=False)
+    jst, tst = _states(jcfg, {**fields, **mark})
+    jbars = [jnp.asarray(bars[k]) for k in ("o", "h", "l", "c", "accrual")]
+    with x64_off():
+        ref = _jax_fill_rows(jcfg, "pallas")(jst, *jbars, jnp.asarray(advance), jparams)
+    first = env_params({**PAIR_PARAM_ROWS[0]}, "cpu")
+    tb = [torch.from_numpy(bars[k]) for k in ("o", "h", "l", "c", "accrual")]
+    ours = env_dynamics.fill_brackets(tst, *tb[:4], tb[4] if tcfg.financing_enabled else None,
+                                      torch.from_numpy(advance), tcfg, first)
+    for name in ours._fields:
+        _compare(getattr(ref, name), getattr(ours, name), f"pallas row 0: {name}", exact=False)
+    mark_pred, live = rng.random(N) < 0.7, rng.random(N) < 0.8
+    with x64_off():
+        ref_st, ref_r = jax.vmap(lambda st, c, m, lv, p: jdyn.fused_mark_reward(
+            st, c, m, lv, jcfg, p, interpret=True))(
+            jst, jnp.asarray(bars["c"]), jnp.asarray(mark_pred), jnp.asarray(live), jparams)
+    ours_st, ours_r = env_dynamics.mark_reward(tst, tb[3], torch.from_numpy(mark_pred),
+                                               torch.from_numpy(live), tcfg, first)
+    _compare(ref_r, ours_r, "pallas row 0: reward", exact=False)
+
+
+def test_param_rows_mask_and_the_kernels_argument_match_the_source():
+    import pathlib
+    import re
+
+    n = 12
+    rows = row_params(PAIR_PARAM_ROWS, n, "cpu")
+    shared = env_params(PAIR_PARAM_ROWS[0], "cpu")
+    mixed = shared._replace(commission=rows.commission, reward_scale=rows.reward_scale)
+    names2 = [f"param {k}" for k in env_dynamics.FILL_PARAM_FIELDS]
+    names3 = [f"param {k}" for k in env_dynamics.MARK_PARAM_FIELDS]
+    cpu = torch.device("cpu")
+    assert env_dynamics.param_rows(env_dynamics._fill_params(rows), names2, n, cpu) == 0b11111
+    assert env_dynamics.param_rows(env_dynamics._fill_params(shared), names2, n, cpu) == 0
+    assert env_dynamics.param_rows(env_dynamics._fill_params(mixed), names2, n, cpu) == 0b00010
+    assert env_dynamics.param_rows(env_dynamics._mark_params(mixed), names3, n, cpu) == 0b010
+    with pytest.raises(ValueError, match=r"param commission must be .* shape \(12,\)"):
+        env_dynamics.param_rows(env_dynamics._fill_params(
+            mixed._replace(commission=rows.commission[:5])), names2, n, cpu)
+    with pytest.raises(ValueError, match="float32"):
+        env_dynamics.param_rows(env_dynamics._fill_params(
+            mixed._replace(slippage=rows.slippage.double())), names2, n, cpu)
+    src = (pathlib.Path(env_dynamics.__file__).resolve().parent.parent / "csrc"
+           / "env_kernels.cu").read_text()
+    # one int mask after the flags (K2) and after the window (K3), bit k
+    # for param k, each param read through param_at
+    assert re.search(r"int gymfx_fill_brackets\([^)]*int flags, int par_rows, void\* stream\)",
+                     src)
+    assert re.search(r"int gymfx_mark_reward\([^)]*int window, int par_rows, void\* stream\)",
+                     src)
+    assert "(((par_rows >> k) & 1) ? e : 0)" in src
+    for k in ("kSlippage", "kCommission", "kPriceTick", "kSizeStep", "kMinQty",
+              "kInitialCash", "kRewardScale", "kPenaltyLambda"):
+        assert f"param_at(a.par, {k}, par_rows, e)" in src, k
+    assert "__ldg(a.par[" not in src.split("fill_skeleton_kernel")[0]
