@@ -16,7 +16,7 @@ failure exits non-zero:
             report (and each env-, data- and flow-library kernel's
             registers and stack frame: K1's two paths, K2's 8
             instantiations, K3, K2's and K3's memory skeletons; K6, K7's
-            two instantiations; K9).
+            two instantiations; K9; K4's 16 f32 window kernels).
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes.  K1-K3 (torch.equal): K1 at (8192,
             32, 5) with NaN, ±inf, neutral envs and a binary mask, three
@@ -50,7 +50,13 @@ failure exits non-zero:
             the largest), and within 2^-7 x max|emulation| of the
             emulation of its rounding points (ops/cases.py), with two
             backward calls bitwise equal; each case prints its route and
-            the bf16 kernels' shared memory.  Matmuls in the plain versions
+            the bf16 kernels' shared memory.  Then every case of
+            cases.ATTENTION_BF16_CASES and, on the f32 window kernels
+            (S <= 64), of cases.ATTENTION_F32_WINDOW_CASES (the ring
+            twin's shapes, ragged windows, every instantiated head dim),
+            checked, not timed: f32 also within 2^-19 x max|emulation|
+            of the emulation of its sums in order, and every backward
+            (f32 too) bitwise over two calls.  Matmuls in the plain versions
             run in full f32 (TF32 off, printed).  Times, for every case:
             device time per call from CUDA-graph replays (CUDA events,
             median of 21 replays of 20 calls) for the kernels; the plain
@@ -262,13 +268,18 @@ failure exits non-zero:
             capture after the first step; the phases' ms and env
             steps/s, and PBTTrainer.train over the configuration's
             200,000 env steps (12 population steps).  Then the same
-            population under policy=transformer_ring (K4's f32 route):
-            one step graphed == eager, K4's f32 forward and backward
-            counted by name in the replays, and K4 f32 forward and
-            backward checked against their plain versions and timed at
+            population under policy=transformer_ring (K4's f32 window
+            kernels): one step graphed == eager, attn_fwd_window and
+            attn_bwd_window counted by name in the replays (130 forwards
+            a rollout replay, 16 and 16 an update replay), the twin's
+            rollout and update replays timed beside the transformer
+            twin's of this call, and K4 f32 forward and backward checked
+            against their plain versions and the emulation and timed at
             the rollout's (256, 32, 4, 32) and an update minibatch's
-            (4,096, 32, 4, 32) beside its plain version, SDPA and its
-            bound.
+            (4,096, 32, 4, 32) beside the streamed kernels' earlier times, the plain version,
+            SDPA, the bound, the memory skeleton and the launch floor
+            (profile_attention.f32_window_probes) and the wrapper's host
+            time.
 15. portfolio cli  main --trainer portfolio on portfolio_transformer_config
             (examples/configs/train_portfolio_transformer.json: 512 envs,
             margin 0.02, leverage 20) with eval_split 0.3 for 2
@@ -415,11 +426,21 @@ ATTENTION_CASES = {
     "head_dim_128": ((4, 77, 3, 128), "float32", False),
     "head_dim_128_bf16": ((4, 77, 3, 128), "bfloat16", False),
 }
+# K4 f32 times at the ring twin's shapes on the streamed kernels, before
+# the window kernels took these windows, us: the ranges PERF.md §6 gives
+# for them (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# as "earlier"
+K4_F32_EARLIER_US = {"update": {"forward": (626.5, 633.0), "backward": (1479.6, 1493.2)},
+                     "rollout": {"forward": (48.8, 49.5), "backward": (100.6, 102.2)}}
 # the bf16 kernels against the emulation of their rounding points
 # (gymfx_tpu_torch/ops/cases.py): only the order of the f32 sums differs,
 # so the two round nearly the same value to bf16 once: at most one ulp of
 # the largest element
 EMULATION_TOL = 2.0 ** -7
+# the f32 window kernels against the emulation of their sums in order:
+# the card's expf and torch's exp differ in their last ulps, which move
+# an output by a few ulps of the largest element
+F32_EMULATION_TOL = 2.0 ** -19
 
 
 def fail(msg: str) -> None:
@@ -846,10 +867,16 @@ def check_kernels_k3_sharpe(torch, dev, kernels) -> None:
 
 def check_k4_case(torch, fa, cases, q, k, v, g, causal):
     """K4 forward and backward at one case against the plain versions
-    and, in bf16, against the emulation, with the backward repeated
-    bitwise; prints the case's line.  Returns (forward err, backward err)."""
+    and, in bf16 and on the f32 window kernels, against the emulation of
+    their arithmetic, with the backward repeated bitwise; prints the
+    case's line.  Returns (forward err, backward err)."""
     shape, dtype = tuple(q.shape), q.dtype
     bf16 = dtype == torch.bfloat16
+    kernels = "tensor-core" if bf16 else fa.f32_kernels(shape)
+    emulated = {"tensor-core": (cases.attention_forward_emulated,
+                                cases.attention_backward_emulated, EMULATION_TOL),
+                "window": (cases.attention_f32_window_forward_emulated,
+                           cases.attention_f32_window_backward_emulated, F32_EMULATION_TOL)}
     out = fa.attention_forward(q, k, v, causal)
     ref = fa.attention_forward_plain(q, k, v, causal)
     torch.cuda.synchronize()
@@ -858,10 +885,11 @@ def check_k4_case(torch, fa, cases, q, k, v, g, causal):
           f"K4 forward != plain at {shape} {dtype} causal={causal}: {err} > {tol}")
     del ref
     emu_errs = []
-    if bf16:
-        emu = cases.attention_forward_emulated(q, k, v, causal)
-        e, t = max_abs_err(torch, out, emu), EMULATION_TOL * float(emu.float().abs().max())
-        check(e <= t, f"K4 forward != emulation at {shape} causal={causal}: {e} > {t}")
+    if kernels in emulated:
+        fwd_emu, bwd_emu, emu_tol = emulated[kernels]
+        emu = fwd_emu(q, k, v, causal)
+        e, t = max_abs_err(torch, out, emu), emu_tol * float(emu.float().abs().max())
+        check(e <= t, f"K4 forward != emulation at {shape} {dtype} causal={causal}: {e} > {t}")
         emu_errs.append(e / float(emu.float().abs().max()))
         del emu
     grads = fa.attention_backward(q, k, v, g, causal)
@@ -871,24 +899,33 @@ def check_k4_case(torch, fa, cases, q, k, v, g, causal):
         check(ours.dtype == dtype and e <= t,
               f"K4 backward d{name} != plain at {shape} {dtype} causal={causal}: {e} > {t}")
         bwd_errs.append(e)
-    if bf16:
-        for name, ours, emu in zip("qkv", grads, cases.attention_backward_emulated(q, k, v, g, causal)):
-            e, t = max_abs_err(torch, ours, emu), EMULATION_TOL * float(emu.float().abs().max())
-            check(e <= t, f"K4 backward d{name} != emulation at {shape} causal={causal}: {e} > {t}")
-            emu_errs.append(e / float(emu.float().abs().max()))
-        again = fa.attention_backward(q, k, v, g, causal)
-        check(all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(grads, again)),
-              f"K4 backward is not deterministic at {shape} causal={causal}")
-        del again
-    del grads
+    if kernels in emulated:
+        for name, ours, emu in zip("qkv", grads, bwd_emu(q, k, v, g, causal)):
+            big = max(float(emu.float().abs().max()), 1e-30)
+            e, t = max_abs_err(torch, ours, emu), emu_tol * big
+            check(e <= t, f"K4 backward d{name} != emulation at {shape} {dtype} causal={causal}: "
+                  f"{e} > {t}")
+            emu_errs.append(e / big)
+    again = fa.attention_backward(q, k, v, g, causal)
+    bits = (lambda x: x.view(torch.int16)) if bf16 else (lambda x: x.view(torch.int32))
+    check(all(torch.equal(bits(a), bits(b)) for a, b in zip(grads, again)),
+          f"K4 backward is not deterministic at {shape} {dtype} causal={causal}")
+    del grads, again
     torch.cuda.synchronize()
-    line = (f"  K4 {shape} {str(dtype).split('.')[-1]} causal={causal}, route {fa.ROUTES[dtype]}: "
-            f"forward max err {err:.3g} (tol {tol:.3g}), backward max err {max(bwd_errs):.3g}")
+    line = (f"  K4 {shape} {str(dtype).split('.')[-1]} causal={causal}, route {fa.ROUTES[dtype]}"
+            f"{'' if bf16 else ' ' + kernels}: forward max err {err:.3g} (tol {tol:.3g}), "
+            f"backward max err {max(bwd_errs):.3g}; backward bitwise equal over two calls")
+    if kernels in emulated:
+        line += (f"; vs emulation max err / max|emulation| {max(emu_errs):.3g} (tol "
+                 f"{emu_tol:.3g})")
     if bf16:
         smem = ", ".join(f"{k} {v}" for k, v in fa.bf16_kernel_smem(shape[-1]).items())
-        line += (f"; vs emulation max err / max|emulation| {max(emu_errs):.3g} (tol "
-                 f"{EMULATION_TOL:.3g}); backward bitwise equal over two calls; head dim "
-                 f"{fa.padded_head_dim(shape[-1])}, dynamic shared memory (bytes): {smem}")
+        line += (f"; head dim {fa.padded_head_dim(shape[-1])}, dynamic shared memory (bytes): "
+                 f"{smem}")
+    elif kernels == "window":
+        smem = ", ".join(f"{k} {v}" for k, v in fa.f32_window_kernel_smem(shape[1], shape[-1]).items())
+        line += (f"; head dim {fa.padded_head_dim(shape[-1], fa.F32_WINDOW_DIM)}, dynamic shared "
+                 f"memory (bytes) and warps a CTA: {smem}")
     print(line)
     return err, max(bwd_errs)
 
@@ -948,6 +985,13 @@ def check_kernels_k4(torch, dev, kernels, results) -> None:
     for shape, causal in cases.ATTENTION_BF16_CASES:
         q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
                       for _ in range(4))
+        err, bwd_err = check_k4_case(torch, fa, cases, q, k, v, g, causal)
+        errs["attention_forward"] = max(errs["attention_forward"], err)
+        errs["attention_backward"] = max(errs["attention_backward"], bwd_err)
+    # every f32 case of the window kernels (the ring twin's shapes, ragged
+    # windows, every instantiated head dim), checked, not timed
+    for shape, causal in cases.ATTENTION_F32_WINDOW_CASES:
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
         err, bwd_err = check_k4_case(torch, fa, cases, q, k, v, g, causal)
         errs["attention_forward"] = max(errs["attention_forward"], err)
         errs["attention_backward"] = max(errs["attention_backward"], bwd_err)
@@ -1014,6 +1058,18 @@ def flow_ptxas(compiler_out: str) -> dict:
     """K9's one kernel, keyed "bar_flow"."""
     return ptxas_report(compiler_out,
                         lambda name: "bar_flow" if "bar_flow_kernel" in name else None)
+
+
+def attention_ptxas(compiler_out: str) -> dict:
+    """K4's f32 window kernels, keyed "attn_fwd_window<SP, DP>" (window
+    and head dim padded)."""
+    import re
+
+    def key_of(name):
+        t = re.search(r"(attn_(?:fwd|bwd)_window)ILi(\d+)ELi(\d+)EE", name)
+        return f"{t.group(1)}<{t.group(2)}, {t.group(3)}>" if t else None
+
+    return ptxas_report(compiler_out, key_of)
 
 
 def env_ptxas(compiler_out: str) -> dict:
@@ -2886,6 +2942,23 @@ def pbt_steps(torch, pbt, state, fitness, iters: int, eager: bool):
     return state, fitness, replaced, rows
 
 
+def phase_ms(torch, trainer, state, runs: int = 3) -> tuple:
+    """``runs`` graphed rollout and update phases of ``trainer`` from
+    ``state``, each ending in a synchronize: (median rollout ms, median
+    update ms, both of the runs after the first; [(rollout, update) ms])."""
+    rows = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        inter, out = trainer.rollout_phase(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = trainer.update_phase(inter, out)
+        torch.cuda.synchronize()
+        rows.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    return (statistics.median(r for r, _ in rows[1:]), statistics.median(u for _, u in rows[1:]),
+            rows)
+
+
 def portfolio_phase(torch, kernels, results) -> None:
     """baseline-portfolio-pbt at full size: 3 population steps with one
     exploit/explore graphed against eager (torch.equal), K2 and K3 64
@@ -2946,18 +3019,7 @@ def portfolio_phase(torch, kernels, results) -> None:
           f"{traced['update']['all']} kernels in an update replay; 3 steps {graphed_s:.1f} s "
           f"graphed (the first captures), {eager_s:.1f} s eager")
     # the phases' times, graphed, from the state after those steps
-    s = ga
-    phase_rows = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        inter, out = tr.rollout_phase(s)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        s, _ = tr.update_phase(inter, out)
-        torch.cuda.synchronize()
-        phase_rows.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
-    roll_ms = statistics.median(r for r, _ in phase_rows[1:])
-    upd_ms = statistics.median(u for _, u in phase_rows[1:])
+    roll_ms, upd_ms, _ = phase_ms(torch, tr, ga)
     step_ms = statistics.median(r["step_ms"] for r in rows_a[1:])
     per_iter = members * pcfg.n_envs * pcfg.horizon
     t0 = time.perf_counter()
@@ -2981,11 +3043,13 @@ def portfolio_phase(torch, kernels, results) -> None:
           f"({result['total_env_steps']:,} env steps) {train_s:.1f} s, "
           f"{result['env_steps_per_sec']:,.0f} env steps/s, no capture; replacements "
           f"{result['replacements']}; {results['device']['nvidia_smi']}")
-    del pbt, tr, ga, gb, s, inter, out, state0
+    del pbt, tr, ga, gb, state0
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- transformer_ring on the portfolio: K4's f32 route
+    # ---- transformer_ring on the portfolio: K4's f32 window kernels
+    from gymfx_tpu_torch.profile_attention import f32_window_probes
+
     config = portfolio_pbt_config(str(ROOT), policy="transformer_ring")
     pbt = make_portfolio_pbt(dict(config), _pbt_config_from(config), env)
     tr = pbt.trainer
@@ -3006,28 +3070,35 @@ def portfolio_phase(torch, kernels, results) -> None:
         "rollout": {"fill_brackets": pcfg.horizon, "mark_reward": pcfg.horizon,
                     "attention_forward": fwd_roll},
         "update": {"attention_forward": layers * updates}}, label)
-    f32_bwd = sum("attn_bwd_kernel" in n for n in names["update"])
-    f32_fwd = sum("attn_fwd_kernel" in n for n in names["rollout"] + names["update"])
+    f32_bwd = sum("attn_bwd_window" in n for n in names["update"])
+    f32_fwd = sum("attn_fwd_window" in n for n in names["rollout"] + names["update"])
     check(f32_bwd == layers * updates, f"{label}: {f32_bwd} f32 backward kernels in an update replay")
     check(f32_fwd == fwd_roll + layers * updates, f"{label}: {f32_fwd} f32 forward kernels")
     print(f"{label}: one population step graphed == eager (torch.equal); K4 f32 in one rollout "
           f"replay {traced['rollout']['attention_forward']} forwards, in one update replay "
           f"{traced['update']['attention_forward']} forwards and {f32_bwd} backwards "
-          f"(attn_fwd_kernel / attn_bwd_kernel by name); at capture {at_capture}")
-    # K4's f32 route at this path's shapes: the rollout's books and an
-    # update minibatch's samples, members folded into the batch
+          f"(attn_fwd_window / attn_bwd_window by name); at capture {at_capture}")
+    # the ring twin's phases, graphed, beside the transformer twin's above
+    ring_roll, ring_upd, ring_rows = phase_ms(torch, tr, ga)
+    print(f"{label}: rollout replay {ring_roll:.1f} ms, update replay {ring_upd:.1f} ms (medians of "
+          f"2 of 3): {per_iter / (ring_roll + ring_upd) * 1e3:,.0f} env steps/s through the "
+          f"phases; the transformer twin in this call {roll_ms:.1f} and {upd_ms:.1f} ms, "
+          f"{per_iter / (roll_ms + upd_ms) * 1e3:,.0f} env steps/s")
+    # K4's f32 window kernels at this path's shapes: the rollout's books
+    # and an update minibatch's samples, members folded into the batch
     heads, d_model = tr.policy.encoder.layers[0].n_heads, tr.policy.encoder.pos_embed.shape[1]
     mb_samples = members * (pcfg.n_envs // pcfg.minibatches) * pcfg.horizon
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timed = {}
     for name, b in (("rollout", members * pcfg.n_envs), ("update", mb_samples)):
         shape = (b, env.cfg.window_size, heads, d_model // heads)
+        check(fa.f32_kernels(shape) == "window", f"{label}: {shape} does not take the window kernels")
         q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
         bsz, s, h, d = shape
         pairs_qk = bsz * h * s * s
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        # forward and dq/dk/dv against the plain versions, each within
-        # attention_tolerance of the plain result
+        # forward and dq/dk/dv against the plain versions and the
+        # emulation, the backward repeated bitwise
         err, bwd_err = check_k4_case(torch, fa, cases, q, k, v, g, False)
         for key, e in (("forward", err), ("backward", bwd_err)):
             kernels[f"attention_{key}"]["max_abs_err"] = max(
@@ -3037,24 +3108,40 @@ def portfolio_phase(torch, kernels, results) -> None:
         gt = g.transpose(1, 2)
         fb, fby = bound(4 * nbytes(q), 4 * d * pairs_qk, F32_FLOPS)
         bb, bby = bound(7 * nbytes(q), 10 * d * pairs_qk, F32_FLOPS)
+        probes = f32_window_probes(q, k, v, g)
         timed[name] = {
             "shape": list(shape),
             "forward": dict(ms=device_ms(torch, lambda: fa.attention_forward(q, k, v)),
                             plain_ms=event_ms(torch, lambda: fa.attention_forward_plain(q, k, v)),
                             library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
                                 qt, kt, vt), reps=10),
-                            bound_ms=fb, bound_by=fby, max_abs_err=err),
+                            bound_ms=fb, bound_by=fby, max_abs_err=err,
+                            skeleton_ms=probes["skeleton_forward_ms"],
+                            launch_floor_ms=probes["launch_floor_forward_ms"],
+                            grid=probes["grid_forward"],
+                            host_us=host_us(torch, lambda: fa.attention_forward(q, k, v)),
+                            earlier_us=K4_F32_EARLIER_US[name]["forward"]),
             "backward": dict(ms=device_ms(torch, lambda: fa.attention_backward(q, k, v, g)),
                              plain_ms=event_ms(torch, lambda: fa.attention_backward_plain(q, k, v, g)),
                              library_ms=event_ms(torch, lambda: torch.autograd.grad(
                                  lib_out, leaves, gt, retain_graph=True), reps=10),
-                             bound_ms=bb, bound_by=bby, max_abs_err=bwd_err),
+                             bound_ms=bb, bound_by=bby, max_abs_err=bwd_err,
+                             skeleton_ms=probes["skeleton_backward_ms"],
+                             launch_floor_ms=probes["launch_floor_backward_ms"],
+                             grid=probes["grid_backward"],
+                             host_us=host_us(torch, lambda: fa.attention_backward(q, k, v, g)),
+                             earlier_us=K4_F32_EARLIER_US[name]["backward"]),
         }
         for key in ("forward", "backward"):
             row = timed[name][key]
-            print(f"  K4 f32 {key} at the portfolio {name} shape {shape}: {row['ms']:.4f} ms "
-                  f"(plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms by {row['bound_by']})")
+            print(f"  K4 f32 {key} at the portfolio {name} shape {shape}: {row['ms'] * 1e3:.1f} us "
+                  f"(earlier, the streamed kernel: {row['earlier_us'][0]}-{row['earlier_us'][1]} us; "
+                  f"plain {row['plain_ms'] * 1e3:.1f} us, SDPA {row['library_ms'] * 1e3:.1f} us, "
+                  f"bound {row['bound_ms'] * 1e3:.1f} us by {row['bound_by']}; memory skeleton "
+                  f"{row['skeleton_ms'] * 1e3:.1f} us, launch floor "
+                  f"{row['launch_floor_ms'] * 1e3:.2f} us at {row['grid']}, wrapper host "
+                  f"{row['host_us']:.1f} us)")
+        del q, k, v, g, qt, kt, vt, leaves, lib_out, gt
     for key in ("forward", "backward"):
         kernels[f"attention_{key}"]["portfolio_f32"] = {
             name: dict(timed[name][key], shape=timed[name]["shape"]) for name in timed}
@@ -3062,8 +3149,11 @@ def portfolio_phase(torch, kernels, results) -> None:
         "rollout_replay": traced["rollout"]["attention_forward"],
         "update_replay": traced["update"]["attention_forward"]}
     kernels["attention_backward"]["portfolio_f32"]["launches"] = {"update_replay": f32_bwd}
-    results["portfolio_ring"] = dict(replay_launches=traced, at_capture=at_capture,
-                                     capture_s=capture_seconds(tr), k4_f32=timed)
+    results["portfolio_ring"] = dict(
+        replay_launches=traced, at_capture=at_capture, capture_s=capture_seconds(tr), k4_f32=timed,
+        rollout_ms=ring_roll, update_ms=ring_upd, phase_rows=ring_rows,
+        phases_env_steps_per_s=per_iter / (ring_roll + ring_upd) * 1e3,
+        transformer_rollout_ms=roll_ms, transformer_update_ms=upd_ms)
     del pbt, tr, ga, gb, state0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3189,7 +3279,11 @@ def main() -> None:
     results["data_ptxas"] = data_ptxas(built["data"][1])
     check(len(results["data_ptxas"]) == 3, f"ptxas reported {len(results['data_ptxas'])} of the "
           "data library's 3 kernels (K6, K7's two instantiations)")
-    for lib_name in ("env", "data"):
+    results["attention_ptxas"] = attention_ptxas(built["attention"][1])
+    check(len(results["attention_ptxas"]) == 16, f"ptxas reported {len(results['attention_ptxas'])} "
+          "of K4's 16 f32 window kernels (forward and backward at windows 32, 64 x head dims 32, "
+          "64, 96, 128)")
+    for lib_name in ("env", "data", "attention"):
         for key, row in results[f"{lib_name}_ptxas"].items():
             print(f"  {lib_name} ptxas {key}: {row.get('registers')} registers; {row.get('frame')}")
 

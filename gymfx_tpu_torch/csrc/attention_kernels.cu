@@ -3,30 +3,31 @@
 //
 // Which Pallas function each kernel replaces:
 //
-//   attn_fwd_tc, attn_fwd_kernel
+//   attn_fwd_tc, attn_fwd_window, attn_fwd_kernel
 //       gymfx_tpu/ops/fused_attention.py::_forward_batched (pallas body
 //       _kernel): o = softmax(q k^T * scale) v over the whole window,
 //       optionally causal.
 //   attn_bwd_dq_tc + attn_bwd_dkdv_tc (one attention_backward call),
-//   attn_bwd_kernel
+//   attn_bwd_window, attn_bwd_kernel
 //       gymfx_tpu/ops/fused_attention.py::_backward_batched (pallas body
 //       _bwd_kernel): recompute P normalised, dV = P^T dO, dP = dO V^T,
 //       delta = rowsum(dP P), dS = P (dP - delta) scale, dQ = dS K,
 //       dK = dS^T Q.
 //
 // The *_tc kernels take bfloat16 and run every product on the tensor
-// cores; the f32 kernels (attn_fwd_kernel, attn_bwd_kernel) stay plain
-// f32 FMA on the CUDA cores.  The wrapper (ops/fused_attention.py) picks
-// the route by dtype before the launch.  Why f32 stays on the CUDA
-// cores: the f32 route is held to 1e-4 x max|plain|, and TF32 (the only
-// f32 input the tensor cores take) rounds inputs to 2^-11; no main-path
-// configuration runs K4 in f32.
+// cores; the f32 kernels run plain f32 FMA on the CUDA cores: the
+// *_window kernels for windows of up to 64 (every default-dtype
+// transformer_ring run: window 32, 4 heads of 32), attn_fwd_kernel /
+// attn_bwd_kernel (streamed) above.  The wrapper (ops/fused_attention.py)
+// picks the route by dtype, and the f32 kernels by the window alone
+// (f32_kernels), before the launch.
 //
 // Why not the Pallas design: on the TPU a whole W x W f32 score block
 // sits in VMEM (4 MB at W = 1024).  A Hopper block has 227 KB of shared
-// memory and no state carried between blocks, so these kernels stream
-// 64-row tiles through shared memory and never form a score block in
-// memory.
+// memory and no state carried between blocks, so the long-window kernels
+// stream 64-row tiles through shared memory and never form a score
+// block in memory; only up to W = 64 does a (b, h)'s whole window fit
+// one warp's share of an SM, and there the window kernels do hold it.
 //
 // ---- The bfloat16 route: tensor-core kernels -------------------------
 //
@@ -110,16 +111,92 @@
 // which reads B once per 64 rows, and TMA multicast across a cluster of
 // the CTAs that share K/V, are the next steps.
 //
-// ---- The float32 route: CUDA-core kernels -----------------------------
+// ---- The float32 route, windows of up to 64: attn_*_window -------------
 //
-// Inputs are read as (B, S, H, D) through their element strides; o, dq,
-// dk, dv are written contiguous (B, S, H, D).  One row per thread group
-// (TPR threads share a row, DPT dims each, partial dot products joined
-// with warp shuffles), K/V rows read from shared memory as broadcast
-// float4 loads.  The forward keeps an online softmax; the backward is
-// one block per (b, h): phase 1 (threads own query rows) streams K/V
-// for m, l, delta and then dQ; phase 2 (threads own key rows) streams
-// Q/dO for dK and dV.
+// Inputs: (B, S, H, DP) f32 read through their b, s, h element strides
+// with a unit d stride, every row 16-byte aligned; DP is the head dim
+// zero-padded to a multiple of 32 (the wrapper pads and, where a stride
+// or pointer is not aligned, copies; scale stays 1/sqrt(original D)).
+// Outputs are contiguous (B, S, H, DP).  S <= 64, DP <= 128.
+//
+// What bounds them on the H100 (data sheet: 3.35 TB/s, 67 TFLOP/s f32
+// on the CUDA cores) at the update minibatch of transformer_ring's
+// default run, (4096, 32, 4, 32):
+//   forward   q, k, v read and o written, 268 MB = 80.1 us, against
+//             2 products of 2 D FLOP per (query, key) pair, 2.15 GFLOP
+//             = 32 us: the bytes.
+//   backward  q, k, v, dO read and dq, dk, dv written, 470 MB = 140.2
+//             us, against 5 products (S, dP, dV, dQ, dK), 5.37 GFLOP =
+//             80 us at the CUDA cores' peak: the bytes, with the
+//             products at 57% of them.
+// Measured there (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+// the forward 101.5-102.0 us, its memory skeleton (the same grid and
+// copies, no arithmetic: attention_probe.cu) 90.4-91.8; the backward
+// 212.5-214.1 us, its skeleton 161.0-162.5.  The streamed kernels (below)
+// took 626.5-633.0 and 1,479.6-1,493.2 us on the same card: their
+// 128-row CTAs (64 in the backward) gave 3/4 (1/2) of the threads
+// zero rows at S = 32, each score was one thread's serial chain of D
+// FMAs, the tiles were staged by 4-byte loads into 16 KB of zero
+// padding, and the backward formed 9 products and 3 expf a pair.
+//
+// Design.  One warp owns one (b, h): it stages the window's q, k, v (and
+// dO) rows into its own shared memory, SP = 32 or 64 rows (zero past S)
+// of DP + 4 floats, with 16-byte cp.async copies (a (b, h) row is 128
+// contiguous bytes at D = 32, so a warp's copy is whole 128-byte lines,
+// and the four warps of a CTA at H = 4 read one contiguous 16 KB block
+// of each operand).  Warps never wait on each other: no __syncthreads,
+// only __syncwarp.  The whole window is on chip, so the softmax is one
+// pass: the exact row max and sum over the row, no online rescale.
+// Every product is a 32 x 32 register tile a warp (a thread 4 rows x 8
+// columns: rows 4 rg + r, rg = lane / 4), both operands read from shared
+// memory as float4 (12 LDS.128 per 128 FMA; rows DP + 4 or SP + 4 floats
+// long, so a quarter-warp's 16-byte reads fall in distinct banks):
+//   tile_nt  C = A B^T (S = Q K^T, dP = dO V^T; the thread's columns
+//            cg + 4 n, cg = lane % 4, so a row's 4 threads are a quad
+//            and its max and sums are two shuffles),
+//   tile_nn  C = A B (O = P V, dQ = dS K),
+//   tile_tn  C = A^T B (dV = P^T dO, dK = dS^T Q),
+// the last two with the thread's columns 4 cg .. 4 cg + 3 and 16 + 4 cg
+// .. 16 + 4 cg + 3 of a 32-column chunk (two float4 stores a row).
+// The backward recomputes S once, forms P and dP once, keeps P and dS
+// in registers and shared memory, and makes dQ, dK and dV from them: 5
+// products a pair, one expf a pair, no atomics.  At SP = 32 P goes over
+// v's rows (dP was its last use) and dS over dO's once dV is made, so a
+// warp needs 4 operand tiles: 18.4 KB, 3 CTAs of 4 warps an SM.
+//
+// Why the CUDA cores and not 3xTF32 on the tensor cores: at the CUDA
+// cores' peak the backward's 5 products take 57% of its byte time, and
+// its memory skeleton is three quarters of what it measures; 3xTF32
+// would triple the tensor work, add the operand splits and, since an
+// m16n8k8.tf32 accumulator is not the next product's A fragment, move P
+// and dS through shared memory all the same.  Plain TF32 is out: the
+// route is held to 1e-4 x max|plain| and TF32 rounds inputs to 2^-11.
+//
+// Why not persistent, double-buffered CTAs: at 3-4 CTAs (12-16 warps)
+// an SM, each warp alone in its load, compute and store, the warps that
+// copy and the warps that multiply are already different warps.
+//
+// Rounding points (ops/cases.py emulates exactly these, in this order):
+// every dot product is one fmaf per term in increasing k (head dim for S
+// and dP, key for O and dQ, query for dV and dK), from 0; x = s * scale;
+// e = expf(x - m); a row's l (plain adds) and delta (fmaf of p, dP) sum
+// the thread's keys (j % 4 == cg) in increasing j, then the quad adds
+// (c0 + c1) + (c2 + c3); p = e * (1 / l); dS = (p (dP - delta)) scale;
+// o = (sum_j e v) * (1 / l).  The elementwise steps are __f*_rn, never
+// contracted.  The sums have a fixed order and each output element is
+// written by one thread, so two calls give the same bits.
+//
+// ---- The float32 route, longer windows: attn_fwd_kernel / attn_bwd_kernel
+//
+// The streamed kernels, for 64 < S <= 1024 (no main-path configuration runs
+// them).  Inputs are read as (B, S, H, D) through their element strides;
+// o, dq, dk, dv are written contiguous (B, S, H, D).  One row per thread
+// group (TPR threads share a row, DPT dims each, partial dot products
+// joined with warp shuffles), K/V rows read from shared memory as
+// broadcast float4 loads.  The forward keeps an online softmax; the
+// backward is one block per (b, h): phase 1 (threads own query rows)
+// streams K/V for m, l, delta and then dQ; phase 2 (threads own key
+// rows) streams Q/dO for dK and dV.
 //
 // Each extern "C" entry point launches on the caller's stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError()
@@ -1222,6 +1299,394 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* g, voi
   return launch_bwd<16, 8>(q, k, v, g, dq, dk, dv, st, B, S, H, D, causal, scale, s);
 }
 
+// ======================================================================
+// float32, windows of up to 64: one warp per (b, h), one pass
+// ======================================================================
+
+constexpr int kWindowMax = 64;
+
+template <int SP, int DP>
+struct Win {
+  static constexpr int LD = DP + 4;      // a staged row, in floats
+  static constexpr int LP = SP + 4;      // a row of P or dS
+  static constexpr int TILE = SP * LD;   // one operand of one (b, h)
+  static constexpr int CHUNKS = DP / 4;  // 16-byte chunks of a row
+  // forward: q, k, v; a 32-row block of P over q's rows (SP <= DP) or
+  // in a scratch of its own
+  static constexpr bool P_ON_Q = SP <= DP;
+  static constexpr int FWD = 3 * TILE + (P_ON_Q ? 0 : 32 * LP);
+  // backward: q, k, v, dO; at SP = 32 P over v's rows and dS over
+  // dO's, else both in scratch of their own
+  static constexpr bool OVERLAY = SP == 32;
+  static constexpr int BWD = 4 * TILE + (OVERLAY ? 0 : 2 * SP * LP);
+};
+
+// Warps a CTA for a warp's share of ``floats``: 4 while four warps fit in
+// 112 KB (two CTAs an SM or more), else 2, else 1.
+__host__ __device__ constexpr int win_warps(int floats) {
+  return floats * 16 <= 112 * 1024 ? 4 : floats * 8 <= 112 * 1024 ? 2 : 1;
+}
+
+// The rows 0 .. SP - 1 of one (b, h) (row stride ss elements) into a
+// warp's [SP][DP + 4] tile, zero from row S on, by 16-byte cp.async.
+template <int SP, int DP>
+__device__ __forceinline__ void stage_rows(float* tile, const float* base, long long ss, int S,
+                                           int lane) {
+  using W = Win<SP, DP>;
+#pragma unroll
+  for (int i = 0; i < SP * W::CHUNKS / 32; ++i) {
+    const int e = lane + 32 * i, r = e / W::CHUNKS, c = e % W::CHUNKS;
+    const bool ok = r < S;
+    cp_async16(smem_addr(tile + r * W::LD + 4 * c),
+               base + static_cast<long long>(ok ? r : 0) * ss + 4 * c, ok);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_rows(float (&c)[4][N]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int n = 0; n < N; ++n) c[r][n] = 0.f;
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// c[r][n] = sum over k < K of a[(4 rg + r) LDA + k] b[(cg + 4 n) LDB + k],
+// one fmaf per k in increasing k (S = Q K^T, dP = dO V^T)
+template <int K, int LDA, int LDB>
+__device__ __forceinline__ void tile_nt(float (&c)[4][8], const float* a, const float* b, int rg,
+                                        int cg) {
+  zero_rows(c);
+#pragma unroll (K <= 32 ? K / 4 : 2)
+  for (int k = 0; k < K; k += 4) {
+    float4 x[4], y[8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = *reinterpret_cast<const float4*>(a + (4 * rg + r) * LDA + k);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) y[n] = *reinterpret_cast<const float4*>(b + (cg + 4 * n) * LDB + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) c[r][n] = fmaf(lane_of(x[r], e), lane_of(y[n], e), c[r][n]);
+  }
+}
+
+// c[r][e] (row 4 rg + r; column 4 cg + e for e < 4, 16 + 4 cg + e - 4
+// above, of the 32 columns at b) = sum over k < K of a[(4 rg + r) LDA +
+// k] b[k LDB + column], one fmaf per k in increasing k (O = P V, dQ = dS K)
+template <int K, int LDA, int LDB>
+__device__ __forceinline__ void tile_nn(float (&c)[4][8], const float* a, const float* b, int rg,
+                                        int cg) {
+  zero_rows(c);
+#pragma unroll (K <= 32 ? K / 4 : 2)
+  for (int k = 0; k < K; k += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = *reinterpret_cast<const float4*>(a + (4 * rg + r) * LDA + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 y0 = *reinterpret_cast<const float4*>(b + (k + kk) * LDB + 4 * cg);
+      const float4 y1 = *reinterpret_cast<const float4*>(b + (k + kk) * LDB + 16 + 4 * cg);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float xs = lane_of(x[r], kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          c[r][e] = fmaf(xs, lane_of(y0, e), c[r][e]);
+          c[r][4 + e] = fmaf(xs, lane_of(y1, e), c[r][4 + e]);
+        }
+      }
+    }
+  }
+}
+
+// c[r][e] (row 4 rg + r of the result, a column of a; columns as
+// tile_nn) = sum over k < K of a[k LDA + 4 rg + r] b[k LDB + column], one
+// fmaf per k in increasing k (dV = P^T dO, dK = dS^T Q)
+template <int K, int LDA, int LDB>
+__device__ __forceinline__ void tile_tn(float (&c)[4][8], const float* a, const float* b, int rg,
+                                        int cg) {
+  zero_rows(c);
+#pragma unroll (K <= 32 ? K : 4)
+  for (int k = 0; k < K; ++k) {
+    const float4 x = *reinterpret_cast<const float4*>(a + k * LDA + 4 * rg);
+    const float4 y0 = *reinterpret_cast<const float4*>(b + k * LDB + 4 * cg);
+    const float4 y1 = *reinterpret_cast<const float4*>(b + k * LDB + 16 + 4 * cg);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float xs = lane_of(x, r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[r][e] = fmaf(xs, lane_of(y0, e), c[r][e]);
+        c[r][4 + e] = fmaf(xs, lane_of(y1, e), c[r][4 + e]);
+      }
+    }
+  }
+}
+
+// A tile_nn / tile_tn result's rows row0 + 4 rg + r below S into
+// contiguous (B, S, H, DP) at (b, ., h), columns col0 + (4 cg, 16 + 4 cg)
+template <int DP>
+__device__ __forceinline__ void store_tile(float* out, const float (&c)[4][8], int b, int h,
+                                           int row0, int col0, int S, int H, int rg, int cg) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = row0 + 4 * rg + r;
+    if (i >= S) continue;
+    float* dst = out + ((static_cast<long long>(b) * S + i) * H + h) * DP + col0 + 4 * cg;
+    *reinterpret_cast<float4*>(dst) = make_float4(c[r][0], c[r][1], c[r][2], c[r][3]);
+    *reinterpret_cast<float4*>(dst + 16) = make_float4(c[r][4], c[r][5], c[r][6], c[r][7]);
+  }
+}
+
+// A 32-row block of a score-shaped value, s[t][r][n] at row 4 rg + r and
+// key 32 t + cg + 4 n, into [32][LP] rows at p
+template <int T, int LP>
+__device__ __forceinline__ void store_scores(float* p, const float (&s)[T][4][8], int rg, int cg) {
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) p[(4 * rg + r) * LP + 32 * t + cg + 4 * n] = s[t][r][n];
+}
+
+// Rows i0 + r (r < 4) of a 32-row block of raw scores s[t][r][n] (key
+// 32 t + cg + 4 n): x = s * scale, -inf from key S on and, when causal,
+// past the diagonal; then s := e = expf(x - m), m the row's max, and
+// rl = 1 / l, l the row's sum of e
+template <int T>
+__device__ __forceinline__ void row_softmax(float (&s)[T][4][8], float (&rl)[4], int i0, int S,
+                                            int causal, float scale, int cg) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + r;
+    float m = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int j = 32 * t + cg + 4 * n;
+        const float x = (j >= S || (causal && j > i)) ? -INFINITY : __fmul_rn(s[t][r][n], scale);
+        s[t][r][n] = x;
+        m = fmaxf(m, x);
+      }
+    m = quad_max(m);
+    float l = 0.f;
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float e = expf(__fsub_rn(s[t][r][n], m));
+        s[t][r][n] = e;
+        l = __fadd_rn(l, e);
+      }
+    rl[r] = __fdiv_rn(1.f, quad_sum(l));
+  }
+}
+
+// The forward: one warp per (b, h), WARPS a CTA.
+template <int SP, int DP>
+__global__ void __launch_bounds__(32 * win_warps(Win<SP, DP>::FWD))
+attn_fwd_window(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, TcStrides st, int units,
+                int S, int H, int causal, float scale) {
+  using W = Win<SP, DP>;
+  constexpr int WARPS = win_warps(W::FWD), T = SP / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = blockIdx.x * WARPS + warp;
+  if (u >= units) return;  // warp-uniform; no CTA barrier follows
+  const int b = u / H, h = u % H;
+  float* sq = reinterpret_cast<float*>(smem) + warp * W::FWD;
+  float* sk = sq + W::TILE;
+  float* sv = sk + W::TILE;
+  stage_rows<SP, DP>(sq, q + b * st.t[0][0] + h * st.t[0][2], st.t[0][1], S, lane);
+  stage_rows<SP, DP>(sk, k + b * st.t[1][0] + h * st.t[1][2], st.t[1][1], S, lane);
+  stage_rows<SP, DP>(sv, v + b * st.t[2][0] + h * st.t[2][2], st.t[2][1], S, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();  // every lane's copies have landed
+  const int rg = lane >> 2, cg = lane & 3;
+#pragma unroll 1
+  for (int qb = 0; qb < T; ++qb) {
+    const int i0 = 32 * qb;
+    float s[T][4][8];
+#pragma unroll
+    for (int t = 0; t < T; ++t) tile_nt<DP, W::LD, W::LD>(s[t], sq + i0 * W::LD, sk + 32 * t * W::LD, rg, cg);
+    float rl[4];
+    row_softmax<T>(s, rl, i0 + 4 * rg, S, causal, scale, cg);
+    float* sp = W::P_ON_Q ? sq + i0 * W::LD : sv + W::TILE;
+    __syncwarp();  // every lane is done with q's rows of this block (and the last block's P)
+    store_scores<T, W::LP>(sp, s, rg, cg);
+    __syncwarp();
+#pragma unroll 1
+    for (int dc = 0; dc < DP / 32; ++dc) {
+      float acc[4][8];
+      tile_nn<SP, W::LP, W::LD>(acc, sp, sv + 32 * dc, rg, cg);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] = __fmul_rn(acc[r][e], rl[r]);
+      store_tile<DP>(o, acc, b, h, i0, 32 * dc, S, H, rg, cg);
+    }
+  }
+}
+
+// The backward: one warp per (b, h), WARPS a CTA.
+template <int SP, int DP>
+__global__ void __launch_bounds__(32 * win_warps(Win<SP, DP>::BWD))
+attn_bwd_window(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dq,
+                float* __restrict__ dk, float* __restrict__ dv, TcStrides st, int units, int S,
+                int H, int causal, float scale) {
+  using W = Win<SP, DP>;
+  constexpr int WARPS = win_warps(W::BWD), T = SP / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = blockIdx.x * WARPS + warp;
+  if (u >= units) return;  // warp-uniform; no CTA barrier follows
+  const int b = u / H, h = u % H;
+  float* sq = reinterpret_cast<float*>(smem) + warp * W::BWD;
+  float* sk = sq + W::TILE;
+  float* sv = sk + W::TILE;
+  float* sg = sv + W::TILE;
+  float* sp = W::OVERLAY ? sv : sg + W::TILE;          // P, [SP][LP]
+  float* sds = W::OVERLAY ? sg : sp + SP * W::LP;      // dS, [SP][LP]
+  stage_rows<SP, DP>(sq, q + b * st.t[0][0] + h * st.t[0][2], st.t[0][1], S, lane);
+  stage_rows<SP, DP>(sk, k + b * st.t[1][0] + h * st.t[1][2], st.t[1][1], S, lane);
+  stage_rows<SP, DP>(sv, v + b * st.t[2][0] + h * st.t[2][2], st.t[2][1], S, lane);
+  stage_rows<SP, DP>(sg, g + b * st.t[3][0] + h * st.t[3][2], st.t[3][1], S, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  const int rg = lane >> 2, cg = lane & 3;
+  // a 32-row block of P and of dP, then dS in dp; at SP = 32 (one block)
+  // both stay in registers past the loop
+  float s[T][4][8], dp[T][4][8];
+#pragma unroll 1
+  for (int qb = 0; qb < T; ++qb) {
+    const int i0 = 32 * qb;
+#pragma unroll
+    for (int t = 0; t < T; ++t) tile_nt<DP, W::LD, W::LD>(s[t], sq + i0 * W::LD, sk + 32 * t * W::LD, rg, cg);
+    float rl[4];
+    row_softmax<T>(s, rl, i0 + 4 * rg, S, causal, scale, cg);
+#pragma unroll
+    for (int t = 0; t < T; ++t) tile_nt<DP, W::LD, W::LD>(dp[t], sg + i0 * W::LD, sv + 32 * t * W::LD, rg, cg);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float delta = 0.f;
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float p = __fmul_rn(s[t][r][n], rl[r]);
+          s[t][r][n] = p;
+          delta = fmaf(p, dp[t][r][n], delta);
+        }
+      delta = quad_sum(delta);
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          dp[t][r][n] = __fmul_rn(__fmul_rn(s[t][r][n], __fsub_rn(dp[t][r][n], delta)), scale);
+    }
+    if constexpr (!W::OVERLAY) {
+      store_scores<T, W::LP>(sp + i0 * W::LP, s, rg, cg);
+      store_scores<T, W::LP>(sds + i0 * W::LP, dp, rg, cg);
+    }
+  }
+  if constexpr (W::OVERLAY) {
+    __syncwarp();  // every lane is done with v (P goes over it)
+    store_scores<T, W::LP>(sp, s, rg, cg);
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int jt = 0; jt < T; ++jt)
+#pragma unroll 1
+    for (int dc = 0; dc < DP / 32; ++dc) {  // dV = P^T dO
+      float acc[4][8];
+      tile_tn<SP, W::LP, W::LD>(acc, sp + 32 * jt, sg + 32 * dc, rg, cg);
+      store_tile<DP>(dv, acc, b, h, 32 * jt, 32 * dc, S, H, rg, cg);
+    }
+  if constexpr (W::OVERLAY) {
+    __syncwarp();  // every lane is done with dO (dS goes over it)
+    store_scores<T, W::LP>(sds, dp, rg, cg);
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int it = 0; it < T; ++it)
+#pragma unroll 1
+    for (int dc = 0; dc < DP / 32; ++dc) {  // dQ = dS K
+      float acc[4][8];
+      tile_nn<SP, W::LP, W::LD>(acc, sds + 32 * it * W::LP, sk + 32 * dc, rg, cg);
+      store_tile<DP>(dq, acc, b, h, 32 * it, 32 * dc, S, H, rg, cg);
+    }
+#pragma unroll 1
+  for (int jt = 0; jt < T; ++jt)
+#pragma unroll 1
+    for (int dc = 0; dc < DP / 32; ++dc) {  // dK = dS^T Q
+      float acc[4][8];
+      tile_tn<SP, W::LP, W::LD>(acc, sds + 32 * jt, sq + 32 * dc, rg, cg);
+      store_tile<DP>(dk, acc, b, h, 32 * jt, 32 * dc, S, H, rg, cg);
+    }
+}
+
+template <int SP, int DP>
+int launch_fwd_window(const void* q, const void* k, const void* v, void* o, const TcStrides& st,
+                      int B, int S, int H, int causal, float scale, cudaStream_t stream) {
+  constexpr int WARPS = win_warps(Win<SP, DP>::FWD), SMEM = WARPS * Win<SP, DP>::FWD * 4;
+  auto kernel = attn_fwd_window<SP, DP>;
+  static const int attr = allow_smem(kernel, SMEM);
+  if (attr != 0) return attr;
+  const long long units = static_cast<long long>(B) * H;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>((units + WARPS - 1) / WARPS), 32 * WARPS, SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st, static_cast<int>(units), S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SP, int DP>
+int launch_bwd_window(const void* q, const void* k, const void* v, const void* g, void* dq,
+                      void* dk, void* dv, const TcStrides& st, int B, int S, int H, int causal,
+                      float scale, cudaStream_t stream) {
+  constexpr int WARPS = win_warps(Win<SP, DP>::BWD), SMEM = WARPS * Win<SP, DP>::BWD * 4;
+  auto kernel = attn_bwd_window<SP, DP>;
+  static const int attr = allow_smem(kernel, SMEM);
+  if (attr != 0) return attr;
+  const long long units = static_cast<long long>(B) * H;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>((units + WARPS - 1) / WARPS), 32 * WARPS, SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), st, static_cast<int>(units), S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory (bytes) and warps of a CTA of the window kernels
+// at (SP, DP): out[0], out[1] the forward's, out[2], out[3] the backward's.
+template <int SP, int DP>
+void window_report(int* out) {
+  using W = Win<SP, DP>;
+  out[0] = win_warps(W::FWD) * W::FWD * 4;
+  out[1] = win_warps(W::FWD);
+  out[2] = win_warps(W::BWD) * W::BWD * 4;
+  out[3] = win_warps(W::BWD);
+}
+
+#define GYMFX_FOR_EACH_WINDOW(X) \
+  X(32, 32) X(32, 64) X(32, 96) X(32, 128) X(64, 32) X(64, 64) X(64, 96) X(64, 128)
+
+bool bad_window(int B, int S, int H, int DP) {
+  return B < 1 || H < 1 || S < 1 || S > kWindowMax || DP < 32 || DP > 128 || DP % 32 != 0;
+}
+
 bool bad_shape(int B, int S, int H, int D) {
   return B < 1 || H < 1 || S < 1 || S > kMaxWindow || D < 1 || D > 128;
 }
@@ -1247,6 +1712,53 @@ int gymfx_attn_bwd_f32(const void* q, const void* k, const void* v, const void* 
   if (bad_shape(B, S, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_bwd(q, k, v, g, dq, dk, dv, read_strides(strides, 4), B, S, H, D, causal,
                       scale, static_cast<cudaStream_t>(stream));
+}
+
+// float32, windows of up to 64 (attn_fwd_window).  DP: the (padded) head
+// dim, 32, 64, 96 or 128.  strides: 9 (q, k, v) element strides in
+// (b, s, h) order; the d stride is 1 and every row is 16-byte aligned.
+int gymfx_attn_fwd_f32_window(const void* q, const void* k, const void* v, void* o,
+                              const long long* strides, int B, int S, int H, int DP, int causal,
+                              float scale, void* stream) {
+  if (bad_window(B, S, H, DP)) return static_cast<int>(cudaErrorInvalidValue);
+  const TcStrides st = read_tc_strides(strides, 3);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GYMFX_CASE(A, D)                 \
+  if ((S <= 32 ? 32 : 64) == A && DP == D) \
+    return launch_fwd_window<A, D>(q, k, v, o, st, B, S, H, causal, scale, s);
+  GYMFX_FOR_EACH_WINDOW(GYMFX_CASE)
+#undef GYMFX_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// strides: 12 (q, k, v, dO) in (b, s, h) order.
+int gymfx_attn_bwd_f32_window(const void* q, const void* k, const void* v, const void* g,
+                              void* dq, void* dk, void* dv, const long long* strides, int B, int S,
+                              int H, int DP, int causal, float scale, void* stream) {
+  if (bad_window(B, S, H, DP)) return static_cast<int>(cudaErrorInvalidValue);
+  const TcStrides st = read_tc_strides(strides, 4);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GYMFX_CASE(A, D)                 \
+  if ((S <= 32 ? 32 : 64) == A && DP == D) \
+    return launch_bwd_window<A, D>(q, k, v, g, dq, dk, dv, st, B, S, H, causal, scale, s);
+  GYMFX_FOR_EACH_WINDOW(GYMFX_CASE)
+#undef GYMFX_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory (bytes) and warps a CTA of the window kernels a
+// call at (S, DP) launches; see window_report.  Returns 0, or
+// cudaErrorInvalidValue for a shape they do not take.
+int gymfx_attn_f32_window_smem(int S, int DP, int* out) {
+  if (bad_window(1, S, 1, DP)) return static_cast<int>(cudaErrorInvalidValue);
+#define GYMFX_CASE(A, D)                 \
+  if ((S <= 32 ? 32 : 64) == A && DP == D) { \
+    window_report<A, D>(out);            \
+    return 0;                            \
+  }
+  GYMFX_FOR_EACH_WINDOW(GYMFX_CASE)
+#undef GYMFX_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bfloat16, tensor cores.  DP: the (padded) head dim, a multiple of 16

@@ -9,7 +9,8 @@ by nvcc at first use and loaded with ``ctypes``:
     attention  csrc/attention_kernels.cu (K4 forward and backward: bf16 on
                the tensor cores, f32 on the CUDA cores), held to its plain
                versions by a tolerance, so FMA contraction stays on (the
-               same flags without -fmad=false)
+               same flags without -fmad=false; --split-compile=0, as lob,
+               since its 48 kernels are the longest build)
     lob        csrc/lob_kernels.cu (K5, K8), integer only (the attention
                flags, and --split-compile=0: its 32 templates' optimizer
                passes run on every core, 22 s against 54 s alone on the
@@ -18,9 +19,10 @@ by nvcc at first use and loaded with ``ctypes``:
                windows), bitwise to the plain versions (the env flags)
     flow       csrc/flow_kernels.cu (K9, the LOB flow's threefry draws and
                float32 path), bitwise to the plain version (the env flags)
-    attention_probe  csrc/attention_probe.cu, K4's forward copies without
-               its arithmetic (the attention flags): a profiling tool, not
-               on any path, built only when profile_attention.py loads it
+    attention_probe  csrc/attention_probe.cu, K4's copies without its
+               arithmetic and an empty kernel (the attention flags): a
+               profiling tool, not on any path, built only when
+               profile_attention.py loads it
 
 ``-fmad=false`` keeps every multiply and add separate, as the plain
 PyTorch versions compute them; ``--use_fast_math`` is never used (IEEE
@@ -61,7 +63,7 @@ SOURCES = {
 KERNEL_LIBRARIES = ("env", "attention", "lob", "data", "flow")
 FLAGS = {
     "env": (*_COMMON, "-fmad=false", *_SHARED),
-    "attention": (*_COMMON, *_SHARED),
+    "attention": (*_COMMON, "--split-compile=0", *_SHARED),
     "lob": (*_COMMON, "--split-compile=0", *_SHARED),
     "data": (*_COMMON, "-fmad=false", *_SHARED),
     "flow": (*_COMMON, "-fmad=false", *_SHARED),
@@ -170,8 +172,13 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
     lib.gymfx_attn_fwd_bf16.argtypes = [vp, vp, vp, vp, strides, i, i, i, i, i, f, vp]
     lib.gymfx_attn_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, strides, i, i, i, i, i,
                                         f, f, vp]
+    lib.gymfx_attn_fwd_f32_window.argtypes = [vp, vp, vp, vp, strides, i, i, i, i, i, f, vp]
+    lib.gymfx_attn_bwd_f32_window.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides, i, i, i, i, i,
+                                              f, vp]
     lib.gymfx_attn_bf16_smem.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
-    for fn in ("fwd_f32", "bwd_f32", "fwd_bf16", "bwd_bf16", "bf16_smem"):
+    lib.gymfx_attn_f32_window_smem.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    for fn in ("fwd_f32", "bwd_f32", "fwd_f32_window", "bwd_f32_window", "fwd_bf16", "bwd_bf16",
+               "bf16_smem", "f32_window_smem"):
         getattr(lib, f"gymfx_attn_{fn}").restype = i
 
 
@@ -207,7 +214,11 @@ def _bind_flow(lib: ctypes.CDLL) -> None:
 def _bind_attention_probe(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.gymfx_attn_probe_skeleton.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
-    lib.gymfx_attn_probe_skeleton.restype = i
+    lib.gymfx_attn_probe_f32_window.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.gymfx_attn_probe_floor.argtypes = [i, i, i, vp]
+    for fn in (lib.gymfx_attn_probe_skeleton, lib.gymfx_attn_probe_f32_window,
+               lib.gymfx_attn_probe_floor):
+        fn.restype = i
 
 
 _BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob, "data": _bind_data,

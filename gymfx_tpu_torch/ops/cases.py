@@ -1375,3 +1375,105 @@ def attention_backward_emulated(q, k, v, g, causal=False, scale=None):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4: the f32 window kernels' arithmetic
+# ---------------------------------------------------------------------------
+# (B, S, H, D), causal: the f32 cases the window kernels (S <= 64) are
+# held to on the card (the CPU tests run them at B <= 2): the ring
+# twin's update minibatch and rollout, ragged windows (1, 17, 33, 50),
+# the longest (64), head dims the wrapper pads (16, 48, 72, 96), so
+# that every (window, head dim) the kernel library instantiates runs
+ATTENTION_F32_WINDOW_CASES = [
+    ((4096, 32, 4, 32), False),
+    ((256, 32, 4, 32), False),
+    ((256, 32, 4, 32), True),
+    ((64, 1, 4, 32), True),
+    ((64, 17, 4, 32), False),
+    ((64, 33, 4, 32), True),
+    ((64, 64, 4, 32), False),
+    ((64, 32, 4, 16), True),
+    ((64, 32, 4, 48), False),
+    ((64, 32, 4, 64), True),
+    ((64, 32, 4, 128), False),
+    ((16, 17, 3, 72), True),
+    ((16, 50, 2, 64), False),
+    ((16, 33, 3, 96), False),
+    ((16, 64, 2, 128), True),
+]
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) on f32 tensors: the product is exact in f64, the sum
+    is rounded there and then to f32 (a double rounding, which differs
+    from fmaf's one rounding only on rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fma_sum(a, b, dim):
+    """sum over ``dim`` of a * b as the kernels form a dot product: one
+    fmaf per term in increasing index, from 0.  ``a`` and ``b`` have the
+    full length on ``dim`` and broadcast elsewhere."""
+    acc = torch.zeros((), dtype=torch.float32, device=a.device)
+    for i in range(a.shape[dim]):
+        acc = _fma(a.select(dim, i), b.select(dim, i), acc)
+    return acc
+
+
+def _row_sum(x, w=None):
+    """A row's sum over its last axis as the kernels' quad forms it: the
+    thread of lane c sums the keys j % 4 == c in increasing j (plain f32
+    adds, or with ``w`` one fmaf of x and w a key), then (c0 + c1) +
+    (c2 + c3)."""
+    parts = []
+    for c in range(4):
+        acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+        for j in range(c, x.shape[-1], 4):
+            acc = acc + x[..., j] if w is None else _fma(x[..., j], w[..., j], acc)
+        parts.append(acc)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def _f32_window_probs(qh, kh, causal, scale):
+    """Scores x = (q·k) scale (-inf masked) and e = exp(x - max) of (B, H,
+    S, D) heads, and the rows' 1 / sum e, as the window kernels form them."""
+    x = _fma_sum(qh[:, :, :, None, :], kh[:, :, None, :, :], 4) * scale
+    if causal:
+        s = x.shape[-1]
+        keep = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+        x = torch.where(keep, x, -math.inf)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e, 1.0 / _row_sum(e)
+
+
+def attention_f32_window_forward_emulated(q, k, v, causal=False):
+    """The f32 window forward (``attn_fwd_window``) in plain torch, every
+    sum in the kernel's order: s = q·k by fmaf over d, x = s · scale, e =
+    exp(x - m) with m the row's max, l summed by the row's quad, o = (sum
+    over keys of e v by fmaf) · (1 / l).  Only ``exp``'s last ulp (the
+    card's ``expf`` against torch's) and a rare double rounding of the
+    emulated fmaf differ from the kernel."""
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32)
+    qh, kh, vh = (x.to(torch.float32).transpose(1, 2) for x in (q, k, v))
+    e, rl = _f32_window_probs(qh, kh, causal, scale)
+    num = _fma_sum(e[..., None], vh[:, :, None, :, :], 3)
+    return (num * rl[..., None]).transpose(1, 2).contiguous()
+
+
+def attention_f32_window_backward_emulated(q, k, v, g, causal=False):
+    """The f32 window backward (``attn_bwd_window``) in plain torch, every
+    sum in the kernel's order: p = e · (1 / l), dP = dO·v by fmaf over d,
+    delta summed by the row's quad (fmaf of p and dP), dS = (p (dP -
+    delta)) scale, then dV = Pᵀ dO and dK = dSᵀ Q by fmaf over the
+    queries and dQ = dS K by fmaf over the keys."""
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32)
+    qh, kh, vh, gh = (x.to(torch.float32).transpose(1, 2) for x in (q, k, v, g))
+    e, rl = _f32_window_probs(qh, kh, causal, scale)
+    p = e * rl[..., None]
+    dp = _fma_sum(gh[:, :, :, None, :], vh[:, :, None, :, :], 4)
+    ds = (p * (dp - _row_sum(p, dp)[..., None])) * scale
+    dv = _fma_sum(p[..., None], gh[:, :, :, None, :], 2)
+    dq = _fma_sum(ds[..., None], kh[:, :, None, :, :], 3)
+    dk = _fma_sum(ds[..., None], qh[:, :, :, None, :], 2)
+    return tuple(x.transpose(1, 2).contiguous() for x in (dq, dk, dv))

@@ -13,8 +13,15 @@ dtype before the launch (:data:`ROUTES`):
   per-row statistics in an f32 (2, B, H, S) scratch
   (:func:`stats_scratch`, allocated on every backward call) that the
   dK/dV kernel reads.
-* float32: ``attn_fwd_kernel`` / ``attn_bwd_kernel``, f32 FMA on the CUDA
-  cores (their 1e-4 tolerance rules out TF32).
+* float32, f32 FMA on the CUDA cores (the route's 1e-4 tolerance rules
+  out TF32), two pairs of kernels chosen by the window alone
+  (:func:`f32_kernels`): up to :data:`F32_WINDOW` keys ``attn_fwd_window``
+  / ``attn_bwd_window``, one warp per (b, h) with its whole window in
+  shared memory, one-pass softmax and 5 products a pair in the backward
+  (every default-dtype ``transformer_ring`` run: window 32); longer
+  windows ``attn_fwd_kernel`` / ``attn_bwd_kernel``, which stream key
+  tiles.  The window kernels read the head dim padded to a multiple of
+  32 (:func:`prepare_f32_window`).
 
 Beside the kernels is their plain PyTorch version, the oracle:
 
@@ -29,7 +36,7 @@ Beside the kernels is their plain PyTorch version, the oracle:
 The plain versions contract with ``torch.einsum``; the kernel path calls
 no library (no SDPA, cuDNN, cuBLAS or ``torch.matmul``).
 ``gymfx_tpu_torch/ops/cases.py`` emulates the bf16 kernels' rounding
-points in plain torch.
+points, and the f32 window kernels' sums in their order, in plain torch.
 
 :class:`FusedWindowAttention` is the ``torch.autograd.Function``: its
 forward calls :func:`attention_forward` and saves q, k and v (not P), its
@@ -121,15 +128,32 @@ ROUTES = {torch.bfloat16: "tensor-core bf16", torch.float32: "CUDA-core f32"}
 LOG2E = 1.4426950408889634
 
 
-def padded_head_dim(d: int) -> int:
+# the f32 window kernels: the longest window they take, and the multiple
+# their head dim is padded to (one 32-column register tile of a warp)
+F32_WINDOW = 64
+F32_WINDOW_DIM = 32
+
+
+def f32_kernels(shape) -> str:
+    """The f32 kernels a (B, S, H, D) call launches, from its window S
+    alone (they take every D up to 128): ``"window"`` (``attn_fwd_window``
+    / ``attn_bwd_window``) for S <= :data:`F32_WINDOW`, where a warp holds
+    a (b, h)'s whole window in shared memory, ``"streamed"``
+    (``attn_fwd_kernel`` / ``attn_bwd_kernel``) above, where it does not."""
+    return "window" if shape[1] <= F32_WINDOW else "streamed"
+
+
+def padded_head_dim(d: int, multiple: int = 16) -> int:
     """The head dim the tensor-core kernels run at: ``d`` rounded up to a
-    multiple of 16 (the depth of one bf16 ``mma``)."""
-    return -(-int(d) // 16) * 16
+    multiple of 16 (the depth of one bf16 ``mma``); the f32 window
+    kernels' with ``multiple`` :data:`F32_WINDOW_DIM`."""
+    return -(-int(d) // multiple) * multiple
 
 
 def _aligned_for_kernel(x, dp: int):
-    """``x`` as the tensor-core kernels read it: last stride 1, the b, s
-    and h strides and the pointer on 16 bytes, the head dim ``dp``."""
+    """``x`` as the tensor-core and f32 window kernels read it: last
+    stride 1, the b, s and h strides and the pointer on 16 bytes, the
+    head dim ``dp``."""
     d = x.shape[-1]
     if d != dp:
         # into a new contiguous tensor: F.pad keeps the input's memory
@@ -137,10 +161,16 @@ def _aligned_for_kernel(x, dp: int):
         padded = x.new_zeros((*x.shape[:-1], dp))
         padded[..., :d] = x
         x = padded
+    per16 = 16 // x.element_size()
     if (x.stride(-1) != 1 or x.data_ptr() % 16
-            or any(st % 8 for st in x.stride()[:3])):
+            or any(st % per16 for st in x.stride()[:3])):
         return x.clone(memory_format=torch.contiguous_format)
     return x
+
+
+def _prepare(tensors, multiple: int):
+    dp = padded_head_dim(tensors[0].shape[-1], multiple)
+    return tuple(_aligned_for_kernel(x, dp) for x in tensors), 1.0 / math.sqrt(tensors[0].shape[-1])
 
 
 def prepare_bf16(*tensors):
@@ -157,8 +187,16 @@ def prepare_bf16(*tensors):
       pointer is not 16-byte aligned, is copied contiguous.
 
     Returns (tensors, scale)."""
-    dp = padded_head_dim(tensors[0].shape[-1])
-    return tuple(_aligned_for_kernel(x, dp) for x in tensors), 1.0 / math.sqrt(tensors[0].shape[-1])
+    return _prepare(tensors, 16)
+
+
+def prepare_f32_window(*tensors):
+    """The (B, S, H, D) f32 tensors as the window kernels take them, and
+    the scale: as :func:`prepare_bf16`, with D zero-padded to a multiple
+    of :data:`F32_WINDOW_DIM` (a zero column adds exactly 0 to every f32
+    sum).  The ring policies' contiguous q, k, v and cotangent at D = 32
+    are read in place; any other layout is copied."""
+    return _prepare(tensors, F32_WINDOW_DIM)
 
 
 def stats_scratch(b: int, s: int, h: int, device):
@@ -167,6 +205,18 @@ def stats_scratch(b: int, s: int, h: int, device):
     delta = rowsum(dP∘P), written by the dQ kernel, read by the dK/dV
     kernel."""
     return torch.empty((2, b, h, s), dtype=torch.float32, device=device)
+
+
+def f32_window_kernel_smem(window: int, head_dim: int) -> dict:
+    """Dynamic shared memory, in bytes, and warps of a CTA of the f32
+    window kernels a call at this window and head dim launches (asked of
+    the kernel library, so it builds it)."""
+    out = (ctypes.c_int * 4)()
+    dp = padded_head_dim(head_dim, F32_WINDOW_DIM)
+    _build.check_launch(_build.load_library("attention").gymfx_attn_f32_window_smem(
+        window, dp, out), "f32_window_kernel_smem")
+    return {"forward": out[0], "forward warps": out[1], "backward": out[2],
+            "backward warps": out[3]}
 
 
 def bf16_kernel_smem(head_dim: int) -> dict:
@@ -194,19 +244,21 @@ def attention_forward(q, k, v, causal: bool = False):
     _check("attention_forward", q, k, v)
     b, s, h, d = q.shape
     lib = _build.load_library("attention")
-    if q.dtype == torch.bfloat16:
-        (q, k, v), scale = prepare_bf16(q, k, v)
-        dp = q.shape[-1]
-        out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
-        rc = lib.gymfx_attn_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, dims=3),
-            b, s, h, dp, int(bool(causal)), scale * LOG2E, _stream(q))
-        out = out[..., :d] if dp != d else out
-    else:
+    if q.dtype == torch.float32 and f32_kernels(q.shape) == "streamed":
         out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
         rc = lib.gymfx_attn_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v),
             b, s, h, d, int(bool(causal)), 1.0 / math.sqrt(d), _stream(q))
+    else:
+        bf16 = q.dtype == torch.bfloat16
+        (q, k, v), scale = prepare_bf16(q, k, v) if bf16 else prepare_f32_window(q, k, v)
+        dp = q.shape[-1]
+        out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
+        launch = lib.gymfx_attn_fwd_bf16 if bf16 else lib.gymfx_attn_fwd_f32_window
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    _strides(q, k, v, dims=3), b, s, h, dp, int(bool(causal)),
+                    scale * LOG2E if bf16 else scale, _stream(q))
+        out = out[..., :d] if dp != d else out
     _build.check_launch(rc, "attention_forward")
     attention_forward.launches += 1
     return out
@@ -226,23 +278,29 @@ def attention_backward(q, k, v, g, causal: bool = False):
     _check("attention_backward", q, k, v, g)
     b, s, h, d = q.shape
     lib = _build.load_library("attention")
-    if q.dtype == torch.bfloat16:
-        (q, k, v, g), scale = prepare_bf16(q, k, v, g)
-        dp = q.shape[-1]
-        dq, dk, dv = (torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device) for _ in range(3))
-        stats = stats_scratch(b, s, h, q.device)
-        rc = lib.gymfx_attn_bwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), _strides(q, k, v, g, dims=3), b, s, h, dp,
-            int(bool(causal)), scale, scale * LOG2E, _stream(q))
-        if dp != d:
-            dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
-    else:
+    if q.dtype == torch.float32 and f32_kernels(q.shape) == "streamed":
         dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
         rc = lib.gymfx_attn_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, g), b, s, h, d, int(bool(causal)),
             1.0 / math.sqrt(d), _stream(q))
+    else:
+        bf16 = q.dtype == torch.bfloat16
+        (q, k, v, g), scale = prepare_bf16(q, k, v, g) if bf16 else prepare_f32_window(q, k, v, g)
+        dp = q.shape[-1]
+        dq, dk, dv = (torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device) for _ in range(3))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr())
+        if bf16:
+            rc = lib.gymfx_attn_bwd_bf16(
+                *ptrs, stats_scratch(b, s, h, q.device).data_ptr(), _strides(q, k, v, g, dims=3),
+                b, s, h, dp, int(bool(causal)), scale, scale * LOG2E, _stream(q))
+        else:
+            rc = lib.gymfx_attn_bwd_f32_window(
+                *ptrs, _strides(q, k, v, g, dims=3), b, s, h, dp, int(bool(causal)), scale,
+                _stream(q))
+        if dp != d:
+            dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     _build.check_launch(rc, "attention_backward")
     attention_backward.launches += 1
     return dq, dk, dv

@@ -12,7 +12,13 @@ route (tensor cores) is also held to the emulation of its rounding points
 in ops/cases.py within 2^-7 x max|emulation| (only the order of the f32
 sums differs, so the two round nearly the same value to bf16: at most one
 ulp of the largest element), and two backward calls must give the same
-bits.  K3 also at N = 1, 63 and 8,193 with both rewards and mark_pred and
+bits.  The f32 window kernels (S <= 64, ops/cases.ATTENTION_F32_WINDOW_CASES:
+the ring twin's (4096, 32, 4, 32) and (256, 32, 4, 32), ragged windows,
+every instantiated head dim, causal and not, strided views read in place
+and copied) within 1e-4 x max|plain|, within F32_EMULATION_TOL x
+max|emulation| of the emulation of their sums in order (only expf's last
+ulps differ), and their backward bitwise over two calls; so is the
+streamed f32 kernels' backward.  K3 also at N = 1, 63 and 8,193 with both rewards and mark_pred and
 live all true, all false and mixed, and its sharpe path at N = 1, 63,
 4,096 and 8,193 with rings of 2 and 64 slots, stepped on its own outputs
 across a ring wrap.  The train step's graphs (PPO on every configuration,
@@ -283,7 +289,99 @@ def test_cuda_attention_reads_strided_inputs_and_rejects_what_it_cannot_take(cud
 
 
 def _bits(x):
-    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x.view(torch.int32)
+
+
+# the f32 window kernels against the emulation of their sums in order
+# (ops/cases.py): the card's expf and torch's exp differ in their last
+# ulps, which move an output by a few ulps of the largest element
+F32_EMULATION_TOL = 2.0 ** -19
+
+
+def _window_ids(x):
+    return "x".join(map(str, x)) if isinstance(x, tuple) else str(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", cases.ATTENTION_F32_WINDOW_CASES, ids=_window_ids)
+def test_cuda_f32_window_attention_within_tolerance_of_plain(cuda_device, shape, causal):
+    assert fused_attention.f32_kernels(shape) == "window"
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda_device) for _ in range(4))
+    before = (fused_attention.attention_forward.launches, fused_attention.attention_backward.launches)
+    out = fused_attention.attention_forward(q, k, v, causal)
+    ref = fused_attention.attention_forward_plain(q, k, v, causal)
+    assert out.dtype == torch.float32 and out.shape == shape
+    assert float((out - ref).abs().max()) <= _attention_tol(ref)
+    grads = fused_attention.attention_backward(q, k, v, g, causal)
+    for name, ours, plain in zip("qkv", grads, fused_attention.attention_backward_plain(q, k, v, g, causal)):
+        assert ours.dtype == torch.float32 and ours.shape == shape
+        assert float((ours - plain).abs().max()) <= _attention_tol(plain), f"d{name}"
+    again = fused_attention.attention_backward(q, k, v, g, causal)
+    for a, b in zip(grads, again):
+        assert torch.equal(_bits(a), _bits(b))
+    assert (fused_attention.attention_forward.launches,
+            fused_attention.attention_backward.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", cases.ATTENTION_F32_WINDOW_CASES, ids=_window_ids)
+def test_cuda_f32_window_attention_within_tolerance_of_emulation(cuda_device, shape, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda_device) for _ in range(4))
+    out = fused_attention.attention_forward(q, k, v, causal)
+    emu = cases.attention_f32_window_forward_emulated(q, k, v, causal)
+    assert float((out - emu).abs().max()) <= F32_EMULATION_TOL * float(emu.abs().max())
+    emulated = cases.attention_f32_window_backward_emulated(q, k, v, g, causal)
+    for name, ours, e in zip("qkv", fused_attention.attention_backward(q, k, v, g, causal), emulated):
+        assert float((ours - e).abs().max()) <= F32_EMULATION_TOL * max(float(e.abs().max()), 1e-30), f"d{name}"
+
+
+def _f32_views(x):
+    """(B, S, H, D) views of ``x``'s values laid out otherwise in memory:
+    the first two the window kernels read in place, the others the
+    wrapper copies."""
+    b, s, h, d = x.shape
+    wide = torch.zeros((b, s, h, d + 4), device=x.device)
+    wide[..., :d] = x
+    flat = torch.zeros(x.numel() + 1, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return {
+        "heads_outer": x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3),
+        "rows_in_wider": wide[..., :d],
+        "d_outermost": x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2),
+        "pointer_off_16": flat[1:].view(x.shape),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["heads_outer", "rows_in_wider", "d_outermost", "pointer_off_16"])
+@pytest.mark.parametrize("d", [32, 24])
+def test_cuda_f32_window_attention_reads_strided_views(cuda_device, layout, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((5, 33, 3, d), generator=gen, device=cuda_device)
+    y = _f32_views(x)[layout]
+    assert torch.equal(y, x) and not y.is_contiguous() or layout == "pointer_off_16"
+    (z,), _ = fused_attention.prepare_f32_window(y)
+    assert (z is y) == (d == 32 and layout in ("heads_outer", "rows_in_wider"))
+    g = torch.randn(x.shape, generator=gen, device=cuda_device)
+    out = fused_attention.fused_window_attention(y, y, y, causal=True)
+    ref = fused_attention.attention_forward_plain(x, x, x, True)
+    assert float((out - ref).abs().max()) <= _attention_tol(ref)
+    for ours, plain in zip(fused_attention.attention_backward(y, y, y, g, True),
+                           fused_attention.attention_backward_plain(x, x, x, g, True)):
+        assert float((ours - plain).abs().max()) <= _attention_tol(plain)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_streamed_attention_backward_is_deterministic(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, g = (torch.randn((3, 77, 2, 32), generator=gen, device=cuda_device) for _ in range(4))
+    assert fused_attention.f32_kernels(q.shape) == "streamed"
+    first = fused_attention.attention_backward(q, k, v, g, True)
+    second = fused_attention.attention_backward(q, k, v, g, True)
+    for a, b in zip(first, second):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.cuda
