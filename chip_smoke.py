@@ -287,6 +287,45 @@ failure exits non-zero:
             which must reproduce the held-out summary; main --trainer pbt
             on portfolio_pbt_config with eval_split 0.3 for 4 population
             steps, the best member's held-out summary.
+16. configs  the shipped example configs that need cost profiles, the GA
+            and the replay engine,
+            each through main from examples/configs/ at its shipped size:
+            inference_financed_profile (the final balance),
+            optimize_atr (the GA: 64 candidates, 12 generations, the 4
+            atr_period grid points, each generation one batched episode
+            from its chunk graphs; best_params, best_rap,
+            selection_signal, the best period's wall and capture seconds
+            and the whole call's) and inference_verified_execution (the
+            cross-check run, not skipped, within its bound).  Then the
+            financed profile (execution_cost_profiles/pessimistic_v1,
+            the smoke rate table, venue_quantization) at flagship width
+            over the cli phase's generated 2^15-bar M1 tape: the accrual
+            column non-zero on its 22 rollover bars; one env's buy_hold
+            episode over its first 8,192 bars, whose cash moves on
+            exactly the 5 rollover bars among them, by the rate table's
+            amount; 8,192 envs of
+            random actions over the first 1,408 bars (past the first
+            rollover), graphed == eager (torch.equal) and one 64-step
+            chunk replay's kernels by name (fill_brackets_kernel<false,
+            true, false> 64, K3 64); K2 at those 8,192 envs on the
+            first rollover bar's real rates torch.equal to its plain
+            version and timed beside it and its bound.  The GA's
+            population (64 candidates, 500 steps, tuning k_sl and
+            commission, a per-row column of K2's params) for two
+            generations, each graphed twice == eager (torch.equal
+            fitness), the candidates' rap not all equal, the second
+            generation's values replayed through the first's graphs;
+            one chunk replay's K2 and K3 counted and the generation
+            timed.  The LOB venue (flagship-lob-train's book) with
+            financing, 1,024 envs x 64 random steps over a tape whose
+            rollover is bar 40: graphed == eager (torch.equal), the
+            positions equal to the unfinanced episode's and the equity
+            apart by the accrual on the rollover step alone.  The portfolio with a profile per
+            pair (commission and spread differ) and financing over three
+            generated pair tapes that cross a rollover at bar 20: 256
+            books x 3 pairs for 24 steps, one K2 and one K3 launch a
+            step, each pair's own accrual and params as row columns,
+            every leaf equal to the CPU's plain step (torch.equal).
 13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -337,6 +376,20 @@ CLI_SUMMARY_KEYS = ("initial_cash", "final_equity", "total_return", "max_drawdow
                     "trades_lost", "avg_trade_pnl", "metric_schema", "max_drawdown_fraction",
                     "risk_penalty_lambda", "risk_adjusted_total_return", "rap",
                     "sharpe_ratio_steps")
+# the configs phase: the shipped configs it runs through main, the financed
+# episode's envs and steps (22 chunks, past the tape's first rollover at
+# bar 1,320), the pair tapes' bars (a rollover at bar 20) and books
+SHIPPED_CONFIGS = ("inference_financed_profile", "optimize_atr", "inference_verified_execution")
+FINANCED_STEPS, PAIR_BARS, PAIR_BOOKS, PAIR_STEPS = 1408, 96, 256, 24
+LOB_FIN_BARS, LOB_FIN_STEPS, LOB_FIN_ENVS = 128, 64, 1024
+# the GA's card check tunes a K2 per-row column beside k_sl, so that its
+# candidates score apart (the shipped config's k_sl and k_tp do not on
+# its 500 bars)
+GA_SCHEMA = {"k_sl": [1.0, 4.0], "commission": [0.0, 0.0002]}
+# the one-env buy_hold episode over the financed tape: its first 5 rollovers
+BUY_HOLD_STEPS = 8192
+PESSIMISTIC = "examples/configs/execution_cost_profiles/pessimistic_v1.json"
+RATES = "examples/data/fx_rollover_rates_smoke.csv"
 # K7 at a batch whose tiles outnumber twice its persistent grid's CTAs
 K7_MANY_TILES = 600_000
 
@@ -3227,6 +3280,307 @@ def portfolio_cli_phase(torch, results, tmp) -> None:
                                     train_metrics=tm, pbt=pbt)
 
 
+def configs_phase(torch, kernels, results, tmp) -> None:
+    """The shipped configs through main on the card, the
+    financed profile at flagship width, the GA graphed against eager and
+    the portfolio with a profile per pair and financing."""
+    import os
+
+    import numpy as np
+
+    from gymfx_tpu_torch.app.main import main as cli_main
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.config.flagship import lob_config
+    from gymfx_tpu_torch.core import rollout as rollout_mod
+    from gymfx_tpu_torch.core.portfolio import PortfolioEnvironment
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import cases, env_dynamics
+    from gymfx_tpu_torch.resilience.guards import tree_leaves
+    from gymfx_tpu_torch.train import optimize
+
+    tmp = pathlib.Path(tmp) / "configs"
+    tmp.mkdir()
+    out = results["configs"] = {}
+    k2k3 = (env_dynamics.fill_brackets, env_dynamics.mark_reward)
+
+    # 1. the shipped configs through main, from the checkout's root (their
+    # paths are relative to it)
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        shipped = {}
+        for name in SHIPPED_CONFIGS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = cli_main(["--load_config", f"examples/configs/{name}.json",
+                                "--results_file", str(tmp / f"{name}.json"),
+                                "--save_config", str(tmp / f"{name}_config.json"), "--quiet_mode"])
+            torch.cuda.synchronize()
+            shipped[name] = (summary, time.perf_counter() - t0)
+    finally:
+        os.chdir(cwd)
+    fin, fin_s = shipped["inference_financed_profile"]
+    check(math.isfinite(fin["final_equity"]) and fin["action_diagnostics"]["steps"] == 400,
+          f"financed profile: {fin.get('final_equity')}")
+    ga, ga_s = shipped["optimize_atr"]
+    check(sorted(ga["best_params"]) == ["atr_period", "k_sl", "k_tp"]
+          and math.isfinite(ga["best_rap"]) and len(ga["history"]) == 12
+          and [s["atr_period"] for s in ga["atr_period_sweep"]] == [7, 14, 21, 30]
+          and ga["population"] == 64, f"optimize_atr: {ga.get('best_params')}")
+    xc, xc_s = shipped["inference_verified_execution"]
+    xc = xc["execution_crosscheck"]
+    check(xc.get("status") != "skipped" and xc["within_bound"]
+          and xc["divergence"] <= xc["quantization_bound"] and xc["replay_fills"] > 20,
+          f"verified execution: {xc}")
+    print(f"configs: inference_financed_profile final balance {fin['final_equity']!r} "
+          f"({fin_s:.2f} s); optimize_atr best_params {ga['best_params']}, best_rap "
+          f"{ga['best_rap']!r}, selection_signal {ga['selection_signal']}, the best period's "
+          f"wall {ga['wall_seconds']:.3f} s of which capture {ga['capture_seconds']:.3f} s, "
+          f"main {ga_s:.2f} s for the 4 periods; inference_verified_execution divergence "
+          f"{xc['divergence']!r} within its bound {xc['quantization_bound']!r}, "
+          f"{xc['replay_fills']} replay fills ({xc_s:.2f} s)")
+    out["shipped"] = {
+        "financed_final_equity": fin["final_equity"], "financed_s": fin_s,
+        "ga": {k: ga[k] for k in ("best_params", "best_rap", "selection_signal", "wall_seconds",
+                                  "capture_seconds")} | {"main_s": ga_s},
+        "verified": {k: xc[k] for k in ("divergence", "quantization_bound", "replay_fills",
+                                        "scan_trades")} | {"main_s": xc_s},
+    }
+
+    # 2. the financed profile at flagship width over the cli phase's tape
+    tape = tmp / "eurusd_m1.csv"
+    cases.write_bar_csv(tape, cases.tick_walk_columns(CLI_BARS, seed=SEED, level=1.10),
+                        cases.m1_week_grid(CLI_BARS))
+    config = dict(DEFAULT_VALUES, input_data_file=str(tape), timeframe="M1",
+                  execution_cost_profile=str(ROOT / PESSIMISTIC),
+                  financing_rate_data_file=str(ROOT / RATES), position_size=1000.0,
+                  initial_cash=100000.0, venue_quantization=True)
+    env = Environment(config)
+    check(env.cfg.financing_enabled and float(env.params.price_tick) > 0
+          and float(env.params.min_qty) == 1.0, "financed config: financing or quantization off")
+    accrual = env.data.rollover_accrual.cpu().numpy().astype(np.float64)
+    rollover = np.flatnonzero(accrual)
+    check(len(rollover) >= 20 and rollover[0] == 1320,
+          f"financed tape: rollover bars {rollover[:4]} ({len(rollover)})")
+    (state, trace), one_ms = timed_episode(torch, env, rollout_mod.buy_hold_driver(),
+                                           BUY_HOLD_STEPS)
+    bar = trace["bar_index"][:, 0].cpu().numpy().astype(np.int64) - 1
+    pos = trace["pos_units"][:, 0].cpu().numpy().astype(np.float64)
+    close = env.data.close.cpu().numpy().astype(np.float64)
+    cash = trace["equity_delta"][:, 0].cpu().numpy().astype(np.float64) - pos * close[bar]
+    step = np.arange(2, len(bar))
+    moves = np.abs(np.diff(cash))[1:]
+    expected = pos[step] * close[bar[step]] * accrual[bar[step]]
+    moved = step[moves > 1e-2]
+    want = step[expected != 0.0]
+    check(len(want) == 5 and moved.tolist() == want.tolist(),
+          f"financed buy_hold: cash moved at steps {moved[:6]}, rollover steps {want[:6]}")
+    check(float(np.max(np.abs(moves[expected != 0.0] - np.abs(expected[expected != 0.0]))))
+          < 1e-3, "financed buy_hold: a rollover's cash move is not the rate table's amount")
+
+    wide = Environment(config)
+    for fn in k2k3:
+        fn.launches = 0
+    graphed, graphed_ms = timed_episode(torch, wide, rollout_mod.random_driver(), FINANCED_STEPS,
+                                        seed=SEED, n_envs=N_ENVS)
+    launches = count_launches(k2k3)
+    replayed, replay_ms = timed_episode(torch, wide, rollout_mod.random_driver(), FINANCED_STEPS,
+                                        seed=SEED, n_envs=N_ENVS)
+    eager, eager_ms = timed_episode(torch, wide, rollout_mod.random_driver(), FINANCED_STEPS,
+                                    seed=SEED, n_envs=N_ENVS, eager=True)
+    check_episodes_equal(torch, graphed, eager, "financed episode graphed vs eager")
+    check_episodes_equal(torch, replayed, eager, "financed episode replayed vs eager")
+    chunk = next(g for k, g in wide.episode_graphs.graphs.items() if k[0] == 64)
+    traced, names = replay_launches(torch, {"financed chunk": chunk},
+                                    {"financed chunk": {"fill_brackets": 64, "mark_reward": 64}},
+                                    "configs")
+    financed_k2 = sum("fill_brackets_kernel<false, true, false>" in n
+                      for n in names["financed chunk"])
+    check(financed_k2 == 64, f"financed chunk: {financed_k2} launches of K2's financing "
+          "instantiation <false, true, false> by name, expected 64")
+    # K2 alone on the first rollover bar at every env's state
+    st = graphed[0]
+    r = int(rollover[0])
+    o, h, l, c = (getattr(wide.data, k)[r].expand(N_ENVS).contiguous()
+                  for k in ("open", "high", "low", "close"))
+    acc = wide.data.rollover_accrual[r].expand(N_ENVS).contiguous()
+    adv = torch.ones(N_ENVS, dtype=torch.bool, device="cuda")
+    cfg, params = wide.cfg, wide.params
+    ref = env_dynamics.fill_brackets_plain(st, o, h, l, c, acc, adv, cfg, params)
+    ours = env_dynamics.fill_brackets(st._replace(exec_diag=st.exec_diag.clone()),
+                                      o, h, l, c, acc, adv, cfg, params)
+    for field in ref._fields:
+        check(torch.equal(getattr(ours, field), getattr(ref, field)),
+              f"K2 financed at real rates != plain: {field}")
+    check(bool((ref.cash_delta != st.cash_delta).any()), "K2 financed: no cash moved")
+    fields2 = [getattr(st, k) for k in env_dynamics.FILL_FLOAT_FIELDS
+               + env_dynamics.FILL_BOOL_FIELDS + env_dynamics.FILL_INT_FIELDS]
+    moved2 = 2 * nbytes(*fields2) + nbytes(o, h, l, c, acc, adv) + 2 * N_ENVS * 4
+    b2 = bound(moved2, OPS_PER_ITEM["fill_brackets"] * N_ENVS, F32_FLOPS)
+    row = dict(n=N_ENVS, flags="<false, true, false> (financing), quantized",
+               ms=device_ms(torch, lambda: env_dynamics.fill_brackets(
+                   st, o, h, l, c, acc, adv, cfg, params)),
+               plain_ms=device_ms(torch, lambda: env_dynamics.fill_brackets_plain(
+                   st, o, h, l, c, acc, adv, cfg, params)),
+               bound_ms=b2[0], bound_by=b2[1], chunk_replay_launches=financed_k2)
+    kernels["fill_brackets"]["financed"] = row
+    print(f"configs: financed profile (pessimistic_v1, the smoke rates, venue quantization) over "
+          f"{CLI_BARS:,} M1 bars, {len(rollover)} rollover bars (first {r}): 1 env buy_hold "
+          f"{BUY_HOLD_STEPS:,} steps {one_ms:.4f} ms a step, cash moved on exactly the {len(want)} "
+          f"rollover steps by the table's amount; {N_ENVS:,} envs x {FINANCED_STEPS:,} steps "
+          f"random: {launches} launches at capture, graphed {replay_ms:.4f} ms a step (first run "
+          f"{graphed_ms:.4f}), eager {eager_ms:.4f} (graphed == eager, torch.equal); one chunk "
+          f"replay {traced['financed chunk']}, K2<false, true, false> by name {financed_k2}; K2 "
+          f"at the rollover bar == plain (torch.equal): {row['ms'] * 1e3:.2f} us/call (plain "
+          f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us by "
+          f"{row['bound_by']})")
+    out["financed"] = {"rollover_bars": len(rollover), "one_env_ms_per_step": one_ms,
+                       "wide_ms_per_step": replay_ms, "wide_first_ms_per_step": graphed_ms,
+                       "wide_eager_ms_per_step": eager_ms, "chunk_replay": traced,
+                       "k2": row}
+
+    # 3. the GA's population graphed against eager, tuning k_sl and
+    # commission (a per-row column of K2's params) so that the candidates
+    # score apart; a second generation's values are copied into the same
+    # buffers and replayed
+    opt_config = {**DEFAULT_VALUES,
+                  **json.loads((ROOT / "examples" / "configs" / "optimize_atr.json").read_text()),
+                  "input_data_file": str(ROOT / "examples" / "data" / "eurusd_sample.csv"),
+                  "atr_period": 14, "optimize_params": GA_SCHEMA}
+    ga_env = Environment(opt_config)
+    schema = optimize.hparam_schema(opt_config)
+    lo, hi = zip(*GA_SCHEMA.values())
+    ga_ms, fits = {}, {}
+    opts = {eager: optimize.Optimizer(ga_env, schema, population=64, episode_steps=500,
+                                      eager=eager) for eager in (False, True)}
+    for gen in range(2):
+        pop = np.random.default_rng(SEED + gen).uniform(lo, hi, size=(64, 2))
+        for run, eager in (("graphed", False), ("replayed", False), ("eager", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits[gen, run] = [x.clone() for x in opts[eager]._fitness(pop, 3)]
+            torch.cuda.synchronize()
+            ga_ms[f"{run} {gen}"] = (time.perf_counter() - t0) * 1e3
+        for run in ("graphed", "replayed"):
+            for name, a, b in zip(("rap", "total_return", "dd", "trades"), fits[gen, run],
+                                  fits[gen, "eager"]):
+                check(torch.equal(a, b), f"GA generation {gen} fitness {run} != eager: {name}")
+        distinct = len(set(fits[gen, "eager"][0].tolist()))
+        check(distinct > 1, f"GA generation {gen}: the 64 candidates' rap take {distinct} value")
+    check(not torch.equal(fits[0, "graphed"][0], fits[1, "graphed"][0]),
+          "GA: the second generation's fitness equals the first's")
+    check(sorted(k[0] for k in ga_env.episode_graphs.graphs) == [52, 64],
+          f"GA chunk graphs {sorted(ga_env.episode_graphs.graphs)}: recaptured")
+    per_row = sorted(k for k in env_dynamics.FILL_PARAM_FIELDS
+                     if getattr(opts[False]._episodes[3].params, k).dim() == 1)
+    check(per_row == ["commission"], f"GA: K2's per-row params {per_row}")
+    ga_chunk = next(g for k, g in ga_env.episode_graphs.graphs.items() if k[0] == 64)
+    ga_traced, _ = replay_launches(torch, {"GA chunk": ga_chunk},
+                                   {"GA chunk": {"fill_brackets": 64, "mark_reward": 64}},
+                                   "configs GA")
+    ga_capture = sum(g.capture_s for g in ga_env.episode_graphs.graphs.values())
+    print(f"configs: GA population of 64 x 500 steps over {schema}: generation 0 graphed "
+          f"{ga_ms['replayed 0']:.2f} ms (first {ga_ms['graphed 0']:.2f} ms with "
+          f"{ga_capture:.2f} s of capture), eager {ga_ms['eager 0']:.2f} ms; generation 1 from "
+          f"the same graphs {ga_ms['graphed 1']:.2f} ms; fitness graphed == eager in both "
+          f"(torch.equal), {len(set(fits[0, 'eager'][0].tolist()))} and "
+          f"{len(set(fits[1, 'eager'][0].tolist()))} distinct rap values, per-row {per_row}; "
+          f"one chunk replay {ga_traced['GA chunk']}")
+    out["ga_population"] = {"generation_ms": ga_ms, "capture_s": ga_capture,
+                            "chunk_replay": ga_traced, "per_row_params": per_row}
+
+    # 3b. the LOB venue with financing: the venue's plain accrual after its
+    # kernels, graphed against eager, and against the same episode without
+    # financing (the positions equal, the equity apart by the accrual on
+    # the rollover step alone)
+    lob_tape = tmp / "eurusd_lob.csv"
+    cases.write_bar_csv(lob_tape, cases.tick_walk_columns(LOB_FIN_BARS, seed=SEED, level=1.10),
+                        cases.m1_week_grid(LOB_FIN_BARS, start="2024-01-31T21:20"))
+    lob_envs = {fin: Environment(lob_config(str(lob_tape), timeframe="M1", financing_enabled=fin,
+                                            financing_rate_data_file=str(ROOT / RATES)))
+                for fin in (True, False)}
+    lob_acc = lob_envs[True].data.rollover_accrual.cpu().numpy().astype(np.float64)
+    check(np.flatnonzero(lob_acc).tolist() == [40], f"LOB tape rollovers {np.flatnonzero(lob_acc)}")
+    lob_run, lob_ms = {}, {}
+    for run, fin, eager in (("graphed", True, False), ("eager", True, True),
+                            ("unfinanced", False, True)):
+        lob_run[run], lob_ms[run] = timed_episode(
+            torch, lob_envs[fin], rollout_mod.random_driver(), LOB_FIN_STEPS, seed=SEED,
+            n_envs=LOB_FIN_ENVS, eager=eager)
+    check_episodes_equal(torch, lob_run["graphed"], lob_run["eager"],
+                         "LOB financed episode graphed vs eager")
+    fin_trace, plain_trace = lob_run["graphed"][1], lob_run["unfinanced"][1]
+    check(torch.equal(fin_trace["pos_units"], plain_trace["pos_units"]),
+          "LOB financed episode: positions differ from the unfinanced episode's")
+    lbar = fin_trace["bar_index"].long() - 1
+    lpos = fin_trace["pos_units"].double()
+    lexpected = (lpos * lob_envs[True].data.close.double()[lbar] * lob_envs[True]
+                 .data.rollover_accrual.double()[lbar]).cpu().numpy()
+    gap = (fin_trace["equity_delta"].double() - plain_trace["equity_delta"].double()).cpu().numpy()
+    jumps = np.diff(gap, axis=0, prepend=0.0)
+    lob_steps = sorted(set(np.nonzero(lexpected)[0].tolist()))
+    # an accrual is ~1e-3 on the venue's 40 units, a step's float32
+    # ledger noise a few 1e-6
+    check(len(lob_steps) == 1 and np.count_nonzero(np.abs(lexpected) > 2e-4) > LOB_FIN_ENVS // 4,
+          f"LOB financed episode: rollover steps {lob_steps}, "
+          f"{np.count_nonzero(lexpected)} envs holding")
+    check(float(np.max(np.abs(jumps - lexpected))) < 5e-5,
+          "LOB financed episode: the equity moved apart from the rollover's accrual")
+    print(f"configs: LOB venue (flagship-lob-train's book) with financing, {LOB_FIN_ENVS:,} envs x "
+          f"{LOB_FIN_STEPS} random steps over a tape whose rollover is bar 40: graphed == eager "
+          f"(torch.equal), {np.count_nonzero(lexpected)} envs' equity moved by the accrual on step "
+          f"{lob_steps[0]} alone against the unfinanced episode; {lob_ms['graphed']:.4f} ms a step "
+          f"graphed with its capture, eager {lob_ms['eager']:.4f}")
+    out["lob_financed"] = {"envs": LOB_FIN_ENVS, "steps": LOB_FIN_STEPS,
+                           "rollover_step": lob_steps[0],
+                           "envs_accrued": int(np.count_nonzero(lexpected)), "ms_per_step": lob_ms}
+
+    # 4. the portfolio with a profile per pair and financing
+    pess = json.loads((ROOT / PESSIMISTIC).read_text())
+    files, start = {}, "2024-01-31T21:40"
+    for i, (pair, level, tick) in enumerate((("EUR_USD", 1.10, 1e-5), ("GBP_USD", 1.27, 1e-5),
+                                             ("USD_JPY", 148.0, 1e-3))):
+        files[pair] = str(tmp / f"{pair}.csv")
+        cases.write_bar_csv(files[pair], cases.tick_walk_columns(PAIR_BARS, seed=SEED + i,
+                                                                 level=level, tick=tick),
+                            cases.m1_week_grid(PAIR_BARS, start=start))
+    pconfig = dict(DEFAULT_VALUES, portfolio_files=files, timeframe="M1", window_size=WINDOW,
+                   financing_rate_data_file=str(ROOT / RATES), position_size=1000.0,
+                   initial_cash=100000.0,
+                   portfolio_profiles={"EUR_USD": pess,
+                                       "GBP_USD": dict(pess, commission_rate_per_side=1e-4),
+                                       "USD_JPY": dict(pess, full_spread_rate=6e-4)})
+    penvs = {d: PortfolioEnvironment(pconfig, device=d) for d in ("cpu", "cuda")}
+    pair = penvs["cuda"].rows(PAIR_BOOKS)[0].pair
+    per_row = sorted(k for k in env_dynamics.FILL_PARAM_FIELDS if getattr(pair, k).dim() == 1)
+    check(per_row == ["commission", "slippage"], f"per-pair profiles: per-row params {per_row}")
+    stride = penvs["cuda"].data.stride
+    pair_acc = penvs["cuda"].data.pair.rollover_accrual.cpu().numpy().reshape(3, stride)
+    check([np.flatnonzero(a).tolist() for a in pair_acc] == [[20]] * 3
+          and len({float(a[20]) for a in pair_acc}) == 3,
+          "per-pair financing: each pair's accrual column must hold its own rate at bar 20")
+    rng = np.random.default_rng(SEED)
+    states = {d: penvs[d].reset(PAIR_BOOKS)[0] for d in penvs}
+    for _ in range(PAIR_STEPS):
+        actions = torch.from_numpy(rng.integers(0, 4, (PAIR_BOOKS, 3)))
+        before = count_launches(k2k3)
+        stepped = {d: penvs[d].step(states[d], actions.to(d)) for d in penvs}
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in count_launches(k2k3).items()}
+        check(launched == {"fill_brackets": 1, "mark_reward": 1},
+              f"per-pair profiles: {launched} launches in a step of {PAIR_BOOKS * 3} rows")
+        for a, b in zip(tree_leaves(stepped["cpu"]), tree_leaves(stepped["cuda"])):
+            check(torch.equal(a, b.cpu()), "per-pair profiles and financing: a step of "
+                  f"{PAIR_BOOKS * 3} rows != the CPU's plain step")
+        states = {d: stepped[d][0] for d in penvs}
+    print(f"configs: portfolio with a profile per pair and financing, {PAIR_BOOKS} books x 3 "
+          f"pairs for {PAIR_STEPS} steps over a rollover at bar 20 (per-row {per_row}, each "
+          f"pair's accrual row): every leaf == the CPU's plain step (torch.equal), one K2 and "
+          f"one K3 launch a step")
+    out["portfolio_profiles"] = {"rows": PAIR_BOOKS * 3, "steps": PAIR_STEPS,
+                                 "per_row_params": per_row}
+
+
 def main() -> None:
     if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
         fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
@@ -3336,6 +3690,8 @@ def main() -> None:
         timed("cli", cli_phase, torch, results, tmp)
         # ---- 15. portfolio cli: the command line's portfolio and PBT modes
         timed("portfolio cli", portfolio_cli_phase, torch, results, tmp)
+        # ---- 16. configs: the shipped configs, financing, the GA --------
+        timed("configs", configs_phase, torch, kernels, results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -18,19 +18,24 @@ key for key the JAX package's:
   (the multi-pair portfolio over ``portfolio_files``), with
   ``trainer=pbt`` ``train/pbt.train_pbt_from_config`` (population-based
   training over the portfolio);
+* ``mode=optimization``: ``train/optimize.optimize_from_config``, the
+  GA over a strategy's params (each generation one batched episode of
+  the population, from the episode graphs on the card), with the outer
+  ``atr_period`` sweep;
 * ``driver_mode=policy``: ``train/ppo.eval_policy_from_config`` restores
   a checkpoint's params and reruns its greedy evaluation (with
   ``portfolio_files``, ``train/portfolio_ppo.
   eval_portfolio_policy_from_config``);
 * anything else: :func:`_run_env_scan`, the diagnostic episode of a
   built-in driver, from the episode graphs on the card; with ``num_envs >
-  1`` a batch evaluation of that many envs in one batched episode.
+  1`` a batch evaluation of that many envs in one batched episode; with
+  ``verify_execution`` env 0's decision stream replayed through the
+  float64 replay engine (:func:`verify_execution`).
 
 Every entry runs on the card unless the caller passes ``device="cpu"``.
 What the port does not take raises ``core/types.not_ported`` naming its
-ROADMAP Queue 1 item: ``mode=optimization`` and PBT without
-``portfolio_files`` (12), ``verify_execution``
-(13), the gym loop (18), a third-party plugin (9), and, in training, the
+ROADMAP Queue 1 item: PBT without ``portfolio_files`` (12), the gym
+loop (18), a third-party plugin (9), and, in training, the
 elastic controller and a mesh (17), fault profiles and telemetry (10).
 
 :func:`export_scaled_features` is the offline scaled-feature export: an
@@ -175,7 +180,9 @@ def run_mode(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
             return train_portfolio_from_config(config, device=device)
         return train_from_config(config, device=device)
     if config.get("mode") == "optimization":
-        raise not_ported("mode=optimization (train/optimize.py)", 12)
+        from gymfx_tpu_torch.train.optimize import optimize_from_config
+
+        return optimize_from_config(config, device=device)
     if config.get("driver_mode") == "policy":
         if config.get("export_scaled_features"):
             raise ValueError(
@@ -254,8 +261,6 @@ def _run_env_scan(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     from gymfx_tpu_torch.metrics import compute_analyzers, summarize_default, summarize_trading
     from gymfx_tpu_torch.train.ppo import env_state_row
 
-    if config.get("verify_execution"):
-        raise not_ported("verify_execution (the replay engine's cross-check, simulation/)", 13)
     env = Environment(config, device=device)
     driver = env.make_driver()
     steps = int(config.get("steps", 500))
@@ -331,7 +336,29 @@ def _run_env_scan(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
         summary["event_context_diagnostics"] = {}
     if batch_stats is not None:
         summary["batch"] = batch_stats
+    if config.get("verify_execution"):
+        summary["execution_crosscheck"] = verify_execution(config, env, state, out, seed)
     return summary
+
+
+def verify_execution(config: Dict[str, Any], env, state, out, seed: int) -> Dict[str, Any]:
+    """Replay env 0's decision stream through the float64 replay engine
+    and reconcile the realized balances (``simulation/crosscheck.py``),
+    reusing the episode's final ``state`` and its trace ``out``: the scan
+    side is not run again.  Only a bankruptcy (``termination_reason``,
+    not the bar cursor: a bankruptcy on the final bar would fool it)
+    invalidates the check; a configuration the check cannot take records
+    a skip and never aborts the finished run."""
+    from gymfx_tpu_torch.core.types import TERMINATION_BANKRUPT
+    from gymfx_tpu_torch.simulation.crosscheck import crosscheck_episode
+
+    bankrupt = int(state.termination_reason) == TERMINATION_BANKRUPT
+    try:
+        return crosscheck_episode(config, seed=seed, env=env, scan_state=state, trace=out,
+                                  terminated=bankrupt)
+    except (ValueError, TypeError) as exc:
+        # TypeError covers null-valued instrument keys in a config file
+        return {"status": "skipped", "reason": f"{type(exc).__name__}: {exc}"}
 
 
 def main(argv=None, *, device=None) -> Dict[str, Any]:

@@ -138,9 +138,12 @@ def transition(cfg: EnvConfig, params: EnvParams, data: MarketData,
     if cfg.venue == "lob":
         # 1 + 2 (LOB venue): the pending order walks each env's seeded
         # book at the open, brackets resolve against the prints of the
-        # bar's flow (lob/venue.py; K5 seeds the books).  Financing is
-        # refused at construction (core/runtime.py)
+        # bar's flow (lob/venue.py; K5 seeds the books); then 2b, the
+        # rollover financing, as the JAX package's plain path applies it
         st = env_dynamics.select(advance, lob_venue.execute_bar(st, o, h, l, c, t_new, cfg, params), st)
+        if cfg.financing_enabled:
+            accrued = st.pos * c * data.rollover_accrual[ti]
+            st = st._replace(cash_delta=st.cash_delta + torch.where(advance, accrued, 0.0))
     else:
         # 1 + 2 + 2b: fill at the open, brackets, financing (kernel K2)
         st = env_dynamics.fill_brackets(

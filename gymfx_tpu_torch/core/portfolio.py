@@ -17,7 +17,10 @@ MarketData, each pair's block ``stride`` rows long, and the tape's
 ``core/obs.local_rows`` subtracts from every cursor, as it rebases a
 streamed shard.  Each row reads its own params: a param on which the
 pairs differ is an ``(R,)`` column, one the pairs share stays 0-d
-(:meth:`PortfolioEnvironment.rows`); K2 and K3 take both forms.
+(:meth:`PortfolioEnvironment.rows`); K2 and K3 take both forms.  Each
+pair may bind its own execution cost profile (``portfolio_profiles``),
+and with financing each pair's tape holds its own rollover accrual
+column, which a row reads through the same bases.
 
 The account couples the pairs as in the JAX package: per-bar quote ->
 account conversion factors, the greedy margin preflight in pair order,
@@ -50,6 +53,7 @@ from gymfx_tpu_torch.core.types import (
     EnvConfig,
     EnvParams,
     EnvState,
+    _parse_profile,
     initial_state,
     make_env_config,
     make_env_params,
@@ -488,12 +492,13 @@ def bind_rows(params: PortfolioParams, data: PortfolioData, books: int):
 # ---------------------------------------------------------------------------
 # host-side binding
 # ---------------------------------------------------------------------------
-def _partial_profiles_error() -> ValueError:
-    return ValueError(
-        "portfolio_profiles must cover every pair (or bind one "
-        "shared execution_cost_profile): profiles must never be "
-        "silently degraded"
-    )
+_STATIC_PROFILE_FIELDS = (
+    "intrabar_collision_policy",
+    "limit_fill_policy",
+    "margin_model",
+    "financing_enabled",
+    "enforce_margin_preflight",
+)
 
 
 class PortfolioEnvironment:
@@ -560,17 +565,17 @@ class PortfolioEnvironment:
         if n < w + 2:
             raise ValueError("aligned portfolio data too short for the window")
 
-        self._check_profiles(config, pairs)
+        profiles = self._load_profiles(config, pairs)
+        self._check_static_profile_agreement(profiles)
         feature_columns = _parse_column_list(config.get("feature_columns"), "feature_columns")
         binary = set(_parse_column_list(config.get("feature_binary_columns"),
                                         "feature_binary_columns"))
         cfg0 = make_env_config(config, n_bars=n, n_features=len(feature_columns),
-                               binary_mask=tuple(c in binary for c in feature_columns))
+                               binary_mask=tuple(c in binary for c in feature_columns),
+                               profile=profiles[0])
         if self.device.type == "cuda" and cfg0.dtype != torch.float32:
             raise not_ported(
                 f"compute_dtype {cfg0.dtype} on the card (the kernels are float32)", 7)
-        if cfg0.financing_enabled:
-            raise not_ported("FX financing rates (data/financing.py)", 8)
         # the legacy portfolio key 'margin_rate' doubles as margin_init and
         # the enforcement flag
         margin_rate = float(config.get("margin_rate", 0.0) or 0.0)
@@ -592,13 +597,16 @@ class PortfolioEnvironment:
             dtype=cfg0.dtype,
         )
 
+        from gymfx_tpu_torch.core.runtime import load_financing_rates, validate_profile_latency
+
+        financing_rate_data = load_financing_rates(config, pair_cfg.financing_enabled)
         datasets = [MarketDataset(aligned[p], config) for p in pairs]
         tapes = [ds.build_market_data(
             window_size=w, device=None, feature_columns=tuple(feature_columns),
             feature_scaling=str(config.get("feature_scaling", "rolling_zscore")),
             feature_scaling_window=int(config.get("feature_scaling_window", 256)),
-            dtype=cfg0.dtype,
-        ) for ds in datasets]
+            dtype=cfg0.dtype, financing_rate_data=financing_rate_data, instrument=p,
+        ) for p, ds in zip(pairs, datasets)]
         stride = n + w + 1  # the longest array of a tape: the padded window sources
         closes = np.stack([aligned[p].columns["CLOSE"] for p in pairs], 1)
         conv = build_conversion_factors(pairs, closes, account)
@@ -630,12 +638,16 @@ class PortfolioEnvironment:
             cfg_i.update(overrides.get(p) or {})
             # a pair's ledger never terminates on its own equity: the
             # account gates bankruptcy
-            per_pair.append(make_env_params(cfg_i, pair_cfg, dev)._replace(
+            per_pair.append(make_env_params(cfg_i, pair_cfg, dev, profile=profiles[i])._replace(
                 min_equity=torch.tensor(-1e30, dtype=cfg0.dtype, device=dev)))
         self.params = PortfolioParams(
             pair=EnvParams(*(torch.stack(xs) for xs in zip(*per_pair))),
-            acct=make_env_params(dict(config), acct_cfg, dev),
+            acct=make_env_params(dict(config), acct_cfg, dev, profile=profiles[0]),
         )
+        # honor-or-reject: latency against the shared bar interval
+        bar_ms = datasets[0].bar_interval_ms()
+        for prof in profiles:
+            validate_profile_latency(prof, bar_ms)
         self.timeframe_hours = datasets[0].timeframe_hours
         self._rows: Dict[int, Tuple[PortfolioParams, PortfolioData]] = {}
 
@@ -652,14 +664,42 @@ class PortfolioEnvironment:
         return hit
 
     @staticmethod
-    def _check_profiles(config: Dict[str, Any], pairs: List[str]) -> None:
-        per_pair = config.get("portfolio_profiles") or {}
-        if not per_pair:
+    def _load_profiles(config: Dict[str, Any], pairs: List[str]):
+        """Each pair's profile: its ``portfolio_profiles`` entry, else the
+        shared ``execution_cost_profile`` (or None)."""
+        shared = _parse_profile(config)
+        per_pair_raw = config.get("portfolio_profiles") or {}
+        profiles = []
+        for p in pairs:
+            raw = per_pair_raw.get(p)
+            if raw is None:
+                profiles.append(shared)
+            else:
+                profiles.append(_parse_profile({"execution_cost_profile": raw}))
+        return profiles
+
+    @staticmethod
+    def _check_static_profile_agreement(profiles) -> None:
+        """The pairs' profiles bind every pair or none, and agree on the
+        fields that are static config (one config serves every row)."""
+        bound = [p for p in profiles if p is not None]
+        if not bound:
             return
-        covered = all(per_pair.get(p) is not None for p in pairs)
-        if not covered and not config.get("execution_cost_profile"):
-            raise _partial_profiles_error()
-        raise not_ported("per-pair execution-cost profiles (portfolio_profiles)", 8)
+        if len(bound) != len(profiles):
+            raise ValueError(
+                "portfolio_profiles must cover every pair (or bind one "
+                "shared execution_cost_profile): profiles must never be "
+                "silently degraded"
+            )
+        head = bound[0]
+        for other in bound[1:]:
+            for field in _STATIC_PROFILE_FIELDS:
+                if getattr(other, field) != getattr(head, field):
+                    raise ValueError(
+                        "per-pair profiles must agree on static policy field "
+                        f"{field!r} (one step config serves all pairs): "
+                        f"{getattr(head, field)!r} != {getattr(other, field)!r}"
+                    )
 
     def reset(self, books: int = 1):
         params, data = self.rows(books)

@@ -7,7 +7,10 @@ device, and exposes ``reset`` / ``step`` / ``rollout`` / ``make_driver``.
 With ``stream_hbm_budget_mb`` a history larger than the budget is
 streamed in shards (``streamer``, no resident ``data``); with
 ``feed="curriculum"`` a ``CurriculumSampler`` holds the other tapes
-(``curriculum``), compressed when ``data_compress`` is on.
+(``curriculum``), compressed when ``data_compress`` is on.  An execution
+cost profile is bound here (its latency checked against the bar
+interval), and with financing on the rate table's rollover accrual
+becomes the tape's ``rollover_accrual`` column.
 
 The device is CUDA unless the caller passes ``device="cpu"``; without
 CUDA and without a device it raises.  On CUDA every configuration the
@@ -29,12 +32,14 @@ from gymfx_tpu_torch.core.types import (
     EnvConfig,
     EnvParams,
     EnvState,
+    _parse_profile,
     make_env_config,
     make_env_params,
     not_ported,
 )
 from gymfx_tpu_torch.data import tapes as tapes_mod
 from gymfx_tpu_torch.data.compress import validate_compress_mode
+from gymfx_tpu_torch.data.financing import read_rate_table
 from gymfx_tpu_torch.data.feed import (
     BarStreamer,
     MarketData,
@@ -44,6 +49,44 @@ from gymfx_tpu_torch.data.feed import (
     market_data_to_device,
 )
 from gymfx_tpu_torch.lob.venue import validate_lob_venue
+
+
+def validate_profile_latency(profile, bar_ms: Optional[float]) -> None:
+    """Honor-or-reject: the scan engine's timing model (orders submitted
+    at a bar close fill at the next bar open) subsumes sub-bar latency
+    only; anything it cannot honor fails here, at binding time.  Shared
+    by the single-pair and portfolio bindings."""
+    if profile is None or profile.latency_ms <= 0:
+        return
+    if bar_ms is None:
+        raise ValueError(
+            "cannot validate latency_ms: the dataset has neither a "
+            "timeframe label nor enough timestamps to infer the bar "
+            "interval; set the 'timeframe' config key"
+        )
+    if float(profile.latency_ms) > bar_ms:
+        raise ValueError(
+            f"latency_ms={profile.latency_ms} exceeds one bar "
+            f"({bar_ms:.0f} ms): the scan engine's execution model "
+            "(orders submitted at a bar close fill at the next bar "
+            "open) subsumes sub-bar latency only; use the replay "
+            "engine for multi-bar latency"
+        )
+
+
+def load_financing_rates(config: Dict[str, Any], financing_enabled: bool):
+    """The rate table's rows for the rollover accrual
+    (``data/financing.py``), required whenever the profile or config
+    enables financing (the reference's error,
+    simulation_engines/nautilus_gym.py:277-281)."""
+    if not financing_enabled:
+        return None
+    rate_path = config.get("financing_rate_data_file")
+    if not rate_path:
+        raise ValueError(
+            "financing_rate_data_file is required by the selected cost profile"
+        )
+    return read_rate_table(str(rate_path))
 
 
 def _parse_column_list(value: Any, key: str) -> list:
@@ -97,20 +140,24 @@ class Environment:
         ))
         self.config["feature_columns"] = feature_columns
         self.config["feature_binary_columns"] = sorted(binary_cols)
+        profile = _parse_profile(self.config)
         self.cfg: EnvConfig = make_env_config(
             self.config,
             n_bars=len(self.dataset),
             n_features=len(feature_columns),
             binary_mask=tuple(c in binary_cols for c in feature_columns),
+            profile=profile,
         )
         if self.device.type == "cuda" and self.cfg.dtype != torch.float32:
             raise not_ported(
                 f"compute_dtype {self.cfg.dtype} on the card (the kernels are float32)", 7
             )
-        if self.cfg.financing_enabled:
-            raise not_ported("FX financing rates (data/financing.py)", 8)
+        self.params: EnvParams = make_env_params(self.config, self.cfg, self.device,
+                                                 profile=profile)
+        # honor-or-reject: every profile field drives the env or fails here
+        validate_profile_latency(profile, self.dataset.bar_interval_ms())
         validate_lob_venue(self.cfg, self.config)
-        self.params: EnvParams = make_env_params(self.config, self.cfg, self.device)
+        financing_rate_data = load_financing_rates(self.config, self.cfg.financing_enabled)
 
         budget = config.get("stream_hbm_budget_mb")
         self.stream_budget_mb: Optional[float] = float(budget) if budget else None
@@ -138,6 +185,8 @@ class Environment:
             force_close_hour=int(config.get("force_close_hour", 20)),
             force_close_window_hours=int(config.get("force_close_window_hours", 4)),
             monday_entry_window_hours=int(config.get("monday_entry_window_hours", 4)),
+            financing_rate_data=financing_rate_data,
+            instrument=str(config.get("instrument", "EUR_USD")),
         )
         self.md_kwargs = md_kwargs  # every tape of this Environment is built with these
 

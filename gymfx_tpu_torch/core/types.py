@@ -7,9 +7,11 @@ The port's counterpart of ``gymfx_tpu/core/types.py``:
              (the JAX package vmaps one env, the port writes the axis out)
 
 Built-in strategy and reward names only (``pnl_reward``,
-``dd_penalized_reward`` and ``sharpe_reward``); configurations the port
-does not take yet raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+``dd_penalized_reward`` and ``sharpe_reward``); an execution cost profile
+(``contracts.py``) sets the policy fields' defaults, the commission and
+the fills' displacement, and ``venue_quantization`` the instrument's
+grid.  Configurations the port does not take yet raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -291,14 +293,32 @@ class EnvState(NamedTuple):
 _DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
 
+def _parse_profile(config: Dict[str, Any]):
+    """The config's ``execution_cost_profile`` (a path, a dict or a
+    parsed profile) as an ``ExecutionCostProfile``, or None."""
+    raw = config.get("execution_cost_profile")
+    if not raw:
+        return None
+    from gymfx_tpu_torch.contracts import ExecutionCostProfile, load_execution_cost_profile
+
+    if isinstance(raw, str):
+        return load_execution_cost_profile(raw)
+    if isinstance(raw, dict):
+        return ExecutionCostProfile.from_dict(raw)
+    return raw
+
+
 def make_env_config(config: Dict[str, Any], *, n_bars: int, n_features: int = 0,
-                    binary_mask: Tuple[bool, ...] = ()) -> EnvConfig:
-    if config.get("execution_cost_profile"):
-        raise not_ported("execution cost profiles (contracts.py)", 8)
+                    binary_mask: Tuple[bool, ...] = (), profile=None) -> EnvConfig:
+    """The static config; a profile (``profile``, else the config's own)
+    sets the defaults of its policy fields, and a config key still wins."""
     if config.get("obs_plugins"):
         raise not_ported("registered obs kernels (obs_plugins)", 9)
     feature_columns = list(config.get("feature_columns") or [])
-    collision = str(config.get("intrabar_collision_policy", "worst_case"))
+    profile = _parse_profile(config) if profile is None else profile
+    collision = str(config.get(
+        "intrabar_collision_policy",
+        profile.intrabar_collision_policy if profile else "worst_case"))
     if collision == "adaptive":
         warnings.warn(
             "intrabar_collision_policy 'adaptive' resolves to 'worst_case' in "
@@ -306,7 +326,8 @@ def make_env_config(config: Dict[str, Any], *, n_bars: int, n_features: int = 0,
             "DIVERGENCES.md",
             stacklevel=2,
         )
-    enforce_margin = bool(config.get("enforce_margin_preflight", False))
+    enforce_margin = bool(config.get(
+        "enforce_margin_preflight", profile.enforce_margin_preflight if profile else False))
     return EnvConfig(
         window_size=int(config.get("window_size", 32)),
         n_bars=int(n_bars),
@@ -355,14 +376,17 @@ def make_env_config(config: Dict[str, Any], *, n_bars: int, n_features: int = 0,
             and str(config.get("venue", "bar")).lower() == "lob"
         ),
         intrabar_collision_policy=collision,
-        limit_fill_policy=str(config.get("limit_fill_policy", "cross")),
+        limit_fill_policy=str(config.get(
+            "limit_fill_policy", profile.limit_fill_policy if profile else "cross")),
         slip_open=bool(config.get("slip_open", True)),
         slip_limit=bool(config.get("slip_limit", False)),
         slip_match=bool(config.get("slip_match", False)),
         enforce_margin_preflight=enforce_margin,
         enforce_margin_closeout=bool(config.get("enforce_margin_closeout", enforce_margin)),
-        margin_model=str(config.get("margin_model", "leveraged")),
-        financing_enabled=bool(config.get("financing_enabled", False)),
+        margin_model=str(config.get(
+            "margin_model", profile.margin_model if profile else "leveraged")),
+        financing_enabled=bool(config.get(
+            "financing_enabled", profile.financing_enabled if profile else False)),
         dtype=_DTYPES[str(config.get("compute_dtype", "float32"))],
     )
 
@@ -377,9 +401,10 @@ def _strategy_kernel_name(config: Dict[str, Any]) -> str:
 
 
 def make_env_params(config: Dict[str, Any], cfg: EnvConfig,
-                    device: torch.device) -> EnvParams:
-    if config.get("venue_quantization"):
-        raise not_ported("venue quantization (contracts.py instrument specs)", 8)
+                    device: torch.device, profile=None) -> EnvParams:
+    """The numeric params on ``device``.  A profile (``profile``, else the
+    config's own) sets the commission and the fills' adverse displacement
+    (half-spread + slippage, ``quote_adverse_rate_per_side``)."""
     d = cfg.dtype
     initial_cash = float(config.get("initial_cash", 10000.0))
     min_equity = config.get("min_equity")
@@ -398,11 +423,16 @@ def make_env_params(config: Dict[str, Any], cfg: EnvConfig,
         return torch.tensor(int(x), dtype=torch.int32, device=device)
 
     slippage = config.get("slippage_perc", config.get("slippage", 0.0)) or 0.0
+    commission = config.get("commission", 0.0)
+    profile = _parse_profile(config) if profile is None else profile
+    if profile is not None:
+        commission = profile.commission_rate_per_side
+        slippage = profile.quote_adverse_rate_per_side
     threshold = config.get("continuous_action_threshold", 0.33)
     return EnvParams(
         initial_cash=f(initial_cash),
         position_size=f(config.get("position_size", 1.0)),
-        commission=f(config.get("commission", 0.0)),
+        commission=f(commission),
         slippage=f(slippage),
         leverage=f(config.get("leverage", 1.0)),
         min_equity=f(min_equity),
@@ -446,10 +476,25 @@ def make_env_params(config: Dict[str, Any], cfg: EnvConfig,
         ),
         margin_init=f(config.get("margin_init", 0.05)),
         margin_maint=f(config.get("margin_maint", 0.025)),
-        price_tick=f(0.0),
-        size_step=f(0.0),
-        min_qty=f(0.0),
+        **_venue_quantization_params(config, f),
     )
+
+
+def _venue_quantization_params(config: Dict[str, Any], f) -> Dict[str, Any]:
+    """With ``venue_quantization: true``, the tick, size step and minimum
+    quantity of the instrument spec that the replay engine resolves
+    (``contracts.instrument_spec_from_config``), so both engines quantize
+    to one grid; off, zeros, which leave the step as it was."""
+    if not config.get("venue_quantization"):
+        return {"price_tick": f(0.0), "size_step": f(0.0), "min_qty": f(0.0)}
+    from gymfx_tpu_torch.contracts import instrument_spec_from_config
+
+    spec = instrument_spec_from_config(config)
+    return {
+        "price_tick": f(10.0 ** (-spec.price_precision)),
+        "size_step": f(10.0 ** (-spec.size_precision)),
+        "min_qty": f(spec.min_quantity),
+    }
 
 
 def initial_state(cfg: EnvConfig, n_envs: int, device: torch.device) -> EnvState:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from gymfx_tpu_torch.data import calendar as fxcal
+from gymfx_tpu_torch.data import financing as fxfin
 
 OHLC_COLUMNS = ("OPEN", "HIGH", "LOW", "CLOSE")
 
@@ -50,7 +51,7 @@ class MarketData(NamedTuple):
     ev_no_trade: Any   # (n,) float32
     ev_spread_mult: Any
     ev_slip_mult: Any
-    rollover_accrual: Any  # (n,) compute dtype (zeros: financing not ported)
+    rollover_accrual: Any  # (n,) compute dtype: a rollover bar's rate, else 0
     padded_features: Any   # (n + window_size, F) float32
     feat_mean: Any     # (n + 1, F) float32
     feat_std: Any      # (n + 1, F) float32
@@ -117,6 +118,19 @@ class MarketDataset:
             return self._released_len
         return len(self.frame)
 
+    def bar_interval_ms(self) -> Optional[float]:
+        """Milliseconds per bar: from the timeframe label when present,
+        else the median spacing of valid timestamps; None when neither
+        is available (callers that need it must reject, not guess)."""
+        if self.timeframe_hours:
+            return self.timeframe_hours * 3_600_000.0
+        ts = np.asarray(self.timestamps).astype("datetime64[ns]")
+        ts = ts[~np.isnat(ts)]
+        if len(ts) < 2:
+            return None
+        median = float(np.median(np.diff(ts.astype(np.int64)) / 1e9))
+        return median * 1000.0 if median > 0 else None
+
     def release_frame(self) -> None:
         """Drop the loaded frame once the tape exists in another form (a
         compressed streamed tape); ``len()`` keeps working, building market
@@ -142,12 +156,8 @@ class MarketDataset:
         force_close_window_hours: int = 4,
         monday_entry_window_hours: int = 4,
         financing_rate_data: Any = None,
+        instrument: str = "EUR_USD",
     ) -> MarketData:
-        if financing_rate_data is not None:
-            raise NotImplementedError(
-                "FX financing rates (data/financing.py) come with "
-                "ROADMAP.md Queue 1 item 8"
-            )
         if self.frame is None:
             raise ValueError(
                 "this dataset's frame was released (release_frame) after "
@@ -189,7 +199,13 @@ class MarketDataset:
         ev_no_trade = col(event_context_no_trade_column, 0.0).astype(np.float32)
         ev_spread = col(event_context_spread_stress_column, 1.0).astype(np.float32)
         ev_slip = col(event_context_slippage_stress_column, 1.0).astype(np.float32)
-        accrual = np.zeros(n, dtype=np.float64)
+        if financing_rate_data is not None:
+            base_ccy, quote_ccy = fxfin.split_pair(instrument)
+            accrual = fxfin.precompute_rollover_accrual(
+                self.timestamps, financing_rate_data, base_ccy, quote_ccy
+            )
+        else:
+            accrual = np.zeros(n, dtype=np.float64)
 
         padded_features, feat_mean, feat_std, feat_neutral = _build_feature_tensors(
             columns,

@@ -191,11 +191,13 @@ def test_a_mode_outside_the_three_raises(tmp_path):
     # the portfolio trains; its tape library waits on item 12
     pytest.param(("--mode", "training", "--trainer", "portfolio", "--feed", "curriculum"), 12,
                  id="mode-training-trainer-portfolio-12"),
-    (("--mode", "optimization",), 12),
+    # the GA runs; a generated feed under it waits on item 14
+    (("--mode", "optimization", "--feed", "scengen"), 14),
     pytest.param(("--driver_mode", "policy", "--portfolio_files", '{"EUR_USD": "x.csv"}',
                   "--checkpoint_dir", "ckpt", "--feed", "curriculum"), 12,
                  id='driver_mode-policy-portfolio_files-{"EUR-12'),
-    (("--verify_execution", "true"), 13),
+    # the execution cross-check runs; a generated feed waits on 14
+    (("--verify_execution", "true", "--feed", "scengen"), 14),
     (("--mode", "training", "--fault_profile", "nan_bars=5"), 10),
     (("--mode", "training", "--telemetry_enabled"), 10),
     (("--mode", "training", "--telemetry_http_port", "0"), 10),

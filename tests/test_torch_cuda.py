@@ -1199,3 +1199,92 @@ def test_cuda_pbt_steps_graphed_equal_eager_with_an_exploit(cuda_device, policy)
         assert torch.equal(a, b)
     assert torch.equal(ga.generator.get_state(), ea.generator.get_state())
     assert pbt.trainer.captures() == 2
+
+
+# ------------------------------------------- financing, profiles and the GA
+def _real_rate_accrual(n, seed):
+    """Each row's accrual at one bar of a generated M1 week: the pair of
+    row e is e % 3 (EUR_USD, GBP_USD, USD_JPY, a portfolio's rows), its
+    bar drawn so that about half the rows sit on a 22:00 UTC rollover
+    bar, with the smoke rate table's daily differentials
+    (data/financing.py)."""
+    import numpy as np
+
+    from gymfx_tpu_torch.data import financing
+
+    rows = financing.read_rate_table("examples/data/fx_rollover_rates_smoke.csv")
+    stamps = cases.m1_week_grid(2 ** 15)
+    columns = [financing.precompute_rollover_accrual(stamps, rows, *financing.split_pair(p))
+               for p in ("EUR_USD", "GBP_USD", "USD_JPY")]
+    rollover = np.flatnonzero(columns[0])
+    rng = np.random.default_rng(seed)
+    bars = np.where(rng.random(n) < 0.5, rng.choice(rollover, n), rng.integers(0, len(stamps), n))
+    acc = np.array([columns[e % 3][b] for e, b in enumerate(bars)], np.float32)
+    assert np.count_nonzero(acc) > n // 4
+    return torch.from_numpy(acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [63, 8192])
+@pytest.mark.parametrize("flags", [f for f in FLAG_GRID if f[3]], ids=lambda f: "-".join(map(str, f)))
+def test_cuda_fill_brackets_financed_at_real_rates_equals_plain(cuda_device, flags, n):
+    """K2's financing instantiations at the rate table's real daily
+    differentials, a pair's own accrual per row, with per-row params that
+    put venue quantization on (a tick grid, a size step, a minimum
+    quantity) and the shared quantized params: torch.equal to plain."""
+    i = FLAG_GRID.index(flags)
+    cfg = flag_config(flags, REWARDS[i % 2])
+    acc = _real_rate_accrual(n, i).to(cuda_device)
+    fields, mark, bars, advance, _ = ledger_case(300 + i, n=n)
+    st = ledger_state(cfg, {**fields, **mark}, cuda_device)
+    o, h, l, c = (torch.from_numpy(bars[k]).to(cuda_device) for k in ("o", "h", "l", "c"))
+    adv = torch.from_numpy(advance).to(cuda_device)
+    for params in (cases.row_params(cases.PAIR_PARAM_ROWS, n, cuda_device),
+                   env_params({**PARAM_SETS["quantized"], **MARK_PARAMS}, cuda_device)):
+        ref = env_dynamics.fill_brackets_plain(st, o, h, l, c, acc, adv, cfg, params)
+        before = env_dynamics.fill_brackets.launches
+        ours = env_dynamics.fill_brackets(st._replace(exec_diag=st.exec_diag.clone()),
+                                          o, h, l, c, acc, adv, cfg, params)
+        assert env_dynamics.fill_brackets.launches == before + 1
+        for name in ref._fields:
+            assert torch.equal(getattr(ours, name), getattr(ref, name)), name
+        moved = (ref.cash_delta != env_dynamics.fill_brackets_plain(
+            st, o, h, l, c, torch.zeros_like(acc), adv, cfg, params).cash_delta)
+        assert bool(moved.any())  # the accrual reached the cash
+
+
+@pytest.mark.cuda
+def test_cuda_ga_fitness_through_graphs_equals_eager(cuda_device):
+    """Two generations of a population of 64 over
+    examples/configs/optimize_atr.json's bars (one batched episode of
+    500 steps), tuning k_sl and commission (a per-row column of K2's
+    params, so the candidates score apart), replayed from the chunk
+    graphs equal the same generations op by op; the first is replayed
+    twice, the second's values are copied into the same buffers."""
+    import json
+
+    import numpy as np
+
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.train import optimize
+
+    with open("examples/configs/optimize_atr.json", encoding="utf-8") as fh:
+        config = {**DEFAULT_VALUES, **json.load(fh), "atr_period": 14,
+                  "optimize_params": {"k_sl": [1.0, 4.0], "commission": [0.0, 0.0002]}}
+    env = Environment(config, device=cuda_device)
+    schema = optimize.hparam_schema(config)
+    graphed = optimize.Optimizer(env, schema, population=64, episode_steps=500)
+    eager = optimize.Optimizer(env, schema, population=64, episode_steps=500, eager=True)
+    firsts = []
+    for gen in range(2):
+        pop = np.random.default_rng(gen).uniform([1.0, 0.0], [4.0, 2e-4], size=(64, 2))
+        first = [x.clone() for x in graphed._fitness(pop, 3)]
+        again = [x.clone() for x in graphed._fitness(pop, 3)]
+        want = eager._fitness(pop, 3)
+        assert sorted(k[0] for k in env.episode_graphs.graphs) == [52, 64]
+        for a, b, c in zip(first, again, want):
+            assert torch.equal(a, c) and torch.equal(b, c)
+        assert len(set(first[0].tolist())) > 1
+        firsts.append(first[0])
+    assert not torch.equal(*firsts)

@@ -157,7 +157,8 @@ def test_environment_without_cuda_and_without_device_raises():
     ({"reward_plugin": "sharpe_reward", "compute_dtype": "bfloat16"}, 7),
     ({"venue": "lob", "feed": "scengen"}, 14),
     ({"strategy_plugin": "my_plugin"}, 9),
-    ({"financing_enabled": True}, 8),
+    # financing runs; registered obs kernels are item 9's
+    ({"obs_plugins": ["my_obs"]}, 9),
     ({"feed": "curriculum", "tapes": "scengen:flash_crash"}, 14),
 ])
 def test_configs_not_ported_raise_naming_the_roadmap_item(over, item):

@@ -27,7 +27,7 @@ jitted reference's fused multiply-adds stay within the stated atol.
 * The rows' params: a param on which the pairs differ is an (R,) column,
   one they share stays 0-d (the two forms K2 and K3 take).
 * The rejections of the JAX package (same messages) and the port's
-  ``not_ported`` for what waits (item 8 profiles, 12 curriculum, 14
+  ``not_ported`` for what waits (12 curriculum, 14
   scengen).
 """
 import jax
@@ -247,7 +247,8 @@ def test_split_cuts_the_aligned_bars_as_the_jax_package():
     (dict(data_compress="on"), ValueError, "no compressed form"),
     (dict(eval_data_file="x.csv"), ValueError, "eval_data_file is single-pair only"),
     (dict(eval_split=0.3, eval_portfolio_files=FILES), ValueError, "not both"),
-    (dict(portfolio_profiles={p: {"name": "x"} for p in FILES}), NotImplementedError, "item 8"),
+    (dict(portfolio_profiles={p: {"name": "x"} for p in FILES}), ValueError,
+     "execution cost profile missing fields"),
     (dict(feed="curriculum", tapes="file:x.csv"), NotImplementedError, "item 12"),
     (dict(feed="scengen"), NotImplementedError, "item 14"),
     (dict(portfolio_files=None), ValueError, "requires config\\['portfolio_files'\\]"),
@@ -264,11 +265,14 @@ def test_the_port_rejects_what_the_jax_package_rejects(over, error, match):
 
 def test_partial_profiles_are_refused_with_the_jax_message():
     """A profile bound to some pairs only (and no shared one) is refused
-    with the JAX package's message (its check, :740-760, after its own
-    parse, which the port does not take yet: item 8)."""
-    tcfg = _configs({"portfolio_profiles": {"EUR_USD": {"name": "x"}}})[1]
+    with the JAX package's message (its check, :740-760, after the
+    profile's parse)."""
+    profile = "examples/configs/execution_cost_profiles/legacy_v1.json"
+    jcfg, tcfg = _configs({"portfolio_profiles": {"EUR_USD": profile}})
     with pytest.raises(ValueError, match="must cover every pair .or bind one shared"):
         build_portfolio_train_eval_envs(tcfg, device="cpu")
+    with x64_off(), pytest.raises(ValueError, match="must cover every pair .or bind one shared"):
+        jax_build_envs(jcfg)
     with pytest.raises(ValueError, match="must cover every pair"):
         JP.PortfolioEnvironment._check_static_profile_agreement([object(), None, None])
 
