@@ -326,6 +326,41 @@ failure exits non-zero:
             books x 3 pairs for 24 steps, one K2 and one K3 launch a
             step, each pair's own accrual and params as row columns,
             every leaf equal to the CPU's plain step (torch.equal).
+17. serve   the serving stack (gymfx_tpu_torch/serve/), after portfolio,
+            in 20-40 s: engine_from_config boots bench_infer.py's
+            configuration (DEFAULT_VALUES on the 500-bar sample, window
+            32, the ladder 1/8/64/512/4,096, a 2 ms window) for serve-mlp
+            (the 3x256 f32 MLP), serve-ring (transformer_ring at its
+            defaults, f32) and serve-lstm-slots (the LSTM, hidden 256,
+            bf16, 1,024 session slots) in matmul mode (auto), a CUDA
+            graph a bucket (each bucket's capture seconds printed, no
+            capture after boot); K4's forward counted at the ring
+            ladder's capture and by name in one replay of each bucket (2
+            a replay).  exact mode at the ladder (1, 8, 64) for all three:
+            every row of every bucket, padded fills and the chunking above
+            64 included, torch.equal to the policy on that row alone (the
+            LSTM from non-zero carries, its carry too); each bucket's
+            replay ms.  matmul: the largest difference against the
+            single-row forward and across buckets, over max|single-row|,
+            within SERVE_MATMUL_TOL.  BarFeaturizer over the sample's bars
+            at flagship_config (OHLCV, 8,192 envs): the obs torch.equal to
+            the env's (K1) at reset and every step.  The micro-batcher, 64
+            client threads x 50 single-bar requests, synchronous and
+            pipelined: every answer torch.equal to decide_batch (the exact
+            ladder).  The LSTM's slots: 48 sessions x 8 steps torch.equal
+            to host-carry threading, the mirror equal to the host carry
+            and the device rows after each resolve, two slot and three
+            host dispatches in flight resolving to their own rows.
+            bench_infer.py's numbers for serve-mlp beside the card's name
+            and power limit: 256 sequential batch-of-1 decisions (the
+            eager policy, and the engine's decide), decide_batch at 1,024
+            rows x 20, and the batcher's p50 / p99 request latency split
+            into queue, window and dispatch (its answers within
+            SERVE_MATMUL_TOL of the exact ladder's).  swap_weights:
+            accepted, the next dispatch on the new weights; a mismatched
+            one refused, nothing changed; no late capture anywhere.  K4's
+            forward timed at (B, 32, 4, 32), B = 1, 8, 64, 512, 4,096,
+            beside its plain version, SDPA and its bound.
 13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -494,6 +529,33 @@ EMULATION_TOL = 2.0 ** -7
 # the card's expf and torch's exp differ in their last ulps, which move
 # an output by a few ulps of the largest element
 F32_EMULATION_TOL = 2.0 ** -19
+# the serve phase: the three served configurations (bench_infer.py's
+# DEFAULT_VALUES on the 500-bar sample, window 32, the default ladder,
+# 2 ms window), the exact ladder they are also held to, bench_infer.py's
+# load (64 clients x 50 single-bar requests; 256 sequential decisions;
+# 20 closed-loop dispatches of 1,024 rows), the LSTM's session slots and
+# its slot checks (48 sessions x 8 steps, two in-flight dispatches of 30)
+SERVE_CONFIGS = {
+    "serve-mlp": {"policy": "mlp"},
+    "serve-ring": {"policy": "transformer_ring"},
+    "serve-lstm-slots": {"policy": "lstm", "policy_dtype": "bfloat16",
+                         "serve_session_slots": 1024},
+}
+SERVE_EXACT_BUCKETS = (1, 8, 64)
+SERVE_EXACT_ROWS = (1, 5, 8, 30, 64, 133)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WAIT_MS = 64, 50, 2.0
+SERVE_SEQ, SERVE_BATCH, SERVE_ITERS = 256, 1024, 20
+SERVE_SESSIONS, SERVE_SLOT_STEPS, SERVE_INFLIGHT = 48, 8, 30
+# matmul mode against the single-row forward and across buckets: the
+# largest difference of the logits, value and carry over the largest
+# magnitude of the single-row result; f32 within 1e-5 (the ROADMAP
+# Queue 3 pin for policy outputs), bf16 within 2^-5 (a bf16 ulp of the
+# carry, 2^-8, grown through the cell's 4 gates and the f32 heads)
+SERVE_MATMUL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+# K4's forward timed at the serving ladder's batches of (B, 32, 4, 32)
+SERVE_K4_BATCHES = (1, 8, 64, 512, 4096)
+# the phase's budget on the card, capture included
+SERVE_BUDGET_S = 60.0
 
 
 def fail(msg: str) -> None:
@@ -3581,6 +3643,454 @@ def configs_phase(torch, kernels, results, tmp) -> None:
                                  "per_row_params": per_row}
 
 
+def serve_config(**over) -> dict:
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+
+    config = dict(DEFAULT_VALUES)
+    config.update(input_data_file=str(ROOT / "examples" / "data" / "eurusd_sample.csv"),
+                  window_size=WINDOW, serve_max_batch_wait_ms=SERVE_WAIT_MS, seed=SEED)
+    config.update(over)
+    return config
+
+
+def serve_rows(torch, bundle, n: int, seed: int):
+    """``n`` request rows: the env's reset observation encoded, plus
+    noise (bench_infer.py's request stream), on the host."""
+    engine = bundle.engine
+    base = bundle.encode(bundle.reset_obs)[0].cpu()
+    gen = torch.Generator().manual_seed(seed)
+    return base[None] + 0.01 * torch.randn((n, *engine.obs_shape), generator=gen).to(base.dtype)
+
+
+def single_row(torch, engine, x, carry=()):
+    """The policy on one row (M = 1) on the card, eagerly, from the
+    engine's weights: (action, value, logits, carry) on the host."""
+    dev = engine.device
+    with torch.no_grad():
+        x = x.to(dev)[None]
+        if engine.recurrent:
+            logits, value, c2 = torch.func.functional_call(
+                engine.policy, engine.params, (x, tuple(c.to(dev)[None] for c in carry)))
+        else:
+            logits, value = torch.func.functional_call(engine.policy, engine.params, (x,))
+            c2 = ()
+    action = torch.argmax(logits, dim=-1).to(torch.int32)
+    return (action[0].cpu(), value[0].cpu(), logits[0].cpu(), tuple(c[0].cpu() for c in c2))
+
+
+def random_carries(torch, engine, n: int, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((n, *c.shape), generator=gen).to(c.dtype) for c in engine.initial_carry())
+
+
+def check_exact_rows(torch, engine, rows, carries, label: str) -> int:
+    """Every row of ``engine.decide_batch`` (exact mode) torch.equal to
+    the single-row forward, carry included; returns the rows checked."""
+    out = engine.decide_batch(rows, carries)
+    n = rows.shape[0]
+    check(out.action.shape == (n,), f"{label}: {tuple(out.action.shape)} actions for {n} rows")
+    for i in range(n):
+        carry = tuple(c[i] for c in carries) if engine.recurrent else ()
+        a, v, lo, c2 = single_row(torch, engine, rows[i], carry)
+        same = (torch.equal(out.action[i], a) and torch.equal(out.value[i], v)
+                and torch.equal(out.actor_out[i], lo)
+                and all(torch.equal(x[i], y) for x, y in zip(out.carry, c2)))
+        check(same, f"{label}: row {i} of {n} != the single-row forward")
+    return n
+
+
+def serve_max_diff(torch, got, ref) -> float:
+    """Largest |got - ref| over the largest |ref| (fields of a decision:
+    logits, value, carry)."""
+    err, big = 0.0, 1e-30
+    for g, r in zip(got, ref):
+        g, r = g.float(), r.float()
+        err = max(err, float((g - r).abs().max()))
+        big = max(big, float(r.abs().max()))
+    return err / big
+
+
+def serve_phase(torch, kernels, results) -> None:
+    """The serving stack on the card (module docstring, phase 17)."""
+    import threading
+
+    import numpy as np
+
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core.graphs import WARMUP
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.serve import (
+        BarFeaturizer,
+        InferenceEngine,
+        MicroBatcher,
+        WeightSwapError,
+        engine_from_config,
+        make_host_encoder,
+    )
+    from gymfx_tpu_torch.train.policies import flatten_obs
+
+    t_phase = time.perf_counter()
+    out = results["serve"] = {"configs": {}}
+    counted = (fused_attention.attention_forward, fused_attention.attention_backward,
+               window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
+    for fn in counted:
+        fn.launches = 0
+
+    # ---- 1. boot: the default ladder in matmul (auto) ----------------------
+    bundles = {}
+    for label, over in SERVE_CONFIGS.items():
+        t0 = time.perf_counter()
+        bundle = engine_from_config(serve_config(**over))
+        boot_s = time.perf_counter() - t0
+        engine = bundle.engine
+        check(engine.batch_mode == "matmul", f"{label}: auto resolved to {engine.batch_mode}")
+        check(engine.executable_count == len(engine.buckets) and engine.late_compiles == 0,
+              f"{label}: {engine.executable_count} graphs, {engine.late_compiles} late")
+        slots = engine.slot_cache is not None
+        check(slots == ("serve_session_slots" in over), f"{label}: slot cache {slots}")
+        bundles[label] = bundle
+        row = {"policy": bundle.policy_name, "dtype": over.get("policy_dtype", "float32"),
+               "obs_shape": list(engine.obs_shape), "buckets": list(engine.buckets),
+               "boot_s": boot_s, "capture_s": engine.capture_s,
+               "slot_capture_s": engine.slot_capture_s}
+        out["configs"][label] = row
+        print(f"serve: {label} booted in {boot_s:.2f} s ({bundle.policy_name}, obs "
+              f"{engine.obs_shape}); capture s by bucket "
+              + ", ".join(f"{b}: {s:.3f}" for b, s in engine.capture_s.items())
+              + ("; slot ladder " + ", ".join(f"{b}: {s:.3f}" for b, s in
+                                            engine.slot_capture_s.items()) if slots else ""))
+    ring = bundles["serve-ring"].engine
+    layers = ring.policy.encoder.layers.__len__()
+    boot_k4 = fused_attention.attention_forward.launches
+    # launches move only at capture: WARMUP + 1 runs of each graph's body
+    check(boot_k4 == (WARMUP + 1) * layers * len(ring.buckets),
+          f"serve boot launched K4's forward {boot_k4} times")
+    traced, _ = replay_launches(
+        torch, {b: g for b, g in ring._graphs.items()},
+        {b: {"attention_forward": layers} for b in ring._graphs}, "serve ring replay")
+    out["k4_forward_launches_at_boot"] = boot_k4
+    out["k4_forward_replay_launches"] = {str(b): t["attention_forward"] for b, t in traced.items()}
+    print(f"serve: K4 forward {boot_k4} launches at the ring ladder's capture; one replay of "
+          f"each bucket by the profiler trace: {out['k4_forward_replay_launches']}")
+
+    # ---- 2. exact mode at (1, 8, 64): torch.equal to the single-row forward --
+    exact = {}
+    for label, bundle in bundles.items():
+        e = bundle.engine
+        t0 = time.perf_counter()
+        ex = InferenceEngine(e.policy, e.params, e.neutral_obs, buckets=SERVE_EXACT_BUCKETS,
+                             batch_mode="exact", device=e.device)
+        capture = time.perf_counter() - t0
+        rows = serve_rows(torch, bundle, max(SERVE_EXACT_ROWS), seed=1)
+        carries = random_carries(torch, e, rows.shape[0], seed=2) if e.recurrent else None
+        checked = 0
+        for n in SERVE_EXACT_ROWS:
+            sub = tuple(c[:n] for c in carries) if carries is not None else None
+            checked += check_exact_rows(torch, ex, rows[:n], sub, f"{label} exact n={n}")
+        replay_ms = {}
+        for b in SERVE_EXACT_BUCKETS:
+            g = ex._graphs[b]
+            replay_ms[b] = event_ms(torch, lambda: g.graph.replay(), reps=5, trials=5)
+        check(ex.late_compiles == 0, f"{label}: exact engine captured late")
+        exact[label] = ex
+        out["configs"][label]["exact"] = {"capture_s": ex.capture_s, "replay_ms": replay_ms,
+                                          "rows_checked": checked, "boot_s": capture}
+        print(f"serve: {label} exact ladder {SERVE_EXACT_BUCKETS}: {checked} rows torch.equal "
+              f"to the single-row forward (n = {SERVE_EXACT_ROWS}, chunked above 64"
+              + (", non-zero carries, carry included" if e.recurrent else "") + "); capture s "
+              + ", ".join(f"{b}: {s:.3f}" for b, s in ex.capture_s.items()) + "; replay ms "
+              + ", ".join(f"{b}: {m:.4f}" for b, m in replay_ms.items()))
+    ex_ring = exact["serve-ring"]
+    traced, _ = replay_launches(torch, {8: ex_ring._graphs[8]},
+                                {8: {"attention_forward": 8 * layers}}, "serve exact ring replay")
+    print(f"serve: one exact replay of bucket 8 (ring) launched K4's forward "
+          f"{traced[8]['attention_forward']} times (profiler trace)")
+
+    # ---- 3. matmul mode: the largest difference -----------------------------
+    for label, bundle in bundles.items():
+        e = bundle.engine
+        rows = serve_rows(torch, bundle, max(e.buckets), seed=3)
+        carries = random_carries(torch, e, rows.shape[0], seed=4) if e.recurrent else None
+        probe = 8
+        alone = [single_row(torch, e, rows[i], tuple(c[i] for c in carries) if carries else ())
+                 for i in range(probe)]
+        vs_single, vs_b1 = 0.0, 0.0
+        first = None
+        for b in e.buckets:
+            sub = tuple(c[:b] for c in carries) if carries is not None else None
+            d = e.decide_batch(rows[:b], sub)
+            for i in range(min(probe, b)):
+                got = (d.actor_out[i], d.value[i], *(c[i] for c in (d.carry or ())))
+                ref = (alone[i][2], alone[i][1], *alone[i][3])
+                vs_single = max(vs_single, serve_max_diff(torch, got, ref))
+                if first is None:
+                    first = got
+                elif i == 0:
+                    vs_b1 = max(vs_b1, serve_max_diff(torch, got, first))
+        dtype = SERVE_CONFIGS[label].get("policy_dtype", "float32")
+        tol = SERVE_MATMUL_TOL[dtype]
+        out["configs"][label]["matmul_rel_diff"] = {"vs_single_row": vs_single,
+                                                    "vs_bucket_1": vs_b1, "tol": tol}
+        print(f"serve: {label} matmul: largest difference / max|single-row| {vs_single:.3g} "
+              f"against the single-row forward, {vs_b1:.3g} across buckets (tol {tol:.3g}, "
+              f"{dtype})")
+        check(vs_single <= tol and vs_b1 <= tol, f"{label}: matmul rows off by {vs_single}, "
+              f"{vs_b1} > {tol}")
+
+    # ---- 4. the featurizer against the env's obs (K1) at every step ---------
+    fcfg = flagship_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"), seed=SEED)
+    env = Environment(fcfg)
+    cfg = env.cfg
+    n_envs = int(fcfg["num_envs"])
+    frame = env.dataset.frame
+    closes = frame.columns[env.dataset.price_column]
+    raw = np.stack([frame.columns[c] for c in fcfg["feature_columns"]], axis=1)
+    k1_before = window_zscore.step_obs.launches
+    t0 = time.perf_counter()
+    state, obs = env.reset(n_envs)
+    from gymfx_tpu_torch.train.policies import make_obs_spec
+
+    spec = make_obs_spec(obs)
+    host_encode = make_host_encoder("mlp", cfg.window_size, spec)
+    sess = BarFeaturizer.from_environment(env).new_session()
+    hold = torch.zeros(n_envs, dtype=torch.int32, device=env.device)
+    steps = cfg.n_bars - 1
+    for k in range(-1, steps):
+        if k >= 0:
+            state, obs, _r, _done, _info = env.step(state, hold)
+        # reset consumes bar 0; the first step is the no-advance warm-up;
+        # step k >= 1 moves to bar k
+        if k != 0:
+            bar = max(k, 0)
+            sess.push(closes[bar], raw[bar])
+        want = torch.from_numpy(host_encode(sess.obs(total_bars=cfg.n_bars))).to(env.device)
+        got = flatten_obs(obs, spec)
+        check(torch.equal(got, want.expand_as(got))
+              and torch.equal(got[0].view(torch.int32), want.view(torch.int32)),
+              f"serve featurizer: obs at step {k} != the env's (K1) on the card")
+    feat_s = time.perf_counter() - t0
+    k1 = window_zscore.step_obs.launches - k1_before
+    check(k1 == steps + 1, f"serve featurizer: K1 launched {k1} times over {steps} steps")
+    out["featurizer"] = {"steps": steps, "n_envs": n_envs, "k1_launches": k1, "seconds": feat_s}
+    print(f"serve: featurizer obs == the env's at every one of {steps} steps + reset "
+          f"({n_envs:,} envs of flagship_config, OHLCV features, rolling_zscore; K1 {k1} "
+          f"launches; torch.equal after the host encode) in {feat_s:.2f} s")
+    del env, state, obs
+    torch.cuda.empty_cache()
+
+    # ---- 5. the micro-batcher: sync and pipelined == decide_batch ----------
+    mlp_bundle = bundles["serve-mlp"]
+    ex_mlp = exact["serve-mlp"]
+    rows = serve_rows(torch, mlp_bundle, SERVE_BATCH, seed=5)
+
+    def load(batcher, answers):
+        def client(cid):
+            for j in range(SERVE_REQUESTS):
+                i = (cid * SERVE_REQUESTS + j) % SERVE_BATCH
+                answers[(cid, j)] = (i, batcher.submit(rows[i]).result(timeout=60))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads), "serve: a client thread hung")
+        return time.perf_counter() - t0
+
+    want = ex_mlp.decide_batch(rows)
+    for pipeline in (False, True):
+        answers = {}
+        with MicroBatcher(ex_mlp, max_batch_wait_ms=SERVE_WAIT_MS, pipeline=pipeline) as mb:
+            wall = load(mb, answers)
+        check(len(answers) == SERVE_CLIENTS * SERVE_REQUESTS, "serve: requests lost")
+        for (cid, j), (i, d) in answers.items():
+            check(torch.equal(d.actor_out, want.actor_out[i]) and torch.equal(d.value, want.value[i])
+                  and torch.equal(d.action, want.action[i]),
+                  f"serve batcher (pipeline={pipeline}): client {cid} request {j} != decide_batch")
+        kind = "pipelined" if pipeline else "sync"
+        out[f"batcher_{kind}"] = {"requests": len(answers), "dispatches": mb.dispatches,
+                                  "mean_batch": mb.coalesced_total / max(1, mb.dispatches),
+                                  "wall_s": wall}
+        print(f"serve: batcher ({kind}, exact MLP ladder): {len(answers)} answers == decide_batch "
+              f"(torch.equal) in {mb.dispatches} dispatches, {wall:.2f} s")
+
+    # ---- 6. LSTM session slots ---------------------------------------------
+    lstm = bundles["serve-lstm-slots"]
+    e = lstm.engine
+    cache = e.slot_cache
+    check(cache is not None and cache.slots == 1024, "serve: the LSTM has no 1,024-slot cache")
+    sessions = [f"s{i}" for i in range(SERVE_SESSIONS)]
+    hc = e.initial_carry_batch(SERVE_SESSIONS)
+    for step in range(SERVE_SLOT_STEPS):
+        obs_t = serve_rows(torch, lstm, SERVE_SESSIONS, seed=100 + step)
+        h = e.decide_batch(obs_t, hc)
+        s = e.decide_batch_slots(obs_t, sessions)
+        hc = h.carry
+        check(s.carry is None and torch.equal(s.action, h.action) and torch.equal(s.value, h.value)
+              and torch.equal(s.actor_out, h.actor_out),
+              f"serve slots: step {step} != host-carry threading")
+        for i, sess_id in enumerate(sessions):
+            mirror = cache.mirror_carry(sess_id)
+            slot = cache.slot_of(sess_id)
+            check(all(torch.equal(m, x[i]) and torch.equal(m, st[slot].cpu())
+                      for m, x, st in zip(mirror, hc, cache.state)),
+                  f"serve slots: mirror of {sess_id} at step {step} != host carry / device row")
+    # two dispatches in flight, each on fresh sessions, resolved out of order
+    a_rows = serve_rows(torch, lstm, SERVE_INFLIGHT, seed=200)
+    b_rows = serve_rows(torch, lstm, SERVE_INFLIGHT, seed=201)
+    fresh = e.initial_carry_batch(SERVE_INFLIGHT)
+    ha = e.dispatch_async(a_rows, sessions=[f"a{i}" for i in range(SERVE_INFLIGHT)])
+    hb = e.dispatch_async(b_rows, sessions=[f"b{i}" for i in range(SERVE_INFLIGHT)])
+    db, da = hb.resolve(), ha.resolve()
+    for got, r in ((da, a_rows), (db, b_rows)):
+        ref = e.decide_batch(r, fresh)
+        check(torch.equal(got.actor_out, ref.actor_out) and torch.equal(got.value, ref.value),
+              "serve slots: an in-flight dispatch resolved to other rows")
+    # host-carry staging: three dispatches in flight at one bucket (the
+    # third rewrites the first's staging buffer)
+    c_rows = serve_rows(torch, lstm, SERVE_INFLIGHT, seed=202)
+    handles = [e.dispatch_async(r, fresh) for r in (a_rows, b_rows, c_rows)]
+    for r, hnd in zip((a_rows, b_rows, c_rows), handles):
+        ref = e.decide_batch(r, fresh)
+        got = hnd.resolve()
+        check(torch.equal(got.actor_out, ref.actor_out) and
+              all(torch.equal(x, y) for x, y in zip(got.carry, ref.carry)),
+              "serve staging: an in-flight host dispatch resolved to other rows")
+    out["slots"] = {"sessions": SERVE_SESSIONS, "steps": SERVE_SLOT_STEPS, **e.slot_stats()}
+    print(f"serve: LSTM slots (1,024): {SERVE_SESSIONS} sessions x {SERVE_SLOT_STEPS} steps == "
+          f"host-carry threading (torch.equal), mirror == host carry == device rows after each "
+          f"resolve; two slot dispatches and three host dispatches in flight resolved to their "
+          f"own rows; {e.slot_stats()}")
+
+    # ---- 7. bench_infer.py's three numbers for the MLP ----------------------
+    import copy
+
+    e = mlp_bundle.engine
+    rows = serve_rows(torch, mlp_bundle, SERVE_BATCH, seed=6)
+    # the sequential baseline: the pre-engine path, one eager batch-of-1
+    # forward of the policy module and a host argmax a decision
+    plain = copy.deepcopy(e.policy)
+    plain.load_state_dict(e.params)
+
+    def eager_decision(i):
+        with torch.no_grad():
+            logits, _value = plain(rows[i:i + 1].to(e.device))
+        return int(torch.argmax(logits[0]))
+
+    eager_decision(0)
+    t0 = time.perf_counter()
+    for i in range(SERVE_SEQ):
+        eager_decision(i)
+    seq_per_s = SERVE_SEQ / (time.perf_counter() - t0)
+    # the engine's own batch-of-1 path (bucket 1's replay) a decision
+    e.decide(rows[0])
+    t0 = time.perf_counter()
+    for i in range(SERVE_SEQ):
+        int(e.decide(rows[i]).action)
+    decide_per_s = SERVE_SEQ / (time.perf_counter() - t0)
+    e.decide_batch(rows)
+    t0 = time.perf_counter()
+    for _ in range(SERVE_ITERS):
+        e.decide_batch(rows)
+    batched_per_s = SERVE_BATCH * SERVE_ITERS / (time.perf_counter() - t0)
+    answers = {}
+    gc.collect()  # the phase's garbage out of the measured load's way
+    with MicroBatcher(e, max_batch_wait_ms=SERVE_WAIT_MS) as mb:
+        load(mb, answers)
+        records = mb.records
+    # matmul answers against the exact ladder's (the single-row forward)
+    want = ex_mlp.decide_batch(rows)
+    worst = max(serve_max_diff(torch, (d.actor_out, d.value), (want.actor_out[i], want.value[i]))
+                for i, d in answers.values())
+    check(len(answers) == SERVE_CLIENTS * SERVE_REQUESTS
+          and worst <= SERVE_MATMUL_TOL["float32"],
+          f"serve batcher (matmul MLP): answers off the single-row forward by {worst}")
+    lat_ms = np.asarray([r.latency_s for r in records]) * 1e3
+    # where a request's time goes: queued until the worker picks it up,
+    # the batching window, the dispatch to its resolve
+    parts = {"queue": [r.t_pickup - r.t_enqueue for r in records],
+             "window": [r.t_dispatch - r.t_pickup for r in records],
+             "dispatch": [r.t_done - r.t_dispatch for r in records]}
+    split = {k: {"p50_ms": float(np.percentile(v, 50)) * 1e3,
+                 "p99_ms": float(np.percentile(v, 99)) * 1e3} for k, v in parts.items()}
+    bench = {"sequential_per_s": seq_per_s, "engine_decide_per_s": decide_per_s,
+             "decisions_per_s": batched_per_s,
+             "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+             "latency_split": split,
+             "batcher_dispatches": mb.dispatches, "batcher_rel_diff": worst,
+             "mean_batch": mb.coalesced_total / max(1, mb.dispatches),
+             "device": results["device"]["nvidia_smi"]}
+    out["bench"] = bench
+    print(f"serve: bench_infer.py's numbers for serve-mlp on {bench['device']}: sequential "
+          f"batch-of-1 (eager module) {seq_per_s:,.1f} decisions/s over {SERVE_SEQ} (the "
+          f"engine's decide, bucket 1's replay: {decide_per_s:,.1f}); decide_batch at "
+          f"{SERVE_BATCH} x {SERVE_ITERS}: {batched_per_s:,.1f} decisions/s; batcher "
+          f"({SERVE_CLIENTS} clients x {SERVE_REQUESTS}, {SERVE_WAIT_MS} ms) p50 "
+          f"{bench['p50_ms']:.3f} ms, p99 {bench['p99_ms']:.3f} ms, {mb.dispatches} dispatches "
+          f"of {bench['mean_batch']:.1f} requests; p50 / p99 ms "
+          + ", ".join(f"{k} {v['p50_ms']:.3f} / {v['p99_ms']:.3f}" for k, v in split.items()))
+
+    # ---- 8. swap_weights ----------------------------------------------------
+    probe_rows = rows[:8]
+    before = ex_mlp.decide_batch(probe_rows)
+    gen = torch.Generator(device=ex_mlp.device).manual_seed(SEED + 7)
+    new = {k: v + 0.05 * torch.randn(v.shape, generator=gen, device=v.device)
+           for k, v in ex_mlp.params.items()}
+    generation = ex_mlp.swap_weights(new)
+    after = ex_mlp.decide_batch(probe_rows)
+    check(not torch.equal(after.actor_out, before.actor_out), "serve swap: decisions unchanged")
+    for i in range(probe_rows.shape[0]):
+        check(torch.equal(after.actor_out[i], single_row(torch, ex_mlp, probe_rows[i])[2]),
+              "serve swap: a row != the single-row forward on the new weights")
+    bad = dict(new)
+    name = next(iter(bad))
+    bad[name] = bad[name][..., :-1]
+    try:
+        ex_mlp.swap_weights(bad)
+        fail("serve swap: a mismatched swap was accepted")
+    except WeightSwapError:
+        pass
+    again = ex_mlp.decide_batch(probe_rows)
+    check(torch.equal(again.actor_out, after.actor_out) and ex_mlp.generation == generation,
+          "serve swap: a rejected swap changed the decisions")
+    late = {label: b.engine.late_compiles for label, b in bundles.items()}
+    late.update({f"{label} exact": ex.late_compiles for label, ex in exact.items()})
+    check(not any(late.values()), f"serve: late captures {late}")
+    print(f"serve: swap_weights accepted (generation {generation}, decisions changed from the "
+          f"next dispatch, == the single-row forward on the new weights), a mismatched one "
+          f"raised WeightSwapError and changed nothing; late captures {late}")
+
+    # ---- K4's forward at the serving shapes ------------------------------------
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k4 = {}
+    for b in SERVE_K4_BATCHES:
+        q, k, v = (torch.randn((b, WINDOW, 4, 32), generator=gen, device="cuda") for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = b * 4 * WINDOW * WINDOW
+        bms, bby = bound(4 * nbytes(q), 4 * 32 * pairs, F32_FLOPS)
+        k4[b] = dict(ms=device_ms(torch, lambda: fused_attention.attention_forward(q, k, v)),
+                     plain_ms=event_ms(torch, lambda: fused_attention.attention_forward_plain(q, k, v)),
+                     library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                     bound_ms=bms, bound_by=bby)
+    out["k4_forward_serving_shapes"] = {str(b): r for b, r in k4.items()}
+    print("serve: K4 forward f32 at (B, 32, 4, 32): " + "; ".join(
+        f"B {b}: {r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f}, SDPA "
+        f"{r['library_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']})"
+        for b, r in k4.items()))
+
+    launches = count_launches(counted)
+    check(launches["attention_forward"] > 0 and launches["attention_backward"] == 0,
+          f"serve path launches {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"serve: phase launches {launches}; {out['seconds']:.1f} s (budget {SERVE_BUDGET_S} s)")
+    check(out["seconds"] <= SERVE_BUDGET_S, f"serve phase took {out['seconds']:.1f} s")
+
+
 def main() -> None:
     if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
         fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
@@ -3672,6 +4182,9 @@ def main() -> None:
     timed("baseline", baseline_phase, torch, kernels, results)
     # ---- 14. portfolio: BASELINE.json's configuration 5 ---------------------
     timed("portfolio", portfolio_phase, torch, kernels, results)
+    # ---- 17. serve: the serving stack --------------------------------------
+    timed("serve", serve_phase, torch, kernels, results)
+    torch.cuda.empty_cache()
     # ---- 8-10. the data path: curriculum, export, stream --------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tapes_")
     try:

@@ -20,6 +20,9 @@ points (``gymfx_tpu_torch.resolve_device``).
                          a flax TransformerPolicy (or PortfolioTransformerPolicy)
                          tree -> state_dict (MultiHeadDotProductAttention's
                          query/key/value/out as Linear layers)
+  policy_params_from_flax
+                         a policy's name and its flax tree -> state_dict,
+                         through the converter of that policy family
   stack_members          P members' state dicts -> one with a leading (P,)
                          member axis (the portfolio trainers' params; the
                          portfolio MLP converts through mlp_params_from_flax)
@@ -149,6 +152,22 @@ def transformer_params_from_flax(tree: Mapping[str, Any],
     for j, head in enumerate(("logits", "value")):
         _linear(out, head, params[f"Dense_{2 * n_layers + 1 + j}"], device)
     return out
+
+
+def policy_params_from_flax(name: str, tree: Mapping[str, Any],
+                            device=None) -> Dict[str, torch.Tensor]:
+    """State dict of the policy ``name`` (as ``train/policies.make_policy``
+    names it) from its flax tree: the converter of its family."""
+    converters = {
+        "mlp": mlp_params_from_flax,
+        "lstm": lstm_params_from_flax,
+        "transformer": transformer_params_from_flax,
+        "transformer_ring": ring_transformer_params_from_flax,
+        "transformer_ulysses": ring_transformer_params_from_flax,
+    }
+    if name not in converters:
+        raise ValueError(f"no converter for policy {name!r} (expected one of {sorted(converters)})")
+    return converters[name](tree, device=device)
 
 
 def stack_members(members) -> Dict[str, torch.Tensor]:

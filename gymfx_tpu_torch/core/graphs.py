@@ -74,14 +74,19 @@ class PhaseGraph:
     tree the owner made: its own copies, or tensors it shares with another
     graph), captured at construction on a CUDA device with ``generator``
     registered.  ``capture_s`` is the seconds of the warm-up and the
-    capture (0 on the CPU)."""
+    capture (0 on the CPU).  ``capture_error_mode`` is
+    ``torch.cuda.graph``'s: ``"thread_local"`` lets other threads use the
+    card while this one captures (the serving engine captures beside a
+    batcher thread that replays and synchronizes)."""
 
     def __init__(self, body: Callable[[Any], Any], inputs: Any,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 capture_error_mode: str = "global"):
         self.body, self.inputs = body, inputs
         self.outputs = None
         self.graph = None
         self.capture_s = 0.0
+        self.capture_error_mode = capture_error_mode
         if _tensor_leaves(inputs)[0].device.type == "cuda":
             t0 = time.perf_counter()
             self._capture(generator)
@@ -104,7 +109,7 @@ class PhaseGraph:
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
                 self.outputs = self.body(self.inputs)
         finally:
             gc.enable()

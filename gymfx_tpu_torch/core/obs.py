@@ -40,6 +40,29 @@ def local_rows(cfg: EnvConfig, data: MarketData, idx, size: int):
     return torch.clamp(i - data.row0, 0, size - 1)
 
 
+def scale_feature_window_host(win, mean, std, neutral, cfg: EnvConfig):
+    """The numpy twin of the window's scaling for the serving featurizer
+    (serve/features.py), the JAX package's function of the same name
+    (gymfx_tpu/core/obs.py:67-89): one (W, F) window, (F,) moments and a
+    neutral flag, through the plain version's ops in their order
+    (ops/window_zscore.scale_feature_window, which K1 computes bit for
+    bit): the z-score (IEEE f32 division), the neutral zero, the binary
+    passthrough, the clip when clip > 0, nan_to_num, f32."""
+    win = np.asarray(win, np.float32)
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):  # x / 0 is cleaned below
+        scaled = np.where(neutral, np.float32(0.0), (win - mean) / std)
+    if any(cfg.binary_mask):
+        mask = np.asarray(cfg.binary_mask, dtype=bool)
+        scaled = np.where(mask[None, :], win, scaled)
+    clip = cfg.feature_clip
+    if clip and clip > 0:
+        scaled = np.clip(scaled, np.float32(-clip), np.float32(clip))
+    scaled = np.nan_to_num(scaled, nan=0.0, posinf=clip or 0.0, neginf=-(clip or 0.0))
+    return scaled.astype(np.float32)
+
+
 def _scaled_features(win, mean, std, neutral, cfg: EnvConfig):
     return window_zscore.step_obs(
         win, mean, std, neutral, binary_mask=cfg.binary_mask, clip=cfg.feature_clip

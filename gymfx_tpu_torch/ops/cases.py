@@ -1289,9 +1289,11 @@ def write_bar_csv(path, columns, timestamps) -> None:
 # policies' width, a 1024 window, the smallest head dim, a ragged window
 # at the widest head dim, head dims the wrapper pads (24 -> 32, 40 -> 48,
 # 72 -> 80), so that every head dim the kernel library instantiates (16,
-# 32, ..., 128) runs, and a non-causal window of eight key tiles
+# 32, ..., 128) runs, a non-causal window of eight key tiles, and the
+# serving ladder's batch of one row (serve/engine.py)
 ATTENTION_BF16_CASES = [
     ((64, 256, 4, 32), False),
+    ((1, 32, 4, 32), False),
     ((2, 1024, 2, 64), True),
     ((5, 50, 2, 16), True),
     ((4, 77, 3, 128), False),
@@ -1384,10 +1386,15 @@ def attention_backward_emulated(q, k, v, g, causal=False, scale=None):
 # held to on the card (the CPU tests run them at B <= 2): the ring
 # twin's update minibatch and rollout, ragged windows (1, 17, 33, 50),
 # the longest (64), head dims the wrapper pads (16, 48, 72, 96), so
-# that every (window, head dim) the kernel library instantiates runs
+# that every (window, head dim) the kernel library instantiates runs,
+# and the serving ladder's batches below those (serve/engine.py: the
+# ring policy at B = bucket, 1, 8 and 512)
 ATTENTION_F32_WINDOW_CASES = [
     ((4096, 32, 4, 32), False),
     ((256, 32, 4, 32), False),
+    ((1, 32, 4, 32), False),
+    ((8, 32, 4, 32), False),
+    ((512, 32, 4, 32), False),
     ((256, 32, 4, 32), True),
     ((64, 1, 4, 32), True),
     ((64, 17, 4, 32), False),

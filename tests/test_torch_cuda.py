@@ -1288,3 +1288,176 @@ def test_cuda_ga_fitness_through_graphs_equals_eager(cuda_device):
         assert len(set(first[0].tolist())) > 1
         firsts.append(first[0])
     assert not torch.equal(*firsts)
+
+
+# ---- the serving engine (serve/engine.py, slots.py, batcher.py) ----------------
+SERVE_KWARGS = {"mlp": {"hidden": [32, 32]}, "lstm": {"hidden": 32},
+                "transformer_ring": {"d_model": 32, "n_heads": 2, "n_layers": 2}}
+
+
+def _serve_engine(device, name, dtype=torch.float32, buckets=(1, 4, 8), batch_mode="exact"):
+    """A small engine on the card with weights from a seeded generator,
+    its policy module loaded with them (the single-row reference) and
+    a host generator for rows."""
+    import copy
+
+    from gymfx_tpu_torch.serve import InferenceEngine
+    from gymfx_tpu_torch.train.policies import make_trainer_policy
+    from gymfx_tpu_torch.train.ppo import init_policy_weights
+
+    shape = (8, 5) if name == "transformer_ring" else (20,)
+    pol = make_trainer_policy(name, shape[-1], continuous=False, dtype=dtype,
+                              kwargs=dict(SERVE_KWARGS[name]), window=shape[0]).to(device)
+    init_policy_weights(pol, torch.Generator(device=device).manual_seed(3))
+    params = {k: v.detach().clone() for k, v in pol.named_parameters()}
+    eng = InferenceEngine(pol, params, torch.zeros(shape), buckets=buckets,
+                          batch_mode=batch_mode, device=device)
+    ref = copy.deepcopy(pol)
+    return eng, ref, torch.Generator().manual_seed(4)
+
+
+def _serve_single_row(ref, eng, x, carry):
+    with torch.no_grad():
+        x = x.to(eng.device)[None]
+        if eng.recurrent:
+            logits, value, c2 = ref(x, tuple(c.to(eng.device)[None] for c in carry))
+        else:
+            (logits, value), c2 = ref(x), ()
+    return (torch.argmax(logits[0]).to(torch.int32).cpu(), value[0].cpu(), logits[0].cpu(),
+            tuple(c[0].cpu() for c in c2))
+
+
+def _serve_rows(eng, gen, n):
+    return torch.randn((n, *eng.obs_shape), generator=gen)
+
+
+def _serve_carries(eng, gen, n):
+    if not eng.recurrent:
+        return None
+    return tuple(torch.randn((n, *c.shape), generator=gen).to(c.dtype)
+                 for c in eng.initial_carry())
+
+
+def _assert_serve_rows_exact(ref, eng, obs, carries, out):
+    for i in range(obs.shape[0]):
+        carry = tuple(c[i] for c in carries) if eng.recurrent else ()
+        a, v, lo, c2 = _serve_single_row(ref, eng, obs[i], carry)
+        assert torch.equal(out.action[i], a) and torch.equal(out.value[i], v), i
+        assert torch.equal(out.actor_out[i], lo), i
+        assert all(torch.equal(x[i], y) for x, y in zip(out.carry, c2)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("mlp", torch.float32), ("lstm", torch.bfloat16),
+                                        ("transformer_ring", torch.float32)], ids=str)
+def test_cuda_serve_exact_rows_equal_the_single_row_forward(cuda_device, name, dtype):
+    """Exact mode on the card: every row of every bucket (padded fills,
+    the chunking above the ladder, the LSTM's non-zero carries and its
+    carry) torch.equal to the policy on that row alone; no late capture;
+    K4's forward counted at the ring ladder's capture."""
+    from gymfx_tpu_torch.core.graphs import WARMUP
+
+    before = fused_attention.attention_forward.launches
+    eng, ref, gen = _serve_engine(cuda_device, name, dtype)
+    assert eng.executable_count == 3 and all(eng.capture_s[b] > 0 for b in (1, 4, 8))
+    if name == "transformer_ring":
+        # exact: one forward a row, each through both layers
+        assert fused_attention.attention_forward.launches - before == (WARMUP + 1) * 2 * 13
+    for n in (1, 3, 4, 8, 19):
+        obs, carries = _serve_rows(eng, gen, n), _serve_carries(eng, gen, n)
+        _assert_serve_rows_exact(ref, eng, obs, carries, eng.decide_batch(obs, carries))
+    assert eng.late_compiles == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_cuda_serve_batcher_answers_equal_decide_batch(cuda_device, pipeline):
+    import threading
+
+    from gymfx_tpu_torch.serve import MicroBatcher
+
+    eng, _ref, gen = _serve_engine(cuda_device, "mlp")
+    obs = _serve_rows(eng, gen, 32)
+    want = eng.decide_batch(obs)
+    answers = {}
+    with MicroBatcher(eng, max_batch_wait_ms=2.0, pipeline=pipeline) as mb:
+        def client(c):
+            for j in range(10):
+                i = (c * 10 + j) % 32
+                answers[(c, j)] = (i, mb.submit(obs[i]).result(timeout=60))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    assert len(answers) == 80
+    for i, d in answers.values():
+        assert torch.equal(d.actor_out, want.actor_out[i]) and torch.equal(d.value, want.value[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch_mode", ["exact", "matmul"])
+def test_cuda_serve_slots_equal_host_carry_threading(cuda_device, batch_mode):
+    """Slot decisions torch.equal to host-carry threading over 6 steps,
+    the mirror equal to the host carry and to the device rows after each
+    resolve, slot dispatches in flight resolving to their own rows."""
+    eng, _ref, gen = _serve_engine(cuda_device, "lstm", torch.bfloat16, batch_mode=batch_mode)
+    cache = eng.enable_slots(16)
+    sessions = [f"s{i}" for i in range(6)]
+    hc = eng.initial_carry_batch(6)
+    for step in range(6):
+        obs = _serve_rows(eng, gen, 6)
+        h = eng.decide_batch(obs, hc)
+        s = eng.decide_batch_slots(obs, sessions)
+        hc = h.carry
+        assert s.carry is None and torch.equal(s.actor_out, h.actor_out), step
+        assert torch.equal(s.value, h.value) and torch.equal(s.action, h.action), step
+        for i, sess in enumerate(sessions):
+            slot = cache.slot_of(sess)
+            for m, x, st in zip(cache.mirror_carry(sess), hc, cache.state):
+                assert torch.equal(m, x[i]) and torch.equal(m, st[slot].cpu()), (step, sess)
+    a, b = _serve_rows(eng, gen, 3), _serve_rows(eng, gen, 3)
+    ha = eng.dispatch_async(a, sessions=["a0", "a1", "a2"])
+    hb = eng.dispatch_async(b, sessions=["b0", "b1", "b2"])
+    for got, rows in ((hb.resolve(), b), (ha.resolve(), a)):
+        want = eng.decide_batch(rows, eng.initial_carry_batch(3))
+        assert torch.equal(got.actor_out, want.actor_out)
+    assert eng.late_compiles == 0
+
+
+@pytest.mark.cuda
+def test_cuda_serve_async_staging_keeps_each_dispatch_its_rows(cuda_device):
+    """Three host dispatches in flight at one bucket before any resolve
+    (the third rewrites the first's pinned staging buffer, after waiting
+    on the copy that read it): each resolves to its own rows."""
+    eng, ref, gen = _serve_engine(cuda_device, "lstm")
+    batches = [(_serve_rows(eng, gen, 3), _serve_carries(eng, gen, 3)) for _ in range(3)]
+    handles = [eng.dispatch_async(obs, carries) for obs, carries in batches]
+    for (obs, carries), h in zip(batches, handles):
+        _assert_serve_rows_exact(ref, eng, obs, carries, h.resolve())
+
+
+@pytest.mark.cuda
+def test_cuda_serve_swap_weights(cuda_device):
+    from gymfx_tpu_torch.serve import WeightSwapError
+
+    eng, ref, gen = _serve_engine(cuda_device, "mlp")
+    obs = _serve_rows(eng, gen, 5)
+    before = eng.decide_batch(obs)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    new = {k: v + 0.05 * torch.randn(v.shape, generator=g, device=cuda_device)
+           for k, v in eng.params.items()}
+    assert eng.swap_weights(new) == 1
+    after = eng.decide_batch(obs)
+    assert not torch.equal(after.actor_out, before.actor_out)
+    ref.load_state_dict(new)
+    _assert_serve_rows_exact(ref, eng, obs, None, after)
+    bad = dict(new)
+    key = sorted(bad)[0]
+    bad[key] = bad[key][..., :-1]
+    with pytest.raises(WeightSwapError):
+        eng.swap_weights(bad)
+    assert torch.equal(eng.decide_batch(obs).actor_out, after.actor_out)
+    assert eng.generation == 1 and eng.late_compiles == 0
