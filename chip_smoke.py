@@ -10,9 +10,9 @@ failure exits non-zero:
 
 1. device   CUDA must be available; prints the card and
             ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    nvcc builds the five kernel libraries at once, one process
-            per source: K1-K3, K6-K7 and K9 (sm_90a, -fmad=false), K4, K5
-            with K8 (sm_90a), timed, with ptxas' register and spill
+2. build    nvcc builds the six kernel libraries at once, one process
+            per source: K1-K3, K6-K7, K9 and K10 (sm_90a, -fmad=false),
+            K4, K5 with K8 (sm_90a), timed, with ptxas' register and spill
             report (and each env-, data- and flow-library kernel's
             registers and stack frame: K1's two paths, K2's 8
             instantiations, K3, K2's and K3's memory skeletons; K6, K7's
@@ -361,12 +361,44 @@ failure exits non-zero:
             one refused, nothing changed; no late capture anywhere.  K4's
             forward timed at (B, 32, 4, 32), B = 1, 8, 64, 512, 4,096,
             beside its plain version, SDPA and its bound.
+18. scengen the scenario generator (gymfx_tpu_torch/scengen/), after
+            serve, within SCENGEN_BUDGET_S (60 s).  K10 (the generator's
+            scan) torch.equal to its plain version on its eight outputs
+            for every preset at bench.py --scengen's shape (65,536 bars x
+            4 assets, PRNGKey(0)) on fx_timestamp_grid's M1 Monday mask,
+            and at 2 x 1, 4,096 x 1 and 4,096 x 33; the bars of each flag
+            kind printed; timed (graph replays) beside its bytes bound, its
+            serial floor (K10_CHAIN_CYCLES a bar at the SM clock), its
+            launch floor and its plain version, with generate's ms and
+            bars/s (bench.py's bars x assets).  K9's flag route
+            torch.equal to its plain version for every scenario at 8,192
+            envs x 64 messages with bar flags of every kind, timed beside
+            K9's replay route.  flagship-scengen-train: flagship_config on
+            a generated 32,768-bar regime_mix tape snapped to the tick
+            grid: 3 graphed train steps, K10 one launch (the generation),
+            K1-K3 64 a phase at capture and by name in a replay, a rollout
+            phase graphed == eager; the tape streamed in compressed
+            256-bar shards (K6): a 2,048-step episode == the resident one.
+            A curriculum of scengen:flash_crash@2 and scengen:range_chop@1
+            (tape 1 compressed): PPOTrainer.train 3 supersteps, K10 twice,
+            K6 on the compressed pick.  lob-scengen: lob_config on
+            generated liquidity_drought and flash_crash tapes, random
+            starts: liquidity_drought 2 graphed train steps, K5, K8 and K9
+            64 a phase at capture, K9 every time by its flag route;
+            flash_crash a rollout phase of horizon 4 replayed from its
+            graph == the plain versions op by op (torch.equal).  Config 5's
+            population (portfolio_pbt_config) on a generated
+            multi_asset_stress book of EUR/USD, GBP/USD and USD/JPY, then
+            on a portfolio curriculum of two presets (the staging rows
+            hold the last pick's book): PBTTrainer.train 2 population
+            steps each, K2/K3 64 a phase at capture.
 13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -463,12 +495,20 @@ REPLACES = {
     "bar_flow": "gymfx_tpu/lob/flow.py:102",
     "decode_q16_block": "gymfx_tpu/ops/tape_decode.py:63",
     "batched_scaled_windows": "gymfx_tpu/ops/window_zscore.py:110",
+    # K9's flag route: the same draws under the blended FlowParams of
+    # gymfx_tpu/lob/scenarios.py::flow_params_from_regime
+    "bar_flow_flags": "gymfx_tpu/lob/flow.py:102",
+    # K10 has no Pallas counterpart: it is the counterpart of the
+    # reference's lax.scan over a generation's bars
+    "scengen_scan": "gymfx_tpu/scengen/engine.py:232",
 }
 SOURCES = {"attention_forward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "attention_backward": "gymfx_tpu_torch/csrc/attention_kernels.cu",
            "process_stream": "gymfx_tpu_torch/csrc/lob_kernels.cu",
            "lob_bar": "gymfx_tpu_torch/csrc/lob_kernels.cu",
            "bar_flow": "gymfx_tpu_torch/csrc/flow_kernels.cu",
+           "bar_flow_flags": "gymfx_tpu_torch/csrc/flow_kernels.cu",
+           "scengen_scan": "gymfx_tpu_torch/csrc/scengen_kernels.cu",
            "decode_q16_block": "gymfx_tpu_torch/csrc/data_kernels.cu",
            "batched_scaled_windows": "gymfx_tpu_torch/csrc/data_kernels.cu"}
 # kernel-name patterns in a profiler trace of one graph replay (K4's
@@ -503,6 +543,32 @@ K8_MSGS, K8_SCENARIO = 64, "lob_volatile"
 THREEFRY_OPS, K9_UNIFORM_OPS, K9_RANDINT_OPS, K9_MSG_OPS = 66, 3, 6, 24
 # K9 at odd shapes: (envs, messages, bar-row dtype)
 K9_ODD = ((13, 17, "int64"), (37, 70, "int32"), (1, 1, "int32"), (4099, 33, "int64"))
+# K10: bench.py --scengen's shape (65,536 bars x 4 assets, PRNGKey(0)) on
+# fx_timestamp_grid's M1 Monday mask, and the edge shapes (bars, assets)
+SCENGEN_BARS, SCENGEN_ASSETS = 65536, 4
+K10_EDGES = ((2, 1), (4096, 1), (4096, 33))
+# K10's serial floor: a bar's loop-carried chain is the regime's (the three
+# thresholds picked by the last regime, three compares, the nested selects
+# of the new one): ~6 dependent ALU operations of ~4 cycles, at the card's
+# SM clock (nvidia-smi clocks.max.sm)
+K10_CHAIN_CYCLES = 24
+# f32 operations of a bar (the chain, the counters, the bar's scalars) and
+# of an asset's bar (ret, gap, log prices, the wicks and four expf of ~12
+# instructions each): the operation side of K10's bound
+K10_BAR_OPS, K10_ASSET_OPS = 40, 70
+# the scengen phase: flagship-scengen-train's tape (M1 bars snapped to the
+# tick grid), lob-scengen's presets, the curriculum's tapes, the streamed
+# episode's steps over shards of STREAM_SHARD_BARS, the lob-scengen plain
+# comparison's horizon (the plain LOB phase runs the argsort engine, ~0.5 s a
+# step at 8,192 envs), config 5's generated pairs, and the phase's budget
+SCENGEN_TAPE_BARS = 32768
+SCENGEN_LOB_PRESETS = ("liquidity_drought", "flash_crash")
+SCENGEN_TAPES = "scengen:flash_crash@2,scengen:range_chop@1"
+SCENGEN_CURRICULUM_SEED = 1  # its first three picks: tapes 0, 1, 0
+SCENGEN_BOOKS_SEED = 0  # the portfolio curriculum's first two picks: books 1, 0
+SCENGEN_PLAIN_HORIZON = 4
+SCENGEN_PAIRS = ("EUR_USD", "GBP_USD", "USD_JPY")
+SCENGEN_BUDGET_S = 60.0
 # K4 cases: label -> ((B, S, H, D), dtype, causal); "update" is the
 # update's shape (4 minibatches of 64 envs x 64 steps), "rollout" the
 # rollout's
@@ -1521,6 +1587,405 @@ def check_kernels_k9(torch, dev, kernels, results, ptxas) -> None:
                      "ptxas": report, **kernels["bar_flow"]}
 
 
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi clocks.max.sm failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def check_kernels_k10(torch, dev, kernels, results, ptxas) -> None:
+    """K10 against its plain version (torch.equal on the eight outputs) for
+    every preset at bench.py --scengen's shape and at the edge shapes;
+    timed beside its bytes bound, its serial floor, its launch floor and
+    its plain version, with generate's ms and bars/s (bench.py:165-172:
+    bars x assets over a generation's wall time)."""
+    import numpy as np
+
+    from gymfx_tpu_torch.lob import prng
+    from gymfx_tpu_torch.ops import _build
+    from gymfx_tpu_torch.ops import scengen_scan as k10
+    from gymfx_tpu_torch.scengen import engine, feed
+    from gymfx_tpu_torch.scengen.params import preset_names, scenario_params
+
+    key = prng.PRNGKey(0, dev)
+    shocks = {}
+
+    def inputs(preset, n, a):
+        _, monday = feed.fx_timestamp_grid(n, 1 / 60)
+        if (n, a) not in shocks:
+            shocks[n, a] = engine.draw_shocks(key, n, a)
+        return engine.scan_inputs(shocks[n, a], scenario_params(preset), monday), monday
+
+    err, plain_s, n_cases, kinds = 0.0, {}, 0, {}
+    for preset in preset_names():
+        for n, a in ((SCENGEN_BARS, SCENGEN_ASSETS),) + K10_EDGES:
+            args, monday = inputs(preset, n, a)
+            ours = k10.scengen_scan(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = k10.paths_plain(*args)
+            torch.cuda.synchronize()
+            if (n, a) == (SCENGEN_BARS, SCENGEN_ASSETS):
+                plain_s[preset] = time.perf_counter() - t0
+                kinds[preset] = torch.bincount((ref[6] >> 1) & 3, minlength=4).tolist()
+            for name, x, y in zip(engine.ScenPaths._fields, ours, ref):
+                err = max(err, max_abs_err(torch, x, y))
+                check(torch.equal(x, y), f"K10 scengen_scan != plain: {preset} {n} x {a} {name}")
+            for name in ("open", "high", "low", "close"):
+                check(bool(torch.isfinite(getattr(engine.ScenPaths(*ours), name)).all()),
+                      f"K10 non-finite {name}: {preset} {n} x {a}")
+            n_cases += 1
+    print(f"kernels: K10 equal to plain (torch.equal, the eight outputs) on {n_cases} cases (every "
+          f"preset at {SCENGEN_BARS:,} x {SCENGEN_ASSETS} and at "
+          f"{', '.join(f'{n} x {a}' for n, a in K10_EDGES)}, fx_timestamp_grid's Monday mask), "
+          f"max abs err {err:g}; bars of each flag kind (none, drought, crash, both) at "
+          f"{SCENGEN_BARS:,}: {kinds}")
+
+    preset = "regime_mix"
+    args, monday = inputs(preset, SCENGEN_BARS, SCENGEN_ASSETS)
+    out = k10.scengen_scan(*args)
+    moved = nbytes(*args[:10]) + nbytes(*out)
+    ops = SCENGEN_BARS * (K10_BAR_OPS + SCENGEN_ASSETS * K10_ASSET_OPS)
+    b_ms, b_by = bound(moved, ops, F32_FLOPS)
+    clock = sm_clock_hz()
+    serial_ms = SCENGEN_BARS * K10_CHAIN_CYCLES / clock * 1e3
+    env_lib = _build.load_library("env")
+    floor_ms = device_ms(torch, lambda: _build.check_launch(env_lib.gymfx_launch_floor(
+        1, 32, 0, _build.stream_handle(dev)), "launch_floor"))
+    ms = device_ms(torch, lambda: k10.scengen_scan(*args), reps=3, trials=7)
+    plain_ms = statistics.median(plain_s.values()) * 1e3
+    p = scenario_params(preset)
+    engine.generate(p, key, SCENGEN_BARS, SCENGEN_ASSETS, monday)
+    torch.cuda.synchronize()
+    gen = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.generate(p, key, SCENGEN_BARS, SCENGEN_ASSETS, monday)
+        torch.cuda.synchronize()
+        gen.append(time.perf_counter() - t0)
+    gen_ms = statistics.median(gen) * 1e3
+    bars_per_s = SCENGEN_BARS * SCENGEN_ASSETS / gen_ms * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        k10.scengen_scan(*args)
+    host = (time.perf_counter() - t0) / 20 * 1e6  # enqueued, not waited for
+    torch.cuda.synchronize()
+    report = ptxas_report(ptxas, lambda name: "scengen_scan" if "scengen_scan" in name else None)
+    check(sorted(report) == ["scengen_scan"], f"K10 ptxas report lists {sorted(report)}")
+    print(f"  K10 {SCENGEN_BARS:,} bars x {SCENGEN_ASSETS} assets ({preset}): {ms * 1e3:.1f} us on "
+          f"the card (bytes bound {b_ms * 1e3:.2f} us by {b_by}: {moved / 1e6:.2f} MB, "
+          f"{ops / 1e6:.1f}M f32 operations; serial floor {serial_ms * 1e3:.1f} us: "
+          f"{K10_CHAIN_CYCLES} cycles a bar at {clock / 1e9:.3f} GHz; launch floor "
+          f"{floor_ms * 1e3:.2f} us), plain {plain_ms:.1f} ms (host wall, median over the presets); "
+          f"generate {gen_ms:.3f} ms, {bars_per_s:,.0f} bars/s (bench.py's bars x assets); tile "
+          f"{k10.tile_bars(SCENGEN_ASSETS)} bars; wrapper host {host:.1f} us/call (20 calls "
+          f"enqueued); ptxas {report['scengen_scan'].get('registers')} registers, "
+          f"{report['scengen_scan'].get('frame')}")
+    kernels["scengen_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None, serial_floor_ms=serial_ms,
+                                   launch_floor_ms=floor_ms, generate_ms=gen_ms,
+                                   bars_per_s=bars_per_s, wrapper_host_us=host)
+    results["k10"] = {"bars": SCENGEN_BARS, "assets": SCENGEN_ASSETS, "cases": n_cases,
+                      "flag_kinds": kinds, "plain_s": plain_s, "moved_bytes": moved,
+                      "sm_clock_hz": clock, "ptxas": report, **kernels["scengen_scan"]}
+
+
+def check_kernels_k9_flags(torch, dev, kernels, results) -> None:
+    """K9's flag route against its plain version (torch.equal, the five
+    streams) at the venue's shape for every scenario, each env's bar flags
+    drawn over all five FLAG bits; timed beside its bound (k9_work over
+    each kind's envs with that kind's set), its plain version and K9's
+    replay route on the same bars."""
+    from gymfx_tpu_torch.lob.book import Messages
+    from gymfx_tpu_torch.lob.scenarios import regime_flow_sets, regime_kind, scenario_flow_params
+    from gymfx_tpu_torch.ops import cases, lob_flow
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flags = torch.randint(0, 32, (N_ENVS,), generator=gen, device=dev, dtype=torch.int32)
+    kind = regime_kind(flags)
+    counts = torch.bincount(kind, minlength=4).tolist()
+    check(all(c > 0 for c in counts), f"K9 flag case lacks a kind: {counts}")
+    err = 0.0
+    for scenario in cases.LOB_SCENARIOS:
+        bars = cases.lob_flow_bars(N_ENVS, "int32", seed=2, device=dev)
+        fp = scenario_flow_params(scenario)
+        ours = lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp, flags)
+        ref = lob_flow.bar_flow_plain(SEED, *bars, K8_MSGS, fp, flags)
+        torch.cuda.synchronize()
+        for name, a, b in zip(ref._fields, ours, ref):
+            err = max(err, max_abs_err(torch, a, b))
+            check(torch.equal(a, b), f"K9 flag route != plain: {scenario} {name}")
+    fp = scenario_flow_params(K8_SCENARIO)
+    bars = cases.lob_flow_bars(N_ENVS, "int32", seed=0, device=dev)
+    out = lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp, flags)
+    moved = nbytes(*bars) + nbytes(flags) + nbytes(*out)
+    blocks = ops = 0
+    for k, fp_k in enumerate(regime_flow_sets(fp, K8_MSGS)):
+        rows = kind == k
+        b_k, o_k = k9_work(torch, Messages(*(x[rows] for x in out)), fp_k)
+        blocks, ops = blocks + b_k, ops + o_k
+    b_ms, b_by = bound(moved, ops, INT32_OPS)
+    ms = device_ms(torch, lambda: lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp, flags))
+    replay_ms = device_ms(torch, lambda: lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp))
+    plain_ms = device_ms(torch, lambda: lob_flow.bar_flow_plain(SEED, *bars, K8_MSGS, fp, flags),
+                         reps=2, trials=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        lob_flow.bar_flow(SEED, *bars, K8_MSGS, fp, flags)
+    host = (time.perf_counter() - t0) / 50 * 1e6  # enqueued, not waited for
+    torch.cuda.synchronize()
+    print(f"kernels: K9's flag route equal to plain (torch.equal, the five streams) for every "
+          f"scenario at {N_ENVS} envs x {K8_MSGS} messages, envs of each kind (none, drought, "
+          f"crash, both) {counts}; {ms * 1e3:.2f} us on the card against the replay route's "
+          f"{replay_ms * 1e3:.2f} us on the same bars (bound {b_ms * 1e3:.2f} us by {b_by}: "
+          f"{blocks:,} threefry blocks, {ops / 1e6:.1f}M int32 operations), plain "
+          f"{plain_ms * 1e3:.1f} us (its four sets' streams drawn), wrapper host {host:.1f} "
+          f"us/call (50 calls enqueued)")
+    kernels["bar_flow_flags"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None, replay_route_ms=replay_ms,
+                                     wrapper_host_us=host)
+    results["k9_flags"] = {"envs_by_kind": counts, "threefry_blocks": blocks, "operations": ops,
+                           "moved_bytes": moved, **kernels["bar_flow_flags"]}
+
+
+def scengen_phase(torch, dev, kernels, results, ptxas) -> None:
+    """The scenario generator on the card (slice 18): K10 and K9's flag
+    route against their plain versions; flagship-scengen-train (PPO at
+    flagship width on a generated tape: K10 once, K1-K3 by name, graphed ==
+    eager), its streamed compressed episode == the resident one; a
+    curriculum of two scengen tapes; lob-scengen (the LOB venue's flow from
+    the tape's flags, K9's flag route a step; a short-horizon rollout
+    replay == the plain versions op by op) for two presets; config 5's
+    population on a generated book and on a portfolio curriculum of two
+    presets."""
+    import json as json_mod
+
+    from gymfx_tpu_torch.config.flagship import flagship_config, lob_config, portfolio_pbt_config
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.core.portfolio import PortfolioEnvironment
+    from gymfx_tpu_torch.core.rollout import buy_hold_driver
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.data.feed import market_data_nbytes
+    from gymfx_tpu_torch.ops import env_dynamics, lob_bar, lob_flow, lob_match, tape_decode, window_zscore
+    from gymfx_tpu_torch.ops import scengen_scan as k10
+    from gymfx_tpu_torch.train.pbt import _pbt_config_from, make_portfolio_pbt
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    t_phase = time.perf_counter()
+    out = results["scengen"] = {}
+    check_kernels_k10(torch, dev, kernels, results, ptxas)
+    check_kernels_k9_flags(torch, dev, kernels, results)
+    csv = str(ROOT / "examples" / "data" / "eurusd_sample.csv")
+    gen = dict(feed="scengen", scengen_bars=SCENGEN_TAPE_BARS, scengen_snap_to_tick=True)
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               k10.scengen_scan, lob_match.process_stream, lob_bar.run_bar, lob_flow.bar_flow,
+               tape_decode.decode_q16_block)
+    runs = graphs.WARMUP + 1
+
+    def zero():
+        for fn in counted:
+            fn.launches = 0
+        lob_flow.bar_flow.flag_launches = 0
+
+    def kinds(env):
+        return torch.bincount((env.data.scen_flags >> 1) & 3, minlength=4).tolist()
+
+    # ---- flagship-scengen-train: the main path on a generated tape
+    label = "scengen train"
+    config = flagship_config(csv, scengen_preset="regime_mix", **gen)
+    zero()
+    env = Environment(config)
+    trainer = PPOTrainer(env, ppo_config_from(config))
+    state, rows = train(torch, trainer, trainer.init_state(SEED), TRAIN_STEPS)
+    launches = count_launches(counted)
+    per_phase = {"step_obs": HORIZON, "fill_brackets": HORIZON, "mark_reward": HORIZON}
+    # counted from the Environment's construction: the generation (K10) and
+    # the trainer's reset obs (K1) once, then the phases at capture
+    expected = {k: runs * per_phase.get(k, 0) for k in launches}
+    expected.update(scengen_scan=1, step_obs=expected["step_obs"] + 1)
+    check(launches == expected, f"{label}: launched {launches}, expected {expected}")
+    kernels["scengen_scan"]["launches"] = launches["scengen_scan"]
+    check(env.n_bars == SCENGEN_TAPE_BARS and env.data.scen_flags.device.type == "cuda",
+          f"{label}: the generated tape")
+    check_training(rows, label)
+    summary = report_steps(rows, N_ENVS, HORIZON, label)
+    traced, _ = replay_launches(torch, first_graphs(trainer), {"rollout": per_phase, "update": {}},
+                                label)
+    # a rollout phase replayed from its graph == the same phase op by op
+    # (graphed_vs_eager's first check; the main phase runs all of it)
+    a, b = copy_state(torch, state), copy_state(torch, state)
+    ga, ra = trainer.rollout_phase(a)
+    gb, rb = trainer._rollout_phase_eager(b)
+    check_same(torch, ra, rb, f"{label} rollout phase (trajectory, bootstrap value)")
+    check_same_state(torch, ga, gb, f"{label} rollout phase (env states, obs_vec)")
+    print(f"  {label}: a rollout phase graphed == eager (torch.equal, the generator included)")
+    print(f"  {label}: K10 {launches['scengen_scan']} launch (the generation of {env.n_bars:,} "
+          f"bars), K1-K3 at capture {[launches[k] for k in per_phase]}; one replay by the "
+          f"profiler trace {traced}; bars of each flag kind {kinds(env)}")
+    out["train"] = dict(summary, launches_at_capture=launches, replay_launches=traced,
+                        flag_kinds=kinds(env))
+    del trainer, state, a, b, ga, gb, ra, rb
+
+    # the same tape streamed in compressed shards == resident (data_compress
+    # on a snapped tape: the int16 tick-delta wire format); one generation
+    one = dict(config, num_envs=1)
+    resident = Environment(one, dataset=env.dataset)
+    per_bar = market_data_nbytes(resident.data) / SCENGEN_TAPE_BARS
+    budget = (STREAM_SHARD_BARS + WINDOW + 1.5) * 2 * per_bar / 2**20 / 0.125
+    ref = resident.rollout(buy_hold_driver(), STREAM_STEPS)
+    zero()
+    streamed = Environment(dict(one, stream_hbm_budget_mb=budget, data_compress="on"),
+                           dataset=env.dataset)
+    check(streamed.streaming and streamed.streamer.tape is not None,
+          f"{label}: the compressed stream was not built")
+    episode = streamed.rollout(buy_hold_driver(), STREAM_STEPS)
+    check_episodes_equal(torch, episode, ref, f"{label}: compressed streamed episode vs resident")
+    check(tape_decode.decode_q16_block.launches > 0, f"{label}: the compressed shards ran no K6")
+    print(f"  {label}: a {STREAM_STEPS}-step episode streamed in compressed shards of "
+          f"{streamed.streamer.shard_bars} bars == the resident episode (torch.equal); K6 "
+          f"{tape_decode.decode_q16_block.launches} launches")
+    out["stream"] = dict(shard_bars=streamed.streamer.shard_bars,
+                         decode_launches=tape_decode.decode_q16_block.launches)
+    del resident, streamed, env
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a curriculum of two scengen tapes, compressed
+    label = "scengen curriculum"
+    config = flagship_config(csv, feed="curriculum", tapes=SCENGEN_TAPES,
+                             scengen_bars=SCENGEN_TAPE_BARS, scengen_snap_to_tick=True,
+                             data_compress="on", curriculum_seed=SCENGEN_CURRICULUM_SEED)
+    zero()
+    env = Environment(config)
+    trainer = PPOTrainer(env, ppo_config_from(config))
+    state, metrics = trainer.train(TRAIN_STEPS * N_ENVS * HORIZON, seed=SEED)
+    picks = [i for _, i in env.curriculum.picks]
+    launches = count_launches(counted)
+    check(launches["scengen_scan"] == 2, f"{label}: {launches['scengen_scan']} generations")
+    check(metrics["iterations"] == TRAIN_STEPS and len(picks) == TRAIN_STEPS, f"{label}: {picks}")
+    check(set(picks) == {0, 1} and launches["decode_q16_block"] > 0,
+          f"{label}: K6 {launches} for picks {picks}")
+    check(all(math.isfinite(metrics[k]) for k in ("loss", "entropy")), f"{label}: {metrics}")
+    print(f"  {label}: tapes {SCENGEN_TAPES} ({SCENGEN_TAPE_BARS:,} bars each, tape 1 compressed), "
+          f"picks {picks}, launches {launches}, loss {metrics['loss']:.5f}")
+    out["curriculum"] = dict(picks=picks, launches=launches)
+    del trainer, state, env
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- lob-scengen: the LOB venue's flow from the tape's flags.  The first
+    # preset trains at flagship-lob's horizon; the second runs a short-horizon
+    # rollout phase, replayed from its graph, against the plain versions op by
+    # op (the plain LOB phase runs the argsort engine)
+    for preset, horizon in zip(SCENGEN_LOB_PRESETS, (HORIZON, SCENGEN_PLAIN_HORIZON)):
+        label = f"lob-scengen {preset}"
+        config = lob_config(csv, scengen_preset=preset, random_episode_start=True,
+                            ppo_horizon=horizon, **gen)
+        zero()
+        env = Environment(config)
+        check(env.cfg.lob_flow_from_scengen, f"{label}: the flow does not read the flags")
+        trainer = PPOTrainer(env, ppo_config_from(config))
+        per_phase = {"step_obs": horizon, "fill_brackets": 0, "mark_reward": horizon,
+                     "process_stream": horizon, "run_bar": horizon, "bar_flow": horizon}
+        if horizon == HORIZON:
+            state, rows = train(torch, trainer, trainer.init_state(SEED), 2)
+            check_training(rows, label)
+            row = report_steps(rows, N_ENVS, horizon, label)
+        else:
+            t0 = time.perf_counter()
+            inter, (traj, last_value) = trainer.rollout_phase(trainer.init_state(SEED))
+            torch.cuda.synchronize()
+            row = {"rollout_phase_s_with_capture": time.perf_counter() - t0}
+        launches = count_launches(counted)
+        # with random starts each rollout phase also builds the start bank's
+        # obs (K1 once more a phase)
+        expected = {k: runs * per_phase.get(k, 0) for k in launches}
+        expected.update(scengen_scan=1, step_obs=runs * (horizon + 1) + 1)
+        check(launches == expected, f"{label}: launched {launches}, expected {expected}")
+        check(lob_flow.bar_flow.flag_launches == runs * horizon,
+              f"{label}: K9's flag route launched {lob_flow.bar_flow.flag_launches} times")
+        kernels["bar_flow_flags"].setdefault("launches", lob_flow.bar_flow.flag_launches)
+        print(f"  {label}: bars of each flag kind {kinds(env)}; K9's flag route "
+              f"{lob_flow.bar_flow.flag_launches} launches at capture; launches {launches}")
+        if horizon != HORIZON:
+            zero()
+            with plain_lob_versions():
+                t0 = time.perf_counter()
+                ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(
+                    trainer.init_state(SEED))
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+            check(sum(count_launches(counted).values()) == 0,
+                  f"{label}: the plain-version LOB phase launched a kernel")
+            for key in ("obs", "action", "reward", "done", "logp", "value"):
+                check(torch.equal(traj[key], ref_traj[key]), f"{label} vs plain versions: traj {key}")
+            for field in ref_state.env_states._fields:
+                check(torch.equal(getattr(inter.env_states, field),
+                                  getattr(ref_state.env_states, field)),
+                      f"{label} vs plain versions: env state {field}")
+            check(torch.equal(last_value, ref_last), f"{label} vs plain versions: bootstrap value")
+            row["plain_phase_s"] = plain_s
+            print(f"  {label} (a rollout phase of horizon {horizon}, graphed) == plain versions "
+                  f"op by op on the card (K1, K3, K5, K8, K9's flag route; torch.equal); plain "
+                  f"phase {plain_s:.1f} s")
+        out[label] = dict(row, launches_at_capture=launches, flag_kinds=kinds(env),
+                          flag_launches=lob_flow.bar_flow.flag_launches)
+        del trainer, env
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- config 5's shape on generated books, then a portfolio curriculum
+    pairs = json_mod.dumps(list(SCENGEN_PAIRS))
+    for label, over in (
+            ("portfolio-scengen-pbt", dict(feed="scengen", scengen_preset="multi_asset_stress")),
+            ("portfolio-scengen-curriculum", dict(
+                feed="curriculum", tapes="scengen:multi_asset_stress,scengen:multi_asset_calm",
+                curriculum_seed=SCENGEN_BOOKS_SEED))):
+        config = portfolio_pbt_config(str(ROOT), scengen_pairs=pairs, **over)
+        zero()
+        env = PortfolioEnvironment(config)
+        pbt = make_portfolio_pbt(dict(config), _pbt_config_from(config), env)
+        pcfg = pbt.trainer.pcfg
+        per_iter = pbt.pbt.population * pcfg.n_envs * pcfg.horizon
+        t0 = time.perf_counter()
+        result = pbt.train(2 * per_iter, seed=SEED)
+        train_s = time.perf_counter() - t0
+        launches = count_launches(counted)
+        generations = 1 if env.curriculum is None else env.curriculum.num_tapes
+        check(env.pairs == list(SCENGEN_PAIRS) and launches["scengen_scan"] == generations,
+              f"{label}: pairs {env.pairs}, {launches['scengen_scan']} generations")
+        check(launches["fill_brackets"] == launches["mark_reward"] == runs * pcfg.horizon,
+              f"{label}: K2/K3 at capture {launches}")
+        check(result["iterations"] == 2 and all(math.isfinite(x) for x in result["fitness"]),
+              f"{label}: {result['iterations']} iterations, fitness {result['fitness']}")
+        row = dict(iterations=result["iterations"], train_s=train_s,
+                   env_steps_per_s=result["env_steps_per_sec"], launches=launches)
+        if env.curriculum is not None:
+            picks = [i for _, i in env.curriculum.picks]
+            check(set(picks) == {0, 1}, f"{label}: picks {picks} miss a book")
+            # the staging rows hold the last pick's book
+            staged = pbt.trainer._rows[1].pair.close
+            bound = env.curriculum._tape_data(picks[-1]).pair.close
+            check(torch.equal(staged, bound), f"{label}: the staging rows are not the last pick")
+            row["picks"] = picks
+        out[label] = row
+        print(f"  {label}: {result['iterations']} population steps of {pbt.pbt.population} x "
+              f"{pcfg.n_envs} envs x {env.cfg.n_pairs} generated pairs ({env.n_bars:,} bars) in "
+              f"{train_s:.1f} s (the first captures), {result['env_steps_per_sec']:,.0f} env "
+              f"steps/s; launches {launches}{'; picks ' + str(row['picks']) if 'picks' in row else ''}")
+        del pbt, env
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    out["seconds"] = phase_s
+    check(phase_s <= SCENGEN_BUDGET_S, f"the scengen phase took {phase_s:.1f} s, over its "
+          f"{SCENGEN_BUDGET_S:.0f} s budget")
+    print(f"scengen: every check passed in {phase_s:.1f} s")
+
+
 def check_kernels_k6_k7(torch, dev, kernels) -> None:
     """K6 and K7 on seeded cases; their times at the paths' shapes come
     with the curriculum, export and stream phases."""
@@ -1612,6 +2077,28 @@ def make_tapes(tmp) -> dict:
 
 def count_launches(fns) -> dict:
     return {fn.__name__: fn.launches for fn in fns}
+
+
+@contextlib.contextmanager
+def plain_lob_versions():
+    """The LOB path's kernel wrappers (K1, K3, K5, K8, K9) swapped for their
+    plain versions while the block runs: a module function swapped after a
+    capture does not reach a replay, so only eager phases see them."""
+    from gymfx_tpu_torch.ops import env_dynamics, lob_bar, lob_flow, lob_match, window_zscore
+
+    saved = (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
+             window_zscore.step_obs, lob_flow.bar_flow)
+    lob_match.process_stream = lob_match.process_stream_plain
+    lob_bar.run_bar = lob_bar.run_bar_plain
+    lob_flow.bar_flow = lob_flow.bar_flow_plain
+    env_dynamics.mark_reward = env_dynamics.mark_reward_plain
+    window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
+        window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
+    try:
+        yield
+    finally:
+        (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
+         window_zscore.step_obs, lob_flow.bar_flow) = saved
 
 
 def train(torch, trainer, state, steps: int, data=None):
@@ -2082,24 +2569,13 @@ def lob_phase(torch, kernels, results) -> None:
     inter, (traj, last_value) = trainer.rollout_phase(trainer.init_state(SEED))
     for key in ("obs", "logp", "value", "reward"):
         check(bool(torch.isfinite(traj[key]).all()), f"LOB non-finite trajectory {key}")
-    kernel_fns = (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
-                  window_zscore.step_obs, lob_flow.bar_flow)
-    lob_match.process_stream = lob_match.process_stream_plain
-    lob_bar.run_bar = lob_bar.run_bar_plain
-    lob_flow.bar_flow = lob_flow.bar_flow_plain
-    env_dynamics.mark_reward = env_dynamics.mark_reward_plain
-    window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
-        window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
     for fn in counted:
         fn.launches = 0
-    try:
+    with plain_lob_versions():
         t0 = time.perf_counter()
         ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(trainer.init_state(SEED))
         torch.cuda.synchronize()
         plain_phase_s = time.perf_counter() - t0
-    finally:
-        (lob_match.process_stream, lob_bar.run_bar, env_dynamics.mark_reward,
-         window_zscore.step_obs, lob_flow.bar_flow) = kernel_fns
     check(sum(count_launches(counted).values()) == 0, "the plain-version LOB phase launched a kernel")
     for key in ("obs", "action", "reward", "done", "logp", "value"):
         check(torch.equal(traj[key], ref_traj[key]), f"LOB path vs plain versions: traj {key}")
@@ -4184,6 +4660,10 @@ def main() -> None:
     timed("portfolio", portfolio_phase, torch, kernels, results)
     # ---- 17. serve: the serving stack --------------------------------------
     timed("serve", serve_phase, torch, kernels, results)
+    torch.cuda.empty_cache()
+    # ---- 18. scengen: the scenario generator on the card ---------------------
+    timed("scengen", scengen_phase, torch, dev, kernels, results, built["scengen"][1])
+    gc.collect()
     torch.cuda.empty_cache()
     # ---- 8-10. the data path: curriculum, export, stream --------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tapes_")

@@ -140,7 +140,11 @@ def transition(cfg: EnvConfig, params: EnvParams, data: MarketData,
         # book at the open, brackets resolve against the prints of the
         # bar's flow (lob/venue.py; K5 seeds the books); then 2b, the
         # rollover financing, as the JAX package's plain path applies it
-        st = env_dynamics.select(advance, lob_venue.execute_bar(st, o, h, l, c, t_new, cfg, params), st)
+        # feed=scengen: the generated tape's scenario bits blend the flow
+        # per bar (droughts thin the book, crash bars burst the flow)
+        scen = data.scen_flags[ti] if cfg.lob_flow_from_scengen else None
+        st = env_dynamics.select(
+            advance, lob_venue.execute_bar(st, o, h, l, c, t_new, cfg, params, scen), st)
         if cfg.financing_enabled:
             accrued = st.pos * c * data.rollover_accrual[ti]
             st = st._replace(cash_delta=st.cash_delta + torch.where(advance, accrued, 0.0))

@@ -31,7 +31,12 @@ pair order from zero (:func:`pair_sum`), the JAX reduction's order.
 Host loading: the pair CSVs through the port's own reader
 (``data/feed.load_dataframe``), rows with unparseable timestamps dropped,
 then joined on the timestamps all pairs share (the sorted intersection:
-the JAX package's pandas inner join, row for row).
+the JAX package's pandas inner join, row for row).  With
+``feed="scengen"`` the book is generated instead (correlated pairs on one
+grid, no join; K10 on the card); ``feed="curriculum"`` binds tape 0 and
+``data/tapes.PortfolioCurriculumSampler`` holds the other books.  The
+venue is the pair config's: with ``venue="lob"`` every row steps through
+the LOB venue, as the JAX package's vmapped ``core.env.step`` does.
 """
 from __future__ import annotations
 
@@ -521,25 +526,44 @@ class PortfolioEnvironment:
                 "matrix) have no compressed form — unset data_compress "
                 "for the portfolio env"
             )
-        if feed == "curriculum":
-            raise not_ported("feed=curriculum on the portfolio env (portfolio tapes)", 12)
-        if feed == "scengen":
-            raise not_ported("feed=scengen portfolio books (synthesize_portfolio_frames)", 14)
-        if str(config.get("venue", "bar")).lower() != "bar":
-            raise not_ported("the LOB venue on the portfolio env", 12)
         self.curriculum = None
-        files = config.get("portfolio_files")
-        if not files:
-            raise ValueError(
-                "portfolio env requires config['portfolio_files'] "
-                "(or feed=scengen for a generated book)"
+        curriculum_specs = None
+        base_config = None
+        if feed == "curriculum":
+            from gymfx_tpu_torch.data import tapes as tapes_mod
+
+            if split is not None:
+                raise ValueError(
+                    "feed=curriculum cannot be combined with eval_split "
+                    "on the portfolio env (which tape would be cut?); "
+                    "evaluate on a held-out book instead"
+                )
+            curriculum_specs = tapes_mod.parse_tape_specs(config)
+            base_config = dict(config)
+            # rebind this env to tape 0: the overlay strips the curriculum
+            # keys, so the nested tape builds cannot recurse
+            config = tapes_mod.overlay_config(config, curriculum_specs[0])
+            self.config = dict(config)
+            feed = str(config.get("feed") or "replay").lower()
+        if feed == "scengen":
+            # correlated multi-asset generation on one shared grid (K10 on
+            # the card): already aligned, no timestamp join
+            from gymfx_tpu_torch.scengen.feed import synthesize_portfolio_frames
+
+            pairs, aligned, _flags = synthesize_portfolio_frames(config, device=self.device)
+        else:
+            files = config.get("portfolio_files")
+            if not files:
+                raise ValueError(
+                    "portfolio env requires config['portfolio_files'] "
+                    "(or feed=scengen for a generated book)"
+                )
+            pairs, aligned = load_portfolio_frames(
+                dict(files),
+                date_column=str(config.get("date_column", "DATE_TIME")),
+                price_column=str(config.get("price_column", "CLOSE")),
+                max_rows=config.get("max_rows"),
             )
-        pairs, aligned = load_portfolio_frames(
-            dict(files),
-            date_column=str(config.get("date_column", "DATE_TIME")),
-            price_column=str(config.get("price_column", "CLOSE")),
-            max_rows=config.get("max_rows"),
-        )
         self.pairs = pairs
         w = int(config.get("window_size", 32))
         if split is not None:
@@ -650,6 +674,11 @@ class PortfolioEnvironment:
             validate_profile_latency(prof, bar_ms)
         self.timeframe_hours = datasets[0].timeframe_hours
         self._rows: Dict[int, Tuple[PortfolioParams, PortfolioData]] = {}
+        if curriculum_specs is not None:
+            from gymfx_tpu_torch.data import tapes as tapes_mod
+
+            self.curriculum = tapes_mod.PortfolioCurriculumSampler(
+                base_config, curriculum_specs, base_env=self)
 
     @property
     def n_bars(self) -> int:

@@ -1,7 +1,8 @@
 """Host-side runtime: merged config dict -> bound environment on a device.
 
 The port of ``gymfx_tpu/core/runtime.py``'s ``Environment`` facade for
-the replay and curriculum feeds: it loads the dataset once, builds the
+the replay, scengen and curriculum feeds: it loads (or, with
+``feed="scengen"``, generates on its device) the dataset once, builds the
 static EnvConfig, the EnvParams and the MarketData tensors on its
 device, and exposes ``reset`` / ``step`` / ``rollout`` / ``make_driver``.
 With ``stream_hbm_budget_mb`` a history larger than the budget is
@@ -49,6 +50,7 @@ from gymfx_tpu_torch.data.feed import (
     market_data_to_device,
 )
 from gymfx_tpu_torch.lob.venue import validate_lob_venue
+from gymfx_tpu_torch.scengen.feed import ScenGenDataset
 
 
 def validate_profile_latency(profile, bar_ms: Optional[float]) -> None:
@@ -119,16 +121,19 @@ class Environment:
         feed = str(config.get("feed") or "replay").lower()
         self.curriculum = None
         curriculum_specs = None
-        if feed == "scengen":
-            raise not_ported("the scengen feed", 14)
         if feed == "curriculum":
             curriculum_specs = tapes_mod.parse_tape_specs(self.config)
-        elif feed != "replay":
+        elif feed not in ("replay", "scengen"):
             raise ValueError(f"feed must be replay|scengen|curriculum, got {feed!r}")
         if dataset is not None:
             self.dataset = dataset
         elif feed == "curriculum":
-            self.dataset = tapes_mod.dataset_for_spec(self.config, curriculum_specs[0])
+            self.dataset = tapes_mod.dataset_for_spec(self.config, curriculum_specs[0],
+                                                      device=self.device)
+        elif feed == "scengen":
+            # a seed-deterministic generated tape (K10 on the card) through
+            # the same MarketDataset pipeline
+            self.dataset = ScenGenDataset(self.config, device=self.device)
         else:
             self.dataset = load_market_dataset(self.config)
         if len(self.dataset) < int(config.get("window_size", 32)) + 2:

@@ -194,8 +194,6 @@ class EnvConfig:
         from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
 
         scenario_flow_params(self.lob_scenario)  # honor-or-reject
-        if self.lob_flow_from_scengen:
-            raise not_ported("the scenario generator's LOB flow (lob_flow_from_scengen)", 14)
 
 
 class EnvParams(NamedTuple):

@@ -55,6 +55,15 @@
 // five streams are written row by row, each lane a consecutive int32:
 // coalesced.
 //
+// The flag route (feed=scengen with venue=lob): the scenario generator's
+// per-bar blend (gymfx_tpu/lob/scenarios.py::flow_params_from_regime)
+// takes one of four parameter sets by the bar's drought and crash bits
+// (neither, drought, crash, both), and the blend's thresholds are float32
+// sums on every bar.  The kernel takes the four sets
+// (ops/lob_flow.py::_const_array) and an (N,) int32 flags pointer; each
+// env reads its set once, set (flags >> 1) & 3, or set 0 when the pointer
+// is null (the replay path).
+//
 // The extern "C" entry point launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError() (0 = launched).
 
@@ -95,6 +104,12 @@ struct FlowConsts {
 };
 constexpr int kFlowConsts = 18;
 static_assert(sizeof(FlowConsts) == kFlowConsts * 4, "FlowConsts is 18 words");
+
+// The four sets of the flag route, by (flags >> 1) & 3.
+constexpr int kFlowSets = 4;
+struct FlowSets {
+  FlowConsts set[kFlowSets];
+};
 
 __device__ __forceinline__ unsigned rotl(unsigned x, int r) { return __funnelshift_l(x, x, r); }
 
@@ -147,10 +162,12 @@ __device__ __forceinline__ int clamp_tick(int x) { return min(max(x, 1), kPriceC
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
 __global__ void __launch_bounds__(kEnvsPerBlock * 32)
-bar_flow_kernel(FlowArgs a, FlowConsts k, long long n_envs, int n_msgs, int t_stride) {
+bar_flow_kernel(FlowArgs a, FlowSets sets, const int* flags, long long n_envs, int n_msgs,
+                int t_stride) {
   const int lane = threadIdx.x & 31;
   const long long env = (long long)blockIdx.x * kEnvsPerBlock + (threadIdx.x >> 5);
   if (env >= n_envs) return;  // whole warps only: env is uniform in a warp
+  const FlowConsts k = sets.set[flags == nullptr ? 0 : (flags[env] >> 1) & 3];
 
   // the keys: fold_in(PRNGKey(seed), t); lane j < 6 split key j; lane j <
   // 6 half j % 2 of split key 2 + j / 2 (randint's split of the jitter,
@@ -230,22 +247,25 @@ int gymfx_flow_pointer_count() { return kFlowPointers; }
 
 int gymfx_flow_const_count() { return kFlowConsts; }
 
+int gymfx_flow_set_count() { return kFlowSets; }
+
 // ptrs: the (N,) bar rows (int32, t_stride 1, or int64, t_stride 2: the
 // low word of each), the four (N,) int32 OHLC ticks and the five (N, M)
-// int32 outputs, all contiguous.  consts: the 18 words of FlowConsts, in
-// host memory (copied into the launch's parameters).
-int gymfx_bar_flow(void* const* ptrs, const int* consts, long long n_envs, int n_msgs,
-                   int t_stride, void* stream) {
+// int32 outputs, all contiguous.  consts: the 4 x 18 words of FlowSets, in
+// host memory (copied into the launch's parameters).  flags: the (N,)
+// int32 scenario flags of each env's bar, or null.
+int gymfx_bar_flow(void* const* ptrs, const int* consts, const int* flags, long long n_envs,
+                   int n_msgs, int t_stride, void* stream) {
   if (n_envs <= 0 || n_msgs <= 0) return (int)cudaSuccess;
   FlowArgs a;
   a.t = static_cast<const unsigned*>(ptrs[0]);
   for (int i = 0; i < 4; ++i) a.ohlc[i] = static_cast<const int*>(ptrs[1 + i]);
   for (int i = 0; i < 5; ++i) a.out[i] = static_cast<int*>(ptrs[5 + i]);
-  FlowConsts k;
+  FlowSets k;
   memcpy(&k, consts, sizeof(k));
   const unsigned blocks = (unsigned)((n_envs + kEnvsPerBlock - 1) / kEnvsPerBlock);
   bar_flow_kernel<<<blocks, kEnvsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, k, n_envs, n_msgs, t_stride);
+      a, k, flags, n_envs, n_msgs, t_stride);
   return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,9 @@ JAX package's draws bit for bit.  With ``data_compress`` on, tapes 1..
 are held compressed on the device (data/compress.py) and each pick
 decodes its f32 view through K6, bitwise the uncompressed tape.
 
-Not ported here: ``scengen:`` tapes (the scenario generator, ROADMAP
-Queue 1 item 14), ``PortfolioCurriculumSampler`` (item 12), and the
+A ``scengen:`` tape is generated on the environment's device
+(scengen/feed.ScenGenDataset: K10 on the card).  ``PortfolioCurriculumSampler``
+draws whole portfolio books the same way.  Not ported here: the
 ``curriculum_pick`` ledger row (the telemetry port); the draws are kept
 in ``picks``.
 """
@@ -26,8 +27,6 @@ import json
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
-
-from gymfx_tpu_torch.core.types import not_ported
 
 TAPE_KINDS = ("file", "scengen")
 
@@ -138,14 +137,17 @@ def overlay_config(config: Dict[str, Any], spec: TapeSpec) -> Dict[str, Any]:
     return overlay
 
 
-def dataset_for_spec(config: Dict[str, Any], spec: TapeSpec):
-    """Resolve one tape spec into a MarketDataset (a ``file:`` tape; a
-    ``scengen:`` tape raises, ROADMAP Queue 1 item 14)."""
-    if spec.kind != "file":
-        raise not_ported(f"scengen tapes ({spec.label!r})", 14)
-    from gymfx_tpu_torch.data.feed import load_market_dataset
+def dataset_for_spec(config: Dict[str, Any], spec: TapeSpec, device=None):
+    """Resolve one tape spec into a MarketDataset (replay or scengen; a
+    scengen tape is generated on ``device``)."""
+    overlay = overlay_config(config, spec)
+    if spec.kind == "file":
+        from gymfx_tpu_torch.data.feed import load_market_dataset
 
-    return load_market_dataset(overlay_config(config, spec))
+        return load_market_dataset(overlay)
+    from gymfx_tpu_torch.scengen.feed import ScenGenDataset
+
+    return ScenGenDataset(overlay, device=device)
 
 
 class _TapePickerBase:
@@ -205,7 +207,8 @@ class CurriculumSampler(_TapePickerBase):
         self._tapes: Dict[int, Any] = {}
         self._decoders: Dict[int, Any] = {}
         for i, spec in enumerate(self.specs[1:], start=1):
-            host = dataset_for_spec(config, spec).build_market_data(device=None, **md_kwargs)
+            host = dataset_for_spec(config, spec, device).build_market_data(device=None,
+                                                                            **md_kwargs)
             n = int(host.close.shape[0])
             if n != n0:
                 raise ValueError(
@@ -250,3 +253,41 @@ class CurriculumSampler(_TapePickerBase):
         from gymfx_tpu_torch.data import compress as C
 
         return self._decoders[i](C.shard_arrays(self._tapes[i], 0))
+
+
+class PortfolioCurriculumSampler(_TapePickerBase):
+    """Curriculum over whole portfolio books.  Each non-base tape is built
+    by a throwaway ``PortfolioEnvironment`` on the overlaid config (one
+    level deep: the overlay strips the curriculum keys), so every tape
+    carries its own aligned multi-pair data and conversion factors.  A
+    ``file:`` tape is a single CSV, not a book: portfolio tapes are
+    scengen presets or dict entries with a ``portfolio_files`` override.
+    ``data_compress`` does not apply to portfolio books."""
+
+    def __init__(self, config: Dict[str, Any], specs: Sequence[TapeSpec], *, base_env):
+        from gymfx_tpu_torch.core.portfolio import PortfolioEnvironment
+
+        self._init_picker(config, specs)
+        n0 = int(base_env.cfg.n_bars)
+        self._device: Dict[int, Any] = {0: base_env.data}
+        for i, spec in enumerate(self.specs[1:], start=1):
+            if spec.kind == "file" and "portfolio_files" not in dict(spec.overrides):
+                raise ValueError(
+                    f"portfolio curriculum tape {spec.label!r}: a 'file:' "
+                    "tape is a single CSV, not a multi-pair book; use the "
+                    "dict form with a 'portfolio_files' override, or a "
+                    "scengen preset"
+                )
+            env_i = PortfolioEnvironment(overlay_config(config, spec), device=base_env.device)
+            if int(env_i.cfg.n_bars) != n0:
+                raise ValueError(
+                    "curriculum tapes must all have the same bar count "
+                    "(one compiled train step serves every tape): tape "
+                    f"{i} {spec.label!r} has {env_i.cfg.n_bars} aligned "
+                    f"bars, tape 0 {self.specs[0].label!r} has {n0}; "
+                    "trim the books or set scengen_bars to match"
+                )
+            self._device[i] = env_i.data
+
+    def _tape_data(self, i: int):
+        return self._device[i]

@@ -14,7 +14,7 @@ nine 32-bit draws.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -91,23 +91,42 @@ def reference_path(o, h, l, c, n_msgs: int):
 def seed_messages(o_tick, n_levels: int, fp: FlowParams) -> Messages:
     """Deterministic book seed at each env's bar open: ``n_levels`` bid
     levels at ``o - 1 - i`` and ask levels at ``o + 1 + i`` ticks,
-    ``seed_qty`` lots each.  (N,) -> (N, 2 n_levels)."""
+    ``seed_qty`` lots each (a number, or an (N,) int32 tensor: each env's,
+    the scenario generator's blend).  (N,) -> (N, 2 n_levels)."""
     n, dev = o_tick.shape[0], o_tick.device
     off = 1 + torch.arange(n_levels, dtype=I32, device=dev)
     kind = torch.full((n, 2 * n_levels), MSG_ADD, dtype=I32, device=dev)
     side = torch.cat([torch.ones_like(off), -torch.ones_like(off)]).expand(n, -1)
     price = torch.clamp(torch.cat([o_tick[:, None] - off, o_tick[:, None] + off], dim=1),
                         1, PRICE_CAP - 1)
-    qty = torch.full_like(kind, min(max(int(fp.seed_qty), 1), QTY_CAP))
+    if isinstance(fp.seed_qty, torch.Tensor):
+        qty = torch.clamp(fp.seed_qty, 1, QTY_CAP).to(I32)[:, None].expand(n, 2 * n_levels)
+        qty = qty.contiguous()
+    else:
+        qty = torch.full_like(kind, min(max(int(fp.seed_qty), 1), QTY_CAP))
     oid = (SEED_OID_BASE + torch.arange(2 * n_levels, dtype=I32, device=dev)).expand(n, -1)
     return Messages(kind, side.contiguous(), price, qty, oid.contiguous())
 
 
+def kind_thresholds(fp: FlowParams, f32_sums: bool = False) -> Tuple[float, float, float]:
+    """The three kind thresholds ``p_noop``, ``p_noop + p_add`` and ``p_noop
+    + p_add + p_cancel`` as the float32 values JAX compares against: the
+    float64 sums of Python numbers rounded once, or, with ``f32_sums``
+    (the scenario generator's blend, whose fields are float32 arrays),
+    float32 sums of the float32 values."""
+    if not f32_sums:
+        return _f32(fp.p_noop), _f32(fp.p_noop + fp.p_add), _f32(fp.p_noop + fp.p_add + fp.p_cancel)
+    noop = _f32(fp.p_noop)
+    two = _f32(noop + _f32(fp.p_add))  # a sum of two float32 values is exact in float64
+    return noop, two, _f32(two + _f32(fp.p_cancel))
+
+
 def bar_messages(key, o_tick, h_tick, l_tick, c_tick, n_msgs: int,
-                 fp: FlowParams) -> Messages:
+                 fp: FlowParams, f32_sums: bool = False) -> Messages:
     """Each env's seeded message stream for one bar: (N, 2) keys and (N,)
     OHLC ticks -> (N, n_msgs).  Flow oids are ``1 + message_index``;
-    cancels target a uniformly drawn earlier oid."""
+    cancels target a uniformly drawn earlier oid.  ``f32_sums`` as in
+    :func:`kind_thresholds`."""
     n, dev = key.shape[0], key.device
     keys = prng.split(key, 6)  # kind, side, jitter, qty, band, cancel
     sub = prng.split(keys[:, 2:5], 2).reshape(n, 6, 2)  # randint's halves
@@ -122,13 +141,10 @@ def bar_messages(key, o_tick, h_tick, l_tick, c_tick, n_msgs: int,
     mid = torch.clamp(path + draw(0, -2, 3), l_tick[:, None], h_tick[:, None])
     mid = torch.clamp(mid, 1, PRICE_CAP - 1)
 
+    thr = kind_thresholds(fp, f32_sums)
     kind = torch.where(
-        u_kind < _f32(fp.p_noop), MSG_NOOP,
-        torch.where(
-            u_kind < _f32(fp.p_noop + fp.p_add), MSG_ADD,
-            torch.where(u_kind < _f32(fp.p_noop + fp.p_add + fp.p_cancel),
-                        MSG_CANCEL, MSG_MARKET),
-        ),
+        u_kind < thr[0], MSG_NOOP,
+        torch.where(u_kind < thr[1], MSG_ADD, torch.where(u_kind < thr[2], MSG_CANCEL, MSG_MARKET)),
     ).to(I32)
     side = torch.where(u_side < 0.5, 1, -1).to(I32)
 

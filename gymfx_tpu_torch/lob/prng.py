@@ -4,8 +4,11 @@ The LOB flow (lob/flow.py) draws every message from ``jax.random``
 threefry streams, so the port reproduces those bits exactly: the
 installed JAX's ``threefry_seed``, ``threefry_2x32``, the fold-like
 ``split`` and the iota-counter ``random_bits`` of
-``jax_threefry_partitionable=True`` (the default), ``_uniform`` (float32)
-and ``_randint`` (int32, two 32-bit draws folded by a modulus).
+``jax_threefry_partitionable=True`` (the default), ``_uniform`` (float32),
+``_randint`` (int32, two 32-bit draws folded by a modulus) and
+``_normal_real`` (float32, the scenario generator's shocks: ``normal``).
+Under that flag an ``(n, A)`` draw takes the counts of its flat index, so
+it is the ``n * A`` draw reshaped.
 
 A key is an ``(..., 2)`` tensor holding two uint32 words, so one call
 draws for a whole batch of keys (one per env).  PyTorch has no usable
@@ -109,3 +112,35 @@ def bits_to_randint(higher, lower, minval: int, maxval: int):
     offset = ((((higher % span) * multiplier) & _MASK) + lower % span) & _MASK
     value = (int(minval) + offset % span) & _MASK
     return torch.where(value >= 2 ** 31, value - 2 ** 32, value).to(torch.int32)
+
+
+# XLA's float32 erf_inv (Giles' single-precision approximation): two
+# 9-term polynomials in w = -log1p(-x^2), the first for w < 5 in w - 2.5,
+# the second in sqrt(w) - 3
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_NORMAL_LO = -0.9999999403953552  # float32 nextafter(-1, 0)
+_SQRT2_F32 = 1.4142135381698608   # float32 sqrt(2)
+
+
+def erf_inv(x):
+    """XLA's float32 ``erf_inv`` op by op (each multiply and add rounded
+    on its own), ``x * inf`` at |x| = 1.  ``torch.erfinv`` is another
+    approximation, tens of ulp away from JAX's draws."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERF_INV_LT5[0], _ERF_INV_GE5[0])
+    for a, b in zip(_ERF_INV_LT5[1:], _ERF_INV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key, n: int):
+    """``jax.random.normal(key, (n,))`` in float32: a uniform in
+    [nextafter(-1, 0), 1) (``_uniform``'s floats scaled by 2.0, the float32
+    span, and shifted) through ``sqrt(2) * erf_inv``.  (..., n)."""
+    u = torch.clamp_min(bits_to_uniform(random_bits(key, n)) * 2.0 + _NORMAL_LO, _NORMAL_LO)
+    return _SQRT2_F32 * erf_inv(u)

@@ -43,7 +43,7 @@ from gymfx_tpu_torch.core import broker
 from gymfx_tpu_torch.core.types import EnvConfig, EnvParams, EnvState
 from gymfx_tpu_torch.lob.book import BookState, Messages, empty_book
 from gymfx_tpu_torch.lob.flow import price_to_ticks, seed_messages
-from gymfx_tpu_torch.lob.scenarios import scenario_flow_params
+from gymfx_tpu_torch.lob.scenarios import regime_flow_sets, regime_kind, scenario_flow_params
 from gymfx_tpu_torch.ops import lob_bar, lob_flow, lob_match
 from gymfx_tpu_torch.ops.lob_bar import BarFills, BarOrders
 
@@ -83,20 +83,29 @@ def _vwap_price(value, lots, tick, dtype):
     return value.to(dtype) / lots_f * tick
 
 
-def seed_book(o_t, cfg: EnvConfig) -> BookState:
+def seed_book(o_t, cfg: EnvConfig, scen_flags=None) -> BookState:
     """Fresh books seeded with the scenario's baseline depth at each env's
-    open tick ``o_t``: the seed stream runs through K5."""
+    open tick ``o_t``: the seed stream runs through K5.  With
+    ``scen_flags`` each env's depth is its bar's blend's ``seed_qty``."""
     fp = scenario_flow_params(cfg.lob_scenario)
+    if scen_flags is not None:
+        # the blend's seed depth follows the drought bit alone (a select of
+        # two host numbers: nothing is copied, so a CUDA graph captures it)
+        sets = regime_flow_sets(fp, cfg.lob_messages_per_bar)
+        drought = (regime_kind(scen_flags) & 1) != 0
+        fp = fp._replace(seed_qty=torch.where(drought, sets[1].seed_qty, sets[0].seed_qty))
     book = empty_book(o_t.shape[0], cfg.lob_depth_levels, cfg.lob_queue_slots, o_t.device)
     book, _ = lob_match.process_stream(book, seed_messages(o_t, cfg.lob_seed_levels, fp))
     return book
 
 
-def bar_flow(o_t, h_t, l_t, c_t, t_global, cfg: EnvConfig) -> Messages:
+def bar_flow(o_t, h_t, l_t, c_t, t_global, cfg: EnvConfig, scen_flags=None) -> Messages:
     """The bar's ``lob_messages_per_bar`` flow messages per env, keyed by
-    its bar row ``t_global``: (N, M), through K9."""
+    its bar row ``t_global``: (N, M), through K9 (its flag route with
+    ``scen_flags``)."""
     return lob_flow.bar_flow(cfg.lob_flow_seed, t_global, o_t, h_t, l_t, c_t,
-                             cfg.lob_messages_per_bar, scenario_flow_params(cfg.lob_scenario))
+                             cfg.lob_messages_per_bar, scenario_flow_params(cfg.lob_scenario),
+                             scen_flags)
 
 
 def bar_orders(state: EnvState, o_t, tick, cfg: EnvConfig, params: EnvParams):
@@ -191,18 +200,20 @@ def bar_fills(state: EnvState, entry: Entry, orders: BarOrders, fills: BarFills,
 
 
 def execute_bar(state: EnvState, o, h, l, c, t_global, cfg: EnvConfig,
-                params: EnvParams) -> EnvState:
+                params: EnvParams, scen_flags=None) -> EnvState:
     """One advancing bar of every env through the LOB venue (replaces the
     fill and bracket steps; the caller selects by its ``advance`` mask).
     ``o, h, l, c`` are (N,) bar prices, ``t_global`` the (N,) bar rows
-    that key the flow."""
+    that key the flow.  ``scen_flags`` (feed=scengen only): each env's
+    bar's scenario bits, which blend its flow and seed depth per bar
+    (``lob/scenarios.flow_params_from_regime``)."""
     tick = torch.full((), cfg.lob_tick_size, dtype=state.pos.dtype, device=state.pos.device)
     o_t = price_to_ticks(o, tick)
     c_t = price_to_ticks(c, tick)
     h_t = torch.maximum(price_to_ticks(h, tick), torch.maximum(o_t, c_t))
     l_t = torch.minimum(price_to_ticks(l, tick), torch.minimum(o_t, c_t))
-    book = seed_book(o_t, cfg)
-    flow = bar_flow(o_t, h_t, l_t, c_t, t_global, cfg)
+    book = seed_book(o_t, cfg, scen_flags)
+    flow = bar_flow(o_t, h_t, l_t, c_t, t_global, cfg, scen_flags)
     orders, entry = bar_orders(state, o_t, tick, cfg, params)
     _, fills = lob_bar.run_bar(book, flow, orders)
     return bar_fills(state, entry, orders, fills, o, tick, cfg, params)

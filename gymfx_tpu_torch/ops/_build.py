@@ -19,6 +19,8 @@ by nvcc at first use and loaded with ``ctypes``:
                windows), bitwise to the plain versions (the env flags)
     flow       csrc/flow_kernels.cu (K9, the LOB flow's threefry draws and
                float32 path), bitwise to the plain version (the env flags)
+    scengen    csrc/scengen_kernels.cu (K10, the scenario generator's scan
+               over bars), bitwise to the plain version (the env flags)
     attention_probe  csrc/attention_probe.cu, K4's copies without its
                arithmetic and an empty kernel (the attention flags): a
                profiling tool, not on any path, built only when
@@ -57,16 +59,18 @@ SOURCES = {
     "lob": _PACKAGE / "csrc" / "lob_kernels.cu",
     "data": _PACKAGE / "csrc" / "data_kernels.cu",
     "flow": _PACKAGE / "csrc" / "flow_kernels.cu",
+    "scengen": _PACKAGE / "csrc" / "scengen_kernels.cu",
     "attention_probe": _PACKAGE / "csrc" / "attention_probe.cu",
 }
 # the libraries that hold the port's kernels (what build_all builds)
-KERNEL_LIBRARIES = ("env", "attention", "lob", "data", "flow")
+KERNEL_LIBRARIES = ("env", "attention", "lob", "data", "flow", "scengen")
 FLAGS = {
     "env": (*_COMMON, "-fmad=false", *_SHARED),
     "attention": (*_COMMON, "--split-compile=0", *_SHARED),
     "lob": (*_COMMON, "--split-compile=0", *_SHARED),
     "data": (*_COMMON, "-fmad=false", *_SHARED),
     "flow": (*_COMMON, "-fmad=false", *_SHARED),
+    "scengen": (*_COMMON, "-fmad=false", *_SHARED),
     "attention_probe": (*_COMMON, *_SHARED),
 }
 
@@ -205,10 +209,21 @@ def _bind_data(lib: ctypes.CDLL) -> None:
 
 def _bind_flow(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
-    lib.gymfx_bar_flow.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+    lib.gymfx_bar_flow.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
     lib.gymfx_bar_flow.restype = ctypes.c_int
     lib.gymfx_flow_pointer_count.restype = ctypes.c_int
     lib.gymfx_flow_const_count.restype = ctypes.c_int
+    lib.gymfx_flow_set_count.restype = ctypes.c_int
+
+
+def _bind_scengen(lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.gymfx_scengen_scan.argtypes = [vp, vp, ctypes.c_longlong, i, i, vp]
+    lib.gymfx_scengen_smem_bytes.argtypes = [i, i]
+    lib.gymfx_scengen_smem_bytes.restype = ctypes.c_longlong
+    for fn in (lib.gymfx_scengen_scan, lib.gymfx_scengen_pointer_count,
+               lib.gymfx_scengen_const_count, lib.gymfx_scengen_max_assets):
+        fn.restype = i
 
 
 def _bind_attention_probe(lib: ctypes.CDLL) -> None:
@@ -222,7 +237,7 @@ def _bind_attention_probe(lib: ctypes.CDLL) -> None:
 
 
 _BINDERS = {"env": _bind_env, "attention": _bind_attention, "lob": _bind_lob, "data": _bind_data,
-            "flow": _bind_flow, "attention_probe": _bind_attention_probe}
+            "flow": _bind_flow, "scengen": _bind_scengen, "attention_probe": _bind_attention_probe}
 
 
 def load_library(name: str = "env") -> ctypes.CDLL:

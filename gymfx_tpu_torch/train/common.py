@@ -18,10 +18,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from gymfx_tpu_torch import resolve_device
 from gymfx_tpu_torch.core.runtime import Environment
-from gymfx_tpu_torch.core.types import not_ported
 from gymfx_tpu_torch.data.feed import Frame, MarketDataset, load_dataframe
 from gymfx_tpu_torch.resilience.guards import tree_map
+from gymfx_tpu_torch.scengen.feed import ScenGenDataset
 
 
 def masked_reset(done, fresh, cur):
@@ -77,13 +78,12 @@ def build_train_eval_envs(config: Dict[str, Any], *, device=None) -> Tuple[Any, 
             "feed=curriculum cannot hold out via eval_split (which tape "
             "would be cut?); name a held-out tape with eval_data_file"
         )
-    if feed == "scengen":
-        raise not_ported("the scengen feed", 14)
     if eval_file:
         eval_config = dict(config)
         eval_config["input_data_file"] = str(eval_file)
-        if feed == "curriculum":
-            # train on a tape library, evaluate on the named replayed tape
+        if feed in ("scengen", "curriculum"):
+            # train on generated tapes or a library, evaluate on the named
+            # replayed tape
             eval_config["feed"] = "replay"
             eval_config.pop("tapes", None)
         return Environment(config, device=device), Environment(eval_config, device=device)
@@ -92,14 +92,28 @@ def build_train_eval_envs(config: Dict[str, Any], *, device=None) -> Tuple[Any, 
         if not 0.0 < frac < 1.0:
             raise ValueError(f"eval_split must be in (0, 1), got {split!r}")
         min_bars = int(config.get("window_size", 32)) + 2
+
+        def check(cut: int, n_all: int) -> None:
+            if cut < min_bars or n_all - cut < min_bars:
+                raise ValueError(
+                    f"eval_split={frac} leaves too few bars (train {cut}, "
+                    f"eval {n_all - cut}; both need >= {min_bars})"
+                )
+
+        if feed == "scengen":
+            # generate once, then cut chronologically: both halves come from
+            # one seeded tape (a generation per half would desync the
+            # overlay processes at the cut)
+            full = ScenGenDataset(config, device=resolve_device(device))
+            n_all = len(full)
+            cut = n_all - int(n_all * frac)
+            check(cut, n_all)
+            return (Environment(config, dataset=full.sliced(slice(0, cut)), device=device),
+                    Environment(config, dataset=full.sliced(slice(cut, None)), device=device))
         frame = load_dataframe(config)
         n_all = len(frame)
         cut = n_all - int(n_all * frac)
-        if cut < min_bars or n_all - cut < min_bars:
-            raise ValueError(
-                f"eval_split={frac} leaves too few bars (train {cut}, "
-                f"eval {n_all - cut}; both need >= {min_bars})"
-            )
+        check(cut, n_all)
 
         def part(rows: slice) -> MarketDataset:
             return MarketDataset(Frame({k: v[rows] for k, v in frame.columns.items()},

@@ -148,6 +148,10 @@ class PBTTrainer:
         t0 = time.perf_counter()
         metrics = {}
         for it in range(iters):
+            # feed=curriculum: one book a population step, shared by every
+            # member (each trains the same market with its own hyperparameters)
+            if self.trainer.curriculum is not None:
+                self.trainer.use_tape(self.trainer.curriculum.pick(it)[2])
             state, metrics = self.trainer.train_step(state)
             step_fit = metrics["mean_reward"].cpu().numpy().astype(np.float64)
             fitness = decay * fitness + (1 - decay) * step_fit

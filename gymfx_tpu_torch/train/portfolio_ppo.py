@@ -220,10 +220,31 @@ class PortfolioPPOTrainer(PolicyTrainer):
         self.policy = make_portfolio_policy(pcfg.policy, self.obs_shape[-1], cfg.n_pairs,
                                             cfg.window_size, pcfg.policy_dtype).to(self.device)
         self.optimizer = ClipAdam(pcfg.lr, pcfg.max_grad_norm, pcfg.opt_state_dtype)
-        self.curriculum = None
+        # feed=curriculum: the sampler picks a book a train step; the phases
+        # read one staging copy of the bound rows, which each pick is copied
+        # into (use_tape), so one graph a phase serves every tape
+        self.curriculum = getattr(env, "curriculum", None)
+        if self.curriculum is not None:
+            self._rows = (self._rows[0], graphs.clone_tree(self._rows[1]))
         self._graphs_on = self.device.type == "cuda"
         self._graphs: Dict[tuple, graphs.PhaseGraph] = {}
         self._gen = torch.Generator(device=self.device)
+
+    def use_tape(self, tape: P.PortfolioData) -> None:
+        """Make the curriculum's book ``tape`` the active one: its rows are
+        copied into the staging rows and episode restarts come from its
+        fresh reset (the JAX trainer's explicit-data step)."""
+        eparams = self.env.params
+        graphs.copy_tree(self._rows[1], P.bind_rows(eparams, tape, self.books)[1])
+        reset_state, reset_obs = P.reset(self.env.cfg, *P.bind_rows(eparams, tape, 1))
+        books = self.books
+        graphs.copy_tree(self._reset_state, P.PortfolioState(
+            pairs=EnvState(*(x.repeat(books, *([1] * (x.dim() - 1))) for x in reset_state.pairs)),
+            acct=EnvState(*(x.expand(books, *x.shape[1:]) for x in reset_state.acct)),
+            swept_realized=reset_state.swept_realized.expand(books),
+            prev_realized_q=reset_state.prev_realized_q.expand(books, -1),
+        ))
+        self._reset_vec.copy_(self._encode(reset_obs))
 
     def _encode(self, obs):
         if self._is_transformer:
@@ -509,6 +530,8 @@ class PortfolioPPOTrainer(PolicyTrainer):
         t0 = time.perf_counter()
         metrics: Dict[str, Any] = {}
         for it in range(iters):
+            if self.curriculum is not None:
+                self.use_tape(self.curriculum.pick(it)[2])
             state, metrics = self.train_step(state)
             hooks.after_superstep(it, 1, metrics, lambda: (state, state.params))
         hooks.finish(lambda: (state, state.params))

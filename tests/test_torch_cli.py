@@ -17,7 +17,9 @@ the JAX package's (gymfx_tpu/app/main.py).
   saved non-default config, and the gym loop's host driver.
 * A mode outside training|optimization|inference raises, and every
   option the port does not take raises ``NotImplementedError`` naming
-  its ROADMAP Queue 1 item.
+  its ROADMAP Queue 1 item; the generated feed runs under the GA, the
+  execution cross-check and training, and a portfolio tape library
+  without tapes is refused with the JAX package's message.
 * ``--trainer portfolio`` writes the JAX ``main``'s result keys, and its
   checkpoint's policy mode reproduces the held-out summary; ``--trainer
   pbt`` with ``portfolio_files`` trains the population.
@@ -188,16 +190,6 @@ def test_a_mode_outside_the_three_raises(tmp_path):
     # PBT trains over a portfolio; without portfolio_files (the bar-venue
     # PPO trainer's population) it waits on item 12
     (("--mode", "training", "--trainer", "pbt"), 12),
-    # the portfolio trains; its tape library waits on item 12
-    pytest.param(("--mode", "training", "--trainer", "portfolio", "--feed", "curriculum"), 12,
-                 id="mode-training-trainer-portfolio-12"),
-    # the GA runs; a generated feed under it waits on item 14
-    (("--mode", "optimization", "--feed", "scengen"), 14),
-    pytest.param(("--driver_mode", "policy", "--portfolio_files", '{"EUR_USD": "x.csv"}',
-                  "--checkpoint_dir", "ckpt", "--feed", "curriculum"), 12,
-                 id='driver_mode-policy-portfolio_files-{"EUR-12'),
-    # the execution cross-check runs; a generated feed waits on 14
-    (("--verify_execution", "true", "--feed", "scengen"), 14),
     (("--mode", "training", "--fault_profile", "nan_bars=5"), 10),
     (("--mode", "training", "--telemetry_enabled"), 10),
     (("--mode", "training", "--telemetry_http_port", "0"), 10),
@@ -205,11 +197,44 @@ def test_a_mode_outside_the_three_raises(tmp_path):
     (("--mode", "training", "--mesh_shape", '{"data": 1}'), 17),
     (("--gym_loop", "true"), 18),
     (("--metrics_plugin", "my_metrics"), 9),
-    (("--mode", "training", "--feed", "scengen"), 14),
 ], ids=lambda v: v if isinstance(v, int) else "-".join(v).replace("--", "")[:40])
 def test_each_option_not_ported_raises_naming_its_item(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}$"):
         main(_argv(tmp_path, "--num_envs", "4", *extra), device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    ("--mode", "training", "--trainer", "portfolio", "--feed", "curriculum"),
+    ("--driver_mode", "policy", "--portfolio_files", '{"EUR_USD": "x.csv"}', "--checkpoint_dir",
+     "ckpt", "--feed", "curriculum"),
+], ids=["portfolio-training", "portfolio-policy"])
+def test_a_portfolio_tape_library_without_tapes_is_refused_as_jax(tmp_path, extra):
+    """The portfolio's tape library (item 12, ported): without ``tapes`` both
+    packages refuse the configuration with the same message."""
+    match = "feed=curriculum requires the 'tapes' config key"
+    with pytest.raises(ValueError, match=match):
+        main(_argv(tmp_path, "--num_envs", "4", *extra), device="cpu")
+    with x64_off(), pytest.raises(ValueError, match=match):
+        jax_main(_argv(tmp_path, "--num_envs", "4", *extra))
+
+
+@pytest.mark.parametrize("extra", [
+    ("--mode", "optimization", "--optimize_generations", "2", "--optimize_population", "8"),
+    ("--verify_execution", "true", "--steps", "100"),
+    ("--mode", "training", "--ppo_horizon", "8", "--train_total_steps", "32", "--eval_split", "0.25"),
+], ids=["optimization", "verify_execution", "training"])
+def test_the_generated_feed_runs_through_main(tmp_path, extra):
+    """``--feed scengen`` (item 14, ported) under the GA, the execution
+    cross-check and PPO training: a generated 300-bar tape."""
+    out = _json(main(_argv(tmp_path, "--feed", "scengen", "--scengen_bars", "300",
+                           "--window_size", "8", "--num_envs", "4", *extra), device="cpu"))
+    if "optimization" in extra:
+        assert out["mode"] == "optimization" and len(out["history"]) == 2
+    elif "--verify_execution" in extra:
+        assert out["execution_crosscheck"] and out["action_diagnostics"]["steps"] > 0
+    else:
+        assert out["eval_scope"] == "held_out" and (out["train_bars"], out["eval_bars"]) == (225, 75)
+        assert math.isfinite(out["final_equity"])
 
 
 def test_an_unknown_driver_mode_raises(tmp_path):

@@ -29,7 +29,13 @@ matching) is int32: books and fill records ``torch.equal``; so is K8
 on the venue's bars and where lot sums wrap int32; and K9 (a bar's flow
 messages: threefry words and a float32 path, -fmad=false) for every
 scenario at the venue's shape and at odd ones, and replayed from a CUDA
-graph.  K6 (q16
+graph, and its flag route (each env's parameter set by its bar's drought
+and crash bits) at the venue's shape and odd ones; K10 (the scenario
+generator's scan: float32 with -fmad=false and the math library's
+``expf``, as torch.exp on the card) ``torch.equal`` on its eight outputs
+for every preset at odd shapes and at bench.py --scengen's 65,536 x 4
+for two, at 1 to 256 assets, and through ``generate`` and
+``feed=scengen``, which match the CPU's flags and prices.  K6 (q16
 tape decode) and K7 (batched scaled windows) ``torch.equal`` (-fmad=false,
 IEEE division; K7 NaN for NaN, over random, the export's and clamped
 steps, F 1-7, W 8-64 and a feature view 4 bytes off alignment, and at
@@ -629,6 +635,109 @@ def test_cuda_bar_flow_rejects_what_it_cannot_take(cuda_device):
         lob_flow.bar_flow(0, t[:4], o, h, l, c, 8, fp)
     with pytest.raises(ValueError, match="c_t"):
         lob_flow.bar_flow(0, t, o, h, l, torch.stack([c, c], 1)[:, 0], 8, fp)
+
+
+def _flag_bars(n, device, seed=0):
+    """Bar flags over all five FLAG bits, so every env kind occurs."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, 32, (n,), generator=gen, dtype=torch.int32).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_msgs,rows", [(8192, 64, "int32"), (13, 17, "int64"),
+                                           (4099, 33, "int32")])
+@pytest.mark.parametrize("scenario", cases.LOB_SCENARIOS)
+def test_cuda_bar_flow_flag_route_equals_plain(cuda_device, scenario, n, n_msgs, rows):
+    bars = cases.lob_flow_bars(n, rows, seed=n_msgs, device=cuda_device)
+    fp = scenario_flow_params(scenario)
+    flags = _flag_bars(n, cuda_device, seed=n)
+    before = (lob_flow.bar_flow.launches, lob_flow.bar_flow.flag_launches)
+    ours = lob_flow.bar_flow(5, *bars, n_msgs, fp, flags)
+    ref = lob_flow.bar_flow_plain(5, *bars, n_msgs, fp, flags)
+    assert (lob_flow.bar_flow.launches, lob_flow.bar_flow.flag_launches) == (before[0] + 1,
+                                                                             before[1] + 1)
+    for name, a, b in zip(ref._fields, ours, ref):
+        assert torch.equal(a, b), name
+    if n == 8192:
+        crash = ((flags >> 2) & 1).bool()
+        lo = n_msgs // 3
+        assert bool((ours.kind[crash, lo:lo + n_msgs // 8] == 3).all())
+        with pytest.raises(ValueError, match="flags"):
+            lob_flow.bar_flow(5, *bars, n_msgs, fp, flags.to(torch.int64))
+
+
+def _scan_case(preset, n, a, device, weekend=True, seed=0):
+    import numpy as np
+
+    from gymfx_tpu_torch.lob import prng
+    from gymfx_tpu_torch.scengen import engine, feed
+    from gymfx_tpu_torch.scengen.params import scenario_params
+
+    monday = feed.fx_timestamp_grid(n, 1.0)[1] if weekend else np.zeros(n, bool)
+    shocks = engine.draw_shocks(prng.PRNGKey(seed, device), n, a)
+    return engine.scan_inputs(shocks, scenario_params(preset), monday)
+
+
+# every preset at odd shapes, 1 to 256 assets; bench.py --scengen's 65,536
+# x 4 for two (the plain version's host loop takes ~0.3 s a case there)
+SCAN_CASES = [(preset, n, a) for preset in (
+    "regime_mix", "flash_crash", "liquidity_drought", "multi_asset_stress", "trend_calm",
+    "range_chop", "gap_open", "multi_asset_calm") for n, a in ((2, 1), (4096, 1), (4096, 33),
+                                                            (1000, 256), (3, 7))] + [
+    ("regime_mix", 65536, 4), ("multi_asset_stress", 65536, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,n,a", SCAN_CASES)
+def test_cuda_scengen_scan_equals_plain(cuda_device, preset, n, a):
+    from gymfx_tpu_torch.ops import scengen_scan as k10
+
+    args = _scan_case(preset, n, a, cuda_device, seed=a)
+    before = k10.scengen_scan.launches
+    ours = k10.scengen_scan(*args)
+    ref = k10.paths_plain(*args)
+    assert k10.scengen_scan.launches == before + 1
+    for name, x, y in zip(("open", "high", "low", "close", "spread", "slip", "flags", "regime"),
+                          ours, ref):
+        assert x.device.type == "cuda" and torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_cuda_generate_and_the_feed_generate_on_the_card(cuda_device):
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.lob import prng
+    from gymfx_tpu_torch.ops import scengen_scan as k10
+    from gymfx_tpu_torch.scengen import engine, feed
+    from gymfx_tpu_torch.scengen.params import scenario_params
+
+    p = scenario_params("multi_asset_stress")
+    before = k10.scengen_scan.launches
+    paths = engine.generate(p, prng.PRNGKey(0, cuda_device), 512, 3)
+    assert paths.close.device.type == "cuda" and k10.scengen_scan.launches == before + 1
+    cpu = engine.paths_from_shocks(engine.draw_shocks(prng.PRNGKey(0), 512, 3), p,
+                                   torch.zeros(512, dtype=torch.bool))
+    assert torch.equal(paths.flags.cpu(), cpu.flags) and torch.equal(paths.regime.cpu(), cpu.regime)
+    torch.testing.assert_close(paths.close.cpu(), cpu.close, rtol=2e-6, atol=0)
+    config = dict(DEFAULT_VALUES, feed="scengen", scengen_bars=300, window_size=8)
+    env = Environment(config)
+    assert env.device.type == "cuda" and k10.scengen_scan.launches == before + 2
+    assert env.data.scen_flags.device.type == "cuda" and env.n_bars == 300
+    flags = feed.synthesize_frame(config, device="cpu")[1]
+    assert (env.data.scen_flags.cpu().numpy() == flags).all()
+
+
+@pytest.mark.cuda
+def test_cuda_scengen_scan_rejects_what_it_cannot_take(cuda_device):
+    from gymfx_tpu_torch.ops import scengen_scan as k10
+
+    args = list(_scan_case("regime_mix", 64, 2, cuda_device))
+    with pytest.raises(ValueError, match="monday"):
+        k10.scengen_scan(*args[:4], args[4].bool(), *args[5:])
+    with pytest.raises(ValueError, match="eps"):  # not contiguous
+        k10.scengen_scan(*args[:5], args[5].t().contiguous().t(), *args[6:])
+    with pytest.raises(ValueError, match="at most 256"):
+        k10.scengen_scan(*_scan_case("regime_mix", 8, 257, cuda_device))
 
 
 @pytest.mark.cuda

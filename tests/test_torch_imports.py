@@ -8,9 +8,10 @@
   tapes, the scaled-feature export (K7's plain version), and the command
   line: one training iteration with a checkpoint, then the policy mode on
   that checkpoint, for PPO and for IMPALA (the LSTM policy on the sharpe
-  reward), and population-based training over the three-pair portfolio
-  with the Transformer policy; then checks that none of those packages
-  was imported.
+  reward), population-based training over the three-pair portfolio
+  with the Transformer policy, and a LOB-venue episode on a generated
+  tape (the scenario generator, its flags' flow) with the stress overlay;
+  then checks that none of those packages was imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
   raise; configurations and options the port does not take raise
@@ -99,6 +100,13 @@ with open(d + "/pbt.json", "w") as fh:
 cli[cli.index(d + "/impala.json")] = d + "/pbt.json"
 pbt = main(cli + ["--mode", "training", "--train_total_steps", "64"], device="cpu")
 assert pbt["trainer"] == "pbt_portfolio" and pbt["pbt"]["iterations"] == 2
+from gymfx_tpu_torch.scengen import oracle, stress
+config = dict(DEFAULT_VALUES)
+config.update(feed="scengen", scengen_bars=300, window_size=8, venue="lob",
+              rollout_env_kernel="off", lob_messages_per_bar=8, strategy_plugin="direct_fixed_sltp")
+env = Environment(config, device="cpu")
+env.rollout(buy_hold_driver(), 20)
+stress.apply_scengen_stress(env.data, "flash_crash")
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """
@@ -155,15 +163,25 @@ def test_environment_without_cuda_and_without_device_raises():
 @pytest.mark.parametrize("over,item", [
     # sharpe_reward runs since PR 13; bfloat16 envs are what item 7 still holds
     ({"reward_plugin": "sharpe_reward", "compute_dtype": "bfloat16"}, 7),
-    ({"venue": "lob", "feed": "scengen"}, 14),
     ({"strategy_plugin": "my_plugin"}, 9),
     # financing runs; registered obs kernels are item 9's
     ({"obs_plugins": ["my_obs"]}, 9),
-    ({"feed": "curriculum", "tapes": "scengen:flash_crash"}, 14),
 ])
 def test_configs_not_ported_raise_naming_the_roadmap_item(over, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         Environment(_config(**over), device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    {"venue": "lob", "feed": "scengen", "rollout_env_kernel": "off"},
+    {"feed": "curriculum", "tapes": "scengen:flash_crash"},
+], ids=["lob_from_scengen", "scengen_tapes"])
+def test_generated_feeds_build(over):
+    """Item 14 (ported): the LOB venue on a generated tape takes its flow
+    from the tape's flags; a curriculum of scengen tapes builds."""
+    env = Environment(_config(scengen_bars=300, window_size=8, **over), device="cpu")
+    assert env.n_bars == 300 and env.cfg.lob_flow_from_scengen == (over.get("venue") == "lob")
+    assert env.data.scen_flags.shape == (300,) and bool((env.data.scen_flags >= 0).all())
 
 
 def test_float64_env_on_the_card_raises_before_any_kernel():

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from gymfx_tpu.core.types import EXEC_DIAG_INDEX
+from gymfx_tpu.core.types import make_env_config as jax_make_env_config
 from gymfx_tpu.lob import venue as jvenue
 from gymfx_tpu.lob.book import empty_book as jax_empty_book
 from gymfx_tpu.lob.book import process_stream as jax_process_stream
@@ -231,8 +232,13 @@ def test_seed_book_matches_jax_process_stream():
 
 
 def test_scengen_driven_lob_flow_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        make_env_config({"venue": "lob", "feed": "scengen"}, n_bars=64)
+    """Ported since (ROADMAP item 14): ``feed=scengen`` with the LOB venue
+    takes its flow from the tape's flags, as the JAX package's config
+    says; tests/test_torch_scengen_feeds.py holds the flow to JAX's."""
+    over = {"venue": "lob", "feed": "scengen"}
+    assert make_env_config(over, n_bars=64).lob_flow_from_scengen
+    assert jax_make_env_config(over, n_bars=64).lob_flow_from_scengen
+    assert not make_env_config({"venue": "lob"}, n_bars=64).lob_flow_from_scengen
 
 
 def test_lob_venue_refuses_bar_engine_knobs():

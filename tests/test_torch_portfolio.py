@@ -26,9 +26,8 @@ jitted reference's fused multiply-adds stay within the stated atol.
   whose window K1 computes over the pair rows.
 * The rows' params: a param on which the pairs differ is an (R,) column,
   one they share stays 0-d (the two forms K2 and K3 take).
-* The rejections of the JAX package (same messages) and the port's
-  ``not_ported`` for what waits (12 curriculum, 14
-  scengen).
+* The rejections of the JAX package (same messages), a portfolio tape
+  library's and a generated book's among them.
 """
 import jax
 import jax.numpy as jnp
@@ -249,8 +248,10 @@ def test_split_cuts_the_aligned_bars_as_the_jax_package():
     (dict(eval_split=0.3, eval_portfolio_files=FILES), ValueError, "not both"),
     (dict(portfolio_profiles={p: {"name": "x"} for p in FILES}), ValueError,
      "execution cost profile missing fields"),
-    (dict(feed="curriculum", tapes="file:x.csv"), NotImplementedError, "item 12"),
-    (dict(feed="scengen"), NotImplementedError, "item 14"),
+    # the portfolio's tape library (item 12) and generated books (item 14)
+    (dict(feed="curriculum", tapes="scengen:multi_asset_calm,file:x.csv", scengen_bars=100),
+     ValueError, "a 'file:' tape is a single CSV"),
+    (dict(feed="scengen", scengen_pairs="not json"), ValueError, "scengen_pairs must be a JSON"),
     (dict(portfolio_files=None), ValueError, "requires config\\['portfolio_files'\\]"),
     (dict(eval_split=0.99), ValueError, "leaves too few aligned bars"),
 ])

@@ -19,8 +19,8 @@
   (the two CPU GEMM libraries).
 * ``PPOTrainer.train`` draws one pick per superstep boundary (K = 1 and
   2), trains on it and reports the JAX loop's metrics.
-* Refusals: unequal bar counts, curriculum with streaming, ``scengen:``
-  tapes (ROADMAP item 14), a bad ``data_compress``, a trainer on a
+* Refusals: unequal bar counts (a ``scengen:`` tape's among them),
+  curriculum with streaming, a bad ``data_compress``, a trainer on a
   streamed Environment, and ``train``'s telemetry, preemption and logging
   (item 10) and mesh (item 17) arguments; its checkpoints (item 10's
   part that is ported) run on a curriculum too.
@@ -228,10 +228,12 @@ def test_refusals(tmp_path):
         Environment(_library_config(tapes=f"{LIBRARY},file:{short}"), device="cpu")
     with pytest.raises(ValueError, match="cannot be combined with shard streaming"):
         Environment(_library_config(stream_hbm_budget_mb=0.05), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    # a scengen tape (item 14, ported) of the default 2,048 bars beside
+    # 500-bar files; alone it is the library
+    with pytest.raises(ValueError, match="same bar count"):
         Environment(_library_config(tapes=f"{LIBRARY},scengen:flash_crash"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        Environment(_library_config(tapes="scengen:flash_crash"), device="cpu")
+    alone = Environment(_library_config(tapes="scengen:flash_crash"), device="cpu")
+    assert alone.n_bars == 2048 and alone.curriculum.num_tapes == 1
     with pytest.raises(ValueError, match="data_compress must be one of"):
         Environment(_library_config(data_compress="zstd"), device="cpu")
     streamed = dict(DEFAULT_VALUES, input_data_file=str(DATA / "eurusd_sample.csv"),
