@@ -392,6 +392,37 @@ failure exits non-zero:
             on a portfolio curriculum of two presets (the staging rows
             hold the last pick's book): PBTTrainer.train 2 population
             steps each, K2/K3 64 a phase at capture.
+19. pbt     PBT over the bar venue, after portfolio, before serve:
+            flagship_config's PPO as a population of PBT_MEMBERS (4) x
+            8,192 envs (32,768 env rows in one batch, member-stacked
+            params, PPOTrainer(members=4)), pbt_interval 2: 3 population
+            steps with an exploit/explore after the second, graphed ==
+            eager (torch.equal, generator, fitness and replaced members
+            included), K1-K3 4 x 64 launches at the capture and none after
+            (no recapture after the in-place exploit/explore), 64 each by
+            name in one rollout replay for every row; the rollout and
+            update replays timed and the population's env steps/s printed
+            beside the card's name and power limit; main --trainer pbt (2
+            population steps, the best member's params checkpointed and
+            evaluated on held-out bars, the policy mode on the checkpoint
+            == the training summary); an LSTM (hidden 128) and a
+            transformer_ring (d_model 64, 1 layer; K4 launched) population
+            at 1,024 envs x 16 steps, one step graphed == eager each.
+19. telemetry  after configs: flagship_config on a generated 2^15-bar M1
+            tape, 3 iterations through train_from_config with every
+            trainer telemetry key on (JSONL sink, spans, loopback HTTP,
+            ledger, flight recorder) and off: final states torch.equal to
+            each other and to the bare loop of train_step (no hooks
+            around it), the ledger valid with its kinds, the sink's drained
+            metrics the returned ones, the allocator watermark gauges;
+            fault_profile preempt_at=2 raises after iteration 2 with its
+            checkpoint and a valid postmortem, its resume == the
+            uninterrupted run; env steps/s with every key and log_every=1
+            on beside off (off/on/off/on, TELEMETRY_RATE_ITERS each, the
+            console lines checked), the drain's host us a superstep past
+            its event wait and its parts timed; serve-mlp with instruments
+            under a FlakyEngine plan, /metrics and /healthz scraped on
+            loopback (counts, late_compiles 0).
 13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -400,6 +431,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import math
 import pathlib
@@ -434,6 +466,11 @@ STREAM_SHARD_BARS = 256
 # iterations; the diagnostic and evaluation episodes held to eager ones of
 # 2,048 steps (the eager step is host-bound)
 CLI_BARS, CLI_ITERS, CLI_EAGER_STEPS = 2 ** 15, 3, 2048
+# PBT over the bar venue: flagship-train's population (config 5's 4
+# members); the LSTM and ring populations' smaller depth
+PBT_MEMBERS, PBT_SMALL_ENVS, PBT_SMALL_HORIZON = 4, 1024, 16
+# the telemetry phase's train_from_config runs and its on/off rate runs
+TELEMETRY_ITERS, TELEMETRY_RATE_ITERS = 3, 8
 # K2 and K3 with a param row per env: baseline-portfolio-pbt's rows (4
 # members x 64 envs x 3 pairs) and the flagship's envs x 3 pairs
 PORTFOLIO_ROWS = (768, 8192 * 3)
@@ -4567,6 +4604,475 @@ def serve_phase(torch, kernels, results) -> None:
     check(out["seconds"] <= SERVE_BUDGET_S, f"serve phase took {out['seconds']:.1f} s")
 
 
+def pbt_bar_steps(torch, pbt, state, fitness, iters: int, eager: bool):
+    """``iters`` population steps of PBT over the bar venue with an
+    exploit/explore after each ``pbt.pbt.interval``-th, as PBTTrainer.train
+    runs them (its rng from SEED + 1), from the graphs or op by op:
+    (state, fitness, replacements, per-step rows)."""
+    import numpy as np
+
+    tr = pbt.trainer
+    rng = np.random.default_rng(SEED + 1)
+    rows, replaced = [], []
+    for it in range(iters):
+        t0 = time.perf_counter()
+        if eager:
+            inter, out = tr._rollout_phase_eager(state)
+            state, metrics = tr._update_phase_eager(inter, out)
+        else:
+            state, metrics = tr.train_step(state)
+        torch.cuda.synchronize()
+        rows.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                         metrics={k: v.tolist() for k, v in metrics.items()}))
+        decay = pbt.pbt.fitness_decay
+        fitness = decay * fitness + (1 - decay) * metrics["mean_reward"].cpu().numpy().astype(
+            np.float64)
+        if (it + 1) % pbt.pbt.interval == 0:
+            state, fitness, who = pbt._exploit_explore(state, fitness, rng)
+            replaced.append(who)
+    return state, fitness, replaced, rows
+
+
+def pbt_population_equal(torch, config, label: str) -> dict:
+    """One population step of ``config``'s PBT over the bar venue from its
+    graphs against the same step op by op (torch.equal, generator
+    included): (capture s by graph)."""
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.train.pbt import PBTTrainer, _pbt_config_from
+    from gymfx_tpu_torch.train.ppo import ppo_config_from
+
+    pbt = PBTTrainer(Environment(config), ppo_config_from(config), _pbt_config_from(config))
+    tr = pbt.trainer
+    state0, _ = pbt.init_population(SEED)
+    ga, ma = tr.train_step(copy_state(torch, state0))
+    inter, out = tr._rollout_phase_eager(copy_state(torch, state0))
+    gb, mb = tr._update_phase_eager(inter, out)
+    check_same_state(torch, ga, gb, f"{label} one population step")
+    check_same(torch, ma, mb, f"{label} metrics")
+    for key in ("loss", "entropy"):
+        check(bool(torch.isfinite(ma[key]).all()), f"{label}: {key} {ma[key].tolist()}")
+    print(f"{label}: one population step of {pbt.pbt.population} members x "
+          f"{tr.pcfg.n_envs} envs x {tr.pcfg.horizon} steps graphed == eager (torch.equal, "
+          f"generator included); losses {[round(x, 5) for x in ma['loss'].tolist()]}")
+    return capture_seconds(tr)
+
+
+def pbt_phase(torch, kernels, results) -> None:
+    """PBT over the bar venue at flagship-train's width: 4 members x 8,192
+    envs (32,768 env rows), window 32, horizon 64, the 3x256 bf16 MLP;
+    3 population steps with an exploit/explore after the second, graphed
+    against eager (torch.equal, generator included), no capture after the
+    first step, K1-K3 64 launches each in one rollout replay for every
+    row, the phases timed; then an LSTM and a transformer_ring population
+    at a smaller depth, one step graphed == eager each."""
+    import numpy as np
+
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.train.pbt import PBTTrainer, _pbt_config_from
+    from gymfx_tpu_torch.train.ppo import ppo_config_from
+
+    csv = str(ROOT / "examples" / "data" / "eurusd_sample.csv")
+    config = flagship_config(csv, pbt_population=PBT_MEMBERS, pbt_interval=2)
+    pbt = PBTTrainer(Environment(config), ppo_config_from(config), _pbt_config_from(config))
+    tr = pbt.trainer
+    pcfg, members, label = tr.pcfg, pbt.pbt.population, "pbt"
+    rows_n = members * pcfg.n_envs
+    check(tr.rows == rows_n == PBT_MEMBERS * N_ENVS, f"{label}: {tr.rows} env rows")
+    state0, fitness0 = pbt.init_population(SEED)
+    lrs = pbt.get_lrs(state0)
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
+    before = count_launches(counted)
+    t0 = time.perf_counter()
+    ga, fa_, rep_a, rows_a = pbt_bar_steps(torch, pbt, copy_state(torch, state0),
+                                           fitness0.copy(), 3, eager=False)
+    graphed_s = time.perf_counter() - t0
+    at_capture = {k: v - before[k] for k, v in count_launches(counted).items()}
+    check(tr.captures() == 2, f"{label}: {tr.captures()} graphs captured after an exploit/explore, "
+          "expected the first step's 2")
+    # captured at step 1: 3 warm-ups and the capture, 64 steps each; steps 2
+    # and 3 (after the exploit/explore copied into the static buffers) replay
+    want = {k: 4 * pcfg.horizon for k in ("step_obs", "fill_brackets", "mark_reward")}
+    check(at_capture == want, f"{label}: K1-K3 launches at capture {at_capture}, expected {want}")
+    for key, count in at_capture.items():
+        kernels[key]["pbt_launches_at_capture"] = count
+    before = count_launches(counted)
+    t0 = time.perf_counter()
+    gb, fb_, rep_b, rows_b = pbt_bar_steps(torch, pbt, copy_state(torch, state0),
+                                           fitness0.copy(), 3, eager=True)
+    eager_s = time.perf_counter() - t0
+    eager_launches = {k: v - before[k] for k, v in count_launches(counted).items()}
+    check(eager_launches == {k: 3 * pcfg.horizon for k in want},
+          f"{label}: eager K1-K3 launches {eager_launches}, expected one each a step")
+    check(rep_a == rep_b and len(rep_a) == 1, f"{label}: replaced {rep_a} graphed, {rep_b} eager")
+    check(np.array_equal(fa_, fb_), f"{label}: fitness {fa_} graphed, {fb_} eager")
+    check_same_state(torch, ga, gb, f"{label} 3 population steps with an exploit/explore")
+    for row in rows_a:
+        for key in ("loss", "entropy", "grad_norm"):
+            check(all(math.isfinite(x) for x in row["metrics"][key]), f"{label}: {key} {row}")
+        check(sum(row["metrics"]["nonfinite_skips"]) == 0.0, f"{label}: updates skipped {row}")
+    traced, _ = replay_launches(torch, first_graphs(tr), {"rollout": dict(
+        step_obs=pcfg.horizon, fill_brackets=pcfg.horizon, mark_reward=pcfg.horizon),
+        "update": {}}, label)
+    for key in want:
+        kernels[key]["pbt_replay_launches"] = traced["rollout"][key]
+    roll_ms, upd_ms, phase_rows = phase_ms(torch, tr, ga)
+    per_iter = rows_n * pcfg.horizon
+    step_ms = statistics.median(r["step_ms"] for r in rows_a[1:])
+    check(tr.captures() == 2, f"{label}: the phases captured again ({tr.captures()} graphs)")
+    print(f"{label}: graphed == eager (torch.equal, generator included) over 3 population steps "
+          f"of {members} members x {pcfg.n_envs} envs ({rows_n} env rows) x {pcfg.horizon} steps "
+          f"with one exploit/explore (replaced {rep_a[0]}; learning rates {lrs.tolist()}); no "
+          f"capture after the first step; K1-K3 one launch a step for every row: "
+          f"{traced['rollout']} in one rollout replay (profiler trace), "
+          f"{traced['update']['all']} kernels in an update replay; 3 steps {graphed_s:.1f} s "
+          f"graphed (the first captures), {eager_s:.1f} s eager")
+    print(f"{label}: rollout replay {roll_ms:.1f} ms, update replay {upd_ms:.1f} ms (medians of "
+          f"2 of 3), population step {step_ms:.1f} ms: {per_iter / (roll_ms + upd_ms) * 1e3:,.0f} "
+          f"env steps/s through the phases, {per_iter / step_ms * 1e3:,.0f} through train_step; "
+          f"{results['device']['nvidia_smi']}")
+    results["pbt"] = dict(
+        members=members, n_envs=pcfg.n_envs, rows=rows_n, horizon=pcfg.horizon,
+        graphed_steps=rows_a, eager_steps=rows_b, launches_at_capture=at_capture,
+        replay_launches=traced, rollout_ms=roll_ms, update_ms=upd_ms, phase_rows=phase_rows,
+        step_ms=step_ms, phases_env_steps_per_s=per_iter / (roll_ms + upd_ms) * 1e3,
+        step_env_steps_per_s=per_iter / step_ms * 1e3, capture_s=capture_seconds(tr),
+        graphed_s=graphed_s, eager_s=eager_s, replaced=rep_a)
+    del pbt, tr, ga, gb, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the command line: main --trainer pbt without portfolio_files (2
+    # population steps, an exploit/explore, the best member checkpointed
+    # and evaluated on held-out bars), then the policy mode on it
+    from gymfx_tpu_torch.app.main import main as cli_main
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_pbt_"))
+    try:
+        (tmp / "pbt.json").write_text(json.dumps({**config, "pbt_interval": 1,
+                                                  "eval_split": 0.3}))
+        argv = ["--load_config", str(tmp / "pbt.json"), "--checkpoint_dir", str(tmp / "ckpt"),
+                "--results_file", str(tmp / "out.json"), "--quiet_mode"]
+        t0 = time.perf_counter()
+        out = cli_main(argv + ["--mode", "training", "--trainer", "pbt",
+                               "--train_total_steps", str(2 * per_iter)])
+        cli_s = time.perf_counter() - t0
+        check(out["pbt"]["iterations"] == 2 and len(out["pbt"]["replacements"]) == 1
+              and out["eval_scope"] == "held_out" and math.isfinite(out["total_return"]),
+              f"{label} cli: {out['pbt']['iterations']} iterations, {out['eval_scope']}")
+        policy = cli_main(argv + ["--mode", "inference", "--driver_mode", "policy", "--steps",
+                                  str(out["eval_bars"] - 1)])
+        check(policy["checkpoint_step"] == 2 * per_iter and policy["eval_scope"] == "held_out"
+              and policy["total_return"] == out["total_return"],
+              f"{label} cli: policy mode {policy.get('checkpoint_step')}, "
+              f"{policy.get('total_return')} vs {out['total_return']}")
+        print(f"{label} cli: main --trainer pbt, 2 population steps of {members} x {pcfg.n_envs} "
+              f"envs with an exploit/explore, the best member ({out['pbt']['best_member']}) "
+              f"checkpointed and evaluated on {out['eval_bars']} held-out bars (total_return "
+              f"{out['total_return']:.6g}) in {cli_s:.1f} s; the policy mode on its checkpoint "
+              f"== the training summary")
+        results["pbt"]["cli"] = dict(seconds=cli_s, best_member=out["pbt"]["best_member"],
+                                     total_return=out["total_return"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the recurrent and the ring policies' populations, at a smaller depth
+    small = dict(pbt_population=PBT_MEMBERS, pbt_interval=2, num_envs=PBT_SMALL_ENVS,
+                 ppo_horizon=PBT_SMALL_HORIZON)
+    results["pbt"]["lstm_capture_s"] = pbt_population_equal(
+        torch, flagship_config(csv, policy="lstm", policy_kwargs={"hidden": 128}, **small),
+        "pbt lstm")
+    k4 = (fused_attention.attention_forward, fused_attention.attention_backward)
+    before = count_launches(k4)
+    results["pbt"]["ring_capture_s"] = pbt_population_equal(
+        torch, flagship_config(csv, policy="transformer_ring",
+                               policy_kwargs={"d_model": 64, "n_heads": 4, "n_layers": 1},
+                               **small), "pbt ring")
+    ring_k4 = {k: v - before[k] for k, v in count_launches(k4).items()}
+    check(ring_k4["attention_forward"] > 0 and ring_k4["attention_backward"] > 0,
+          f"pbt ring: K4 launches {ring_k4}")
+    results["pbt"]["ring_k4_launches"] = ring_k4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def telemetry_phase(torch, kernels, results, tmp) -> None:
+    """The trainers' telemetry, faults and logging at flagship width on a
+    2^15-bar tape, and the serving instruments: ``train_from_config`` with
+    every trainer telemetry key on, then off (the final states torch.equal
+    to each other and to the bare loop of train steps; the ledger and the
+    sink valid, the drained metrics the returned ones); the preemption
+    drill and its resume bitwise to the uninterrupted run (the postmortem
+    valid); env steps/s with every key and ``log_every`` on beside off, and
+    the drain's host us a superstep; serve-mlp with instruments under a
+    FlakyEngine burst, ``/metrics`` and ``/healthz`` scraped on loopback."""
+    from gymfx_tpu_torch import telemetry as TT
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import cases
+    from gymfx_tpu_torch.resilience.faults import FlakyEngine, SimulatedPreemptionError
+    from gymfx_tpu_torch.serve import batcher_from_config, engine_from_config
+    from gymfx_tpu_torch.telemetry.device_stream import HostCopy
+    from gymfx_tpu_torch.telemetry.http import scrape
+    from gymfx_tpu_torch.telemetry.instruments import instruments_from_telemetry
+    from gymfx_tpu_torch.train import checkpoint as ckpt
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from, train_from_config
+
+    tmp = pathlib.Path(tmp) / "telemetry"
+    tmp.mkdir()
+    tape = tmp / "eurusd_m1.csv"
+    cases.write_bar_csv(tape, cases.tick_walk_columns(CLI_BARS, seed=SEED + 3, level=1.10),
+                        cases.m1_week_grid(CLI_BARS))
+    per_iter = N_ENVS * HORIZON
+    base = flagship_config(str(tape), timeframe="M1", train_total_steps=TELEMETRY_ITERS * per_iter,
+                           checkpoint_every=1, seed=SEED)
+
+    def keys(name):
+        d = tmp / name
+        return {"telemetry_enabled": True, "telemetry_jsonl": str(d / "t.jsonl"),
+                "telemetry_spans": True, "telemetry_http_port": 0,
+                "telemetry_ledger": str(d / "ledger.jsonl"),
+                "telemetry_flight_recorder_dir": str(d / "pm")}
+
+    def final_state(d, trainer):
+        state, step = ckpt.load_checkpoint(str(d), template=trainer.init_state(SEED))
+        check(step == TELEMETRY_ITERS * per_iter, f"telemetry: {d.name} final step {step}")
+        return state
+
+    # 1. every trainer key on, then off, through train_from_config
+    t0 = time.perf_counter()
+    on = train_from_config({**base, **keys("on"), "checkpoint_dir": str(tmp / "on" / "ckpt")})
+    on_s = time.perf_counter() - t0
+    off = train_from_config({**base, "checkpoint_dir": str(tmp / "off" / "ckpt")})
+    trainer = PPOTrainer(Environment(base), ppo_config_from(base))
+    s_on, s_off = final_state(tmp / "on" / "ckpt", trainer), final_state(tmp / "off" / "ckpt",
+                                                                        trainer)
+    check_same_state(torch, s_on, s_off, "telemetry on vs off (train_from_config)")
+    check(TT.validate_ledger(str(tmp / "on" / "ledger.jsonl")) == [], "telemetry: ledger invalid")
+    kinds = [r["kind"] for r in TT.ledger.read_ledger(str(tmp / "on" / "ledger.jsonl"))]
+    check(kinds == ["run_start"] + ["superstep_dispatch", "checkpoint_write"] * TELEMETRY_ITERS
+          + ["run_end"], f"telemetry: ledger kinds {kinds}")
+    rows = [json.loads(r) for r in (tmp / "on" / "t.jsonl").read_text().splitlines()]
+    drained = [r for r in rows if r["kind"] == "train_metrics"]
+    check(len(drained) == TELEMETRY_ITERS and sum(r["kind"] == "span" for r in rows)
+          == TELEMETRY_ITERS and rows[-1]["kind"] == "metrics_snapshot",
+          f"telemetry: sink kinds {[r['kind'] for r in rows]}")
+    tm = on["train_metrics"]
+    check(all(drained[-1][k] == tm[k] for k in tm if k in drained[-1]) and drained[-1]["iter"]
+          == TELEMETRY_ITERS, f"telemetry: drained {drained[-1]} != returned {tm}")
+    check({k: v for k, v in tm.items() if k != "env_steps_per_sec"}
+          == {k: v for k, v in off["train_metrics"].items() if k != "env_steps_per_sec"},
+          "telemetry: the on and off runs' metrics differ")
+    marks = rows[-1]["registry"]["gymfx_device_memory_bytes"]["samples"]
+    check({s["labels"]["stat"] for s in marks} == {"bytes_in_use", "peak_bytes_in_use",
+                                                   "bytes_limit", "largest_alloc_size"},
+          f"telemetry: memory watermarks {marks}")
+    print(f"telemetry: train_from_config at {N_ENVS} envs x {HORIZON} steps on {CLI_BARS:,} bars, "
+          f"{TELEMETRY_ITERS} iterations with every trainer key on ({on_s:.1f} s) == off "
+          f"(torch.equal final states, generator included); ledger valid ({len(kinds)} rows), "
+          f"the sink's drained metrics == the returned ones")
+
+    # 2. the bare loop of graphed train steps, no hooks around it
+    state = trainer.init_state(SEED)
+    for _ in range(TELEMETRY_ITERS):
+        state, _ = trainer.train_step(state)
+    check_same_state(torch, copy_state(torch, state), s_off, "telemetry off vs the bare loop")
+
+    # 3. the preemption drill and its resume
+    drill = tmp / "drill" / "ckpt"
+    try:
+        train_from_config({**base, **keys("drill"), "checkpoint_dir": str(drill),
+                           "fault_profile": "preempt_at=2"})
+        fail("telemetry: the preemption drill did not raise")
+    except SimulatedPreemptionError as exc:
+        check(exc.iteration == 2, f"telemetry: preempted at {exc.iteration}")
+    bundles = sorted((tmp / "drill" / "pm").iterdir())
+    check(len(bundles) == 1 and TT.validate_postmortem(str(bundles[0])) == [],
+          f"telemetry: postmortem bundles {bundles}")
+    manifest = json.loads((bundles[0] / "manifest.json").read_text())
+    check(manifest["reason"] == "preemption" and manifest["frames"] == 2,
+          f"telemetry: postmortem manifest {manifest['reason']}, {manifest['frames']} frames")
+    train_from_config({**base, "checkpoint_dir": str(drill), "resume_training": True,
+                       "train_total_steps": (TELEMETRY_ITERS - 2) * per_iter})
+    check_same_state(torch, final_state(drill, trainer), s_off,
+                     "telemetry: preempted at 2 and resumed vs uninterrupted")
+    print(f"telemetry: preempt_at=2 raised after iteration 2 (its checkpoint on disk, postmortem "
+          f"valid: {manifest['frames']} frames, rng_key {len(manifest['rng_key'])} bytes); the "
+          f"resume == the uninterrupted run (torch.equal)")
+
+    # 4. env steps/s: every key and log_every on beside off, in this call;
+    # each drain's time split in place into its wait on the previous
+    # superstep's copy event and its host parts
+    from gymfx_tpu_torch.telemetry import device_stream as stream_mod
+    from gymfx_tpu_torch.telemetry import mfu as mfu_mod
+
+    drain, waits, wait_now, split, part_now = [], [], [0.0], [], {}
+    real_get = HostCopy.get
+    real_copy, real_marks = stream_mod.HostCopy, mfu_mod.device_memory_watermarks
+
+    def timing(name, fn):
+        def timed_fn(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                part_now[name] = part_now.get(name, 0.0) + time.perf_counter() - t0
+        return timed_fn
+
+    def timed_get(copy):
+        t0 = time.perf_counter()
+        if copy._event is not None:
+            copy._event.synchronize()
+        wait_now[0] += time.perf_counter() - t0
+        return real_get(copy)
+
+    def run(with_telemetry):
+        if not with_telemetry:
+            return trainer.train(TELEMETRY_RATE_ITERS * per_iter, seed=SEED)[1]
+        t = TT.telemetry_from_config({**base, **keys(f"rate{len(rates)}")})
+        real_stream = t.device_stream
+        t.sink.append = timing("sink_row", t.sink.append)
+        t.recorder.record_frame = timing("recorder_frame", t.recorder.record_frame)
+
+        def device_stream(*a, **kw):
+            stream = real_stream(*a, **kw)
+            inner = stream.after_dispatch
+            stream._printer = timing("console_line", stream._printer)
+
+            def after_dispatch(*args):
+                wait_now[0] = 0.0
+                part_now.clear()
+                t0 = time.perf_counter()
+                inner(*args)
+                drain.append(time.perf_counter() - t0)
+                waits.append(wait_now[0])
+                split.append(dict(part_now))
+
+            stream.after_dispatch = after_dispatch
+            return stream
+
+        t.device_stream = device_stream
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                out = trainer.train(TELEMETRY_RATE_ITERS * per_iter, seed=SEED, log_every=1,
+                                    telemetry=t)[1]
+        finally:
+            t.close()
+        lines = printed.getvalue().splitlines()
+        check([line.split(" {")[0] for line in lines]
+              == [f"[ppo] iter {i}/{TELEMETRY_RATE_ITERS}"
+                  for i in range(1, TELEMETRY_RATE_ITERS + 1)],
+              f"telemetry: log_every=1 printed {lines[:3]}")
+        return out
+
+    rates = []
+    HostCopy.get = timed_get
+    stream_mod.HostCopy = timing("host_copy_enqueue", real_copy)
+    mfu_mod.device_memory_watermarks = timing("memory_watermarks", real_marks)
+    try:
+        for with_telemetry in (False, True, False, True):
+            rates.append((with_telemetry, run(with_telemetry)["env_steps_per_sec"]))
+    finally:
+        HostCopy.get = real_get
+        stream_mod.HostCopy, mfu_mod.device_memory_watermarks = real_copy, real_marks
+    on_rates = [r for w, r in rates if w]
+    off_rates = [r for w, r in rates if not w]
+    # the drain's host time a superstep: after_dispatch's time less its
+    # wait on the previous superstep's copy event (the card's time), and
+    # its parts in place (medians over the drains; "rest": the registry,
+    # the numpy reads and the calls' own overhead)
+    drain_host = [(d - w) * 1e6 for d, w in zip(drain, waits)]
+    names = ("host_copy_enqueue", "sink_row", "recorder_frame", "console_line",
+             "memory_watermarks")
+    in_place_us = {name: statistics.median(row.get(name, 0.0) * 1e6 for row in split)
+                   for name in names}
+    in_place_us["rest"] = statistics.median(
+        h - sum(row.get(name, 0.0) * 1e6 for name in names) for h, row in zip(drain_host, split))
+    # the drain's parts a superstep: the allocator's watermarks and the
+    # pinned copy's enqueue (a dispatch's metrics, as the drain gets them)
+    from gymfx_tpu_torch.telemetry.mfu import device_memory_watermarks
+
+    metrics = trainer.train_step(trainer.init_state(SEED))[1]
+    host = HostCopy(metrics).get()
+    newest = {k: float(v[-1]) for k, v in host.items()}
+    sink = TT.JsonlSink(str(tmp / "parts.jsonl"))
+    recorder = TT.FlightRecorder(str(tmp / "parts_pm"), k=8)
+    parts_us = {"memory_watermarks": host_us(torch, device_memory_watermarks),
+                "memory_stats_flat": host_us(torch, torch.cuda.memory_stats),
+                "host_copy_enqueue": host_us(torch, lambda: HostCopy(metrics)),
+                "host_copy_read": host_us(torch, lambda: HostCopy(metrics).get()),
+                "sink_row": host_us(torch, lambda: sink.append({"kind": "train_metrics",
+                                                                **newest})),
+                "recorder_frame": host_us(torch, lambda: recorder.record_frame(
+                    1, 1, {k: v.tolist() for k, v in host.items()})),
+                "console_line": host_us(torch, lambda: f"[ppo] iter 1/8 {newest}")}
+    torch.cuda.synchronize()
+    results["telemetry"] = dict(
+        iters=TELEMETRY_ITERS, rate_iters=TELEMETRY_RATE_ITERS, on_env_steps_per_s=on_rates,
+        off_env_steps_per_s=off_rates, drain_us=[d * 1e6 for d in drain],
+        drain_wait_us=[w * 1e6 for w in waits], drain_host_us=drain_host,
+        drain_host_us_median=statistics.median(drain_host),
+        drain_us_median=statistics.median(d * 1e6 for d in drain), on_s=on_s, parts_us=parts_us,
+        in_place_us=in_place_us)
+    print(f"telemetry: env steps/s with every trainer key and log_every=1 on "
+          f"{[round(r) for r in on_rates]} beside off {[round(r) for r in off_rates]} "
+          f"({TELEMETRY_RATE_ITERS} iterations each, off/on/off/on in this call); the drain "
+          f"{statistics.median(d * 1e6 for d in drain):.1f} us a superstep in all, "
+          f"{statistics.median(drain_host):.1f} us of host work past its wait on the previous "
+          f"superstep's copy (medians of {len(drain)}); of it the allocator's watermarks "
+          f"{parts_us['memory_watermarks']:.1f} us (torch.cuda.memory_stats alone "
+          f"{parts_us['memory_stats_flat']:.1f}), the pinned copy's enqueue "
+          f"{parts_us['host_copy_enqueue']:.1f} us, enqueue and read "
+          f"{parts_us['host_copy_read']:.1f}, the sink's row {parts_us['sink_row']:.1f}, "
+          f"the recorder's frame {parts_us['recorder_frame']:.1f}, the console line "
+          f"{parts_us['console_line']:.1f} (200 calls each); in place, medians of the "
+          f"drains: " + ", ".join(f"{k} {v:.1f}" for k, v in in_place_us.items()) + " us; "
+          f"{results['device']['nvidia_smi']}")
+
+    # 5. serving: serve-mlp with instruments under a FlakyEngine burst
+    config = serve_config(telemetry_enabled=True, telemetry_http_port=0,
+                          serve_breaker_threshold=0)
+    bundle = engine_from_config(config)
+    try:
+        flaky = FlakyEngine(bundle.engine, plan=["exc", "ok", "slow:20", "exc", "ok"])
+        instr = instruments_from_telemetry(bundle.telemetry)
+        rows_in = serve_rows(torch, bundle, 8, SEED)
+        outcomes = []
+        with batcher_from_config(flaky, config, instruments=instr) as mb:
+            for row in rows_in:
+                try:
+                    mb.submit(row).result(timeout=60)
+                    outcomes.append("served")
+                except Exception as exc:  # noqa: BLE001 - the injected failures
+                    outcomes.append(type(exc).__name__)
+            burst = [mb.submit(row) for row in rows_in]
+            for f in burst:
+                f.result(timeout=60)
+        url = bundle.telemetry.server.url
+        check(url.startswith("http://127.0.0.1:"), f"telemetry: the endpoint binds {url}")
+        text = scrape(url + "/metrics")
+        health = json.loads(scrape(url + "/healthz"))
+        failed = outcomes.count("InjectedDispatchError")
+        served = outcomes.count("served") + len(burst)
+        for line in (f'gymfx_serve_requests_total{{batcher="serve",outcome="failed"}} {failed}',
+                     f'gymfx_serve_requests_total{{batcher="serve",outcome="served"}} {served}',
+                     f'gymfx_serve_dispatch_failures_total{{batcher="serve"}} {failed}',
+                     'gymfx_serve_late_compiles_total{batcher="serve"} 0'):
+            check(line in text, f"telemetry: /metrics lacks {line!r}")
+        check(failed == 2 and health["late_compiles"] == 0 and health["status"] == "ok",
+              f"telemetry: outcomes {outcomes}, /healthz {health}")
+        families = sum(line.startswith("# TYPE") for line in text.splitlines())
+        print(f"telemetry: serve-mlp with instruments under a FlakyEngine plan {flaky.history}: "
+              f"{served} served, {failed} failed; /metrics on loopback {families} families, "
+              f"/healthz {health}")
+        results["telemetry"]["serve"] = dict(outcomes=outcomes, served=served, failed=failed,
+                                             families=families, health=health)
+    finally:
+        bundle.telemetry.close()
+
+
 def main() -> None:
     if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
         fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
@@ -4658,6 +5164,8 @@ def main() -> None:
     timed("baseline", baseline_phase, torch, kernels, results)
     # ---- 14. portfolio: BASELINE.json's configuration 5 ---------------------
     timed("portfolio", portfolio_phase, torch, kernels, results)
+    # ---- 19. pbt: PBT over the bar venue at flagship width -------------------
+    timed("pbt", pbt_phase, torch, kernels, results)
     # ---- 17. serve: the serving stack --------------------------------------
     timed("serve", serve_phase, torch, kernels, results)
     torch.cuda.empty_cache()
@@ -4685,6 +5193,8 @@ def main() -> None:
         timed("portfolio cli", portfolio_cli_phase, torch, results, tmp)
         # ---- 16. configs: the shipped configs, financing, the GA --------
         timed("configs", configs_phase, torch, kernels, results, tmp)
+        # ---- 19. telemetry: the trainers' telemetry, faults, logging ------
+        timed("telemetry", telemetry_phase, torch, kernels, results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -17,7 +17,9 @@ key for key the JAX package's:
   ``trainer=portfolio`` ``train/portfolio_ppo.train_portfolio_from_config``
   (the multi-pair portfolio over ``portfolio_files``), with
   ``trainer=pbt`` ``train/pbt.train_pbt_from_config`` (population-based
-  training over the portfolio);
+  training over the portfolio, or over the bar venue without
+  ``portfolio_files``); each under the config's ``fault_profile`` and
+  ``telemetry_*`` keys;
 * ``mode=optimization``: ``train/optimize.optimize_from_config``, the
   GA over a strategy's params (each generation one batched episode of
   the population, from the episode graphs on the card), with the outer
@@ -34,9 +36,9 @@ key for key the JAX package's:
 
 Every entry runs on the card unless the caller passes ``device="cpu"``.
 What the port does not take raises ``core/types.not_ported`` naming its
-ROADMAP Queue 1 item: PBT without ``portfolio_files`` (12), the gym
-loop (18), a third-party plugin (9), and, in training, the
-elastic controller and a mesh (17), fault profiles and telemetry (10).
+ROADMAP Queue 1 item: the gym loop (18), a third-party plugin (9), and,
+in training, the elastic controller, a mesh and a fault profile's mesh
+events (17), and the compile watch and the managed profiler (30).
 
 :func:`export_scaled_features` is the offline scaled-feature export: an
 episode's scaled feature windows ``(n_steps, window, F)`` for steps

@@ -6,7 +6,10 @@ A tree here is a tensor, a dict, or a tuple / NamedTuple of trees.  The
 guard's decision stays a device tensor: ``tree_all_finite`` returns a
 0-d bool tensor and ``select_tree`` is ``torch.where`` on it, so a
 guarded update never syncs the host; ``SkipMonitor`` reads the guard's
-counters on the host, one dispatch late (resilience/loop.py).
+counters on the host, one dispatch late (resilience/loop.py).  A
+population (train/pbt.py) decides member by member:
+``member_all_finite`` and ``select_members``, the JAX package's guard
+under its population ``vmap``.
 """
 from __future__ import annotations
 
@@ -54,6 +57,22 @@ def select_tree(pred, new_tree: Any, old_tree: Any) -> Any:
     """Per-leaf ``where(pred, new, old)`` with a 0-d ``pred``: the update
     is taken when True, the last-good tree kept bit for bit when False."""
     return tree_map(lambda n, o: torch.where(pred, n, o), new_tree, old_tree)
+
+
+def member_all_finite(tree: Any) -> torch.Tensor:
+    """(P,) bool: whether each member's slice of a member-stacked tree
+    (every floating leaf with a leading (P,) axis) is all finite."""
+    leaves = _float_leaves(tree)
+    return torch.stack([torch.isfinite(x).reshape(x.shape[0], -1).all(dim=1)
+                        for x in leaves]).all(dim=0)
+
+
+def select_members(pred, new_tree: Any, old_tree: Any) -> Any:
+    """:func:`select_tree` member by member: ``pred`` ((P,) bool) picks
+    each member's slice (the leading axis of every leaf) from
+    ``new_tree`` or ``old_tree``."""
+    return tree_map(lambda n, o: torch.where(pred.view(-1, *([1] * (n.dim() - 1))), n, o),
+                    new_tree, old_tree)
 
 
 def quarantine_mask(tree: Any, *, env_axis: int = 1, mode: str = "nonfinite") -> torch.Tensor:

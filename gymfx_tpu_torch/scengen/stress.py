@@ -5,8 +5,8 @@ overlays the preset's stress machinery — flash-crash drops with recovery
 tails, liquidity-drought spread blowouts, gap level shifts — onto an
 EXISTING ``MarketData`` (numpy arrays or tensors; each field keeps its
 type, dtype and device).  The JAX package reaches it through the
-``fault_profile`` clause ``scengen=<preset>`` (resilience/faults.py),
-which the port takes with the fault harness (ROADMAP.md Queue 1 item 10).
+``fault_profile`` clause ``scengen=<preset>`` (resilience/faults.py), and
+so does the port.
 
 Deterministic: the event layout is drawn from ``np.random.default_rng``
 on the profile's seed in the JAX package's order (the same draws), and each stress family fires AT LEAST once when

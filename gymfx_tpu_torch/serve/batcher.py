@@ -37,8 +37,9 @@ overload.resolve_fallback_policy); the batcher only resolves it typed.
 
 Observations and carries are host tensors (numpy rows are converted at
 ``submit``).  Per-request timing records (enqueue/pickup/dispatch/done)
-give the latency percentiles.  The serving telemetry
-(``instruments=``) comes with ROADMAP.md Queue 1 item 10 and raises.
+give the latency percentiles.  ``instruments=`` (telemetry/instruments.
+ServeInstruments) mirrors every counter into a metrics registry, with the
+rolling SLO window folded into ``health()``.
 """
 from __future__ import annotations
 
@@ -51,7 +52,6 @@ from typing import Any, Deque, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from gymfx_tpu_torch.core.types import not_ported
 from gymfx_tpu_torch.resilience.guards import tree_map
 from gymfx_tpu_torch.resilience.retry import CircuitOpenError
 from gymfx_tpu_torch.serve.overload import (
@@ -142,8 +142,6 @@ class MicroBatcher:
         instruments: Optional[Any] = None,
         pipeline: bool = False,
     ):
-        if instruments is not None:
-            raise not_ported("serving telemetry (telemetry/instruments.ServeInstruments)", 10)
         if max_batch_wait_ms < 0:
             raise ValueError(
                 f"max_batch_wait_ms must be >= 0, got {max_batch_wait_ms}"
@@ -188,6 +186,11 @@ class MicroBatcher:
             # the async path never chunks — cap coalescing at the ladder
             self.max_batch = min(self.max_batch, int(engine.buckets[-1]))
         self._inflight = 0
+        # optional telemetry (telemetry/instruments.ServeInstruments): the
+        # hooks ride the counter sites above; None keeps the plain counters
+        self._instr = instruments
+        if instruments is not None:
+            instruments.bind_batcher(self)
         self._closed = False
         self._draining = False
         self._stop = False
@@ -271,6 +274,8 @@ class MicroBatcher:
                 if self.shed_policy == "evict_oldest":
                     evicted = self._pending.popleft()
                 else:
+                    if self._instr is not None:
+                        self._instr.on_shed("queue_full")
                     raise ShedError(
                         f"request queue full ({self.max_queue}); request "
                         "rejected (shed_policy=reject)",
@@ -279,6 +284,8 @@ class MicroBatcher:
             self._pending.append(pending)
             self._cv.notify_all()
         if evicted is not None:
+            if self._instr is not None:
+                self._instr.on_shed("evicted")
             _resolve_exc(
                 evicted.future,
                 ShedError(
@@ -321,6 +328,10 @@ class MicroBatcher:
                 "paused": self._paused,
                 "closed": self._closed,
             }
+        # with telemetry attached, fold the rolling SLO window in: the
+        # numbers /metrics exposes
+        if self._instr is not None and self._instr.slo is not None:
+            out["slo"] = self._instr.slo.rates()
         return out
 
     def pause(self, timeout: Optional[float] = None) -> bool:
@@ -493,6 +504,8 @@ class MicroBatcher:
                     expired = p
                 else:
                     return p
+            if self._instr is not None:
+                self._instr.on_deadline_miss("pickup")
             _resolve_exc(
                 expired.future,
                 DeadlineExceeded(
@@ -541,6 +554,8 @@ class MicroBatcher:
                 if n_expired:
                     with self._cv:
                         self.deadline_miss_count += n_expired
+                    if self._instr is not None:
+                        self._instr.on_deadline_miss("dispatch", n_expired)
                 live = self._defer_conflicts(live)
                 if live:
                     self._dispatch(live, t_pickup)
@@ -606,6 +621,8 @@ class MicroBatcher:
                 # queue must not build behind a dead dependency
                 with self._cv:
                     self.breaker_open_count += n
+                if self._instr is not None:
+                    self._instr.on_breaker_open(n)
                 for p in batch:
                     _resolve_exc(p.future, exc)
                 return
@@ -638,6 +655,8 @@ class MicroBatcher:
                 self.breaker.record_failure()
             with self._cv:
                 self.dispatch_failures += 1
+            if self._instr is not None:
+                self._instr.on_dispatch_failure(n)
             for p in batch:
                 _resolve_exc(p.future, exc)
             return
@@ -666,6 +685,8 @@ class MicroBatcher:
             self.coalesced_total += n
             if len(self._records) + n <= self._records_cap:
                 self._records.extend(rows)
+        if self._instr is not None:
+            self._instr.on_batch_complete(rows)
 
     # ------------------------------------------------------------------
     # pipelined dispatch (pipeline=True): overlap host batch assembly
@@ -729,6 +750,8 @@ class MicroBatcher:
                 if n_expired:
                     with self._cv:
                         self.deadline_miss_count += n_expired
+                    if self._instr is not None:
+                        self._instr.on_deadline_miss("dispatch", n_expired)
                 live = self._defer_conflicts(live)
                 if live:
                     handle = self._dispatch_async(live, t_pickup)
@@ -765,6 +788,8 @@ class MicroBatcher:
             except CircuitOpenError as exc:
                 with self._cv:
                     self.breaker_open_count += n
+                if self._instr is not None:
+                    self._instr.on_breaker_open(n)
                 for p in batch:
                     _resolve_exc(p.future, exc)
                 return None
@@ -794,6 +819,8 @@ class MicroBatcher:
                 self.breaker.record_failure()
             with self._cv:
                 self.dispatch_failures += 1
+            if self._instr is not None:
+                self._instr.on_dispatch_failure(n)
             for p in batch:
                 _resolve_exc(p.future, exc)
             return None
@@ -834,6 +861,8 @@ class MicroBatcher:
                 self.dispatch_failures += 1
                 self._inflight -= 1
                 self._cv.notify_all()
+            if self._instr is not None:
+                self._instr.on_dispatch_failure(n)
             for p in batch:
                 _resolve_exc(p.future, exc)
             return
@@ -866,6 +895,8 @@ class MicroBatcher:
                 self._records.extend(rows)
             self._inflight -= 1
             self._cv.notify_all()
+        if self._instr is not None:
+            self._instr.on_batch_complete(rows)
 
 
 def _resolve_exc(future: Future, exc: BaseException) -> None:
@@ -886,9 +917,10 @@ def batcher_from_config(engine, config, *, instruments=None) -> MicroBatcher:
     """Build an admission-controlled batcher from the merged config dict
     (or an already-parsed :class:`~gymfx_tpu_torch.serve.config.ServeConfig`),
     including the serving circuit breaker when
-    ``serve_breaker_threshold`` > 0.  The fleet (``serve_fleet_replicas``
-    > 0, ROADMAP.md Queue 1 item 16) and the serving telemetry
-    (``instruments=`` and the ``telemetry_*`` keys, item 10) raise."""
+    ``serve_breaker_threshold`` > 0, and ``instruments`` (telemetry/
+    instruments.ServeInstruments, or None).  The fleet
+    (``serve_fleet_replicas`` > 0, ROADMAP.md Queue 1 item 16) and the
+    performance observatory's keys (item 30) raise."""
     from gymfx_tpu_torch.resilience.retry import CircuitBreaker
     from gymfx_tpu_torch.serve.config import ServeConfig, serve_config_from
     from gymfx_tpu_torch.serve.engine import check_serving_config

@@ -738,21 +738,39 @@ class EngineBundle(NamedTuple):
     obs_spec: Any         # train/policies.py ObsSpec
     encode: Any           # batched obs dict -> policy inputs (the trainers' encoder)
     reset_obs: Any        # the env's reset observation, one env (shape template)
-
-
-TELEMETRY_KEYS = ("telemetry_enabled", "telemetry_jsonl", "telemetry_spans",
-                  "telemetry_http_port")
+    # the config's telemetry bundle (None with every telemetry_* key unset):
+    # its registry feeds batcher_from_config's instruments
+    # (telemetry.instruments_from_telemetry), its /metrics + /healthz
+    # endpoint is up when telemetry_http_port is set
+    telemetry: Any = None
 
 
 def check_serving_config(config: Dict[str, Any]) -> None:
     """Raise for the serving features the port has not reached: the
-    decision fleet (ROADMAP.md Queue 1 item 16) and the serving
-    telemetry (item 10)."""
+    decision fleet (ROADMAP.md Queue 1 item 16; with it a fault profile's
+    fleet events) and the performance observatory's telemetry keys (item
+    30)."""
+    from gymfx_tpu_torch.resilience.faults import parse_fault_profile, refuse_mesh_and_fleet
+    from gymfx_tpu_torch.telemetry import refuse_observatory_keys
+
     if int(config.get("serve_fleet_replicas", 0) or 0) > 0:
         raise not_ported("the decision fleet (serve_fleet_replicas > 0)", 16)
-    on = [k for k in TELEMETRY_KEYS if config.get(k) not in (None, False)]
-    if on:
-        raise not_ported(f"serving telemetry ({', '.join(on)})", 10)
+    refuse_mesh_and_fleet(parse_fault_profile(config.get("fault_profile")), mesh=False,
+                          fleet=True)
+    refuse_observatory_keys(config)
+
+
+def engine_health(engine: "InferenceEngine") -> Dict[str, Any]:
+    """The ``/healthz`` payload of a serving engine: its ladder, the
+    captures after boot (0 on a warm path), the weights' generation and
+    the slot-cache counters."""
+    return {
+        "status": "ok",
+        "buckets": list(engine.buckets),
+        "late_compiles": int(engine.late_compiles),
+        "generation": int(engine.generation),
+        "slots": engine.slot_stats(),
+    }
 
 
 def engine_from_config(
@@ -774,7 +792,10 @@ def engine_from_config(
     must be bootable without a trained model for load tests; the draws
     are the port's own, not flax's).  ``params`` (by name, e.g. from
     convert.policy_params_from_flax) overrides both.  Runs on CUDA
-    unless ``device`` (or ``env``'s device) says otherwise.
+    unless ``device`` (or ``env``'s device) says otherwise.  With a
+    ``telemetry_*`` key set the bundle carries the telemetry
+    (``bundle.telemetry``), its ``/healthz`` reading the engine
+    (:func:`engine_health`).
     """
     from gymfx_tpu_torch.core import env as env_core
     from gymfx_tpu_torch.core.runtime import Environment
@@ -785,6 +806,8 @@ def engine_from_config(
         make_obs_spec,
         make_trainer_policy,
     )
+
+    from gymfx_tpu_torch.telemetry import telemetry_from_config
 
     check_serving_config(config)
     scfg = serve_config_from(config)
@@ -846,6 +869,9 @@ def engine_from_config(
         # ladder, like the host ladder, must never capture lazily in
         # serving, so a cold boot stays cold)
         engine.enable_slots(scfg.session_slots, mirror=scfg.slot_mirror)
+    telemetry = telemetry_from_config(config)
+    if telemetry is not None:
+        telemetry.start_http(health_fn=lambda: engine_health(engine))
     return EngineBundle(
         engine=engine,
         env=env,
@@ -853,4 +879,5 @@ def engine_from_config(
         obs_spec=spec,
         encode=encode,
         reset_obs=reset_obs,
+        telemetry=telemetry,
     )

@@ -4,7 +4,8 @@
 ``labeled_eval_summary`` and ``eval_checkpointed_policy``
 (:249-311), ``validate_minibatch_scheme`` and
 ``resolve_minibatch_scheme`` (:315-371), ``minibatch_plan`` (:374-409)
-and ``masked_reset``.
+and ``masked_reset``; ``member_minibatch_plan`` is ``minibatch_plan``
+over a population's member axis (the JAX package's ``vmap`` of it).
 
 Trees of fields are dicts of tensors.  ``make_train_many_with_data`` is
 the eager loop (the CPU's): on a CUDA device ``PPOTrainer`` chains its
@@ -21,8 +22,10 @@ import torch
 from gymfx_tpu_torch import resolve_device
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.data.feed import Frame, MarketDataset, load_dataframe
-from gymfx_tpu_torch.resilience.guards import tree_map
+from gymfx_tpu_torch.resilience.guards import tree_leaves, tree_map
+from gymfx_tpu_torch.resilience.loop import ResilientLoop
 from gymfx_tpu_torch.scengen.feed import ScenGenDataset
+from gymfx_tpu_torch.telemetry import DelayedLogger, null_tracer, register_resilience
 
 
 def masked_reset(done, fresh, cur):
@@ -38,6 +41,63 @@ def masked_reset(done, fresh, cur):
         leaves = (one(f, c) for f, c in zip(fresh, cur))
         return type(cur)(*leaves) if hasattr(cur, "_fields") else tuple(leaves)
     return one(fresh, cur)
+
+
+class TrainLoop:
+    """The host side of a trainer's ``train`` loop around its
+    dispatches, which PPOTrainer, ImpalaTrainer and PortfolioPPOTrainer
+    share (the JAX package's per-loop wiring, gymfx_tpu/train/ppo.py
+    :687-753): a ``resilience/loop.ResilientLoop`` built from
+    ``loop_kwargs`` with the run's ledger and flight recorder, and, with
+    ``metrics_stream``, the one-dispatch-late metric drain (the
+    telemetry's ``DeviceMetricStream``, else a ``DelayedLogger`` for
+    ``log_every``) and a ``train/superstep`` span around each dispatch.
+    With ``telemetry=None`` and ``log_every=0`` it adds nothing to the
+    loop but the ResilientLoop it always had."""
+
+    def __init__(self, algo: str, *, iters: int, steps_per_iter: int, log_every: int = 0,
+                 telemetry=None, metrics_stream: bool = True, **loop_kwargs):
+        self.algo, self.telemetry = algo, telemetry
+        self.logger = None
+        if metrics_stream:
+            self.logger = (DelayedLogger(algo, log_every, iters) if telemetry is None else
+                           telemetry.device_stream(algo, iters=iters, log_every=log_every,
+                                                   steps_per_iter=steps_per_iter))
+        self.tracer = telemetry.tracer if telemetry is not None and metrics_stream \
+            else null_tracer()
+        self.hooks = ResilientLoop(
+            steps_per_iter=steps_per_iter,
+            loggers=() if self.logger is None else (self.logger,),
+            ledger=None if telemetry is None else telemetry.ledger,
+            recorder=None if telemetry is None else telemetry.recorder, **loop_kwargs)
+
+    def start(self, rng_state: Callable[[], Any]) -> None:
+        """Bind the telemetry to the run: the flight recorder's generator
+        source (``rng_state``, read at dump time) and the watchdog's live
+        counters as registry gauges."""
+        telemetry = self.telemetry
+        if telemetry is None:
+            return
+        if telemetry.recorder is not None:
+            telemetry.recorder.set_rng_source(rng_state)
+        if self.hooks.monitor is not None:
+            register_resilience(telemetry.registry, monitor=self.hooks.monitor, name=self.algo)
+
+    def span(self, it: int, k: int):
+        return self.tracer.span("train/superstep", algo=self.algo, it=it, k=k)
+
+    def after_superstep(self, it: int, k: int, metrics: Dict[str, Any], state_fn) -> None:
+        """Right after dispatching iterations ``[it, it + k)``: the drain
+        first (an aborting hook flushes it, so it must already hold this
+        superstep's metrics), then the resilience hooks."""
+        if self.logger is not None:
+            self.logger.after_dispatch(it, k, metrics)
+        self.hooks.after_superstep(it, k, metrics, state_fn)
+
+    def finish(self, state_fn) -> None:
+        if self.logger is not None:
+            self.logger.finish()
+        self.hooks.finish(state_fn)
 
 
 def make_train_many_with_data(step: Callable):
@@ -290,5 +350,33 @@ def minibatch_plan(fields: Dict[str, Any], *, scheme: str, n_envs: int,
 
     def take(idx):
         return tree_map(lambda x: x[idx], source)
+
+    return n_total, n_total // minibatches, take
+
+
+def member_minibatch_plan(fields: Dict[str, Any], *, scheme: str, members: int, n_envs: int,
+                          horizon: int, minibatches: int):
+    """:func:`minibatch_plan` for each member of a population at once:
+    ``fields`` are (T, P, N, ...), each member permutes its own ``n_perm``
+    indices, and ``take(idx)`` gathers (P, mb) indices into a (P, M, ...)
+    minibatch whose member ``p`` is what :func:`minibatch_plan`'s ``take``
+    gives on member ``p``'s (T, N, ...) fields."""
+    some = tree_leaves(fields)[0]
+    rows = torch.arange(members, device=some.device)[:, None]
+    if scheme == "env_permute":
+        source = tree_map(lambda x: x.permute(1, 2, 0, *range(3, x.dim())), fields)
+        mb = n_envs // minibatches
+
+        def take(idx):
+            return tree_map(lambda x: x[rows, idx].reshape(members, mb * horizon, *x.shape[3:]),
+                            source)
+
+        return n_envs, mb, take
+    n_total = horizon * n_envs
+    source = tree_map(lambda x: x.transpose(0, 1).reshape(members, n_total, *x.shape[3:]),
+                      fields)
+
+    def take(idx):
+        return tree_map(lambda x: x[rows, idx], source)
 
     return n_total, n_total // minibatches, take

@@ -59,10 +59,10 @@ from gymfx_tpu_torch.core import graphs
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.core.types import EnvState, not_ported
 from gymfx_tpu_torch.resilience.guards import quarantine_mask, select_tree, tree_all_finite, tree_map
-from gymfx_tpu_torch.resilience.loop import ResilientLoop
 from gymfx_tpu_torch.train import ppo
 from gymfx_tpu_torch.train.checkpoint import resume_from_config, save_checkpoint
 from gymfx_tpu_torch.train.common import (
+    TrainLoop,
     build_train_eval_envs,
     labeled_eval_summary,
     make_train_many_with_data,
@@ -496,14 +496,11 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         learner and the actors.  Returns ``(state, metrics)``: the last
         iteration's metrics as floats plus ``env_steps_per_sec``,
         ``iterations``, ``total_env_steps`` and ``last_checkpoint_step``
-        when one was saved.  Logging, preemption and telemetry (ROADMAP
-        Queue 1 item 10) and mesh faults (item 17) raise when set."""
-        for name, value, item in (("log_every", log_every, 10),
-                                  ("preempt_at", preempt_at is not None, 10),
-                                  ("telemetry", telemetry is not None, 10),
-                                  ("mesh_faults", mesh_faults, 17)):
-            if value:
-                raise not_ported(f"ImpalaTrainer.train({name}=...)", item)
+        when one was saved.  ``log_every``, ``preempt_at`` and
+        ``telemetry`` act as in ``PPOTrainer.train``; mesh faults
+        (ROADMAP Queue 1 item 17) raise."""
+        if mesh_faults:
+            raise not_ported("ImpalaTrainer.train(mesh_faults=...)", 17)
         state = self.init_state(seed) if initial_state is None else initial_state
         if initial_params is not None:
             state = state._replace(learner_params=initial_params,
@@ -511,28 +508,31 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         per_iter = self.icfg.n_envs * self.icfg.unroll
         iters = max(1, int(total_env_steps) // per_iter)
         K = max(1, int(supersteps_per_dispatch or 1))
-        hooks = ResilientLoop(
-            steps_per_iter=per_iter, checkpoint_dir=checkpoint_dir,
+        loop = TrainLoop(
+            "impala", iters=iters, steps_per_iter=per_iter, log_every=log_every,
+            telemetry=telemetry, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, step_offset=step_offset,
             checkpoint_metadata=checkpoint_metadata,
             max_consecutive_skips=max_consecutive_skips if self.icfg.nonfinite_guard else 0,
-            checkpoint_keep=int(checkpoint_keep or 0),
+            preempt_at=preempt_at, checkpoint_keep=int(checkpoint_keep or 0),
         )
+        loop.start(lambda: state.generator.get_state())
         t0 = time.perf_counter()
         metrics: Dict[str, Any] = {}
         it = 0
         while it < iters:
             k = min(K, iters - it)
-            if k == 1:
-                state, metrics = self.train_step(state)
-                guard_metrics = metrics
-            else:
-                state, guard_metrics = self.train_many(state, k)
-                metrics = {key: v[-1] for key, v in guard_metrics.items()}
+            with loop.span(it, k):
+                if k == 1:
+                    state, metrics = self.train_step(state)
+                    guard_metrics = metrics
+                else:
+                    state, guard_metrics = self.train_many(state, k)
+                    metrics = {key: v[-1] for key, v in guard_metrics.items()}
             # a checkpoint copies the state before the next step overwrites it
-            hooks.after_superstep(it, k, guard_metrics, lambda: (state, state.learner_params))
+            loop.after_superstep(it, k, guard_metrics, lambda: (state, state.learner_params))
             it += k
-        hooks.finish(lambda: (state, state.learner_params))
+        loop.finish(lambda: (state, state.learner_params))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -540,8 +540,8 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         out["env_steps_per_sec"] = per_iter * iters / dt
         out["iterations"] = iters
         out["total_env_steps"] = per_iter * iters
-        if hooks.last_checkpoint_step is not None:
-            out["last_checkpoint_step"] = hooks.last_checkpoint_step
+        if loop.hooks.last_checkpoint_step is not None:
+            out["last_checkpoint_step"] = loop.hooks.last_checkpoint_step
         return state, out
 
 
@@ -549,8 +549,8 @@ class ImpalaTrainer(ppo.PolicyTrainer):
 def train_impala_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     """``mode=training trainer=impala``: train IMPALA, checkpoint, and
     return a summary that merges the training metrics with the greedy
-    evaluation's.  The elastic controller, a mesh, telemetry and fault
-    profiles raise (ROADMAP Queue 1 items 17 and 10), as for PPO."""
+    evaluation's, under the config's fault profile and telemetry (the
+    JAX package's :672+).  What PPO's entry refuses raises here too."""
     ppo._refuse_unported_training_keys(config)
     return _train_impala_from_config(config, device=device)
 
@@ -559,22 +559,33 @@ def _train_impala_from_config(config: Dict[str, Any], *, device=None) -> Dict[st
     if str(config.get("feed") or "replay").lower() == "curriculum":
         raise not_ported("IMPALA over feed=curriculum (train_many_with_data)", 11)
     env, eval_env = build_train_eval_envs(config, device=device)
+    # chaos runs: the fault profile contaminates the TRAINING feed
+    env, profile = ppo.contaminated_training_env(env, config)
     icfg = impala_config_from(config)
     trainer = ImpalaTrainer(env, icfg)
     total = int(config.get("train_total_steps", 1_000_000))
     resume_state, resume_params, resume_step = resume_from_config(config, trainer)
     ckpt_meta = {"policy": icfg.policy, "policy_kwargs": dict(icfg.policy_kwargs)}
-    state, train_metrics = trainer.train(
-        total, seed=int(config.get("seed", 0) or 0),
-        initial_state=resume_state, initial_params=resume_params,
-        checkpoint_dir=config.get("checkpoint_dir"),
-        checkpoint_every=int(config.get("checkpoint_every", 0) or 0),
-        step_offset=resume_step,
-        checkpoint_metadata=ckpt_meta,
-        max_consecutive_skips=int(config.get("guard_max_consecutive_skips", 10) or 0),
-        supersteps_per_dispatch=int(config.get("supersteps_per_dispatch", 1) or 1),
-        checkpoint_keep=int(config.get("checkpoint_keep", 0) or 0),
-    )
+
+    def run(telemetry):
+        if telemetry is not None and telemetry.ledger is not None and (
+                resume_state is not None or resume_params is not None):
+            telemetry.ledger.record("checkpoint_restore", step=int(resume_step))
+        return trainer.train(
+            total, seed=int(config.get("seed", 0) or 0),
+            initial_state=resume_state, initial_params=resume_params,
+            checkpoint_dir=config.get("checkpoint_dir"),
+            checkpoint_every=int(config.get("checkpoint_every", 0) or 0),
+            step_offset=resume_step,
+            checkpoint_metadata=ckpt_meta,
+            max_consecutive_skips=int(config.get("guard_max_consecutive_skips", 10) or 0),
+            supersteps_per_dispatch=int(config.get("supersteps_per_dispatch", 1) or 1),
+            preempt_at=profile.get("preempt_at"),
+            telemetry=telemetry,
+            checkpoint_keep=int(config.get("checkpoint_keep", 0) or 0),
+        )
+
+    state, train_metrics = ppo.train_with_telemetry(config, "impala", run)
     # the greedy evaluation through PPO's evaluate(), on held-out bars
     # when the config holds some out
     summary = labeled_eval_summary(

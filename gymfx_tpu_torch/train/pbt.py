@@ -1,18 +1,25 @@
-"""Population-based training over the portfolio trainer (BASELINE.json
-config 5: "pod-scale population-based training").
+"""Population-based training (BASELINE.json config 5: "pod-scale
+population-based training"), over the bar-venue PPO trainer or the
+portfolio trainer.
 
 The port of ``gymfx_tpu/train/pbt.py``: :class:`PBTConfig`,
-:class:`PBTTrainer` (:93-270), ``make_portfolio_pbt``,
-``_pbt_config_from`` and ``train_pbt_from_config``'s portfolio branch
-(:330-360).  The whole population trains as one program, as the JAX
-package's ``jax.vmap`` over stacked member states: one
-``train/portfolio_ppo.PortfolioPPOTrainer`` with ``members = P``, whose
-phases run every member at once (one K2 and one K3 launch a step for all
-P * N * I rows, one batched forward of the members' policies).  Each
-member's learning rate, clip epsilon and entropy coefficient are (P,)
-tensors in its optimizer state (train/optim.py ``HyperAdamState``, the
-port of ``optax.inject_hyperparams``), which the update and the loss
-read, so on the card one pair of phase graphs serves the whole run.
+:class:`PBTTrainer` (:93-250; ``_PBTTrainerCore``, :57-95, is
+``train/ppo.PPOTrainer`` with ``members = P``), ``make_portfolio_pbt``,
+``_pbt_config_from`` and ``train_pbt_from_config`` with both branches
+(:323-407).  The whole population trains as one program, as the JAX
+package's ``jax.vmap`` over stacked member states: one core trainer with
+``members = P`` whose phases run every member at once.  Over the bar
+venue that is ``PPOTrainer``: P * n_envs env rows in one EnvState (one
+K1, K2 and K3 launch a step for the whole population), member-stacked
+params (one batched GEMM a layer), an LSTM carry per row; over the
+portfolio ``train/portfolio_ppo.PortfolioPPOTrainer`` (one K2 and one K3
+launch a step for all P * N * I pair rows).  Each member's learning
+rate, clip epsilon and entropy coefficient are (P,) tensors in its
+optimizer state (train/optim.py ``HyperAdamState``, the port of
+``optax.inject_hyperparams``), which the update and the loss read, so on
+the card one pair of phase graphs serves the whole run.  Under
+``feed=curriculum`` every member trains on the population step's one
+tape (the JAX package's ``in_axes=(0, None)``).
 
 Exploit/explore (Jaderberg et al. 2017) every ``interval`` steps: the
 members in the bottom quantile of fitness copy the params and optimizer
@@ -24,9 +31,9 @@ copy writes in place into the train state's tensors (on the card the
 phase graphs' static buffers).  Fitness is an EMA of each member's
 ``mean_reward``, on the host.
 
-PBT over the bar-venue PPO trainer (``trainer=pbt`` without
-``portfolio_files``) raises: it needs the member axis in ``PPOTrainer``
-(ROADMAP.md Queue 1 item 12).
+``train_pbt_from_config`` over the bar venue saves the best member's
+params (``state_format: "params"``) to ``checkpoint_dir``, which the
+policy mode loads (train/ppo.eval_policy_from_config).
 """
 from __future__ import annotations
 
@@ -36,10 +43,12 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
-from gymfx_tpu_torch.core.types import not_ported
 from gymfx_tpu_torch.resilience.guards import tree_leaves
+from gymfx_tpu_torch.train import ppo
+from gymfx_tpu_torch.train.checkpoint import save_checkpoint
 from gymfx_tpu_torch.train.common import (
     build_portfolio_train_eval_envs,
+    build_train_eval_envs,
     labeled_eval_summary,
     resolve_minibatch_scheme,
 )
@@ -48,7 +57,7 @@ from gymfx_tpu_torch.train.portfolio_ppo import (
     PortfolioPPOTrainer,
     evaluate,
 )
-from gymfx_tpu_torch.train.ppo import _refuse_unported_training_keys
+from gymfx_tpu_torch.train.ppo import PPOTrainer, _refuse_unported_training_keys
 
 
 class PBTConfig(NamedTuple):
@@ -74,10 +83,13 @@ class PBTConfig(NamedTuple):
 
 
 class PBTTrainer:
-    """PBT over a PortfolioPPOTrainer of ``pbt.population`` members."""
+    """PBT over a core trainer of ``pbt.population`` members: ``core``
+    (a PortfolioPPOTrainer with ``members = P``, see
+    :func:`make_portfolio_pbt`), or by default the bar-venue
+    ``PPOTrainer(env, pcfg, members=P)``."""
 
-    def __init__(self, env, pcfg: PortfolioPPOConfig, pbt: PBTConfig = PBTConfig()):
-        self.trainer = PortfolioPPOTrainer(env, pcfg, members=pbt.population)
+    def __init__(self, env, pcfg=None, pbt: PBTConfig = PBTConfig(), core=None):
+        self.trainer = core if core is not None else PPOTrainer(env, pcfg, members=pbt.population)
         self.pbt = pbt
 
     # ------------------------------------------------------------------
@@ -133,10 +145,25 @@ class PBTTrainer:
         return state, fitness, sorted(src_for)
 
     # ------------------------------------------------------------------
+    def _step(self, state, it: int):
+        """One population step (state, (P,) metrics); under
+        ``feed=curriculum`` on the tape picked for ``it``, shared by every
+        member (each trains the same market with its own
+        hyperparameters)."""
+        curriculum = self.trainer.curriculum
+        if curriculum is None:
+            return self.trainer.train_step(state)
+        tape = curriculum.pick(it)[2]
+        if isinstance(self.trainer, PPOTrainer):
+            return self.trainer.train_step(state, tape)
+        self.trainer.use_tape(tape)
+        return self.trainer.train_step(state)
+
     def train(self, total_env_steps: int, seed: int = 0) -> Dict[str, Any]:
         """``total_env_steps // (n_envs * horizon * population)`` population
         steps (at least one) with exploit/explore every ``interval``: the
-        JAX package's result dict (``best_params`` the best member's,
+        JAX package's result dict (``best_params`` the best member's: over
+        the bar venue as one plain trainer's params, over the portfolio
         member-stacked as P = 1)."""
         pcfg = self.trainer.pcfg
         per_iter = pcfg.n_envs * pcfg.horizon * self.pbt.population
@@ -148,11 +175,7 @@ class PBTTrainer:
         t0 = time.perf_counter()
         metrics = {}
         for it in range(iters):
-            # feed=curriculum: one book a population step, shared by every
-            # member (each trains the same market with its own hyperparameters)
-            if self.trainer.curriculum is not None:
-                self.trainer.use_tape(self.trainer.curriculum.pick(it)[2])
-            state, metrics = self.trainer.train_step(state)
+            state, metrics = self._step(state, it)
             step_fit = metrics["mean_reward"].cpu().numpy().astype(np.float64)
             fitness = decay * fitness + (1 - decay) * step_fit
             if (it + 1) % self.pbt.interval == 0 and it + 1 < iters:
@@ -162,6 +185,11 @@ class PBTTrainer:
             torch.cuda.synchronize(self.trainer.device)
         dt = time.perf_counter() - t0
         best = int(np.argmax(fitness))
+        if isinstance(self.trainer, PPOTrainer):
+            # the bar venue's best member as the plain trainer's params
+            best_params = {k: v[best].clone() for k, v in state.params.items()}
+        else:
+            best_params = {k: v[best:best + 1].clone() for k, v in state.params.items()}
         return {
             "population": self.pbt.population,
             "iterations": iters,
@@ -172,7 +200,7 @@ class PBTTrainer:
             "clip_eps": self.get_hyper(state, "clip_eps").tolist(),
             "ent_coef": self.get_hyper(state, "ent_coef").tolist(),
             "best_member": best,
-            "best_params": {k: v[best:best + 1].clone() for k, v in state.params.items()},
+            "best_params": best_params,
             "replacements": replacements,
             "final_metrics": {k: v.cpu().numpy().tolist() for k, v in metrics.items()},
         }
@@ -192,7 +220,7 @@ def make_portfolio_pbt(config: Dict[str, Any], pbt: PBTConfig, env) -> PBTTraine
         policy=str(config.get("policy") or "mlp"),
         minibatch_scheme=str(config.get("ppo_minibatch_scheme", "env_permute")),
     )
-    return PBTTrainer(env, pcfg, pbt)
+    return PBTTrainer(env, pbt=pbt, core=PortfolioPPOTrainer(env, pcfg, members=pbt.population))
 
 
 def _pbt_config_from(config: Dict[str, Any]) -> PBTConfig:
@@ -212,21 +240,46 @@ def _pbt_config_from(config: Dict[str, Any]) -> PBTConfig:
 
 
 def train_pbt_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
-    """``mode=training`` with ``trainer=pbt``: the population sweep over the
-    portfolio (``portfolio_files``), then the best member's greedy
-    evaluation, held out where the config holds bars out."""
+    """``mode=training`` with ``trainer=pbt``: the population sweep, then
+    the best member's greedy evaluation, held out where the config holds
+    bars out.  With ``portfolio_files`` over the portfolio trainer, else
+    over the bar-venue PPO trainer, whose best member's params are saved
+    to ``checkpoint_dir`` (``state_format: "params"``)."""
     _refuse_unported_training_keys(config)
-    if not config.get("portfolio_files"):
-        raise not_ported("trainer=pbt over the bar-venue PPO trainer (no portfolio_files)", 12)
-    env, eval_env = build_portfolio_train_eval_envs(config, device=device)
-    trainer = make_portfolio_pbt(config, _pbt_config_from(config), env)
+    if config.get("portfolio_files"):
+        env, eval_env = build_portfolio_train_eval_envs(config, device=device)
+        trainer = make_portfolio_pbt(config, _pbt_config_from(config), env)
+        result = trainer.train(int(config.get("train_total_steps", 1_000_000)),
+                               seed=int(config.get("seed", 0) or 0))
+        best_params = result.pop("best_params")
+        pcfg = trainer.trainer.pcfg
+        out = labeled_eval_summary(
+            lambda e: evaluate(PortfolioPPOTrainer(env if e is None else e, pcfg), best_params),
+            env, eval_env,
+        )
+        out.update({"mode": "training", "trainer": "pbt_portfolio", "pbt": result})
+        return out
+
+    env, eval_env = build_train_eval_envs(config, device=device)
+    resolve_minibatch_scheme(config, int(config.get("num_envs", 256) or 256),
+                             int(config.get("ppo_minibatches", 4)))
+    pcfg = ppo.ppo_config_from(config)
+    trainer = PBTTrainer(env, pcfg, _pbt_config_from(config))
     result = trainer.train(int(config.get("train_total_steps", 1_000_000)),
                            seed=int(config.get("seed", 0) or 0))
     best_params = result.pop("best_params")
-    pcfg = trainer.trainer.pcfg
-    out = labeled_eval_summary(
-        lambda e: evaluate(PortfolioPPOTrainer(env if e is None else e, pcfg), best_params),
+    summary = labeled_eval_summary(
+        lambda e: ppo.evaluate(PPOTrainer(env if e is None else e, pcfg), best_params),
         env, eval_env,
     )
-    out.update({"mode": "training", "trainer": "pbt_portfolio", "pbt": result})
-    return out
+    summary["pbt"] = result
+    ckpt_dir = config.get("checkpoint_dir")
+    if ckpt_dir:
+        save_checkpoint(
+            ckpt_dir, best_params, step=result["total_env_steps"],
+            metadata={"policy": pcfg.policy, "policy_kwargs": dict(pcfg.policy_kwargs),
+                      "state_format": "params"},
+            keep=int(config.get("checkpoint_keep", 0) or 0),
+        )
+        summary["checkpoint_dir"] = str(ckpt_dir)
+    return summary

@@ -191,7 +191,7 @@ class MLPPolicy(nn.Module):
         for layer in self.hidden:
             x = torch.tanh(_dense(x, layer, self.dtype))
         x = x.to(torch.float32)
-        return self.logits(x), self.value(x).squeeze(-1)
+        return _dense(x, self.logits, torch.float32), _dense(x, self.value, torch.float32).squeeze(-1)
 
 
 class LSTMPolicy(nn.Module):
@@ -229,20 +229,28 @@ class LSTMPolicy(nn.Module):
         x = torch.tanh(_dense_rounded(x.to(dt), self.embed, dt))
         c, h = carry
         dense_h = _dense_rounded(h, self.cell_h, dt)
-        dense_i = torch.matmul(x, self.cell_i.weight.to(dt).t())
+        dense_i = torch.matmul(x, self.cell_i.weight.to(dt).transpose(-1, -2))
         zi, zf, zg, zo = (dense_h + dense_i).chunk(4, dim=-1)
         i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
         g = torch.tanh(zg)
         new_c = f * c + i * g
         new_h = o * torch.tanh(new_c)
         y = new_h.to(torch.float32)
-        return self.logits(y), self.value(y).squeeze(-1), (new_c, new_h)
+        return (_dense(y, self.logits, torch.float32), _dense(y, self.value, torch.float32).squeeze(-1),
+                (new_c, new_h))
 
 
 def _dense_rounded(x, layer: nn.Linear, dtype):
     """flax Dense in ``dtype``: the product in ``dtype``, then the bias
-    added in ``dtype`` (two roundings where F.linear may fuse them)."""
-    return torch.matmul(x, layer.weight.to(dtype).t()) + layer.bias.to(dtype)
+    added in ``dtype`` (two roundings where F.linear may fuse them).
+    Member-stacked params ((P, out, in) weights, ``x`` (P, ..., in)) make
+    the product one batched GEMM."""
+    w = layer.weight.to(dtype)
+    if w.dim() == 2:
+        return torch.matmul(x, w.t()) + layer.bias.to(dtype)
+    p = w.shape[0]
+    y = torch.bmm(x.reshape(p, -1, x.shape[-1]), w.transpose(1, 2)).reshape(*x.shape[:-1], w.shape[1])
+    return y + _member_view(layer.bias.to(dtype), y, 1)
 
 
 def is_recurrent(policy: nn.Module) -> bool:

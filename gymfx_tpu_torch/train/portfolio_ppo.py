@@ -45,15 +45,17 @@ from torch.nn import functional as F
 
 from gymfx_tpu_torch.core import graphs
 from gymfx_tpu_torch.core import portfolio as P
-from gymfx_tpu_torch.core.types import EnvState
+from gymfx_tpu_torch.core.types import EnvState, not_ported
 from gymfx_tpu_torch.metrics import compute_analyzers, summarize_trading
-from gymfx_tpu_torch.resilience.loop import ResilientLoop
+from gymfx_tpu_torch.resilience.faults import parse_fault_profile
 from gymfx_tpu_torch.train.checkpoint import resume_from_config, save_checkpoint
 from gymfx_tpu_torch.train.common import (
+    TrainLoop,
     build_portfolio_train_eval_envs,
     eval_checkpointed_policy,
     labeled_eval_summary,
     masked_reset,
+    member_minibatch_plan,
     resolve_minibatch_scheme,
     validate_minibatch_scheme,
 )
@@ -71,6 +73,7 @@ from gymfx_tpu_torch.train.ppo import (
     PolicyTrainer,
     _refuse_unported_training_keys,
     _step_sharpe,
+    train_with_telemetry,
     init_policy_weights,
     resolve_collect_dtype,
     resolve_optimizer_state_dtype,
@@ -377,32 +380,6 @@ class PortfolioPPOTrainer(PolicyTrainer):
         return (loss.detach(), {k: a.detach() for k, a in aux.items()},
                 dict(zip(leaves.keys(), grads)))
 
-    def _minibatch_plan(self, fields):
-        """(n_perm, mb, take): each member's per-epoch permutation of
-        ``n_perm`` indices cut into ``minibatches`` chunks of ``mb``;
-        ``take(idx)`` gathers (P, mb) indices into a (P, M, ...) minibatch
-        (env_permute: whole trajectories, env-major; sample_permute: time-
-        major samples, as the JAX package's ``minibatch_plan``)."""
-        pcfg, members = self.pcfg, self.members
-        rows = torch.arange(members, device=self.device)[:, None]
-        if pcfg.minibatch_scheme == "env_permute":
-            source = {k: x.permute(1, 2, 0, *range(3, x.dim())) for k, x in fields.items()}
-            mb = pcfg.n_envs // pcfg.minibatches
-
-            def take(idx):
-                return {k: x[rows, idx].reshape(members, mb * pcfg.horizon, *x.shape[3:])
-                        for k, x in source.items()}
-
-            return pcfg.n_envs, mb, take
-        n_total = pcfg.horizon * pcfg.n_envs
-        source = {k: x.transpose(0, 1).reshape(members, n_total, *x.shape[3:])
-                  for k, x in fields.items()}
-
-        def take(idx):
-            return {k: x[rows, idx] for k, x in source.items()}
-
-        return n_total, n_total // pcfg.minibatches, take
-
     def update_phase(self, state: PortfolioTrainState, rollout_out, *, permutations=None,
                      eager: bool = False):
         """GAE and the minibatched epochs of every member on one collected
@@ -426,7 +403,9 @@ class PortfolioPPOTrainer(PolicyTrainer):
         advs, returns = self._gae(traj, last_value)
         fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
                   "adv": advs, "ret": returns}
-        n_perm, mb, take = self._minibatch_plan(fields)
+        n_perm, mb, take = member_minibatch_plan(
+            fields, scheme=pcfg.minibatch_scheme, members=self.members, n_envs=pcfg.n_envs,
+            horizon=pcfg.horizon, minibatches=pcfg.minibatches)
         losses, terms = [], []
         for epoch in range(pcfg.epochs):
             if permutations is None:
@@ -501,19 +480,22 @@ class PortfolioPPOTrainer(PolicyTrainer):
             k: v if k in shared else graphs.clone_tree(v) for k, v in inputs.items()}, self._gen))
         return self._replay(graph, inputs, generator)
 
-    def captures(self) -> int:
-        """Graphs captured so far (0 on the CPU)."""
-        return sum(g.graph is not None for g in self._graphs.values())
-
     def train(self, total_env_steps: int, seed: int = 0, initial_params=None,
               initial_state: Optional[PortfolioTrainState] = None, *,
               checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
-              step_offset: int = 0, checkpoint_metadata=None, checkpoint_keep: int = 0):
+              step_offset: int = 0, checkpoint_metadata=None, preempt_at: Optional[int] = None,
+              telemetry=None, mesh_faults=(), checkpoint_keep: int = 0):
         """``total_env_steps // (n_envs * horizon)`` train steps (at least
         one) of the portfolio trainer (P = 1), with periodic full-state
-        checkpoints through ``resilience/loop.ResilientLoop``.  Returns
-        (state, metrics as floats plus ``env_steps_per_sec``,
-        ``iterations``, ``total_env_steps``, ``last_checkpoint_step``)."""
+        checkpoints through ``resilience/loop.ResilientLoop``, the
+        simulated preemption at ``preempt_at`` and, under ``telemetry``,
+        the run ledger's rows and the flight recorder's dumps (the JAX
+        package's portfolio loop, :433-486: no metric drain).  Mesh
+        faults (ROADMAP Queue 1 item 17) raise.  Returns (state, metrics
+        as floats plus ``env_steps_per_sec``, ``iterations``,
+        ``total_env_steps``, ``last_checkpoint_step``)."""
+        if mesh_faults:
+            raise not_ported("PortfolioPPOTrainer.train(mesh_faults=...)", 17)
         if self.members != 1:
             raise ValueError("train() runs one policy; a population trains through train/pbt.py")
         state = self.init_state(seed) if initial_state is None else initial_state
@@ -521,11 +503,12 @@ class PortfolioPPOTrainer(PolicyTrainer):
             state = state._replace(params=initial_params)
         per_iter = self.pcfg.n_envs * self.pcfg.horizon
         iters = max(1, int(total_env_steps) // per_iter)
-        hooks = ResilientLoop(
-            steps_per_iter=per_iter, checkpoint_dir=checkpoint_dir,
+        loop = TrainLoop(
+            "portfolio_ppo", iters=iters, steps_per_iter=per_iter, telemetry=telemetry,
+            metrics_stream=False, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, step_offset=step_offset,
             checkpoint_metadata=checkpoint_metadata, max_consecutive_skips=0,
-            checkpoint_keep=int(checkpoint_keep or 0),
+            preempt_at=preempt_at, checkpoint_keep=int(checkpoint_keep or 0),
         )
         t0 = time.perf_counter()
         metrics: Dict[str, Any] = {}
@@ -533,16 +516,16 @@ class PortfolioPPOTrainer(PolicyTrainer):
             if self.curriculum is not None:
                 self.use_tape(self.curriculum.pick(it)[2])
             state, metrics = self.train_step(state)
-            hooks.after_superstep(it, 1, metrics, lambda: (state, state.params))
-        hooks.finish(lambda: (state, state.params))
+            loop.after_superstep(it, 1, metrics, lambda: (state, state.params))
+        loop.finish(lambda: (state, state.params))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out = {k: float(v[0]) for k, v in metrics.items()}
         out["env_steps_per_sec"] = per_iter * iters / (time.perf_counter() - t0)
         out["iterations"] = iters
         out["total_env_steps"] = per_iter * iters
-        if hooks.last_checkpoint_step is not None:
-            out["last_checkpoint_step"] = hooks.last_checkpoint_step
+        if loop.hooks.last_checkpoint_step is not None:
+            out["last_checkpoint_step"] = loop.hooks.last_checkpoint_step
         return state, out
 
 
@@ -678,15 +661,26 @@ def train_portfolio_from_config(config: Dict[str, Any], *, device=None) -> Dict[
     # ones warm-start
     resume_state, resume_params, resume_step = resume_from_config(config, trainer)
     meta = {"policy": f"portfolio_{pcfg.policy}", "pairs": env.pairs}
-    state, metrics = trainer.train(
-        int(config.get("train_total_steps", 1_000_000)),
-        seed=int(config.get("seed", 0) or 0),
-        initial_params=resume_params, initial_state=resume_state,
-        checkpoint_dir=config.get("checkpoint_dir"),
-        checkpoint_every=int(config.get("checkpoint_every", 0) or 0),
-        step_offset=resume_step, checkpoint_metadata=meta,
-        checkpoint_keep=int(config.get("checkpoint_keep", 0) or 0),
-    )
+    # the JAX package's :672-706: the profile's preemption drill and the
+    # telemetry's ledger and recorder (a portfolio's feed is not poisoned)
+    profile = parse_fault_profile(config.get("fault_profile"))
+
+    def run(telemetry):
+        if telemetry is not None and telemetry.ledger is not None and (
+                resume_state is not None or resume_params is not None):
+            telemetry.ledger.record("checkpoint_restore", step=int(resume_step))
+        return trainer.train(
+            int(config.get("train_total_steps", 1_000_000)),
+            seed=int(config.get("seed", 0) or 0),
+            initial_params=resume_params, initial_state=resume_state,
+            checkpoint_dir=config.get("checkpoint_dir"),
+            checkpoint_every=int(config.get("checkpoint_every", 0) or 0),
+            step_offset=resume_step, checkpoint_metadata=meta,
+            preempt_at=profile.get("preempt_at"), telemetry=telemetry,
+            checkpoint_keep=int(config.get("checkpoint_keep", 0) or 0),
+        )
+
+    state, metrics = train_with_telemetry(config, None, run)
     summary = labeled_eval_summary(
         lambda e: evaluate(trainer if e is None else PortfolioPPOTrainer(e, pcfg), state.params),
         env, eval_env,

@@ -63,20 +63,34 @@ from gymfx_tpu_torch.core.rollout import Driver, rollout_chunked
 from gymfx_tpu_torch.core.runtime import Environment
 from gymfx_tpu_torch.core.types import EnvState, not_ported
 from gymfx_tpu_torch.metrics import compute_analyzers, summarize_trading
-from gymfx_tpu_torch.resilience.guards import quarantine_mask, select_tree, tree_all_finite
-from gymfx_tpu_torch.resilience.loop import ResilientLoop
+from gymfx_tpu_torch.resilience.faults import (
+    apply_fault_profile_to_market_data,
+    parse_fault_profile,
+    refuse_mesh_and_fleet,
+)
+from gymfx_tpu_torch.resilience.guards import (
+    member_all_finite,
+    quarantine_mask,
+    select_members,
+    select_tree,
+    tree_all_finite,
+    tree_map,
+)
+from gymfx_tpu_torch.telemetry import refuse_observatory_keys, telemetry_from_config
 from gymfx_tpu_torch.train.checkpoint import resume_from_config, save_checkpoint
 from gymfx_tpu_torch.train.common import (
+    TrainLoop,
     build_train_eval_envs,
     eval_checkpointed_policy,
     labeled_eval_summary,
     make_train_many_with_data,
     masked_reset,
+    member_minibatch_plan,
     minibatch_plan,
     resolve_minibatch_scheme,
     validate_minibatch_scheme,
 )
-from gymfx_tpu_torch.train.optim import AdamState, ClipAdam, apply_updates
+from gymfx_tpu_torch.train.optim import ClipAdam, HyperAdamState, apply_updates
 from gymfx_tpu_torch.train.policies import (
     is_recurrent,
     is_token_policy,
@@ -162,11 +176,11 @@ def ppo_config_from(config: Dict[str, Any]) -> PPOConfig:
 
 class TrainState(NamedTuple):
     params: Dict[str, torch.Tensor]  # float32 policy params by state-dict name
-    opt_state: AdamState
-    env_states: EnvState             # (n_envs,) batch
-    obs_vec: Any                     # (n_envs, *obs_shape) float32 policy inputs
+    opt_state: Any                   # AdamState (HyperAdamState for a population)
+    env_states: EnvState             # (n_envs,) batch (P * n_envs rows, member-major)
+    obs_vec: Any                     # (rows, *obs_shape) float32 policy inputs
     generator: torch.Generator       # the phases' draws (actions, offsets, permutations)
-    # the recurrent carry ((c, h), each (n_envs, hidden) in the policy
+    # the recurrent carry ((c, h), each (rows, hidden) in the policy
     # dtype), () for a feed-forward policy, which keeps its checkpoints'
     # leaves as they were
     policy_carry: Any = ()
@@ -231,6 +245,10 @@ class PolicyTrainer:
         graph of their own."""
         return {k: v.to(self.device) for k, v in hooks.items() if v is not None}
 
+    def captures(self) -> int:
+        """Graphs captured so far (0 on the CPU)."""
+        return sum(g.graph is not None for g in self._graphs.values())
+
     def _replay(self, graph, inputs, generator):
         """Run ``graph`` on ``inputs`` from ``generator``'s state, advance
         ``generator`` as the eager phase would, and return ``graph``."""
@@ -250,9 +268,21 @@ class PPOTrainer(PolicyTrainer):
     capture).  A capture error raises; nothing falls back to eager on the
     card.  On the CPU both phases run eagerly.  ``_rollout_phase_eager``
     and ``_update_phase_eager`` run a phase op by op on any device, for
-    comparisons."""
+    comparisons.
 
-    def __init__(self, env: Environment, pcfg: PPOConfig):
+    ``members = P`` trains a population (train/pbt.py; the JAX package's
+    ``jax.vmap`` of the train step over stacked member states): the P
+    members' ``n_envs`` env rows are one member-major batch of ``rows =
+    P * n_envs`` (one K1, K2 and K3 launch a step for all of them), the
+    params are member-stacked (each leaf with a leading (P,) axis, each
+    layer one batched GEMM, K4 with the members folded into its batch),
+    and the optimizer state is a ``HyperAdamState`` whose (P,) learning
+    rate, clip epsilon and entropy coefficient the update and the loss
+    read.  The non-finite guard keeps or takes each member's update on
+    its own, the quarantine resets rows, and the metrics are (P,)
+    tensors.  One pair of phase graphs serves the whole population."""
+
+    def __init__(self, env: Environment, pcfg: PPOConfig, members: Optional[int] = None):
         if pcfg.superstep_overlap:
             raise not_ported("superstep_overlap (the pipelined superstep driver)", 20)
         if pcfg.update_remat:
@@ -262,6 +292,8 @@ class PPOTrainer(PolicyTrainer):
         self.env = env
         self.pcfg = pcfg
         self.device = env.device
+        # a population (train/pbt.py): P members' env rows in one batch
+        self.members = None if members is None else int(members)
         cfg = env.cfg
         data = env.require_resident_data("PPO training (random-access rollouts)")
         reset_state, reset_obs = env_core.reset(cfg, env.params, data, 1)
@@ -281,8 +313,9 @@ class PPOTrainer(PolicyTrainer):
         self.optimizer = ClipAdam(pcfg.lr, pcfg.max_grad_norm, pcfg.opt_state_dtype)
         # the guard's updates-a-phase metric: copied to the device once,
         # here, never inside a captured update phase
-        self._guard_updates = torch.tensor(float(pcfg.epochs * pcfg.minibatches),
-                                           device=self.device)
+        self._guard_updates = torch.full(() if self.members is None else (self.members,),
+                                         float(pcfg.epochs * pcfg.minibatches),
+                                         device=self.device)
         # feed=curriculum: the sampler swaps whole tapes at superstep
         # boundaries, and each phase takes the active tape explicitly
         self.curriculum = env.curriculum
@@ -295,18 +328,50 @@ class PPOTrainer(PolicyTrainer):
         self._gen = torch.Generator(device=self.device)
         self._staging = None
 
+    @property
+    def rows(self) -> int:
+        """The env rows of a phase: ``n_envs``, times P for a population
+        (read from ``pcfg``, which a caller may replace)."""
+        return self.pcfg.n_envs * (self.members or 1)
+
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> TrainState:
         """Policy weights and the phases' generator from ``seed``, a fresh
-        optimizer state, every env at the fresh reset state."""
+        optimizer state, every env at the fresh reset state.  A
+        population's members draw their weights in turn from the one
+        generator, and start from ``pcfg``'s hyperparameters."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        init_policy_weights(self.policy, gen)
-        params = {k: v.detach().clone() for k, v in self.policy.named_parameters()}
-        n = self.pcfg.n_envs
+        if self.members is None:
+            init_policy_weights(self.policy, gen)
+            params = {k: v.detach().clone() for k, v in self.policy.named_parameters()}
+            opt_state = self.optimizer.init(params)
+        else:
+            members = []
+            for _ in range(self.members):
+                init_policy_weights(self.policy, gen)
+                members.append({k: v.detach().clone() for k, v in self.policy.named_parameters()})
+            params = {k: torch.stack([m[k] for m in members]) for k in members[0]}
+            opt_state = self.optimizer.init_members(params, self.initial_hyper())
+        n = self.rows
         env_states = EnvState(*(x.expand(n, *x.shape[1:]).clone() for x in self._reset_state))
         obs_vec = self._reset_vec.expand(n, *self.obs_shape).clone()
-        return TrainState(params, self.optimizer.init(params), env_states, obs_vec, gen,
-                          self.initial_carry(n))
+        return TrainState(params, opt_state, env_states, obs_vec, gen, self.initial_carry(n))
+
+    def initial_hyper(self) -> Dict[str, float]:
+        """A population member's starting hyperparameters (``pcfg``'s)."""
+        return {"learning_rate": self.pcfg.lr, "clip_eps": self.pcfg.clip_eps,
+                "ent_coef": self.pcfg.ent_coef}
+
+    def _act(self, params, x, carry):
+        """:meth:`policy_step` on a phase's flat rows: a population's
+        (P * n_envs, ...) inputs and carry viewed as (P, n_envs, ...) for
+        the member-stacked params, the outputs flattened back."""
+        if self.members is None:
+            return self.policy_step(params, x, carry)
+        p = self.members
+        logits, value, carry = self.policy_step(
+            params, x.unflatten(0, (p, -1)), tuple(c.unflatten(0, (p, -1)) for c in carry))
+        return logits.flatten(0, 1), value.flatten(0, 1), tuple(c.flatten(0, 1) for c in carry)
 
     def policy_forward(self, params: Dict[str, torch.Tensor], x, carry=()):
         """(logits, value) of the policy with ``params`` on inputs ``x``
@@ -364,7 +429,7 @@ class PPOTrainer(PolicyTrainer):
         value).  It syncs nothing with the host, so it is what the rollout
         graph captures."""
         env, cfg, pcfg = self.env, self.env.cfg, self.pcfg
-        n, horizon = pcfg.n_envs, pcfg.horizon
+        n, horizon = self.rows, pcfg.horizon
         tape = env.data if data is None else data
         if self._random_start:
             if start_offsets is None:
@@ -393,7 +458,7 @@ class PPOTrainer(PolicyTrainer):
                                    for x in pcarry)
             carry0 = self.initial_carry(1)
         for t in range(horizon):
-            logits, value, pcarry2 = self.policy_step(params, obs_vec, pcarry)
+            logits, value, pcarry2 = self._act(params, obs_vec, pcarry)
             if actions is None:
                 action = sample_categorical(logits, gen)
             else:
@@ -416,7 +481,7 @@ class PPOTrainer(PolicyTrainer):
                     store[t] = x
                 pcarry2 = masked_reset(done, carry0, pcarry2)
             pcarry = pcarry2
-        _, last_value, _ = self.policy_step(params, obs_vec, pcarry)
+        _, last_value, _ = self._act(params, obs_vec, pcarry)
         return env_states, obs_vec, pcarry, traj, last_value
 
     # ------------------------------------------------------------------
@@ -506,6 +571,9 @@ class PPOTrainer(PolicyTrainer):
         ``gen``: a dict of params, opt_state, env_states, obs_vec,
         policy_carry and metrics.  It syncs nothing with the host, so it is
         what the update graph captures."""
+        if self.members is not None:
+            return self._update_members_body(params, opt_state, env_states, obs_vec, pcarry,
+                                             traj, last_value, data, gen, permutations)
         pcfg = self.pcfg
         advs, returns = self._gae(traj, last_value)
         fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
@@ -587,6 +655,128 @@ class PPOTrainer(PolicyTrainer):
                 mean_reward=traj["reward"].mean(),
                 mean_episode_done=traj["done"].to(torch.float32).mean(),
                 grad_norm=norms.mean(),
+            )
+        return dict(params=params, opt_state=opt_state, env_states=env_states, obs_vec=obs_vec,
+                    policy_carry=pcarry, metrics=metrics)
+
+    def _member_loss(self, params, batch, hyper):
+        """(Σ over members of each member's loss, dict of the (P,) loss
+        terms) of one (P, M, ...) minibatch: :meth:`_loss` for every
+        member at once, with its own clip epsilon and entropy
+        coefficient."""
+        logits, value, _ = self.policy_step(params, batch["obs"], batch.get("pcarry", ()))
+        logp_all = F.log_softmax(logits, dim=-1)
+        logp = logp_all.gather(-1, batch["action"].to(torch.int64)[..., None])[..., 0]
+        entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1), dim=1)
+        ratio = torch.exp(logp - batch["logp"])
+        adv = batch["adv"]
+        adv = (adv - adv.mean(dim=1, keepdim=True)) / (
+            adv.std(dim=1, correction=0, keepdim=True) + 1e-8)
+        clip_eps = hyper["clip_eps"][:, None]
+        unclipped = ratio * adv
+        clipped = torch.clamp(ratio, 1 - clip_eps, 1 + clip_eps) * adv
+        policy_loss = -torch.mean(torch.minimum(unclipped, clipped), dim=1)
+        value_loss = 0.5 * torch.mean((value - batch["ret"]) ** 2, dim=1)
+        total = policy_loss + self.pcfg.vf_coef * value_loss - hyper["ent_coef"] * entropy
+        return total, dict(policy_loss=policy_loss, value_loss=value_loss, entropy=entropy)
+
+    def _update_members_body(self, params, opt_state: HyperAdamState, env_states, obs_vec, pcarry,
+                             traj, last_value, data, gen, permutations=None):
+        """:meth:`_update_body` of a population: each member's minibatches
+        from its own permutations ((P, epochs, n_perm) ``permutations``),
+        its gradients clipped by its own norm and stepped at its own rate,
+        the guard's decision and the metrics per member."""
+        pcfg, members = self.pcfg, self.members
+        advs, returns = self._gae(traj, last_value)
+        fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
+                  "adv": advs, "ret": returns}
+        if self._recurrent:
+            fields["pcarry"] = traj["pcarry"]
+        n_perm, mb, take = member_minibatch_plan(
+            tree_map(lambda x: x.unflatten(1, (members, -1)), fields),
+            scheme=pcfg.minibatch_scheme, members=members, n_envs=pcfg.n_envs,
+            horizon=pcfg.horizon, minibatches=pcfg.minibatches)
+        guard = pcfg.nonfinite_guard
+        losses, terms, oks, norms = [], [], [], []
+        for epoch in range(pcfg.epochs):
+            if permutations is None:
+                perm = torch.argsort(torch.rand((members, n_perm), generator=gen,
+                                                device=self.device), dim=1)
+            else:
+                perm = permutations[:, epoch].to(self.device)
+            for i in range(pcfg.minibatches):
+                batch = take(perm[:, i * mb:(i + 1) * mb])
+                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                with torch.enable_grad():
+                    loss, aux = self._member_loss(leaves, batch, opt_state.hyper)
+                    grads = dict(zip(leaves, torch.autograd.grad(loss.sum(),
+                                                                 list(leaves.values()))))
+                loss = loss.detach()
+                updates, new_opt_state, g_norm = self.optimizer.update_members(grads, opt_state)
+                new_params = apply_updates(params, updates)
+                if guard:
+                    # each member keeps its last-good params and moments
+                    # bit for bit on a non-finite loss or gradient
+                    ok = torch.isfinite(loss) & member_all_finite(grads)
+                    params = select_members(ok, new_params, params)
+                    opt_state = select_members(ok, new_opt_state, opt_state)
+                else:
+                    ok = torch.ones((members,), dtype=torch.bool, device=self.device)
+                    params, opt_state = new_params, new_opt_state
+                losses.append(loss)
+                terms.append({k: a.detach() for k, a in aux.items()})
+                oks.append(ok)
+                norms.append(g_norm)
+        losses, norms = torch.stack(losses), torch.stack(norms)
+        stacked = {k: torch.stack([t[k] for t in terms]) for k in terms[0]}
+
+        def per_member(x):
+            # (T, rows) -> each member's mean over its (T, n_envs)
+            return x.unflatten(1, (members, -1)).transpose(0, 1).reshape(members, -1).mean(dim=1)
+
+        if guard:
+            okf = torch.stack(oks).to(torch.float32)
+            n_ok = okf.sum(dim=0)
+
+            def mmean(x):
+                # each member's mean over its updates taken; NaN when it
+                # skipped every one
+                safe = torch.where(torch.isfinite(x), x, 0.0)
+                return torch.where(n_ok > 0, (safe * okf).sum(dim=0) / torch.clamp_min(n_ok, 1.0),
+                                   torch.nan)
+
+            metrics = dict(
+                loss=mmean(losses),
+                policy_loss=mmean(stacked["policy_loss"]),
+                value_loss=mmean(stacked["value_loss"]),
+                entropy=mmean(stacked["entropy"]),
+                mean_reward=per_member(traj["reward"]),
+                mean_episode_done=per_member(traj["done"].to(torch.float32)),
+                nonfinite_skips=(1.0 - okf).sum(dim=0),
+                guard_updates=self._guard_updates,
+                grad_norm=mmean(norms),
+            )
+            poison = quarantine_mask(
+                {"reward": traj["reward"], "obs": traj["obs"], "value": traj["value"],
+                 "logp": traj["logp"]},
+                env_axis=1,
+            ) | quarantine_mask({"obs_vec": obs_vec, "env_states": env_states},
+                                env_axis=0, mode="nan")
+            reset_state, reset_vec = self._fresh(data)
+            env_states = masked_reset(poison, reset_state, env_states)
+            obs_vec = masked_reset(poison, reset_vec, obs_vec)
+            if self._recurrent:
+                pcarry = masked_reset(poison, self.initial_carry(1), pcarry)
+            metrics["poisoned_env_resets"] = poison.view(members, -1).to(torch.float32).sum(dim=1)
+        else:
+            metrics = dict(
+                loss=losses.mean(dim=0),
+                policy_loss=stacked["policy_loss"].mean(dim=0),
+                value_loss=stacked["value_loss"].mean(dim=0),
+                entropy=stacked["entropy"].mean(dim=0),
+                mean_reward=per_member(traj["reward"]),
+                mean_episode_done=per_member(traj["done"].to(torch.float32)),
+                grad_norm=norms.mean(dim=0),
             )
         return dict(params=params, opt_state=opt_state, env_states=env_states, obs_vec=obs_vec,
                     policy_carry=pcarry, metrics=metrics)
@@ -732,30 +922,42 @@ class PPOTrainer(PolicyTrainer):
         skipped steps in a row save a diagnostic checkpoint and raise
         ``NonFiniteDivergenceError``, read one dispatch late.
 
+        ``preempt_at`` raises ``SimulatedPreemptionError`` after that
+        iteration (and its checkpoint); ``log_every > 0`` prints the
+        metrics every that many iterations, one dispatch late
+        (telemetry/device_stream.DelayedLogger); ``telemetry`` (a
+        ``telemetry.Telemetry``, None = off) drains each superstep's
+        metrics into its registry, sink and flight recorder one dispatch
+        late, wraps each dispatch in a span and records the run's
+        lifecycle in its ledger.  With all three unset this loop is the
+        one without them.
+
         Returns ``(state, metrics)``: the last iteration's metrics as
         floats plus ``env_steps_per_sec``, ``iterations``,
         ``total_env_steps`` and ``last_checkpoint_step`` when one was
-        saved.  Logging, preemption and telemetry (ROADMAP Queue 1 item
-        10) and mesh faults (item 17) raise when set."""
-        for name, value, item in (("log_every", log_every, 10),
-                                  ("preempt_at", preempt_at is not None, 10),
-                                  ("telemetry", telemetry is not None, 10),
-                                  ("mesh_faults", mesh_faults, 17)):
-            if value:
-                raise not_ported(f"PPOTrainer.train({name}=...)", item)
+        saved.  Mesh faults (ROADMAP Queue 1 item 17) raise."""
+        if mesh_faults:
+            raise not_ported("PPOTrainer.train(mesh_faults=...)", 17)
+        if self.members is not None:
+            raise ValueError("train() runs one policy; a population trains through train/pbt.py")
         state = self.init_state(seed) if initial_state is None else initial_state
         if initial_params is not None:
             state = state._replace(params=initial_params)
         steps_per_iter = self.pcfg.n_envs * self.pcfg.horizon
         iters = max(1, int(total_env_steps) // steps_per_iter)
         K = max(1, int(supersteps_per_dispatch or 1))
-        hooks = ResilientLoop(
-            steps_per_iter=steps_per_iter, checkpoint_dir=checkpoint_dir,
+        loop = TrainLoop(
+            "ppo", iters=iters, steps_per_iter=steps_per_iter, log_every=log_every,
+            telemetry=telemetry, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, step_offset=step_offset,
             checkpoint_metadata=checkpoint_metadata,
             max_consecutive_skips=max_consecutive_skips if self.pcfg.nonfinite_guard else 0,
-            checkpoint_keep=int(checkpoint_keep or 0),
+            preempt_at=preempt_at, checkpoint_keep=int(checkpoint_keep or 0),
         )
+        # the closures read the rebound local: a checkpoint copies the
+        # state before the next step overwrites it, a postmortem carries
+        # the generator state the run died with
+        loop.start(lambda: state.generator.get_state())
         t0 = time.perf_counter()
         metrics: Dict[str, Any] = {}
         it = 0
@@ -765,16 +967,16 @@ class PPOTrainer(PolicyTrainer):
             if self.curriculum is not None:
                 # one weighted seed-deterministic tape per superstep boundary
                 _, _, tape = self.curriculum.pick(it)
-            if k == 1:
-                state, metrics = self.train_step(state, tape)
-                guard_metrics = metrics
-            else:
-                state, guard_metrics = self.train_many_with_data(state, tape, k)
-                metrics = {key: v[-1] for key, v in guard_metrics.items()}
-            # a checkpoint copies the state before the next step overwrites it
-            hooks.after_superstep(it, k, guard_metrics, lambda: (state, state.params))
+            with loop.span(it, k):
+                if k == 1:
+                    state, metrics = self.train_step(state, tape)
+                    guard_metrics = metrics
+                else:
+                    state, guard_metrics = self.train_many_with_data(state, tape, k)
+                    metrics = {key: v[-1] for key, v in guard_metrics.items()}
+            loop.after_superstep(it, k, guard_metrics, lambda: (state, state.params))
             it += k
-        hooks.finish(lambda: (state, state.params))
+        loop.finish(lambda: (state, state.params))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -782,8 +984,8 @@ class PPOTrainer(PolicyTrainer):
         out["env_steps_per_sec"] = steps_per_iter * iters / dt
         out["iterations"] = iters
         out["total_env_steps"] = steps_per_iter * iters
-        if hooks.last_checkpoint_step is not None:
-            out["last_checkpoint_step"] = hooks.last_checkpoint_step
+        if loop.hooks.last_checkpoint_step is not None:
+            out["last_checkpoint_step"] = loop.hooks.last_checkpoint_step
         return state, out
 
 
@@ -868,40 +1070,63 @@ def train_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     """``mode=training``: train PPO, checkpoint, and return a summary that
     merges the training metrics with the greedy evaluation's.  Without
     ``elastic_resume`` the JAX package's ``elastic_entry`` is this plain
-    call; the elastic controller, a mesh, telemetry and fault profiles
-    raise (ROADMAP Queue 1 items 17 and 10)."""
+    call; the elastic controller and a mesh (ROADMAP Queue 1 item 17)
+    raise, as do a fault profile's mesh events (17) and the performance
+    observatory's telemetry keys (30)."""
     _refuse_unported_training_keys(config)
     return _train_from_config(config, device=device)
 
 
 def _refuse_unported_training_keys(config: Dict[str, Any]) -> None:
     """``not_ported`` for each key of a training run the port does not
-    take yet: the elastic controller and a mesh (item 17), a fault
-    profile and telemetry (item 10).  With the defaults none raises."""
+    take yet: the elastic controller, a mesh and a fault profile's mesh
+    events (item 17), the compile watch and the managed profiler (item
+    30).  With the defaults none raises; a malformed fault profile raises
+    the JAX package's ValueError."""
     if config.get("elastic_resume"):
         raise not_ported("elastic_resume (the elastic auto-resume controller)", 17)
     if config.get("mesh_shape") not in (None, ""):
         raise not_ported("mesh_shape (a device mesh, parallel/mesh.py)", 17)
-    if config.get("fault_profile"):
-        raise not_ported("fault_profile (fault injection and the preemption drill)", 10)
-    if _telemetry_requested(config):
-        raise not_ported("telemetry (gymfx_tpu/telemetry/)", 10)
+    refuse_mesh_and_fleet(parse_fault_profile(config.get("fault_profile")))
+    refuse_observatory_keys(config)
 
 
-def _telemetry_requested(config: Dict[str, Any]) -> bool:
-    """Whether the JAX package's ``telemetry_from_config`` would build a
-    telemetry bundle for ``config`` (gymfx_tpu/telemetry/__init__.py:197-208)."""
-    port = config.get("telemetry_http_port")
-    return bool(
-        config.get("telemetry_enabled") or config.get("telemetry_jsonl")
-        or config.get("telemetry_spans") or (port not in (None, "") and int(port) >= 0)
-        or config.get("telemetry_ledger") or config.get("telemetry_flight_recorder_dir")
-        or config.get("telemetry_compile_watch") or config.get("telemetry_profile_dir")
-    )
+def contaminated_training_env(env, config: Dict[str, Any]):
+    """The fault profile's feed part applied to the TRAINING env's tape
+    (the JAX package's ``_train_from_config``, :913-920; the evaluation's
+    tape stays clean so the guard's effect is measurable): (env, parsed
+    profile)."""
+    profile = parse_fault_profile(config.get("fault_profile"))
+    if profile["nan_bars"] or profile["inf_bars"] or profile.get("scengen"):
+        env.data = apply_fault_profile_to_market_data(env.data, profile)
+    return env, profile
+
+
+def train_with_telemetry(config: Dict[str, Any], algo: Optional[str], run):
+    """``run(telemetry)`` under the config's telemetry bundle (None when
+    every key is unset): every exit path seals the ledger with its
+    ``run_end`` row, and a clean one appends the registry's snapshot to
+    the sink when ``algo`` names the run (the JAX package's :944-985)."""
+    telemetry = telemetry_from_config(config)
+    try:
+        out = run(telemetry)
+    except BaseException:
+        # abort paths (the preemption drill, divergence) seal the ledger
+        # too; the postmortem was dumped by ResilientLoop before the raise
+        if telemetry is not None:
+            telemetry.close()
+        raise
+    if telemetry is not None and telemetry.sink is not None and algo:
+        telemetry.sink.append({"kind": "metrics_snapshot", "algo": algo,
+                               "registry": telemetry.registry.snapshot()})
+    if telemetry is not None:
+        telemetry.close()
+    return out
 
 
 def _train_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     env, eval_env = build_train_eval_envs(config, device=device)
+    env, profile = contaminated_training_env(env, config)
     resolve_minibatch_scheme(
         config, int(config.get("num_envs", 256) or 256), int(config.get("ppo_minibatches", 4)),
     )
@@ -912,17 +1137,26 @@ def _train_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]
     # moments, env batch, generator); a params-only one warm-starts
     resume_state, resume_params, resume_step = resume_from_config(config, trainer)
     ckpt_meta = {"policy": pcfg.policy, "policy_kwargs": dict(pcfg.policy_kwargs)}
-    state, train_metrics = trainer.train(
-        total, seed=int(config.get("seed", 0) or 0),
-        initial_params=resume_params, initial_state=resume_state,
-        checkpoint_dir=config.get("checkpoint_dir"),
-        checkpoint_every=int(config.get("checkpoint_every", 0) or 0),
-        step_offset=resume_step,
-        checkpoint_metadata=ckpt_meta,
-        max_consecutive_skips=int(config.get("guard_max_consecutive_skips", 10) or 0),
-        supersteps_per_dispatch=int(config.get("supersteps_per_dispatch", 1) or 1),
-        checkpoint_keep=int(config.get("checkpoint_keep", 0) or 0),
-    )
+
+    def run(telemetry):
+        if telemetry is not None and telemetry.ledger is not None and (
+                resume_state is not None or resume_params is not None):
+            telemetry.ledger.record("checkpoint_restore", step=int(resume_step))
+        return trainer.train(
+            total, seed=int(config.get("seed", 0) or 0),
+            initial_params=resume_params, initial_state=resume_state,
+            checkpoint_dir=config.get("checkpoint_dir"),
+            checkpoint_every=int(config.get("checkpoint_every", 0) or 0),
+            step_offset=resume_step,
+            checkpoint_metadata=ckpt_meta,
+            max_consecutive_skips=int(config.get("guard_max_consecutive_skips", 10) or 0),
+            preempt_at=profile.get("preempt_at"),
+            supersteps_per_dispatch=int(config.get("supersteps_per_dispatch", 1) or 1),
+            telemetry=telemetry,
+            checkpoint_keep=int(config.get("checkpoint_keep", 0) or 0),
+        )
+
+    state, train_metrics = train_with_telemetry(config, "ppo", run)
     # out-of-sample: a greedy episode on bars the agent never trained on;
     # the in-sample numbers ride along for the generalization gap
     summary = labeled_eval_summary(

@@ -187,12 +187,13 @@ def test_a_mode_outside_the_three_raises(tmp_path):
     # IMPALA trains since PR 13; what of it item 11 still holds: a tape library
     pytest.param(("--mode", "training", "--trainer", "impala", "--feed", "curriculum"), 11,
                  id="mode-training-trainer-impala-11"),
-    # PBT trains over a portfolio; without portfolio_files (the bar-venue
-    # PPO trainer's population) it waits on item 12
-    (("--mode", "training", "--trainer", "pbt"), 12),
-    (("--mode", "training", "--fault_profile", "nan_bars=5"), 10),
-    (("--mode", "training", "--telemetry_enabled"), 10),
-    (("--mode", "training", "--telemetry_http_port", "0"), 10),
+    # PBT (over the bar venue too), fault profiles and telemetry train; what
+    # of them items 30 and 17 still hold: the performance observatory, a
+    # profile's mesh events, a population on a mesh
+    (("--mode", "training", "--telemetry_profile_dir", "prof"), 30),
+    (("--mode", "training", "--telemetry_compile_watch"), 30),
+    (("--mode", "training", "--fault_profile", "nan_bars=5;mesh=kill:1@2"), 17),
+    (("--mode", "training", "--trainer", "pbt", "--mesh_shape", '{"data": 1}'), 17),
     (("--mode", "training", "--elastic_resume"), 17),
     (("--mode", "training", "--mesh_shape", '{"data": 1}'), 17),
     (("--gym_loop", "true"), 18),

@@ -42,6 +42,9 @@ steps, F 1-7, W 8-64 and a feature view 4 bytes off alignment, and at
 a batch where every CTA walks several tiles), also through a compressed tape's shard decode and a
 streamed episode on the card (pinned copies on a side stream), which
 must equal the CPU's.
+The trainers' one-dispatch-late reads (the guard watchdog and the
+telemetry's metric drain) return while the next superstep still runs on
+the stream, with the values of an immediate read.
 Every test needs an NVIDIA GPU and skips without one.  This file imports
 no JAX, so it also runs where only torch is installed:
 
@@ -1570,3 +1573,70 @@ def test_cuda_serve_swap_weights(cuda_device):
         eng.swap_weights(bad)
     assert torch.equal(eng.decide_batch(obs).actor_out, after.actor_out)
     assert eng.generation == 1 and eng.late_compiles == 0
+
+
+def _guard_superstep(device, i, sleep_cycles=0):
+    """A superstep's stacked metrics (new tensors), computed after a
+    ``torch.cuda._sleep`` of ``sleep_cycles`` when given."""
+    if sleep_cycles:
+        torch.cuda._sleep(sleep_cycles)
+    x = torch.arange(4, device=device, dtype=torch.float32) + i
+    return {"nonfinite_skips": x[:1] * 0 + 1, "guard_updates": x[:1] * 0 + 4,
+            "poisoned_env_resets": x[:1] * 0 + 2, "loss": x[1:2] * 0.5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reader", ["watchdog", "stream", "host_copy"])
+def test_cuda_late_read_waits_for_its_superstep_alone(cuda_device, reader):
+    """The one-dispatch-late reads (resilience/loop.py's guard watchdog,
+    telemetry/device_stream.py's drain) return while superstep s + 1 (a
+    ~0.5 s ``torch.cuda._sleep`` on the same stream) still runs: their
+    pinned copy of s's metrics waits on its own event.  The values are
+    those of an immediate read; a plain read of s's tensor then waits
+    for s + 1."""
+    import time
+
+    from gymfx_tpu_torch.resilience.loop import ResilientLoop
+    from gymfx_tpu_torch.telemetry import DeviceMetricStream, HostCopy, MetricsRegistry
+
+    state_fn = lambda: ({}, {})  # noqa: E731
+    torch.cuda.synchronize()
+    first = _guard_superstep(cuda_device, 1)
+    immediate = {k: v.cpu() for k, v in first.items()}
+    registry = MetricsRegistry()
+    loop = ResilientLoop(steps_per_iter=1, max_consecutive_skips=3)
+    stream = DeviceMetricStream("ppo", iters=2, registry=registry)
+    copy = None
+    if reader == "watchdog":
+        loop.after_superstep(0, 1, first, state_fn)
+    elif reader == "stream":
+        stream.after_dispatch(0, 1, first)
+    else:
+        copy = HostCopy(first)
+    second = _guard_superstep(cuda_device, 2, sleep_cycles=int(1e9))
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    if reader == "watchdog":
+        loop.after_superstep(1, 1, second, state_fn)
+        got = {"nonfinite_skips": loop.monitor.total_skips,
+               "poisoned_env_resets": loop.monitor.total_poisoned_env_resets}
+        want = {k: int(immediate[k]) for k in got}
+    elif reader == "stream":
+        stream.after_dispatch(1, 1, second)
+        got = registry.gauge("gymfx_train_metric", labels=("algo", "metric")).value(
+            algo="ppo", metric="loss")
+        want = float(immediate["loss"])
+    else:
+        got = {k: torch.from_numpy(v) for k, v in copy.get().items()}
+        want = {k: v.reshape(-1) for k, v in immediate.items()}
+    read_s = time.perf_counter() - t0
+    assert not done.query(), f"the late read waited for the next superstep ({read_s:.3f} s)"
+    if reader == "host_copy":
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    else:
+        assert got == want
+    first["loss"].cpu()  # a plain read: the stream drains up to here
+    assert done.query()
+    loop.finish(state_fn)
+    stream.finish()

@@ -500,8 +500,8 @@ def test_unported_impala_options_raise_naming_the_roadmap_item(over, item):
 
 @pytest.mark.parametrize("over,item", [
     ({"feed": "curriculum", "tapes": f"file:{CSV}"}, 11),
-    ({"telemetry_enabled": True}, 10),
-    ({"fault_profile": "nan_bars=3"}, 10),
+    ({"telemetry_profile_dir": "prof"}, 30),
+    ({"fault_profile": "nan_bars=3;mesh=kill:0@1"}, 17),
     ({"mesh_shape": {"data": 1}}, 17),
     ({"elastic_resume": True}, 17),
 ])
@@ -512,11 +512,15 @@ def test_unported_impala_training_keys_raise_naming_the_roadmap_item(over, item)
         train_impala_from_config(config, device="cpu")
 
 
-def test_impala_train_refuses_logging_and_telemetry():
+def test_impala_train_refuses_logging_and_telemetry(capsys):
+    """The loop logs (``log_every``, one dispatch late, the JAX package's
+    line) and takes telemetry now (tests/test_torch_telemetry.py); the
+    mesh faults still raise."""
     config = dict(DEFAULT_VALUES, input_data_file=CSV, num_envs=4, impala_unroll=4,
                   policy="lstm", window_size=8)
     trainer = ImpalaTrainer(Environment(config, device="cpu"), impala_config_from(config))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10$"):
-        trainer.train(16, log_every=1)
+    trainer.train(32, log_every=1)
+    lines = capsys.readouterr().out.splitlines()
+    assert [line.split(" {")[0] for line in lines] == ["[impala] iter 1/2", "[impala] iter 2/2"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 17$"):
         trainer.train(16, mesh_faults=("x",))

@@ -11,7 +11,9 @@
   reward), population-based training over the three-pair portfolio
   with the Transformer policy, and a LOB-venue episode on a generated
   tape (the scenario generator, its flags' flow) with the stress overlay;
-  then checks that none of those packages was imported.
+  imports the telemetry and the fault harness and runs a population step
+  of PBT over the bar venue; then checks that none of those packages was
+  imported.
 * An AST scan of every module of the package finds no such import.
 * Entry points default to CUDA: without it and without ``device`` they
   raise; configurations and options the port does not take raise
@@ -107,6 +109,17 @@ config.update(feed="scengen", scengen_bars=300, window_size=8, venue="lob",
 env = Environment(config, device="cpu")
 env.rollout(buy_hold_driver(), 20)
 stress.apply_scengen_stress(env.data, "flash_crash")
+import gymfx_tpu_torch.telemetry, gymfx_tpu_torch.telemetry.http, gymfx_tpu_torch.telemetry.mfu
+from gymfx_tpu_torch.resilience.faults import parse_fault_profile
+from gymfx_tpu_torch.train.pbt import PBTConfig, PBTTrainer
+assert parse_fault_profile("nan_bars=3;preempt_at=2")["preempt_at"] == 2
+config = dict(DEFAULT_VALUES)
+config.update(input_data_file="examples/data/eurusd_sample.csv", num_envs=4, ppo_horizon=4,
+              window_size=8, feature_columns=["CLOSE"], policy_kwargs={"hidden": [8, 8]})
+pbt = PBTTrainer(Environment(config, device="cpu"), ppo_config_from(config), PBTConfig(population=2))
+state, _ = pbt.init_population(0)
+state, metrics = pbt.trainer.train_step(state)
+assert metrics["loss"].shape == (2,)
 roots = {m.split(".")[0] for m in sys.modules}
 print(sorted(roots & {"jax", "jaxlib", "flax", "optax", "pandas", "gymfx_tpu"}))
 """

@@ -21,7 +21,8 @@ population of 2 (4 for exploit/explore), 4 envs, horizon 8, the MLP.
   gradients clipped by each member's own norm.
 * The replacement schedule (every ``interval`` steps, never after the
   last); ``train_pbt_from_config``'s result keys equal the JAX
-  package's; without ``portfolio_files`` it raises naming item 12.
+  package's; a mesh, a profile's mesh events and the performance
+  observatory raise naming their items.
 """
 import numpy as np
 import pytest
@@ -194,9 +195,17 @@ def test_train_pbt_from_config_writes_the_jax_keys():
 
 
 def test_pbt_without_portfolio_files_and_unported_keys_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TPBT.train_pbt_from_config({**DEFAULT_VALUES, "trainer": "pbt"}, device="cpu")
-    for key, value, item in (("mesh_shape", "2x2", 17), ("fault_profile", "x", 10),
-                             ("telemetry_enabled", True, 10)):
+    """PBT over the bar venue (no portfolio_files) trains
+    (tests/test_torch_pbt_bar.py); with or without a portfolio, a mesh, a
+    fault profile's mesh events and the performance observatory's keys
+    still raise naming their items."""
+    with pytest.raises(NotImplementedError, match="item 17"):
+        TPBT.train_pbt_from_config({**DEFAULT_VALUES, "trainer": "pbt", "mesh_shape": "2x2"},
+                                   device="cpu")
+    with pytest.raises(ValueError, match="not key=value"):
+        TPBT.train_pbt_from_config({**DEFAULT_VALUES, **CONFIG, "fault_profile": "x"},
+                                   device="cpu")
+    for key, value, item in (("mesh_shape", "2x2", 17), ("fault_profile", "mesh=kill:1@2", 17),
+                             ("telemetry_compile_watch", True, 30)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             TPBT.train_pbt_from_config({**DEFAULT_VALUES, **CONFIG, key: value}, device="cpu")

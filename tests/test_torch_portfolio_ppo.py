@@ -46,6 +46,7 @@ from gymfx_tpu_torch import convert
 from gymfx_tpu_torch.config import DEFAULT_VALUES
 from gymfx_tpu_torch.core import portfolio as TP
 from gymfx_tpu_torch.train import portfolio_ppo as TPPO
+from gymfx_tpu_torch.train.common import member_minibatch_plan
 from gymfx_tpu_torch.train.policies import TransformerPolicy
 
 from test_torch_parity import to_np, x64_off
@@ -209,8 +210,10 @@ def test_update_phase_matches_the_jax_trainer(policy, scheme):
         jgrads = jax.grad(lambda p: jtr._loss(p, jtake(jnp.asarray(perms[0][:mb])))[0])(
             jstate.params)
     tadv, tret = ttr._gae(tout[0], tout[1])
-    _, _, take = ttr._minibatch_plan({k: tout[0][k] for k in ("obs", "action", "logp")}
-                                     | {"adv": tadv, "ret": tret})
+    _, _, take = member_minibatch_plan(
+        {k: tout[0][k] for k in ("obs", "action", "logp")} | {"adv": tadv, "ret": tret},
+        scheme=scheme, members=ttr.members, n_envs=pcfg.n_envs, horizon=pcfg.horizon,
+        minibatches=pcfg.minibatches)
     _, _, tgrads = ttr.loss_and_grads(tstate.params, take(torch.from_numpy(perms[0][:mb])[None]),
                                       tstate.opt_state.hyper)
     want_grads = CONVERT[policy](jax.tree.map(np.asarray, jgrads), device="cpu")

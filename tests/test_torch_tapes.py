@@ -242,10 +242,10 @@ def test_refusals(tmp_path):
         PPOTrainer(Environment(streamed, device="cpu"), ppo_config_from(streamed))
     config = _library_config(num_envs=4, ppo_horizon=2)
     trainer = PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
-    for over, item in (({"telemetry": object()}, 10), ({"preempt_at": 3}, 10),
-                       ({"log_every": 1}, 10), ({"mesh_faults": ("kill:1",)}, 17)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            trainer.train(8, **over)
+    # telemetry, preempt_at and log_every run (tests/test_torch_telemetry.py,
+    # test_torch_faults.py); the mesh faults wait on item 17
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+        trainer.train(8, mesh_faults=("kill:1",))
     # checkpoints and the skip guard are ported: a curriculum run takes them
     _, metrics = trainer.train(8, checkpoint_dir=str(tmp_path), checkpoint_every=1,
                                max_consecutive_skips=10)
