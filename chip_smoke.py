@@ -158,10 +158,11 @@ failure exits non-zero:
             (the argsort engine; torch.gather's kernel aside) and no int64
             bitwise or shift kernel (the plain flow's threefry words);
             kernels a step printed.  Losses finite, no update skipped.
-            Step 1's rollout phase replayed from the graph, re-run op by
-            op with the plain versions of K1, K3, K5, K8 and K9 on the
-            card, must give the same
-            env states, trajectory and bootstrap value (torch.equal).
+            A LOB_PLAIN_HORIZON-step rollout phase replayed from its graph,
+            re-run op by op with the plain versions of K1, K3, K5, K8 and
+            K9 on the card, must give the same env states, trajectory and
+            bootstrap value (torch.equal; shorter than the 64-step phase
+            for the script's time limit: the plain re-run is ~1 s a step).
             Then graphed against eager as in main.
 7. episode  Environment.rollout with the buy_hold driver, 1 env, on the
             card, from the episode drivers' CUDA graphs (core/rollout.py:
@@ -205,14 +206,14 @@ failure exits non-zero:
             data_compress on (the ring does not hold the tape: pinned
             copies of compressed shards on a side stream, K6 once per q16
             group per shard) and off (pinned f32 shards); a buy_hold
-            episode of one env for 2,048 steps over 8 shards each, from the
+            episode of one env for 1,024 steps over 4 shards each, from the
             chunk graphs (each shard copied into one staging shard, its
             row0 a device tensor, so one graph serves every shard), equal
             to the resident episode and to the same episode op by op
             (torch.equal, every output and the final state); K6 timed at
-            a shard's group.  The episode is cut to 2,048 steps because the
-            eager episode it is held against is host-bound (~3 ms a step);
-            the tape is at full size.
+            a shard's group.  The episode is cut to 1,024 steps because
+            the eager episode it is held against is host-bound (~6 ms a
+            step); the tape is at full size.
 11. baseline BASELINE.json's configurations 3 and 4 at full width
             (config/flagship.py): baseline_sharpe_config ("baseline-sharpe-
             atr-train": PPO, 4,096 envs, sharpe_reward over a 64-slot ring,
@@ -237,11 +238,11 @@ failure exits non-zero:
             leaf by leaf (params, Adam state, env batch, generator state);
             --driver_mode policy on the checkpoint, which must reproduce
             the held-out summary number for number; the evaluation
-            episode's ms a step replayed and its capture seconds, 2,048 of
+            episode's ms a step replayed and its capture seconds, 575 of
             its steps graphed == eager, and one 64-step chunk replay's
             kernels by name (K1, K2, K3 64 each); the diagnostic episode
-            with buy_hold (1 env, the whole tape; its first 2,048 steps ==
-            the CPU's) and random (8,192 envs x 2,048 steps == the eager
+            with buy_hold (1 env, 8,191 steps; its first 575 steps ==
+            the CPU's) and random (8,192 envs x 575 steps == the eager
             episode on the card), each through main.  Then IMPALA through
             main (--trainer impala, impala_lstm_config on the same tape):
             one iteration with a checkpoint, then --driver_mode policy on
@@ -378,7 +379,7 @@ failure exits non-zero:
             grid: 3 graphed train steps, K10 one launch (the generation),
             K1-K3 64 a phase at capture and by name in a replay, a rollout
             phase graphed == eager; the tape streamed in compressed
-            256-bar shards (K6): a 2,048-step episode == the resident one.
+            256-bar shards (K6): a 1,024-step episode == the resident one.
             A curriculum of scengen:flash_crash@2 and scengen:range_chop@1
             (tape 1 compressed): PPOTrainer.train 3 supersteps, K10 twice,
             K6 on the compressed pick.  lob-scengen: lob_config on
@@ -423,6 +424,36 @@ failure exits non-zero:
             its event wait and its parts timed; serve-mlp with instruments
             under a FlakyEngine plan, /metrics and /healthz scraped on
             loopback (counts, late_compiles 0).
+20. observatory  after telemetry: flagship-train and long-context-train
+            through train_from_config for OBS_SUPERSTEPS supersteps with
+            telemetry_profile_dir and telemetry_compile_watch on
+            (superstep 1 captured): one bundle each whose report
+            validates; K1-K3 64 each under rollout in the report's kernel
+            table, K4's forward 130 under rollout and 8 under update, its
+            backward 8 under update; each graph replay's records in the
+            trace against the graph's kernel, memcpy and memset nodes
+            (core/graphs.capturing_graph_nodes): a shortfall is CUPTI's
+            dropped records, reported and the capture taken again up to
+            OBS_RETRIES times, and a named count may fall short only
+            within them; each phase's kernel ms within OBS_PHASE_TOL of
+            its CUDA-event time in the manifest's phase split; the compile
+            watch's 2 captures and 0 recompiles; the final state
+            torch.equal to the keys-off run; each phase's top 10 kernels
+            printed.
+20. overlap superstep_overlap for flagship-train and long-context-train
+            (PPO) and baseline-impala-lstm-train (IMPALA): k = 1 overlapped
+            == sequential; k = 3 from two sets of graphs on two streams ==
+            the same schedule op by op on one stream (torch.equal,
+            generator included); no capture after the first dispatch; env
+            steps/s overlapped beside sequential in turns, the card's name
+            and power limit beside them; the observatory's overlap share
+            of an overlapped dispatch (PPO).
+20. remat   ppo_update_remat on long-context-train's update against the
+            update without it (tests/test_torch_train.py's bf16
+            tolerances; bitwise or not, printed), graphed == eager both
+            ways, K4's forward twice as many times at the update's
+            capture (the recompute), the eager update's peak allocator
+            bytes and the graphed update's ms both ways.
 13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -450,6 +481,9 @@ HORIZON = 64
 TRAIN_STEPS = 3
 LONG_STEPS = 2
 LOB_STEPS = 3
+# the LOB phase's plain-version comparison: a rollout phase of this many
+# steps (not the whole horizon, 64: the plain re-run is ~1 s a step)
+LOB_PLAIN_HORIZON = 16
 EPISODE_STEPS = 400
 # the eager one-env LOB step is host-bound; the episode's first trade
 # closes at step 1
@@ -460,17 +494,25 @@ LOB_EPISODE_STEPS = 50
 TAPE_BARS = 2 ** 18
 TAPE_LEVELS = {"eurusd": 1.10, "gbpusd": 1.27, "audusd": 0.66, "nzdusd": 0.60}
 CURRICULUM_SUPERSTEPS = 4
-STREAM_STEPS = 2048
+STREAM_STEPS = 1024
 STREAM_SHARD_BARS = 256
 # the cli phase: a 2^15-bar M1 tape (a quarter held out), 3 training
 # iterations; the diagnostic and evaluation episodes held to eager ones of
-# 2,048 steps (the eager step is host-bound)
-CLI_BARS, CLI_ITERS, CLI_EAGER_STEPS = 2 ** 15, 3, 2048
+# 575 steps, 8 chunks of 64 and one of 63 as the 8,191-step evaluation's
+# (the eager step is host-bound)
+CLI_BARS, CLI_ITERS, CLI_EAGER_STEPS = 2 ** 15, 3, 575
+# the buy_hold diagnostic's steps (a quarter of the tape)
+CLI_DIAG_STEPS = 8191
 # PBT over the bar venue: flagship-train's population (config 5's 4
 # members); the LSTM and ring populations' smaller depth
 PBT_MEMBERS, PBT_SMALL_ENVS, PBT_SMALL_HORIZON = 4, 1024, 16
 # the telemetry phase's train_from_config runs and its on/off rate runs
 TELEMETRY_ITERS, TELEMETRY_RATE_ITERS = 3, 8
+# the observatory's runs (superstep 1 captured) and its tolerance on a
+# phase's kernel time in the trace against its CUDA-event time; the overlapped
+# superstep's k and dispatches a timed run
+OBS_SUPERSTEPS, OBS_PHASE_TOL, OBS_RETRIES = 3, 0.25, 1
+OVERLAP_K, OVERLAP_DISPATCHES = 3, {"flagship": 4, "long": 1, "impala": 4}
 # K2 and K3 with a param row per env: baseline-portfolio-pbt's rows (4
 # members x 64 envs x 3 pairs) and the flagship's envs x 3 pairs
 PORTFOLIO_ROWS = (768, 8192 * 3)
@@ -2600,17 +2642,18 @@ def lob_phase(torch, kernels, results) -> None:
     partial = int(((env_states.pos.abs() % config["position_size"]) != 0).sum())
     state = copy_state(torch, state)
 
-    # step 1's rollout phase, replayed from the graph, against the same
-    # phase op by op with the plain versions of K1, K3, K5, K8 and K9 on the
-    # card
-    inter, (traj, last_value) = trainer.rollout_phase(trainer.init_state(SEED))
+    # a rollout phase of LOB_PLAIN_HORIZON steps, replayed from its graph,
+    # against the same phase op by op with the plain versions of K1, K3,
+    # K5, K8 and K9 on the card (the argsort engine, ~1 s a step)
+    short = PPOTrainer(trainer.env, ppo_config_from({**config, "ppo_horizon": LOB_PLAIN_HORIZON}))
+    inter, (traj, last_value) = short.rollout_phase(short.init_state(SEED))
     for key in ("obs", "logp", "value", "reward"):
         check(bool(torch.isfinite(traj[key]).all()), f"LOB non-finite trajectory {key}")
     for fn in counted:
         fn.launches = 0
     with plain_lob_versions():
         t0 = time.perf_counter()
-        ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(trainer.init_state(SEED))
+        ref_state, (ref_traj, ref_last) = short._rollout_phase_eager(short.init_state(SEED))
         torch.cuda.synchronize()
         plain_phase_s = time.perf_counter() - t0
     check(sum(count_launches(counted).values()) == 0, "the plain-version LOB phase launched a kernel")
@@ -2620,8 +2663,8 @@ def lob_phase(torch, kernels, results) -> None:
         check(torch.equal(getattr(inter.env_states, field), getattr(ref_state.env_states, field)),
               f"LOB path vs plain versions: env state {field}")
     check(torch.equal(last_value, ref_last), "LOB path vs plain versions: bootstrap value")
-    print(f"lob path (graphed) == plain versions op by op on the card (rollout phase of step 1, "
-          f"torch.equal); plain phase {plain_phase_s * 1e3:.1f} ms; {trades} closed trades, "
+    print(f"lob path (graphed) == plain versions op by op on the card (a {LOB_PLAIN_HORIZON}-step "
+          f"rollout phase, torch.equal); plain phase {plain_phase_s * 1e3:.1f} ms; {trades} closed trades, "
           f"{partial} envs holding a partly exited position")
     compared = graphed_vs_eager(torch, trainer, state, None, "lob path")
     results["lob_path"] = {
@@ -3335,10 +3378,10 @@ def cli_phase(torch, results, tmp) -> None:
     diag = {}
     one_env = dict(config, num_envs=1)
     bh, bh_s = cli("buy_hold", "--mode", "inference", "--driver_mode", "buy_hold",
-                   "--num_envs", "1", "--steps", str(CLI_BARS - 1))
+                   "--num_envs", "1", "--steps", str(CLI_DIAG_STEPS))
     env = Environment(one_env)
     (bh_state, bh_out), bh_ms = timed_episode(torch, env, rollout_mod.buy_hold_driver(),
-                                              CLI_BARS - 1)
+                                              CLI_DIAG_STEPS)
     n_steps = int(rollout_mod.episode_step_count(bh_out)[0])
     check(bh["final_equity"] == float(bh_out["equity_delta"][n_steps - 1, 0].double())
           + config["initial_cash"], "cli buy_hold summary vs its episode")
@@ -3347,7 +3390,7 @@ def cli_phase(torch, results, tmp) -> None:
     for key in cpu_out:
         check(torch.equal(bh_out[key][:CLI_EAGER_STEPS].cpu(), cpu_out[key]),
               f"cli buy_hold episode vs the CPU's first {CLI_EAGER_STEPS} steps: {key}")
-    diag["buy_hold"] = dict(steps=CLI_BARS - 1, main_s=bh_s, graphed_ms_per_step=bh_ms,
+    diag["buy_hold"] = dict(steps=CLI_DIAG_STEPS, main_s=bh_s, graphed_ms_per_step=bh_ms,
                             final_equity=bh["final_equity"])
     rnd, rnd_s = cli("random", "--mode", "inference", "--driver_mode", "random",
                      "--num_envs", str(N_ENVS), "--steps", str(CLI_EAGER_STEPS))
@@ -3398,7 +3441,7 @@ def cli_phase(torch, results, tmp) -> None:
           f"total_return {imp['total_return']:.6g}, trades {imp['trades_total']}; {imp_s:.1f} s; "
           f"--driver_mode policy reproduces the held-out summary ({len(CLI_SUMMARY_KEYS)} numbers "
           f"equal), {imp_policy_s:.1f} s")
-    print(f"cli diagnostic: buy_hold 1 env x {CLI_BARS - 1:,} steps {bh_ms:.4f} ms a step graphed "
+    print(f"cli diagnostic: buy_hold 1 env x {CLI_DIAG_STEPS:,} steps {bh_ms:.4f} ms a step graphed "
           f"(main {bh_s:.1f} s), first {CLI_EAGER_STEPS} == the CPU's; random {N_ENVS} envs x "
           f"{CLI_EAGER_STEPS} steps {rnd_ms:.4f} ms a step graphed vs {rnd_eager_ms:.4f} eager "
           f"(torch.equal; main {rnd_s:.1f} s), batch {rnd['batch']}")
@@ -5073,6 +5116,420 @@ def telemetry_phase(torch, kernels, results, tmp) -> None:
         bundle.telemetry.close()
 
 
+# ---- 20. the performance observatory, the overlapped superstep, remat ----
+def report_counts(report, names=KERNEL_NAMES) -> dict:
+    """{(kernel key, phase): launches} of a profile report's kernel table,
+    each row matched to KERNEL_NAMES by name."""
+    out = {}
+    for row in report["trace"]["top_kernels"]:
+        for key, pattern in names.items():
+            if pattern in row["name"]:
+                out[(key, row["scope"])] = out.get((key, row["scope"]), 0) + row["count"]
+    return out
+
+
+def phase_tops(report, n: int = 10) -> dict:
+    """Each phase's ``n`` kernels by device time: {phase: [(name, count,
+    ms a step)]}."""
+    out = {}
+    for row in report["trace"]["top_kernels"]:
+        rows = out.setdefault(row["scope"] or "none", [])
+        if len(rows) < n:
+            rows.append((row["name"], row["count"], row["total_ms_per_step"]))
+    return out
+
+
+def graph_records(report) -> dict:
+    """{phase: records of its cudaGraphLaunch} of a profile report."""
+    return {phase: sum(e["records"] for e in d["launches"] if e["launch"] == "cudaGraphLaunch")
+            for phase, d in report["phases"]["detail"].items()}
+
+
+def bare_replay_records(torch, graph, phase: str, tmp) -> int:
+    """The device records one replay of ``graph`` (a core/graphs.PhaseGraph)
+    launches through its cudaGraphLaunch, parsed as the profile report
+    parses them, from a trace stopped TRACE_DRAIN_S after the replay."""
+    from gymfx_tpu_torch.telemetry.profiler import ProfilerSession
+    from gymfx_tpu_torch.telemetry.spans import profiler_range
+    from gymfx_tpu_torch.telemetry.trace_parse import parse_trace
+
+    session = ProfilerSession(str(pathlib.Path(tmp) / f"bare_{phase}"))
+    with session.capture(label="bare") as cap:
+        with profiler_range(phase):
+            graph.graph.replay()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_DRAIN_S)
+    return sum(e["records"] for e in parse_trace(cap.bundle)["launches"]
+               if e["launch"] == "cudaGraphLaunch")
+
+
+def observatory_run(torch, label: str, config: dict, expected: dict, tmp, shared: dict) -> dict:
+    """``train_from_config`` with the profiler and the compile watch on for
+    OBS_SUPERSTEPS supersteps (superstep 1 captured), its bundle's report
+    checked, then the same run with the keys off (``PPOTrainer.train``,
+    the bare loop): the final states torch.equal.  The keys-off trainer,
+    its graphs captured, is kept in ``shared[label]`` for the remat and
+    overlap phases."""
+    from gymfx_tpu_torch import telemetry as TT
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.telemetry.attribution import build_profile_report, validate_profile_report
+    from gymfx_tpu_torch.telemetry.profiler import ProfilerSession, find_captures
+    from gymfx_tpu_torch.train import checkpoint as ckpt
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from, train_from_config
+
+    d = pathlib.Path(tmp) / f"observatory_{label}"
+    per_iter = config["num_envs"] * config["ppo_horizon"]
+    run_config = {**config, "train_total_steps": OBS_SUPERSTEPS * per_iter, "seed": SEED,
+                  "telemetry_profile_dir": str(d / "prof"), "telemetry_compile_watch": True,
+                  "telemetry_ledger": str(d / "ledger.jsonl"), "checkpoint_dir": str(d / "ckpt")}
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               fused_attention.attention_forward, fused_attention.attention_backward)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_from_config(run_config)
+    on_s = time.perf_counter() - t0
+    launches = count_launches(counted)
+    for key in ("step_obs", "fill_brackets", "mark_reward"):
+        check(launches[key] > 0, f"observatory {label}: {key} launched no time on the path")
+    if expected["rollout"].get("attention_forward"):
+        check(launches["attention_forward"] > 0 and launches["attention_backward"] > 0,
+              f"observatory {label}: K4 launched no time on the path")
+    bundles = find_captures(str(d / "prof"))
+    check(len(bundles) == 1 and bundles[0].endswith("_it1"),
+          f"observatory {label}: capture bundles {bundles}")
+    report = build_profile_report(bundles[0], top_n=100_000)
+    check(validate_profile_report(report) == [],
+          f"observatory {label}: report invalid {validate_profile_report(report)}")
+    check(report["trace"]["ok"] and report["trace"]["work"] == "device",
+          f"observatory {label}: trace {report['trace']['error']}")
+    manifest = json.loads((pathlib.Path(bundles[0]) / "manifest.json").read_text())
+    rows = TT.ledger.read_ledger(str(d / "ledger.jsonl"))
+    kinds = [r["kind"] for r in rows]
+    captures = [r for r in rows if r["kind"] == "compile_end" and "Trainer." in r["name"]]
+    check(len(captures) == 2 and "recompile" not in kinds,
+          f"observatory {label}: the compile watch saw {len(captures)} captures, "
+          f"{kinds.count('recompile')} recompiles")
+    check(kinds.count("profile_capture") == 1 and TT.validate_ledger(str(d / "ledger.jsonl")) == [],
+          f"observatory {label}: ledger kinds {kinds}")
+    check(len(manifest["fingerprints"]) == 2, f"observatory {label}: fingerprints "
+          f"{manifest['fingerprints']}")
+
+    # the same run with every key off: the bare loop's final state
+    trainer = shared[label] = PPOTrainer(Environment(config), ppo_config_from(config))
+    state, _ = trainer.train(OBS_SUPERSTEPS * per_iter, seed=SEED)
+    state = copy_state(torch, state)
+    on, step = ckpt.load_checkpoint(str(d / "ckpt"), template=trainer.init_state(SEED))
+    check(step == OBS_SUPERSTEPS * per_iter, f"observatory {label}: final step {step}")
+    check_same_state(torch, on, state, f"observatory {label}: profiled run vs keys off")
+
+    # launches a phase by name in the report; its graph replays' records
+    # against the graphs' kernel, memcpy and memset nodes (counted at their
+    # capture; a bare replay's trace where the driver cannot say), so that
+    # CUPTI's dropped records are told apart and reported, and a capture
+    # that lost some is taken again, OBS_RETRIES times at most
+    want_records = {kind: graph.nodes if graph.nodes is not None else
+                    bare_replay_records(torch, graph, kind, d)
+                    for kind, graph in first_graphs(trainer).items()}
+    tries = []
+    while True:
+        records = graph_records(report)
+        counts = report_counts(report)
+        dropped = {kind: want_records[kind] - records.get(kind, 0) for kind in expected}
+        tries.append({"records": records, "dropped": dropped})
+        check(all(v >= 0 for v in dropped.values()), f"observatory {label}: the trace holds "
+              f"{records} records of the replays, more than their graphs' nodes {want_records}")
+        if not any(dropped.values()):
+            break
+        print(f"observatory {label}: short count in the profile report: CUPTI dropped "
+              f"{dropped} records of the replays (the trace holds {records} of the graphs' "
+              f"{want_records} nodes); these launches are reported as dropped, not attributed")
+        if len(tries) > OBS_RETRIES:
+            break
+        session = ProfilerSession(str(d / "retry"))
+        with session.capture(it_start=len(tries), label="retry") as cap:
+            state, _ = trainer.train_step(state)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_DRAIN_S)
+        report = build_profile_report(cap.bundle, top_n=100_000)
+    split = manifest["phase_split"]
+    detail = report["phases"]["detail"]
+    # a phase's kernel time in the trace against its replay's time with
+    # CUDA events (unprofiled: CUPTI's records stretch a traced replay's
+    # span, not its kernels)
+    agree = {phase: detail[phase]["busy_ms"] / split[f"{phase}_ms"] for phase in expected}
+    tops = phase_tops(report)
+    print(f"observatory {label}: train_from_config {OBS_SUPERSTEPS} supersteps with the profiler "
+          f"and the compile watch on ({on_s:.1f} s; capture of superstep 1: "
+          f"{manifest['capture_wall_s']:.2f} s, its workload {manifest['workload_s']:.2f} s) == the "
+          f"keys-off run (torch.equal); report valid; {len(captures)} captures, 0 recompiles; "
+          f"launches in the report {dict(sorted((f'{k}/{p}', v) for (k, p), v in counts.items()))}; "
+          f"records of each graph replay {records} (the graphs' nodes {want_records}); "
+          f"device ms by phase: " + ", ".join(
+              f"{p} op {detail[p]['op_ms']}, busy {detail[p]['busy_ms']} vs CUDA events "
+              f"{split[f'{p}_ms']:.3f} ({agree[p]:.3f}), span {detail[p]['span_ms']}"
+              for p in expected)
+          + f"; busy {report['phases']['busy_ms']} of a {report['trace']['window_ms']} ms window")
+    for phase, rows_ in tops.items():
+        print(f"  {label} top kernels under {phase}:")
+        for name, count, ms in rows_:
+            print(f"    {ms:9.4f} ms  x{count:<6d} {name[:150]}")
+    for phase, want in expected.items():
+        for key in KERNEL_NAMES:
+            got, exp = counts.get((key, phase), 0), want.get(key, 0)
+            check(0 <= exp - got <= dropped[phase], f"observatory {label}: {key} launched {got} "
+                  f"times under {phase} in the report, expected {exp} (CUPTI dropped "
+                  f"{dropped[phase]} records of that replay)")
+            if got < exp:
+                print(f"observatory {label}: {key} {got} of {exp} under {phase}: the "
+                      f"{exp - got} missing are among the {dropped[phase]} records CUPTI dropped")
+    check(all(scope in expected for _, scope in counts),
+          f"observatory {label}: a counted kernel outside its phases {counts}")
+    for phase, ratio in agree.items():
+        check(abs(ratio - 1.0) <= OBS_PHASE_TOL, f"observatory {label}: the {phase} phase's "
+              f"kernels take {detail[phase]['busy_ms']} ms in the trace against "
+              f"{split[f'{phase}_ms']:.3f} ms timed with CUDA events ({ratio:.3f}, tolerance "
+              f"{OBS_PHASE_TOL})")
+    return dict(on_s=on_s, launches=launches, counts={f"{k}/{p}": v for (k, p), v in counts.items()},
+                records=graph_records(report), replay_records=want_records, tries=tries,
+                phases=report["phases"], reconciliation=report["reconciliation"],
+                trace={k: v for k, v in report["trace"].items() if k != "top_kernels"},
+                mfu_measured=report["mfu_measured"], manifest_phase_split=split,
+                capture_wall_s=manifest["capture_wall_s"], workload_s=manifest["workload_s"],
+                span_over_events=agree, tops=tops)
+
+
+def observatory_phase(torch, kernels, results, tmp, shared) -> None:
+    """The performance observatory on flagship-train and long-context-train
+    at full width (``observatory_run``)."""
+    from gymfx_tpu_torch.config.flagship import flagship_config, long_context_config
+
+    csv = str(ROOT / "examples" / "data" / "eurusd_sample.csv")
+    bar = {"step_obs": HORIZON, "fill_brackets": HORIZON, "mark_reward": HORIZON}
+    out = {}
+    out["flagship"] = observatory_run(torch, "flagship", flagship_config(csv),
+                                      {"rollout": bar, "update": {}}, tmp, shared)
+    torch.cuda.empty_cache()
+    out["long"] = observatory_run(
+        torch, "long", long_context_config(csv),
+        {"rollout": {**bar, "attention_forward": 130},
+         "update": {"attention_forward": 8, "attention_backward": 8}}, tmp, shared)
+    torch.cuda.empty_cache()
+    results["observatory"] = out
+
+
+def overlap_phase(torch, kernels, results, shared) -> None:
+    """``superstep_overlap`` on the card for flagship-train and
+    long-context-train under PPO and baseline-impala-lstm-train under
+    IMPALA: k = 1 overlapped == the sequential train_many; k = 3 from the
+    two sets of graphs on two streams == the same schedule run op by op on
+    one stream; no capture after the first dispatch; env steps/s
+    overlapped beside sequential in turns; the observatory's overlap
+    share of an overlapped dispatch (PPO).  The sequential PPO trainers
+    are the observatory's keys-off ones (``shared``), graphs captured;
+    each is freed before the eager schedule runs beside the overlapped
+    trainer's two sets of graphs."""
+    from gymfx_tpu_torch.config.flagship import (flagship_config, impala_lstm_config,
+                                                 long_context_config)
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.telemetry.attribution import build_profile_report
+    from gymfx_tpu_torch.telemetry.profiler import ProfilerSession
+    from gymfx_tpu_torch.train.common import make_train_many_overlapped
+    from gymfx_tpu_torch.train.impala import LEARNER_FIELDS, ImpalaTrainer, impala_config_from
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    csv = str(ROOT / "examples" / "data" / "eurusd_sample.csv")
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               fused_attention.attention_forward, fused_attention.attention_backward)
+    sync = torch.cuda.synchronize
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_overlap_")
+    out = {}
+    try:
+        for label, make_config in (("flagship", flagship_config), ("long", long_context_config),
+                                   ("impala", impala_lstm_config)):
+            config = make_config(csv)
+            env = Environment(config)
+            if label == "impala":
+                make = lambda over: ImpalaTrainer(env, impala_config_from({**config, **over}))
+                fields = LEARNER_FIELDS
+            else:
+                make = lambda over: PPOTrainer(env, ppo_config_from({**config, **over}))
+                fields = ("params", "opt_state")
+            t_config = time.perf_counter()
+            seq = shared.pop(label, None) or make({})
+            ovl = make({"superstep_overlap": True})
+            n, h = phase_shape(seq)
+            start = seq.init_state(SEED)
+            for fn in counted:
+                fn.launches = 0
+            # k = 1 overlapped is the sequential step
+            a, ma = seq.train_many(copy_state(torch, start), 1)
+            b, mb = ovl.train_many(copy_state(torch, start), 1)
+            check_same_state(torch, a, b, f"overlap {label}: k = 1 overlapped vs sequential")
+            check_same(torch, ma, mb, f"overlap {label}: k = 1 metrics")
+            start = copy_state(torch, b)
+            # k = 3 from the graphs on two streams (held against the schedule
+            # op by op below, once the sequential trainer's graphs are freed)
+            s, m = ovl.train_many(copy_state(torch, start), OVERLAP_K)
+            s = copy_state(torch, s)
+            graphs_after_first = sorted(k for k, *_ in ovl._graphs)
+            launches = count_launches(counted)
+            for key in ("step_obs", "fill_brackets", "mark_reward") if label != "impala" else (
+                    "fill_brackets", "mark_reward"):
+                check(launches[key] > 0, f"overlap {label}: {key} launched no time on the path")
+            if label == "long":
+                check(launches["attention_forward"] > 0 and launches["attention_backward"] > 0,
+                      "overlap long: K4 launched no time on the path")
+            check(graphs_after_first == ["rollout", "rollout_b", "update", "update_b"],
+                  f"overlap {label}: graphs {graphs_after_first}")
+            captures = ovl.captures()
+            # env steps/s, overlapped beside sequential, in turns
+            rates = {"sequential": [], "overlapped": []}
+            seq_state, ovl_state = copy_state(torch, start), copy_state(torch, start)
+            seq_state, _ = seq.train_many(seq_state, OVERLAP_K)  # captures nothing new: warm
+            for which in ("sequential", "overlapped", "overlapped", "sequential"):
+                tr = seq if which == "sequential" else ovl
+                st = seq_state if which == "sequential" else ovl_state
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(OVERLAP_DISPATCHES[label]):
+                    st, _ = tr.train_many(st, OVERLAP_K)
+                sync()
+                rates[which].append(n * h * OVERLAP_K * OVERLAP_DISPATCHES[label]
+                                    / (time.perf_counter() - t0))
+                if which == "sequential":
+                    seq_state = st
+                else:
+                    ovl_state = st
+            check(ovl.captures() == captures and sorted(k for k, *_ in ovl._graphs)
+                  == graphs_after_first, f"overlap {label}: a capture after the first dispatch")
+            row = dict(launches=launches, graphs=graphs_after_first, env_steps_per_s=rates)
+            if label != "impala":
+                session = ProfilerSession(str(pathlib.Path(tmp) / label))
+                with session.capture(label="overlap") as cap:
+                    ovl_state, _ = ovl.train_many(ovl_state, 2)
+                report = build_profile_report(cap.bundle, top_n=100_000)
+                ph = report["phases"]
+                row["observatory"] = {k: ph[k] for k in ("rollout_ms", "update_ms", "busy_ms",
+                                                        "phase_sum_ms", "overlap_share")}
+                row["observatory"]["window_ms"] = report["trace"]["window_ms"]
+            # the eager schedule's activations beside two sets of graphs:
+            # the sequential trainer's graphs go first
+            del seq, seq_state, a
+            gc.collect()
+            torch.cuda.empty_cache()
+            eager = make_train_many_overlapped(ovl._rollout_phase_eager, ovl._update_phase_eager,
+                                               fields)
+            e, me = eager(copy_state(torch, start), OVERLAP_K)
+            check_same_state(torch, s, e, f"overlap {label}: k = {OVERLAP_K} graphed (two streams) "
+                             "vs the same schedule op by op on one stream")
+            check_same(torch, m, me, f"overlap {label}: k = {OVERLAP_K} metrics")
+            row["seconds"] = time.perf_counter() - t_config
+            out[label] = row
+            print(f"overlap {label} ({row['seconds']:.1f} s): k = 1 overlapped == sequential, "
+                  f"k = {OVERLAP_K} from two sets "
+                  f"of graphs on two streams == op by op on one stream (torch.equal, generator "
+                  f"included); graphs {graphs_after_first}, no capture after the first dispatch; "
+                  f"env steps/s sequential {[round(r) for r in rates['sequential']]}, overlapped "
+                  f"{[round(r) for r in rates['overlapped']]} ({OVERLAP_DISPATCHES[label]} "
+                  f"dispatches of k = {OVERLAP_K} each, in turns); "
+                  + (f"overlap share {row['observatory']['overlap_share']} (a k = 2 dispatch; phases "
+                     f"{row['observatory']['phase_sum_ms']} ms over a busy union of "
+                     f"{row['observatory']['busy_ms']} ms in a {row['observatory']['window_ms']} "
+                     f"ms window); " if "observatory" in row else "")
+                  + results["device"]["nvidia_smi"])
+            del ovl, env, s, e, ovl_state, start, b
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["overlap"] = out
+
+
+def replay_ms(torch, graph, trials: int = 5) -> float:
+    """The median of ``trials`` replays of ``graph`` (a core/graphs.
+    PhaseGraph) between CUDA events."""
+    times = []
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def remat_phase(torch, kernels, results, shared) -> None:
+    """``ppo_update_remat`` on long-context-train's update: against the
+    update without it (the update tolerances of tests/test_torch_train.py's
+    bf16 case; bitwise or not, said), graphed == eager, K4's forward run
+    again in the backward, the eager update's peak allocator bytes and the
+    graphed update's ms, both ways."""
+    from gymfx_tpu_torch.config.flagship import long_context_config
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import fused_attention
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    config = long_context_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"))
+    # the observatory's keys-off trainer, its graphs captured
+    plain = shared.get("long") or PPOTrainer(Environment(config), ppo_config_from(config))
+    trainers = {"plain": plain,
+                "remat": PPOTrainer(plain.env, ppo_config_from({**config, "ppo_update_remat": True}))}
+    lr = trainers["plain"].pcfg.lr
+    inter, rollout_out = trainers["plain"].rollout_phase(trainers["plain"].init_state(SEED))
+    out, news = {}, {}
+    for label, tr in trainers.items():
+        fused_attention.attention_forward.launches = 0
+        fused_attention.attention_backward.launches = 0
+        new, metrics = tr.update_phase(copy_state(torch, inter), rollout_out)  # captures
+        fwd, bwd = (fused_attention.attention_forward.launches,
+                    fused_attention.attention_backward.launches)
+        eager_new, eager_metrics = tr._update_phase_eager(copy_state(torch, inter), rollout_out)
+        check_same_state(torch, new, eager_new, f"remat {label}: graphed vs eager update")
+        check_same(torch, metrics, eager_metrics, f"remat {label}: graphed vs eager metrics")
+        graph = [g for key, g in tr._graphs.items() if key[0] == "update"][0]
+        ms = replay_ms(torch, graph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr._update_phase_eager(copy_state(torch, inter), rollout_out)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        news[label] = (new, metrics)
+        out[label] = dict(update_ms=ms, eager_peak_bytes=peak, k4_forward_at_capture=fwd,
+                          k4_backward_at_capture=bwd)
+    runs = graphs.WARMUP + 1
+    check(out["plain"]["k4_forward_at_capture"] in (0, runs * 8)
+          and out["remat"]["k4_forward_at_capture"] == runs * 2 * 8
+          and out["remat"]["k4_backward_at_capture"] == runs * 8,
+          f"remat: K4 launches at the update's capture {out}: the recompute runs the forward again")
+    (p_new, p_m), (r_new, r_m) = news["plain"], news["remat"]
+    bitwise = all(torch.equal(p_new.params[k], r_new.params[k]) for k in p_new.params)
+    close = []
+    for k in p_new.params:
+        diff = (p_new.params[k] - r_new.params[k]).abs()
+        check(float(diff.max()) <= 8 * lr, f"remat: param {k} {float(diff.max())} apart")
+        close.append((diff <= 1e-4).flatten())
+    share = float(torch.cat(close).float().mean())
+    check(share >= 0.98, f"remat: {share:.4f} of the params within 1e-4")
+    for key in ("loss", "policy_loss", "value_loss", "entropy"):
+        a, b = float(p_m[key]), float(r_m[key])
+        check(abs(a - b) <= 1e-5 + 5e-3 * abs(a), f"remat: {key} {b} vs {a}")
+    out.update(bitwise=bitwise, params_within_1e_4=share)
+    results["remat"] = out
+    print(f"remat (long-context update, graphed == eager both ways): params "
+          f"{'bitwise' if bitwise else 'not bitwise'} against no remat, {share:.4%} within 1e-4 "
+          f"(all within 8 lr); K4 forward at the remat update's capture "
+          f"{out['remat']['k4_forward_at_capture']} ({runs} runs of 2 x 8: the recompute); update replay "
+          f"{out['remat']['update_ms']:.2f} ms vs {out['plain']['update_ms']:.2f} ms; the eager "
+          f"update's peak allocator bytes {out['remat']['eager_peak_bytes']:,} vs "
+          f"{out['plain']['eager_peak_bytes']:,}; {results['device']['nvidia_smi']}")
+
+
 def main() -> None:
     if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
         fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
@@ -5195,6 +5652,15 @@ def main() -> None:
         timed("configs", configs_phase, torch, kernels, results, tmp)
         # ---- 19. telemetry: the trainers' telemetry, faults, logging ------
         timed("telemetry", telemetry_phase, torch, kernels, results, tmp)
+        torch.cuda.empty_cache()
+        # ---- 20. the observatory, the overlapped superstep, remat --------
+        shared = {}  # the observatory's keys-off trainers, graphs captured
+        timed("observatory", observatory_phase, torch, kernels, results, tmp, shared)
+        timed("remat", remat_phase, torch, kernels, results, shared)
+        timed("overlap", overlap_phase, torch, kernels, results, shared)
+        shared.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

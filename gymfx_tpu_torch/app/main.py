@@ -38,7 +38,7 @@ Every entry runs on the card unless the caller passes ``device="cpu"``.
 What the port does not take raises ``core/types.not_ported`` naming its
 ROADMAP Queue 1 item: the gym loop (18), a third-party plugin (9), and,
 in training, the elastic controller, a mesh and a fault profile's mesh
-events (17), and the compile watch and the managed profiler (30).
+events (17).
 
 :func:`export_scaled_features` is the offline scaled-feature export: an
 episode's scaled feature windows ``(n_steps, window, F)`` for steps

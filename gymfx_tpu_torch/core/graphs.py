@@ -28,6 +28,7 @@ when a graph is built there.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import time
 from collections import defaultdict
@@ -69,6 +70,41 @@ def copy_tree(dst: Any, src: Any) -> None:
         torch._foreach_copy_(dsts, srcs)
 
 
+# CUgraphNodeType values of the nodes a replay's trace records
+_TRACED_NODE_TYPES = (0, 1, 2)  # kernel, memcpy, memset
+
+
+def capturing_graph_nodes(stream) -> Optional[int]:
+    """The kernel, memcpy and memset nodes of the graph ``stream`` is
+    capturing, through the driver API (``cuStreamGetCaptureInfo_v2``,
+    ``cuGraphGetNodes``, ``cuGraphNodeGetType``): a profiler trace of one
+    replay holds a record for each, so a trace that holds fewer lost some.
+    None where the driver cannot say."""
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+        status, capture_id = ctypes.c_int(), ctypes.c_uint64()
+        graph, deps, n_deps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
+        if cuda.cuStreamGetCaptureInfo_v2(
+                ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status),
+                ctypes.byref(capture_id), ctypes.byref(graph), ctypes.byref(deps),
+                ctypes.byref(n_deps)) != 0 or not graph.value:
+            return None
+        count = ctypes.c_size_t(0)
+        if cuda.cuGraphGetNodes(graph, None, ctypes.byref(count)) != 0:
+            return None
+        nodes = (ctypes.c_void_p * count.value)()
+        if cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)) != 0:
+            return None
+        kind, traced = ctypes.c_int(), 0
+        for node in nodes:
+            if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+                return None
+            traced += kind.value in _TRACED_NODE_TYPES
+        return traced
+    except (OSError, AttributeError):
+        return None
+
+
 class PhaseGraph:
     """``body(inputs) -> outputs`` over the static buffers ``inputs`` (a
     tree the owner made: its own copies, or tensors it shares with another
@@ -77,20 +113,31 @@ class PhaseGraph:
     capture (0 on the CPU).  ``capture_error_mode`` is
     ``torch.cuda.graph``'s: ``"thread_local"`` lets other threads use the
     card while this one captures (the serving engine captures beside a
-    batcher thread that replays and synchronizes)."""
+    batcher thread that replays and synchronizes).  A graph with a
+    ``name`` reports its capture to the active compile watch
+    (``telemetry/compile_watch.py``) as ``(name, signature of inputs)``."""
 
     def __init__(self, body: Callable[[Any], Any], inputs: Any,
                  generator: Optional[torch.Generator] = None,
-                 capture_error_mode: str = "global"):
+                 capture_error_mode: str = "global", name: Optional[str] = None):
         self.body, self.inputs = body, inputs
         self.outputs = None
         self.graph = None
+        # the captured graph's kernel, memcpy and memset nodes: the records
+        # a profiler trace of one replay holds (None where not captured)
+        self.nodes = None
         self.capture_s = 0.0
         self.capture_error_mode = capture_error_mode
         if _tensor_leaves(inputs)[0].device.type == "cuda":
             t0 = time.perf_counter()
             self._capture(generator)
             self.capture_s = time.perf_counter() - t0
+            if name is not None:
+                from gymfx_tpu_torch.telemetry import compile_watch
+
+                watch = compile_watch.active()
+                if watch is not None:
+                    watch.record_capture(name, body, signature(inputs), self.capture_s)
 
     def _capture(self, generator) -> None:
         side = torch.cuda.Stream()
@@ -111,6 +158,7 @@ class PhaseGraph:
         try:
             with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
                 self.outputs = self.body(self.inputs)
+                self.nodes = capturing_graph_nodes(torch.cuda.current_stream())
         finally:
             gc.enable()
         torch.cuda.synchronize()

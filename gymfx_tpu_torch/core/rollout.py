@@ -216,7 +216,7 @@ class EpisodeGraphs:
         if graph is None:
             graph = self.graphs[key] = graphs.PhaseGraph(
                 _chunk_body(cfg, params, tape, driver, length, collect, gen),
-                graphs.clone_tree(inputs), gen)
+                graphs.clone_tree(inputs), gen, name=f"episode_chunk_{length}")
         gen.set_state(generator.get_state())
         out = graph(inputs)
         generator.set_state(gen.get_state())

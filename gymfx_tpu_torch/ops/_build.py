@@ -31,7 +31,9 @@ PyTorch versions compute them; ``--use_fast_math`` is never used (IEEE
 division, accurate ``expf``).  A library's name carries a hash of its
 source and flags, so an edited source rebuilds, and a build writes to a
 temporary name and renames, so concurrent first uses never load a
-half-written file.  :func:`build_all` starts one nvcc per kernel
+half-written file.  Each build, and each first use that finds the
+library already built, is reported to the active compile watch
+(``telemetry/compile_watch.py``).  :func:`build_all` starts one nvcc per kernel
 library (:data:`KERNEL_LIBRARIES`, every source but the probe) at once.  Nothing is built or loaded at import: the CPU tests import every
 module on a machine without nvcc.
 """
@@ -45,6 +47,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -92,9 +95,10 @@ def library_path(name: str = "env") -> pathlib.Path:
     return BUILD_DIR / f"libgymfx_{name}_{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str, ptxas_verbose: bool) -> Optional[Tuple[subprocess.Popen, str]]:
+def _start(name: str, ptxas_verbose: bool) -> Optional[Tuple[subprocess.Popen, str, float]]:
     """Start nvcc for library ``name`` unless it is built (and no
-    register report is asked for); returns (process, temporary path)."""
+    register report is asked for); returns (process, temporary path,
+    start time)."""
     if library_path(name).exists() and not ptxas_verbose:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -104,14 +108,22 @@ def _start(name: str, ptxas_verbose: bool) -> Optional[Tuple[subprocess.Popen, s
     if ptxas_verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, str(SOURCES[name])]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, time.perf_counter())
 
 
 def _finish(name: str, started) -> Tuple[pathlib.Path, str]:
+    """Wait for ``started`` (None: the library was built before) and report
+    the build, or the cache hit, to the active compile watch."""
+    from gymfx_tpu_torch.telemetry import compile_watch
+
     path = library_path(name)
+    watch = compile_watch.active()
     if started is None:
+        if watch is not None:
+            watch.record_build(name, cached=True)
         return path, ""
-    proc, tmp = started
+    proc, tmp, t0 = started
     try:
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -120,6 +132,8 @@ def _finish(name: str, started) -> Tuple[pathlib.Path, str]:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    if watch is not None:
+        watch.record_build(name, cached=False, duration_s=time.perf_counter() - t0)
     return path, out
 
 

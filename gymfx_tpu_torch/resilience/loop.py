@@ -20,10 +20,15 @@ for one device.
     the iteration's checkpoint, :class:`SimulatedPreemptionError`;
   * the delayed metric drains (``loggers``: DelayedLogger /
     DeviceMetricStream) flushed on every exit path, and the run ledger's
-    and flight recorder's rows and dumps (``ledger``, ``recorder``).
+    and flight recorder's rows and dumps (``ledger``, ``recorder``);
+  * the managed profiler capture (``profiler``,
+    telemetry/profiler.ProfilerSession): :meth:`ResilientLoop.
+    begin_superstep` opens the window of a due superstep before its
+    dispatch, :meth:`ResilientLoop.after_superstep` closes it (one
+    synchronize) and writes the capture bundle.
 
-The JAX loop's profiler capture comes with ROADMAP.md Queue 1 item 30,
-its mesh faults with item 17; the trainers raise when one is asked for.
+The JAX loop's mesh faults come with ROADMAP.md Queue 1 item 17; the
+trainers raise when one is asked for.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ class ResilientLoop:
         loggers: Tuple[Any, ...] = (),
         ledger: Any = None,
         recorder: Any = None,
+        profiler: Any = None,
         checkpoint_keep: int = 0,
     ):
         self.steps_per_iter = int(steps_per_iter)
@@ -81,6 +87,8 @@ class ResilientLoop:
         # postmortem bundle on the abort paths
         self.ledger = ledger
         self.recorder = recorder
+        # the managed profiler capture: the loop owns the cadence
+        self.profiler = profiler
         # newest-N checkpoint retention (0 = keep everything); the
         # resume-entry step is always protected
         self.checkpoint_keep = int(checkpoint_keep or 0)
@@ -134,6 +142,14 @@ class ResilientLoop:
                 self.recorder.dump("divergence", extra={"it": int(it_start + k)})
             raise
 
+    def begin_superstep(self, it_start: int, k: int = 1) -> bool:
+        """Open a profiler capture window when the cadence says the
+        dispatch of ``[it_start, it_start + k)`` is due; returns whether a
+        capture is open.  False at once without a profiler."""
+        if self.profiler is None:
+            return False
+        return self.profiler.start_capture(it_start, k)
+
     def after_superstep(self, it_start: int, k: int, metrics: Dict[str, Any],
                         state_fn: StateFn) -> None:
         """Call once right after dispatching iterations ``[it_start,
@@ -145,6 +161,10 @@ class ResilientLoop:
         it_end = it_start + k
         if self.ledger is not None:
             self.ledger.record("superstep_dispatch", it_start=int(it_start), k=int(k))
+        if self.profiler is not None and self.profiler.capturing:
+            # close the window begin_superstep opened (never raises),
+            # before the watchdog, so that an abort still gets its bundle
+            self.profiler.finish_capture()
         if self.monitor is not None:
             # this superstep's copy is enqueued before the previous one is read
             pending = (it_start, k, HostCopy({key: metrics[key] for key in GUARD_METRIC_KEYS

@@ -919,8 +919,7 @@ def batcher_from_config(engine, config, *, instruments=None) -> MicroBatcher:
     including the serving circuit breaker when
     ``serve_breaker_threshold`` > 0, and ``instruments`` (telemetry/
     instruments.ServeInstruments, or None).  The fleet
-    (``serve_fleet_replicas`` > 0, ROADMAP.md Queue 1 item 16) and the
-    performance observatory's keys (item 30) raise."""
+    (``serve_fleet_replicas`` > 0, ROADMAP.md Queue 1 item 16) raises."""
     from gymfx_tpu_torch.resilience.retry import CircuitBreaker
     from gymfx_tpu_torch.serve.config import ServeConfig, serve_config_from
     from gymfx_tpu_torch.serve.engine import check_serving_config

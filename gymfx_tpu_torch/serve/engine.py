@@ -748,16 +748,13 @@ class EngineBundle(NamedTuple):
 def check_serving_config(config: Dict[str, Any]) -> None:
     """Raise for the serving features the port has not reached: the
     decision fleet (ROADMAP.md Queue 1 item 16; with it a fault profile's
-    fleet events) and the performance observatory's telemetry keys (item
-    30)."""
+    fleet events)."""
     from gymfx_tpu_torch.resilience.faults import parse_fault_profile, refuse_mesh_and_fleet
-    from gymfx_tpu_torch.telemetry import refuse_observatory_keys
 
     if int(config.get("serve_fleet_replicas", 0) or 0) > 0:
         raise not_ported("the decision fleet (serve_fleet_replicas > 0)", 16)
     refuse_mesh_and_fleet(parse_fault_profile(config.get("fault_profile")), mesh=False,
                           fleet=True)
-    refuse_observatory_keys(config)
 
 
 def engine_health(engine: "InferenceEngine") -> Dict[str, Any]:
@@ -871,6 +868,9 @@ def engine_from_config(
         engine.enable_slots(scfg.session_slots, mirror=scfg.slot_mirror)
     telemetry = telemetry_from_config(config)
     if telemetry is not None:
+        if telemetry.compile_watch is not None:
+            # the boot ladder's buckets now, later captures as they come
+            telemetry.compile_watch.watch_engine(engine)
         telemetry.start_http(health_fn=lambda: engine_health(engine))
     return EngineBundle(
         engine=engine,

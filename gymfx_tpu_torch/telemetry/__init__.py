@@ -3,9 +3,10 @@
 The port of ``gymfx_tpu/telemetry/`` (ROADMAP.md Queue 1 item 10): the
 registry, sink, Prometheus exposition, SLO window, spans, analytic MFU,
 run ledger, flight recorder, the one-dispatch-late device metric stream,
-the ``/metrics`` + ``/healthz`` endpoint and the serving instruments.
-The performance observatory (the profiler capture, trace parsing,
-attribution and the compile watch) comes with item 30.
+the ``/metrics`` + ``/healthz`` endpoint and the serving instruments; and
+the performance observatory (item 30): the managed ``torch.profiler``
+capture (profiler.py), its trace parser (trace_parse.py), the profile
+report (attribution.py) and the compile watch (compile_watch.py).
 
 The :class:`Telemetry` bundle is the object the trainers and the serving
 stack thread around; :func:`telemetry_from_config` is the single
@@ -26,15 +27,17 @@ Config keys (config/defaults.py, all default off):
   ``telemetry_ledger``              append-only JSONL run-ledger path
   ``telemetry_flight_recorder_dir`` postmortem bundle directory
   ``telemetry_flight_recorder_k``   frames the ring buffer retains
-
-``telemetry_compile_watch``, ``telemetry_profile_dir``,
-``telemetry_profile_supersteps`` and ``telemetry_profile_every`` raise
-``not_ported(..., 30)``.
+  ``telemetry_compile_watch``       graph captures and kernel builds as
+                                    metrics, recompiles detected
+  ``telemetry_profile_dir``         managed profiler capture bundles
+  ``telemetry_profile_supersteps``  which supersteps to capture ("1")
+  ``telemetry_profile_every``       and every Nth superstep (0 = off)
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+from gymfx_tpu_torch.telemetry.compile_watch import CompileWatch  # noqa: F401
 from gymfx_tpu_torch.telemetry.device_stream import (  # noqa: F401
     DelayedLogger,
     DeviceMetricStream,
@@ -44,6 +47,7 @@ from gymfx_tpu_torch.telemetry.flight_recorder import (  # noqa: F401
     FlightRecorder,
     validate_postmortem,
 )
+from gymfx_tpu_torch.telemetry.profiler import ProfilerSession  # noqa: F401
 from gymfx_tpu_torch.telemetry.ledger import (  # noqa: F401
     RunLedger,
     config_digest,
@@ -64,6 +68,7 @@ from gymfx_tpu_torch.telemetry.slo import SLOWindow  # noqa: F401
 from gymfx_tpu_torch.telemetry.spans import Tracer, null_tracer  # noqa: F401
 
 __all__ = [
+    "CompileWatch",
     "Counter",
     "DelayedLogger",
     "DeviceMetricStream",
@@ -73,6 +78,7 @@ __all__ = [
     "HostCopy",
     "JsonlSink",
     "MetricsRegistry",
+    "ProfilerSession",
     "RunLedger",
     "SLOWindow",
     "Telemetry",
@@ -80,7 +86,6 @@ __all__ = [
     "config_digest",
     "get_active_ledger",
     "null_tracer",
-    "refuse_observatory_keys",
     "register_resilience",
     "resilience_snapshot",
     "set_active_ledger",
@@ -88,11 +93,6 @@ __all__ = [
     "validate_ledger",
     "validate_postmortem",
 ]
-
-# the performance observatory's keys (ROADMAP.md Queue 1 item 30)
-OBSERVATORY_KEYS = ("telemetry_compile_watch", "telemetry_profile_dir",
-                    "telemetry_profile_supersteps", "telemetry_profile_every")
-
 
 class Telemetry:
     """Registry + sink + tracer + serving knobs for one run."""
@@ -107,6 +107,8 @@ class Telemetry:
         http_port: Optional[int] = None,
         ledger: Optional[RunLedger] = None,
         recorder: Optional[FlightRecorder] = None,
+        compile_watch: Optional[CompileWatch] = None,
+        profiler: Optional[ProfilerSession] = None,
     ):
         self.registry = registry if registry is not None else MetricsRegistry()
         self.sink = sink
@@ -115,6 +117,8 @@ class Telemetry:
         self.http_port = None if http_port is None else int(http_port)
         self.ledger = ledger
         self.recorder = recorder
+        self.compile_watch = compile_watch
+        self.profiler = profiler
         self._server = None
 
     # -- construction helpers the layers share -------------------------
@@ -158,6 +162,10 @@ class Telemetry:
         if self._server is not None:
             self._server.close()
             self._server = None
+        if self.profiler is not None:
+            self.profiler.close()  # a capture an aborted loop left open
+        if self.compile_watch is not None:
+            self.compile_watch.uninstall()
         if self.ledger is not None:
             if get_active_ledger() is self.ledger:
                 set_active_ledger(None)
@@ -166,22 +174,11 @@ class Telemetry:
             self.sink.close()
 
 
-def refuse_observatory_keys(config: Dict[str, Any]) -> None:
-    """``not_ported(..., 30)`` for a set key of the performance
-    observatory (the compile watch and the managed profiler)."""
-    from gymfx_tpu_torch.core.types import not_ported
-
-    for key in OBSERVATORY_KEYS:
-        if config.get(key) not in (None, False, "", 0):
-            raise not_ported(f"{key} (the performance observatory, telemetry/profiler.py "
-                             "and compile_watch.py)", 30)
-
-
 def telemetry_from_config(config: Dict[str, Any]) -> Optional[Telemetry]:
     """``None`` unless some ``telemetry_*`` key is set — the contract
-    callers rely on to keep the off path untouched.  The observatory's
-    keys raise (item 30)."""
-    refuse_observatory_keys(config)
+    callers rely on to keep the off path untouched.  The cadence keys
+    alone build nothing: ``telemetry_profile_dir`` is the profiler's
+    master switch."""
     enabled = bool(config.get("telemetry_enabled"))
     jsonl = config.get("telemetry_jsonl") or None
     spans = bool(config.get("telemetry_spans"))
@@ -189,8 +186,10 @@ def telemetry_from_config(config: Dict[str, Any]) -> Optional[Telemetry]:
     port = None if port in (None, "") or int(port) < 0 else int(port)
     ledger_path = config.get("telemetry_ledger") or None
     recorder_dir = config.get("telemetry_flight_recorder_dir") or None
+    watch = bool(config.get("telemetry_compile_watch"))
+    profile_dir = config.get("telemetry_profile_dir") or None
     if not (enabled or jsonl or spans or port is not None
-            or ledger_path or recorder_dir):
+            or ledger_path or recorder_dir or watch or profile_dir):
         return None
     registry = MetricsRegistry()
     sink = JsonlSink(str(jsonl)) if jsonl else None
@@ -212,6 +211,20 @@ def telemetry_from_config(config: Dict[str, Any]) -> Optional[Telemetry]:
         recorder.set_resilience_source(
             lambda: resilience_snapshot(registry)
         )
+    compile_watch = None
+    if watch:
+        compile_watch = CompileWatch(registry, ledger=ledger, recorder=recorder).install()
+    profiler = None
+    if profile_dir:
+        profiler = ProfilerSession(
+            str(profile_dir),
+            supersteps=config.get("telemetry_profile_supersteps"),
+            every=int(config.get("telemetry_profile_every", 0) or 0),
+            config_sha256=sha,
+            registry=registry,
+            ledger=ledger,
+            compile_watch=compile_watch,
+        )
     return Telemetry(
         registry=registry,
         sink=sink,
@@ -220,4 +233,6 @@ def telemetry_from_config(config: Dict[str, Any]) -> Optional[Telemetry]:
         http_port=port,
         ledger=ledger,
         recorder=recorder,
+        compile_watch=compile_watch,
+        profiler=profiler,
     )

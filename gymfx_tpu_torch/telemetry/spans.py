@@ -122,7 +122,7 @@ class Tracer:
                 labels=("span",),
                 buckets=SPAN_BUCKETS,
             )
-        self._annotation_cls = _profiler_annotation if use_profiler_annotation else None
+        self._annotation_cls = profiler_range if use_profiler_annotation else None
 
     def _stack(self) -> List[_Span]:
         stack = getattr(self._local, "stack", None)
@@ -156,7 +156,7 @@ class Tracer:
             self.sink.append(row)
 
 
-def _profiler_annotation(name: str):
+def profiler_range(name: str):
     """``torch.profiler.record_function(name)`` while a profiler session
     records, else a no-op context (outside a session the annotation would
     cost an allocation a span and record nothing)."""

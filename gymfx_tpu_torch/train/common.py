@@ -1,5 +1,6 @@
 """Shared trainer helpers: the port of ``gymfx_tpu/train/common.py``'s
-``make_train_many_with_data`` (:43-57), ``build_train_eval_envs``
+``make_train_many_with_data`` (:43-57), ``make_train_many_overlapped``
+(:60-128), ``profiler_workload`` (:448-520), ``build_train_eval_envs``
 (:126-187), ``build_portfolio_train_eval_envs`` (:201-246),
 ``labeled_eval_summary`` and ``eval_checkpointed_policy``
 (:249-311), ``validate_minibatch_scheme`` and
@@ -7,13 +8,17 @@
 and ``masked_reset``; ``member_minibatch_plan`` is ``minibatch_plan``
 over a population's member axis (the JAX package's ``vmap`` of it).
 
-Trees of fields are dicts of tensors.  ``make_train_many_with_data`` is
-the eager loop (the CPU's): on a CUDA device ``PPOTrainer`` chains its
-phases' graph replays instead (train/ppo.py); either way the metrics
-come back stacked on a leading ``(k,)`` axis, on the device.
+Trees of fields are dicts of tensors.  ``make_train_many_with_data`` and
+``make_train_many_overlapped`` are the eager loops (the CPU's): on a CUDA
+device the trainers chain their phases' graph replays instead
+(train/ppo.py, and :func:`run_overlapped_graphed` for the overlapped
+schedule on two streams); either way the metrics come back stacked on a
+leading ``(k,)`` axis, on the device.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -56,7 +61,7 @@ class TrainLoop:
     loop but the ResilientLoop it always had."""
 
     def __init__(self, algo: str, *, iters: int, steps_per_iter: int, log_every: int = 0,
-                 telemetry=None, metrics_stream: bool = True, **loop_kwargs):
+                 telemetry=None, metrics_stream: bool = True, workload=None, **loop_kwargs):
         self.algo, self.telemetry = algo, telemetry
         self.logger = None
         if metrics_stream:
@@ -69,7 +74,12 @@ class TrainLoop:
             steps_per_iter=steps_per_iter,
             loggers=() if self.logger is None else (self.logger,),
             ledger=None if telemetry is None else telemetry.ledger,
-            recorder=None if telemetry is None else telemetry.recorder, **loop_kwargs)
+            recorder=None if telemetry is None else telemetry.recorder,
+            profiler=None if telemetry is None else telemetry.profiler, **loop_kwargs)
+        # the profiler's workload payload, ``workload(it_start, k)``,
+        # resolved when a capture bundle is written
+        if self.hooks.profiler is not None and workload is not None:
+            self.hooks.profiler.set_workload_source(workload)
 
     def start(self, rng_state: Callable[[], Any]) -> None:
         """Bind the telemetry to the run: the flight recorder's generator
@@ -85,6 +95,11 @@ class TrainLoop:
 
     def span(self, it: int, k: int):
         return self.tracer.span("train/superstep", algo=self.algo, it=it, k=k)
+
+    def begin_superstep(self, it: int, k: int) -> bool:
+        """Before dispatching iterations ``[it, it + k)``: open the
+        profiler's capture window when this superstep is due."""
+        return self.hooks.begin_superstep(it, k)
 
     def after_superstep(self, it: int, k: int, metrics: Dict[str, Any], state_fn) -> None:
         """Right after dispatching iterations ``[it, it + k)``: the drain
@@ -117,6 +132,153 @@ def make_train_many_with_data(step: Callable):
         return state, {key: torch.stack([m[key] for m in history]) for key in history[0]}
 
     return train_many
+
+
+def split_generator(generator: torch.Generator) -> Tuple[torch.Generator, torch.Generator]:
+    """Two generators for one overlapped body, the rollout's and the
+    update's (the JAX package's ``jax.random.split(inter.rng)``): seeded
+    from a sha256 of ``generator``'s state, on its device.  A host
+    computation that draws nothing, so the two phases' draws are a function
+    of the schedule and never of which stream runs first."""
+    digest = hashlib.sha256(generator.get_state().numpy().tobytes()).digest()
+    return tuple(torch.Generator(device=generator.device).manual_seed(
+        int.from_bytes(digest[8 * i: 8 * i + 8], "little") >> 1) for i in (0, 1))
+
+
+def make_train_many_overlapped(rollout_phase: Callable, update_phase: Callable,
+                               learner_fields: Tuple[str, ...] = ("params", "opt_state")):
+    """The pipelined superstep, op by op (the JAX package's
+    ``make_train_many_overlapped``, :60-128): ``train_many(state, k)`` runs
+    a prologue rollout, then ``k - 1`` bodies of {rollout i+1 on the params
+    before the update, update i}, then the epilogue update: as many
+    rollouts and updates as the sequential driver.
+
+    ``rollout_phase(state) -> (inter, rollout_out)`` and
+    ``update_phase(state, rollout_out) -> (state, metrics)`` draw from
+    ``state.generator``.  Each body splits the carried generator
+    (:func:`split_generator`): the rollout draws from the first, which the
+    carry keeps, the update from the second; the update's
+    ``learner_fields`` are merged into the rollout's carry, so the
+    rollouts act on params one update stale and the update's quarantine
+    resets are dropped inside a dispatch (the JAX semantics).  ``k = 1``
+    is the sequential train step.  Returns (state, metrics stacked on a
+    leading ``(k,)`` axis); the caller's generator ends where the carried
+    one did."""
+
+    def merge(rolled, updated):
+        return rolled._replace(**{f: getattr(updated, f) for f in learner_fields})
+
+    def train_many(state, k: int):
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"train_many needs k >= 1, got {k}")
+        caller = state.generator
+        inter, rollout_out = rollout_phase(state)
+        history = []
+        for _ in range(k - 1):
+            g_roll, g_upd = split_generator(inter.generator)
+            inter2, rollout_out2 = rollout_phase(inter._replace(generator=g_roll))
+            updated, metrics = update_phase(inter._replace(generator=g_upd), rollout_out)
+            history.append(metrics)
+            inter, rollout_out = merge(inter2, updated), rollout_out2
+        final, last = update_phase(inter, rollout_out)
+        history.append(last)
+        if final.generator is not caller:
+            caller.set_state(final.generator.get_state())
+            final = final._replace(generator=caller)
+        return final, {key: torch.stack([m[key] for m in history]) for key in last}
+
+    return train_many
+
+
+def run_overlapped_graphed(state, k: int, rollout, update, learner_fields: Tuple[str, ...],
+                           side: Optional["torch.cuda.Stream"]):
+    """:func:`make_train_many_overlapped`'s schedule from two sets of phase
+    graphs on two streams: rollout j and update j replay the graphs of set
+    ``j % 2``, each set with its own static buffers and memory pools, so
+    that rollout i+1 (set B, the current stream) never writes what update
+    i (set A, ``side``) reads, and update i writes its params into its own
+    static outputs while rollout i+1 reads the ones before it.
+
+    ``rollout(state, s, generator) -> (inter, rollout_out, graph)`` replays
+    set ``s``'s rollout graph on the current stream; ``update(inter,
+    rollout_out, graph, s, generator) -> (state, metrics)`` replays set
+    ``s``'s update graph, which reads ``graph``'s buffers; both return the
+    static outputs.  Events join the streams: update i waits for rollout
+    i, rollout i+1 for update i-1 (its params, and its reads of set B's
+    buffers), the epilogue update (on the current stream) for update k-2,
+    so everything the caller enqueues after this returns (the metrics'
+    pinned copy, the late read's event) follows both phases of every
+    body.  Each body's metrics are stacked on ``side`` right after its
+    update, before the set's next replay overwrites them.  With ``side``
+    None (the CPU's static-buffer graphs) the same schedule runs in order
+    on the one device queue."""
+    streams = side is not None
+    main = torch.cuda.current_stream() if streams else None
+    caller = gen = state.generator
+    inter, rollout_out, graph = rollout(state, 0, gen)
+    rolled = main.record_event() if streams else None
+    updated_ev = None
+    history = []
+    for i in range(k - 1):
+        g_roll, g_upd = split_generator(gen)
+        if streams:
+            side.wait_event(rolled)
+        with torch.cuda.stream(side) if streams else contextlib.nullcontext():
+            updated, metrics = update(inter._replace(generator=g_upd), rollout_out, graph, i % 2,
+                                      g_upd)
+            stacked = torch.stack(list(metrics.values()))
+            done = side.record_event() if streams else None
+        if streams:
+            stacked.record_stream(main)
+            if updated_ev is not None:
+                main.wait_event(updated_ev)
+        history.append(stacked)
+        inter2, rollout_out, graph = rollout(inter._replace(generator=g_roll), (i + 1) % 2, g_roll)
+        rolled = main.record_event() if streams else None
+        inter = inter2._replace(**{f: getattr(updated, f) for f in learner_fields})
+        updated_ev, gen = done, g_roll
+    if updated_ev is not None:
+        main.wait_event(updated_ev)
+    final, last = update(inter, rollout_out, graph, (k - 1) % 2, gen)
+    history.append(torch.stack(list(last.values())))
+    if gen is not caller:
+        caller.set_state(gen.get_state())
+    return final._replace(generator=caller), dict(zip(last, torch.stack(history).unbind(1)))
+
+
+def profiler_workload(trainer, state, k: int, *, algo: str, params, n_envs: int, horizon: int,
+                      update_epochs: int = 1, split_iters: int = 2, data=None) -> Dict[str, Any]:
+    """The workload payload of a capture bundle's manifest
+    (``ProfilerSession.set_workload_source``; the JAX package's :448-520):
+    the analytic FLOPs of a train step (``telemetry/mfu``) and the
+    ``bench_util.measure_phase_split`` baseline the report reconciles
+    against, measured from a clone of the live ``state`` that is copied
+    back (its tensors are the graphs' static outputs), after the capture
+    window.  No XLA cost model exists here: ``xla_flops_*`` are None.
+    Never raises (a failed part is None)."""
+    from gymfx_tpu_torch.bench_util import measure_phase_split
+    from gymfx_tpu_torch.telemetry.mfu import analytic_train_step_flops
+
+    info: Dict[str, Any] = {"algo": str(algo), "n_envs": int(n_envs), "horizon": int(horizon),
+                            "steps_per_iter": int(n_envs) * int(horizon),
+                            "xla_flops_per_dispatch": None, "xla_flops_per_step": None}
+    try:
+        info["analytic_flops_per_step"] = analytic_train_step_flops(
+            params, num_envs=int(n_envs), horizon=int(horizon), update_epochs=int(update_epochs))
+    except Exception:
+        info["analytic_flops_per_step"] = None
+    try:
+        split = measure_phase_split(trainer, state, int(split_iters), data)
+    except Exception:
+        split = None
+    info["phase_split"] = None if split is None else {
+        "rollout_ms": split[0] / int(split_iters) * 1e3,
+        "update_ms": split[1] / int(split_iters) * 1e3,
+        "iters": int(split_iters),
+        "source": "measure_phase_split",
+    }
+    return info
 
 
 def build_train_eval_envs(config: Dict[str, Any], *, device=None) -> Tuple[Any, Optional[Any]]:

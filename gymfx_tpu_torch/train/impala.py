@@ -41,10 +41,14 @@ Test hooks: ``rollout_phase(state, actions=...)`` replaces the actors'
 draws with given ones (on the card copied into the static buffer of a
 graph of their own), so a test can feed the JAX package's draws.
 
-``feed=curriculum`` (the tape as a phase argument) and
-``superstep_overlap`` raise ``not_ported`` with their ROADMAP items, as do
-telemetry, fault profiles, ``log_every``, a mesh and the elastic
-controller.
+``superstep_overlap`` pipelines the superstep as PPO's does
+(``train/common.make_train_many_overlapped``; on the card two sets of
+graphs on two streams, ``train/common.run_overlapped_graphed``), the
+update's learner fields (learner and actor params, the optimizer state,
+the staleness counter) merged into the next rollout's carry.
+``feed=curriculum`` (the tape as a phase argument) raises ``not_ported``
+(item 11), and with ``superstep_overlap`` the JAX package's ValueError; a
+mesh and the elastic controller raise (item 17).
 """
 from __future__ import annotations
 
@@ -61,12 +65,16 @@ from gymfx_tpu_torch.core.types import EnvState, not_ported
 from gymfx_tpu_torch.resilience.guards import quarantine_mask, select_tree, tree_all_finite, tree_map
 from gymfx_tpu_torch.train import ppo
 from gymfx_tpu_torch.train.checkpoint import resume_from_config, save_checkpoint
+from gymfx_tpu_torch.telemetry.spans import profiler_range
 from gymfx_tpu_torch.train.common import (
     TrainLoop,
     build_train_eval_envs,
     labeled_eval_summary,
+    make_train_many_overlapped,
     make_train_many_with_data,
     masked_reset,
+    profiler_workload,
+    run_overlapped_graphed,
 )
 from gymfx_tpu_torch.train.optim import AdamState, ClipAdam, apply_updates
 from gymfx_tpu_torch.train.policies import (
@@ -124,6 +132,13 @@ def impala_config_from(config: Dict[str, Any]) -> ImpalaConfig:
     )
 
 
+# what the update owns, merged into the next rollout's carry under
+# superstep_overlap (the JAX package's :197-205)
+LEARNER_FIELDS = ("learner_params", "actor_params", "opt_state", "updates_since_sync")
+# the update graph's inputs that are the rollout graph's static buffers
+_SHARED = ("actor_params", "env_states", "obs_vec", "policy_carry", "traj", "init_carry")
+
+
 class ImpalaState(NamedTuple):
     learner_params: Dict[str, torch.Tensor]
     actor_params: Dict[str, torch.Tensor]  # the actors' stale copy, its own buffers
@@ -142,8 +157,8 @@ class ImpalaTrainer(ppo.PolicyTrainer):
     run a phase op by op on any device, for comparisons."""
 
     def __init__(self, env: Environment, icfg: ImpalaConfig):
-        if icfg.superstep_overlap:
-            raise not_ported("superstep_overlap (the pipelined superstep driver)", 20)
+        if env.curriculum is not None and icfg.superstep_overlap:
+            raise ValueError(ppo.CURRICULUM_OVERLAP_ERROR)
         if env.curriculum is not None:
             raise not_ported("IMPALA over feed=curriculum (train_many_with_data)", 11)
         self.env = env
@@ -168,7 +183,7 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         self._guard_updates = torch.ones((), device=self.device)
         self._graphs_on = self.device.type == "cuda"
         self._graphs: Dict[tuple, graphs.PhaseGraph] = {}
-        self._gen = torch.Generator(device=self.device)
+        self._gens = tuple(torch.Generator(device=self.device) for _ in range(2))
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> ImpalaState:
@@ -213,9 +228,10 @@ class ImpalaTrainer(ppo.PolicyTrainer):
     def _rollout_phase_eager(self, state: ImpalaState, data=None, *, actions=None):
         """:meth:`rollout_phase` op by op, drawing from ``state.generator``."""
         self._refuse_data(data)
-        env_states, obs_vec, pcarry, traj = self._rollout_body(
-            state.actor_params, state.env_states, state.obs_vec, state.policy_carry,
-            state.generator, actions)
+        with profiler_range("rollout"):
+            env_states, obs_vec, pcarry, traj = self._rollout_body(
+                state.actor_params, state.env_states, state.obs_vec, state.policy_carry,
+                state.generator, actions)
         return (state._replace(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry),
                 (traj, state.policy_carry))
 
@@ -339,7 +355,8 @@ class ImpalaTrainer(ppo.PolicyTrainer):
     def _update_phase_eager(self, state: ImpalaState, rollout_out, data=None):
         """:meth:`update_phase` op by op."""
         self._refuse_data(data)
-        out = self._update_body(self._update_inputs(state, rollout_out))
+        with profiler_range("update"):
+            out = self._update_body(self._update_inputs(state, rollout_out))
         return self._updated_state(out, state.generator), out["metrics"]
 
     @staticmethod
@@ -409,10 +426,38 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         """``k`` train steps: (state, metrics stacked on a leading ``(k,)``
         axis, on the device); on the card the 2k replays are chained with
         no host round trip and the state is donated as in
-        :meth:`train_step`."""
+        :meth:`train_step`.  Under ``superstep_overlap`` (``k > 1``) the
+        superstep is pipelined (see the module docstring)."""
+        if self.icfg.superstep_overlap and int(k) > 1:
+            if self._graphs_on:
+                return self._train_many_overlapped_graphed(state, int(k))
+            return make_train_many_overlapped(self.rollout_phase, self.update_phase,
+                                              LEARNER_FIELDS)(state, k)
         if self._graphs_on:
             return self._train_many_graphed(state, k)
         return make_train_many_with_data(lambda s, _: self.train_step(s))(state, None, k)
+
+    def _train_many_overlapped_graphed(self, state: ImpalaState, k: int):
+        """The overlapped superstep from the graphs of sets A (the
+        sequential step's) and B on two streams."""
+
+        def rollout(s, which, generator):
+            # the actor params it read, from its own static input (see
+            # PPOTrainer._train_many_overlapped_graphed)
+            graph = self._rollout_graphed(s, {}, which, generator)
+            out = graph.outputs
+            return (s._replace(actor_params=graph.inputs["actor_params"],
+                               env_states=out["env_states"], obs_vec=out["obs_vec"],
+                               policy_carry=out["policy_carry"]),
+                    (out["traj"], graph.inputs["policy_carry"]), graph)
+
+        def update(s, rollout_out, graph, which, generator):
+            out = self._update_graphed(self._update_inputs(s, rollout_out), generator, _SHARED,
+                                       which, buffers=self._update_buffers(s, graph)).outputs
+            return self._updated_state(out, generator), out["metrics"]
+
+        return run_overlapped_graphed(state, k, rollout, update, LEARNER_FIELDS,
+                                      self._side_stream())
 
     def _train_many_graphed(self, state: ImpalaState, k: int):
         k = int(k)
@@ -437,31 +482,52 @@ class ImpalaTrainer(ppo.PolicyTrainer):
             graph = self._graphs[key] = build()
         return graph
 
-    def _rollout_graphed(self, state: ImpalaState, hooks):
-        """The rollout graph for ``state``, run: its static inputs are
-        actor_params, env_states, obs_vec and policy_carry (the carry the
-        actors start from), its static outputs env_states, obs_vec,
+    def _rollout_graphed(self, state: ImpalaState, hooks, s: int = 0, generator=None):
+        """The rollout graph of set ``s`` for ``state``, run from
+        ``generator`` (``state.generator`` by default): its static inputs
+        are actor_params, env_states, obs_vec and policy_carry (the carry
+        the actors start from), its static outputs env_states, obs_vec,
         policy_carry and traj."""
         inputs = dict(actor_params=state.actor_params, env_states=state.env_states,
                       obs_vec=state.obs_vec, policy_carry=state.policy_carry, **hooks)
+        gen = self._gens[s]
 
         def body(x):
             env_states, obs_vec, pcarry, traj = self._rollout_body(
-                x["actor_params"], x["env_states"], x["obs_vec"], x["policy_carry"], self._gen,
+                x["actor_params"], x["env_states"], x["obs_vec"], x["policy_carry"], gen,
                 x.get("actions"))
             return dict(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry, traj=traj)
 
-        graph = self._graph("rollout", inputs, lambda: graphs.PhaseGraph(
-            body, graphs.clone_tree(inputs), self._gen))
-        return self._replay(graph, inputs, state.generator)
+        kind = ppo._KINDS["rollout"][s]
+        graph = self._graph(kind, inputs, lambda: graphs.PhaseGraph(
+            body, graphs.clone_tree(inputs), gen, name=f"{type(self).__name__}.{kind}"))
+        return self._replay("rollout", graph, inputs,
+                            state.generator if generator is None else generator, s)
 
-    def _update_graphed(self, inputs, generator, shared=()):
-        """The update graph for ``inputs``, run; a graph built here takes
-        the tensors of ``inputs`` named in ``shared`` as its static buffers
-        (the rollout graph's), and copies of the rest."""
-        graph = self._graph("update", inputs, lambda: graphs.PhaseGraph(self._update_body, {
-            k: v if k in shared else graphs.clone_tree(v) for k, v in inputs.items()}, self._gen))
-        return self._replay(graph, inputs, generator)
+    def _update_graphed(self, inputs, generator, shared=(), s: int = 0, buffers=None):
+        """The update graph of set ``s`` for ``inputs``, run; a graph built
+        here takes the tensors named in ``shared`` of ``buffers``
+        (``inputs`` by default: the rollout graph's buffers) as its static
+        buffers, and copies of the rest."""
+        static = inputs if buffers is None else buffers
+        kind = ppo._KINDS["update"][s]
+        graph = self._graph(kind, inputs, lambda: graphs.PhaseGraph(self._update_body, {
+            k: v if k in shared else graphs.clone_tree(v) for k, v in static.items()},
+            self._gens[s], name=f"{type(self).__name__}.{kind}"))
+        return self._replay("update", graph, inputs, generator, s)
+
+    @staticmethod
+    def _update_buffers(state: ImpalaState, graph) -> Dict[str, Any]:
+        """The update graph's inputs for ``state`` after the rollout graph
+        ``graph``: its actor params and, as the carry the actors started
+        from, its input carry; its outputs; the rest ``state``'s."""
+        out = graph.outputs
+        return dict(learner_params=state.learner_params,
+                    actor_params=graph.inputs["actor_params"], opt_state=state.opt_state,
+                    env_states=out["env_states"], obs_vec=out["obs_vec"],
+                    policy_carry=out["policy_carry"],
+                    updates_since_sync=state.updates_since_sync, traj=out["traj"],
+                    init_carry=graph.inputs["policy_carry"])
 
     def _train_step_graphed(self, state: ImpalaState):
         """One train step from the graphs: (state, metrics), both the
@@ -469,15 +535,8 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         graph's static buffers: its outputs, its actor params and, as the
         carry the actors started from, its input carry."""
         graph = self._rollout_graphed(state, {})
-        out = graph.outputs
-        inputs = dict(learner_params=state.learner_params,
-                      actor_params=graph.inputs["actor_params"], opt_state=state.opt_state,
-                      env_states=out["env_states"], obs_vec=out["obs_vec"],
-                      policy_carry=out["policy_carry"],
-                      updates_since_sync=state.updates_since_sync, traj=out["traj"],
-                      init_carry=graph.inputs["policy_carry"])
-        shared = ("actor_params", "env_states", "obs_vec", "policy_carry", "traj", "init_carry")
-        out = self._update_graphed(inputs, state.generator, shared).outputs
+        out = self._update_graphed(self._update_buffers(state, graph), state.generator,
+                                   _SHARED).outputs
         return self._updated_state(out, state.generator), out["metrics"]
 
     # ------------------------------------------------------------------
@@ -515,6 +574,9 @@ class ImpalaTrainer(ppo.PolicyTrainer):
             checkpoint_metadata=checkpoint_metadata,
             max_consecutive_skips=max_consecutive_skips if self.icfg.nonfinite_guard else 0,
             preempt_at=preempt_at, checkpoint_keep=int(checkpoint_keep or 0),
+            workload=lambda it_start, kk: profiler_workload(
+                self, state, kk, algo="impala", params=state.learner_params,
+                n_envs=self.icfg.n_envs, horizon=self.icfg.unroll),
         )
         loop.start(lambda: state.generator.get_state())
         t0 = time.perf_counter()
@@ -522,6 +584,7 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         it = 0
         while it < iters:
             k = min(K, iters - it)
+            loop.begin_superstep(it, k)
             with loop.span(it, k):
                 if k == 1:
                     state, metrics = self.train_step(state)
@@ -557,6 +620,8 @@ def train_impala_from_config(config: Dict[str, Any], *, device=None) -> Dict[str
 
 def _train_impala_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     if str(config.get("feed") or "replay").lower() == "curriculum":
+        if config.get("superstep_overlap"):
+            raise ValueError(ppo.CURRICULUM_OVERLAP_ERROR)
         raise not_ported("IMPALA over feed=curriculum (train_many_with_data)", 11)
     env, eval_env = build_train_eval_envs(config, device=device)
     # chaos runs: the fault profile contaminates the TRAINING feed

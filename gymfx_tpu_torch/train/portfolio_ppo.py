@@ -48,6 +48,7 @@ from gymfx_tpu_torch.core import portfolio as P
 from gymfx_tpu_torch.core.types import EnvState, not_ported
 from gymfx_tpu_torch.metrics import compute_analyzers, summarize_trading
 from gymfx_tpu_torch.resilience.faults import parse_fault_profile
+from gymfx_tpu_torch.telemetry.spans import profiler_range
 from gymfx_tpu_torch.train.checkpoint import resume_from_config, save_checkpoint
 from gymfx_tpu_torch.train.common import (
     TrainLoop,
@@ -231,7 +232,7 @@ class PortfolioPPOTrainer(PolicyTrainer):
             self._rows = (self._rows[0], graphs.clone_tree(self._rows[1]))
         self._graphs_on = self.device.type == "cuda"
         self._graphs: Dict[tuple, graphs.PhaseGraph] = {}
-        self._gen = torch.Generator(device=self.device)
+        self._gens = (torch.Generator(device=self.device),)
 
     def use_tape(self, tape: P.PortfolioData) -> None:
         """Make the curriculum's book ``tape`` the active one: its rows are
@@ -298,8 +299,9 @@ class PortfolioPPOTrainer(PolicyTrainer):
             graph = self._rollout_graphed(state, self._hooks(actions=actions))
             out = graphs.clone_tree(graph.outputs)
         else:
-            out = self._rollout_body(state.params, state.env_states, state.obs_vec,
-                                     state.generator, actions)
+            with profiler_range("rollout"):
+                out = self._rollout_body(state.params, state.env_states, state.obs_vec,
+                                         state.generator, actions)
         return (state._replace(env_states=out["env_states"], obs_vec=out["obs_vec"]),
                 (out["traj"], out["last_value"]))
 
@@ -393,8 +395,9 @@ class PortfolioPPOTrainer(PolicyTrainer):
                           last_value=last_value, **self._hooks(permutations=permutations))
             out = graphs.clone_tree(self._update_graphed(inputs, state.generator).outputs)
         else:
-            out = self._update_body(state.params, state.opt_state, traj, last_value,
-                                    state.generator, permutations)
+            with profiler_range("update"):
+                out = self._update_body(state.params, state.opt_state, traj, last_value,
+                                        state.generator, permutations)
         return (state._replace(params=out["params"], opt_state=out["opt_state"]),
                 out["metrics"])
 
@@ -463,22 +466,27 @@ class PortfolioPPOTrainer(PolicyTrainer):
         inputs = dict(params=state.params, env_states=state.env_states, obs_vec=state.obs_vec,
                       **hooks)
 
+        gen = self._gens[0]
+
         def body(x):
-            return self._rollout_body(x["params"], x["env_states"], x["obs_vec"], self._gen,
+            return self._rollout_body(x["params"], x["env_states"], x["obs_vec"], gen,
                                       x.get("actions"))
 
         graph = self._graph("rollout", inputs, lambda: graphs.PhaseGraph(
-            body, graphs.clone_tree(inputs), self._gen))
-        return self._replay(graph, inputs, state.generator)
+            body, graphs.clone_tree(inputs), gen, name=f"{type(self).__name__}.rollout"))
+        return self._replay("rollout", graph, inputs, state.generator)
 
     def _update_graphed(self, inputs, generator, shared=()):
+        gen = self._gens[0]
+
         def body(x):
             return self._update_body(x["params"], x["opt_state"], x["traj"], x["last_value"],
-                                     self._gen, x.get("permutations"))
+                                     gen, x.get("permutations"))
 
         graph = self._graph("update", inputs, lambda: graphs.PhaseGraph(body, {
-            k: v if k in shared else graphs.clone_tree(v) for k, v in inputs.items()}, self._gen))
-        return self._replay(graph, inputs, generator)
+            k: v if k in shared else graphs.clone_tree(v) for k, v in inputs.items()}, gen,
+            name=f"{type(self).__name__}.update"))
+        return self._replay("update", graph, inputs, generator)
 
     def train(self, total_env_steps: int, seed: int = 0, initial_params=None,
               initial_state: Optional[PortfolioTrainState] = None, *,
@@ -513,6 +521,7 @@ class PortfolioPPOTrainer(PolicyTrainer):
         t0 = time.perf_counter()
         metrics: Dict[str, Any] = {}
         for it in range(iters):
+            loop.begin_superstep(it, 1)
             if self.curriculum is not None:
                 self.use_tape(self.curriculum.pick(it)[2])
             state, metrics = self.train_step(state)

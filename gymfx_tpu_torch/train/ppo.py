@@ -43,6 +43,13 @@ static outputs in place, every explicit tape copied into one staging
 tape.  Each phase is a body function of its inputs
 (``_rollout_body``, ``_update_body``) that syncs nothing with the host.
 
+``superstep_overlap`` pipelines ``train_many`` (rollout i+1 beside
+update i, from two sets of graphs on two streams on the card);
+``ppo_update_remat`` recomputes the policy forward in the update's
+backward (``torch.utils.checkpoint``).  Each replay runs inside its
+phase's ``torch.profiler`` range ("rollout", "update"), entered only
+while a profiler records.
+
 Test hooks: ``rollout_phase(state, actions=..., start_offsets=...)`` and
 ``update_phase(state, rollout_out, permutations=...)`` replace the
 phase's own draws with given ones, so a test can feed the JAX package's
@@ -76,18 +83,22 @@ from gymfx_tpu_torch.resilience.guards import (
     tree_all_finite,
     tree_map,
 )
-from gymfx_tpu_torch.telemetry import refuse_observatory_keys, telemetry_from_config
+from gymfx_tpu_torch.telemetry import telemetry_from_config
+from gymfx_tpu_torch.telemetry.spans import profiler_range
 from gymfx_tpu_torch.train.checkpoint import resume_from_config, save_checkpoint
 from gymfx_tpu_torch.train.common import (
     TrainLoop,
     build_train_eval_envs,
     eval_checkpointed_policy,
     labeled_eval_summary,
+    make_train_many_overlapped,
     make_train_many_with_data,
     masked_reset,
     member_minibatch_plan,
     minibatch_plan,
+    profiler_workload,
     resolve_minibatch_scheme,
+    run_overlapped_graphed,
     validate_minibatch_scheme,
 )
 from gymfx_tpu_torch.train.optim import ClipAdam, HyperAdamState, apply_updates
@@ -100,6 +111,13 @@ from gymfx_tpu_torch.train.policies import (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the JAX package's refusal (gymfx_tpu/train/ppo.py:238-244, impala.py:183-189)
+CURRICULUM_OVERLAP_ERROR = (
+    "feed=curriculum cannot be combined with superstep_overlap: the pipelined driver issues "
+    "rollout i+1 before update i, so a tape swap inside the dispatch would feed half a "
+    "superstep from the wrong tape"
+)
 
 
 class PPOConfig(NamedTuple):
@@ -216,9 +234,11 @@ def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> 
 class PolicyTrainer:
     """What the trainers share (PPOTrainer, train/impala.ImpalaTrainer):
     the policy applied with given params and, for a recurrent policy, its
-    carry; and a phase graph replayed from a caller's generator.  A
-    trainer sets ``policy``, ``device``, ``_recurrent`` (``policies.
-    is_recurrent``) and ``_gen`` (the generator its graphs register)."""
+    carry; a phase graph replayed from a caller's generator inside its
+    phase's profiler range; and the overlapped superstep's second set of
+    graphs.  A trainer sets ``policy``, ``device``, ``_recurrent``
+    (``policies.is_recurrent``) and ``_gens`` (the generators its graphs
+    register: set A's, which the sequential step uses, and set B's)."""
 
     def initial_carry(self, n: int):
         """The policy's fresh carry for ``n`` envs: ``(c, h)`` zeros for
@@ -249,13 +269,33 @@ class PolicyTrainer:
         """Graphs captured so far (0 on the CPU)."""
         return sum(g.graph is not None for g in self._graphs.values())
 
-    def _replay(self, graph, inputs, generator):
-        """Run ``graph`` on ``inputs`` from ``generator``'s state, advance
-        ``generator`` as the eager phase would, and return ``graph``."""
-        self._gen.set_state(generator.get_state())
-        graph(inputs)
-        generator.set_state(self._gen.get_state())
+    def _replay(self, phase: str, graph, inputs, generator, s: int = 0):
+        """Run ``graph`` (of set ``s``, which registers ``_gens[s]``) on
+        ``inputs`` from ``generator``'s state inside the profiler range
+        ``phase``, advance ``generator`` as the eager phase would, and
+        return ``graph``."""
+        gen = self._gens[s]
+        with profiler_range(phase):
+            gen.set_state(generator.get_state())
+            graph(inputs)
+            generator.set_state(gen.get_state())
         return graph
+
+    def _side_stream(self):
+        """The overlapped superstep's update stream on a CUDA device (made
+        at first use), None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if getattr(self, "_side", None) is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
+
+
+# the graphs' kinds in sets A (the sequential step's) and B (the
+# overlapped superstep's second set)
+_KINDS = {"rollout": ("rollout", "rollout_b"), "update": ("update", "update_b")}
+# the update graph's inputs that are the rollout graph's static buffers
+_SHARED = ("params", "env_states", "obs_vec", "policy_carry", "traj", "last_value")
 
 
 class PPOTrainer(PolicyTrainer):
@@ -283,10 +323,8 @@ class PPOTrainer(PolicyTrainer):
     tensors.  One pair of phase graphs serves the whole population."""
 
     def __init__(self, env: Environment, pcfg: PPOConfig, members: Optional[int] = None):
-        if pcfg.superstep_overlap:
-            raise not_ported("superstep_overlap (the pipelined superstep driver)", 20)
-        if pcfg.update_remat:
-            raise not_ported("ppo_update_remat (recomputing the forward in the update)", 21)
+        if env.curriculum is not None and pcfg.superstep_overlap:
+            raise ValueError(CURRICULUM_OVERLAP_ERROR)
         validate_minibatch_scheme(pcfg.minibatch_scheme, pcfg.n_envs, pcfg.minibatches,
                                   horizon=pcfg.horizon)
         self.env = env
@@ -320,12 +358,13 @@ class PPOTrainer(PolicyTrainer):
         # boundaries, and each phase takes the active tape explicitly
         self.curriculum = env.curriculum
         # the phases' CUDA graphs (core/graphs.py), by static signature;
-        # the one generator registered with them, set from the state's
+        # the generators registered with them (set A's, set B's: the
+        # overlapped superstep's second set), set from the state's
         # generator before each replay; the staging tape every explicit
         # tape is copied into, so one graph serves every tape
         self._graphs_on = self.device.type == "cuda"
         self._graphs: Dict[tuple, graphs.PhaseGraph] = {}
-        self._gen = torch.Generator(device=self.device)
+        self._gens = tuple(torch.Generator(device=self.device) for _ in range(2))
         self._staging = None
 
     @property
@@ -415,9 +454,10 @@ class PPOTrainer(PolicyTrainer):
     def _rollout_phase_eager(self, state: TrainState, data=None, *, actions=None,
                              start_offsets=None):
         """:meth:`rollout_phase` op by op, drawing from ``state.generator``."""
-        env_states, obs_vec, pcarry, traj, last_value = self._rollout_body(
-            state.params, state.env_states, state.obs_vec, state.policy_carry, data,
-            state.generator, actions, start_offsets)
+        with profiler_range("rollout"):
+            env_states, obs_vec, pcarry, traj, last_value = self._rollout_body(
+                state.params, state.env_states, state.obs_vec, state.policy_carry, data,
+                state.generator, actions, start_offsets)
         return (state._replace(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry),
                 (traj, last_value))
 
@@ -500,10 +540,23 @@ class PPOTrainer(PolicyTrainer):
             v_next = value[t]
         return advs, advs + value
 
+    def _remat(self, fn, *args):
+        """``fn(*args)``; under ``update_remat`` (the JAX package's
+        ``jax.remat`` of the policy forward, :408-415) through
+        ``torch.utils.checkpoint``: the backward recomputes the forward's
+        activations instead of keeping them.  The forward draws nothing,
+        so no RNG state is kept, and the recompute is the same ops in the
+        same order (K4's forward runs again on a ring policy)."""
+        if not self.pcfg.update_remat:
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+
     def _loss(self, params, batch):
         """(total loss, dict of its terms) of one flat minibatch (a
         recurrent policy replays each sample from its stored carry)."""
-        logits, value = self.policy_forward(params, batch["obs"], batch.get("pcarry", ()))
+        logits, value = self._remat(self.policy_forward, params, batch["obs"],
+                                    batch.get("pcarry", ()))
         logp_all = F.log_softmax(logits, dim=-1)
         logp = logp_all.gather(1, batch["action"].to(torch.int64)[:, None])[:, 0]
         entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1))
@@ -555,9 +608,10 @@ class PPOTrainer(PolicyTrainer):
                             permutations=None):
         """:meth:`update_phase` op by op, drawing from ``state.generator``."""
         traj, last_value = rollout_out
-        out = self._update_body(state.params, state.opt_state, state.env_states, state.obs_vec,
-                                state.policy_carry, traj, last_value, data, state.generator,
-                                permutations)
+        with profiler_range("update"):
+            out = self._update_body(state.params, state.opt_state, state.env_states,
+                                    state.obs_vec, state.policy_carry, traj, last_value, data,
+                                    state.generator, permutations)
         return self._updated_state(out, state.generator), out["metrics"]
 
     @staticmethod
@@ -664,7 +718,8 @@ class PPOTrainer(PolicyTrainer):
         terms) of one (P, M, ...) minibatch: :meth:`_loss` for every
         member at once, with its own clip epsilon and entropy
         coefficient."""
-        logits, value, _ = self.policy_step(params, batch["obs"], batch.get("pcarry", ()))
+        logits, value, _ = self._remat(self.policy_step, params, batch["obs"],
+                                       batch.get("pcarry", ()))
         logp_all = F.log_softmax(logits, dim=-1)
         logp = logp_all.gather(-1, batch["action"].to(torch.int64)[..., None])[..., 0]
         entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1), dim=1)
@@ -810,10 +865,49 @@ class PPOTrainer(PolicyTrainer):
         device ``data`` is copied into the staging tape once, the 2k
         replays are chained with no host round trip, and the metrics are
         stacked on the device (the caller fetches them once); the state is
-        donated as in :meth:`train_step`."""
+        donated as in :meth:`train_step`.
+
+        Under ``superstep_overlap`` the superstep is pipelined
+        (``train/common.make_train_many_overlapped``: rollout i+1 beside
+        update i, on params one update stale); ``k = 1`` is the sequential
+        step.  On the card the two phases run on two streams from two sets
+        of graphs (:meth:`_train_many_overlapped_graphed`)."""
+        if self.pcfg.superstep_overlap and int(k) > 1:
+            if self._graphs_on:
+                return self._train_many_overlapped_graphed(state, data, int(k))
+            return make_train_many_overlapped(
+                lambda s: self.rollout_phase(s, data),
+                lambda s, out: self.update_phase(s, out, data))(state, k)
         run = self._train_many_graphed if self._graphs_on else \
             make_train_many_with_data(self.train_step)
         return run(state, data, k)
+
+    def _train_many_overlapped_graphed(self, state: TrainState, data, k: int):
+        """The overlapped superstep from the graphs of sets A (the
+        sequential step's) and B on two streams
+        (``train/common.run_overlapped_graphed``)."""
+        tape = self._stage(data)
+
+        def rollout(s, which, generator):
+            # the params it read, from its own static input: a donated
+            # state's are an update graph's outputs, which the update
+            # beside the next rollout overwrites
+            graph = self._rollout_graphed(s, tape, {}, which, generator)
+            out = graph.outputs
+            return (s._replace(params=graph.inputs["params"], env_states=out["env_states"],
+                               obs_vec=out["obs_vec"], policy_carry=out["policy_carry"]),
+                    (out["traj"], out["last_value"]), graph)
+
+        def update(s, rollout_out, graph, which, generator):
+            inputs = dict(params=s.params, opt_state=s.opt_state, env_states=s.env_states,
+                          obs_vec=s.obs_vec, policy_carry=s.policy_carry, traj=rollout_out[0],
+                          last_value=rollout_out[1])
+            out = self._update_graphed(inputs, tape, generator, _SHARED, which, buffers=dict(
+                opt_state=s.opt_state, **self._update_buffers(graph))).outputs
+            return self._updated_state(out, generator), out["metrics"]
+
+        return run_overlapped_graphed(state, k, rollout, update, ("params", "opt_state"),
+                                      self._side_stream())
 
     def _train_many_graphed(self, state: TrainState, data, k: int):
         """:meth:`train_many_with_data` from the graphs."""
@@ -854,39 +948,54 @@ class PPOTrainer(PolicyTrainer):
             graph = self._graphs[key] = build()
         return graph
 
-    def _rollout_graphed(self, state: TrainState, tape, hooks):
-        """The rollout graph for ``state`` on ``tape`` (None or the staging
-        tape), run: its static outputs are env_states, obs_vec,
-        policy_carry, traj and last_value."""
+    def _rollout_graphed(self, state: TrainState, tape, hooks, s: int = 0, generator=None):
+        """The rollout graph of set ``s`` for ``state`` on ``tape`` (None or
+        the staging tape), run from ``generator`` (``state.generator`` by
+        default): its static outputs are env_states, obs_vec, policy_carry,
+        traj and last_value."""
         inputs = dict(params=state.params, env_states=state.env_states, obs_vec=state.obs_vec,
                       policy_carry=state.policy_carry, **hooks)
+        gen = self._gens[s]
 
         def body(x):
             env_states, obs_vec, pcarry, traj, last_value = self._rollout_body(
-                x["params"], x["env_states"], x["obs_vec"], x["policy_carry"], tape, self._gen,
+                x["params"], x["env_states"], x["obs_vec"], x["policy_carry"], tape, gen,
                 x.get("actions"), x.get("start_offsets"))
             return dict(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry, traj=traj,
                         last_value=last_value)
 
-        graph = self._graph("rollout", inputs, tape, lambda: graphs.PhaseGraph(
-            body, graphs.clone_tree(inputs), self._gen))
-        return self._replay(graph, inputs, state.generator)
+        kind = _KINDS["rollout"][s]
+        graph = self._graph(kind, inputs, tape, lambda: graphs.PhaseGraph(
+            body, graphs.clone_tree(inputs), gen, name=f"{type(self).__name__}.{kind}"))
+        return self._replay("rollout", graph, inputs,
+                            state.generator if generator is None else generator, s)
 
-    def _update_graphed(self, inputs, tape, generator, shared=()):
-        """The update graph for ``inputs`` on ``tape``, run: its static
-        outputs are params, opt_state, env_states, obs_vec, policy_carry
-        and metrics.  A graph built here takes the tensors of ``inputs``
-        named in ``shared`` as its static buffers (the rollout graph's),
-        and copies of the rest."""
+    def _update_graphed(self, inputs, tape, generator, shared=(), s: int = 0, buffers=None):
+        """The update graph of set ``s`` for ``inputs`` on ``tape``, run:
+        its static outputs are params, opt_state, env_states, obs_vec,
+        policy_carry and metrics.  A graph built here takes the tensors
+        named in ``shared`` of ``buffers`` (``inputs`` by default: the
+        rollout graph's buffers) as its static buffers, and copies of the
+        rest."""
+        gen = self._gens[s]
 
         def body(x):
             return self._update_body(x["params"], x["opt_state"], x["env_states"], x["obs_vec"],
                                      x["policy_carry"], x["traj"], x["last_value"], tape,
-                                     self._gen, x.get("permutations"))
+                                     gen, x.get("permutations"))
 
-        graph = self._graph("update", inputs, tape, lambda: graphs.PhaseGraph(body, {
-            k: v if k in shared else graphs.clone_tree(v) for k, v in inputs.items()}, self._gen))
-        return self._replay(graph, inputs, generator)
+        static = inputs if buffers is None else buffers
+        kind = _KINDS["update"][s]
+        graph = self._graph(kind, inputs, tape, lambda: graphs.PhaseGraph(body, {
+            k: v if k in shared else graphs.clone_tree(v) for k, v in static.items()}, gen,
+            name=f"{type(self).__name__}.{kind}"))
+        return self._replay("update", graph, inputs, generator, s)
+
+    @staticmethod
+    def _update_buffers(graph) -> Dict[str, Any]:
+        """The update graph's inputs that are ``graph``'s (a rollout
+        graph's) static buffers: its params and its outputs."""
+        return dict(params=graph.inputs["params"], **graph.outputs)
 
     def _train_step_graphed(self, state: TrainState, tape):
         """One train step from the graphs on ``tape``: (state, metrics),
@@ -894,9 +1003,8 @@ class PPOTrainer(PolicyTrainer):
         inputs are the rollout graph's static buffers, so nothing is
         copied between the two."""
         graph = self._rollout_graphed(state, tape, {})
-        inputs = dict(params=graph.inputs["params"], opt_state=state.opt_state, **graph.outputs)
-        shared = ("params", "env_states", "obs_vec", "policy_carry", "traj", "last_value")
-        out = self._update_graphed(inputs, tape, state.generator, shared).outputs
+        inputs = dict(opt_state=state.opt_state, **self._update_buffers(graph))
+        out = self._update_graphed(inputs, tape, state.generator, _SHARED).outputs
         return self._updated_state(out, state.generator), out["metrics"]
 
     def train(self, total_env_steps: int, seed: int = 0, log_every: int = 0,
@@ -929,8 +1037,10 @@ class PPOTrainer(PolicyTrainer):
         ``telemetry.Telemetry``, None = off) drains each superstep's
         metrics into its registry, sink and flight recorder one dispatch
         late, wraps each dispatch in a span and records the run's
-        lifecycle in its ledger.  With all three unset this loop is the
-        one without them.
+        lifecycle in its ledger; its profiler, when it has one, captures
+        the due supersteps (``ResilientLoop.begin_superstep``; the
+        workload payload is ``train/common.profiler_workload``'s).  With
+        all three unset this loop is the one without them.
 
         Returns ``(state, metrics)``: the last iteration's metrics as
         floats plus ``env_steps_per_sec``, ``iterations``,
@@ -946,6 +1056,7 @@ class PPOTrainer(PolicyTrainer):
         steps_per_iter = self.pcfg.n_envs * self.pcfg.horizon
         iters = max(1, int(total_env_steps) // steps_per_iter)
         K = max(1, int(supersteps_per_dispatch or 1))
+        tape = None
         loop = TrainLoop(
             "ppo", iters=iters, steps_per_iter=steps_per_iter, log_every=log_every,
             telemetry=telemetry, checkpoint_dir=checkpoint_dir,
@@ -953,6 +1064,10 @@ class PPOTrainer(PolicyTrainer):
             checkpoint_metadata=checkpoint_metadata,
             max_consecutive_skips=max_consecutive_skips if self.pcfg.nonfinite_guard else 0,
             preempt_at=preempt_at, checkpoint_keep=int(checkpoint_keep or 0),
+            # a capture's payload, on the live state and the superstep's tape
+            workload=lambda it_start, kk: profiler_workload(
+                self, state, kk, algo="ppo", params=state.params, n_envs=self.pcfg.n_envs,
+                horizon=self.pcfg.horizon, update_epochs=self.pcfg.epochs, data=tape),
         )
         # the closures read the rebound local: a checkpoint copies the
         # state before the next step overwrites it, a postmortem carries
@@ -963,7 +1078,7 @@ class PPOTrainer(PolicyTrainer):
         it = 0
         while it < iters:
             k = min(K, iters - it)
-            tape = None
+            loop.begin_superstep(it, k)
             if self.curriculum is not None:
                 # one weighted seed-deterministic tape per superstep boundary
                 _, _, tape = self.curriculum.pick(it)
@@ -1071,8 +1186,7 @@ def train_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     merges the training metrics with the greedy evaluation's.  Without
     ``elastic_resume`` the JAX package's ``elastic_entry`` is this plain
     call; the elastic controller and a mesh (ROADMAP Queue 1 item 17)
-    raise, as do a fault profile's mesh events (17) and the performance
-    observatory's telemetry keys (30)."""
+    raise, as do a fault profile's mesh events (17)."""
     _refuse_unported_training_keys(config)
     return _train_from_config(config, device=device)
 
@@ -1080,15 +1194,13 @@ def train_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
 def _refuse_unported_training_keys(config: Dict[str, Any]) -> None:
     """``not_ported`` for each key of a training run the port does not
     take yet: the elastic controller, a mesh and a fault profile's mesh
-    events (item 17), the compile watch and the managed profiler (item
-    30).  With the defaults none raises; a malformed fault profile raises
-    the JAX package's ValueError."""
+    events (item 17).  With the defaults none raises; a malformed fault
+    profile raises the JAX package's ValueError."""
     if config.get("elastic_resume"):
         raise not_ported("elastic_resume (the elastic auto-resume controller)", 17)
     if config.get("mesh_shape") not in (None, ""):
         raise not_ported("mesh_shape (a device mesh, parallel/mesh.py)", 17)
     refuse_mesh_and_fleet(parse_fault_profile(config.get("fault_profile")))
-    refuse_observatory_keys(config)
 
 
 def contaminated_training_env(env, config: Dict[str, Any]):

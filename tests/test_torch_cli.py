@@ -187,11 +187,9 @@ def test_a_mode_outside_the_three_raises(tmp_path):
     # IMPALA trains since PR 13; what of it item 11 still holds: a tape library
     pytest.param(("--mode", "training", "--trainer", "impala", "--feed", "curriculum"), 11,
                  id="mode-training-trainer-impala-11"),
-    # PBT (over the bar venue too), fault profiles and telemetry train; what
-    # of them items 30 and 17 still hold: the performance observatory, a
+    # PBT (over the bar venue too), fault profiles, telemetry and the
+    # performance observatory train; what of them item 17 still holds: a
     # profile's mesh events, a population on a mesh
-    (("--mode", "training", "--telemetry_profile_dir", "prof"), 30),
-    (("--mode", "training", "--telemetry_compile_watch"), 30),
     (("--mode", "training", "--fault_profile", "nan_bars=5;mesh=kill:1@2"), 17),
     (("--mode", "training", "--trainer", "pbt", "--mesh_shape", '{"data": 1}'), 17),
     (("--mode", "training", "--elastic_resume"), 17),

@@ -44,7 +44,11 @@ streamed episode on the card (pinned copies on a side stream), which
 must equal the CPU's.
 The trainers' one-dispatch-late reads (the guard watchdog and the
 telemetry's metric drain) return while the next superstep still runs on
-the stream, with the values of an immediate read.
+the stream, with the values of an immediate read; under
+``superstep_overlap`` the read of a superstep waits for both of its
+streams and not for the next superstep.  A superstep captured by the
+profiler leaves the run where an unprofiled one does, and the overlapped
+k = 2 dispatch from two sets of graphs equals its schedule op by op.
 Every test needs an NVIDIA GPU and skips without one.  This file imports
 no JAX, so it also runs where only torch is installed:
 
@@ -1640,3 +1644,107 @@ def test_cuda_late_read_waits_for_its_superstep_alone(cuda_device, reader):
     assert done.query()
     loop.finish(state_fn)
     stream.finish()
+
+
+# ---- the performance observatory and the overlapped superstep --------------
+@pytest.mark.cuda
+def test_cuda_a_due_capture_leaves_the_state_where_an_unprofiled_dispatch_does(cuda_device,
+                                                                               tmp_path):
+    """A superstep captured by the profiler (its window, its one
+    synchronize, the phase split measured on a clone of the live state and
+    copied back) leaves the run torch.equal to a run without the
+    profiler."""
+    from gymfx_tpu_torch.telemetry import telemetry_from_config
+
+    trainer = _graph_trainer("mlp", tmp_path)
+    per_iter = trainer.pcfg.n_envs * trainer.pcfg.horizon
+    plain, _ = trainer.train(3 * per_iter, seed=5)
+    plain = _copy(plain)
+    telemetry = telemetry_from_config({"telemetry_profile_dir": str(tmp_path / "prof")})
+    try:
+        profiled, _ = trainer.train(3 * per_iter, seed=5, telemetry=telemetry)
+    finally:
+        telemetry.close()
+    assert telemetry.profiler.captures == 1 and telemetry.profiler.capture_errors == 0
+    _assert_states_equal(profiled, plain, "profiled run vs plain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlp", "impala"])
+def test_cuda_overlapped_k2_graphed_equals_the_eager_schedule(cuda_device, tmp_path, kind):
+    """superstep_overlap at k = 2 from the two sets of graphs on two
+    streams against the same schedule op by op on one stream
+    (train/common.make_train_many_overlapped): torch.equal, the generator
+    included; a second dispatch captures nothing."""
+    from gymfx_tpu_torch.train.common import make_train_many_overlapped
+
+    if kind == "impala":
+        from gymfx_tpu_torch.config import flagship
+        from gymfx_tpu_torch.core.runtime import Environment
+        from gymfx_tpu_torch.train.impala import LEARNER_FIELDS, ImpalaTrainer, impala_config_from
+
+        csv = str(REPO / "examples" / "data" / "eurusd_sample.csv")
+        config = flagship.impala_lstm_config(csv, num_envs=64, impala_unroll=8,
+                                             impala_sync_every=2, policy_kwargs={"hidden": 32},
+                                             superstep_overlap=True)
+        trainer = ImpalaTrainer(Environment(config), impala_config_from(config))
+        fields = LEARNER_FIELDS
+    else:
+        trainer = _graph_trainer("mlp", tmp_path, superstep_overlap=True)
+        fields = ("params", "opt_state")
+    s0 = trainer.init_state(4)
+    many, stacked = trainer.train_many(_copy(s0), 2)
+    many = _copy(many)
+    eager = make_train_many_overlapped(trainer._rollout_phase_eager,
+                                       trainer._update_phase_eager, fields)
+    ref, ref_stacked = eager(_copy(s0), 2)
+    _assert_states_equal(many, ref, "overlapped k = 2 state")
+    _assert_equal(stacked, ref_stacked, "overlapped k = 2 metrics")
+    kinds = sorted(k for k, *_ in trainer._graphs)
+    assert kinds == ["rollout", "rollout_b", "update", "update_b"]
+    captures = trainer.captures()
+    trainer.train_many(_copy(s0), 2)
+    assert trainer.captures() == captures
+
+
+@pytest.mark.cuda
+def test_cuda_the_late_read_follows_both_streams_of_an_overlapped_superstep(cuda_device,
+                                                                           tmp_path):
+    """The pinned copy of an overlapped superstep's metrics (the late
+    read's, telemetry/device_stream.HostCopy) waits for both of its phases
+    (the update stream is joined back before the epilogue), and never for
+    the next superstep: enqueued after superstep s, whose update stream
+    holds a ~0.5 s sleep, it is not ready before that sleep ends; read
+    while superstep s + 1 (a ~0.5 s sleep on the main stream) still runs,
+    it returns s's values."""
+    import time
+
+    from gymfx_tpu_torch.telemetry import HostCopy
+    from gymfx_tpu_torch.train import common
+
+    trainer = _graph_trainer("mlp", tmp_path, superstep_overlap=True)
+    state = trainer.init_state(6)
+    state, _ = trainer.train_many(state, 2)  # captures both sets
+    real = common.split_generator
+    side = trainer._side_stream()
+
+    def slow_split(gen):  # the body's update waits behind a sleep on its stream
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(int(1e9))
+        return real(gen)
+
+    common.split_generator = slow_split
+    try:
+        state, metrics = trainer.train_many(state, 2)
+    finally:
+        common.split_generator = real
+    copy = HostCopy(metrics)
+    assert not copy._event.query(), "the copy did not wait for the update stream"
+    torch.cuda._sleep(int(1e9))  # superstep s + 1
+    later = torch.cuda.Event()
+    later.record()
+    t0 = time.perf_counter()
+    host = copy.get()
+    assert not later.query(), f"the late read waited for the next superstep ({time.perf_counter() - t0:.3f} s)"
+    for key, value in metrics.items():
+        assert torch.equal(torch.from_numpy(host[key]), value.cpu().reshape(-1)), key

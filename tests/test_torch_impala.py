@@ -489,7 +489,6 @@ def test_resume_equals_the_uninterrupted_run_leaf_by_leaf(tmp_path):
 
 @pytest.mark.parametrize("over,item", [
     ({"action_space_mode": "continuous"}, 11),
-    ({"superstep_overlap": True}, 20),
 ])
 def test_unported_impala_options_raise_naming_the_roadmap_item(over, item):
     config = dict(DEFAULT_VALUES, input_data_file=CSV, num_envs=4, impala_unroll=4,
@@ -500,7 +499,6 @@ def test_unported_impala_options_raise_naming_the_roadmap_item(over, item):
 
 @pytest.mark.parametrize("over,item", [
     ({"feed": "curriculum", "tapes": f"file:{CSV}"}, 11),
-    ({"telemetry_profile_dir": "prof"}, 30),
     ({"fault_profile": "nan_bars=3;mesh=kill:0@1"}, 17),
     ({"mesh_shape": {"data": 1}}, 17),
     ({"elastic_resume": True}, 17),

@@ -218,8 +218,6 @@ def test_policies_other_than_mlp_raise():
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"superstep_overlap": True}, 20),
-    ({"ppo_update_remat": True}, 21),
     ({"policy": "transformer_ring", "policy_kwargs": {"seq_axis": "seq", "seq_shards": 2}}, 17),
     ({"policy": "transformer_ulysses", "policy_kwargs": {"seq_axis": "seq"}}, 17),
 ])

@@ -398,10 +398,18 @@ def test_engine_from_config_loads_a_checkpoint_and_boots_fresh_from_a_seed(tmp_p
 def test_engine_from_config_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 16"):
         engine_from_config(_serve_config(serve_fleet_replicas=2), device="cpu")
-    # the serving telemetry runs (tests/test_torch_telemetry.py); the
-    # performance observatory's keys wait on item 30
-    with pytest.raises(NotImplementedError, match="item 30"):
-        engine_from_config(_serve_config(telemetry_compile_watch=True), device="cpu")
+    # the serving telemetry runs (tests/test_torch_telemetry.py), and so
+    # does the compile watch: it records the boot ladder's buckets and binds
+    # the engine's capture hook
+    bundle = engine_from_config(_serve_config(telemetry_compile_watch=True), device="cpu")
+    try:
+        watch = bundle.telemetry.compile_watch
+        assert watch is not None and bundle.engine.on_compile is not None
+        assert sorted(watch.fingerprints()) == ["serve_forward|bucket=1",
+                                                "serve_forward|bucket=4"]
+        assert watch.recompile_count == 0
+    finally:
+        bundle.telemetry.close()
     with pytest.raises(NotImplementedError, match="item 11"):
         engine_from_config(_serve_config(action_space_mode="continuous"), device="cpu")
 

@@ -15,8 +15,8 @@ stack's hooks into it.
   train steps; so are the states of a run with every trainer key on and
   ``log_every`` set.
 * ``train_from_config`` with every trainer key on writes the sink's
-  metric rows, spans and the registry snapshot; the performance
-  observatory's keys raise naming item 30.
+  metric rows, spans and the registry snapshot; it takes the performance
+  observatory's keys too.
 * A ``/metrics`` scrape on loopback after a scripted burst (a
   ``FlakyEngine`` plan under a micro-batcher with instruments) has the
   JAX package's families and counts; an engine built with
@@ -185,11 +185,28 @@ def test_telemetry_from_config_is_none_with_every_key_unset_and_builds_each_piec
                                        ("telemetry_profile_dir", "prof"),
                                        ("telemetry_profile_supersteps", "1,2"),
                                        ("telemetry_profile_every", 2)])
-def test_the_performance_observatory_keys_raise_naming_item_30(key, value):
-    with pytest.raises(NotImplementedError, match="item 30$"):
-        TT.telemetry_from_config({key: value})
-    with pytest.raises(NotImplementedError, match="item 30$"):
-        train_from_config({**DEFAULT_VALUES, **SMALL, key: value}, device="cpu")
+def test_the_performance_observatory_keys_raise_naming_item_30(key, value, tmp_path):
+    """The observatory's keys no longer raise (item 30 is ported,
+    tests/test_torch_observatory.py): the compile watch and the profile
+    dir each build their part of the bundle, the cadence keys alone build
+    nothing (the dir is the master switch, as in the JAX package), and a
+    training run takes each."""
+    if key == "telemetry_profile_dir":
+        value = str(tmp_path / value)
+    t = TT.telemetry_from_config({key: value})
+    try:
+        if key == "telemetry_compile_watch":
+            assert t.compile_watch is not None and t.profiler is None
+        elif key == "telemetry_profile_dir":
+            assert t.profiler is not None and t.profiler.supersteps == (1,)
+        else:
+            assert t is None
+    finally:
+        if t is not None:
+            t.close()
+    out = train_from_config({**DEFAULT_VALUES, **SMALL, "train_total_steps": 128, key: value},
+                            device="cpu")
+    assert out["train_metrics"]["iterations"] == 2
 
 
 def _leaves(state):
