@@ -238,11 +238,11 @@ failure exits non-zero:
             leaf by leaf (params, Adam state, env batch, generator state);
             --driver_mode policy on the checkpoint, which must reproduce
             the held-out summary number for number; the evaluation
-            episode's ms a step replayed and its capture seconds, 575 of
+            episode's ms a step replayed and its capture seconds, 319 of
             its steps graphed == eager, and one 64-step chunk replay's
             kernels by name (K1, K2, K3 64 each); the diagnostic episode
-            with buy_hold (1 env, 8,191 steps; its first 575 steps ==
-            the CPU's) and random (8,192 envs x 575 steps == the eager
+            with buy_hold (1 env, 4,095 steps; its first 319 steps ==
+            the CPU's) and random (8,192 envs x 319 steps == the eager
             episode on the card), each through main.  Then IMPALA through
             main (--trainer impala, impala_lstm_config on the same tape):
             one iteration with a checkpoint, then --driver_mode policy on
@@ -454,6 +454,51 @@ failure exits non-zero:
             ways, K4's forward twice as many times at the update's
             capture (the recompute), the eager update's peak allocator
             bytes and the graphed update's ms both ways.
+21. continuous  after long: flagship-continuous-train (flagship_config
+            with action_space_mode=continuous: 8,192 envs, the 3x256 bf16
+            MLP's Gaussian twin) 3 graphed train steps, K1-K3 64 each a
+            rollout replay at capture (x4) and by name in a replay's
+            trace, the rollout replay torch.equal to the same phase op by
+            op with K1-K3's plain versions, the float actions coerced to
+            all three kinds, graphed == eager, env steps/s beside
+            flagship-train's; long-context-continuous-train (the ring
+            encoder's twin at 256 envs x window 256) 2 steps, K4 130 a
+            rollout replay and 8 + 8 an update replay, K4 at the path's
+            own recorded rollout and update inputs within
+            attention_tolerance of its plain versions, graphed == eager.
+            impala continuous, after baseline: config 4's shape (4,096
+            envs, unroll 64) with the bf16 LSTM's twin, 3 steps, K2/K3 64
+            a rollout replay, mean_rho finite, the rollout replay
+            torch.equal to the same phase op by op with K1-K3's plain
+            versions (the segment, the actors' start carry, the state
+            after), graphed == eager.  shells, after episode: GymFxEnv for
+            SHELL_STEPS (500) steps of a fixed action script over a
+            400-bar cut, discrete and continuous, one CUDA graph a step ==
+            the same steps op by op == op by op with K1-K3's plain
+            versions (every obs, reward, done and info value), ms a step
+            each way, K1-K3 once by name in a step replay; GymFxVectorEnv
+            at 8,192 envs x 64 steps over a 48-bar cut (every env
+            terminates and is autoreset the step after) graphed == eager
+            == the plain versions, env steps/s; main with gym_loop=true
+            == the same run with every step op by op (its results JSON).
+            serve continuous, after serve: serve-mlp with
+            action_space_mode=continuous at bench_infer.py's ladder, the
+            exact ladder's rows torch.equal to the single-row forward and
+            every action the env's coercion of its mean, decide_batch's
+            decisions/s beside serve-mlp's, the two engines in turns.  native loader, after
+            curriculum: the CSV loader built with g++, a 2^18-bar tape
+            under GYMFX_NATIVE_LOADER=require == the numpy path (bitwise).
+            impala curriculum: config 4's trainer over the curriculum
+            phase's four tapes (impala_curriculum_config), 2 supersteps
+            through ImpalaTrainer.train picking tapes 2 and 1 (both
+            compressed), one graph pair for both, K6 the picks' q16
+            groups, K1 65 + 1 a train step, the rollout replay on each
+            pick torch.equal to the plain decode and K1-K3's plain
+            versions op by op, graphed == eager on a pick.
+            Each new path's kernel launches are in the summary line's
+            ``launches_on_new_paths``.
+Each phase starts with a line of the card memory PyTorch holds and the
+CUDA graphs alive (memory_census) and ends with a line of its seconds.
 13. summary one JSON line {"kernels": [...]}, then the last line
             {"ok": true, "device": {...}}.
 It also writes its numbers to chiprun_out/chip_smoke.json.
@@ -498,11 +543,11 @@ STREAM_STEPS = 1024
 STREAM_SHARD_BARS = 256
 # the cli phase: a 2^15-bar M1 tape (a quarter held out), 3 training
 # iterations; the diagnostic and evaluation episodes held to eager ones of
-# 575 steps, 8 chunks of 64 and one of 63 as the 8,191-step evaluation's
+# 319 steps, 4 chunks of 64 and one of 63 as the 8,191-step evaluation's
 # (the eager step is host-bound)
-CLI_BARS, CLI_ITERS, CLI_EAGER_STEPS = 2 ** 15, 3, 575
-# the buy_hold diagnostic's steps (a quarter of the tape)
-CLI_DIAG_STEPS = 8191
+CLI_BARS, CLI_ITERS, CLI_EAGER_STEPS = 2 ** 15, 3, 319
+# the buy_hold diagnostic's steps (an eighth of the tape)
+CLI_DIAG_STEPS = 4095
 # PBT over the bar venue: flagship-train's population (config 5's 4
 # members); the LSTM and ring populations' smaller depth
 PBT_MEMBERS, PBT_SMALL_ENVS, PBT_SMALL_HORIZON = 4, 1024, 16
@@ -512,7 +557,7 @@ TELEMETRY_ITERS, TELEMETRY_RATE_ITERS = 3, 8
 # phase's kernel time in the trace against its CUDA-event time; the overlapped
 # superstep's k and dispatches a timed run
 OBS_SUPERSTEPS, OBS_PHASE_TOL, OBS_RETRIES = 3, 0.25, 1
-OVERLAP_K, OVERLAP_DISPATCHES = 3, {"flagship": 4, "long": 1, "impala": 4}
+OVERLAP_K, OVERLAP_DISPATCHES = 3, {"flagship": 2, "long": 1, "impala": 2}
 # K2 and K3 with a param row per env: baseline-portfolio-pbt's rows (4
 # members x 64 envs x 3 pairs) and the flagship's envs x 3 pairs
 PORTFOLIO_ROWS = (768, 8192 * 3)
@@ -690,6 +735,8 @@ SERVE_EXACT_BUCKETS = (1, 8, 64)
 SERVE_EXACT_ROWS = (1, 5, 8, 30, 64, 133)
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WAIT_MS = 64, 50, 2.0
 SERVE_SEQ, SERVE_BATCH, SERVE_ITERS = 256, 1024, 20
+# serve-mlp-continuous's decide_batch calls a turn, in turns with serve-mlp's
+SERVE_TURN_ITERS = 200
 SERVE_SESSIONS, SERVE_SLOT_STEPS, SERVE_INFLIGHT = 48, 8, 30
 # matmul mode against the single-row forward and across buckets: the
 # largest difference of the logits, value and carry over the largest
@@ -2180,6 +2227,48 @@ def plain_lob_versions():
          window_zscore.step_obs, lob_flow.bar_flow) = saved
 
 
+@contextlib.contextmanager
+def plain_env_kernels():
+    """K1-K3's wrappers swapped for their plain versions while the block
+    runs (eager phases only: a replay does not see a module function)."""
+    from gymfx_tpu_torch.ops import env_dynamics, window_zscore
+
+    saved = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
+    env_dynamics.fill_brackets = env_dynamics.fill_brackets_plain
+    env_dynamics.mark_reward = env_dynamics.mark_reward_plain
+    window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
+        window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
+    try:
+        yield
+    finally:
+        env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs = saved
+
+
+def check_rollout_vs_plain(torch, trainer, counted, label: str, data=None,
+                           plain_data=None) -> float:
+    """A rollout phase of ``trainer.init_state(SEED)`` replayed from its
+    graph (on ``data``, a tape's device data, else the env's) against the
+    same phase op by op with K1-K3's plain versions (on the tape that
+    ``plain_data()`` makes under them, where given: a plain decode):
+    torch.equal on the rollout's outputs (PPO's trajectory and bootstrap
+    value, IMPALA's segment and the carry its actors started from) and on
+    every tensor of the state after it.  Returns the plain phase's
+    seconds."""
+    inter, out = trainer.rollout_phase(trainer.init_state(SEED), data)
+    before = count_launches(counted)
+    with plain_env_kernels():
+        ref_data = data if plain_data is None else plain_data()
+        t0 = time.perf_counter()
+        ref_state, ref_out = trainer._rollout_phase_eager(trainer.init_state(SEED), ref_data)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    check(count_launches(counted) == before, f"{label}: the plain-version phase launched a kernel")
+    check_same(torch, out, ref_out, f"{label} vs plain versions: the rollout's outputs")
+    check_same(torch, tensor_fields(torch, inter), tensor_fields(torch, ref_state),
+               f"{label} vs plain versions: the state after the rollout")
+    return plain_s
+
+
 def train(torch, trainer, state, steps: int, data=None):
     """``steps`` train steps through ``trainer.train_step`` (on the card:
     the rollout and update graphs, captured at the first), each timed;
@@ -2218,9 +2307,9 @@ def check_same(torch, a, b, what: str) -> None:
     from gymfx_tpu_torch.resilience.guards import tree_leaves
 
     la, lb = tree_leaves(a), tree_leaves(b)
-    check(len(la) == len(lb), f"{what}: graphed and eager differ in structure")
+    check(len(la) == len(lb), f"{what}: the two trees differ in structure")
     bad = [i for i, (x, y) in enumerate(zip(la, lb)) if not torch.equal(x, y)]
-    check(not bad, f"{what}: graphed != eager (torch.equal) at leaves {bad[:8]} of {len(la)}")
+    check(not bad, f"{what}: not torch.equal at leaves {bad[:8]} of {len(la)}")
 
 
 def check_same_state(torch, a, b, what: str) -> None:
@@ -2455,30 +2544,12 @@ def main_phase(torch, kernels, results) -> None:
 
     # step 1's rollout phase, replayed from the graph, against the same
     # phase op by op with the plain versions on the card
-    inter, (traj, last_value) = trainer.rollout_phase(trainer.init_state(SEED))
+    _, (traj, _) = trainer.rollout_phase(trainer.init_state(SEED))
     check(tuple(traj["obs"].shape) == (HORIZON, N_ENVS, 164) and traj["obs"].dtype == torch.bfloat16,
           "trajectory obs shape/dtype")
     for key in ("obs", "logp", "value", "reward"):
         check(bool(torch.isfinite(traj[key]).all()), f"non-finite trajectory {key}")
-    kernel_fns = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
-    env_dynamics.fill_brackets = env_dynamics.fill_brackets_plain
-    env_dynamics.mark_reward = env_dynamics.mark_reward_plain
-    window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
-        window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
-    try:
-        t0 = time.perf_counter()
-        ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(trainer.init_state(SEED))
-        torch.cuda.synchronize()
-        plain_phase_s = time.perf_counter() - t0
-    finally:
-        env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs = kernel_fns
-    check(count_launches(counted) == launches, "the plain-version phase launched a kernel")
-    for key in ("obs", "action", "reward", "done", "logp", "value"):
-        check(torch.equal(traj[key], ref_traj[key]), f"main path vs plain versions: traj {key}")
-    for field in ref_state.env_states._fields:
-        check(torch.equal(getattr(inter.env_states, field), getattr(ref_state.env_states, field)),
-              f"main path vs plain versions: env state {field}")
-    check(torch.equal(last_value, ref_last), "main path vs plain versions: bootstrap value")
+    plain_phase_s = check_rollout_vs_plain(torch, trainer, counted, "main path")
     print(f"main path (graphed) == plain versions op by op on the card (rollout phase of step 1, "
           f"torch.equal); plain phase {plain_phase_s * 1e3:.1f} ms")
     compared = graphed_vs_eager(torch, trainer, state, None, "main path")
@@ -3015,19 +3086,12 @@ def curriculum_phase(torch, dev, kernels, results, paths) -> None:
     # graph, again op by op with the plain decode and the plain K1-K3
     i = next(i for i in picks if i > 0)
     traj_state, (traj, last) = trainer.rollout_phase(trainer.init_state(SEED), sampler._tape_data(i))
-    kernel_fns = (env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs)
-    env_dynamics.fill_brackets = env_dynamics.fill_brackets_plain
-    env_dynamics.mark_reward = env_dynamics.mark_reward_plain
-    window_zscore.step_obs = lambda win, mean, std, neutral, binary_mask=(), clip=10.0: \
-        window_zscore.scale_feature_window(win, mean, std, neutral, binary_mask, clip)
     before = count_launches(counted)
-    try:
+    with plain_env_kernels():
         plain_tape = C.decode_shard_ref(sampler.tape(i), 0, device=dev)
         ref_state, (ref_traj, ref_last) = trainer._rollout_phase_eager(trainer.init_state(SEED),
                                                                        plain_tape)
         torch.cuda.synchronize()
-    finally:
-        env_dynamics.fill_brackets, env_dynamics.mark_reward, window_zscore.step_obs = kernel_fns
     check(count_launches(counted) == before, "the plain-version curriculum phase launched a kernel")
     for key in ("obs", "action", "reward", "done", "logp", "value"):
         check(torch.equal(traj[key], ref_traj[key]), f"curriculum tape {i} vs plain versions: traj {key}")
@@ -5328,10 +5392,11 @@ def overlap_phase(torch, kernels, results, shared) -> None:
     overlapped beside sequential in turns; the observatory's overlap
     share of an overlapped dispatch (PPO).  The sequential PPO trainers
     are the observatory's keys-off ones (``shared``), graphs captured;
-    each is freed before the eager schedule runs beside the overlapped
-    trainer's two sets of graphs."""
+    each is freed, and the overlapped trainer's two sets of graphs after
+    their results are copied out, before the eager schedule runs."""
     from gymfx_tpu_torch.config.flagship import (flagship_config, impala_lstm_config,
                                                  long_context_config)
+    from gymfx_tpu_torch.core import graphs
     from gymfx_tpu_torch.core.runtime import Environment
     from gymfx_tpu_torch.ops import env_dynamics, fused_attention, window_zscore
     from gymfx_tpu_torch.telemetry.attribution import build_profile_report
@@ -5415,11 +5480,18 @@ def overlap_phase(torch, kernels, results, shared) -> None:
                 row["observatory"] = {k: ph[k] for k in ("rollout_ms", "update_ms", "busy_ms",
                                                         "phase_sum_ms", "overlap_share")}
                 row["observatory"]["window_ms"] = report["trace"]["window_ms"]
-            # the eager schedule's activations beside two sets of graphs:
-            # the sequential trainer's graphs go first
-            del seq, seq_state, a
+                del session, cap, report
+            # the eager schedule's activations alone on the card: the
+            # sequential trainer's graphs and the overlapped one's go
+            # first, with every output of theirs still referenced here
+            # (a graph's output holds its pool's segment; ``s`` and ``m``
+            # are copied out)
+            m = graphs.clone_tree(m)
+            del seq, seq_state, a, b, ma, mb, ovl_state
+            ovl._graphs.clear()
             gc.collect()
             torch.cuda.empty_cache()
+            memory_census(torch, f"overlap {label}'s eager schedule")
             eager = make_train_many_overlapped(ovl._rollout_phase_eager, ovl._update_phase_eager,
                                                fields)
             e, me = eager(copy_state(torch, start), OVERLAP_K)
@@ -5440,7 +5512,7 @@ def overlap_phase(torch, kernels, results, shared) -> None:
                      f"{row['observatory']['busy_ms']} ms in a {row['observatory']['window_ms']} "
                      f"ms window); " if "observatory" in row else "")
                   + results["device"]["nvidia_smi"])
-            del ovl, env, s, e, ovl_state, start, b
+            del ovl, env, s, e, start
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -5530,6 +5602,559 @@ def remat_phase(torch, kernels, results, shared) -> None:
           f"{out['plain']['eager_peak_bytes']:,}; {results['device']['nvidia_smi']}")
 
 
+# ---------------------------------------------------------------------------
+# continuous actions, IMPALA over a curriculum, the Gymnasium shells
+def note_launches(kernels, label: str, launches: dict) -> None:
+    """A path's launches of each kernel, beside the main path's count in
+    the summary line (``launches_on_new_paths``)."""
+    for key, count in launches.items():
+        if count:
+            kernels[key].setdefault("launches_on_new_paths", {})[label] = count
+
+
+def coerced_kinds(torch, actions, threshold: float) -> list:
+    """How many float actions the env coerces to hold, long and short."""
+    thr = float(torch.tensor(threshold, dtype=torch.float32))
+    long_ = int((actions >= thr).sum())
+    short = int((actions <= -thr).sum())
+    return [actions.numel() - long_ - short, long_, short]
+
+
+def continuous_phase(torch, kernels, results) -> None:
+    """flagship-continuous-train and long-context-continuous-train: the two
+    configurations with action_space_mode=continuous, from their graphs."""
+    from gymfx_tpu_torch.config.flagship import (flagship_continuous_config,
+                                                 long_context_continuous_config)
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import cases, env_dynamics, fused_attention, window_zscore
+    from gymfx_tpu_torch.train import policies
+    from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
+
+    csv = str(ROOT / "examples" / "data" / "eurusd_sample.csv")
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               fused_attention.attention_forward, fused_attention.attention_backward)
+    runs = graphs.WARMUP + 1
+    out = results["continuous"] = {}
+
+    # ---- flagship-continuous-train --------------------------------------
+    config = flagship_continuous_config(csv)
+    trainer = PPOTrainer(Environment(config), ppo_config_from(config))
+    check(isinstance(trainer.policy, policies.ContinuousMLPPolicy) and trainer._continuous
+          and trainer.pcfg.n_envs == N_ENVS and trainer.pcfg.horizon == HORIZON
+          and trainer.pcfg.policy_dtype == torch.bfloat16 and trainer.obs_dim == 164,
+          "flagship-continuous-train config changed")
+    state = trainer.init_state(SEED)
+    for fn in counted:
+        fn.launches = 0
+    state, rows = train(torch, trainer, state, TRAIN_STEPS)
+    launches = count_launches(counted)
+    per_phase = {"step_obs": HORIZON, "fill_brackets": HORIZON, "mark_reward": HORIZON}
+    check(launches == {**{k: runs * v for k, v in per_phase.items()}, "attention_forward": 0,
+                       "attention_backward": 0},
+          f"flagship-continuous launched {launches} at capture, expected {runs} x {per_phase}")
+    note_launches(kernels, "flagship-continuous-train", launches)
+    check(sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"],
+          f"flagship-continuous graphs {[k for k, *_ in trainer._graphs]}")
+    check_training(rows, "flagship-continuous")
+    state = copy_state(torch, state)
+    summary = report_steps(rows, N_ENVS, HORIZON, "flagship-continuous")
+    traced, _ = replay_launches(torch, first_graphs(trainer), {"rollout": per_phase, "update": {}},
+                                "flagship-continuous")
+    plain_s = check_rollout_vs_plain(torch, trainer, counted, "flagship-continuous")
+    _, (traj, _) = trainer.rollout_phase(copy_state(torch, state))
+    check(traj["action"].dtype == torch.float32, "flagship-continuous: the actions are not float32")
+    kinds = coerced_kinds(torch, traj["action"], trainer.env.config["continuous_action_threshold"])
+    check(all(kinds), f"flagship-continuous: the coerced actions {kinds} miss a kind")
+    compared = graphed_vs_eager(torch, trainer, state, None, "flagship-continuous")
+    discrete = results["main_path"]["train_env_steps_per_s"]
+    print(f"flagship-continuous: one replay by the profiler trace {traced}; the rollout replay == "
+          f"the plain versions op by op (torch.equal, plain phase {plain_s * 1e3:.1f} ms); coerced "
+          f"hold / long / short {kinds}; {summary['train_env_steps_per_s']:,.0f} env steps/s beside "
+          f"flagship-train's {discrete:,.0f} in this call ({results['device']['nvidia_smi']})")
+    out["flagship"] = {**summary, "launches_at_capture": launches, "replay_launches": traced,
+                       "plain_rollout_ms": plain_s * 1e3, "coerced_kinds": kinds,
+                       "graphed_vs_eager": compared, "discrete_env_steps_per_s": discrete}
+    del trainer, state, traj
+    torch.cuda.empty_cache()
+
+    # ---- long-context-continuous-train ------------------------------------
+    config = long_context_continuous_config(csv)
+    trainer = PPOTrainer(Environment(config), ppo_config_from(config))
+    pcfg = trainer.pcfg
+    n, horizon, mbs = pcfg.n_envs, pcfg.horizon, pcfg.minibatches
+    layers = dict(pcfg.policy_kwargs)["n_layers"]
+    check(isinstance(trainer.policy, policies.ContinuousRingTransformerPolicy)
+          and (n, horizon, trainer.env.cfg.window_size, pcfg.epochs, layers) == (256, 64, 256, 1, 2),
+          "long-context-continuous-train config changed")
+    state = trainer.init_state(SEED)
+    for fn in counted:
+        fn.launches = 0
+    state, rows = train(torch, trainer, state, LONG_STEPS)
+    launches = count_launches(counted)
+    rollout = {"step_obs": horizon, "fill_brackets": horizon, "mark_reward": horizon,
+               "attention_forward": layers * (horizon + 1)}
+    update = {"attention_forward": layers * mbs, "attention_backward": layers * mbs}
+    check(rollout["attention_forward"] == 130 and update["attention_forward"] == 8,
+          "K4 launch arithmetic")
+    expected = {k: runs * (rollout.get(k, 0) + update.get(k, 0)) for k in launches}
+    check(launches == expected, f"long-continuous launched {launches} at capture, expected {expected}")
+    note_launches(kernels, "long-context-continuous-train", launches)
+    check_training(rows, "long-continuous")
+    state = copy_state(torch, state)
+    summary = report_steps(rows, n, horizon, "long-continuous")
+    traced, _ = replay_launches(torch, first_graphs(trainer), {"rollout": rollout, "update": update},
+                                "long-continuous")
+    # K4 on the path's own inputs: the first forward of each shape that the
+    # eager phases below make, recorded, against the plain versions
+    recorded, original = {}, fused_attention.attention_forward
+
+    def recording(q, k, v, causal=False):
+        recorded.setdefault(tuple(q.shape), (q.clone(), k.clone(), v.clone(), causal))
+        return original(q, k, v, causal)
+
+    recording.launches = 0
+    fused_attention.attention_forward = recording
+    try:
+        compared = graphed_vs_eager(torch, trainer, state, None, "long-continuous", steps=2)
+    finally:
+        fused_attention.attention_forward = original
+    check(sorted(recorded) == [(256, 256, 4, 32), (4096, 256, 4, 32)],
+          f"long-continuous: K4 shapes {sorted(recorded)}")
+    k4 = {}
+    for shape, (q, k, v, causal) in sorted(recorded.items()):
+        gen = torch.Generator(device=q.device).manual_seed(SEED)
+        g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+        k4[str(shape)] = check_k4_case(torch, fused_attention, cases, q, k, v, g, causal)
+    del recorded
+    print(f"long-continuous: one replay by the profiler trace {traced}; K4 at the path's rollout "
+          f"and update inputs within attention_tolerance of its plain versions; "
+          f"{summary['train_env_steps_per_s']:,.0f} env steps/s beside long-context-train's "
+          f"{results['long_context']['train_env_steps_per_s']:,.0f} in this call")
+    out["long_context"] = {**summary, "launches_at_capture": launches, "replay_launches": traced,
+                           "k4_max_err": k4, "graphed_vs_eager": compared}
+
+
+IMPALA_CURRICULUM_SUPERSTEPS = 2
+IMPALA_CURRICULUM_SEED = 0  # its first two picks: tapes 2 and 1, both compressed
+
+
+def impala_continuous_phase(torch, kernels, results) -> None:
+    """IMPALA in continuous mode at config 4's shape (4,096 envs, unroll 64,
+    the bf16 LSTM twin), from its graphs."""
+    from gymfx_tpu_torch.config.flagship import impala_lstm_config
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.ops import env_dynamics, window_zscore
+    from gymfx_tpu_torch.train import policies
+    from gymfx_tpu_torch.train.impala import ImpalaTrainer, impala_config_from
+
+    config = impala_lstm_config(str(ROOT / "examples" / "data" / "eurusd_sample.csv"),
+                                action_space_mode="continuous")
+    trainer = ImpalaTrainer(Environment(config), impala_config_from(config))
+    check(isinstance(trainer.policy, policies.ContinuousLSTMPolicy)
+          and (trainer.icfg.n_envs, trainer.icfg.unroll, trainer.icfg.policy_dtype)
+          == (4096, 64, torch.bfloat16), "impala-continuous config changed")
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
+    for fn in counted:
+        fn.launches = 0
+    state, rows = train(torch, trainer, trainer.init_state(SEED), TRAIN_STEPS)
+    launches = count_launches(counted)
+    runs = graphs.WARMUP + 1
+    per_phase = {"step_obs": 0, "fill_brackets": 64, "mark_reward": 64}
+    check(launches == {k: runs * v for k, v in per_phase.items()},
+          f"impala-continuous launched {launches} at capture, expected {runs} x {per_phase}")
+    note_launches(kernels, "impala-continuous", launches)
+    check_training(rows, "impala-continuous",
+                   keys=("loss", "policy_loss", "value_loss", "entropy", "mean_rho"))
+    rho = [r["metrics"]["mean_rho"] for r in rows]
+    check(all(0.0 < x < 10.0 for x in rho), f"impala-continuous mean_rho {rho}")
+    state = copy_state(torch, state)
+    summary = report_steps(rows, 4096, 64, "impala-continuous")
+    traced, _ = replay_launches(torch, first_graphs(trainer), {"rollout": per_phase, "update": {}},
+                                "impala-continuous")
+    plain_s = check_rollout_vs_plain(torch, trainer, counted, "impala-continuous")
+    compared = graphed_vs_eager(torch, trainer, state, None, "impala-continuous", steps=2)
+    print(f"impala-continuous: one replay by the profiler trace {traced}; the rollout replay == "
+          f"the plain versions op by op (torch.equal: the segment, the actors' start carry, the "
+          f"state after; plain phase {plain_s * 1e3:.1f} ms); mean_rho {rho}; "
+          f"{summary['train_env_steps_per_s']:,.0f} env steps/s beside baseline-impala-lstm-train's "
+          f"{results['baseline']['impala']['train_env_steps_per_s']:,.0f} in this call")
+    results["impala_continuous"] = {**summary, "launches_at_capture": launches,
+                                    "replay_launches": traced, "mean_rho": rho,
+                                    "plain_rollout_ms": plain_s * 1e3,
+                                    "graphed_vs_eager": compared}
+
+
+def impala_curriculum_phase(torch, kernels, results, paths) -> None:
+    """IMPALA over the curriculum phase's tape library (config 4's trainer,
+    impala_curriculum_config): IMPALA_CURRICULUM_SUPERSTEPS supersteps
+    through ImpalaTrainer.train, one pick each, one graph pair for every
+    tape, K6 on each compressed pick."""
+    from gymfx_tpu_torch.config.flagship import impala_curriculum_config
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.data import compress as C
+    from gymfx_tpu_torch.ops import env_dynamics, tape_decode, window_zscore
+    from gymfx_tpu_torch.train.impala import ImpalaTrainer, impala_config_from
+
+    library = ",".join(f"file:{path}" for path in paths.values())
+    config = impala_curriculum_config(library, timeframe="M1",
+                                      curriculum_seed=IMPALA_CURRICULUM_SEED)
+    t0 = time.perf_counter()
+    env = Environment(config)
+    build_s = time.perf_counter() - t0
+    sampler = env.curriculum
+    trainer = ImpalaTrainer(env, impala_config_from(config))
+    n, unroll = trainer.icfg.n_envs, trainer.icfg.unroll
+    check((n, unroll, trainer.icfg.policy, env.cfg.n_bars) == (4096, 64, "lstm", TAPE_BARS),
+          "impala-curriculum config changed")
+    groups = {i: len(C._q16_groups(sampler.tape(i).columns,
+                                   [s.shape[1] for s in sampler.tape(i).slabs]))
+              for i in range(1, sampler.num_tapes)}
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward,
+               tape_decode.decode_q16_block)
+    for fn in counted:
+        fn.launches = 0
+    state, metrics = trainer.train(IMPALA_CURRICULUM_SUPERSTEPS * n * unroll, seed=SEED)
+    launches = count_launches(counted)
+    picks = [i for _, i in sampler.picks]
+    check(len(picks) == IMPALA_CURRICULUM_SUPERSTEPS and len(set(picks)) == len(picks)
+          and all(i > 0 for i in picks), f"impala-curriculum picks {picks}: expected two "
+          "different compressed tapes")
+    runs = graphs.WARMUP + 1
+    # per replay: K1 once more in the rollout than K2 / K3 (the active
+    # tape's fresh reset for the auto-reset) and once in the update (its
+    # fresh reset for the quarantine); the decode once a compressed pick
+    rollout = {"step_obs": unroll + 1, "fill_brackets": unroll, "mark_reward": unroll}
+    update = {"step_obs": 1}
+    expected = {"step_obs": runs * (unroll + 2), "fill_brackets": runs * unroll,
+                "mark_reward": runs * unroll,
+                "decode_q16_block": sum(groups[i] for i in picks)}
+    check(launches == expected, f"impala-curriculum launched {launches}, expected {expected}")
+    check(sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"],
+          f"impala-curriculum graphs {[k for k, *_ in trainer._graphs]}: one graph a phase for "
+          "every tape")
+    note_launches(kernels, "impala-curriculum", launches)
+    check(metrics["iterations"] == IMPALA_CURRICULUM_SUPERSTEPS
+          and math.isfinite(metrics["loss"]) and metrics["nonfinite_skips"] == 0.0,
+          f"impala-curriculum metrics {metrics}")
+    state = copy_state(torch, state)
+    traced, _ = replay_launches(torch, first_graphs(trainer), {"rollout": rollout, "update": update},
+                                "impala-curriculum")
+    # the rollout on each pick, staged (K6's decode at the pick, K1-K3 from
+    # the graph) against the plain decode and the plain K1-K3 op by op
+    plain_s = {}
+    for i in picks:
+        plain_s[i] = check_rollout_vs_plain(
+            torch, trainer, counted[:3], f"impala-curriculum tape {i}", sampler._tape_data(i),
+            plain_data=lambda i=i: C.decode_shard_ref(sampler.tape(i), 0, device=trainer.device))
+    compared = graphed_vs_eager(torch, trainer, state, sampler._tape_data(picks[0]),
+                                "impala-curriculum", steps=2)
+    print(f"impala-curriculum: library of {sampler.num_tapes} tapes of {TAPE_BARS:,} bars built "
+          f"in {build_s:.1f} s; {IMPALA_CURRICULUM_SUPERSTEPS} supersteps, picks {picks}, each "
+          f"copied into the one staging tape, one graph pair; launches {launches}; one replay by "
+          f"the profiler trace {traced}; the rollout replay on each pick == the plain decode and "
+          f"the plain versions op by op (torch.equal; plain phases "
+          f"{[round(x * 1e3, 1) for x in plain_s.values()]} ms); "
+          f"{metrics['env_steps_per_sec']:,.0f} env steps/s through "
+          f"train (the first superstep captures), {compared['graphed_env_steps_per_s']:,.0f} "
+          f"graphed phases")
+    results["impala_curriculum"] = {
+        "build_s": build_s, "picks": picks, "q16_groups": groups, "launches": launches,
+        "replay_launches": traced, "env_steps_per_s": metrics["env_steps_per_sec"],
+        "plain_rollout_ms": {str(i): x * 1e3 for i, x in plain_s.items()},
+        "graphed_vs_eager": compared}
+
+
+def native_loader_phase(torch, results, paths) -> None:
+    """The native CSV loader (data/native_loader.py): built with g++, one
+    generated tape loaded under GYMFX_NATIVE_LOADER=require equal to the
+    numpy path's frame (bitwise), both timed."""
+    import os
+
+    import numpy as np
+
+    from gymfx_tpu_torch.data import native_loader
+    from gymfx_tpu_torch.data.feed import load_dataframe
+
+    t0 = time.perf_counter()
+    lib = native_loader.build()
+    build_s = time.perf_counter() - t0
+    path = next(iter(paths.values()))
+    saved = os.environ.get("GYMFX_NATIVE_LOADER")
+    frames, seconds = {}, {}
+    try:
+        for mode in ("require", "0"):
+            os.environ["GYMFX_NATIVE_LOADER"] = mode
+            t0 = time.perf_counter()
+            frames[mode] = load_dataframe({"input_data_file": path})
+            seconds[mode] = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("GYMFX_NATIVE_LOADER", None)
+        else:
+            os.environ["GYMFX_NATIVE_LOADER"] = saved
+    native, numpy_path = frames["require"], frames["0"]
+    check(len(native) == TAPE_BARS and sorted(native.columns) == sorted(numpy_path.columns),
+          "native loader: rows or columns")
+    for name in native.columns:
+        check(np.array_equal(native.columns[name].view(np.uint64),
+                             numpy_path.columns[name].view(np.uint64)),
+              f"native loader: column {name} != the numpy path's")
+    check(np.array_equal(native.timestamps, numpy_path.timestamps), "native loader: timestamps")
+    print(f"native loader: {lib.name} built in {build_s:.2f} s; a {TAPE_BARS:,}-bar tape "
+          f"{seconds['require']:.3f} s native (require) vs {seconds['0']:.3f} s numpy, equal "
+          f"(bitwise, every column and timestamp)")
+    results["native_loader"] = {"build_s": build_s, "native_s": seconds["require"],
+                                "numpy_s": seconds["0"], "rows": TAPE_BARS}
+
+
+def serve_continuous_phase(torch, kernels, results) -> None:
+    """serve-mlp-continuous: serve-mlp with action_space_mode=continuous, at
+    bench_infer.py's ladder: the exact ladder's rows torch.equal to the
+    single-row forward, each action the env's coercion of its mean, and
+    decide_batch's decisions/s beside serve-mlp's."""
+    from gymfx_tpu_torch.serve import InferenceEngine, engine_from_config
+
+    bundle = engine_from_config(serve_config(policy="mlp", action_space_mode="continuous"))
+    engine = bundle.engine
+    check(engine.continuous and engine.batch_mode == "matmul"
+          and engine.buckets == (1, 8, 64, 512, 4096) and engine.late_compiles == 0,
+          "serve-mlp-continuous boot")
+    thr = engine.continuous_threshold
+    exact = InferenceEngine(engine.policy, engine.params, bundle.encode(bundle.reset_obs)[0].cpu(),
+                            buckets=SERVE_EXACT_BUCKETS, batch_mode="exact", continuous=True,
+                            continuous_threshold=thr)
+    checked, kinds = 0, [0, 0, 0]
+    gen = torch.Generator().manual_seed(SEED)
+    for n in SERVE_EXACT_ROWS:
+        # unit-normal rows: the twin's means fall on both sides of both thresholds
+        rows = torch.randn((n, *exact.obs_shape), generator=gen)
+        out = exact.decide_batch(rows)
+        for j in range(n):
+            with torch.no_grad():
+                (mu, _), value = torch.func.functional_call(
+                    exact.policy, exact.params, (rows[j].to(exact.device)[None],))
+            check(torch.equal(out.actor_out[j], mu[0].cpu())
+                  and torch.equal(out.value[j], value[0].cpu()),
+                  f"serve-mlp-continuous: exact row {j} of {n} != the single-row forward")
+        want = torch.where(out.actor_out >= thr, 1, torch.where(out.actor_out <= -thr, 2, 0))
+        check(torch.equal(out.action, want.to(torch.int32)),
+              "serve-mlp-continuous: an action is not the env's coercion of its mean")
+        for kind, count in zip(range(3), coerced_kinds(torch, out.actor_out, thr)):
+            kinds[kind] += count
+        checked += n
+    check(all(kinds), f"serve-mlp-continuous: coerced kinds {kinds}")
+    rows = serve_rows(torch, bundle, SERVE_BATCH, seed=6)
+    out = engine.decide_batch(rows)
+    want = torch.where(out.actor_out >= thr, 1, torch.where(out.actor_out <= -thr, 2, 0))
+    check(torch.equal(out.action, want.to(torch.int32)), "serve-mlp-continuous matmul coercion")
+    # decide_batch's decisions/s beside serve-mlp's, the two engines in turns
+    discrete = engine_from_config(serve_config(policy="mlp"))
+    engines = {"continuous": (engine, rows),
+               "discrete": (discrete.engine, serve_rows(torch, discrete, SERVE_BATCH, seed=6))}
+    engines["discrete"][0].decide_batch(engines["discrete"][1])
+    rates = {"continuous": [], "discrete": []}
+    for label in ("discrete", "continuous", "continuous", "discrete"):
+        eng, batch = engines[label]
+        t0 = time.perf_counter()
+        for _ in range(SERVE_TURN_ITERS):
+            eng.decide_batch(batch)
+        rates[label].append(SERVE_BATCH * SERVE_TURN_ITERS / (time.perf_counter() - t0))
+    check(engine.late_compiles == 0 == exact.late_compiles, "serve-mlp-continuous late capture")
+    per_s, discrete_s = statistics.mean(rates["continuous"]), statistics.mean(rates["discrete"])
+    print(f"serve-mlp-continuous: {checked} exact rows (ladder {SERVE_EXACT_BUCKETS}) torch.equal "
+          f"to the single-row forward, every action the env's coercion of its mean (threshold "
+          f"{thr}; hold / long / short {kinds}); decide_batch at {SERVE_BATCH} rows, "
+          f"{SERVE_TURN_ITERS} calls a turn, in turns with serve-mlp: "
+          f"{[round(r, 1) for r in rates['continuous']]} decisions/s beside serve-mlp's "
+          f"{[round(r, 1) for r in rates['discrete']]} ({per_s / discrete_s:.3f}x)")
+    results["serve_continuous"] = {"exact_rows": checked, "coerced_kinds": kinds,
+                                   "decisions_per_s": rates["continuous"],
+                                   "discrete_decisions_per_s": rates["discrete"],
+                                   "capture_s": engine.capture_s}
+
+
+SHELL_STEPS, SHELL_BARS = 500, 400
+VECTOR_ENVS, VECTOR_STEPS, VECTOR_BARS = 8192, 64, 48
+
+
+def host_equal(a, b) -> bool:
+    """Two host trees (dicts, tuples, lists, numpy arrays, python scalars)
+    equal, floats bit for bit (NaN matching NaN)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(host_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(host_equal, a, b))
+    if isinstance(a, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+    if isinstance(a, float):
+        return type(b) is float and (a == b or a != a and b != b)
+    return type(a) is type(b) and a == b
+
+
+def shells_phase(torch, kernels, results, tmp) -> None:
+    """The Gymnasium shells: GymFxEnv for SHELL_STEPS steps of a fixed
+    action script, discrete and continuous, one CUDA graph a step ==
+    the same steps op by op, ms a step; GymFxVectorEnv at VECTOR_ENVS envs
+    for VECTOR_STEPS steps, env steps/s, K1-K3 once a step; main with
+    gym_loop=true == the same run eager."""
+    import numpy as np
+
+    from gymfx_tpu_torch import gym_compat, gym_env
+    from gymfx_tpu_torch.app.main import main as cli_main
+    from gymfx_tpu_torch.config.flagship import flagship_config
+    from gymfx_tpu_torch.core import graphs
+    from gymfx_tpu_torch.gym_env import GymFxEnv
+    from gymfx_tpu_torch.ops import env_dynamics, window_zscore
+    from gymfx_tpu_torch.vector_env import GymFxVectorEnv
+
+    csv = str(ROOT / "examples" / "data" / "eurusd_sample.csv")
+    counted = (window_zscore.step_obs, env_dynamics.fill_brackets, env_dynamics.mark_reward)
+    one_step = {"step_obs": 1, "fill_brackets": 1, "mark_reward": 1}
+    out = results["shells"] = {"gymnasium": gym_compat.HAVE_GYMNASIUM}
+    scripts = {"discrete": [(1, 0, 0, 2, 2, 0, 1, 1, 0, 0)[i % 10] for i in range(SHELL_STEPS)],
+               "continuous": [np.float32([0.9 * math.sin(0.7 * i)]) for i in range(SHELL_STEPS)]}
+    for mode, script in scripts.items():
+        # a 400-bar cut: the episode ends inside the script and steps past its end
+        config = flagship_config(csv, action_space_mode=mode, max_rows=SHELL_BARS)
+        runs, ms = {}, {}
+        for label in ("graphed", "eager", "plain"):
+            # eager: the same steps op by op; plain: op by op with K1-K3's
+            # plain versions
+            with plain_env_kernels() if label == "plain" else contextlib.nullcontext():
+                shell = GymFxEnv(config)
+                shell._program.graphed = label == "graphed"
+                for fn in counted:
+                    fn.launches = 0
+                steps = [shell.reset(seed=SEED)]
+                t0 = time.perf_counter()
+                steps.append(shell.step(script[0]))  # the graphed shell captures here
+                t1 = time.perf_counter()
+                steps += [shell.step(a) for a in script[1:]]
+                ms[label] = (time.perf_counter() - t1) * 1e3 / (SHELL_STEPS - 1)
+                ms[f"{label}_first"] = (t1 - t0) * 1e3
+                runs[label] = (steps, count_launches(counted), shell)
+        check(host_equal(runs["graphed"][0], runs["eager"][0]),
+              f"shell {mode}: graphed != eager over {SHELL_STEPS} steps (obs, reward, done, info)")
+        check(host_equal(runs["graphed"][0], runs["plain"][0])
+              and not any(runs["plain"][1].values()),
+              f"shell {mode}: graphed != the plain versions op by op over {SHELL_STEPS} steps "
+              f"(launches {runs['plain'][1]})")
+        check(any(step[2] for step in runs["graphed"][0][1:]), f"shell {mode}: no episode end")
+        shell = runs["graphed"][2]
+        warm = graphs.WARMUP + 1
+        # reset's obs launches K1 once; the graph's warm-ups and capture run
+        # its body WARMUP + 1 times, a replay moves no count
+        check(runs["graphed"][1] == {"step_obs": warm + 1, "fill_brackets": warm,
+                                     "mark_reward": warm}
+              and runs["eager"][1] == {"step_obs": SHELL_STEPS + 1, "fill_brackets": SHELL_STEPS,
+                                       "mark_reward": SHELL_STEPS},
+              f"shell {mode}: launches graphed {runs['graphed'][1]}, eager {runs['eager'][1]}")
+        traced, _ = replay_launches(torch, {"step": shell._program.graph}, {"step": one_step},
+                                    f"shell {mode}")
+        note_launches(kernels, f"shell-{mode}", runs["eager"][1])
+        summary = shell.summary()
+        capture_s = getattr(shell._program.graph, "capture_s", 0.0)
+        print(f"shell {mode}: GymFxEnv {SHELL_STEPS} steps, one CUDA graph a step == op by op "
+              f"== op by op with K1-K3's plain versions (every obs, reward, done and info value "
+              f"equal); ms a step graphed {ms['graphed']:.4f} "
+              f"(first, with the capture, {ms['graphed_first']:.1f}), eager {ms['eager']:.4f}, "
+              f"plain {ms['plain']:.4f}; "
+              f"capture {capture_s:.2f} s; one replay by the profiler trace {traced}; final "
+              f"equity {summary['final_equity']:.5f}, trades {summary.get('trades_total')}")
+        out[mode] = {**ms, "replay_launches": traced, "capture_s": capture_s,
+                     "final_equity": summary["final_equity"]}
+        del runs
+
+    # a 48-bar cut: every env's episode ends inside the 64 steps, and the
+    # step after it is its autoreset
+    config = flagship_config(csv, max_rows=VECTOR_BARS)
+    rng = np.random.default_rng(SEED)
+    actions = [rng.integers(0, 3, VECTOR_ENVS) for _ in range(VECTOR_STEPS)]
+    vec_runs, vec_ms = {}, {}
+    for label in ("graphed", "eager", "plain"):
+        with plain_env_kernels() if label == "plain" else contextlib.nullcontext():
+            vec = GymFxVectorEnv(config, VECTOR_ENVS)
+            vec._program.graphed = label == "graphed"
+            for fn in counted:
+                fn.launches = 0
+            steps = [vec.reset(seed=SEED), vec.step(actions[0])]
+            t0 = time.perf_counter()
+            steps += [vec.step(a) for a in actions[1:]]
+            vec_ms[label] = (time.perf_counter() - t0) * 1e3 / (VECTOR_STEPS - 1)
+            vec_runs[label] = (steps, vec, count_launches(counted))
+    check(host_equal(vec_runs["graphed"][0], vec_runs["eager"][0]),
+          f"vector env: graphed != eager over {VECTOR_STEPS} steps")
+    check(host_equal(vec_runs["graphed"][0], vec_runs["plain"][0])
+          and not any(vec_runs["plain"][2].values()),
+          f"vector env: graphed != the plain versions op by op over {VECTOR_STEPS} steps")
+    resets = sum(int(step[2].sum()) for step in vec_runs["graphed"][0][1:])
+    check(resets > 0, "vector env: no env terminated, the autoreset was not exercised")
+    traced, _ = replay_launches(torch, {"step": vec_runs["graphed"][1]._program.graph},
+                                {"step": one_step}, "vector env")
+    rate = VECTOR_ENVS / vec_ms["graphed"] * 1e3
+    print(f"vector env: {VECTOR_ENVS} envs x {VECTOR_STEPS} steps ({resets} terminations, each "
+          f"autoreset the step after), one CUDA graph a step == op by op == op by op with K1-K3's "
+          f"plain versions; ms a step graphed {vec_ms['graphed']:.3f}, eager "
+          f"{vec_ms['eager']:.3f}, plain {vec_ms['plain']:.3f}; "
+          f"{rate:,.0f} env steps/s graphed; one replay by the profiler trace {traced} "
+          f"(K1-K3 once a step for every env)")
+    out["vector"] = {**vec_ms, "env_steps_per_s": rate, "replay_launches": traced,
+                     "terminations": resets}
+    del vec_runs
+
+    # main with gym_loop=true, then the same run with every step op by op
+    argv = ["--input_data_file", csv, "--gym_loop", "true", "--driver_mode", "random", "--seed",
+            "5", "--steps", str(SHELL_STEPS), "--save_config",
+            str(pathlib.Path(tmp) / "gym_loop_config.json"), "--quiet_mode"]
+    answers, main_s = {}, {}
+    saved = gym_env.StepProgram
+    for label in ("graphed", "eager"):
+        if label == "eager":
+            gym_env.StepProgram = lambda fn, state, device, eager=False: saved(fn, state, device,
+                                                                               eager=True)
+        try:
+            t0 = time.perf_counter()
+            answers[label] = cli_main(argv + ["--results_file",
+                                              str(pathlib.Path(tmp) / f"gym_{label}.json")])
+            main_s[label] = time.perf_counter() - t0
+        finally:
+            gym_env.StepProgram = saved
+    check(json.dumps(answers["graphed"], sort_keys=True) == json.dumps(answers["eager"],
+                                                                       sort_keys=True),
+          "main gym_loop: the graphed run's results JSON != the eager run's")
+    taken = answers["graphed"]["action_diagnostics"]["steps"]
+    check(0 < taken <= SHELL_STEPS, f"main gym_loop: {taken} steps")
+    print(f"main gym_loop: random driver, {SHELL_STEPS} steps at most: results JSON graphed == "
+          f"eager ({main_s['graphed']:.1f} s vs {main_s['eager']:.1f} s); final equity "
+          f"{answers['graphed']['final_equity']:.5f}")
+    out["main_gym_loop"] = {"seconds": main_s, "final_equity": answers["graphed"]["final_equity"]}
+
+
+def memory_census(torch, phase: str) -> dict:
+    """The card memory PyTorch holds (GiB: allocated, reserved) and the
+    CUDA graphs alive (core/graphs.PhaseGraph, counted by the qualified
+    name of their body), printed on one line: what a phase leaves behind
+    shows at the next one's start."""
+    from gymfx_tpu_torch.core.graphs import PhaseGraph
+
+    live = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, PhaseGraph) and obj.graph is not None:
+            key = getattr(obj.body, "__qualname__", type(obj.body).__name__)
+            live[key] = live.get(key, 0) + 1
+    out = {"allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+           "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30, "live_graphs": live}
+    print(f"memory at the start of {phase}: {out['allocated_gib']:.2f} GiB allocated, "
+          f"{out['reserved_gib']:.2f} GiB reserved; graphs alive {live or 'none'}")
+    return out
+
+
 def main() -> None:
     if not (ROOT / "gymfx_tpu_torch" / "csrc" / "env_kernels.cu").is_file():
         fail("gymfx_tpu_torch is not beside this script: run it from a checkout of the repo")
@@ -5591,11 +6216,24 @@ def main() -> None:
             print(f"  {lib_name} ptxas {key}: {row.get('registers')} registers; {row.get('frame')}")
 
     phase_s = results["phase_s"] = {"build": build_s}
+    # the card memory PyTorch holds as each phase starts, and the graphs
+    # alive then (memory_census)
+    held_gib = results["memory_at_start"] = {}
 
     def timed(name, fn, *args):
+        held_gib[name] = memory_census(torch, name)
         t0 = time.perf_counter()
         fn(*args)
         phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s ({time.perf_counter() - t_start:.1f} s "
+              "since the start)", flush=True)
+
+    def release():
+        # a phase's trainers and engines hold their graphs' memory pools in
+        # reference cycles (a graph's body closes over its trainer): collect
+        # them before the next phase captures its own
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ---- 3. kernels against their plain versions ----------------------------
     dev = torch.device("cuda")
@@ -5613,19 +6251,34 @@ def main() -> None:
     timed("main", main_phase, torch, kernels, results)
     # ---- 5. long: PPO training in the long-context configuration ----------
     timed("long", long_phase, torch, kernels, results)
+    release()
+    # ---- 21. continuous: flagship- and long-context-continuous-train -------
+    timed("continuous", continuous_phase, torch, kernels, results)
+    release()
     # ---- 6. lob: PPO training on the LOB venue -----------------------------
     timed("lob", lob_phase, torch, kernels, results)
+    release()
     # ---- 7. diagnostic episodes ---------------------------------------------
     timed("episode", episode_phase, torch, results)
+    # ---- 21. shells: GymFxEnv, GymFxVectorEnv, main's gym_loop ---------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shells_") as shell_tmp:
+        timed("shells", shells_phase, torch, kernels, results, shell_tmp)
+    release()
     # ---- 11. baseline: BASELINE.json's configurations 3 and 4 ---------------
     timed("baseline", baseline_phase, torch, kernels, results)
+    # ---- 21. impala continuous: config 4's shape with the LSTM's twin -------
+    timed("impala continuous", impala_continuous_phase, torch, kernels, results)
+    release()
     # ---- 14. portfolio: BASELINE.json's configuration 5 ---------------------
     timed("portfolio", portfolio_phase, torch, kernels, results)
     # ---- 19. pbt: PBT over the bar venue at flagship width -------------------
     timed("pbt", pbt_phase, torch, kernels, results)
+    release()
     # ---- 17. serve: the serving stack --------------------------------------
     timed("serve", serve_phase, torch, kernels, results)
-    torch.cuda.empty_cache()
+    # ---- 21. serve-mlp-continuous ------------------------------------------
+    timed("serve continuous", serve_continuous_phase, torch, kernels, results)
+    release()
     # ---- 18. scengen: the scenario generator on the card ---------------------
     timed("scengen", scengen_phase, torch, dev, kernels, results, built["scengen"][1])
     gc.collect()
@@ -5640,6 +6293,10 @@ def main() -> None:
               f"{phase_s['tapes']:.1f} s")
         timed("curriculum", curriculum_phase, torch, dev, kernels, results, paths)
         torch.cuda.empty_cache()
+        # ---- 21. the native CSV loader; IMPALA over the tape library -------
+        timed("native loader", native_loader_phase, torch, results, paths)
+        timed("impala curriculum", impala_curriculum_phase, torch, kernels, results, paths)
+        release()
         timed("export", export_phase, torch, kernels, results, paths, tmp)
         torch.cuda.empty_cache()
         timed("stream", stream_phase, torch, kernels, results, paths)
@@ -5652,7 +6309,7 @@ def main() -> None:
         timed("configs", configs_phase, torch, kernels, results, tmp)
         # ---- 19. telemetry: the trainers' telemetry, faults, logging ------
         timed("telemetry", telemetry_phase, torch, kernels, results, tmp)
-        torch.cuda.empty_cache()
+        release()
         # ---- 20. the observatory, the overlapped superstep, remat --------
         shared = {}  # the observatory's keys-off trainers, graphs captured
         timed("observatory", observatory_phase, torch, kernels, results, tmp, shared)
@@ -5672,6 +6329,8 @@ def main() -> None:
             "replaces": REPLACES[key], "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            **({"launches_on_new_paths": k["launches_on_new_paths"]}
+               if "launches_on_new_paths" in k else {}),
         }
         for key, k in kernels.items()
     ]}

@@ -8,6 +8,10 @@ Device rule: entry points run on ``torch.device("cuda")`` unless the
 caller passes ``device="cpu"``.  On a CUDA tensor every kernel wrapper
 launches its hand-written kernel (``csrc/env_kernels.cu``) or raises; on
 a CPU tensor it runs the kernel's plain PyTorch version.
+
+``Environment``, ``GymFxEnv``, ``GymFxVectorEnv`` and ``build_environment``
+are lazy top-level exports, as the JAX package's are
+(``gymfx_tpu/__init__.py``): importing the package loads none of them.
 """
 from __future__ import annotations
 
@@ -26,3 +30,25 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+# lazy top-level exports (PEP 562)
+_LAZY = {
+    "Environment": "gymfx_tpu_torch.core.runtime",
+    "GymFxEnv": "gymfx_tpu_torch.gym_env",
+    "GymFxVectorEnv": "gymfx_tpu_torch.vector_env",
+    "build_environment": "gymfx_tpu_torch.gym_env",
+}
+
+
+def __getattr__(name):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module 'gymfx_tpu_torch' has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(module), name)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

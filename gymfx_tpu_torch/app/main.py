@@ -35,8 +35,11 @@ key for key the JAX package's:
   float64 replay engine (:func:`verify_execution`).
 
 Every entry runs on the card unless the caller passes ``device="cpu"``.
-What the port does not take raises ``core/types.not_ported`` naming its
-ROADMAP Queue 1 item: the gym loop (18), a third-party plugin (9), and,
+With ``gym_loop=true`` (or a driver mode the diagnostic episode does not
+know) the host driver steps a ``gym_env.GymFxEnv`` instead
+(:func:`_run_gym_loop`).  What the port does not take raises
+``core/types.not_ported`` naming its ROADMAP Queue 1 item: a third-party
+plugin (9), and,
 in training, the elastic controller, a mesh and a fault profile's mesh
 events (17).
 
@@ -204,11 +207,43 @@ def _run_env(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     # plugin defaults merge at the lowest precedence
     config = merge_config(config, _collect_plugin_defaults(config), {}, {}, {}, {})
     mode = str(config.get("driver_mode", "buy_hold"))
-    if config.get("gym_loop"):
-        raise not_ported("gym_loop (the step-by-step Gymnasium path, gym_env.py)", 18)
-    if mode not in BUILTIN_DRIVERS:
-        raise ValueError(f"unknown driver_mode {mode!r}")
-    return _run_env_scan(config, device=device)
+    if mode in BUILTIN_DRIVERS and not config.get("gym_loop"):
+        return _run_env_scan(config, device=device)
+    return _run_gym_loop(config, device=device)
+
+
+def _run_gym_loop(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    """The step-by-step Gymnasium path (``gym_loop=true``, or a driver
+    mode the diagnostic episode does not know): the host driver of
+    :func:`make_cli_driver` steps a ``gym_env.GymFxEnv`` (one CUDA graph a
+    step on the card) until the episode ends or ``steps`` run out, and
+    returns its summary."""
+    from gymfx_tpu_torch.gym_env import build_environment
+
+    if config.get("export_scaled_features"):
+        # honor-or-reject: the export is the diagnostic episode's feature
+        # (it reads the Environment's feature tensors); silently writing
+        # no file would strand a downstream pipeline
+        raise ValueError(
+            "export_scaled_features is supported on the scanned episode "
+            "path only (builtin driver_mode without gym_loop); run the "
+            "export as a separate inference invocation"
+        )
+    env = build_environment(config=config, device=device)
+    decide = make_cli_driver(config)
+    try:
+        obs, info = env.reset(seed=config.get("seed"))
+        done = False
+        steps = int(config.get("steps", 500))
+        step_count = 0
+        while not done and step_count < steps:
+            action = decide(obs, info, step_count)
+            obs, _, terminated, truncated, info = env.step(action)
+            done = bool(terminated or truncated)
+            step_count += 1
+        return env.summary()
+    finally:
+        env.close()
 
 
 def export_scaled_features(env, config: Dict[str, Any], n_steps: int, path: str) -> Dict[str, Any]:

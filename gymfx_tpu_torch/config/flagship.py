@@ -60,6 +60,19 @@ a population of 4 x 64 envs, horizon 64, exploit/explore every 2 steps,
 200,000 env steps (12 population steps of 16,384).  Its env step runs K2
 and K3 over the 768 pair rows; no feature columns, so K1 does not run.
 
+``flagship_continuous_config`` ("flagship-continuous-train") and
+``long_context_continuous_config`` ("long-context-continuous-train"): the
+two configurations with ``action_space_mode="continuous"`` and nothing
+else changed: the policies are their Gaussian twins (the 3x256 MLP twin;
+the ring encoder's twin, K4), the env thresholds the sampled action at
+the default ``continuous_action_threshold`` of 0.33.
+
+``impala_curriculum_config`` ("impala-curriculum-train"):
+``impala_lstm_config``'s trainer (IMPALA, 4,096 envs, unroll 64, the bf16
+LSTM, ``dd_penalized_reward``) over ``curriculum_config``'s tape library
+(compressed tapes, each pick decoded by K6; the flagship's feature
+columns, so K1 runs).
+
 ``portfolio_transformer_config`` ("portfolio-transformer-train"):
 examples/configs/train_portfolio_transformer.json, the single portfolio
 trainer: 512 envs, horizon 64, ``margin_rate`` 0.02 (the account's margin
@@ -105,6 +118,14 @@ def long_context_config(input_data_file: str, **over) -> Dict[str, Any]:
     )
     config.update(over)
     return config
+
+
+def flagship_continuous_config(input_data_file: str, **over) -> Dict[str, Any]:
+    return flagship_config(input_data_file, **{"action_space_mode": "continuous", **over})
+
+
+def long_context_continuous_config(input_data_file: str, **over) -> Dict[str, Any]:
+    return long_context_config(input_data_file, **{"action_space_mode": "continuous", **over})
 
 
 def lob_config(input_data_file: str, **over) -> Dict[str, Any]:
@@ -173,6 +194,20 @@ def impala_lstm_config(input_data_file: str, **over) -> Dict[str, Any]:
         reward_plugin="dd_penalized_reward",
         window_size=32,
     )
+    config.update(over)
+    return config
+
+
+# the keys of impala_lstm_config that make it IMPALA's config 4
+IMPALA_KEYS = ("mode", "trainer", "num_envs", "impala_unroll", "policy", "policy_dtype",
+               "reward_plugin", "window_size")
+
+
+def impala_curriculum_config(tapes, **over) -> Dict[str, Any]:
+    """impala-curriculum-train: config 4's IMPALA trainer over ``tapes``
+    (as :func:`curriculum_config`)."""
+    impala = impala_lstm_config("")
+    config = curriculum_config(tapes, **{k: impala[k] for k in IMPALA_KEYS})
     config.update(over)
     return config
 

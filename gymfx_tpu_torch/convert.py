@@ -20,9 +20,17 @@ points (``gymfx_tpu_torch.resolve_device``).
                          a flax TransformerPolicy (or PortfolioTransformerPolicy)
                          tree -> state_dict (MultiHeadDotProductAttention's
                          query/key/value/out as Linear layers)
+  gaussian_params_from_flax
+                         a flax Gaussian twin's tree (ContinuousMLPPolicy:
+                         the trunk's Dense_0..n-1, Dense_n the mean,
+                         log_std, Dense_n+1 the value; the LSTM and ring
+                         twins: their trunk's names plus
+                         GaussianValueHead_0/{Dense_0, Dense_1, log_std})
+                         -> state_dict
   policy_params_from_flax
                          a policy's name and its flax tree -> state_dict,
-                         through the converter of that policy family
+                         through the converter of that policy family (a
+                         ``<name>_continuous`` name: its Gaussian twin's)
   stack_members          P members' state dicts -> one with a leading (P,)
                          member axis (the portfolio trainers' params; the
                          portfolio MLP converts through mlp_params_from_flax)
@@ -154,10 +162,54 @@ def transformer_params_from_flax(tree: Mapping[str, Any],
     return out
 
 
+def gaussian_params_from_flax(family: str, tree: Mapping[str, Any],
+                              device=None) -> Dict[str, torch.Tensor]:
+    """State dict of the Gaussian twin of ``family`` (``mlp``, ``lstm``,
+    ``transformer``, ``transformer_ring``, ``transformer_ulysses``) from
+    its flax tree (the outer "params" level is optional)."""
+    device = resolve_device(device)
+    params = dict(tree.get("params", tree))
+    refused = ValueError(f"no converter for policy {family + '_continuous'!r} from a tree of "
+                         f"{sorted(params)} (not a Gaussian twin's)")
+    if family == "mlp":
+        dense = sorted((k for k in params if k.startswith("Dense_")), key=lambda k: int(k[6:]))
+        if len(dense) < 3 or dense != [f"Dense_{i}" for i in range(len(dense))] \
+                or "log_std" not in params:
+            raise refused
+        names = [f"hidden.{i}" for i in range(len(dense) - 2)] + ["mu", "value"]
+        out: Dict[str, torch.Tensor] = {}
+        for key, name in zip(dense, names):
+            _linear(out, name, params[key], device)
+        out["log_std"] = _tensor(params["log_std"], device)
+        return out
+    if "GaussianValueHead_0" not in params:
+        raise refused
+    head = params.pop("GaussianValueHead_0")
+    # the trunk through its discrete converter, with placeholder heads
+    # where the discrete policy has its logits and value layers
+    zero = {"kernel": np.zeros((1, 1), np.float32), "bias": np.zeros((1,), np.float32)}
+    if family == "lstm":
+        params.update(Dense_1=zero, Dense_2=zero)
+        trunk = lstm_params_from_flax(params, device=device)
+    elif family in ("transformer", "transformer_ring", "transformer_ulysses"):
+        params.update(Dense_0=zero, Dense_1=zero)
+        trunk = ring_transformer_params_from_flax(params, device=device)
+    else:
+        raise ValueError(f"no Gaussian twin of policy {family!r}")
+    out = {k: v for k, v in trunk.items() if k.split(".")[0] not in ("logits", "value")}
+    _linear(out, "head.mu", head["Dense_0"], device)
+    out["head.log_std"] = _tensor(head["log_std"], device)
+    _linear(out, "head.value", head["Dense_1"], device)
+    return out
+
+
 def policy_params_from_flax(name: str, tree: Mapping[str, Any],
                             device=None) -> Dict[str, torch.Tensor]:
     """State dict of the policy ``name`` (as ``train/policies.make_policy``
-    names it) from its flax tree: the converter of its family."""
+    names it) from its flax tree: the converter of its family (a
+    ``<family>_continuous`` name: :func:`gaussian_params_from_flax`)."""
+    if name.endswith("_continuous"):
+        return gaussian_params_from_flax(name[: -len("_continuous")], tree, device=device)
     converters = {
         "mlp": mlp_params_from_flax,
         "lstm": lstm_params_from_flax,

@@ -335,12 +335,25 @@ def _parse_float(text: str) -> float:
 def load_dataframe(config: Dict[str, Any]) -> Frame:
     """CSV -> Frame with OHLCV backfill.  Rows whose ``date_column``
     does not parse are dropped; a file without that column keeps every
-    row and has NaT timestamps (neutral calendar features)."""
+    row and has NaT timestamps (neutral calendar features).
+
+    Canonical bar files (exactly the DATE_TIME, OHLCV schema, read with
+    the default date and price columns, no ``max_rows``) go through the
+    native C++ parser (``data/native_loader.py``) where it serves them;
+    everything else takes the numpy path, with the same result."""
     file_path = config.get("input_data_file")
     if not file_path:
         raise ValueError("config key 'input_data_file' is required")
     headers = bool(config.get("headers", True))
     max_rows = config.get("max_rows")
+    if (headers and max_rows is None
+            and str(config.get("date_column", "DATE_TIME")) == "DATE_TIME"
+            and str(config.get("price_column", "CLOSE")) == "CLOSE"):
+        from gymfx_tpu_torch.data.native_loader import load_ohlcv_csv
+
+        native = load_ohlcv_csv(str(file_path))
+        if native is not None:
+            return native
     with open(file_path, "r", encoding="utf-8", newline="") as fh:
         rows = list(csv.reader(fh))
     if headers:

@@ -175,9 +175,16 @@ class _TapePickerBase:
 
     def pick(self, it_start: int):
         """Draw the tape for the superstep starting at ``it_start`` ->
-        ``(index, label, device data)``."""
+        ``(index, label, device data)``; the draw is a ``curriculum_pick``
+        row of the active run ledger, when there is one."""
+        from gymfx_tpu_torch.telemetry.ledger import get_active_ledger
+
         i = int(self.rng.choice(len(self.specs), p=self.weights))
         self.picks.append((int(it_start), i))
+        ledger = get_active_ledger()
+        if ledger is not None:
+            ledger.record("curriculum_pick", it_start=int(it_start), tape=self.specs[i].label,
+                          tape_index=i, seed=self.seed)
         return i, self.specs[i].label, self._tape_data(i)
 
 

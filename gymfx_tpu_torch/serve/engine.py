@@ -15,9 +15,12 @@ out.  It
   * serves any request batch by padding it with neutral observations up
     to the smallest covering bucket and unpadding the responses, so N
     concurrent sessions share ONE replay instead of N;
-  * supports every discrete policy of train/policies.py; recurrent
-    policies stream their ``(c, h)`` carry through the engine per session
-    (or keep it on the card, serve/slots.py).
+  * supports every policy of train/policies.py, discrete and continuous
+    (a Gaussian twin's action is its mean thresholded as the env coerces
+    it, core/env.py: 1 at ``mu >= thr``, 2 at ``mu <= -thr``, else 0; its
+    ``actor_out`` is the mean); recurrent policies stream their ``(c, h)``
+    carry through the engine per session (or keep it on the card,
+    serve/slots.py).
 
 Two in-graph batching modes (``batch_mode``):
 
@@ -78,9 +81,10 @@ class WeightSwapError(RuntimeError):
 
 class Decision(NamedTuple):
     """One response row (or a batch of them, leading dim n).
-    ``actor_out`` is the raw actor head output — logits ``(n_actions,)``
-    — so callers can audit the decision; ``action`` is the greedy
-    env-action int (0 hold / 1 long / 2 short).  Every field is a host
+    ``actor_out`` is the raw actor head output — logits ``(n_actions,)``,
+    or a continuous policy's mean ``()`` — so callers can audit the
+    decision; ``action`` is the greedy env-action int (0 hold / 1 long / 2
+    short).  Every field is a host
     tensor; ``carry`` is the ``(c, h)`` tuple of a recurrent policy, ()
     for a stateless one, None in slot mode (the carry stays on the card)."""
 
@@ -172,7 +176,7 @@ class InferenceEngine:
 
     Parameters
     ----------
-    policy : a train/policies.py module (any discrete family)
+    policy : a train/policies.py module (any family, discrete or Gaussian)
     params : its parameters by name (``named_parameters`` keys; e.g. from
         train/checkpoint.py ``load_params`` or convert.py); the engine
         keeps its own copies on its device, which every graph reads
@@ -182,8 +186,9 @@ class InferenceEngine:
     buckets : the padded batch ladder; captured at construction when
         ``warmup=True`` (the default — serving must never capture)
     batch_mode : 'auto' | 'exact' | 'matmul' (see module docstring)
-    continuous : the continuous (Gaussian) policies are not ported
-        (ROADMAP.md Queue 1 item 11): True raises
+    continuous : the policy is a Gaussian twin: the action is its mean
+        thresholded at ``continuous_threshold`` as the env coerces it
+    continuous_threshold : the env's ``continuous_action_threshold``
     neutral_obs : the pad row (defaults to zeros); never visible in
         responses
     device : CUDA unless the caller names another
@@ -198,12 +203,11 @@ class InferenceEngine:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         batch_mode: str = "auto",
         continuous: bool = False,
+        continuous_threshold: float = 0.33,
         neutral_obs: Optional[Any] = None,
         warmup: bool = True,
         device=None,
     ):
-        if continuous:
-            raise not_ported("continuous policies in the serving engine", 11)
         if not buckets:
             raise ValueError("bucket ladder must not be empty")
         self.device = resolve_device(device)
@@ -212,6 +216,9 @@ class InferenceEngine:
         if self.buckets[0] < 1:
             raise ValueError(f"bucket sizes must be >= 1, got {self.buckets}")
         self.batch_mode = resolve_batch_mode(batch_mode, self.device)
+        self.continuous = bool(continuous)
+        # the threshold rounded to float32, as the env's parameter is
+        self.continuous_threshold = float(np.float32(continuous_threshold))
         names = [k for k, _ in policy.named_parameters()]
         if sorted(params) != sorted(names):
             raise ValueError(f"params {sorted(params)} are not the policy's {sorted(names)}")
@@ -290,12 +297,15 @@ class InferenceEngine:
     def _forward(self, x, carry):
         """(action, value, actor_out, carry2) of the policy on rows ``x``."""
         if self.recurrent:
-            logits, value, carry2 = torch.func.functional_call(self.policy, self.params,
-                                                               (x, carry))
+            out, value, carry2 = torch.func.functional_call(self.policy, self.params, (x, carry))
         else:
-            logits, value = torch.func.functional_call(self.policy, self.params, (x,))
+            out, value = torch.func.functional_call(self.policy, self.params, (x,))
             carry2 = ()
-        return torch.argmax(logits, dim=-1).to(torch.int32), value, logits, carry2
+        if self.continuous:
+            mu, thr = out[0], self.continuous_threshold
+            action = torch.where(mu >= thr, 1, torch.where(mu <= -thr, 2, 0)).to(torch.int32)
+            return action, value, mu, carry2
+        return torch.argmax(out, dim=-1).to(torch.int32), value, out, carry2
 
     def _batched(self, obs, carry):
         """The bucket's rows through the batch mode's program."""
@@ -857,6 +867,7 @@ def engine_from_config(
         buckets=scfg.buckets,
         batch_mode=scfg.batch_mode,
         continuous=continuous,
+        continuous_threshold=float(config.get("continuous_action_threshold", 0.33) or 0.33),
         warmup=bool(warmup and scfg.warmup),
         device=device,
     )

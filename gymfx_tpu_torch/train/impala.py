@@ -37,6 +37,18 @@ carry into it only after this update has read it).  Learner and actor
 params are distinct buffers throughout, as the JAX package keeps them
 for donation (:242-244).
 
+In ``action_space_mode=continuous`` the actors draw from the Gaussian
+twin (``ppo.sample_action``), the segment's actions are float32, and
+V-trace's importance weights and ``mean_rho`` come from Normal
+log-densities (``exp(pi_logp - mu_logp)``) (:274-290, :356-370).
+
+Under ``feed=curriculum`` (:177-200, :407-418, :612-625) each superstep
+boundary draws one tape (``curriculum.pick``, ledgered as a
+``curriculum_pick`` row) and both phases take it as an argument: on the
+card it is copied into one staging tape (``PolicyTrainer._stage``), so
+one graph pair serves every tape of the library; the rollout's and the
+quarantine's resets come from the active tape.
+
 Test hooks: ``rollout_phase(state, actions=...)`` replaces the actors'
 draws with given ones (on the card copied into the static buffer of a
 graph of their own), so a test can feed the JAX package's draws.
@@ -46,9 +58,8 @@ graph of their own), so a test can feed the JAX package's draws.
 graphs on two streams, ``train/common.run_overlapped_graphed``), the
 update's learner fields (learner and actor params, the optimizer state,
 the staleness counter) merged into the next rollout's carry.
-``feed=curriculum`` (the tape as a phase argument) raises ``not_ported``
-(item 11), and with ``superstep_overlap`` the JAX package's ValueError; a
-mesh and the elastic controller raise (item 17).
+``feed=curriculum`` with ``superstep_overlap`` raises the JAX package's
+ValueError; a mesh and the elastic controller raise (item 17).
 """
 from __future__ import annotations
 
@@ -56,7 +67,6 @@ import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.nn import functional as F
 
 from gymfx_tpu_torch.core import env as env_core
 from gymfx_tpu_torch.core import graphs
@@ -78,6 +88,7 @@ from gymfx_tpu_torch.train.common import (
 )
 from gymfx_tpu_torch.train.optim import AdamState, ClipAdam, apply_updates
 from gymfx_tpu_torch.train.policies import (
+    is_continuous,
     is_recurrent,
     is_token_policy,
     make_obs_encoder,
@@ -159,8 +170,6 @@ class ImpalaTrainer(ppo.PolicyTrainer):
     def __init__(self, env: Environment, icfg: ImpalaConfig):
         if env.curriculum is not None and icfg.superstep_overlap:
             raise ValueError(ppo.CURRICULUM_OVERLAP_ERROR)
-        if env.curriculum is not None:
-            raise not_ported("IMPALA over feed=curriculum (train_many_with_data)", 11)
         self.env = env
         self.icfg = icfg
         self.device = env.device
@@ -178,12 +187,16 @@ class ImpalaTrainer(ppo.PolicyTrainer):
             dtype=icfg.policy_dtype, kwargs=dict(icfg.policy_kwargs), window=cfg.window_size,
         ).to(self.device)
         self._recurrent = is_recurrent(self.policy)
+        self._continuous = is_continuous(self.policy)
         self.optimizer = ClipAdam(icfg.lr, icfg.max_grad_norm, icfg.opt_state_dtype)
         # the guard's updates-a-phase metric: one whole-step update
         self._guard_updates = torch.ones((), device=self.device)
+        # feed=curriculum: a tape a superstep, each phase taking it
+        self.curriculum = env.curriculum
         self._graphs_on = self.device.type == "cuda"
         self._graphs: Dict[tuple, graphs.PhaseGraph] = {}
         self._gens = tuple(torch.Generator(device=self.device) for _ in range(2))
+        self._staging = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> ImpalaState:
@@ -207,18 +220,20 @@ class ImpalaTrainer(ppo.PolicyTrainer):
 
     # ------------------------------------------------------------------
     def rollout_phase(self, state: ImpalaState, data=None, *, actions=None):
-        """Collect one unroll with the actor params.  Returns (post-rollout
-        state, (segment dict of (unroll, n_envs, ...) tensors, the carry
-        the actors started from)), new tensors that no later call
-        overwrites; ``state.generator`` advances.  ``actions`` ((unroll,
-        n_envs) int) replaces the actors' draws (test hook)."""
+        """Collect one unroll with the actor params on the env's tape, or
+        on the tape ``data`` (the curriculum's pick; the auto-reset then
+        comes from it).  Returns (post-rollout state, (segment dict of
+        (unroll, n_envs, ...) tensors, the carry the actors started
+        from)), new tensors that no later call overwrites;
+        ``state.generator`` advances.  ``actions`` ((unroll, n_envs) int,
+        float in continuous mode) replaces the actors' draws (test
+        hook)."""
         run = self._rollout_phase_graphed if self._graphs_on else self._rollout_phase_eager
         return run(state, data, actions=actions)
 
     def _rollout_phase_graphed(self, state: ImpalaState, data=None, *, actions=None):
         """:meth:`rollout_phase` from the rollout graph, its outputs cloned."""
-        self._refuse_data(data)
-        graph = self._rollout_graphed(state, self._hooks(actions=actions))
+        graph = self._rollout_graphed(state, self._stage(data), self._hooks(actions=actions))
         out = graphs.clone_tree(graph.outputs)
         init_carry = graphs.clone_tree(graph.inputs["policy_carry"])
         return (state._replace(env_states=out["env_states"], obs_vec=out["obs_vec"],
@@ -227,37 +242,39 @@ class ImpalaTrainer(ppo.PolicyTrainer):
 
     def _rollout_phase_eager(self, state: ImpalaState, data=None, *, actions=None):
         """:meth:`rollout_phase` op by op, drawing from ``state.generator``."""
-        self._refuse_data(data)
         with profiler_range("rollout"):
             env_states, obs_vec, pcarry, traj = self._rollout_body(
-                state.actor_params, state.env_states, state.obs_vec, state.policy_carry,
+                state.actor_params, state.env_states, state.obs_vec, state.policy_carry, data,
                 state.generator, actions)
         return (state._replace(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry),
                 (traj, state.policy_carry))
 
     @torch.no_grad()
-    def _rollout_body(self, actor_params, env_states, obs_vec, pcarry, gen, actions=None):
-        """The rollout phase as a function of its inputs, drawing from
-        ``gen``: (env states, obs_vec, policy carry, segment).  It syncs
-        nothing with the host, so it is what the rollout graph captures."""
+    def _rollout_body(self, actor_params, env_states, obs_vec, pcarry, data, gen, actions=None):
+        """The rollout phase on ``data`` (None: the env's tape) as a
+        function of its inputs, drawing from ``gen``: (env states, obs_vec,
+        policy carry, segment).  It syncs nothing with the host, so it is
+        what the rollout graph captures."""
         env, cfg, icfg = self.env, self.env.cfg, self.icfg
         n, unroll, dev = icfg.n_envs, icfg.unroll, self.device
-        tape = env.data
+        tape = env.data if data is None else data
+        reset_state, reset_vec = self._fresh(data)
+        cont = self._continuous
         traj = {
             "obs": torch.empty((unroll, n, *self.obs_shape), dtype=icfg.collect_dtype, device=dev),
-            "action": torch.empty((unroll, n), dtype=torch.int32, device=dev),
+            "action": torch.empty((unroll, n), dtype=ppo.action_dtype(cont), device=dev),
             "mu_logp": torch.empty((unroll, n), dtype=torch.float32, device=dev),
             "reward": torch.empty((unroll, n), dtype=torch.float32, device=dev),
             "done": torch.empty((unroll, n), dtype=torch.bool, device=dev),
         }
         carry0 = self.initial_carry(1)
         for t in range(unroll):
-            logits, _, pcarry2 = self.policy_step(actor_params, obs_vec, pcarry)
+            dist, _, pcarry2 = self.policy_step(actor_params, obs_vec, pcarry)
             if actions is None:
-                action = ppo.sample_categorical(logits, gen)
+                action = ppo.sample_action(dist, gen, cont)
             else:
-                action = actions[t].to(device=dev, dtype=torch.int64)
-            logp = F.log_softmax(logits, dim=1).gather(1, action[:, None])[:, 0]
+                action = actions[t].to(device=dev, dtype=torch.float32 if cont else torch.int64)
+            logp = ppo.action_logp(dist, action, cont)
             env_states2, reward, done, _ = env_core.transition(
                 cfg, env.params, tape, env_states, action)
             obs_vec2 = self._encode(env_core.build_obs(env_states2, tape, cfg, env.params))
@@ -266,26 +283,29 @@ class ImpalaTrainer(ppo.PolicyTrainer):
             traj["mu_logp"][t] = logp
             traj["reward"][t] = reward
             traj["done"][t] = done
-            env_states = masked_reset(done, self._reset_state, env_states2)
-            obs_vec = masked_reset(done, self._reset_vec, obs_vec2)
+            env_states = masked_reset(done, reset_state, env_states2)
+            obs_vec = masked_reset(done, reset_vec, obs_vec2)
             pcarry = masked_reset(done, carry0, pcarry2) if self._recurrent else pcarry2
         return env_states, obs_vec, pcarry, traj
 
     # ------------------------------------------------------------------
     def _learner_replay(self, params, traj, init_carry, final_obs_vec):
-        """Logits and values over the segment with the learner params,
+        """The distributions (logits, or stacked ``(mu, log_std)``) and values
+        over the segment with the learner params,
         threading the carry from ``init_carry`` (reset on done), and the
         bootstrap value of the final obs."""
         carry0 = self.initial_carry(1)
-        pcarry, logits, values = init_carry, [], []
+        pcarry, dists, values = init_carry, [], []
         for t in range(traj["obs"].shape[0]):
-            lt, vt, pcarry = self.policy_step(params, traj["obs"][t], pcarry)
+            dt, vt, pcarry = self.policy_step(params, traj["obs"][t], pcarry)
             if self._recurrent:
                 pcarry = masked_reset(traj["done"][t], carry0, pcarry)
-            logits.append(lt)
+            dists.append(dt)
             values.append(vt)
         _, bootstrap, _ = self.policy_step(params, final_obs_vec, pcarry)
-        return torch.stack(logits), torch.stack(values), bootstrap
+        dist = (tuple(torch.stack(x) for x in zip(*dists)) if self._continuous
+                else torch.stack(dists))
+        return dist, torch.stack(values), bootstrap
 
     def _vtrace(self, values, bootstrap, rewards, dones, rhos):
         """(vs, pg_adv), each (unroll, n_envs), with no gradient: a reverse
@@ -309,10 +329,9 @@ class ImpalaTrainer(ppo.PolicyTrainer):
 
     def _loss(self, params, traj, init_carry, final_obs_vec):
         """(total loss, dict of its terms) of one segment."""
-        logits, values, bootstrap = self._learner_replay(params, traj, init_carry, final_obs_vec)
-        logp_all = F.log_softmax(logits, dim=-1)
-        pi_logp = logp_all.gather(-1, traj["action"].to(torch.int64)[..., None])[..., 0]
-        entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1))
+        dist, values, bootstrap = self._learner_replay(params, traj, init_carry, final_obs_vec)
+        pi_logp = ppo.action_logp(dist, traj["action"], self._continuous)
+        entropy = ppo.policy_entropy(dist, self._continuous)
         rhos = torch.exp(pi_logp - traj["mu_logp"])
         vs, pg_adv = self._vtrace(values, bootstrap, traj["reward"], traj["done"], rhos)
         policy_loss = -torch.mean(pi_logp * pg_adv)
@@ -333,7 +352,9 @@ class ImpalaTrainer(ppo.PolicyTrainer):
     def update_phase(self, state: ImpalaState, rollout_out, data=None):
         """One V-trace learner update on a collected segment, the guard's
         bookkeeping and the actor sync: (new state, metrics dict of 0-d
-        tensors), new tensors that no later call overwrites."""
+        tensors), new tensors that no later call overwrites.  Quarantined
+        envs restart from the fresh reset of the active tape ``data`` (the
+        env's own when None)."""
         run = self._update_phase_graphed if self._graphs_on else self._update_phase_eager
         return run(state, rollout_out, data)
 
@@ -347,16 +368,14 @@ class ImpalaTrainer(ppo.PolicyTrainer):
 
     def _update_phase_graphed(self, state: ImpalaState, rollout_out, data=None):
         """:meth:`update_phase` from the update graph, its outputs cloned."""
-        self._refuse_data(data)
-        out = graphs.clone_tree(
-            self._update_graphed(self._update_inputs(state, rollout_out), state.generator).outputs)
+        out = graphs.clone_tree(self._update_graphed(
+            self._update_inputs(state, rollout_out), self._stage(data), state.generator).outputs)
         return self._updated_state(out, state.generator), out["metrics"]
 
     def _update_phase_eager(self, state: ImpalaState, rollout_out, data=None):
         """:meth:`update_phase` op by op."""
-        self._refuse_data(data)
         with profiler_range("update"):
-            out = self._update_body(self._update_inputs(state, rollout_out))
+            out = self._update_body(self._update_inputs(state, rollout_out), data)
         return self._updated_state(out, state.generator), out["metrics"]
 
     @staticmethod
@@ -365,11 +384,11 @@ class ImpalaTrainer(ppo.PolicyTrainer):
                            out["env_states"], out["obs_vec"], out["policy_carry"], generator,
                            out["updates_since_sync"])
 
-    def _update_body(self, x: Dict[str, Any]) -> Dict[str, Any]:
-        """The update phase as a function of its inputs (the dict of
-        :meth:`_update_inputs`): a dict of the new state's fields and the
-        metrics.  It syncs nothing with the host, so it is what the update
-        graph captures."""
+    def _update_body(self, x: Dict[str, Any], data=None) -> Dict[str, Any]:
+        """The update phase on ``data`` (None: the env's tape) as a
+        function of its inputs (the dict of :meth:`_update_inputs`): a
+        dict of the new state's fields and the metrics.  It syncs nothing
+        with the host, so it is what the update graph captures."""
         icfg = self.icfg
         traj = x["traj"]
         learner, opt_state = x["learner_params"], x["opt_state"]
@@ -392,8 +411,10 @@ class ImpalaTrainer(ppo.PolicyTrainer):
                 env_axis=1,
             ) | quarantine_mask({"obs_vec": obs_vec, "env_states": env_states},
                                 env_axis=0, mode="nan")
-            env_states = masked_reset(poison, self._reset_state, env_states)
-            obs_vec = masked_reset(poison, self._reset_vec, obs_vec)
+            # the quarantine's resets come from the active tape
+            reset_state, reset_vec = self._fresh(data)
+            env_states = masked_reset(poison, reset_state, env_states)
+            obs_vec = masked_reset(poison, reset_vec, obs_vec)
             if self._recurrent:
                 pcarry = masked_reset(poison, self.initial_carry(1), pcarry)
             metrics["poisoned_env_resets"] = poison.to(torch.float32).sum()
@@ -410,23 +431,30 @@ class ImpalaTrainer(ppo.PolicyTrainer):
 
     # ------------------------------------------------------------------
     def train_step(self, state: ImpalaState, data=None):
-        """One rollout phase then one update phase: (state, metrics).  On
-        a CUDA device the two graphs replay back to back and the returned
-        state's tensors are the update graph's static outputs, which the
-        next train step overwrites (the port's ``donate_argnums=0``); the
-        metrics are new tensors."""
-        self._refuse_data(data)
+        """One rollout phase then one update phase, on the env's tape or on
+        ``data``: (state, metrics).  On a CUDA device the two graphs replay
+        back to back and the returned state's tensors are the update
+        graph's static outputs, which the next train step overwrites (the
+        port's ``donate_argnums=0``); the metrics are new tensors."""
         if not self._graphs_on:
-            inter, rollout_out = self.rollout_phase(state)
-            return self.update_phase(inter, rollout_out)
-        state, stacked = self._train_many_graphed(state, 1)
+            inter, rollout_out = self.rollout_phase(state, data)
+            return self.update_phase(inter, rollout_out, data)
+        state, stacked = self._train_many_graphed(state, 1, data)
         return state, {key: v[0] for key, v in stacked.items()}
 
     def train_many(self, state: ImpalaState, k: int):
-        """``k`` train steps: (state, metrics stacked on a leading ``(k,)``
-        axis, on the device); on the card the 2k replays are chained with
+        """``k`` train steps on the env's tape: see
+        :meth:`train_many_with_data`."""
+        return self.train_many_with_data(state, None, k)
+
+    def train_many_with_data(self, state: ImpalaState, data, k: int):
+        """``k`` train steps on one tape (the JAX package's
+        ``make_train_many_with_data``): (state, metrics stacked on a
+        leading ``(k,)`` axis, on the device).  On the card ``data`` is
+        copied into the staging tape once, the 2k replays are chained with
         no host round trip and the state is donated as in
-        :meth:`train_step`.  Under ``superstep_overlap`` (``k > 1``) the
+        :meth:`train_step`.  Under ``superstep_overlap`` (``k > 1``, on the
+        env's own tape: a trainer over a curriculum refuses it) the
         superstep is pipelined (see the module docstring)."""
         if self.icfg.superstep_overlap and int(k) > 1:
             if self._graphs_on:
@@ -434,8 +462,8 @@ class ImpalaTrainer(ppo.PolicyTrainer):
             return make_train_many_overlapped(self.rollout_phase, self.update_phase,
                                               LEARNER_FIELDS)(state, k)
         if self._graphs_on:
-            return self._train_many_graphed(state, k)
-        return make_train_many_with_data(lambda s, _: self.train_step(s))(state, None, k)
+            return self._train_many_graphed(state, k, data)
+        return make_train_many_with_data(self.train_step)(state, data, k)
 
     def _train_many_overlapped_graphed(self, state: ImpalaState, k: int):
         """The overlapped superstep from the graphs of sets A (the
@@ -444,7 +472,7 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         def rollout(s, which, generator):
             # the actor params it read, from its own static input (see
             # PPOTrainer._train_many_overlapped_graphed)
-            graph = self._rollout_graphed(s, {}, which, generator)
+            graph = self._rollout_graphed(s, None, {}, which, generator)
             out = graph.outputs
             return (s._replace(actor_params=graph.inputs["actor_params"],
                                env_states=out["env_states"], obs_vec=out["obs_vec"],
@@ -452,38 +480,37 @@ class ImpalaTrainer(ppo.PolicyTrainer):
                     (out["traj"], graph.inputs["policy_carry"]), graph)
 
         def update(s, rollout_out, graph, which, generator):
-            out = self._update_graphed(self._update_inputs(s, rollout_out), generator, _SHARED,
-                                       which, buffers=self._update_buffers(s, graph)).outputs
+            out = self._update_graphed(self._update_inputs(s, rollout_out), None, generator,
+                                       _SHARED, which,
+                                       buffers=self._update_buffers(s, graph)).outputs
             return self._updated_state(out, generator), out["metrics"]
 
         return run_overlapped_graphed(state, k, rollout, update, LEARNER_FIELDS,
                                       self._side_stream())
 
-    def _train_many_graphed(self, state: ImpalaState, k: int):
+    def _train_many_graphed(self, state: ImpalaState, k: int, data=None):
         k = int(k)
         if k < 1:
             raise ValueError(f"train_many needs k >= 1, got {k}")
+        tape = self._stage(data)
         history = []
         for _ in range(k):
-            state, metrics = self._train_step_graphed(state)
+            state, metrics = self._train_step_graphed(state, tape)
             history.append(torch.stack(list(metrics.values())))
         return state, dict(zip(metrics, torch.stack(history).unbind(1)))
 
-    @staticmethod
-    def _refuse_data(data) -> None:
-        if data is not None:
-            raise not_ported("IMPALA over feed=curriculum (train_many_with_data)", 11)
-
     # ---- the graphs (core/graphs.py) ------------------------------------
-    def _graph(self, kind: str, inputs, build):
-        key = (kind, self.icfg, self.env.cfg, tuple(sorted(inputs)), graphs.signature(inputs))
+    def _graph(self, kind: str, inputs, tape, build):
+        key = (kind, id(tape), self.icfg, self.env.cfg, tuple(sorted(inputs)),
+               graphs.signature(inputs))
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = build()
         return graph
 
-    def _rollout_graphed(self, state: ImpalaState, hooks, s: int = 0, generator=None):
-        """The rollout graph of set ``s`` for ``state``, run from
+    def _rollout_graphed(self, state: ImpalaState, tape, hooks, s: int = 0, generator=None):
+        """The rollout graph of set ``s`` for ``state`` on ``tape`` (None or
+        the staging tape), run from
         ``generator`` (``state.generator`` by default): its static inputs
         are actor_params, env_states, obs_vec and policy_carry (the carry
         the actors start from), its static outputs env_states, obs_vec,
@@ -494,25 +521,26 @@ class ImpalaTrainer(ppo.PolicyTrainer):
 
         def body(x):
             env_states, obs_vec, pcarry, traj = self._rollout_body(
-                x["actor_params"], x["env_states"], x["obs_vec"], x["policy_carry"], gen,
+                x["actor_params"], x["env_states"], x["obs_vec"], x["policy_carry"], tape, gen,
                 x.get("actions"))
             return dict(env_states=env_states, obs_vec=obs_vec, policy_carry=pcarry, traj=traj)
 
         kind = ppo._KINDS["rollout"][s]
-        graph = self._graph(kind, inputs, lambda: graphs.PhaseGraph(
+        graph = self._graph(kind, inputs, tape, lambda: graphs.PhaseGraph(
             body, graphs.clone_tree(inputs), gen, name=f"{type(self).__name__}.{kind}"))
         return self._replay("rollout", graph, inputs,
                             state.generator if generator is None else generator, s)
 
-    def _update_graphed(self, inputs, generator, shared=(), s: int = 0, buffers=None):
-        """The update graph of set ``s`` for ``inputs``, run; a graph built
-        here takes the tensors named in ``shared`` of ``buffers``
-        (``inputs`` by default: the rollout graph's buffers) as its static
-        buffers, and copies of the rest."""
+    def _update_graphed(self, inputs, tape, generator, shared=(), s: int = 0, buffers=None):
+        """The update graph of set ``s`` for ``inputs`` on ``tape``, run; a
+        graph built here takes the tensors named in ``shared`` of
+        ``buffers`` (``inputs`` by default: the rollout graph's buffers) as
+        its static buffers, and copies of the rest."""
         static = inputs if buffers is None else buffers
         kind = ppo._KINDS["update"][s]
-        graph = self._graph(kind, inputs, lambda: graphs.PhaseGraph(self._update_body, {
-            k: v if k in shared else graphs.clone_tree(v) for k, v in static.items()},
+        graph = self._graph(kind, inputs, tape, lambda: graphs.PhaseGraph(
+            lambda x: self._update_body(x, tape), {
+                k: v if k in shared else graphs.clone_tree(v) for k, v in static.items()},
             self._gens[s], name=f"{type(self).__name__}.{kind}"))
         return self._replay("update", graph, inputs, generator, s)
 
@@ -529,13 +557,13 @@ class ImpalaTrainer(ppo.PolicyTrainer):
                     updates_since_sync=state.updates_since_sync, traj=out["traj"],
                     init_carry=graph.inputs["policy_carry"])
 
-    def _train_step_graphed(self, state: ImpalaState):
-        """One train step from the graphs: (state, metrics), both the
-        update graph's static outputs.  The update reads the rollout
+    def _train_step_graphed(self, state: ImpalaState, tape):
+        """One train step from the graphs on ``tape``: (state, metrics), both
+        the update graph's static outputs.  The update reads the rollout
         graph's static buffers: its outputs, its actor params and, as the
         carry the actors started from, its input carry."""
-        graph = self._rollout_graphed(state, {})
-        out = self._update_graphed(self._update_buffers(state, graph), state.generator,
+        graph = self._rollout_graphed(state, tape, {})
+        out = self._update_graphed(self._update_buffers(state, graph), tape, state.generator,
                                    _SHARED).outputs
         return self._updated_state(out, state.generator), out["metrics"]
 
@@ -551,7 +579,9 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         // (n_envs * unroll)`` iterations (at least one), in supersteps of
         ``supersteps_per_dispatch`` train steps, through
         ``resilience/loop.ResilientLoop`` (checkpoints, the skip guard) as
-        ``PPOTrainer.train``.  ``initial_params`` warm-starts both the
+        ``PPOTrainer.train``; under ``feed=curriculum`` each superstep
+        boundary draws one tape (``curriculum.pick``) and the superstep
+        trains on it.  ``initial_params`` warm-starts both the
         learner and the actors.  Returns ``(state, metrics)``: the last
         iteration's metrics as floats plus ``env_steps_per_sec``,
         ``iterations``, ``total_env_steps`` and ``last_checkpoint_step``
@@ -567,6 +597,7 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         per_iter = self.icfg.n_envs * self.icfg.unroll
         iters = max(1, int(total_env_steps) // per_iter)
         K = max(1, int(supersteps_per_dispatch or 1))
+        tape = None
         loop = TrainLoop(
             "impala", iters=iters, steps_per_iter=per_iter, log_every=log_every,
             telemetry=telemetry, checkpoint_dir=checkpoint_dir,
@@ -576,7 +607,7 @@ class ImpalaTrainer(ppo.PolicyTrainer):
             preempt_at=preempt_at, checkpoint_keep=int(checkpoint_keep or 0),
             workload=lambda it_start, kk: profiler_workload(
                 self, state, kk, algo="impala", params=state.learner_params,
-                n_envs=self.icfg.n_envs, horizon=self.icfg.unroll),
+                n_envs=self.icfg.n_envs, horizon=self.icfg.unroll, data=tape),
         )
         loop.start(lambda: state.generator.get_state())
         t0 = time.perf_counter()
@@ -585,12 +616,15 @@ class ImpalaTrainer(ppo.PolicyTrainer):
         while it < iters:
             k = min(K, iters - it)
             loop.begin_superstep(it, k)
+            if self.curriculum is not None:
+                # one weighted seed-deterministic tape per superstep boundary
+                _, _, tape = self.curriculum.pick(it)
             with loop.span(it, k):
                 if k == 1:
-                    state, metrics = self.train_step(state)
+                    state, metrics = self.train_step(state, tape)
                     guard_metrics = metrics
                 else:
-                    state, guard_metrics = self.train_many(state, k)
+                    state, guard_metrics = self.train_many_with_data(state, tape, k)
                     metrics = {key: v[-1] for key, v in guard_metrics.items()}
             # a checkpoint copies the state before the next step overwrites it
             loop.after_superstep(it, k, guard_metrics, lambda: (state, state.learner_params))
@@ -619,10 +653,6 @@ def train_impala_from_config(config: Dict[str, Any], *, device=None) -> Dict[str
 
 
 def _train_impala_from_config(config: Dict[str, Any], *, device=None) -> Dict[str, Any]:
-    if str(config.get("feed") or "replay").lower() == "curriculum":
-        if config.get("superstep_overlap"):
-            raise ValueError(ppo.CURRICULUM_OVERLAP_ERROR)
-        raise not_ported("IMPALA over feed=curriculum (train_many_with_data)", 11)
     env, eval_env = build_train_eval_envs(config, device=device)
     # chaos runs: the fault profile contaminates the TRAINING feed
     env, profile = ppo.contaminated_training_env(env, config)
@@ -681,4 +711,5 @@ class _EvalShim:
         self._encode = trainer._encode
         self.policy_step = trainer.policy_step
         self.initial_carry = trainer.initial_carry
+        self._continuous = trainer._continuous
         self._greedy_driver = None

@@ -1,11 +1,14 @@
-"""Policy networks: the discrete MLP and ring-transformer actor-critics,
-and the obs encodings.
+"""Policy networks: the discrete actor-critics, their Gaussian twins for
+continuous actions, and the obs encodings.
 
 The port of ``gymfx_tpu/train/policies.py``: the obs spec and
 ``flatten_obs`` (:23-56), ``dense_window_attention`` (:59-77),
 ``MLPPolicy`` (:84-106), ``LSTMPolicy`` (:109-137), ``RingTransformerEncoder`` and
 ``RingTransformerPolicy`` in single-device mode (:189-314),
-``tokens_from_obs`` and ``make_obs_encoder`` (:354-379), and
+``tokens_from_obs`` and ``make_obs_encoder`` (:354-379), the Gaussian
+twins ``ContinuousMLPPolicy``, ``GaussianValueHead``,
+``ContinuousLSTMPolicy`` and ``ContinuousRingTransformerPolicy`` with
+``normal_logp`` / ``sample_normal`` / ``gaussian_entropy`` (:382-523), and
 ``TOKEN_POLICIES`` / ``policy_kwargs_for`` / ``make_trainer_policy`` /
 ``make_policy`` (:444-580).  Every function takes a batch: a leading
 env (or sample) axis that the JAX package adds with ``vmap``.
@@ -23,10 +26,18 @@ Each module computes like its flax twin:
   embedding is a float32 parameter cast to ``dtype`` before the add; the
   mean pool over tokens runs in ``dtype``.
 
+A Gaussian twin returns ``((mu, log_std), value)``: a tanh float32 mean
+of a Normal over the Box(-1, 1, (1,)) action, a state-independent
+float32 ``log_std`` parameter (initialised to -0.5) broadcast to the
+mean's shape, and a float32 value, both heads over the trunk's output
+promoted to float32 (flax's ``Dense(dtype=f32)``).  The env thresholds
+the sampled value into hold / long / short (core/env.py).
+
 Attention goes through K4 (``ops/fused_attention.py``) for every window
 up to 1024, kernel on the card and plain version on the CPU.  The
 sequence-parallel modes (a ``seq_axis``) come with ROADMAP.md Queue 1
-item 17; the continuous policies with item 11.  The flax
+item 17.  ``transformer_continuous`` is the ring encoder's twin, as in
+the JAX package (K4, not flax's multi-head attention).  The flax
 ``TransformerPolicy`` (:140-179) attends through flax's
 ``MultiHeadDotProductAttention``, which no Pallas kernel computes: its
 port is plain torch ops (:func:`flax_attention`).
@@ -186,11 +197,15 @@ class MLPPolicy(nn.Module):
         self.value = nn.Linear(widths[-1], 1)
         self.dtype = dtype
 
-    def forward(self, x):
+    def trunk(self, x):
+        """The tanh hidden layers, in the policy dtype."""
         x = x.to(self.dtype)
         for layer in self.hidden:
             x = torch.tanh(_dense(x, layer, self.dtype))
-        x = x.to(torch.float32)
+        return x
+
+    def forward(self, x):
+        x = self.trunk(x).to(torch.float32)
         return _dense(x, self.logits, torch.float32), _dense(x, self.value, torch.float32).squeeze(-1)
 
 
@@ -224,7 +239,8 @@ class LSTMPolicy(nn.Module):
         return (torch.zeros(shape, dtype=self.dtype, device=device),
                 torch.zeros(shape, dtype=self.dtype, device=device))
 
-    def forward(self, x, carry):
+    def cell(self, x, carry):
+        """The embedding and one step of the cell: the new ``(c, h)``."""
         dt = self.dtype
         x = torch.tanh(_dense_rounded(x.to(dt), self.embed, dt))
         c, h = carry
@@ -234,7 +250,10 @@ class LSTMPolicy(nn.Module):
         i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
         g = torch.tanh(zg)
         new_c = f * c + i * g
-        new_h = o * torch.tanh(new_c)
+        return new_c, o * torch.tanh(new_c)
+
+    def forward(self, x, carry):
+        new_c, new_h = self.cell(x, carry)
         y = new_h.to(torch.float32)
         return (_dense(y, self.logits, torch.float32), _dense(y, self.value, torch.float32).squeeze(-1),
                 (new_c, new_h))
@@ -383,6 +402,119 @@ class RingTransformerPolicy(nn.Module):
             _dense(pooled, self.value, torch.float32).squeeze(-1)
 
 
+# ---------------------------------------------------------------------------
+# The Gaussian action distribution: one definition for every trainer (PPO's
+# ratio and entropy, IMPALA's V-trace weights), each in its input's dtype
+HALF_LOG_2PI = 0.9189385332046727         # 0.5 * ln(2*pi)
+GAUSS_ENTROPY_CONST = 1.4189385332046727  # 0.5 * ln(2*pi*e)
+
+
+def normal_logp(x, mu, log_std):
+    """The Normal(mu, exp(log_std)) log-density of ``x``, in ``x``'s dtype."""
+    z = (x - mu) / torch.exp(log_std)
+    return -0.5 * (z * z) - log_std - HALF_LOG_2PI
+
+
+def sample_normal(generator: torch.Generator, dist):
+    """A reparameterised draw from a ``(mu, log_std)`` pair in mu's dtype,
+    from ``generator``'s normal stream."""
+    mu, log_std = dist
+    eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+    return mu + torch.exp(log_std) * eps
+
+
+def gaussian_entropy(log_std, dim=None):
+    """The mean differential entropy of the diagonal Normal (over ``dim``,
+    every axis when None)."""
+    h = GAUSS_ENTROPY_CONST + log_std
+    return torch.mean(h) if dim is None else torch.mean(h, dim=dim)
+
+
+def _gaussian_head(module: nn.Module, feat):
+    """``module``'s ``mu``, ``log_std`` and ``value`` on the features
+    ``feat`` promoted to float32: ((mu, log_std) each (...,), value (...,))."""
+    feat = feat.to(torch.float32)
+    mu = torch.tanh(_dense(feat, module.mu, torch.float32))
+    log_std = _member_view(module.log_std, mu, 1).expand(mu.shape).squeeze(-1)
+    return (mu.squeeze(-1), log_std), _dense(feat, module.value, torch.float32).squeeze(-1)
+
+
+class GaussianValueHead(nn.Module):
+    """The continuous actor-critic head over a trunk's features: a tanh
+    float32 mean, the state-independent float32 ``log_std`` and the float32
+    value.  ``forward(feat)`` -> ((mu, log_std) each (...,), value (...,))."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.mu = nn.Linear(int(features), 1)
+        self.log_std = nn.Parameter(torch.full((1,), -0.5))
+        self.value = nn.Linear(int(features), 1)
+
+    def forward(self, feat):
+        return _gaussian_head(self, feat)
+
+
+class ContinuousMLPPolicy(MLPPolicy):
+    """The Gaussian twin of :class:`MLPPolicy`: its trunk, then the head's
+    layers as the flax module's own (``Dense_n`` the mean, ``log_std``,
+    ``Dense_{n+1}`` the value; not a ``GaussianValueHead``, as in the JAX
+    package, which keeps that module's checkpoint structure)."""
+
+    continuous = True
+
+    def __init__(self, obs_dim: int, hidden: Sequence[int] = (256, 256, 256),
+                 dtype=torch.float32):
+        super().__init__(obs_dim, hidden=hidden, dtype=dtype)
+        del self.logits, self.value
+        width = self.hidden[-1].out_features
+        self.mu = nn.Linear(width, 1)
+        self.log_std = nn.Parameter(torch.full((1,), -0.5))
+        self.value = nn.Linear(width, 1)
+
+    def forward(self, x):
+        return _gaussian_head(self, self.trunk(x))
+
+
+class ContinuousLSTMPolicy(LSTMPolicy):
+    """The Gaussian twin of :class:`LSTMPolicy`: its embedding and cell,
+    then a :class:`GaussianValueHead` on the new hidden state.
+    ``forward(x, carry)`` -> ((mu, log_std), value, new carry)."""
+
+    continuous = True
+
+    def __init__(self, obs_dim: int, hidden: int = 256, dtype=torch.float32):
+        super().__init__(obs_dim, hidden=hidden, dtype=dtype)
+        del self.logits, self.value
+        self.head = GaussianValueHead(self.hidden)
+
+    def forward(self, x, carry):
+        new_c, new_h = self.cell(x, carry)
+        dist, value = self.head(new_h)
+        return dist, value, (new_c, new_h)
+
+
+class ContinuousRingTransformerPolicy(nn.Module):
+    """The Gaussian twin over :class:`RingTransformerEncoder` (K4): every
+    attention policy's continuous form (``transformer``,
+    ``transformer_ring``, ``transformer_ulysses``)."""
+
+    continuous = True
+
+    def __init__(self, token_dim: int, dtype=torch.float32, **kw):
+        super().__init__()
+        self.encoder = RingTransformerEncoder(token_dim, dtype=dtype, **kw)
+        self.head = GaussianValueHead(self.encoder.pos_embed.shape[1])
+
+    def forward(self, tokens):
+        return self.head(self.encoder(tokens))
+
+
+def is_continuous(policy: nn.Module) -> bool:
+    """Whether ``policy`` is a Gaussian twin (its first output a
+    ``(mu, log_std)`` pair, not logits)."""
+    return getattr(policy, "continuous", False)
+
+
 def policy_kwargs_for(name: str, kwargs: Dict[str, Any], window: int) -> Dict[str, Any]:
     """Trainer-side kwarg resolution: the ring policies need the window
     for their positional embeddings."""
@@ -396,10 +528,23 @@ def make_policy(name: str, in_dim: int, *, continuous: bool = False,
                 dtype=torch.float32, kwargs: Optional[Dict[str, Any]] = None) -> nn.Module:
     """The policy ``name`` over inputs of width ``in_dim`` (the flat obs
     size, or the token width of a token policy).  Without a seq axis
-    ``transformer_ring`` and ``transformer_ulysses`` are the same module."""
-    if continuous:
-        raise not_ported(f"policy {name!r} (continuous actions)", 11)
+    ``transformer_ring`` and ``transformer_ulysses`` are the same module.
+    ``continuous=True`` (or a ``<name>_continuous`` name) gives the
+    Gaussian twin; a name without one raises the JAX package's
+    ``ValueError``."""
     kwargs = dict(kwargs or {})
+    if continuous and not name.endswith("_continuous"):
+        name = f"{name}_continuous"
+    if name == "mlp_continuous":
+        return ContinuousMLPPolicy(in_dim, hidden=tuple(kwargs.pop("hidden", (256, 256, 256))),
+                                   dtype=dtype, **kwargs)
+    if name == "lstm_continuous":
+        return ContinuousLSTMPolicy(in_dim, dtype=dtype, **kwargs)
+    if name in ("transformer_continuous", "transformer_ring_continuous"):
+        return ContinuousRingTransformerPolicy(in_dim, dtype=dtype, **kwargs)
+    if name == "transformer_ulysses_continuous":
+        return ContinuousRingTransformerPolicy(in_dim, dtype=dtype, sp_backend="ulysses",
+                                               **kwargs)
     if name == "mlp":
         return MLPPolicy(in_dim, hidden=tuple(kwargs.pop("hidden", (256, 256, 256))),
                          dtype=dtype, **kwargs)
@@ -411,11 +556,12 @@ def make_policy(name: str, in_dim: int, *, continuous: bool = False,
         return RingTransformerPolicy(in_dim, dtype=dtype, **kwargs)
     if name == "transformer_ulysses":
         return RingTransformerPolicy(in_dim, dtype=dtype, sp_backend="ulysses", **kwargs)
-    raise not_ported(f"policy {name!r}", 11)
+    raise ValueError(f"unknown policy {name!r}")
 
 
 def make_trainer_policy(name: str, in_dim: int, *, continuous: bool, dtype,
                         kwargs: Dict[str, Any], window: int) -> nn.Module:
-    """The one policy-construction path of the trainer."""
+    """The one policy-construction path of the trainers (and the serving
+    engine): the Gaussian twin in continuous mode."""
     return make_policy(name, in_dim, continuous=continuous, dtype=dtype,
                        kwargs=policy_kwargs_for(name, kwargs, window))

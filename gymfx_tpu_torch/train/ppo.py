@@ -13,7 +13,9 @@ Each phase takes an explicit tape ``data`` (the curriculum's pick), as
 the JAX package's phases do; a streamed Environment is refused.
 
 * Rollout: ``horizon`` steps of the policy acting (categorical draw from
-  a ``torch.Generator``), every env stepping through the kernel chain
+  a ``torch.Generator``; in ``action_space_mode=continuous`` a Normal
+  draw from the Gaussian twin's mean and log-std, stored as a float32
+  action that the env thresholds), every env stepping through the kernel chain
   (core/env.transition), done envs auto-resetting (from random start
   offsets when ``random_episode_start`` is set), the trajectory stored
   with obs in ``collect_dtype``.
@@ -49,6 +51,11 @@ update i, from two sets of graphs on two streams on the card);
 backward (``torch.utils.checkpoint``).  Each replay runs inside its
 phase's ``torch.profiler`` range ("rollout", "update"), entered only
 while a profiler records.
+
+In continuous mode the log-probs are Normal log-densities and the
+entropy the Gaussian's (``train/policies.normal_logp``,
+``gaussian_entropy``), in the loss, PBT's member loss and IMPALA's
+V-trace alike; the greedy driver acts on the mean.
 
 Test hooks: ``rollout_phase(state, actions=..., start_offsets=...)`` and
 ``update_phase(state, rollout_out, permutations=...)`` replace the
@@ -103,11 +110,15 @@ from gymfx_tpu_torch.train.common import (
 )
 from gymfx_tpu_torch.train.optim import ClipAdam, HyperAdamState, apply_updates
 from gymfx_tpu_torch.train.policies import (
+    gaussian_entropy,
+    is_continuous,
     is_recurrent,
     is_token_policy,
     make_obs_encoder,
     make_obs_spec,
     make_trainer_policy,
+    normal_logp,
+    sample_normal,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -212,6 +223,40 @@ def sample_categorical(logits, generator: torch.Generator):
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
+def sample_action(dist, generator: torch.Generator, continuous: bool):
+    """One action per row from the policy's distribution: a categorical
+    draw over logits, or a Normal draw from a ``(mu, log_std)`` pair."""
+    if continuous:
+        return sample_normal(generator, dist)
+    return sample_categorical(dist, generator)
+
+
+def action_logp(dist, action, continuous: bool):
+    """The log-probability of ``action`` under the policy's distribution
+    (over the last axis of logits; elementwise for a Normal)."""
+    if continuous:
+        mu, log_std = dist
+        return normal_logp(action.to(mu.dtype), mu, log_std)
+    logp_all = F.log_softmax(dist, dim=-1)
+    return logp_all.gather(-1, action.to(torch.int64)[..., None])[..., 0]
+
+
+def policy_entropy(dist, continuous: bool, dim=None):
+    """The distribution's mean entropy (over ``dim``, every axis when
+    None): the categorical's, or the Gaussian's from its log-std."""
+    if continuous:
+        return gaussian_entropy(dist[1], dim=dim)
+    logp_all = F.log_softmax(dist, dim=-1)
+    h = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
+    return torch.mean(h) if dim is None else torch.mean(h, dim=dim)
+
+
+def action_dtype(continuous: bool):
+    """The trajectory's action dtype: float32 draws in continuous mode,
+    int32 categories otherwise."""
+    return torch.float32 if continuous else torch.int32
+
+
 def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> None:
     """Fill every Linear from ``generator``: weights ~ N(0, 1/fan_in),
     biases 0 (flax Dense's lecun-normal scale, untruncated; the LSTM's
@@ -234,10 +279,13 @@ def init_policy_weights(policy: torch.nn.Module, generator: torch.Generator) -> 
 class PolicyTrainer:
     """What the trainers share (PPOTrainer, train/impala.ImpalaTrainer):
     the policy applied with given params and, for a recurrent policy, its
-    carry; a phase graph replayed from a caller's generator inside its
+    carry (a Gaussian twin's first output a ``(mu, log_std)`` pair); a
+    phase graph replayed from a caller's generator inside its
     phase's profiler range; and the overlapped superstep's second set of
     graphs.  A trainer sets ``policy``, ``device``, ``_recurrent``
-    (``policies.is_recurrent``) and ``_gens`` (the generators its graphs
+    (``policies.is_recurrent``), ``_continuous`` (``policies.
+    is_continuous``), ``_encode``, ``_reset_state`` / ``_reset_vec``,
+    ``_staging`` (None until a tape is staged) and ``_gens`` (the generators its graphs
     register: set A's, which the sequential step uses, and set B's)."""
 
     def initial_carry(self, n: int):
@@ -259,6 +307,30 @@ class PolicyTrainer:
             return torch.func.functional_call(self.policy, params, (x, carry))
         logits, value = torch.func.functional_call(self.policy, params, (x,))
         return logits, value, carry
+
+    def _fresh(self, data):
+        """The fresh single-env reset (state, policy input): the env's
+        own, or that of an explicit tape."""
+        if data is None:
+            return self._reset_state, self._reset_vec
+        reset_state, reset_obs = env_core.reset(self.env.cfg, self.env.params, data, 1)
+        return reset_state, self._encode(reset_obs)
+
+    def _stage(self, data):
+        """The tape the graphs read for ``data``: None for the env's own,
+        else the staging tape with ``data``'s tensors copied in (every tape
+        of a curriculum has one shape, so one staging tape, and one graph
+        keyed on it, serves them all; the graphs hold it, so it is never
+        freed under them)."""
+        if data is None:
+            return None
+        fields = {k: v for k, v in data._asdict().items() if isinstance(v, torch.Tensor)}
+        staging = self._staging
+        if staging is None or graphs.signature(data) != graphs.signature(staging):
+            self._staging = data._replace(**{k: v.clone() for k, v in fields.items()})
+            return self._staging
+        graphs.copy_tree({k: getattr(staging, k) for k in fields}, fields)
+        return staging
 
     def _hooks(self, **hooks):
         """The test hooks that are set, on the device: static inputs of a
@@ -348,6 +420,7 @@ class PPOTrainer(PolicyTrainer):
             dtype=pcfg.policy_dtype, kwargs=dict(pcfg.policy_kwargs), window=cfg.window_size,
         ).to(self.device)
         self._recurrent = is_recurrent(self.policy)
+        self._continuous = is_continuous(self.policy)
         self.optimizer = ClipAdam(pcfg.lr, pcfg.max_grad_norm, pcfg.opt_state_dtype)
         # the guard's updates-a-phase metric: copied to the device once,
         # here, never inside a captured update phase
@@ -408,9 +481,10 @@ class PPOTrainer(PolicyTrainer):
         if self.members is None:
             return self.policy_step(params, x, carry)
         p = self.members
-        logits, value, carry = self.policy_step(
+        dist, value, carry = self.policy_step(
             params, x.unflatten(0, (p, -1)), tuple(c.unflatten(0, (p, -1)) for c in carry))
-        return logits.flatten(0, 1), value.flatten(0, 1), tuple(c.flatten(0, 1) for c in carry)
+        flat = lambda t: t.flatten(0, 1)  # noqa: E731
+        return tree_map(flat, dist), flat(value), tuple(flat(c) for c in carry)
 
     def policy_forward(self, params: Dict[str, torch.Tensor], x, carry=()):
         """(logits, value) of the policy with ``params`` on inputs ``x``
@@ -418,14 +492,6 @@ class PPOTrainer(PolicyTrainer):
         return self.policy_step(params, x, carry)[:2]
 
     # ------------------------------------------------------------------
-    def _fresh(self, data):
-        """The fresh single-env reset (state, policy input): the env's
-        own, or that of an explicit tape."""
-        if data is None:
-            return self._reset_state, self._reset_vec
-        reset_state, reset_obs = env_core.reset(self.env.cfg, self.env.params, data, 1)
-        return reset_state, self._encode(reset_obs)
-
     def rollout_phase(self, state: TrainState, data=None, *, actions=None, start_offsets=None):
         """Collect one horizon on the env's tape, or on the tape ``data``
         (the curriculum's pick: the random-start bank and the fresh reset
@@ -435,7 +501,7 @@ class PPOTrainer(PolicyTrainer):
         advances.  On a CUDA device the phase is replayed from its graph,
         on the CPU it runs eagerly.
 
-        ``actions`` ((horizon, n_envs) int) and ``start_offsets``
+        ``actions`` ((horizon, n_envs) int, float in continuous mode) and ``start_offsets``
         ((n_envs,) int) replace the phase's own draws (test hook; on the
         card they are copied into the static buffers of a graph of their
         own)."""
@@ -486,7 +552,7 @@ class PPOTrainer(PolicyTrainer):
         dev = self.device
         traj = {
             "obs": torch.empty((horizon, n, *self.obs_shape), dtype=pcfg.collect_dtype, device=dev),
-            "action": torch.empty((horizon, n), dtype=torch.int32, device=dev),
+            "action": torch.empty((horizon, n), dtype=action_dtype(self._continuous), device=dev),
             "logp": torch.empty((horizon, n), dtype=torch.float32, device=dev),
             "value": torch.empty((horizon, n), dtype=torch.float32, device=dev),
             "reward": torch.empty((horizon, n), dtype=torch.float32, device=dev),
@@ -497,13 +563,14 @@ class PPOTrainer(PolicyTrainer):
             traj["pcarry"] = tuple(torch.empty((horizon, *x.shape), dtype=x.dtype, device=dev)
                                    for x in pcarry)
             carry0 = self.initial_carry(1)
+        cont = self._continuous
         for t in range(horizon):
-            logits, value, pcarry2 = self._act(params, obs_vec, pcarry)
+            dist, value, pcarry2 = self._act(params, obs_vec, pcarry)
             if actions is None:
-                action = sample_categorical(logits, gen)
+                action = sample_action(dist, gen, cont)
             else:
-                action = actions[t].to(device=dev, dtype=torch.int64)
-            logp = F.log_softmax(logits, dim=1).gather(1, action[:, None])[:, 0]
+                action = actions[t].to(device=dev, dtype=torch.float32 if cont else torch.int64)
+            logp = action_logp(dist, action, cont)
             env_states2, reward, done, _ = env_core.transition(
                 cfg, env.params, tape, env_states, action
             )
@@ -555,11 +622,10 @@ class PPOTrainer(PolicyTrainer):
     def _loss(self, params, batch):
         """(total loss, dict of its terms) of one flat minibatch (a
         recurrent policy replays each sample from its stored carry)."""
-        logits, value = self._remat(self.policy_forward, params, batch["obs"],
-                                    batch.get("pcarry", ()))
-        logp_all = F.log_softmax(logits, dim=-1)
-        logp = logp_all.gather(1, batch["action"].to(torch.int64)[:, None])[:, 0]
-        entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1))
+        dist, value = self._remat(self.policy_forward, params, batch["obs"],
+                                  batch.get("pcarry", ()))
+        logp = action_logp(dist, batch["action"], self._continuous)
+        entropy = policy_entropy(dist, self._continuous)
         ratio = torch.exp(logp - batch["logp"])
         adv = batch["adv"]
         adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
@@ -718,11 +784,10 @@ class PPOTrainer(PolicyTrainer):
         terms) of one (P, M, ...) minibatch: :meth:`_loss` for every
         member at once, with its own clip epsilon and entropy
         coefficient."""
-        logits, value, _ = self._remat(self.policy_step, params, batch["obs"],
-                                       batch.get("pcarry", ()))
-        logp_all = F.log_softmax(logits, dim=-1)
-        logp = logp_all.gather(-1, batch["action"].to(torch.int64)[..., None])[..., 0]
-        entropy = -torch.mean(torch.sum(torch.exp(logp_all) * logp_all, dim=-1), dim=1)
+        dist, value, _ = self._remat(self.policy_step, params, batch["obs"],
+                                     batch.get("pcarry", ()))
+        logp = action_logp(dist, batch["action"], self._continuous)
+        entropy = policy_entropy(dist, self._continuous, dim=1)
         ratio = torch.exp(logp - batch["logp"])
         adv = batch["adv"]
         adv = (adv - adv.mean(dim=1, keepdim=True)) / (
@@ -922,22 +987,6 @@ class PPOTrainer(PolicyTrainer):
         return state, dict(zip(metrics, torch.stack(history).unbind(1)))
 
     # ---- the graphs (core/graphs.py) ------------------------------------
-    def _stage(self, data):
-        """The tape the graphs read for ``data``: None for the env's own,
-        else the staging tape with ``data``'s tensors copied in (every tape
-        of a curriculum has one shape, so one staging tape, and one graph
-        keyed on it, serves them all; the graphs hold it, so it is never
-        freed under them)."""
-        if data is None:
-            return None
-        fields = {k: v for k, v in data._asdict().items() if isinstance(v, torch.Tensor)}
-        staging = self._staging
-        if staging is None or graphs.signature(data) != graphs.signature(staging):
-            self._staging = data._replace(**{k: v.clone() for k, v in fields.items()})
-            return self._staging
-        graphs.copy_tree({k: getattr(staging, k) for k in fields}, fields)
-        return staging
-
     def _graph(self, kind: str, inputs, tape, build):
         """The cached graph of ``kind`` for this static signature (built by
         ``build()`` on a miss)."""
@@ -1106,7 +1155,8 @@ class PPOTrainer(PolicyTrainer):
 
 # ---------------------------------------------------------------------------
 def greedy_policy_driver(trainer: PPOTrainer) -> Driver:
-    """The deterministic (argmax) evaluation driver, one per trainer: the
+    """The deterministic evaluation driver, one per trainer (the argmax of
+    the logits, or a Gaussian twin's mean, which the env thresholds): the
     params travel in the driver carry, so evaluating new weights replays
     the episode graphs already captured for this driver."""
     if getattr(trainer, "_greedy_driver", None) is not None:
@@ -1114,8 +1164,10 @@ def greedy_policy_driver(trainer: PPOTrainer) -> Driver:
 
     def act(carry, obs, i, gen):
         params, pcarry = carry
-        logits, _, pcarry = trainer.policy_step(params, trainer._encode(obs), pcarry)
-        return torch.argmax(logits, dim=-1).to(torch.int32), (params, pcarry)
+        dist, _, pcarry = trainer.policy_step(params, trainer._encode(obs), pcarry)
+        if trainer._continuous:
+            return dist[0], (params, pcarry)
+        return torch.argmax(dist, dim=-1).to(torch.int32), (params, pcarry)
 
     trainer._greedy_driver = Driver(init=lambda: (), act=act)
     return trainer._greedy_driver

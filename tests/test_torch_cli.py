@@ -184,17 +184,15 @@ def test_a_mode_outside_the_three_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # IMPALA trains since PR 13; what of it item 11 still holds: a tape library
-    pytest.param(("--mode", "training", "--trainer", "impala", "--feed", "curriculum"), 11,
-                 id="mode-training-trainer-impala-11"),
-    # PBT (over the bar venue too), fault profiles, telemetry and the
+    # IMPALA over a tape library (item 11) and the gym loop (item 18) run
+    # (tests/test_torch_impala_curriculum.py, test_torch_gym_env.py); PBT
+    # (over the bar venue too), fault profiles, telemetry and the
     # performance observatory train; what of them item 17 still holds: a
     # profile's mesh events, a population on a mesh
     (("--mode", "training", "--fault_profile", "nan_bars=5;mesh=kill:1@2"), 17),
     (("--mode", "training", "--trainer", "pbt", "--mesh_shape", '{"data": 1}'), 17),
     (("--mode", "training", "--elastic_resume"), 17),
     (("--mode", "training", "--mesh_shape", '{"data": 1}'), 17),
-    (("--gym_loop", "true"), 18),
     (("--metrics_plugin", "my_metrics"), 9),
 ], ids=lambda v: v if isinstance(v, int) else "-".join(v).replace("--", "")[:40])
 def test_each_option_not_ported_raises_naming_its_item(tmp_path, extra, item):
@@ -206,10 +204,12 @@ def test_each_option_not_ported_raises_naming_its_item(tmp_path, extra, item):
     ("--mode", "training", "--trainer", "portfolio", "--feed", "curriculum"),
     ("--driver_mode", "policy", "--portfolio_files", '{"EUR_USD": "x.csv"}', "--checkpoint_dir",
      "ckpt", "--feed", "curriculum"),
-], ids=["portfolio-training", "portfolio-policy"])
+    ("--mode", "training", "--trainer", "impala", "--feed", "curriculum"),
+], ids=["portfolio-training", "portfolio-policy", "impala-training"])
 def test_a_portfolio_tape_library_without_tapes_is_refused_as_jax(tmp_path, extra):
-    """The portfolio's tape library (item 12, ported): without ``tapes`` both
-    packages refuse the configuration with the same message."""
+    """The portfolio's tape library (item 12, ported) and IMPALA's (item
+    11, ported): without ``tapes`` both packages refuse the configuration
+    with the same message."""
     match = "feed=curriculum requires the 'tapes' config key"
     with pytest.raises(ValueError, match=match):
         main(_argv(tmp_path, "--num_envs", "4", *extra), device="cpu")

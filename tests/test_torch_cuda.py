@@ -899,7 +899,8 @@ def test_cuda_streamed_episode_equals_resident_and_cpu(cuda_device, tmp_path, mo
 # every output and on the generator's state after (the same kernels in the
 # same order draw the same numbers).
 REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
-GRAPH_KINDS = ["mlp", "transformer_ring", "curriculum", "lob", "ppo_lstm", "sharpe"]
+GRAPH_KINDS = ["mlp", "transformer_ring", "curriculum", "lob", "ppo_lstm", "sharpe",
+               "mlp_continuous", "ring_continuous"]
 
 
 def _graph_trainer(kind, tmp_path, **over):
@@ -911,6 +912,12 @@ def _graph_trainer(kind, tmp_path, **over):
     small = dict(num_envs=64, ppo_horizon=8, policy_kwargs={"hidden": [32, 32, 32]})
     if kind == "mlp":
         config = flagship.flagship_config(csv, **small)
+    elif kind == "mlp_continuous":
+        config = flagship.flagship_continuous_config(csv, **small)
+    elif kind == "ring_continuous":
+        config = flagship.long_context_continuous_config(
+            csv, num_envs=16, ppo_horizon=8, window_size=32,
+            policy_kwargs={"d_model": 32, "n_heads": 2, "n_layers": 2})
     elif kind == "transformer_ring":
         config = flagship.long_context_config(
             csv, num_envs=16, ppo_horizon=8, window_size=32,
@@ -1032,6 +1039,112 @@ def test_cuda_impala_graphed_phases_and_train_many_equal_eager(cuda_device):
                   "train_many metrics")
     assert sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"]
     assert all(g.graph is not None for g in trainer._graphs.values())
+
+
+@pytest.mark.cuda
+def test_cuda_impala_continuous_over_a_library_graphed_equals_eager(cuda_device, tmp_path):
+    """IMPALA in continuous mode over a two-tape library: the phases from
+    their graphs on tape 1 against the same phases op by op, then
+    train_many_with_data on tape 0 against eager steps: torch.equal, and
+    one graph pair serves both tapes."""
+    from gymfx_tpu_torch.config import flagship
+    from gymfx_tpu_torch.core.runtime import Environment
+    from gymfx_tpu_torch.train.impala import ImpalaTrainer, impala_config_from
+
+    paths = []
+    for i in range(2):
+        path = tmp_path / f"tape{i}.csv"
+        cases.write_bar_csv(path, cases.tick_walk_columns(600, seed=30 + i),
+                            cases.m1_week_grid(600))
+        paths.append(f"file:{path}")
+    config = flagship.impala_curriculum_config(
+        ",".join(paths), timeframe="M1", num_envs=64, impala_unroll=8, impala_sync_every=2,
+        policy_kwargs={"hidden": 32}, action_space_mode="continuous")
+    trainer = ImpalaTrainer(Environment(config), impala_config_from(config))
+    assert trainer._continuous
+    tapes = [trainer.curriculum._tape_data(i) for i in (1, 0)]
+    s0 = trainer.init_state(3)
+    a, ra = trainer.rollout_phase(_copy(s0), tapes[0])
+    b, rb = trainer._rollout_phase_eager(_copy(s0), tapes[0])
+    assert ra[0]["action"].dtype == torch.float32
+    _assert_equal(ra, rb, "rollout segment and start carry")
+    _assert_states_equal(a, b, "rollout state")
+    ua, ma = trainer.update_phase(a, ra, tapes[0])
+    ub, mb = trainer._update_phase_eager(b, rb, tapes[0])
+    _assert_states_equal(ua, ub, "update state")
+    _assert_equal(ma, mb, "update metrics")
+    many, stacked = trainer.train_many_with_data(_copy(ub), tapes[1], 2)
+    ref, history = _copy(ub), []
+    for _ in range(2):
+        ref, metrics = trainer._update_phase_eager(
+            *trainer._rollout_phase_eager(ref, tapes[1]), tapes[1])
+        history.append(metrics)
+    _assert_states_equal(many, ref, "train_many state")
+    _assert_equal(stacked, {k: torch.stack([m[k] for m in history]) for k in stacked},
+                  "train_many metrics")
+    assert sorted(k for k, *_ in trainer._graphs) == ["rollout", "update"]
+
+
+def _assert_host_equal(a, b, what):
+    """Host trees (dicts, tuples, lists, numpy arrays, python scalars)
+    equal, floats bit for bit (NaN matching NaN)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        assert list(a) == list(b), what
+        for k in a:
+            _assert_host_equal(a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_host_equal(x, y, f"{what}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), what
+    elif isinstance(a, float):
+        assert type(b) is float and (a == b or a != a and b != b), f"{what}: {a!r} {b!r}"
+    else:
+        assert type(a) is type(b) and a == b, f"{what}: {a!r} {b!r}"
+
+
+def _op_by_op(shell):
+    """A shell whose steps run op by op on the card (its StepProgram not
+    graphed), before its first step."""
+    shell._program.graphed = False
+    return shell
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["discrete", "continuous"])
+def test_cuda_shell_step_graph_equals_eager(cuda_device, mode):
+    """GymFxEnv's one-graph step against the same step op by op on the
+    card, 60 steps of a fixed script (the episode ends and steps past its
+    end), and GymFxVectorEnv's at 64 envs through two autoresets: obs,
+    rewards, dones and the info dict equal."""
+    import numpy as np
+
+    from gymfx_tpu_torch.config import DEFAULT_VALUES
+    from gymfx_tpu_torch.gym_env import GymFxEnv
+    from gymfx_tpu_torch.vector_env import GymFxVectorEnv
+
+    config = dict(DEFAULT_VALUES, input_data_file=str(REPO / "examples" / "data" /
+                                                      "eurusd_sample.csv"),
+                  max_rows=50, window_size=8, feature_columns=["CLOSE", "VOLUME"],
+                  strategy_plugin="direct_fixed_sltp", action_space_mode=mode)
+    script = ([1, 0, 2, 2, 0, 1] * 10 if mode == "discrete"
+              else [np.float32([x]) for x in np.sin(np.arange(60) * 0.7)])
+    shells = [GymFxEnv(config), _op_by_op(GymFxEnv(config))]
+    outs = [[shell.reset(seed=0)] + [shell.step(a) for a in script] for shell in shells]
+    assert shells[0]._program.graph is not None and shells[1]._program.graph is None
+    _assert_host_equal(outs[0], outs[1], "shell")
+    assert any(step[2] for step in outs[0][1:])
+    vecs = [GymFxVectorEnv(config, 64), _op_by_op(GymFxVectorEnv(config, 64))]
+    rng = np.random.default_rng(1)
+    actions = [rng.integers(0, 3, 64) if mode == "discrete"
+               else rng.uniform(-1, 1, (64, 1)).astype(np.float32) for _ in range(120)]
+    vouts = [[vec.reset()] + [vec.step(a) for a in actions] for vec in vecs]
+    _assert_host_equal(vouts[0], vouts[1], "vector env")
+    assert sum(int(step[2].sum()) for step in vouts[0][1:]) >= 2 * 64
 
 
 @pytest.mark.cuda

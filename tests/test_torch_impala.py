@@ -487,18 +487,32 @@ def test_resume_equals_the_uninterrupted_run_leaf_by_leaf(tmp_path):
     assert state is None and step == 5 and set(params) == set(trainer.params_template())
 
 
-@pytest.mark.parametrize("over,item", [
-    ({"action_space_mode": "continuous"}, 11),
-])
-def test_unported_impala_options_raise_naming_the_roadmap_item(over, item):
+@pytest.mark.parametrize("over", [{"action_space_mode": "continuous"}])
+def test_unported_impala_options_raise_naming_the_roadmap_item(over):
+    """Continuous actions (item 11) are ported: the trainer takes the
+    LSTM's Gaussian twin and trains a step (tests/test_torch_impala_
+    curriculum.py holds it against JAX)."""
+    from gymfx_tpu_torch.train.policies import ContinuousLSTMPolicy
+
     config = dict(DEFAULT_VALUES, input_data_file=CSV, num_envs=4, impala_unroll=4,
-                  policy="lstm", window_size=8, **over)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}$"):
-        ImpalaTrainer(Environment(config, device="cpu"), impala_config_from(config))
+                  policy="lstm", window_size=8, policy_kwargs={"hidden": 8}, **over)
+    trainer = ImpalaTrainer(Environment(config, device="cpu"), impala_config_from(config))
+    assert isinstance(trainer.policy, ContinuousLSTMPolicy)
+    state, metrics = trainer.train_step(trainer.init_state(0))
+    assert state.env_states.t.shape == (4,) and np.isfinite(float(metrics["mean_rho"]))
+
+
+def test_impala_over_a_one_tape_library_trains_through_its_entry():
+    """``feed=curriculum`` (item 11, ported) through
+    ``train_impala_from_config``: a one-tape library is the env's own tape."""
+    config = dict(DEFAULT_VALUES, input_data_file=CSV, num_envs=4, impala_unroll=4,
+                  policy="lstm", window_size=8, policy_kwargs={"hidden": 8}, feed="curriculum",
+                  tapes=f"file:{CSV}", train_total_steps=32)
+    out = train_impala_from_config(config, device="cpu")
+    assert out["train_metrics"]["iterations"] == 2
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"feed": "curriculum", "tapes": f"file:{CSV}"}, 11),
     ({"fault_profile": "nan_bars=3;mesh=kill:0@1"}, 17),
     ({"mesh_shape": {"data": 1}}, 17),
     ({"elastic_resume": True}, 17),

@@ -203,18 +203,27 @@ def test_float64_env_on_the_card_raises_before_any_kernel():
 
 
 def test_policies_other_than_mlp_raise():
-    """The policies item 11 still holds: the continuous ones (the LSTM and
-    the flax TransformerPolicy train)."""
-    from gymfx_tpu_torch.train.policies import TransformerPolicy
+    """Every policy builds now: the flax TransformerPolicy, and in
+    continuous mode (item 11, ported) the Gaussian twins, the LSTM's
+    among them; a name with no twin raises the JAX package's
+    ValueError."""
+    from gymfx_tpu_torch.train.policies import (
+        ContinuousLSTMPolicy,
+        TransformerPolicy,
+        make_policy,
+    )
     from gymfx_tpu_torch.train.ppo import PPOTrainer, ppo_config_from
 
     config = _config(policy="transformer", num_envs=4, window_size=8,
                      policy_kwargs={"d_model": 8, "n_heads": 2, "n_layers": 1})
     trainer = PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
     assert isinstance(trainer.policy, TransformerPolicy)
-    config = _config(policy="lstm", num_envs=4, action_space_mode="continuous")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
+    config = _config(policy="lstm", num_envs=4, action_space_mode="continuous",
+                     policy_kwargs={"hidden": 8})
+    trainer = PPOTrainer(Environment(config, device="cpu"), ppo_config_from(config))
+    assert isinstance(trainer.policy, ContinuousLSTMPolicy) and trainer._continuous
+    with pytest.raises(ValueError, match="unknown policy"):
+        make_policy("nonexistent_continuous", 4)
 
 
 @pytest.mark.parametrize("over,item", [

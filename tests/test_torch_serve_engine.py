@@ -249,9 +249,6 @@ def test_input_validation():
     with pytest.raises(ValueError, match="neutral_obs"):
         InferenceEngine(eng.policy, eng.params, np.zeros(OBS_DIM, np.float32),
                         neutral_obs=np.zeros(3, np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        InferenceEngine(eng.policy, eng.params, np.zeros(OBS_DIM, np.float32), continuous=True,
-                        device="cpu")
     with pytest.raises(ValueError, match="not the policy's"):
         InferenceEngine(eng.policy, {}, np.zeros(OBS_DIM, np.float32), device="cpu")
     with pytest.raises(ValueError, match="never chunks"):
@@ -410,8 +407,9 @@ def test_engine_from_config_refuses_what_is_not_ported():
         assert watch.recompile_count == 0
     finally:
         bundle.telemetry.close()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        engine_from_config(_serve_config(action_space_mode="continuous"), device="cpu")
+    # continuous serving (item 11) is ported: tests/test_torch_serve_continuous.py
+    bundle = engine_from_config(_serve_config(action_space_mode="continuous"), device="cpu")
+    assert bundle.engine.continuous and bundle.engine.continuous_threshold == np.float32(0.33)
 
 
 @pytest.mark.parametrize("name", ["mlp", "lstm", "transformer", "transformer_ring",
